@@ -1,0 +1,108 @@
+// K1 int_transform: the two-stage integer DCT (n = 4, 8, 16, 32) and the
+// 4x4 DST of H.265 8.6.4, forward and inverse, bit-exact with
+// hmtpu/ops/transform.py:38 forward_transform and :58 inverse_transform.
+//
+// What bounds it on the H100: at the encoder's shapes (a few hundred
+// TBs per call at most, often a handful) the call is bound by launch
+// cost; the data moved is one int32 read and one int32 write per
+// coefficient, and the work is 2n multiply-adds per coefficient in
+// int32, far below either roofline.  PyTorch has no int32 matrix
+// product on CUDA, which is why this is a kernel at all.
+//
+// Design: one thread per coefficient, G = 256 / n^2 TBs per block (one
+// TB of 1024 threads at n = 32).  The transform matrix and the block's
+// TBs are staged in shared memory; stage 1 writes its rounded (and,
+// inverse, clipped) intermediate to shared memory, one barrier, stage 2
+// reads it.  Accumulation is int32: |sum| <= n * 90 * 2^15 < 2^31.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int COEFF_MIN = -(1 << 15);
+constexpr int COEFF_MAX = (1 << 15) - 1;
+
+__device__ __forceinline__ int rshift_round(int x, int s) {
+  return s > 0 ? (x + (1 << (s - 1))) >> s : x << (-s);
+}
+
+__device__ __forceinline__ int clip16(int x) {
+  return min(max(x, COEFF_MIN), COEFF_MAX);
+}
+
+template <bool INV>
+__global__ void transform_kernel(const int* __restrict__ x,
+                                 const int* __restrict__ t,
+                                 int* __restrict__ out, int nb, int n,
+                                 int shift1, int shift2) {
+  extern __shared__ int smem[];
+  const int nn = n * n;
+  const int groups = blockDim.x / nn;
+  int* s_t = smem;
+  int* s_x = s_t + nn;
+  int* s_tmp = s_x + groups * nn;
+  for (int k = threadIdx.x; k < nn; k += blockDim.x) s_t[k] = t[k];
+  const int g = threadIdx.x / nn;
+  const int e = threadIdx.x - g * nn;
+  const int i = e / n;
+  const int j = e - i * n;
+  const long long tb = (long long)blockIdx.x * groups + g;
+  const bool valid = tb < nb;
+  s_x[threadIdx.x] = valid ? x[tb * nn + e] : 0;
+  __syncthreads();
+  const int* X = s_x + g * nn;
+  int* TMP = s_tmp + g * nn;
+
+  int acc = 0;
+  if (!INV) {
+    // tmp[i][j] = sum_k T[i][k] * res[j][k]
+    for (int k = 0; k < n; ++k) acc += s_t[i * n + k] * X[j * n + k];
+    TMP[e] = rshift_round(acc, shift1);
+  } else {
+    // tmp[i][j] = sum_k T[k][i] * coeff[k][j], clipped to 16 bits
+    for (int k = 0; k < n; ++k) acc += s_t[k * n + i] * X[k * n + j];
+    TMP[e] = clip16(rshift_round(acc, shift1));
+  }
+  __syncthreads();
+
+  acc = 0;
+  int r;
+  if (!INV) {
+    // coeff[i][j] = sum_k T[i][k] * tmp[j][k]
+    for (int k = 0; k < n; ++k) acc += s_t[i * n + k] * TMP[j * n + k];
+    r = rshift_round(acc, shift2);
+  } else {
+    // res[i][j] = sum_k tmp[i][k] * T[k][j]
+    for (int k = 0; k < n; ++k) acc += TMP[i * n + k] * s_t[k * n + j];
+    r = clip16(rshift_round(acc, shift2));
+  }
+  if (valid) out[tb * nn + e] = r;
+}
+
+template <bool INV>
+int launch(const void* x, const void* t, void* out, int nb, int n,
+           int shift1, int shift2, void* stream) {
+  if (n != 4 && n != 8 && n != 16 && n != 32) return cudaErrorInvalidValue;
+  const int nn = n * n;
+  const int groups = nn >= 256 ? 1 : 256 / nn;
+  const int threads = groups * nn;
+  const int blocks = (nb + groups - 1) / groups;
+  const size_t smem = (size_t)(nn + 2 * groups * nn) * sizeof(int);
+  transform_kernel<INV><<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      (const int*)x, (const int*)t, (int*)out, nb, n, shift1, shift2);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int hm_int_transform_fwd(const void* x, const void* t, void* out,
+                                    int nb, int n, int shift1, int shift2,
+                                    void* stream) {
+  return launch<false>(x, t, out, nb, n, shift1, shift2, stream);
+}
+
+extern "C" int hm_int_transform_inv(const void* x, const void* t, void* out,
+                                    int nb, int n, int shift1, int shift2,
+                                    void* stream) {
+  return launch<true>(x, t, out, nb, n, shift1, shift2, stream);
+}

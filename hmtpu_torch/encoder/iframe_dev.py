@@ -1,0 +1,671 @@
+"""Device-resident all-intra frame encoder: the port of
+hmtpu/encoder/iframe_dev.py (`iframe_pass` :114, `iframe_full_pass`
+:622, `unpack_iframe_state` :684).  Three-level CU decision (8/16/32),
+exact closed-loop reconstruction, RDOQ and CABAC-priced costs, then
+deblocking and SAO, all on the tensors' device.
+
+  phase 1: open-loop rough mode decision (RMD) -- all 35 modes
+    predicted from source-pixel reference lines per size, SATD + mode
+    bits, top-K candidates per block.
+
+  phase 2: a Python loop over the static z-scan dependency levels (the
+    reference's `lax.scan`): per 8x8 CU the K candidates and the NxN
+    split are predicted from committed reconstruction, coded (RDOQ) and
+    priced; per 16x16 region one 16x16 CU trial overwrites its four 8x8
+    CUs where it wins; likewise per 32x32 where the picture's width and
+    height are multiples of 32.  At 416x240 (h % 32 == 16) the pass runs
+    the 8 and 16 levels only.
+
+The state lives in flat tensors with one spare slot at the end: lanes
+that are padding in a level write there (the reference sends them to an
+out-of-range index, which XLA drops and `index_put_` would not).  The
+state is updated in place.  Ties go to the first index everywhere, as
+in the reference: a stable sort for the top-K, `argmin`/`argmax` for
+the picks.
+"""
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from hmtpu_torch.common.lambdas import frame_lambdas
+from hmtpu_torch.encoder.intra_rdo import (
+    _MODE_BITS,
+    LeafDecision,
+    _satd,
+    hadamard2d,
+)
+from hmtpu_torch.encoder.pframe_dev import _code, _intra_scan_sel
+from hmtpu_torch.ops.deblock import deblock_frame_dev
+from hmtpu_torch.ops.intra_pred import (
+    filter_reference_batched,
+    predict_all_modes,
+    predict_modes,
+    predict_one_mode,
+)
+from hmtpu_torch.ops.ratebits import (
+    cbf_chroma_bits,
+    cbf_luma_bits,
+    chroma_dm_bits,
+    intra_mode_mpm_bits,
+    part_size_2nx2n_bits,
+    part_size_nxn_bits,
+    split_flag_bits,
+)
+from hmtpu_torch.ops.sao import sao_frame_dev
+from hmtpu_torch.search.wavefront import (
+    block_schedule,
+    block_schedule16,
+    block_schedule32,
+    static_ref_gather,
+)
+
+K8 = 2       # full-RD candidates per 8x8 CU
+K16 = 2      # per 16x16 / 32x32 CU
+
+ROADMAP_TS = "transform skip on the AI path (ROADMAP.md A14)"
+
+
+@lru_cache(maxsize=None)
+def _i_static(w: int, h: int, log2_ctu: int):
+    """Schedules + substituted ref-gather maps for every size (numpy)."""
+    sched = block_schedule(w, h, log2_ctu)
+    out = dict(
+        lv_blk=sched["lv_blk"],
+        nb_ok=sched["nb_ok"].reshape(-1, 5),
+        g8=static_ref_gather(w, h, log2_ctu, 8),
+        g4=static_ref_gather(w // 2, h // 2, log2_ctu - 1, 4),
+        g4l=static_ref_gather(w, h, log2_ctu, 4),
+        sched16=None, sched32=None,
+    )
+    if w % 16 == 0 and h % 16 == 0:
+        s16 = block_schedule16(w, h, log2_ctu)
+        out["sched16"] = (s16["lv_blk"], s16["cells"])
+        out["g16"] = static_ref_gather(w, h, log2_ctu, 16)
+        out["g8c"] = static_ref_gather(w // 2, h // 2, log2_ctu - 1, 8)
+        if w % 32 == 0 and h % 32 == 0:
+            s32 = block_schedule32(w, h, log2_ctu)
+            out["sched32"] = (s32["lv_blk"], s32["cells16"],
+                              s32["cells8"])
+            out["g32"] = static_ref_gather(w, h, log2_ctu, 32)
+            out["g16c"] = static_ref_gather(w // 2, h // 2,
+                                            log2_ctu - 1, 16)
+    return out
+
+
+_DEV_STATIC: dict = {}
+
+
+def _dev_static(w: int, h: int, log2_ctu: int, device):
+    """_i_static as tensors on `device` (int64 indices), one upload per
+    geometry."""
+    key = (w, h, log2_ctu, str(device))
+    st = _DEV_STATIC.get(key)
+    if st is None:
+        def conv(v):
+            if v is None:
+                return None
+            if isinstance(v, tuple):
+                return tuple(conv(x) for x in v)
+            t = torch.as_tensor(v)
+            if t.dtype != torch.bool:
+                t = t.to(torch.int64)
+            return t.to(device)
+        st = {k: conv(v) for k, v in _i_static(w, h, log2_ctu).items()}
+        _DEV_STATIC[key] = st
+    return st
+
+
+def _blockify(plane, n):
+    h, w = plane.shape
+    return plane.reshape(h // n, n, w // n, n).transpose(1, 2) \
+        .reshape(-1, n, n)
+
+
+def _satd4(resi):
+    """4x4 Hadamard SATD (xCalcHADs4x4 semantics, heuristic use)."""
+    return (hadamard2d(resi).abs().sum((-1, -2)) + 1) >> 1
+
+
+def _topk_modes(org_blk, ref_u, ref_f, n, bd, lam_sqrt, k):
+    """Open-loop RMD: SATD + flat mode bits, top-k modes per block
+    (ties to the lower mode, as lax.top_k)."""
+    preds = predict_all_modes(ref_u, ref_f, n, True, bd)
+    dist = (_satd4 if n == 4 else _satd)(org_blk[:, None] - preds)
+    mb = torch.as_tensor(_MODE_BITS, device=dist.device)
+    rd = dist.to(torch.float32) + lam_sqrt * mb[None]
+    idx = torch.sort(rd, dim=1, stable=True).indices[:, :k]
+    return idx.to(torch.int32)                          # (P, k)
+
+
+def _scalar(v, device):
+    return torch.tensor(v, dtype=torch.float32, device=device)
+
+
+def iframe_pass(org_y, org_u, org_v, qp: int, qpc: int, cbflat,
+                *, w: int, h: int, bd: int = 8, sis: bool = False,
+                log2_ctu: int = 6,
+                qp_factor=0.57, sdh: bool = False, ts: bool = False):
+    """Decision pass.  Planes are int32 (H, W) / (H/2, W/2) tensors on
+    the pass's device, cbflat the (NUM_CTX*2,) float32 bits table there;
+    qp and qpc are host integers.  Returns the state dict (int32)."""
+    if ts:
+        raise NotImplementedError(ROADMAP_TS)
+    dev = org_y.device
+    st8 = _dev_static(w, h, log2_ctu, dev)
+    bw, bh = w // 8, h // 8
+    P = bw * bh
+    lam_, lam_sqrt_, wchroma_, lam_c_ = frame_lambdas(qp, qpc, qp_factor)
+    lam, lam_sqrt = _scalar(lam_, dev), _scalar(lam_sqrt_, dev)
+    wchroma, lam_c = _scalar(wchroma_, dev), _scalar(lam_c_, dev)
+    mid = 1 << (bd - 1)
+    org8 = _blockify(org_y, 8)
+    org4u = _blockify(org_u, 4)
+    org4v = _blockify(org_v, 4)
+    ar = lambda n: torch.arange(n, device=dev)
+
+    # ---- phase 1: RMD top-K per size from source-pixel refs
+    def rmd(plane, gmap, n, k):
+        sub, none = gmap
+        oref = torch.where(none[:, None], mid, plane.reshape(-1)[sub])
+        oref_f = filter_reference_batched(oref, n, bd, strong=sis)
+        return _topk_modes(_blockify(plane, n), oref, oref_f, n, bd,
+                           lam_sqrt, k)
+
+    cand8 = rmd(org_y, st8["g8"], 8, K8)               # (P, K8)
+    # NxN 4x4 PU candidates: open-loop top-1 mode per 4x4
+    # (TEncCu.cpp:644-650 intra NxN at max depth)
+    cand4 = rmd(org_y, st8["g4l"], 4, 1)[:, 0]         # (P4,)
+    org4l = _blockify(org_y, 4)
+    gw4 = w // 4
+    # z-order 4x4 offsets inside an 8x8 CU, made once: a tensor built
+    # from a list inside the level loop would copy from the host and
+    # wait for the card on every step
+    quad_dy = torch.tensor([0, 0, 1, 1], device=dev)
+    quad_dx = torch.tensor([0, 1, 0, 1], device=dev)
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    # one spare slot per array: padding lanes write there
+    st = dict(
+        rec_y=torch.zeros(h * w + 1, **i32),
+        rec_u=torch.zeros(h * w // 4 + 1, **i32),
+        rec_v=torch.zeros(h * w // 4 + 1, **i32),
+        imode=torch.zeros(P + 1, **i32),
+        imode4=torch.zeros((P + 1, 4), **i32),
+        part=torch.zeros(P + 1, **i32),
+        cusz=torch.zeros(P + 1, **i32),
+        cbfy=torch.zeros(P + 1, **i32),
+        levs=torch.zeros((P + 1, 96), **i32),
+        tsf=torch.zeros(P + 1, **i32),
+    )
+
+    def ref_line(plane, gmap, b):
+        sub, none = gmap
+        return torch.where(none[b, None], mid, st[plane][sub[b]])
+
+    def mpm_neighbours(b, bxi, byi, y0):
+        bL = torch.where(bxi > 0, b - 1, 0)
+        bA = torch.where(byi > 0, b - bw, 0)
+        lm = torch.where(bxi > 0, st["imode"][bL], 1)
+        am_ok = (byi > 0) & ((y0 & ((1 << log2_ctu) - 1)) != 0)
+        am = torch.where(am_ok, st["imode"][bA], 1)
+        return lm, am
+
+    def try_modes(b, modes, org, orgu, orgv, gl, gc, n, log2):
+        """Full RD of `modes` (B, K) intra candidates against the
+        committed state; returns per-candidate parts, k-major (K*B)."""
+        B, K = modes.shape
+        iref = ref_line("rec_y", gl, b)
+        iref_f = filter_reference_batched(iref, n, bd, strong=sis)
+        irefc = torch.cat([ref_line("rec_u", gc, b),
+                           ref_line("rec_v", gc, b)])
+        kmaj = lambda a: a.transpose(0, 1).reshape((K * a.shape[0],)
+                                                   + a.shape[2:])
+        pred = kmaj(predict_modes(iref, iref_f, modes, n, True, bd))
+        c2 = predict_modes(irefc, irefc, torch.cat([modes, modes]),
+                           n // 2, False, bd)          # (2B, K, ..)
+        cpu, cpv = kmaj(c2[:B]), kmaj(c2[B:])
+        repK = lambda a: torch.cat([a] * K)
+        # mode-dependent coding scans (7.4.9.11) drive the SDH parity
+        # groups: 8x8 luma and 4x4 chroma TBs only
+        msel = _intra_scan_sel(modes.T.reshape(-1))     # k-major (K*B,)
+        sel_y = msel if log2 == 3 else None
+        sel_c = torch.cat([msel, msel]) if log2 - 1 == 2 else None
+        levY, recY, dY, bY = _code(repK(org), pred, qp, log2, bd, lam,
+                                   cbflat, True, sdh=sdh, scan_sel=sel_y)
+        levC, recC, dC, bC = _code(
+            torch.cat([repK(orgu), repK(orgv)]), torch.cat([cpu, cpv]),
+            qpc, log2 - 1, bd, lam_c, cbflat, False, wchroma, sdh=sdh,
+            scan_sel=sel_c)
+        levU, levV = levC[:B * K], levC[B * K:]
+        recU, recV = recC[:B * K], recC[B * K:]
+        dU, dV = dC[:B * K], dC[B * K:]
+        bU, bV = bC[:B * K], bC[B * K:]
+        ncb = (n // 2) * (n // 2)
+        b_cbf = cbf_chroma_bits(
+            cbflat, (levU.reshape(-1, ncb) != 0).any(1)) \
+            + cbf_chroma_bits(
+                cbflat, (levV.reshape(-1, ncb) != 0).any(1)) \
+            + cbf_luma_bits(
+                cbflat, (levY.reshape(-1, n * n) != 0).any(1))
+        return (pred, levY, recY, dY, bY, levU, recU, dU, bU,
+                levV, recV, dV, bV, b_cbf)
+
+    def pick_best(modes, parts, mode_bits, lam_):
+        """argmin over the K candidates; returns flat pick indices into
+        the k-major (K*B, ...) candidate arrays."""
+        B, K = modes.shape
+        (_, levY, recY, dY, bY, levU, recU, dU, bU,
+         levV, recV, dV, bV, b_cbf) = parts
+        cost = (dY + dU + dV).reshape(K, B).T + lam_ * (
+            (bY + bU + bV + b_cbf).reshape(K, B).T + mode_bits)
+        ki = cost.argmin(1)
+        pick = ki * B + ar(B)
+        return ki, pick, cost.amin(1)
+
+    def sub_line(vals, avail):
+        """8.4.4.2.2 substitution: entry 0 <- first available forward,
+        then forward fill; all-unavailable -> mid."""
+        first = avail.to(torch.int32).argmax(1)
+        v0 = torch.gather(vals, 1, first[:, None])[:, 0]
+        v0 = torch.where(avail.any(1), v0, mid)
+        e = ar(vals.shape[1])
+        src = torch.cummax(torch.where(avail, e, -1), 1).values
+        got = torch.gather(vals, 1, src.clamp(min=0))
+        return torch.where(src >= 0, got, v0[:, None])
+
+    def nxn_trial(b, bxi, byi, lm, am, orgu, orgv):
+        """Intra NxN (four 4x4 luma PUs, TEncCu.cpp:644-650): exact
+        sequential reconstruction of the 4 sub-PUs against the
+        committed state, assembled from the CU's committed 33-sample
+        reference line + internal sub-recons."""
+        B = b.shape[0]
+        sub_f = ((byi * 2)[:, None] + quad_dy[None]) * gw4 \
+            + (bxi * 2)[:, None] + quad_dx[None]
+        m4 = cand4[sub_f]                              # (B, 4) z-order
+        o4 = org4l[sub_f]                              # (B, 4, 4, 4)
+        iref8 = ref_line("rec_y", st8["g8"], b)
+        nbo = st8["nb_ok"][b]
+        aL, aA, aAR = nbo[:, 0], nbo[:, 1], nbo[:, 2]
+        aBL, aC = nbo[:, 3], nbo[:, 4]
+        r4 = lambda f: f[:, None].expand(B, 4)
+        T = torch.ones((B, 4), dtype=torch.bool, device=dev)
+        F = torch.zeros((B, 4), dtype=torch.bool, device=dev)
+        T1 = torch.ones((B, 1), dtype=torch.bool, device=dev)
+        z4 = torch.zeros((B, 4), **i32)
+
+        def pu(vals, avail, mode, org):
+            line = sub_line(vals, avail)
+            pred = predict_one_mode(line, line, mode, 4, True, bd)
+            return _code(org, pred, qp, 2, bd, lam, cbflat, True,
+                         sdh=sdh, scan_sel=_intra_scan_sel(mode),
+                         use_dst=True)
+
+        cat = lambda *a: torch.cat(a, 1)
+        # PU0 (x, y): all references external (iref8[8:25])
+        lev0, rec0, d0, bb0 = pu(
+            iref8[:, 8:25],
+            cat(r4(aL), r4(aL), aC[:, None], r4(aA), r4(aA)),
+            m4[:, 0], o4[:, 0])
+        # PU1 (x+4, y): lower-left internal-unavailable, left = PU0's
+        # right column, corner/top external
+        lev1, rec1, d1, bb1 = pu(
+            cat(z4, rec0[:, :, 3].flip(1), iref8[:, 20:21],
+                iref8[:, 21:29]),
+            cat(F, T, aA[:, None], r4(aA), r4(aAR)), m4[:, 1], o4[:, 1])
+        # PU2 (x, y+4): left external (lower then upper), top = PU0 +
+        # PU1 bottom rows
+        lev2, rec2, d2, bb2 = pu(
+            cat(iref8[:, 4:8], iref8[:, 8:12], iref8[:, 12:13],
+                rec0[:, 3, :], rec1[:, 3, :]),
+            cat(r4(aBL), r4(aL), aL[:, None], T, T), m4[:, 2], o4[:, 2])
+        # PU3 (x+4, y+4): below-left/top-right unavailable, left =
+        # PU2's right column, corner = PU0[3,3], top = PU1 bottom row
+        lev3, rec3, d3, bb3 = pu(
+            cat(z4, rec2[:, :, 3].flip(1), rec0[:, 3, 3][:, None],
+                rec1[:, 3, :], z4),
+            cat(F, T, T1, T, F), m4[:, 3], o4[:, 3])
+
+        # chroma: one 4x4 TB pair, DM mode = PU0's luma mode
+        irefc = torch.cat([ref_line("rec_u", st8["g4"], b),
+                           ref_line("rec_v", st8["g4"], b)])
+        mc = torch.cat([m4[:, 0], m4[:, 0]])
+        c2 = predict_one_mode(irefc, irefc, mc, 4, False, bd)
+        levC, recC, dC, bC = _code(
+            torch.cat([orgu, orgv]), c2, qpc, 2, bd, lam_c, cbflat, False,
+            wchroma, sdh=sdh, scan_sel=_intra_scan_sel(mc))
+        levCu, levCv = levC[:B], levC[B:]
+        recCu, recCv = recC[:B], recC[B:]
+
+        # rate: part NxN + 4x(mode + cbf + residual) + chroma; MPM
+        # pricing per PU with internal neighbour modes (approximation
+        # for the decision only -- the writer derives the exact lists)
+        mb = intra_mode_mpm_bits(cbflat, m4[:, 0], lm, am) \
+            + intra_mode_mpm_bits(cbflat, m4[:, 1], m4[:, 0], am) \
+            + intra_mode_mpm_bits(cbflat, m4[:, 2], lm, m4[:, 0]) \
+            + intra_mode_mpm_bits(cbflat, m4[:, 3], m4[:, 2], m4[:, 1])
+        nz = [(lv.reshape(B, 16) != 0).any(1)
+              for lv in (lev0, lev1, lev2, lev3)]
+        b_cbf = sum(cbf_luma_bits(cbflat, z, trafo_depth_is0=False)
+                    for z in nz) \
+            + cbf_chroma_bits(cbflat, (levCu.reshape(B, 16) != 0).any(1)) \
+            + cbf_chroma_bits(cbflat, (levCv.reshape(B, 16) != 0).any(1))
+        cost = (d0 + d1 + d2 + d3 + dC[:B] + dC[B:]) + lam * (
+            mb + part_size_nxn_bits(cbflat) + chroma_dm_bits(cbflat)
+            + b_cbf + bb0 + bb1 + bb2 + bb3 + bC[:B] + bC[B:])
+        # assemble the 8x8 products (quadrant placement)
+        quad = lambda a, b_, c, d: torch.cat(
+            [torch.cat([a, b_], 2), torch.cat([c, d], 2)], 1)
+        rec8 = quad(rec0, rec1, rec2, rec3)
+        lev8 = quad(lev0, lev1, lev2, lev3)
+        cbf_any = (nz[0] | nz[1] | nz[2] | nz[3]).to(torch.int32)
+        return (cost, m4, rec8, recCu, recCv, lev8, levCu, levCv,
+                cbf_any)
+
+    def plane_index(x0, y0, n, valid, width, spare):
+        """(B, n, n) flat indices of the n x n blocks at (x0, y0);
+        padding lanes point at the spare slot."""
+        yy = y0[:, None] + ar(n)[None, :]
+        xx = x0[:, None] + ar(n)[None, :]
+        fl = yy[:, :, None] * width + xx[:, None, :]
+        return torch.where(valid[:, None, None], fl, spare)
+
+    def commit(fl_y, fl_c, rec, slots, vals):
+        """Scatter reconstruction and per-cell decisions into the state
+        (in place)."""
+        st["rec_y"][fl_y] = rec[0]
+        st["rec_u"][fl_c] = rec[1]
+        st["rec_v"][fl_c] = rec[2]
+        for k, v in vals.items():
+            st[k][slots] = v
+
+    def cell_step(blk, valid):
+        b = torch.where(valid, blk, 0)
+        byi, bxi = b // bw, b % bw
+        x0, y0 = bxi * 8, byi * 8
+        B = blk.shape[0]
+        modes = cand8[b]                                  # (B, K8)
+        lm, am = mpm_neighbours(b, bxi, byi, y0)
+        mb = intra_mode_mpm_bits(cbflat, modes, lm[:, None],
+                                 am[:, None]) \
+            + part_size_2nx2n_bits(cbflat) + chroma_dm_bits(cbflat)
+        parts = try_modes(b, modes, org8[b], org4u[b], org4v[b],
+                          st8["g8"], st8["g4"], 8, 3)
+        ki, pick, cost = pick_best(modes, parts, mb, lam)
+        (_, levY, recY, _, _, levU, recU, _, _, levV, recV, _, _,
+         _) = parts
+        out_y, out_u, out_v = recY[pick], recU[pick], recV[pick]
+        o_lev = torch.cat([levY[pick].reshape(B, 64),
+                           levU[pick].reshape(B, 16),
+                           levV[pick].reshape(B, 16)], 1)
+        wmode = torch.gather(modes, 1, ki[:, None])[:, 0]
+        cbfy8 = (levY[pick].reshape(B, 64) != 0).any(1).to(torch.int32)
+
+        # ---- NxN trial against the 2Nx2N winner
+        (cost_n, m4, rec8n, recCun, recCvn, lev8n, levCun, levCvn,
+         cbf_n) = nxn_trial(b, bxi, byi, lm, am, org4u[b], org4v[b])
+        use_n = cost_n < cost
+        cost = torch.minimum(cost, cost_n)
+        w3 = lambda a, bn: torch.where(use_n[:, None, None], bn, a)
+        out_y = w3(out_y, rec8n)
+        out_u = w3(out_u, recCun)
+        out_v = w3(out_v, recCvn)
+        o_lev = torch.where(
+            use_n[:, None],
+            torch.cat([lev8n.reshape(B, 64), levCun.reshape(B, 16),
+                       levCvn.reshape(B, 16)], 1), o_lev)
+        wmode = torch.where(use_n, m4[:, 0], wmode)
+        cbfy8 = torch.where(use_n, cbf_n, cbfy8)
+        imode4_o = torch.where(use_n[:, None], m4,
+                               wmode[:, None].expand(B, 4))
+
+        commit(plane_index(x0, y0, 8, valid, w, h * w),
+               plane_index(bxi * 4, byi * 4, 4, valid, w // 2,
+                           h * w // 4),
+               (out_y, out_u, out_v), torch.where(valid, b, P),
+               dict(imode=wmode, imode4=imode4_o,
+                    part=use_n.to(torch.int32), cusz=0, cbfy=cbfy8,
+                    levs=o_lev, tsf=0))
+        return cost
+
+    # one step per z-scan dependency level, in order; the CU sizes the
+    # picture's geometry allows (16 and 32 need both sides multiples)
+    if st8["sched16"] is None:
+        for blk in st8["lv_blk"]:
+            cell_step(blk, blk >= 0)
+        return _strip(st)
+
+    # ---- 16 level
+    gw = bw // 2
+    org16 = _blockify(org_y, 16)
+    org8u = _blockify(org_u, 8)
+    org8v = _blockify(org_v, 8)
+    cand16 = rmd(org_y, st8["g16"], 16, K16)
+    lv16, cells16 = st8["sched16"]
+    one_bit = lambda g: split_flag_bits(cbflat, torch.ones_like(g),
+                                        torch.ones_like(g))
+    zero_bit = lambda g: split_flag_bits(cbflat, torch.zeros_like(g),
+                                         torch.ones_like(g))
+
+    def region16(blk16, valid):
+        g = torch.where(valid, blk16, 0)
+        B = blk16.shape[0]
+        c4 = cells16[g]
+        cost8 = torch.zeros((B,), dtype=torch.float32, device=dev)
+        for j in range(4):
+            cost8 = cost8 + cell_step(c4[:, j], valid)
+
+        gyb, gxb = g // gw, g % gw
+        corner = (gyb * 2) * bw + gxb * 2
+        modes = cand16[g]
+        lm, am = mpm_neighbours(corner, gxb * 2, gyb * 2, gyb * 16)
+        mb = intra_mode_mpm_bits(cbflat, modes, lm[:, None],
+                                 am[:, None]) + chroma_dm_bits(cbflat)
+        parts = try_modes(g, modes, org16[g], org8u[g], org8v[g],
+                          st8["g16"], st8["g8c"], 16, 4)
+        ki, pick, cost16 = pick_best(modes, parts, mb, lam)
+        (_, levY, recY, _, _, levU, recU, _, _, levV, recV, _, _,
+         _) = parts
+        # neighbour-depth approximation of the split ctxInc
+        cost16 = cost16 + lam * zero_bit(g)
+        cost8 = cost8 + lam * one_bit(g)
+        use16 = valid & (cost16 < cost8)
+        wmode = torch.gather(modes, 1, ki[:, None])[:, 0]
+        pack = torch.cat([levY[pick].reshape(B, 256),
+                          levU[pick].reshape(B, 64),
+                          levV[pick].reshape(B, 64)], 1).reshape(B, 4, 96)
+        commit(plane_index(gxb * 16, gyb * 16, 16, use16, w, h * w),
+               plane_index(gxb * 8, gyb * 8, 8, use16, w // 2,
+                           h * w // 4),
+               (recY[pick], recU[pick], recV[pick]),
+               torch.where(use16[:, None], c4, P),
+               dict(imode=wmode[:, None],
+                    imode4=wmode[:, None, None].expand(B, 1, 4),
+                    part=0, cusz=1,
+                    cbfy=(levY[pick].reshape(B, 256) != 0).any(1)
+                    .to(torch.int32)[:, None],
+                    levs=pack, tsf=0))
+        return torch.where(use16, cost16, cost8)
+
+    if st8["sched32"] is None:
+        for blk16 in lv16:
+            region16(blk16, blk16 >= 0)
+        return _strip(st)
+
+    # ---- 32 level
+    qw = gw // 2
+    org32 = _blockify(org_y, 32)
+    org16u = _blockify(org_u, 16)
+    org16v = _blockify(org_v, 16)
+    cand32 = rmd(org_y, st8["g32"], 32, K16)
+    lv32, cells16_32, cells8_32 = st8["sched32"]
+
+    def step32(blk32):
+        valid = blk32 >= 0
+        g = torch.where(valid, blk32, 0)
+        B = blk32.shape[0]
+        cost_sub = torch.zeros((B,), dtype=torch.float32, device=dev)
+        c16 = cells16_32[g]
+        for j in range(4):
+            cells = c16[:, j]
+            cv = valid & (cells >= 0)
+            cc = region16(torch.where(cv, cells, 0), cv)
+            cost_sub = cost_sub + torch.where(cv, cc, 0.0)
+
+        qyb, qxb = g // qw, g % qw
+        corner = (qyb * 4) * bw + qxb * 4
+        modes = cand32[g]
+        lm, am = mpm_neighbours(corner, qxb * 4, qyb * 4, qyb * 32)
+        mb = intra_mode_mpm_bits(cbflat, modes, lm[:, None],
+                                 am[:, None]) + chroma_dm_bits(cbflat)
+        parts = try_modes(g, modes, org32[g], org16u[g], org16v[g],
+                          st8["g32"], st8["g16c"], 32, 5)
+        ki, pick, cost32 = pick_best(modes, parts, mb, lam)
+        (_, levY, recY, _, _, levU, recU, _, _, levV, recV, _, _,
+         _) = parts
+        cost32 = cost32 + lam * zero_bit(g)
+        cost_sub = cost_sub + lam * one_bit(g)
+        use32 = valid & (cost32 < cost_sub)
+        wmode = torch.gather(modes, 1, ki[:, None])[:, 0]
+        pack = torch.cat([levY[pick].reshape(B, 1024),
+                          levU[pick].reshape(B, 256),
+                          levV[pick].reshape(B, 256)], 1) \
+            .reshape(B, 16, 96)
+        commit(plane_index(qxb * 32, qyb * 32, 32, use32, w, h * w),
+               plane_index(qxb * 16, qyb * 16, 16, use32, w // 2,
+                           h * w // 4),
+               (recY[pick], recU[pick], recV[pick]),
+               torch.where(use32[:, None], cells8_32[g], P),
+               dict(imode=wmode[:, None],
+                    imode4=wmode[:, None, None].expand(B, 1, 4),
+                    part=0, cusz=2,
+                    cbfy=(levY[pick].reshape(B, 1024) != 0).any(1)
+                    .to(torch.int32)[:, None],
+                    levs=pack, tsf=0))
+
+    for blk32 in lv32:
+        step32(blk32)
+    return _strip(st)
+
+
+def _strip(st):
+    """Drop the spare slot of every state array."""
+    return {k: v[:-1] for k, v in st.items()}
+
+
+_SMALL = dict(imode=torch.int8, imode4=torch.int8, part=torch.int8,
+              cusz=torch.int8, cbfy=torch.int8, levs=torch.int16,
+              sao=torch.int8, tsf=torch.int8)
+
+
+def iframe_full_pass(org_y, org_u, org_v, qp: int, qpc: int, cbflat,
+                     *, w: int, h: int, bd: int = 8, sis: bool = False,
+                     log2_ctu: int = 6, deblock: bool = True,
+                     sao: bool = True, ctu: int = 64, cb_off: int = 0,
+                     cr_off: int = 0, qp_factor=0.57,
+                     sdh: bool = False, ts: bool = False):
+    """Decision pass + in-loop filters (the I-frame twin of the
+    reference's full P pass).  Returns the state narrowed as the
+    reference narrows it: rec_* uint8 (uint16 above 8 bits), levs
+    int16, the flags and SAO params int8."""
+    st = iframe_pass(org_y, org_u, org_v, qp, qpc, cbflat, w=w, h=h,
+                     bd=bd, sis=sis, log2_ctu=log2_ctu,
+                     qp_factor=qp_factor, sdh=sdh, ts=ts)
+    dev = org_y.device
+    bw, bh = w // 8, h // 8
+    if deblock or sao:
+        rec_y = st["rec_y"].reshape(h, w)
+        rec_u = st["rec_u"].reshape(h // 2, w // 2)
+        rec_v = st["rec_v"].reshape(h // 2, w // 2)
+        if deblock:
+            rep4 = lambda a: a.reshape(bh, bw).repeat_interleave(2, 0) \
+                .repeat_interleave(2, 1)
+            intra4 = torch.ones((h // 4, w // 4), dtype=torch.bool,
+                                device=dev)
+            cbf4 = rep4(st["cbfy"] > 0)
+            mv4 = torch.zeros((2, h // 4, w // 4), dtype=torch.int32,
+                              device=dev)
+            refpoc4 = torch.full((2, h // 4, w // 4), -1,
+                                 dtype=torch.int32, device=dev)
+            cusz8 = st["cusz"].reshape(bh, bw)
+            ev = torch.arange(bw - 1, device=dev)
+            int_v = ((cusz8[:, :-1] == 1) & ((ev % 2) == 0)[None, :]) \
+                | ((cusz8[:, :-1] == 2) & ((ev % 4) != 3)[None, :])
+            eh = torch.arange(bh - 1, device=dev)
+            int_h = ((cusz8[:-1, :] == 1) & ((eh % 2) == 0)[:, None]) \
+                | ((cusz8[:-1, :] == 2) & ((eh % 4) != 3)[:, None])
+            rec_y, rec_u, rec_v = deblock_frame_dev(
+                rec_y, rec_u, rec_v, intra4, cbf4, mv4, mv4, refpoc4,
+                qp, bd, cb_qp_off=cb_off, cr_qp_off=cr_off,
+                int_v=int_v, int_h=int_h)
+        if sao:
+            lam = _scalar(frame_lambdas(qp, qp, qp_factor)[0], dev)
+            rec_y, rec_u, rec_v, sao_params = sao_frame_dev(
+                org_y, rec_y, org_u, rec_u, org_v, rec_v, ctu, lam, bd)
+            st["sao"] = sao_params
+        st["rec_y"] = rec_y.reshape(-1)
+        st["rec_u"] = rec_u.reshape(-1)
+        st["rec_v"] = rec_v.reshape(-1)
+    rec_t = torch.uint8 if bd == 8 else torch.int16
+    small = dict(_SMALL, rec_y=rec_t, rec_u=rec_t, rec_v=rec_t)
+    return {k: v.to(small[k]) for k, v in st.items()}
+
+
+def unpack_iframe_state(st, w: int, h: int, log2_ctu: int):
+    """Host state (numpy) -> (mode8, depth8, decisions dict) in the
+    IntraFrameEncoder envelope (z-order cell packing)."""
+    bw, bh = w // 8, h // 8
+    imode = np.asarray(st["imode"]).reshape(bh, bw)
+    part = np.asarray(st["part"]).reshape(bh, bw) \
+        if "part" in st else np.zeros((bh, bw), np.int32)
+    imode4 = np.asarray(st["imode4"]).reshape(bh, bw, 4) \
+        if "imode4" in st else None
+    cusz = np.asarray(st["cusz"]).reshape(bh, bw)
+    levs = np.asarray(st["levs"]).reshape(bh, bw, 96)
+    tsf = np.asarray(st["tsf"]).reshape(bh, bw) \
+        if "tsf" in st else None
+    depth8 = np.full((bh, bw), log2_ctu - 3, np.int32)
+    depth8[cusz == 1] = log2_ctu - 4
+    depth8[cusz == 2] = log2_ctu - 5
+    decisions = {}
+    for byi in range(bh):
+        for bxi in range(bw):
+            sz = int(cusz[byi, bxi])
+            if sz == 1 and (byi % 2 or bxi % 2):
+                continue
+            if sz == 2 and (byi % 4 or bxi % 4):
+                continue
+            mode = int(imode[byi, bxi])
+            if sz == 0:
+                lv = levs[byi, bxi]
+                m4 = tuple(int(x) for x in imode4[byi, bxi]) \
+                    if (imode4 is not None and part[byi, bxi]) else None
+                tf = int(tsf[byi, bxi]) if tsf is not None else 0
+                decisions[(bxi * 8, byi * 8)] = LeafDecision(
+                    mode, 3, lv[:64].reshape(8, 8),
+                    lv[64:80].reshape(4, 4), lv[80:96].reshape(4, 4),
+                    modes4=m4,
+                    ts_y4=tuple((tf >> p) & 1 for p in range(4)),
+                    ts_cb=(tf >> 4) & 1, ts_cr=(tf >> 5) & 1)
+            elif sz == 1:
+                l2 = levs[byi:byi + 2, bxi:bxi + 2].reshape(4, 96)
+                flat = np.concatenate([l2[0], l2[1], l2[2], l2[3]])
+                decisions[(bxi * 8, byi * 8)] = LeafDecision(
+                    mode, 4, flat[:256].reshape(16, 16),
+                    flat[256:320].reshape(8, 8),
+                    flat[320:384].reshape(8, 8))
+            else:
+                zord = ((0, 0), (0, 1), (1, 0), (1, 1),
+                        (0, 2), (0, 3), (1, 2), (1, 3),
+                        (2, 0), (2, 1), (3, 0), (3, 1),
+                        (2, 2), (2, 3), (3, 2), (3, 3))
+                flat = np.concatenate(
+                    [levs[byi + r, bxi + c] for r, c in zord])
+                decisions[(bxi * 8, byi * 8)] = LeafDecision(
+                    mode, 5, flat[:1024].reshape(32, 32),
+                    flat[1024:1280].reshape(16, 16),
+                    flat[1280:1536].reshape(16, 16))
+    mode8 = imode.astype(np.int32)
+    return mode8, depth8, decisions

@@ -1,0 +1,163 @@
+"""Build and bind the hand-written CUDA kernels in `csrc/`.
+
+Each source is compiled by nvcc for `sm_90a` into a shared library with
+a plain C interface and loaded with ctypes.  Libraries go to the
+package's `build/` directory under a name that carries the source hash,
+so a changed source rebuilds and concurrent builders never clash (each
+writes a private temp file and renames it into place).
+
+Every exported C function launches its kernel on the stream it is given
+and returns the `cudaGetLastError()` code of that launch; `launch`
+raises when it is not 0.  Nothing here runs when a module is imported:
+the build happens at the first launch, or in `build_all`, which starts
+one nvcc per source, all at once.
+
+`COUNTS` holds one launch counter per kernel; each wrapper adds one
+where it launches its kernel, and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+import torch
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+# -Xptxas -v: the build log lists each kernel's registers and spills
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# source -> {C function: argument kinds}; "p" pointer (or stream),
+# "i" int.  The stream is always the last argument.
+SOURCES = {
+    "transform": {
+        "hm_int_transform_fwd": "pppiiiip",
+        "hm_int_transform_inv": "pppiiiip",
+    },
+    "intra_pred": {
+        "hm_intra_filter": "ppiiiip",
+        "hm_intra_pred": "ppppiiiiip",
+    },
+    "deblock": {
+        "hm_deblock_edges": "ppppppppp" "iiiiiiiii" "p",
+    },
+    "sao": {
+        "hm_sao_stats": "pppiiiip",
+        "hm_sao_apply": "pppiiiip",
+    },
+}
+
+# kernel name -> (source, file:line of the hmtpu function it replaces)
+KERNELS = {
+    "int_transform_fwd": ("transform", "hmtpu/ops/transform.py:38"),
+    "int_transform_inv": ("transform", "hmtpu/ops/transform.py:58"),
+    "intra_filter": ("intra_pred", "hmtpu/ops/intra_pred.py:230"),
+    "intra_pred": ("intra_pred", "hmtpu/ops/intra_pred.py:69,149"),
+    "deblock": ("deblock", "hmtpu/ops/deblock.py:471"),
+    "sao_stats": ("sao", "hmtpu/ops/sao.py:282"),
+    "sao_apply": ("sao", "hmtpu/ops/sao.py:358"),
+}
+COUNTS = dict.fromkeys(KERNELS, 0)
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def reset_counts() -> None:
+    for k in COUNTS:
+        COUNTS[k] = 0
+
+
+def source_path(src: str) -> str:
+    return os.path.join(CSRC, f"{src}.cu")
+
+
+def _so_path(src: str) -> str:
+    with open(source_path(src), "rb") as f:
+        tag = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"hmtpu_torch_{src}_{tag}.so")
+
+
+def _nvcc() -> str:
+    cand = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(cand):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built "
+                           "on a machine with the CUDA toolkit")
+    return cand
+
+
+def _start_build(src: str):
+    so = _so_path(src)
+    if os.path.exists(so):
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    proc = subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, source_path(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    return proc, tmp, so
+
+
+def _finish_build(src: str, job) -> str:
+    if job is None:
+        return ""
+    proc, tmp, so = job
+    out = proc.communicate()[0].decode(errors="replace")
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}.cu:\n{out}")
+    os.replace(tmp, so)
+    return out
+
+
+def build_all() -> dict[str, str]:
+    """Compile every source that has no library yet, one nvcc each, all
+    started together; returns nvcc's output per source."""
+    jobs = {src: _start_build(src) for src in SOURCES}
+    return {src: _finish_build(src, job) for src, job in jobs.items()}
+
+
+def _lib(src: str) -> ctypes.CDLL:
+    lib = _LIBS.get(src)
+    if lib is not None:
+        return lib
+    _finish_build(src, _start_build(src))
+    lib = ctypes.CDLL(_so_path(src))
+    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+    for fn, sig in SOURCES[src].items():
+        f = getattr(lib, fn)
+        f.restype = ctypes.c_int
+        f.argtypes = [kinds[c] for c in sig]
+    _LIBS[src] = lib
+    return lib
+
+
+def launch(kernel: str, fn: str, *args) -> None:
+    """Call `fn` of the kernel's library on the current stream, raise on
+    a refused launch, and count it.  Tensor arguments must be int32,
+    contiguous and on one CUDA device (the wrappers convert); they are
+    passed as device pointers, None as a null pointer."""
+    dev = None
+    cargs = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            if not a.is_cuda or (dev is not None and a.device != dev):
+                raise ValueError(f"{kernel}: inputs must lie on one CUDA "
+                                 f"device, got {a.device}")
+            if a.dtype != torch.int32:
+                raise TypeError(f"{kernel}: input has dtype {a.dtype}, "
+                                f"expected torch.int32")
+            if not a.is_contiguous():
+                raise ValueError(f"{kernel}: inputs must be contiguous")
+            dev = a.device
+            a = a.data_ptr()
+        cargs.append(a)
+    src = KERNELS[kernel][0]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = getattr(_lib(src), fn)(*cargs, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: CUDA launch failed with error {err}")
+    COUNTS[kernel] += 1

@@ -1,0 +1,57 @@
+"""Scalar quantisation / inverse quantisation (H.265 8.6.3), bit-exact
+with the reference's TComTrQuant::xQuant (:1126) / xDeQuant paths with
+flat (default) scaling lists.
+
+Batched over TU stacks: all shapes (..., N, N) int32.  The port of
+hmtpu/ops/quant.py `quantize_t` :78 and `dequantize_t` :91; qp is a
+host integer here (one value per frame), so the shift cases resolve on
+the host.  RDOQ lives in ops/rdoq.py.
+"""
+from __future__ import annotations
+
+import torch
+
+from hmtpu_torch.common import spec_tables as st
+
+QUANT_SHIFT = 14
+IQUANT_SHIFT = 6
+MAX_TR_DYNAMIC_RANGE = 15
+COEFF_MIN = -(1 << 15)
+COEFF_MAX = (1 << 15) - 1
+
+_QUANT_SCALES = tuple(int(x) for x in st.QUANT_SCALES)
+_INV_QUANT_SCALES = tuple(int(x) for x in st.INV_QUANT_SCALES)
+
+
+def transform_shift(log2_size: int, bit_depth: int) -> int:
+    return MAX_TR_DYNAMIC_RANGE - bit_depth - log2_size
+
+
+def quantize_t(coeff, qp: int, log2_size: int, bit_depth: int = 8,
+               is_intra: bool = True):
+    """Forward quant with HM's deadzone offsets (171/512 intra, 85/512
+    inter); Qp' = qp + 6*(bd-8) (8.6.1)."""
+    qp = int(qp) + 6 * (bit_depth - 8)
+    per, rem = qp // 6, qp % 6
+    qbits = QUANT_SHIFT + per + transform_shift(log2_size, bit_depth)
+    add = (171 if is_intra else 85) << (qbits - 9)
+    # int32 safe: |coeff| <= 2^15, scale < 2^15 -> product < 2^30
+    mag = (coeff.abs() * _QUANT_SCALES[rem] + add) >> qbits
+    mag = torch.clamp(mag, max=COEFF_MAX).to(torch.int32)
+    return torch.where(coeff < 0, -mag, mag)
+
+
+def dequantize_t(level, qp: int, log2_size: int, bit_depth: int = 8):
+    """Inverse quant (flat scaling list), spec 8.6.3 clip to 16-bit."""
+    qp = int(qp) + 6 * (bit_depth - 8)
+    per, rem = qp // 6, qp % 6
+    shift = IQUANT_SHIFT - transform_shift(log2_size, bit_depth)
+    prod = level * _INV_QUANT_SCALES[rem]  # |lv| <= 2^15, g <= 72
+    s = shift - per
+    if s > 0:
+        out = (prod + (1 << (s - 1))) >> s
+    else:
+        # bits shifted out are zero; the pre-clamp keeps int32 while
+        # preserving the final 16-bit clip
+        out = torch.clamp(prod, -(1 << 26), 1 << 26) << (-s)
+    return torch.clamp(out, COEFF_MIN, COEFF_MAX).to(torch.int32)

@@ -1,0 +1,157 @@
+"""The hand-written CUDA kernels of hmtpu_torch against their plain
+PyTorch versions, on the card.  Every kernel is integer, so every
+output must be equal.  Skips where there is no CUDA card; on the card:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+(--noconftest: the repo's root conftest loads JAX, which the card's
+machine does not need.)  Imports nothing of JAX or hmtpu.
+"""
+import numpy as np
+import pytest
+import torch
+
+from hmtpu_torch import kernels
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m gpu on the card)")
+    return torch.device("cuda", 0)
+
+
+def _i32(a, dev):
+    return torch.as_tensor(np.asarray(a, np.int32)).to(dev)
+
+
+def _launched(name, fn):
+    before = kernels.COUNTS[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert kernels.COUNTS[name] > before, f"{name} did not launch"
+    return out
+
+
+@pytest.mark.parametrize("n,dst", [(4, False), (4, True), (8, False),
+                                   (16, False), (32, False)])
+def test_transform_kernel(dev, n, dst):
+    from hmtpu_torch.ops import transform as t
+
+    rng = np.random.RandomState(n)
+    for nb in (1, 7, 300):
+        res = _i32(rng.randint(-255, 256, (nb, n, n)), dev)
+        coef = _i32(rng.randint(-(1 << 15), 1 << 15, (nb, n, n)), dev)
+        got = _launched("int_transform_fwd",
+                        lambda: t.forward_transform(res, n, use_dst=dst))
+        want = t.forward_transform_plain(res, n, use_dst=dst)
+        assert torch.equal(got, want)
+        got = _launched("int_transform_inv",
+                        lambda: t.inverse_transform(coef, n, use_dst=dst))
+        want = t.inverse_transform_plain(coef, n, use_dst=dst)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_intra_kernel(dev, n):
+    from hmtpu_torch.ops import intra_pred as ip
+
+    rng = np.random.RandomState(n)
+    b, line = 64, 4 * n + 1
+    ref = rng.randint(0, 256, (b, line))
+    ramp = np.linspace(0, 1, line)[None]
+    lo, hi = rng.randint(60, 200, (2, b // 2))
+    ref[: b // 2] = np.round(lo[:, None] + (hi - lo)[:, None] * ramp)
+    ref = _i32(ref, dev)
+    for strong in (False, True):
+        got = _launched("intra_filter", lambda: ip.filter_reference_batched(
+            ref, n, 8, strong))
+        assert torch.equal(got, ip.filter_reference_plain(ref, n, 8, strong))
+    reff = got
+    modes = _i32(rng.randint(0, 35, (b, 3)), dev)
+    for is_luma in (True, False):
+        got = _launched("intra_pred", lambda: ip.predict_all_modes(
+            ref, reff, n, is_luma))
+        want = ip.predict_modes_plain(
+            ref, reff, torch.arange(35, device=dev).expand(b, 35), n,
+            is_luma)
+        assert torch.equal(got, want)
+        got = _launched("intra_pred", lambda: ip.predict_modes(
+            ref, reff, modes, n, is_luma))
+        assert torch.equal(got, ip.predict_modes_plain(ref, reff, modes, n,
+                                                       is_luma))
+
+
+@pytest.mark.parametrize("h,w", [(64, 64), (48, 80), (240, 416)])
+def test_deblock_kernel(dev, h, w):
+    from hmtpu_torch.ops import deblock as db
+
+    rng = np.random.RandomState(h + w)
+
+    def blocky(hh, ww):
+        base = 128 + rng.randint(-6, 7, (-(-hh // 8), -(-ww // 8)))
+        pl = np.repeat(np.repeat(base, 8, 0), 8, 1)[:hh, :ww]
+        return _i32(np.clip(pl + rng.randint(-2, 3, (hh, ww)), 0, 255), dev)
+
+    y, u, v = blocky(h, w), blocky(h // 2, w // 2), blocky(h // 2, w // 2)
+    h4, w4 = h // 4, w // 4
+    meta = (torch.as_tensor(rng.rand(h4, w4) < 0.5).to(dev),
+            torch.as_tensor(rng.rand(h4, w4) < 0.5).to(dev),
+            _i32(rng.randint(-8, 9, (2, h4, w4)), dev),
+            _i32(rng.randint(-8, 9, (2, h4, w4)), dev),
+            _i32(rng.randint(-1, 3, (2, h4, w4)), dev))
+    masks = dict(int_v=torch.as_tensor(rng.rand(h // 8, w // 8 - 1) < 0.3)
+                 .to(dev),
+                 int_h=torch.as_tensor(rng.rand(h // 8 - 1, w // 8) < 0.3)
+                 .to(dev))
+    for qp in (22, 37):
+        got = _launched("deblock", lambda: db.deblock_frame_dev(
+            y, u, v, *meta, qp, **masks))
+        want = db.deblock_frame_plain(y, u, v, *meta, qp, **masks)
+        for g, wnt in zip(got, want):
+            assert torch.equal(g, wnt)
+        assert not torch.equal(got[0], y)
+
+
+@pytest.mark.parametrize("h,w,ctu", [(64, 64, 32), (48, 80, 64),
+                                     (240, 416, 64), (120, 208, 32)])
+def test_sao_kernels(dev, h, w, ctu):
+    from hmtpu_torch.ops import sao
+
+    rng = np.random.RandomState(h * w)
+    org = rng.randint(0, 256, (h, w))
+    rec = _i32(np.clip(org + rng.randint(-6, 7, (h, w)), 0, 255), dev)
+    org = _i32(org, dev)
+    got = _launched("sao_stats", lambda: sao._sao_stats(org, rec, ctu, 8))
+    want = sao.sao_stats_plain(org, rec, ctu, 8)
+    for g, wnt in zip(got, want):
+        assert torch.equal(g, wnt)
+    ny, nx = -(-h // ctu), -(-w // ctu)
+    params = _i32(np.concatenate(
+        [rng.randint(0, 3, (ny, nx, 1)), rng.randint(0, 4, (ny, nx, 1)),
+         rng.randint(0, 29, (ny, nx, 1)), rng.randint(-7, 8, (ny, nx, 4))],
+        -1), dev)
+    got = _launched("sao_apply", lambda: sao.apply_sao_dev(rec, params,
+                                                           ctu, 8))
+    assert torch.equal(got, sao.apply_sao_plain(rec, params, ctu, 8))
+
+
+def test_encode_card_equals_cpu(dev):
+    """A 64x64 picture through the port on the card and on the CPU: the
+    same bytes."""
+    from hmtpu_torch.encoder.top import Encoder, EncoderConfig
+    from hmtpu_torch.io.yuv import Frame
+
+    rng = np.random.RandomState(3)
+    y = np.clip(128 + rng.randint(-40, 41, (64, 64)), 0, 255)
+    u = np.clip(128 + rng.randint(-10, 11, (32, 32)), 0, 255)
+    v = np.clip(128 + rng.randint(-10, 11, (32, 32)), 0, 255)
+    frame = Frame(*(a.astype(np.uint8) for a in (y, u, v)), 8)
+    out = []
+    for d in (dev, "cpu"):
+        enc = Encoder(EncoderConfig(width=64, height=64, qp=37, gop="ai",
+                                    subpel="none"), device=d)
+        out.append(enc.encode_sequence([frame]))
+    assert out[0] == out[1]

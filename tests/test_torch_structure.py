@@ -1,0 +1,88 @@
+"""hmtpu_torch's boundaries: it loads neither JAX nor hmtpu, it never
+falls back to the CPU on its own, and options outside the all-intra
+slice say which ROADMAP.md item brings them."""
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from hmtpu_torch.device import resolve
+from hmtpu_torch.encoder.top import Encoder, EncoderConfig
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _python(code_or_args, cwd=ROOT, env_extra=None):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(env_extra or {})
+    args = code_or_args if isinstance(code_or_args, list) \
+        else ["-c", code_or_args]
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_imports_neither_jax_nor_hmtpu():
+    code = """
+import importlib, pkgutil, sys
+import hmtpu_torch
+import hmtpu_torch.encoder.top
+import chip_smoke
+names = [m.name for m in pkgutil.walk_packages(hmtpu_torch.__path__,
+                                               "hmtpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "hmtpu" or m.startswith("hmtpu."))
+print(len(names), bad)
+assert not bad, bad
+"""
+    r = _python(code)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert int(r.stdout.split()[0]) >= 40
+
+
+def test_no_card_raises_without_fallback(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Encoder(EncoderConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve("cuda")
+    assert resolve("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve("meta")
+
+
+@pytest.mark.parametrize("opt,item", [
+    (dict(gop="ldp"), "A2"), (dict(transform_skip=True), "A14"),
+    (dict(bit_depth=10), "A15"), (dict(target_kbps=500.0), "A16"),
+    (dict(wpp=True), "A16"), (dict(wavefront=False), "ROADMAP.md")])
+def test_options_outside_the_slice_raise(opt, item):
+    with pytest.raises(NotImplementedError, match=item):
+        Encoder(EncoderConfig(**opt), device="cpu")
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """Without a card, and beside nothing of the repo, the check exits
+    non-zero and prints no result line."""
+    r = _python(["chip_smoke.py"], env_extra={"CUDA_VISIBLE_DEVICES": ""})
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+    r = _python(["chip_smoke.py"], cwd=str(tmp_path))
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
+
+
+def test_kernel_launch_takes_only_int32_cuda_tensors():
+    """The launcher checks its tensors before it builds or calls
+    anything: a CPU tensor or another dtype never reaches a kernel."""
+    from hmtpu_torch import kernels
+
+    x = torch.zeros(16, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.launch("sao_apply", "hm_sao_apply", x, x, x, 4, 4, 4, 8)
+    assert kernels.COUNTS["sao_apply"] == 0
