@@ -9,24 +9,33 @@ when every phase passed):
   1. device    the card's name and power limit (nvidia-smi);
   2. build     nvcc for every kernel source in hmtpu_torch/csrc, one
                process per source, all started together;
-  3. kernels   each kernel against its plain PyTorch version on the same
-               seeded inputs at the shapes the main path gives it: they
-               must be equal (all four are integer).  Each is timed with
-               CUDA events, beside its plain version, the bound for its
-               bytes and operations, and for the transform a float64
-               torch.matmul yardstick; torch.profiler gives each one's
-               own device time;
-  4. main      the all-intra encode (416x240, QP 32, CTU 64, RDOQ, SDH,
-               deblocking and SAO) of 3 frames of a seeded synthetic
-               clip through Encoder.encode_sequence, with every kernel
-               count reset before and read after: each must be > 0.
-               nvidia-smi samples the card's utilization meanwhile (the
-               device's busy share).  With --profile, one 64x64 frame
+  3. kernels   each kernel (K1-K8) against its plain PyTorch version on
+               the same seeded inputs at the shapes the main paths give
+               it: they must be equal (K6's float32 logits too: kernel
+               and plain version round in the same order).  Each is
+               timed with CUDA events, beside its plain version, the
+               bound for its bytes and operations, and for the transform
+               a float64 torch.matmul yardstick; torch.profiler gives
+               each one's own device time;
+  4. ldp       the main path: the low-delay-P encode with NN-FME
+               (416x240, QP 22, GOP QP offsets 3/2/3/1, 4 references,
+               search range 64, CTU 64, TMVP, RDOQ, SDH, deblocking and
+               SAO) of 2 frames (an I and a P picture) of a seeded
+               synthetic clip through Encoder.encode_sequence, every
+               kernel count reset before and read after: each of K1-K8
+               must be > 0.  Seconds per frame, and for the P frame the
+               device pass apart from the host's finish + CABAC;
+               nvidia-smi samples the card's utilization meanwhile;
+  5. ai        the all-intra path (QP 32) on the first frame of the clip,
+               counts reset before and read after: K1-K4 must be > 0.
+               With --profile, one 64x64 AI frame and a 64x64 I + P pair
                under torch.profiler (device operations and their time:
                a 416x240 frame issues too many for the profiler);
-  5. parity    the main clip's first frame through the port on the CPU
-               (the plain versions) must give the card's first access
-               unit byte for byte; likewise a 64x64 clip at QP 22 and 37.
+  6. parity    the AI frame through the port on the CPU (the plain
+               versions, in a worker process) must give the card's access
+               unit byte for byte; likewise a 64x64 AI clip of 2 frames
+               at QP 22 and 37, and a 64x64 LDP clip of 4 frames (1, 2
+               and 3 active references) at QP 22 and 37, search range 8.
 
 Imports nothing from hmtpu or JAX.  The last line of the output is
 {"ok": true, "device": {...}}.
@@ -34,7 +43,9 @@ Imports nothing from hmtpu or JAX.  The last line of the output is
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -44,11 +55,13 @@ import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet) used for the bound of each kernel:
-# device memory 3.35 TB/s; the kernels do int32 ALU work, bounded here
-# by the card's non-tensor-core float32 rate of 67 T operations/s
+# device memory 3.35 TB/s; the kernels do int32 or float32 ALU work,
+# bounded here by the card's non-tensor-core float32 rate of 67 T
+# operations/s
 PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
-W, H, QP, FRAMES = 416, 240, 32, 3
+W, H = 416, 240
+QP_AI, QP_LDP, SRANGE, LDP_FRAMES = 32, 22, 64, 2
 
 
 def fail(msg: str) -> None:
@@ -96,7 +109,9 @@ DEVICE_FN = {
     "int_transform_inv": "transform_kernel<true>",
     "intra_filter": "filter_kernel", "intra_pred": "pred_kernel",
     "deblock": "deblock_kernel", "sao_stats": "stats_kernel",
-    "sao_apply": "apply_kernel",
+    "sao_apply": "apply_kernel", "me_sad": "me_kernel",
+    "nnfme": "nnfme_kernel", "mc_dctif": "mc_kernel",
+    "satd8": "satd_kernel",
 }
 
 
@@ -127,8 +142,9 @@ def bound_ms(nbytes: float, ops: float):
 
 
 def kernel_cases(dev):
-    """(name, kernel call, plain call, bytes, ops, library call) at the
-    main path's shapes, inputs made from a seed."""
+    """(name, kernel call, plain call, bytes, ops, library call[, more
+    (kernel call, plain call) pairs checked but not timed]) at the main
+    paths' shapes, inputs made from a seed."""
     from hmtpu_torch.ops import deblock, intra_pred, sao, transform
 
     rng = np.random.RandomState(1)
@@ -187,7 +203,7 @@ def kernel_cases(dev):
                     device=dev)
     int_v = t32(rng.randint(0, 2, (H // 8, W // 8 - 1))).bool()
     int_h = t32(rng.randint(0, 2, (H // 8 - 1, W // 8))).bool()
-    dbk = (y, u, v, intra4, cbf4, mv, mv, rp, QP)
+    dbk = (y, u, v, intra4, cbf4, mv, mv, rp, QP_AI)
     npx = H * W * 3 // 2
     cases.append(("deblock",
                   lambda: deblock.deblock_frame_dev(*dbk, int_v=int_v,
@@ -218,29 +234,163 @@ def kernel_cases(dev):
                   lambda: sao.apply_sao_dev(y, params, 64, 8),
                   lambda: sao.apply_sao_plain(y, params, 64, 8),
                   (2 * H * W + nctu * 7) * 4, 12 * H * W, None))
+    return cases + inter_kernel_cases(dev, rng)
+
+
+def first_p_lambda_sqrt() -> np.float32:
+    """sqrt(lambda) of the first P picture of an LDP encode at QP_LDP,
+    as the encoder derives it (GOP position 0: QP offset 3, factor
+    0.4624 with HM's depth scale)."""
+    from hmtpu_torch.common.lambdas import frame_lambdas
+    from hmtpu_torch.common.spec_tables import chroma_qp_from_luma
+    from hmtpu_torch.encoder.top import gop_depth, lambda_qp_factor
+
+    qp = QP_LDP + 3
+    f = lambda_qp_factor(0.4624, qp, gop_depth(1, 4))
+    return frame_lambdas(qp, chroma_qp_from_luma(qp), f)[1]
+
+
+def mc_work(refs, ridx, xs0, ys0, mvx, mvy, n, chroma):
+    """(distinct reference samples, filter multiply-adds) that these
+    blocks need: a pass's extra taps are read and filtered only where
+    that block's phase in its direction is non-zero."""
+    ntaps, sh, msk = (4, 3, 7) if chroma else (8, 2, 3)
+    half = ntaps // 2 - 1
+    _, h, w = refs.shape
+    fx, fy = (mvx & msk) != 0, (mvy & msk) != 0
+    k = torch.arange(n + ntaps - 1, device=refs.device)[None, :]
+    inner = (k >= half) & (k < half + n)
+    use_y, use_x = inner | fy[:, None], inner | fx[:, None]
+    py = torch.clamp(ys0[:, None] + (mvy[:, None] >> sh) - half + k, 0,
+                     h - 1).to(torch.int64)
+    px = torch.clamp(xs0[:, None] + (mvx[:, None] >> sh) - half + k, 0,
+                     w - 1).to(torch.int64)
+    key = ((ridx.to(torch.int64)[:, None, None] * h + py[:, :, None]) * w
+           + px[:, None, :])
+    samples = int(torch.unique(key[use_y[:, :, None] & use_x[:, None, :]])
+                  .numel())
+    # H pass over the rows the V pass reads (when both phases are set),
+    # then the V pass; one pass of n x n otherwise, none for a copy
+    both = int((fx & fy).sum())
+    single = int((fx ^ fy).sum())
+    macs = (both * ((n + ntaps - 1) * n + n * n) + single * n * n) * ntaps
+    return samples, macs
+
+
+def inter_kernel_cases(dev, rng):
+    """K5-K8 at the shapes of the 416x240 P pass."""
+    from hmtpu_torch.models import nnfme
+    from hmtpu_torch.ops import interp
+    from hmtpu_torch.search import me
+
+    t32 = lambda a: torch.as_tensor(np.asarray(a, np.int32)).to(dev)
+    flat = lambda d: [t for n in (8, 16, 32)
+                      for t in (*d[n][0], d[n][1], d[n][2])]
+    clip = synth_clip(W, H, 2, seed=42)
+    org, ref = t32(clip[1][0]), t32(clip[0][0])
+    lam = first_p_lambda_sqrt()
+    qh, qw = (H // 16 + 1) // 2, (W // 16 + 1) // 2
+    cases = []
+
+    # K5: the full plane against one reference, search range 64: per
+    # displacement and sample a subtract, an absolute value and an add
+    nd = (2 * SRANGE + 1) ** 2
+    lanes = (H // 8) * (W // 8) + (H // 16) * (W // 16) + qh * qw
+    cases.append(("me_sad",
+                  lambda: flat(me.integer_me_levels(ref, org, SRANGE, lam,
+                                                    qh, qw)),
+                  lambda: flat(me.integer_me_levels_plain(ref, org, SRANGE,
+                                                          lam, qh, qw)),
+                  2 * H * W * 4 + lanes * 12 * 4, 3 * H * W * nd, None))
+
+    # K6: the 1560 8x8 stencils of that search, the QP 22 weights
+    sten = me.integer_me_levels_plain(ref, org, SRANGE, lam, qh, qw)[8][1]
+    st9 = sten.reshape(-1, 9).to(torch.float32).contiguous()
+    nb = st9.shape[0]
+    sizes = torch.full((nb,), 8, dtype=torch.int32, device=dev)
+    params = nnfme.load_npz(os.path.join(nnfme.WEIGHTS_DIR, "qp22.npz"),
+                            dev)
+    macs = 17 * 22 + 22 * 20 + 20 * 49
+    cases.append(("nnfme",
+                  lambda: nnfme.predict_offsets(params, st9, sizes, sizes),
+                  lambda: nnfme._classes(nnfme.forward_plain(
+                      params, st9, sizes, sizes)),
+                  (nb * 9 + nnfme.PACK_SIZE + 2 * nb + nb * 3) * 4,
+                  # the products and sums, the biases, ReLU and affine of
+                  # the 42 hidden units, the standardisation, the argmax
+                  nb * (2 * macs + 91 + 3 * 42 + 3 * 9 + 49), None,
+                  # the logits, bit for bit
+                  [(lambda: nnfme.forward(params, st9, sizes, sizes),
+                    lambda: nnfme.forward_plain(params, st9, sizes,
+                                                sizes))]))
+
+    # K7: every block of a level, one of 4 stacked references each, all
+    # phases, MVs that reach past the picture edges; luma 8x8 is timed
+    def mc_case(chroma, n):
+        h, w = (H // 2, W // 2) if chroma else (H, W)
+        refs = t32(rng.randint(0, 256, (4, h, w)))
+        q = np.arange((h // n) * (w // n))
+        span = 4 * (n + 24)
+        args = [t32(a) for a in (
+            rng.randint(0, 4, q.size), (q % (w // n)) * n,
+            (q // (w // n)) * n, rng.randint(-span, span, q.size),
+            rng.randint(-span, span, q.size))]
+        return (refs, args, lambda: interp.mc_batch(refs, *args, n, n,
+                                                     chroma),
+                lambda: interp.mc_batch_plain(refs, *args, n, n, chroma))
+
+    refs, args, k, pl = mc_case(False, 8)
+    nb = args[0].numel()
+    samples, macs = mc_work(refs, *args, 8, False)
+    more = [mc_case(c, n)[2:] for c, n in ((False, 16), (False, 32),
+                                          (True, 4), (True, 8), (True, 16))]
+    # the distinct reference samples, the five index/MV arrays and the
+    # output; a multiply and an add per filter tap
+    cases.append(("mc_dctif", k, pl, (samples + 5 * nb + nb * 64) * 4,
+                  2 * macs, None, more))
+
+    # K8: the gate's org blocks against their predictions; 8x8 is timed
+    def satd_case(n):
+        nb = (H // n) * (W // n)
+        a = rng.randint(0, 256, (nb, n, n))
+        b = t32(np.clip(a + rng.randint(-40, 41, a.shape), 0, 255))
+        a = t32(a)
+        return (nb, lambda: me.satd_batch(a, b, n),
+                lambda: me.satd_batch_plain(a, b, n))
+
+    nb, k, pl = satd_case(8)
+    cases.append(("satd8", k, pl, (2 * nb * 64 + nb) * 4,
+                  # per tile: 64 differences, 2 x 8 rows of 24 butterfly
+                  # operations, 64 absolute values and sums
+                  nb * (64 + 2 * 8 * 24 + 128), None,
+                  [satd_case(n)[1:] for n in (16, 32)]))
     return cases
 
 
 def same(a, b) -> bool:
+    """Equal shapes, dtypes and values (floats bit for bit)."""
     if isinstance(a, (tuple, list)):
-        return all(same(x, y) for x, y in zip(a, b))
-    return a.shape == b.shape and bool((a.to(torch.int64)
-                                        == b.to(torch.int64)).all())
+        return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
 
 
 def max_err(a, b) -> float:
     if isinstance(a, (tuple, list)):
         return max(max_err(x, y) for x, y in zip(a, b))
-    return float((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+    if a.numel() == 0:
+        return 0.0
+    return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
 
 
-def encode(frames, qp, device):
+def encode(frames, qp, device, gop="ai", srange=16):
     from hmtpu_torch.encoder.top import Encoder, EncoderConfig
     from hmtpu_torch.io.yuv import Frame
 
     h, w = frames[0][0].shape
-    enc = Encoder(EncoderConfig(width=w, height=h, qp=qp, gop="ai",
-                                subpel="none"), device=device)
+    cfg = EncoderConfig(width=w, height=h, qp=qp, gop=gop,
+                        subpel="nn" if gop == "ldp" else "none",
+                        search_range=srange)
+    enc = Encoder(cfg, device=device)
     t0 = time.time()
     bs = enc.encode_sequence([Frame(*f, 8) for f in frames])
     if device != "cpu":
@@ -248,11 +398,82 @@ def encode(frames, qp, device):
     return bs, time.time() - t0, enc.results
 
 
+def cpu_streams(jobs):
+    """Each (frames, qp, gop, search range) job's stream and seconds on
+    the CPU (the plain version of every kernel); run in a worker."""
+    torch.set_num_threads(4)
+    return [encode(f, qp, "cpu", gop, sr)[:2] for f, qp, gop, sr in jobs]
+
+
+def check_results(results, what):
+    for r in results:
+        if not (np.isfinite(r.psnr_y) and r.psnr_y > 30.0):
+            fail(f"{what} POC {r.poc}: implausible PSNR-Y {r.psnr_y}")
+
+
+def run_counted(label, fn, names, kernels):
+    """Run fn with every kernel count reset before and read after (and
+    nvidia-smi sampling the card's utilization meanwhile); each kernel of
+    `names` must have launched."""
+    kernels.reset_counts()
+    smi_util = subprocess.Popen(
+        ["nvidia-smi", "-i", "0", "--query-gpu=utilization.gpu",
+         "--format=csv,noheader,nounits", "-lms", "500"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        out = fn()
+    finally:
+        smi_util.terminate()
+        util = [float(x) for x in smi_util.communicate(timeout=60)[0].split()
+                if x.strip().replace(".", "", 1).isdigit()]
+    counts = dict(kernels.COUNTS)
+    for name in names:
+        if counts[name] <= 0:
+            fail(f"{name}: not launched on the {label} path")
+    print(f"kernels ({label}): " + ", ".join(
+        f"{k} {counts[k]}" for k in names), flush=True)
+    return out, counts, util
+
+
+def frame_line(label, results, util):
+    parts = []
+    for r in results:
+        p = f"POC{r.poc} {r.slice_type} {r.seconds:.3f} s"
+        if r.slice_type == "P":
+            p += (f" (device pass {r.device_seconds:.3f} s, host finish + "
+                  f"CABAC {r.host_seconds:.3f} s)")
+        parts.append(p)
+    print(f"{label}: seconds per frame " + ", ".join(parts)
+          + (f"; card utilization (nvidia-smi, {len(util)} samples) mean "
+             f"{np.mean(util):.2f} %" if util else ""), flush=True)
+
+
+def profile_encode(path, label, fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    avgs = prof.key_averages()
+    on_dev = [e for e in avgs if self_device_us(e) > 0]
+    busy = sum(self_device_us(e) for e in on_dev) / 1e3
+    nops = sum(e.count for e in on_dev)
+    with open(os.path.join(path, f"profile_{label}.txt"), "w") as f:
+        f.write(avgs.table(sort_by="self_device_time_total", row_limit=40))
+    print(f"profile {label}: {wall * 1e3:.1f} ms wall under the profiler, "
+          f"{nops} device operations, device busy {busy:.1f} ms "
+          f"({100 * busy / (wall * 1e3):.2f} %), "
+          f"{wall * 1e6 / max(nops, 1):.2f} us of wall time per device "
+          f"operation", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", default="",
-                    help="directory for a torch.profiler table of one "
-                         "64x64 frame (optional)")
+                    help="directory for torch.profiler tables of a 64x64 "
+                         "AI frame and a 64x64 LDP I + P pair (optional)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -262,6 +483,7 @@ def main() -> None:
     except ImportError as e:
         fail(f"the hmtpu_torch package is not beside this script ({e})")
     dev = torch.device("cuda", 0)
+    t_start = time.time()
 
     # ---- 1. device
     smi = subprocess.run(
@@ -286,21 +508,29 @@ def main() -> None:
 
     # ---- 3. kernels against their plain versions
     rows = {}
-    for name, kfn, pfn, nbytes, ops, lib in kernel_cases(dev):
+    for name, kfn, pfn, nbytes, ops, lib, *more in kernel_cases(dev):
         got, want = kfn(), pfn()
         torch.cuda.synchronize()
+        err = max_err(got, want)
         if not same(got, want):
             fail(f"{name}: kernel disagrees with its plain version "
-                 f"(max abs err {max_err(got, want)})")
+                 f"(max abs err {err})")
+        for k2, p2 in (more[0] if more else ()):
+            g2, w2 = k2(), p2()
+            torch.cuda.synchronize()
+            err = max(err, max_err(g2, w2))
+            if not same(g2, w2):
+                fail(f"{name}: kernel disagrees with its plain version at "
+                     f"shape {tuple(w2.shape)} (max abs err {err})")
         ms = time_cuda(kfn, 200)
-        pms = time_cuda(pfn, 20)
+        pms = time_cuda(pfn, 5)
         lms = time_cuda(lib, 200) if lib is not None else None
         dms = device_ms(kfn, DEVICE_FN[name])
         bms, by = bound_ms(nbytes, ops)
         src, repl = kernels.KERNELS[name]
         rows[name] = dict(
             name=name, route="cuda", source=f"hmtpu_torch/csrc/{src}.cu",
-            replaces=repl, launches=0, max_abs_err=max_err(got, want),
+            replaces=repl, launches=0, max_abs_err=err,
             ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
             library_ms=lms, device_ms=dms)
         print(f"kernel {name}: equal to plain; {ms:.4f} ms per call, "
@@ -309,76 +539,69 @@ def main() -> None:
               + (f", float64 matmul {lms:.4f} ms" if lms else "")
               + ")", flush=True)
 
-    # ---- 4. the main path
-    clip = synth_clip(W, H, FRAMES, seed=42)
-    small = synth_clip(64, 64, 2, seed=3)
-    encode(small[:1], QP, dev)          # warm-up: libraries, allocator
-    kernels.reset_counts()
-    smi_util = subprocess.Popen(
-        ["nvidia-smi", "-i", "0", "--query-gpu=utilization.gpu",
-         "--format=csv,noheader,nounits", "-lms", "500"],
-        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
-    try:
-        bs, dt, results = encode(clip, QP, dev)
-    finally:
-        smi_util.terminate()
-        util = [float(x) for x in smi_util.communicate(timeout=60)[0].split()
-                if x.strip().replace(".", "", 1).isdigit()]
-    counts = dict(kernels.COUNTS)
-    for name, c in counts.items():
-        rows[name]["launches"] = c
-        if c <= 0:
-            fail(f"{name}: not launched on the main path")
-    fps = FRAMES / dt
-    kbps = sum(r.bits for r in results) / FRAMES * 50 / 1000.0
-    for r in results:
-        if not (np.isfinite(r.psnr_y) and r.psnr_y > 30.0):
-            fail(f"POC {r.poc}: implausible PSNR-Y {r.psnr_y}")
-    print(f"main: 416x240 AI QP{QP}, {FRAMES} frames, {len(bs)} bytes, "
-          f"{dt:.3f} s, {fps:.4f} fps, {kbps:.3f} kbps at 50 fps, PSNR "
+    clip = synth_clip(W, H, LDP_FRAMES, seed=42)
+    small = synth_clip(64, 64, 4, seed=3)
+    encode(small[:1], QP_AI, dev)        # warm-up: libraries, allocator
+
+    # ---- 4. the main path: low-delay P with NN-FME
+    (bs, dt, results), counts, util = run_counted(
+        "ldp", lambda: encode(clip, QP_LDP, dev, "ldp", SRANGE),
+        list(kernels.KERNELS), kernels)
+    for name in rows:
+        rows[name]["launches"] = counts[name]
+    check_results(results, "ldp")
+    if [r.slice_type for r in results] != ["I"] + ["P"] * (LDP_FRAMES - 1):
+        fail(f"ldp: slice types {[r.slice_type for r in results]}")
+    kbps = sum(r.bits for r in results) / LDP_FRAMES * 50 / 1000.0
+    print(f"ldp: 416x240 LDP QP{QP_LDP} NN-FME SR{SRANGE}, {LDP_FRAMES} "
+          f"frames, {len(bs)} bytes, {dt:.3f} s, "
+          f"{LDP_FRAMES / dt:.4f} fps, {kbps:.3f} kbps at 50 fps, PSNR "
           + ", ".join(f"POC{r.poc} Y {r.psnr_y:.4f} U {r.psnr_u:.4f} "
                       f"V {r.psnr_v:.4f}" for r in results), flush=True)
-    print("main: seconds per frame "
-          + ", ".join(f"POC{r.poc} {r.seconds:.3f}" for r in results)
-          + (f"; card utilization (nvidia-smi, {len(util)} samples) mean "
-             f"{np.mean(util):.2f} %" if util else ""), flush=True)
-    print("kernels: " + ", ".join(f"{k} {v}" for k, v in counts.items())
-          + f" launches in {FRAMES} frames", flush=True)
+    frame_line("ldp", results, util)
+
+    # ---- 5. the all-intra path
+    ai_names = [k for k, (src, _) in kernels.KERNELS.items()
+                if src in ("transform", "intra_pred", "deblock", "sao")]
+    (ai_bs, ai_dt, ai_res), ai_counts, ai_util = run_counted(
+        "ai", lambda: encode(clip[:1], QP_AI, dev), ai_names, kernels)
+    check_results(ai_res, "ai")
+    print(f"ai: 416x240 AI QP{QP_AI}, 1 frame, {len(ai_bs)} bytes, "
+          f"{ai_dt:.3f} s, {1 / ai_dt:.4f} fps, "
+          f"{ai_res[0].bits * 50 / 1000.0:.3f} kbps at 50 fps, PSNR Y "
+          f"{ai_res[0].psnr_y:.4f} U {ai_res[0].psnr_u:.4f} V "
+          f"{ai_res[0].psnr_v:.4f}", flush=True)
+    frame_line("ai", ai_res, ai_util)
 
     if args.profile:
-        from torch.profiler import ProfilerActivity, profile
-
         os.makedirs(args.profile, exist_ok=True)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            _, pdt, _ = encode(small[:1], QP, dev)
-        avgs = prof.key_averages()
-        on_dev = [e for e in avgs if self_device_us(e) > 0]
-        busy = sum(self_device_us(e) for e in on_dev) / 1e3
-        nops = sum(e.count for e in on_dev)
-        with open(os.path.join(args.profile, "profile_ai_64x64.txt"),
-                  "w") as f:
-            f.write(avgs.table(sort_by="self_device_time_total",
-                               row_limit=40))
-        print(f"profile: one 64x64 frame {pdt * 1e3:.1f} ms wall under "
-              f"the profiler, {nops} device operations, device busy "
-              f"{busy:.1f} ms ({100 * busy / (pdt * 1e3):.2f} %), "
-              f"{pdt * 1e6 / max(nops, 1):.2f} us of wall time per device "
-              f"operation", flush=True)
+        profile_encode(args.profile, "ai_64x64",
+                       lambda: encode(small[:1], QP_AI, dev))
+        profile_encode(args.profile, "ldp_64x64_I_P",
+                       lambda: encode(small[:2], QP_LDP, dev, "ldp", 8))
 
-    # ---- 5. card against CPU
-    cpu_bs, cpu_dt, _ = encode(clip[:1], QP, "cpu")
-    if bs[:len(cpu_bs)] != cpu_bs:
-        fail("416x240 frame 0: card and CPU access units differ")
-    print(f"parity: 416x240 frame 0 card == CPU ({len(cpu_bs)} bytes; "
-          f"CPU {cpu_dt:.1f} s)", flush=True)
-    for qp in (22, 37):
-        a, _, _ = encode(small, qp, dev)
-        b, _, _ = encode(small, qp, "cpu")
+    # ---- 6. card against CPU: the CPU's streams come from a worker
+    # process on the machine's other cores while this one dispatches the
+    # same clips to the card
+    jobs = [(clip[:1], QP_AI, "ai", 16)] \
+        + [(small[:2], qp, "ai", 16) for qp in (22, 37)] \
+        + [(small, qp, "ldp", 8) for qp in (22, 37)]
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx) as pool:
+        cpu_run = pool.submit(cpu_streams, jobs)
+        on_card = [(ai_bs, ai_dt)] + [encode(f, qp, dev, gop, sr)[:2]
+                                      for f, qp, gop, sr in jobs[1:]]
+        cpu = cpu_run.result()
+    for (frames, qp, gop, _), (a, adt), (b, bdt) in zip(jobs, on_card,
+                                                        cpu):
+        h, w = frames[0][0].shape
+        what = f"{w}x{h} {gop.upper()} QP{qp} {len(frames)} frames"
         if a != b:
-            fail(f"64x64 QP{qp}: card and CPU streams differ")
-        print(f"parity: 64x64 QP{qp} card == CPU ({len(a)} bytes)",
-              flush=True)
+            fail(f"{what}: card and CPU streams differ")
+        print(f"parity: {what} card == CPU ({len(a)} bytes; card "
+              f"{adt:.1f} s, CPU {bdt:.1f} s)", flush=True)
 
+    print(f"total: {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

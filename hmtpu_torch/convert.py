@@ -1,11 +1,11 @@
 """Carry numeric state between hmtpu and this package.
 
-The all-intra path has no learned weights; what crosses over is numeric
-state: an hmtpu state dict (the `iframe_pass` state, or the `cbflat`
-bits table) in, and the port's state dict out.  The tests use this to
-feed both sides the same mid-pass state.  The NN-FME weights
-(hmtpu/models/weights/qp*.npz) join this module with the low-delay-P
-slice.
+What crosses over is numeric state -- an hmtpu state dict (the
+`iframe_pass` / `full_pframe_pass` state, or the `cbflat` bits table)
+in, and the port's state dict out -- and the NN-FME weights: the fields
+of an hmtpu `NnFmeParams` as numpy arrays in, the port's `NnFmeParams`
+out.  The tests use this to feed both sides the same state and the
+same (in-repo or random) weights.
 """
 from __future__ import annotations
 
@@ -30,3 +30,15 @@ def state_to_numpy(d):
     if isinstance(d, dict):
         return {k: v.detach().cpu().numpy() for k, v in d.items()}
     return d.detach().cpu().numpy()
+
+
+def nnfme_params_from_numpy(d, device="cuda"):
+    """The fields of an hmtpu `NnFmeParams` (a mapping, or the
+    NamedTuple itself, of numpy-convertible arrays) -> the port's
+    `NnFmeParams` on `device` (float32)."""
+    from hmtpu_torch.models.nnfme import PACK_ORDER, params_from_arrays
+
+    if hasattr(d, "_asdict"):
+        d = d._asdict()
+    return params_from_arrays({k: np.asarray(d[k]) for k in PACK_ORDER},
+                              resolve(device))

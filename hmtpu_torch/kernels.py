@@ -33,7 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # source -> {C function: argument kinds}; "p" pointer (or stream),
-# "i" int.  The stream is always the last argument.
+# "i" int, "f" float.  The stream is always the last argument.
 SOURCES = {
     "transform": {
         "hm_int_transform_fwd": "pppiiiip",
@@ -50,6 +50,18 @@ SOURCES = {
         "hm_sao_stats": "pppiiiip",
         "hm_sao_apply": "pppiiiip",
     },
+    "me_sad": {
+        "hm_me_sad_levels": "pppppiiifp",
+    },
+    "nnfme": {
+        "hm_nnfme": "pppppppip",
+    },
+    "mc_dctif": {
+        "hm_mc_dctif": "ppppppp" "iiiiiiii" "p",
+    },
+    "satd": {
+        "hm_satd8": "pppiip",
+    },
 }
 
 # kernel name -> (source, file:line of the hmtpu function it replaces)
@@ -61,6 +73,10 @@ KERNELS = {
     "deblock": ("deblock", "hmtpu/ops/deblock.py:471"),
     "sao_stats": ("sao", "hmtpu/ops/sao.py:282"),
     "sao_apply": ("sao", "hmtpu/ops/sao.py:358"),
+    "me_sad": ("me_sad", "hmtpu/search/me.py:29,72,120"),
+    "nnfme": ("nnfme", "hmtpu/models/nnfme.py:127,143"),
+    "mc_dctif": ("mc_dctif", "hmtpu/ops/interp.py:173"),
+    "satd8": ("satd", "hmtpu/search/me.py:159"),
 }
 COUNTS = dict.fromkeys(KERNELS, 0)
 
@@ -126,7 +142,7 @@ def _lib(src: str) -> ctypes.CDLL:
         return lib
     _finish_build(src, _start_build(src))
     lib = ctypes.CDLL(_so_path(src))
-    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
     for fn, sig in SOURCES[src].items():
         f = getattr(lib, fn)
         f.restype = ctypes.c_int
@@ -137,19 +153,20 @@ def _lib(src: str) -> ctypes.CDLL:
 
 def launch(kernel: str, fn: str, *args) -> None:
     """Call `fn` of the kernel's library on the current stream, raise on
-    a refused launch, and count it.  Tensor arguments must be int32,
-    contiguous and on one CUDA device (the wrappers convert); they are
-    passed as device pointers, None as a null pointer."""
+    a refused launch, and count it.  Tensor arguments must be int32 or
+    float32, contiguous and on one CUDA device (the wrappers convert);
+    they are passed as device pointers, None as a null pointer.  Python
+    ints and floats go by value, as the function's signature says."""
     dev = None
     cargs = []
     for a in args:
         if isinstance(a, torch.Tensor):
+            if a.dtype not in (torch.int32, torch.float32):
+                raise TypeError(f"{kernel}: input has dtype {a.dtype}, "
+                                f"expected torch.int32 or torch.float32")
             if not a.is_cuda or (dev is not None and a.device != dev):
                 raise ValueError(f"{kernel}: inputs must lie on one CUDA "
                                  f"device, got {a.device}")
-            if a.dtype != torch.int32:
-                raise TypeError(f"{kernel}: input has dtype {a.dtype}, "
-                                f"expected torch.int32")
             if not a.is_contiguous():
                 raise ValueError(f"{kernel}: inputs must be contiguous")
             dev = a.device

@@ -1,6 +1,6 @@
 """CABAC-aware rate estimation for the RDO decision pass: the port of
-hmtpu/ops/ratebits.py (`tb_bits` :161 and the intra flag helpers
-:305-398).
+hmtpu/ops/ratebits.py (`tb_bits` :161, `ep_eg1_bits` :152 and the CU
+flag helpers :305-450, intra and inter).
 
 `tb_bits` is the batched, exact-bin-identity reproduction of the
 residual_coding() syntax (7.3.8.11, TEncSbac::codeCoeffNxN): every
@@ -149,6 +149,12 @@ def prev_processed_flag(proc, flags):
     has = nxt < ncg
     g = torch.gather(flags, -1, torch.clamp(nxt, max=ncg - 1))
     return has & g
+
+
+def ep_eg1_bits(u):
+    """EP bit count of k=1 exp-Golomb (MVD remainder binarisation)."""
+    pre = floor_log2((u >> 1) + 1)
+    return (2 * pre + 2).to(torch.float32)
 
 
 def _remainder_ep_bits(sym, rice):
@@ -304,7 +310,8 @@ def tb_bits(lev, cbflat, log2: int, is_luma: bool,
 
 
 # ---------------------------------------------------------------------------
-# CU mode-syntax pricing used by the I pass
+# CU mode-syntax pricing (the I pass and the P-slice envelope of the
+# native slice writer)
 
 def _gc(cbflat, ctx: int, val):
     return cbflat[2 * ctx + val.to(torch.int64)]
@@ -356,3 +363,73 @@ def intra_mode_mpm_bits(cbflat, mode, lm, am):
         + idx_gt0.to(torch.float32)
     b_out = cbflat[2 * OFF["INTRA_PRED_MODE"] + 0] + 5.0
     return torch.where(inmpm, b_in, b_out)
+
+
+def skip_flag_bits(cbflat, val, ctx_inc):
+    """cu_skip_flag; ctx_inc = left_skip + above_skip (9.3.4.2.2)."""
+    return cbflat[2 * (OFF["SKIP_FLAG"] + ctx_inc.to(torch.int64))
+                  + val.to(torch.int64)]
+
+
+def merge_idx_bits(cbflat, mi, max_merge: int):
+    """merge_idx truncated unary: first bin ctx, rest EP."""
+    b = _gc(cbflat, OFF["MERGE_IDX"], mi > 0)
+    if max_merge > 1:
+        ep = torch.where(mi > 0,
+                         (mi - 1) + (mi < max_merge - 1).to(mi.dtype),
+                         0).to(torch.float32)
+        b = b + ep
+    return b
+
+
+def merge_flag_bits(cbflat, val):
+    return _gc(cbflat, OFF["MERGE_FLAG"], val)
+
+
+def pred_mode_bits(cbflat, is_intra):
+    return _gc(cbflat, OFF["PRED_MODE"], is_intra)
+
+
+def mvp_idx_bits(cbflat, idx):
+    return _gc(cbflat, OFF["MVP_IDX"], idx)
+
+
+def rqt_root_cbf_bits(cbflat, val):
+    return _gc(cbflat, OFF["QT_ROOT_CBF"], val)
+
+
+def ref_idx_bits(cbflat, r, num_ref: int, n_active=None):
+    """ref_idx_l0 truncated unary, cMax=num_ref-1; two ctx bins + EP.
+
+    n_active (host int, optional): the real active-ref count when
+    num_ref is a padded upper bound (the P-slice ref-stack padding) --
+    the writer and decoder code with cMax = n_active-1, so the pricing
+    follows it."""
+    if num_ref <= 1:
+        return torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+    cmax = num_ref - 1 if n_active is None else max(n_active - 1, 0)
+    zero = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+    b = _gc(cbflat, OFF["REF_PIC"], r > 0) if cmax >= 1 else zero
+    if cmax >= 2:
+        b = b + torch.where(r > 0, _gc(cbflat, OFF["REF_PIC"] + 1, r > 1),
+                            0.0)
+        # bins 2.. are EP: one per step, terminator unless at cMax
+        ep = torch.clamp(torch.clamp(r, max=cmax) - 2, min=0) \
+            + ((r >= 2) & (r < cmax)).to(r.dtype)
+        b = b + ep.to(torch.float32)
+    return b
+
+
+def mvd_bits(cbflat, mvdx, mvdy):
+    """Both components of mvd_coding (7.3.8.9): two ctx bins, EG1
+    remainder, EP sign."""
+    total = torch.zeros(mvdx.shape, dtype=torch.float32,
+                        device=mvdx.device)
+    for v in (mvdx, mvdy):
+        av = v.abs()
+        total = total + _gc(cbflat, OFF["MVD"], av > 0)
+        total = total + torch.where(
+            av > 0, _gc(cbflat, OFF["MVD"] + 1, av > 1), 0.0)
+        total = total + torch.where(av > 1, ep_eg1_bits(av - 2), 0.0)
+        total = total + (av > 0).to(torch.float32)      # sign
+    return total

@@ -1,0 +1,287 @@
+"""Batched integer motion estimation, SATD and the motion-field
+coherence pass: the port of hmtpu/search/me.py (`integer_me_sad_volume`
+:29, `_bits_of` :63, `_volume_best` :72, `integer_me` :107,
+`integer_me_levels` :120, `satd_batch` :159, `_block_sad_int` :178,
+`regularize_mv_field` :194, `mv_bits_dev_f` :239).
+
+Two hand-written kernels live behind these functions:
+
+  K5 me_sad (csrc/me_sad.cu)   `integer_me_levels` on a CUDA tensor:
+      the full +-srange window of every 8x8 block, summed to 16x16 and
+      32x32 in the same pass, the motion cost added and the argmin and
+      3x3 SAD stencil taken without writing the SAD volume;
+  K8 satd8 (csrc/satd.cu)      `satd_batch` on a CUDA tensor.
+
+On CPU tensors both run their plain PyTorch versions (`*_plain`), the
+reference's own formulation (the SAD volume, then argmin).  The
+coherence pass is plain PyTorch on every device.
+
+The DCT-IF sub-pel search (`frac_refine_batch`, the `subpel="dctif"`
+arm) is not ported yet (ROADMAP.md A16/B16).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from hmtpu_torch import kernels
+from hmtpu_torch.ops.ratebits import floor_log2
+
+
+def _edge_index(n: int, r: int, device):
+    return torch.clamp(torch.arange(-r, n + r, device=device), 0, n - 1)
+
+
+def integer_me_sad_volume(ref, org, bsize: int, srange: int):
+    """SAD of every aligned bsize x bsize block against every integer
+    displacement in [-srange, srange]^2: (D, By, Bx) int32, D row-major
+    over (dy, dx).  Reference taps are edge-replicated.  One step per dy
+    with every dx at once, as the reference scans."""
+    h, w = ref.shape
+    r = srange
+    side = 2 * r + 1
+    dev = ref.device
+    padded = ref[_edge_index(h, r, dev)][:, _edge_index(w, r, dev)]
+    col_idx = torch.arange(side, device=dev)[:, None] \
+        + torch.arange(w, device=dev)[None, :]
+    vol = []
+    for dy in range(side):
+        win = padded[dy:dy + h][:, col_idx]                # (h, side, w)
+        ad = (org[:, None, :] - win).abs()
+        s = ad.reshape(h // bsize, bsize, side, w // bsize, bsize) \
+            .sum((1, 4), dtype=torch.int32)                # (bh, side, bw)
+        vol.append(s.transpose(0, 1))
+    return torch.stack(vol).reshape(side * side, h // bsize, w // bsize)
+
+
+def _bits_of(v):
+    """Signed Exp-Golomb MV-component bit length (capability of
+    TComRdCost::xGetComponentBits): code number v<=0 ? -2v+1 : 2v."""
+    code = torch.where(v <= 0, ((-v) << 1) + 1, v << 1)
+    return 2 * floor_log2(code) + 1
+
+
+def _volume_best(vol, srange: int, lambda_sqrt, pred_mv_x, pred_mv_y):
+    """argmin + 3x3 stencil over a (D, By, Bx) SAD volume: cost =
+    float32(SAD) + float32(bits) * lambda_sqrt, ties to the first index
+    in row-major (dy, dx) order; the stencil clamps at the window edge.
+    Returns ((mvx, mvy), (By, Bx, 3, 3) stencil, best SAD)."""
+    r = srange
+    side = 2 * r + 1
+    dev = vol.device
+    lambda_sqrt = torch.as_tensor(lambda_sqrt, dtype=torch.float32,
+                                  device=dev)
+    d = torch.arange(side * side, device=dev)
+    dy = (d // side - r).to(torch.int32)
+    dx = (d % side - r).to(torch.int32)
+    mvq_x = (dx * 4)[:, None, None] - pred_mv_x[None]
+    mvq_y = (dy * 4)[:, None, None] - pred_mv_y[None]
+    mvcost = (_bits_of(mvq_x) + _bits_of(mvq_y)).to(torch.float32) \
+        * lambda_sqrt
+    cost = vol.to(torch.float32) + mvcost
+    by, bx = vol.shape[1], vol.shape[2]
+    best = cost.reshape(side * side, -1).argmin(0).reshape(by, bx)
+    best_dy = best // side
+    best_dx = best % side
+    off = torch.arange(-1, 2, device=dev)
+    oy = torch.clamp(best_dy[..., None, None] + off[None, None, :, None],
+                     0, side - 1)
+    ox = torch.clamp(best_dx[..., None, None] + off[None, None, None, :],
+                     0, side - 1)
+    flat = oy * side + ox                                  # (By, Bx, 3, 3)
+    volt = vol.permute(1, 2, 0)
+    iy = torch.arange(by, device=dev)[:, None, None, None]
+    ix = torch.arange(bx, device=dev)[None, :, None, None]
+    stencil = volt[iy, ix, flat]
+    best_sad = volt[torch.arange(by, device=dev)[:, None],
+                    torch.arange(bx, device=dev)[None, :], best]
+    return (((best_dx - r).to(torch.int32), (best_dy - r).to(torch.int32)),
+            stencil, best_sad)
+
+
+def integer_me(ref, org, bsize: int, srange: int, lambda_sqrt,
+               pred_mv_x, pred_mv_y):
+    """Full-window integer ME for every aligned block of one size, with
+    a quarter-pel MV predictor in the motion cost (the one-level form,
+    for pictures whose sides are not multiples of 16).  Plain PyTorch
+    only: the card runs the three-level kernel."""
+    if ref.is_cuda:
+        raise NotImplementedError(
+            "hmtpu_torch: single-level integer ME on the card (pictures "
+            "with a side that is not a multiple of 16) is not ported yet "
+            "(ROADMAP.md B1)")
+    vol = integer_me_sad_volume(ref, org, bsize, srange)
+    return _volume_best(vol, srange, lambda_sqrt, pred_mv_x, pred_mv_y)
+
+
+def integer_me_levels_plain(ref, org, srange: int, lambda_sqrt,
+                            qh: int, qw: int):
+    """Plain version of K5: integer ME for the 8/16/32 CU levels from
+    ONE 8x8 SAD volume (a larger block's SAD is the sum of its 8x8
+    cells'); qh/qw are the padded 32-grid dims, whose strip lanes sum
+    zeros.  Returns {8: ((mvx, mvy), stencil, sad), 16: ..., 32: ...}."""
+    bh, bw = org.shape[0] // 8, org.shape[1] // 8
+    gh, gw = bh // 2, bw // 2
+    d = (2 * srange + 1) ** 2
+    vol8 = integer_me_sad_volume(ref, org, 8, srange)
+    vol16 = vol8.reshape(d, gh, 2, gw, 2).sum((2, 4), dtype=torch.int32)
+    vol32 = torch.nn.functional.pad(vol16, (0, qw * 2 - gw, 0, qh * 2 - gh))
+    vol32 = vol32.reshape(d, qh, 2, qw, 2).sum((2, 4), dtype=torch.int32)
+    z = lambda a, b: torch.zeros((a, b), dtype=torch.int32,
+                                 device=ref.device)
+    return {
+        8: _volume_best(vol8, srange, lambda_sqrt, z(bh, bw), z(bh, bw)),
+        16: _volume_best(vol16, srange, lambda_sqrt, z(gh, gw), z(gh, gw)),
+        32: _volume_best(vol32, srange, lambda_sqrt, z(qh, qw), z(qh, qw)),
+    }
+
+
+# the ME window is staged in shared memory: (32 + 2 * srange)^2 samples
+ME_MAX_SRANGE = 64
+
+
+def integer_me_levels(ref, org, srange: int, lambda_sqrt, qh: int, qw: int):
+    """K5 on CUDA planes, its plain version on CPU ones.  ref, org:
+    (H, W) int32, H and W multiples of 16; lambda_sqrt a float32 number.
+    Same return value as `integer_me_levels_plain`."""
+    if not ref.is_cuda:
+        return integer_me_levels_plain(ref, org, srange, lambda_sqrt, qh, qw)
+    h, w = org.shape
+    if h % 16 or w % 16 or ref.shape != org.shape:
+        raise ValueError(f"me_sad: planes must match and be multiples of "
+                         f"16, got {tuple(ref.shape)} / {tuple(org.shape)}")
+    if not 0 <= srange <= ME_MAX_SRANGE:
+        raise ValueError(f"me_sad: search range up to {ME_MAX_SRANGE}, got "
+                         f"{srange}")
+    bh, bw = h // 8, w // 8
+    gh, gw = bh // 2, bw // 2
+    if qh != (gh + 1) // 2 or qw != (gw + 1) // 2:
+        raise ValueError("me_sad: qh/qw must be the ceil 32-grid")
+    i32 = lambda a: a.to(torch.int32).contiguous()
+    dev = ref.device
+    # per lane: mvx, mvy, best SAD, the 3x3 stencil
+    o8 = torch.empty((bh * bw, 12), dtype=torch.int32, device=dev)
+    o16 = torch.empty((gh * gw, 12), dtype=torch.int32, device=dev)
+    o32 = torch.empty((qh * qw, 12), dtype=torch.int32, device=dev)
+    kernels.launch("me_sad", "hm_me_sad_levels", i32(ref), i32(org), o8, o16,
+                   o32, h, w, srange, float(lambda_sqrt))
+
+    def unpack(o, a, b):
+        return ((o[:, 0].reshape(a, b), o[:, 1].reshape(a, b)),
+                o[:, 3:].reshape(a, b, 3, 3), o[:, 2].reshape(a, b))
+
+    return {8: unpack(o8, bh, bw), 16: unpack(o16, gh, gw),
+            32: unpack(o32, qh, qw)}
+
+
+# ---------------------------------------------------------------------------
+# SATD (K8)
+
+def hadamard_matrix(n: int) -> np.ndarray:
+    h = np.array([[1]], dtype=np.int64)
+    while h.shape[0] < n:
+        h = np.block([[h, h], [h, -h]])
+    return h
+
+
+_H8: dict = {}
+
+
+def satd_batch_plain(a, b, bsize: int):
+    """Plain version of K8: HM's 8x8 Hadamard SATD (xCalcHADs8x8,
+    (sum|H D H| + 2) >> 2) summed over the 8x8 tiles of each block."""
+    dev = a.device
+    h8 = _H8.get(str(dev))
+    if h8 is None:
+        h8 = _H8[str(dev)] = torch.as_tensor(hadamard_matrix(8)).to(dev)
+    d = (a - b).to(torch.int64)
+    nb = bsize // 8
+    B = d.shape[0]
+    d = d.reshape(B, nb, 8, nb, 8).permute(0, 1, 3, 2, 4)
+    t = (h8[:, :, None] * d[..., None, :, :]).sum(-2)          # H @ D
+    t = (t[..., :, :, None] * h8[None, :, :]).sum(-2)          # (H D) @ H
+    s = t.abs().sum((-1, -2))
+    return ((s + 2) >> 2).sum((1, 2)).to(torch.int32)
+
+
+def satd_batch(a, b, bsize: int):
+    """(B, n, n) int32 pairs -> (B,) int32 SATD: K8 on CUDA tensors, the
+    plain version on CPU ones."""
+    if not a.is_cuda:
+        return satd_batch_plain(a, b, bsize)
+    if bsize % 8 or bsize > 64 or a.shape != b.shape \
+            or tuple(a.shape[1:]) != (bsize, bsize):
+        raise ValueError(f"satd8: expected (B, {bsize}, {bsize}) pairs, got "
+                         f"{tuple(a.shape)} / {tuple(b.shape)}")
+    i32 = lambda x: x.to(torch.int32).contiguous()
+    B = int(a.shape[0])
+    out = torch.empty((B,), dtype=torch.int32, device=a.device)
+    if B:
+        kernels.launch("satd8", "hm_satd8", i32(a), i32(b), out, B, bsize)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# motion-field coherence (B4: plain PyTorch on every device)
+
+def _block_sad_int(refs, ridx, mvx, mvy, org_blk, bw, bh):
+    """SAD of every 8x8 block against its (integer-pel mvx, mvy) into
+    its selected reference; shapes (bh, bw), float32 out."""
+    _, hh, ww = refs.shape
+    dev = refs.device
+    ar8 = torch.arange(8, device=dev)
+    y0 = torch.arange(bh, device=dev)[:, None] * 8
+    x0 = torch.arange(bw, device=dev)[None, :] * 8
+    yy = torch.clamp(y0[:, :, None, None] + mvy[:, :, None, None]
+                     + ar8[None, None, :, None], 0, hh - 1)
+    xx = torch.clamp(x0[:, :, None, None] + mvx[:, :, None, None]
+                     + ar8[None, None, None, :], 0, ww - 1)
+    pred = refs[ridx.to(torch.int64)[:, :, None, None], yy.to(torch.int64),
+                xx.to(torch.int64)]
+    return (org_blk - pred).abs().sum((-1, -2)).to(torch.float32)
+
+
+def mv_bits_dev_f(vx, vy):
+    """Full-pel mvd bit estimate (quarter-pel scaled)."""
+    def bl(v):
+        a = (v * 4).abs()
+        return torch.where(a > 0, floor_log2(a) + 1, 0)
+
+    return (2 * bl(vx) + 2 * bl(vy) + 2).to(torch.float32)
+
+
+def regularize_mv_field(refs, org_y, mvx, mvy, ridx, lam_sqrt,
+                        iters: int = 3):
+    """Motion-field coherence pass: each block re-picks its (mv, ref)
+    among {self, its 4 neighbours, zero} minimising SAD + lam_sqrt *
+    bits, where a candidate equal to a current neighbour costs 2 bits
+    and another pays its mvd bits against the left neighbour.  Jacobi
+    iterations; the neighbour shift wraps around the picture edge, as
+    the reference's `roll` does.  mv in full pel, (bh, bw)."""
+    bh, bw = mvx.shape
+    org_blk = org_y.reshape(bh, 8, bw, 8).transpose(1, 2)
+
+    def shift(a, dy, dx):
+        return torch.roll(a, (dy, dx), (0, 1))
+
+    for _ in range(iters):
+        nbs = [(shift(mvx, dy, dx), shift(mvy, dy, dx),
+                shift(ridx, dy, dx))
+               for dy, dx in ((0, 1), (0, -1), (1, 0), (-1, 0))]
+        cands = [(mvx, mvy, ridx)] + nbs \
+            + [(torch.zeros_like(mvx), torch.zeros_like(mvy),
+                torch.zeros_like(ridx))]
+        costs = []
+        for cx, cy, cr in cands:
+            sad = _block_sad_int(refs, cr, cx, cy, org_blk, bw, bh)
+            eq = torch.zeros(mvx.shape, dtype=torch.bool, device=mvx.device)
+            for nx, ny, nr in nbs:
+                eq = eq | ((cx == nx) & (cy == ny) & (cr == nr))
+            mvd = mv_bits_dev_f(cx - nbs[1][0], cy - nbs[1][1])
+            bits = torch.where(eq, 2.0, mvd + 1.0)
+            costs.append(sad + lam_sqrt * bits)
+        best = torch.stack(costs).argmin(0)[None]
+        mvx = torch.gather(torch.stack([c[0] for c in cands]), 0, best)[0]
+        mvy = torch.gather(torch.stack([c[1] for c in cands]), 0, best)[0]
+        ridx = torch.gather(torch.stack([c[2] for c in cands]), 0, best)[0]
+    return mvx, mvy, ridx

@@ -1,6 +1,6 @@
-"""Static z-scan schedules over the block grid, copied from
-hmtpu/search/wavefront.py:44-284 (that module loads jax, so the port
-keeps its own copy of the numpy builders).
+"""Static z-scan schedules over the block grid and the device merge /
+AMVP candidate derivations: the port of hmtpu/search/wavefront.py
+(the numpy builders :44-284, copied, and the device half :285-687).
 
 The z-scan dependency DAG over the uniform 8x8 block grid is levelised
 once per geometry: every block of one level can be decided at once,
@@ -9,14 +9,19 @@ neighbours) was written by earlier levels.  Also here: the per-block
 substituted reference-line gather maps (8.4.4.2.2 collapses to a
 constant gather because availability is geometric).
 
-The device derivations of that module (merge/AMVP candidates) come with
-the P-slice slice of the port.
+Device derivations (plain PyTorch on the pass's device; B10 in
+ROADMAP.md queues their hand kernel): the P-slice merge list
+(8.5.3.1.2 with the temporal candidate), the AMVP list (8.5.3.1.5/6)
+with POC-distance scaling (8.5.3.1.3), the collocated candidate grid
+(8.5.3.2.8) and the MVD bit estimate.  The B-slice forms (`_b`) come
+with the random-access slice of the port.
 """
 from __future__ import annotations
 
 from functools import lru_cache
 
 import numpy as np
+import torch
 
 # neighbour slot order used throughout: [A1, B1, B0, A0, B2]
 # block-grid offsets (dy, dx) of the 8x8 block containing each sample
@@ -259,3 +264,236 @@ def static_ref_gather(w: int, h: int, log2_ctu: int, n: int):
                 src = np.where(src == 0, first, src)
             out[p] = raw[src]
     return out, none
+
+
+# ---------------------------------------------------------------------------
+# device derivations
+
+def _first(flags, *vals):
+    """Select per row the first slot whose flag is set.  flags (B, K);
+    vals each (B, K).  Returns (found (B,), picked values...)."""
+    found = flags.any(1)
+    idx = flags.to(torch.int32).argmax(1)[:, None]
+    return (found,) + tuple(torch.gather(v, 1, idx)[:, 0] for v in vals)
+
+
+def merge_candidates_dev(nb_valid, nb_mvx, nb_mvy, nb_ref,
+                         num_ref: int, max_merge: int,
+                         t_ok=None, t_mvx=None, t_mvy=None,
+                         n_active=None):
+    """Vectorised merge list (8.5.3.1.2, P slice).
+
+    nb_* are (B, 5) in slot order [A1, B1, B0, A0, B2]; nb_valid already
+    folds z-scan availability AND inter-coded-ness of the neighbour.
+    t_* ((B,) or None): the collocated temporal candidate (8.5.3.2.8),
+    already scaled to reference 0 -- appended after the spatial
+    candidates with refIdx 0, never pruned against them.  n_active (host
+    int) bounds the zero-fill's reference indices when the stack is
+    padded.  Returns (cand_mvx, cand_mvy, cand_ref) each (B, max_merge)."""
+    v = nb_valid
+
+    def same(i, j):
+        return v[:, i] & v[:, j] & (nb_mvx[:, i] == nb_mvx[:, j]) \
+            & (nb_mvy[:, i] == nb_mvy[:, j]) & (nb_ref[:, i] == nb_ref[:, j])
+
+    incl = [v[:, SLOT_A1],
+            v[:, SLOT_B1] & ~same(SLOT_B1, SLOT_A1),
+            v[:, SLOT_B0] & ~same(SLOT_B0, SLOT_B1),
+            v[:, SLOT_A0] & ~same(SLOT_A0, SLOT_A1)]
+    cnt4 = sum(f.to(torch.int32) for f in incl)
+    incl.append(v[:, SLOT_B2] & ~same(SLOT_B2, SLOT_A1)
+                & ~same(SLOT_B2, SLOT_B1) & (cnt4 < 4))
+    mvx_slots, mvy_slots, ref_slots = nb_mvx, nb_mvy, nb_ref
+    if t_ok is not None:
+        incl.append(t_ok)
+        mvx_slots = torch.cat([nb_mvx, t_mvx[:, None]], 1)
+        mvy_slots = torch.cat([nb_mvy, t_mvy[:, None]], 1)
+        ref_slots = torch.cat([nb_ref, torch.zeros_like(t_mvx)[:, None]], 1)
+    incl = torch.stack(incl, 1)                        # (B, 5|6)
+    inci = incl.to(torch.int32)
+    pos = torch.cumsum(inci, 1) - inci
+    # dump lane: excluded slots AND included ones past the list cap
+    target = torch.where(incl & (pos < max_merge), pos, max_merge) \
+        .to(torch.int64)
+    b = nb_mvx.shape[0]
+    rows = torch.arange(b, device=nb_mvx.device)[:, None]
+
+    def scatter(vals):
+        out = torch.zeros((b, max_merge + 1), dtype=vals.dtype,
+                          device=vals.device)
+        out[rows, target] = vals
+        return out[:, :max_merge]
+
+    cand_mvx = scatter(mvx_slots)
+    cand_mvy = scatter(mvy_slots)
+    cand_ref = scatter(ref_slots)
+    n_spatial = inci.sum(1)                            # (B,)
+
+    k = torch.arange(max_merge, device=nb_mvx.device)[None, :]
+    fill = k >= n_spatial[:, None]
+    fill_ref = k - n_spatial[:, None]
+    # the decoder builds the zero-fill with numRefIdx = the ACTIVE count
+    limit = num_ref if n_active is None else n_active
+    fill_ref = torch.where(fill_ref < limit, fill_ref, 0)
+    cand_mvx = torch.where(fill, 0, cand_mvx)
+    cand_mvy = torch.where(fill, 0, cand_mvy)
+    cand_ref = torch.where(fill, fill_ref.to(cand_ref.dtype), cand_ref)
+    return cand_mvx, cand_mvy, cand_ref
+
+
+def _scale_mv_dev(mvx, mvy, tb, td):
+    """8.5.3.1.3 distance scaling, C-truncation division semantics."""
+    abs_td = td.abs()
+    num = 16384 + (abs_td >> 1)
+    tx = torch.where(td > 0, num // torch.clamp(td, min=1),
+                     -(num // torch.clamp(abs_td, min=1)))
+    dsf = torch.clamp((tb * tx + 32) >> 6, -4096, 4095)
+
+    def s(v):
+        p = dsf * v
+        m = (p.abs() + 127) >> 8
+        return torch.clamp(torch.where(p >= 0, m, -m), -32768, 32767)
+
+    keep = td == tb
+    return (torch.where(keep, mvx, s(mvx)).to(torch.int32),
+            torch.where(keep, mvy, s(mvy)).to(torch.int32))
+
+
+def amvp_candidates_dev(nb_valid, nb_mvx, nb_mvy, nb_refpoc,
+                        target_poc, cur_poc,
+                        t_ok=None, t_mvx=None, t_mvy=None):
+    """Vectorised AMVP list (8.5.3.1.5/6), P slice.
+    nb_* (B, 5) slot order [A1, B1, B0, A0, B2]; nb_refpoc is the POC
+    of the neighbour's L0 reference picture; target_poc the POC of the
+    block's own reference, (B,) tensor.  t_* ((B,) or None): the
+    collocated candidate already scaled to the block's reference,
+    appended unpruned when fewer than two spatial candidates survive.
+    Returns (mvp0x, mvp0y, mvp1x, mvp1y) each (B,)."""
+    target_poc = target_poc[:, None]
+    tb = cur_poc - target_poc
+    smvx, smvy = _scale_mv_dev(nb_mvx, nb_mvy, tb, cur_poc - nb_refpoc)
+    unscaled_ok = nb_valid & (nb_refpoc == target_poc)
+    return _amvp_assemble(nb_valid, unscaled_ok, nb_mvx, nb_mvy,
+                          smvx, smvy, t_ok, t_mvx, t_mvy)
+
+
+def _amvp_assemble(nb_valid, unscaled_ok, nb_mvx, nb_mvy, smvx, smvy,
+                   t_ok, t_mvx, t_mvy):
+    a_slots = (SLOT_A0, SLOT_A1)
+    b_slots = (SLOT_B0, SLOT_B1, SLOT_B2)
+
+    def group(slots, flags, mx, my):
+        f = torch.stack([flags[:, s] for s in slots], 1)
+        gx = torch.stack([mx[:, s] for s in slots], 1)
+        gy = torch.stack([my[:, s] for s in slots], 1)
+        return _first(f, gx, gy)
+
+    a_u_found, a_u_x, a_u_y = group(a_slots, unscaled_ok, nb_mvx, nb_mvy)
+    a_s_found, a_s_x, a_s_y = group(a_slots, nb_valid, smvx, smvy)
+    found_a = a_u_found | a_s_found
+    mv_a_x = torch.where(a_u_found, a_u_x, a_s_x)
+    mv_a_y = torch.where(a_u_found, a_u_y, a_s_y)
+    a_has_inter = nb_valid[:, SLOT_A0] | nb_valid[:, SLOT_A1]
+
+    b_u_found, b_u_x, b_u_y = group(b_slots, unscaled_ok, nb_mvx, nb_mvy)
+    b_s_found, b_s_x, b_s_y = group(b_slots, nb_valid, smvx, smvy)
+
+    # isScaledFlagLX == 0: B's same-POC candidate moves into the A slot
+    # and B re-derives with scaling allowed (8.5.3.1.6)
+    mv_a_x = torch.where(a_has_inter, mv_a_x, b_u_x)
+    mv_a_y = torch.where(a_has_inter, mv_a_y, b_u_y)
+    found_a2 = torch.where(a_has_inter, found_a, b_u_found)
+    mv_b_x = torch.where(a_has_inter, b_u_x, b_s_x)
+    mv_b_y = torch.where(a_has_inter, b_u_y, b_s_y)
+    found_b = torch.where(a_has_inter, b_u_found, b_s_found)
+
+    dup = found_a2 & found_b & (mv_a_x == mv_b_x) & (mv_a_y == mv_b_y)
+    found_b = found_b & ~dup
+
+    # assemble [a?, b?, t?, (0,0)...]
+    if t_ok is None:
+        t_ok = torch.zeros(nb_valid.shape[:1], dtype=torch.bool,
+                           device=nb_valid.device)
+        t_mvx = t_mvy = torch.zeros(nb_valid.shape[:1], dtype=torch.int32,
+                                    device=nb_valid.device)
+    mvp0x = torch.where(found_a2, mv_a_x,
+                        torch.where(found_b, mv_b_x,
+                                    torch.where(t_ok, t_mvx, 0)))
+    mvp0y = torch.where(found_a2, mv_a_y,
+                        torch.where(found_b, mv_b_y,
+                                    torch.where(t_ok, t_mvy, 0)))
+    second_is_b = found_a2 & found_b
+    second_is_t = ~second_is_b & (found_a2 | found_b) & t_ok
+    mvp1x = torch.where(second_is_b, mv_b_x,
+                        torch.where(second_is_t, t_mvx, 0))
+    mvp1y = torch.where(second_is_b, mv_b_y,
+                        torch.where(second_is_t, t_mvy, 0))
+    i32 = lambda a: a.to(torch.int32)
+    return i32(mvp0x), i32(mvp0y), i32(mvp1x), i32(mvp1y)
+
+
+def scale_mv_pair_dev(mvx, mvy, tb, td):
+    """Public 8.5.3.1.3 scaling with the temporal-MVP tb/td clipping
+    (8.5.3.2.8); identity when td == tb pre-clip like the reference."""
+    keep = td == tb
+    sx, sy = _scale_mv_dev(mvx, mvy, torch.clamp(tb, -128, 127),
+                           torch.clamp(td, -128, 127))
+    return (torch.where(keep, mvx, sx).to(torch.int32),
+            torch.where(keep, mvy, sy).to(torch.int32))
+
+
+def temporal_cand_grid_dev(col_mvx, col_mvy, col_ok, col_refpoc,
+                           n: int, w: int, h: int, log2_ctu: int,
+                           gw: int = None, gh: int = None):
+    """Raw collocated candidate for every n x n block of the picture
+    (8.5.3.2.8, position derivation only -- scaling is the caller's,
+    since merge targets ref 0 while AMVP targets the block's own ref).
+
+    col_* are the collocated picture's motion on the 8x8 block grid
+    (bh, bw); the spec's 16x16 compression is the index rounding
+    (x >> 4) << 4, i.e. the even 8x8 cell of each 16x16 region.
+    Returns (t_ok, t_mvx, t_mvy, t_refpoc), each flat (P,) over the
+    n-grid in raster order.  gw/gh override the grid dims for padded
+    grids (the 32-level's ceil grid); lanes outside the picture read
+    clamped col data and must be masked by the caller."""
+    if gw is None:
+        gw, gh = w // n, h // n
+    bw, bh = w // 8, h // 8
+    dev = col_mvx.device
+    bidx = torch.arange(gw * gh, device=dev)
+    x0 = (bidx % gw) * n
+    y0 = (bidx // gw) * n
+    ok_f, mx_f = col_ok.reshape(-1), col_mvx.reshape(-1)
+    my_f, rp_f = col_mvy.reshape(-1), col_refpoc.reshape(-1)
+
+    def at(xs, ys):
+        byi = torch.clamp((ys >> 4) * 2, max=bh - 1)
+        bxi = torch.clamp((xs >> 4) * 2, max=bw - 1)
+        fl = byi * bw + bxi
+        return ok_f[fl], mx_f[fl], my_f[fl], rp_f[fl]
+
+    xbr, ybr = x0 + n, y0 + n
+    br_in = (xbr < w) & (ybr < h) \
+        & ((y0 >> log2_ctu) == (ybr >> log2_ctu))
+    ok_br, mx_br, my_br, rp_br = at(torch.clamp(xbr, max=w - 1),
+                                    torch.clamp(ybr, max=h - 1))
+    ok_br = ok_br & br_in
+    ok_ct, mx_ct, my_ct, rp_ct = at(x0 + n // 2, y0 + n // 2)
+    use_br = ok_br
+    t_ok = ok_br | ok_ct
+    t_mvx = torch.where(use_br, mx_br, mx_ct).to(torch.int32)
+    t_mvy = torch.where(use_br, my_br, my_ct).to(torch.int32)
+    t_refpoc = torch.where(use_br, rp_br, rp_ct).to(torch.int32)
+    return t_ok, t_mvx, t_mvy, t_refpoc
+
+
+def mv_bits_dev(vx, vy):
+    """Signed Exp-Golomb MVD bit estimate matching pframe.mvd_bits_of:
+    2*bit_length(|vx|) + 2*bit_length(|vy|) + 2."""
+    from hmtpu_torch.ops.ratebits import floor_log2
+
+    def bl(v):
+        a = v.abs()
+        return torch.where(a > 0, floor_log2(a) + 1, 0)
+
+    return 2 * bl(vx) + 2 * bl(vy) + 2

@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels of hmtpu_torch against their plain
-PyTorch versions, on the card.  Every kernel is integer, so every
-output must be equal.  Skips where there is no CUDA card; on the card:
+PyTorch versions, on the card.  Every output must be equal: the
+kernels are integer, except NN-FME's (K6), whose kernel and plain
+version round every float32 product and sum in the same order.  Skips
+where there is no CUDA card; on the card:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -154,4 +156,115 @@ def test_encode_card_equals_cpu(dev):
         enc = Encoder(EncoderConfig(width=64, height=64, qp=37, gop="ai",
                                     subpel="none"), device=d)
         out.append(enc.encode_sequence([frame]))
+    assert out[0] == out[1]
+
+
+def _textured(rng, h, w):
+    """A smooth picture with texture, and a shifted, noisy copy of it."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    org = 128 + 50 * np.sin(xx / 7.0) * np.cos(yy / 5.0) \
+        + rng.randint(-20, 21, (h, w))
+    ref = np.roll(org, (5, -9), (0, 1)) + rng.randint(-4, 5, (h, w))
+    return np.clip(org, 0, 255), np.clip(ref, 0, 255)
+
+
+@pytest.mark.parametrize("h,w,srange", [(64, 64, 8), (48, 80, 8),
+                                        (240, 416, 64), (48, 80, 64)])
+def test_me_sad_kernel(dev, h, w, srange):
+    from hmtpu_torch.search import me
+
+    rng = np.random.RandomState(h + srange)
+    org, ref = (_i32(a, dev) for a in _textured(rng, h, w))
+    qh, qw = (h // 16 + 1) // 2, (w // 16 + 1) // 2
+    for lam in (np.float32(0.0), np.float32(7.3)):
+        got = _launched("me_sad", lambda: me.integer_me_levels(
+            ref, org, srange, lam, qh, qw))
+        want = me.integer_me_levels_plain(ref, org, srange, lam, qh, qw)
+        for n in (8, 16, 32):
+            (gx, gy), gst, gsad = got[n]
+            (wx, wy), wst, wsad = want[n]
+            for g, wnt in ((gx, wx), (gy, wy), (gst, wst), (gsad, wsad)):
+                assert torch.equal(g, wnt), n
+    # a flat picture: every displacement ties, the first index wins
+    flat = torch.full((h, w), 90, dtype=torch.int32, device=dev)
+    got = _launched("me_sad", lambda: me.integer_me_levels(
+        flat, flat, srange, np.float32(0.0), qh, qw))
+    assert bool((got[32][0][0] == -srange).all())
+
+
+@pytest.mark.parametrize("qp", [22, 37])
+def test_nnfme_kernel(dev, qp):
+    from hmtpu_torch.models import nnfme
+
+    rng = np.random.RandomState(qp)
+    params = nnfme.load_npz(f"{nnfme.WEIGHTS_DIR}/qp{qp}.npz", dev)
+    for nb in (1, 129, 1560):
+        base = rng.randint(200, 6000, (nb, 1))
+        costs = torch.as_tensor((base + rng.randint(0, 900, (nb, 9)))
+                                .astype(np.float32)).to(dev)
+        sizes = _i32(rng.choice([8, 12, 16, 24, 32], nb), dev)
+        got = _launched("nnfme", lambda: nnfme.forward(params, costs, sizes,
+                                                       sizes))
+        want = nnfme.forward_plain(params, costs, sizes, sizes)
+        assert torch.equal(got, want)
+        cls, offs = _launched("nnfme", lambda: nnfme.predict_offsets(
+            params, costs, sizes, sizes))
+        wc, wo = nnfme._classes(want)
+        assert torch.equal(cls, wc) and torch.equal(offs, wo)
+
+
+@pytest.mark.parametrize("chroma,n", [(False, 8), (False, 16), (False, 32),
+                                      (True, 4), (True, 8), (True, 16)])
+def test_mc_dctif_kernel(dev, chroma, n):
+    from hmtpu_torch.ops import interp
+
+    rng = np.random.RandomState(n + 50 * chroma)
+    h, w = (120, 208) if chroma else (240, 416)
+    refs = _i32(rng.randint(0, 256, (4, h, w)), dev)
+    nb = (h // n) * (w // n)
+    q = np.arange(nb)
+    xs, ys = (q % (w // n)) * n, (q // (w // n)) * n
+    span = 4 * (n + 24)
+    mvx, mvy = rng.randint(-span, span, (2, nb))
+    mvx[:64], mvy[:64] = np.arange(64) - 32, (np.arange(64) * 5) % 64 - 32
+    args = [_i32(a, dev) for a in (rng.randint(0, 4, nb), xs, ys, mvx, mvy)]
+    got = _launched("mc_dctif", lambda: interp.mc_batch(
+        refs, *args, n, n, chroma))
+    assert torch.equal(got, interp.mc_batch_plain(refs, *args, n, n, chroma))
+
+
+@pytest.mark.parametrize("n", [8, 16, 32])
+def test_satd_kernel(dev, n):
+    from hmtpu_torch.search import me
+
+    rng = np.random.RandomState(n)
+    for nb in (1, 390, 1560):
+        a = rng.randint(0, 256, (nb, n, n))
+        b = _i32(np.clip(a + rng.randint(-40, 41, a.shape), 0, 255), dev)
+        a = _i32(a, dev)
+        got = _launched("satd8", lambda: me.satd_batch(a, b, n))
+        assert torch.equal(got, me.satd_batch_plain(a, b, n))
+
+
+def test_ldp_encode_card_equals_cpu(dev):
+    """Four 64x64 pictures through the low-delay-P path with NN-FME on
+    the card and on the CPU: the same bytes."""
+    from hmtpu_torch.encoder.top import Encoder, EncoderConfig
+    from hmtpu_torch.io.yuv import Frame
+
+    rng = np.random.RandomState(5)
+    yy, xx = np.mgrid[0:64, 0:64]
+    frames = []
+    for t in range(4):
+        y = 128 + 60 * np.sin((xx + 2 * t) / 9.0) * np.cos((yy - t) / 7.0) \
+            + rng.randint(-3, 4, (64, 64))
+        u = np.full((32, 32), 120) + rng.randint(-2, 3, (32, 32))
+        v = np.full((32, 32), 136) + rng.randint(-2, 3, (32, 32))
+        frames.append(Frame(*(np.clip(a, 0, 255).astype(np.uint8)
+                              for a in (y, u, v)), 8))
+    out = []
+    for d in (dev, "cpu"):
+        enc = Encoder(EncoderConfig(width=64, height=64, qp=27, gop="ldp",
+                                    subpel="nn", search_range=8), device=d)
+        out.append(enc.encode_sequence(frames))
     assert out[0] == out[1]

@@ -1,6 +1,6 @@
 """hmtpu_torch's boundaries: it loads neither JAX nor hmtpu, it never
-falls back to the CPU on its own, and options outside the all-intra
-slice say which ROADMAP.md item brings them."""
+falls back to the CPU on its own, and options outside the all-intra and
+low-delay-P slices say which ROADMAP.md item brings them."""
 import os
 import shutil
 import subprocess
@@ -26,7 +26,7 @@ def _python(code_or_args, cwd=ROOT, env_extra=None):
 
 def test_imports_neither_jax_nor_hmtpu():
     code = """
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 import hmtpu_torch
 import hmtpu_torch.encoder.top
 import chip_smoke
@@ -34,6 +34,18 @@ names = [m.name for m in pkgutil.walk_packages(hmtpu_torch.__path__,
                                                "hmtpu_torch.")]
 for n in names:
     importlib.import_module(n)
+for n in ("hmtpu_torch.search.me", "hmtpu_torch.models.nnfme",
+          "hmtpu_torch.ops.interp", "hmtpu_torch.encoder.pframe_dev",
+          "hmtpu_torch.common.motion", "hmtpu_torch.entropy.inter_syntax"):
+    assert n in names, n
+# the NN-FME weights load from the port's own data files
+from hmtpu_torch.encoder.top import Encoder, EncoderConfig
+from hmtpu_torch.models import nnfme
+for qp in (22, 27, 32, 37):
+    p = Encoder._load_nn(EncoderConfig(qp=qp), "cpu")
+    ref = nnfme.load_npz(f"{nnfme.WEIGHTS_DIR}/qp{qp}.npz")
+    assert all(bool((a == b).all()) for a, b in zip(p, ref))
+assert nnfme.WEIGHTS_DIR.startswith(os.path.dirname(hmtpu_torch.__file__))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "hmtpu" or m.startswith("hmtpu."))
@@ -56,10 +68,14 @@ def test_no_card_raises_without_fallback(monkeypatch):
         resolve("meta")
 
 
+# LDP (ROADMAP.md A2) runs; its default sub-pel arm, DCT-IF, is A16
 @pytest.mark.parametrize("opt,item", [
-    (dict(gop="ldp"), "A2"), (dict(transform_skip=True), "A14"),
+    pytest.param(dict(gop="ldp"), "A16", id="opt0-A2"),
+    (dict(transform_skip=True), "A14"),
     (dict(bit_depth=10), "A15"), (dict(target_kbps=500.0), "A16"),
-    (dict(wpp=True), "A16"), (dict(wavefront=False), "ROADMAP.md")])
+    (dict(wpp=True), "A16"), (dict(wavefront=False), "ROADMAP.md"),
+    (dict(gop="ra"), "A17"),
+    (dict(gop="ldp", subpel="nn", decision="jacobi"), "never ported")])
 def test_options_outside_the_slice_raise(opt, item):
     with pytest.raises(NotImplementedError, match=item):
         Encoder(EncoderConfig(**opt), device="cpu")
@@ -79,10 +95,19 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
 
 def test_kernel_launch_takes_only_int32_cuda_tensors():
     """The launcher checks its tensors before it builds or calls
-    anything: a CPU tensor or another dtype never reaches a kernel."""
+    anything: only int32 or float32 tensors, contiguous and on one CUDA
+    device, reach a kernel; a CPU tensor or another dtype never does."""
     from hmtpu_torch import kernels
 
     x = torch.zeros(16, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.launch("sao_apply", "hm_sao_apply", x, x, x, 4, 4, 4, 8)
+    f = torch.zeros((4, 9), dtype=torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.launch("nnfme", "hm_nnfme", f, f, x, x, f, x, x, 4)
+    with pytest.raises(TypeError, match="int32 or torch.float32"):
+        kernels.launch("nnfme", "hm_nnfme", f.double(), f, x, x, f, x, x, 4)
+    with pytest.raises(TypeError, match="int32 or torch.float32"):
+        kernels.launch("satd8", "hm_satd8", x.long(), x, x, 1, 8)
     assert kernels.COUNTS["sao_apply"] == 0
+    assert kernels.COUNTS["nnfme"] == kernels.COUNTS["satd8"] == 0
