@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port (hmtpu_torch) end to end on one GPU.
 
     python3 chip_smoke.py                 # the whole check, one card
-    python3 chip_smoke.py --profile DIR   # also trace one 64x64 frame
+    python3 chip_smoke.py --profile DIR   # also trace 64x64 frames
 
 Phases (any failure exits non-zero, and the result line is printed only
 when every phase passed):
@@ -9,33 +9,54 @@ when every phase passed):
   1. device    the card's name and power limit (nvidia-smi);
   2. build     nvcc for every kernel source in hmtpu_torch/csrc, one
                process per source, all started together;
-  3. kernels   each kernel (K1-K8) against its plain PyTorch version on
-               the same seeded inputs at the shapes the main paths give
-               it: they must be equal (K6's float32 logits too: kernel
-               and plain version round in the same order).  Each is
-               timed with CUDA events, beside its plain version, the
-               bound for its bytes and operations, and for the transform
-               a float64 torch.matmul yardstick; torch.profiler gives
-               each one's own device time;
+  3. kernels   each kernel (K1-K10 and K1's transform-skip mode) against
+               its plain PyTorch version on seeded inputs at the shapes
+               the main paths give it: they must be equal (the float32
+               outputs of K6 and K10 bit for bit: kernel and plain version
+               round in the same order).  Each is timed with CUDA events,
+               beside its plain version, the bound for its bytes and
+               operations, and for the transform a float64 torch.matmul
+               yardstick; torch.profiler gives each one's own device time;
   4. ldp       the main path: the low-delay-P encode with NN-FME
                (416x240, QP 22, GOP QP offsets 3/2/3/1, 4 references,
                search range 64, CTU 64, TMVP, RDOQ, SDH, deblocking and
                SAO) of 2 frames (an I and a P picture) of a seeded
                synthetic clip through Encoder.encode_sequence, every
                kernel count reset before and read after: each of K1-K8
-               must be > 0.  Seconds per frame, and for the P frame the
-               device pass apart from the host's finish + CABAC;
-               nvidia-smi samples the card's utilization meanwhile;
-  5. ai        the all-intra path (QP 32) on the first frame of the clip,
-               counts reset before and read after: K1-K4 must be > 0.
-               With --profile, one 64x64 AI frame and a 64x64 I + P pair
-               under torch.profiler (device operations and their time:
-               a 416x240 frame issues too many for the profiler);
-  6. parity    the AI frame through the port on the CPU (the plain
-               versions, in a worker process) must give the card's access
-               unit byte for byte; likewise a 64x64 AI clip of 2 frames
-               at QP 22 and 37, and a 64x64 LDP clip of 4 frames (1, 2
-               and 3 active references) at QP 22 and 37, search range 8.
+               and K10 must be > 0.  Seconds per frame, and for the P
+               frame the device pass apart from the host's finish +
+               CABAC; nvidia-smi samples the card's utilization meanwhile;
+  5. ldp_dctif the repo's anchor cfg (cfg/encoder_lowdelay_P_main.cfg,
+               transform skip on) with HM's DCT-IF sub-pel search
+               (--SubPel=dctif; BASELINE config 2) through the port's CLI
+               in process, QP 22, 2 frames of the same clip at 416x240,
+               counts reset before and read after: K1-K5, K7, K9, K10
+               and K1-TS must be > 0;
+  6. ai        cfg/encoder_intra_main.cfg as shipped (QP 32, transform
+               skip on, SDH off) on the clip's first frame through the
+               CLI: K1-K4, K10 and K1-TS must be > 0.  When the run has
+               passed FULL_AI_BEFORE_S seconds by then, this phase is
+               left out (the ldp_dctif I frame ran the same I pass with
+               transform skip at full width) and the parity jobs below
+               keep the 64x64 all-intra checks.  With --profile, a 64x64
+               AI frame (with K10, and with K10's plain version for
+               comparison) and a 64x64 LDP I + P pair under
+               torch.profiler (device operations and their time: a
+               416x240 frame issues too many for the profiler);
+  7. parity    the ai phase's stream through the same CLI on the CPU
+               (the plain versions, in a worker process) must equal the
+               card's byte for byte; likewise 64x64 AI clips of 2 frames
+               (transform skip off), 96x64 screen-content AI clips of 2
+               frames with transform skip, 64x64 LDP clips of 4 frames
+               (NN-FME; DCT-IF sub-pel with transform skip), each at QP
+               22 and 37, search range 8, and a 96x64 screen-content LDP
+               clip of 4 frames with DCT-IF sub-pel and transform skip at
+               QP 27.  On the screen-content clips some TB must have chosen
+               transform skip on the card (the I pass, or the P pass);
+  8. tally     meanwhile, untimed: the calls of the plain-torch queue-B
+               functions on the ldp phase's encode and the bytes of the
+               tensors they take and give (a bound for argument bytes
+               only).
 
 Imports nothing from hmtpu or JAX.  The last line of the output is
 {"ok": true, "device": {...}}.
@@ -49,6 +70,7 @@ import multiprocessing
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -62,6 +84,16 @@ PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
 W, H = 416, 240
 QP_AI, QP_LDP, SRANGE, LDP_FRAMES = 32, 22, 64, 2
+ROOT = os.path.dirname(os.path.abspath(__file__))
+LDP_CFG = os.path.join(ROOT, "cfg", "encoder_lowdelay_P_main.cfg")
+AI_CFG = os.path.join(ROOT, "cfg", "encoder_intra_main.cfg")
+# the full-width all-intra phase runs only while the check is within
+# this many seconds.  What follows it (the phase itself, the untimed
+# tally, the parity jobs, whose CPU side in the worker is the longest
+# chain) took about 230 s on the host of the first full run and may take
+# 1.9 times that on a slow host (the spread seen so far), about 440 s:
+# 600 s leaves that inside the 1200 s limit, 900 s would not
+FULL_AI_BEFORE_S = 600.0
 
 
 def fail(msg: str) -> None:
@@ -84,6 +116,27 @@ def synth_clip(width, height, frames, seed=42):
         v = 128 + 30 * np.cos((yy[::2, ::2] - t * 3) / 29.0)
         out.append(tuple(np.clip(p, 0, 255).astype(np.uint8)
                          for p in (y, u, v)))
+    return out
+
+
+def screen_clip(width, height, frames):
+    """Screen content where transform skip wins (the seed-11 generator of
+    the repo's transform-skip tests): coloured text-like strokes on a
+    flat background, drifting so P frames carry chroma residual."""
+    rng = np.random.RandomState(11)
+    marks = [(rng.randint(0, width // 2 - 8), rng.randint(0, height // 2 - 4),
+              rng.randint(3, 8)) for _ in range(40)]
+    out = []
+    for t in range(frames):
+        y = np.full((height, width), 90, np.uint8)
+        u = np.full((height // 2, width // 2), 100, np.uint8)
+        v = np.full((height // 2, width // 2), 150, np.uint8)
+        for x0, y0, ln in marks:
+            x = (x0 + t) % (width // 2 - 8)
+            u[y0:y0 + 2, x:x + ln] = 230
+            v[y0:y0 + 2, x:x + ln] = 40
+            y[2 * y0:2 * y0 + 4, 2 * x:2 * x + 2 * ln] = 200
+        out.append((y, u, v))
     return out
 
 
@@ -111,7 +164,8 @@ DEVICE_FN = {
     "deblock": "deblock_kernel", "sao_stats": "stats_kernel",
     "sao_apply": "apply_kernel", "me_sad": "me_kernel",
     "nnfme": "nnfme_kernel", "mc_dctif": "mc_kernel",
-    "satd8": "satd_kernel",
+    "satd8": "satd_kernel", "transform_skip": "transform_skip_kernel",
+    "frac_refine": "frac_kernel", "rdoq": "rdoq_kernel",
 }
 
 
@@ -172,6 +226,21 @@ def kernel_cases(dev):
                   io, ops,
                   lambda: torch.matmul(torch.matmul(
                       mat.T, coef.to(torch.float64)), mat)))
+
+    # K1, TS mode: the 4x4 chroma TBs of phase 1a (2 x 1560), residuals
+    # in, coefficients out; a shift per sample (the inverse, checked too,
+    # a shift, an add and a shift)
+    nts = 2 * (W // 8) * (H // 8)
+    rts = t32(rng.randint(-255, 256, (nts, 4, 4)))
+    dts = t32(rng.randint(-(1 << 15), 1 << 15, (nts, 4, 4)))
+    cases.append(("transform_skip",
+                  lambda: transform.transform_skip_fwd(rts, 4),
+                  lambda: transform.transform_skip_fwd_plain(rts, 4),
+                  2 * nts * 16 * 4, nts * 16,
+                  # the same function as one torch shift
+                  lambda: rts << transform.ts_shift(4, 8),
+                  [(lambda: transform.transform_skip_inv(dts, 4),
+                    lambda: transform.transform_skip_inv_plain(dts, 4))]))
 
     # K2: the rough mode decision at n=8, P = 1560 blocks of 416x240
     p8, n = (W // 8) * (H // 8), 8
@@ -234,7 +303,8 @@ def kernel_cases(dev):
                   lambda: sao.apply_sao_dev(y, params, 64, 8),
                   lambda: sao.apply_sao_plain(y, params, 64, 8),
                   (2 * H * W + nctu * 7) * 4, 12 * H * W, None))
-    return cases + inter_kernel_cases(dev, rng)
+    return cases + inter_kernel_cases(dev, rng) + slice3_kernel_cases(dev,
+                                                                       rng)
 
 
 def first_p_lambda_sqrt() -> np.float32:
@@ -367,6 +437,236 @@ def inter_kernel_cases(dev, rng):
     return cases
 
 
+def frac_work(refs, ridx, xs, ys, org, mvx, mvy, n):
+    """(distinct reference samples, operations) of HM's two-stage search
+    on these blocks.  Stage 1's half-pel winners come from the plain
+    version, so stage 2's filter work is what this data needs: per
+    candidate K7's multiply-adds (mc_work), and per 8x8 tile of each
+    SATD 64 differences, 2 x 8 rows of 24 butterfly operations, 64
+    absolute values and sums."""
+    from hmtpu_torch.ops import interp
+    from hmtpu_torch.search import me
+
+    _, h, w = refs.shape
+    k = torch.arange(n + 8, device=refs.device)[None, :]
+    py = torch.clamp(ys[:, None] + mvy[:, None] - 4 + k, 0, h - 1)
+    px = torch.clamp(xs[:, None] + mvx[:, None] - 4 + k, 0, w - 1)
+    key = ((ridx.to(torch.int64)[:, None, None] * h + py[:, :, None]) * w
+           + px[:, None, :])
+    samples = int(torch.unique(key).numel())
+    offs = torch.as_tensor(me._FRAC_OFFS, device=refs.device)
+    cx, cy = mvx * 4, mvy * 4
+    ops = 0
+    for step in (2, 1):
+        costs = []
+        for dy, dx in me._FRAC_OFFS:
+            qx, qy = cx + int(dx) * step, cy + int(dy) * step
+            ops += 2 * mc_work(refs, ridx, xs, ys, qx, qy, n, False)[1]
+            costs.append(me.satd_batch_plain(org, interp.mc_batch_plain(
+                refs, ridx, xs, ys, qx, qy, n, n, False), n))
+        best = torch.stack(costs, 1).argmin(1)
+        cx = cx + (offs[best, 1] * step).to(cx.dtype)
+        cy = cy + (offs[best, 0] * step).to(cy.dtype)
+    ops += 18 * xs.numel() * (n // 8) ** 2 * (64 + 2 * 8 * 24 + 128)
+    return samples, ops
+
+
+def rdoq_work(c, lev, qp, log2):
+    """Arithmetic operations K10 does on these TBs with the trellis and
+    SDH (the timed case), stage by stage as csrc/rdoq.cu runs them, the
+    data-dependent terms counted on this data (table reads, compares and
+    the SDH stage's repairs left out, so it is a lower bound):
+      load        |x|, two quantiser roundings (4 each), d0 (2): 11 per
+                  position;
+      last bits   per coordinate 2 x 30 multiply-adds and 2 adds;
+      stage 1     the zero level's cost (2) per position; one RD cost
+                  (11) and 2 minimums per rounded level > 0, a second RD
+                  cost per rounded level >= 2;
+      stage 2     2 adds per position, 4 per CG;
+      stage 3     11 per position;
+      guard       d + lambda * bits of two level sets: 5 per position
+                  each;
+      tb_bits     3 calls of 122 (last position) + 6 per CG, and 2 (sig
+                  and greater-1 bins) per non-zero level of the deadzone
+                  and of the final levels;
+      dequant     6 per position."""
+    from hmtpu_torch.ops import rdoq
+
+    qbits, scale, _, _ = rdoq._quant_params(qp, log2, 8)
+    a = c.abs().to(torch.int64)
+    m = torch.clamp((a * scale + (1 << (qbits - 1))) >> qbits, max=32767)
+    fb = torch.clamp((a * scale + (85 << (qbits - 9))) >> qbits, max=32767)
+    nb, npos = c.shape[0], 1 << (2 * log2)
+    ncg = npos // 16
+    per_tb = (11 + 2 + 2 + 11 + 10 + 6) * npos + 122 * (1 << log2) \
+        + 4 * ncg + 3 * (122 + 6 * ncg)
+    return int(nb * per_tb + 13 * (m > 0).sum() + 11 * (m >= 2).sum()
+               + 2 * (fb > 0).sum() + 2 * (lev != 0).sum())
+
+
+def slice3_kernel_cases(dev, rng):
+    """K9 and K10 at the shapes of the 416x240 P pass."""
+    from hmtpu_torch.common.constants import SliceType
+    from hmtpu_torch.common.lambdas import frame_lambdas
+    from hmtpu_torch.entropy.contexts import make_contexts
+    from hmtpu_torch.entropy.fracbits import ctx_bits_table
+    from hmtpu_torch.ops import quant, ratebits, rdoq, transform
+    from hmtpu_torch.search import me
+
+    t32 = lambda a: torch.as_tensor(np.asarray(a, np.int32)).to(dev)
+    clip = synth_clip(W, H, 5, seed=42)
+    cases = []
+
+    # K9: every block of a level (1560 8x8, 390 16x16, 104 32x32 of the
+    # edge-padded strip) against 4 stacked references, one each, integer
+    # MVs that reach past the picture's edges; 8x8 is timed
+    refs = t32(np.stack([f[0] for f in clip[:4]]))
+    org_p = np.pad(clip[4][0], ((0, 256 - H), (0, W - W)), mode="edge")
+
+    def frac_case(n):
+        gw, gh = W // n, -(-H // n)
+        q = np.arange(gw * gh)
+        blocks = org_p[:gh * n].reshape(gh, n, gw, n).swapaxes(1, 2) \
+            .reshape(-1, n, n)
+        args = [t32(a) for a in (
+            rng.randint(0, 4, q.size), (q % gw) * n, (q // gw) * n)]
+        org = t32(blocks)
+        mv = [t32(rng.randint(-48, 49, q.size)) for _ in range(2)]
+        kfn = lambda: me.frac_refine_batch(refs, args[1], args[2], org,
+                                           *mv, n, 8, ridx=args[0])
+        pfn = lambda: me.frac_refine_batch_plain(refs, args[1], args[2],
+                                                 org, *mv, n, 8,
+                                                 ridx=args[0])
+        return args, org, mv, kfn, pfn
+
+    args, org, mv, kfn, pfn = frac_case(8)
+    nb = org.shape[0]
+    samples, ops = frac_work(refs, args[0], args[1], args[2], org, *mv, 8)
+    cases.append(("frac_refine", kfn, pfn,
+                  # the distinct reference samples, the org blocks, the
+                  # five index / MV arrays in and the two MV arrays out
+                  (samples + nb * 64 + 7 * nb) * 4, ops, None,
+                  [frac_case(n)[3:] for n in (16, 32)]))
+
+    # K10: real residuals (the clip's frame 1 against frame 0, no
+    # motion) through the transform (and, at 4x4, transform skip), the
+    # port's initial P contexts at QP 22; the timed call is phase 1a's
+    # 1560 8x8 luma TBs with the trellis and SDH
+    cb = torch.as_tensor(ctx_bits_table(make_contexts(
+        SliceType.P, QP_LDP)).reshape(-1)).to(dev)
+    qp = QP_LDP + 3
+    lam_l, _, _, lam_c = frame_lambdas(qp, qp, 0.4624)
+
+    def coefs(n, luma, ts=False):
+        a, b = (clip[1][0], clip[0][0]) if luma else (clip[1][1], clip[0][1])
+        h, w = a.shape
+        res = (a.astype(np.int32) - b.astype(np.int32))[:h // n * n,
+                                                          :w // n * n]
+        res = t32(res.reshape(h // n, n, w // n, n).swapaxes(1, 2)
+                  .reshape(-1, n, n))
+        return transform.transform_skip_fwd(res, n) if ts \
+            else transform.forward_transform(res, n)
+
+    def rdoq_case(n, luma, trellis, sdh, ts=False):
+        log2 = n.bit_length() - 1
+        c = coefs(n, luma, ts)
+        lam = torch.tensor(lam_l if luma else lam_c, dtype=torch.float32,
+                           device=dev)
+        sel = t32(rng.randint(0, 3, c.shape[0])) if n <= 8 else None
+        kfn = lambda: rdoq.rdoq_code(c, qp, log2, 8, lam, cb, luma, sdh=sdh,
+                                     scan_sel=sel, trellis=trellis)
+
+        def pfn():
+            lev = rdoq.rdoq_tb_plain(c, qp, log2, 8, lam, cb, luma, 0, sdh,
+                                     sel, trellis)
+            return (lev, quant.dequantize_t_plain(lev, qp, log2, 8),
+                    ratebits.tb_bits_plain(lev, cb, log2, luma, 0, sdh))
+        return c, kfn, pfn
+
+    c8, kfn, pfn = rdoq_case(8, True, True, True)
+    ops = rdoq_work(c8, pfn()[0], qp, 3)
+    more = [rdoq_case(n, luma, tr, sdh)[1:]
+            for n in (4, 8, 16, 32) for luma in (True, False)
+            for tr in (True, False) for sdh in (True, False)
+            if (n, luma, tr, sdh) != (8, True, True, True)]
+    more += [rdoq_case(4, luma, True, True, ts=True)[1:]
+             for luma in (True, False)]
+    nb = c8.shape[0]
+    tabs = rdoq._k10_tables(3, 0, True, dev)
+    cases.append(("rdoq", kfn, pfn,
+                  # coefficients in, levels and dequantised values out,
+                  # the bits, the context table and the scan tables
+                  (3 * nb * 64 + nb + cb.numel() + tabs[0].numel()
+                   + tabs[1].numel()) * 4,
+                  ops, None, more))
+    return cases
+
+
+# the plain-torch device functions of queue B that have no hand kernel yet
+# (item, module, function): PlainTally counts their calls in an untimed
+# encode and sums the bytes of the tensors their calls take as arguments
+# and give back, a bound for argument bytes only (a pass's own reads and
+# writes of intermediates are not in it)
+PLAIN_FUNCS = (
+    ("B4", "hmtpu_torch.search.me", "regularize_mv_field"),
+    ("B9 _satd", "hmtpu_torch.encoder.pframe_dev", "_satd"),
+    ("B9 _satd", "hmtpu_torch.encoder.iframe_dev", "_satd"),
+    ("B10", "hmtpu_torch.encoder.pframe_dev", "merge_candidates_dev"),
+    ("B10", "hmtpu_torch.encoder.pframe_dev", "amvp_candidates_dev"),
+    ("B10", "hmtpu_torch.encoder.pframe_dev", "temporal_cand_grid_dev"),
+    ("B11", "hmtpu_torch.encoder.pframe_dev", "wavefront_pass"),
+    ("B13 _choose_params", "hmtpu_torch.ops.sao", "_choose_params"),
+    ("B14", "hmtpu_torch.encoder.iframe_dev", "iframe_pass"),
+)
+
+
+def tensor_bytes(x) -> int:
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, (tuple, list)):
+        return sum(tensor_bytes(v) for v in x)
+    if isinstance(x, dict):
+        return sum(tensor_bytes(v) for v in x.values())
+    return 0
+
+
+class PlainTally:
+    """Wraps PLAIN_FUNCS while in use: calls and argument bytes per
+    item.  The wrappers cost host time, so no timed encode runs under
+    it."""
+
+    def __init__(self):
+        self.calls, self.bytes, self._saved = {}, {}, []
+
+    def __enter__(self):
+        import importlib
+
+        for item, mod, fn in PLAIN_FUNCS:
+            m = importlib.import_module(mod)
+            inner = getattr(m, fn)
+
+            def wrap(*a, _inner=inner, _item=item, **k):
+                out = _inner(*a, **k)
+                self.calls[_item] = self.calls.get(_item, 0) + 1
+                self.bytes[_item] = self.bytes.get(_item, 0) \
+                    + tensor_bytes(a) + tensor_bytes(k) + tensor_bytes(out)
+                return out
+
+            setattr(m, fn, wrap)
+            self._saved.append((m, fn, inner))
+        return self
+
+    def __exit__(self, *exc):
+        for m, fn, inner in reversed(self._saved):
+            setattr(m, fn, inner)
+
+    def line(self, label):
+        return f"plain ({label}): " + "; ".join(
+            f"{k} {self.calls[k]} calls, {self.bytes[k]} argument bytes "
+            f"in and out, bound {self.bytes[k] / PEAK_BYTES * 1e3:.6f} ms "
+            f"(argument bytes only)" for k in sorted(self.calls))
+
+
 def same(a, b) -> bool:
     """Equal shapes, dtypes and values (floats bit for bit)."""
     if isinstance(a, (tuple, list)):
@@ -382,14 +682,16 @@ def max_err(a, b) -> float:
     return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
 
 
-def encode(frames, qp, device, gop="ai", srange=16):
+def encode(frames, qp, device, gop="ai", srange=16, subpel=None,
+           ts=False):
     from hmtpu_torch.encoder.top import Encoder, EncoderConfig
     from hmtpu_torch.io.yuv import Frame
 
     h, w = frames[0][0].shape
-    cfg = EncoderConfig(width=w, height=h, qp=qp, gop=gop,
-                        subpel="nn" if gop == "ldp" else "none",
-                        search_range=srange)
+    if subpel is None:
+        subpel = "nn" if gop == "ldp" else "none"
+    cfg = EncoderConfig(width=w, height=h, qp=qp, gop=gop, subpel=subpel,
+                        search_range=srange, transform_skip=ts)
     enc = Encoder(cfg, device=device)
     t0 = time.time()
     bs = enc.encode_sequence([Frame(*f, 8) for f in frames])
@@ -398,11 +700,42 @@ def encode(frames, qp, device, gop="ai", srange=16):
     return bs, time.time() - t0, enc.results
 
 
+def write_yuv(path, frames):
+    with open(path, "wb") as f:
+        for planes in frames:
+            for p in planes:
+                f.write(np.ascontiguousarray(p, np.uint8).tobytes())
+
+
+def cli_encode(args, device):
+    """The port's encoder CLI in process; returns (stream, seconds, the
+    encoder)."""
+    from hmtpu_torch.apps import encoder_app
+
+    t0 = time.time()
+    enc = encoder_app.run(args, device=device)
+    if enc is None:
+        fail(f"encoder_app {' '.join(args)} encoded nothing")
+    if device != "cpu":
+        torch.cuda.synchronize()
+    dt = time.time() - t0
+    with open(args[args.index("-b") + 1], "rb") as f:
+        return f.read(), dt, enc
+
+
 def cpu_streams(jobs):
-    """Each (frames, qp, gop, search range) job's stream and seconds on
-    the CPU (the plain version of every kernel); run in a worker."""
+    """Each job's stream and seconds on the CPU (the plain version of
+    every kernel); run in a worker.  A job is (frames, qp, gop, search
+    range, sub-pel, transform skip), or ("cli", args) for the CLI."""
     torch.set_num_threads(4)
-    return [encode(f, qp, "cpu", gop, sr)[:2] for f, qp, gop, sr in jobs]
+    out = []
+    for job in jobs:
+        if job[0] == "cli":
+            out.append(cli_encode(job[1], "cpu")[:2])
+        else:
+            f, qp, gop, sr, sp, ts = job
+            out.append(encode(f, qp, "cpu", gop, sr, sp, ts)[:2])
+    return out
 
 
 def check_results(results, what):
@@ -520,8 +853,9 @@ def main() -> None:
             torch.cuda.synchronize()
             err = max(err, max_err(g2, w2))
             if not same(g2, w2):
+                w0 = w2[0] if isinstance(w2, (tuple, list)) else w2
                 fail(f"{name}: kernel disagrees with its plain version at "
-                     f"shape {tuple(w2.shape)} (max abs err {err})")
+                     f"shape {tuple(w0.shape)} (max abs err {err})")
         ms = time_cuda(kfn, 200)
         pms = time_cuda(pfn, 5)
         lms = time_cuda(lib, 200) if lib is not None else None
@@ -536,7 +870,7 @@ def main() -> None:
         print(f"kernel {name}: equal to plain; {ms:.4f} ms per call, "
               f"{dms:.4f} ms on the device (plain {pms:.4f} ms, bound "
               f"{bms:.6f} ms by {by}"
-              + (f", float64 matmul {lms:.4f} ms" if lms else "")
+              + (f", library call {lms:.4f} ms" if lms else "")
               + ")", flush=True)
 
     clip = synth_clip(W, H, LDP_FRAMES, seed=42)
@@ -544,9 +878,11 @@ def main() -> None:
     encode(small[:1], QP_AI, dev)        # warm-up: libraries, allocator
 
     # ---- 4. the main path: low-delay P with NN-FME
+    ldp_names = [k for k in kernels.KERNELS
+                 if k not in ("frac_refine", "transform_skip")]
     (bs, dt, results), counts, util = run_counted(
         "ldp", lambda: encode(clip, QP_LDP, dev, "ldp", SRANGE),
-        list(kernels.KERNELS), kernels)
+        ldp_names, kernels)
     for name in rows:
         rows[name]["launches"] = counts[name]
     check_results(results, "ldp")
@@ -560,46 +896,146 @@ def main() -> None:
                       f"V {r.psnr_v:.4f}" for r in results), flush=True)
     frame_line("ldp", results, util)
 
-    # ---- 5. the all-intra path
-    ai_names = [k for k, (src, _) in kernels.KERNELS.items()
-                if src in ("transform", "intra_pred", "deblock", "sao")]
-    (ai_bs, ai_dt, ai_res), ai_counts, ai_util = run_counted(
-        "ai", lambda: encode(clip[:1], QP_AI, dev), ai_names, kernels)
-    check_results(ai_res, "ai")
-    print(f"ai: 416x240 AI QP{QP_AI}, 1 frame, {len(ai_bs)} bytes, "
-          f"{ai_dt:.3f} s, {1 / ai_dt:.4f} fps, "
-          f"{ai_res[0].bits * 50 / 1000.0:.3f} kbps at 50 fps, PSNR Y "
-          f"{ai_res[0].psnr_y:.4f} U {ai_res[0].psnr_u:.4f} V "
-          f"{ai_res[0].psnr_v:.4f}", flush=True)
-    frame_line("ai", ai_res, ai_util)
+    from hmtpu_torch.encoder import pframe_dev
+
+    tmp = tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR)
+    yuv = os.path.join(tmp.name, "clip.yuv")
+    write_yuv(yuv, clip)
+    size = ["-wdt", str(W), "-hgt", str(H), "-i", yuv]
+
+    # ---- 5. the anchor cfg with HM's DCT-IF sub-pel search, via the CLI
+    dctif_names = [k for k in kernels.KERNELS if k not in ("nnfme", "satd8")]
+    pframe_dev.DBG_COUNTERS["ldp_ts_tbs"] = 0
+    (d_bs, d_dt, d_enc), d_counts, d_util = run_counted(
+        "ldp_dctif", lambda: cli_encode(
+            ["-c", LDP_CFG, "--SubPel=dctif", "-q", str(QP_LDP), "-f",
+             str(LDP_FRAMES), *size, "-b",
+             os.path.join(tmp.name, "ldp_dctif.hevc")], dev),
+        dctif_names, kernels)
+    for name in ("frac_refine", "transform_skip"):
+        rows[name]["launches"] = d_counts[name]
+    d_res = d_enc.results
+    check_results(d_res, "ldp_dctif")
+    if d_enc.cfg.subpel != "dctif" or not d_enc.pps.transform_skip_enabled:
+        fail("ldp_dctif: the cfg did not give DCT-IF sub-pel with TS")
+    kbps = sum(r.bits for r in d_res) / LDP_FRAMES * 50 / 1000.0
+    print(f"ldp_dctif: {os.path.basename(LDP_CFG)} --SubPel=dctif QP"
+          f"{QP_LDP} SR{d_enc.cfg.search_range}, 416x240, {LDP_FRAMES} "
+          f"frames, {len(d_bs)} bytes, {d_dt:.3f} s, "
+          f"{LDP_FRAMES / d_dt:.4f} fps, {kbps:.3f} kbps at 50 fps, "
+          f"transform-skip TBs (ldp_ts_tbs) "
+          f"{pframe_dev.DBG_COUNTERS['ldp_ts_tbs']}, PSNR "
+          + ", ".join(f"POC{r.poc} Y {r.psnr_y:.4f} U {r.psnr_u:.4f} "
+                      f"V {r.psnr_v:.4f}" for r in d_res), flush=True)
+    frame_line("ldp_dctif", d_res, d_util)
+
+    # ---- 6. cfg/encoder_intra_main.cfg as shipped, via the CLI
+    ai_args = ["-c", AI_CFG, "-f", "1", *size, "-b",
+               os.path.join(tmp.name, "ai.hevc")]
+    full_ai = time.time() - t_start < FULL_AI_BEFORE_S
+    if full_ai:
+        ai_names = [k for k, (src, _) in kernels.KERNELS.items()
+                    if src in ("transform", "intra_pred", "deblock", "sao",
+                               "rdoq")]
+        (ai_bs, ai_dt, ai_enc), _, ai_util = run_counted(
+            "ai", lambda: cli_encode(ai_args, dev), ai_names, kernels)
+        ai_res = ai_enc.results
+        check_results(ai_res, "ai")
+        print(f"ai: {os.path.basename(AI_CFG)} (QP{ai_enc.cfg.qp}, "
+              f"TS {int(ai_enc.pps.transform_skip_enabled)}, SDH "
+              f"{int(ai_enc.pps.sign_data_hiding)}), 416x240, 1 frame, "
+              f"{len(ai_bs)} bytes, {ai_dt:.3f} s, {1 / ai_dt:.4f} fps, "
+              f"{ai_res[0].bits * 50 / 1000.0:.3f} kbps at 50 fps, PSNR Y "
+              f"{ai_res[0].psnr_y:.4f} U {ai_res[0].psnr_u:.4f} V "
+              f"{ai_res[0].psnr_v:.4f}", flush=True)
+        frame_line("ai", ai_res, ai_util)
+    else:
+        print(f"ai: the full-width phase is left out (the check had run "
+              f"{time.time() - t_start:.1f} s, over {FULL_AI_BEFORE_S} s); "
+              f"the ldp_dctif I frame ran the TS I pass at 416x240",
+              flush=True)
 
     if args.profile:
+        from hmtpu_torch.ops import quant, ratebits, rdoq
+
+        def plain_rdoq_code(coef, qp, log2, bd, lam, cbflat, is_luma,
+                            sdh=False, scan_sel=None, trellis=True):
+            lev = rdoq.rdoq_tb_plain(coef, qp, log2, bd, lam, cbflat,
+                                     is_luma, 0, sdh, scan_sel, trellis)
+            return (lev, quant.dequantize_t_plain(lev, qp, log2, bd),
+                    ratebits.tb_bits_plain(lev, cbflat, log2, is_luma, 0,
+                                           sdh))
+
         os.makedirs(args.profile, exist_ok=True)
         profile_encode(args.profile, "ai_64x64",
                        lambda: encode(small[:1], QP_AI, dev))
+        # the same frame with K10's plain version in the coding step,
+        # for the device-operation count K10 removes (comparison only)
+        pframe_dev.rdoq_code = plain_rdoq_code
+        try:
+            profile_encode(args.profile, "ai_64x64_plain_rdoq",
+                           lambda: encode(small[:1], QP_AI, dev))
+        finally:
+            pframe_dev.rdoq_code = rdoq.rdoq_code
         profile_encode(args.profile, "ldp_64x64_I_P",
                        lambda: encode(small[:2], QP_LDP, dev, "ldp", 8))
 
-    # ---- 6. card against CPU: the CPU's streams come from a worker
+    # ---- 7. card against CPU: the CPU's streams come from a worker
     # process on the machine's other cores while this one dispatches the
-    # same clips to the card
-    jobs = [(clip[:1], QP_AI, "ai", 16)] \
-        + [(small[:2], qp, "ai", 16) for qp in (22, 37)] \
-        + [(small, qp, "ldp", 8) for qp in (22, 37)]
+    # same clips to the card.  A job is (content, frames, qp, gop, search
+    # range, sub-pel, transform skip, the DBG_COUNTERS entry that must be
+    # > 0 on the card: transform skip chosen by some TB)
+    screen = screen_clip(96, 64, 4)
+    jobs = [("", small[:2], qp, "ai", 16, None, False, None)
+            for qp in (22, 37)] \
+        + [("screen ", screen[:2], qp, "ai", 16, None, True, "intra_ts_tbs")
+           for qp in (22, 37)] \
+        + [("", small, qp, "ldp", 8, sp, ts, None)
+           for sp, ts in (("nn", False), ("dctif", True))
+           for qp in (22, 37)] \
+        + [("screen ", screen, 27, "ldp", 8, "dctif", True, "ldp_ts_tbs")]
+    ai_cpu_args = ai_args[:-1] + [os.path.join(tmp.name, "ai_cpu.hevc")]
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx) as pool:
-        cpu_run = pool.submit(cpu_streams, jobs)
-        on_card = [(ai_bs, ai_dt)] + [encode(f, qp, dev, gop, sr)[:2]
-                                      for f, qp, gop, sr in jobs[1:]]
+        cpu_run = pool.submit(cpu_streams, ([("cli", ai_cpu_args)]
+                                            if full_ai else [])
+                              + [j[1:7] for j in jobs])
+        # ---- 8. meanwhile, the calls and argument bytes of the
+        # plain-torch queue-B functions on the main path, in an untimed
+        # encode of the ldp phase's clip (their wrappers cost host time)
+        with PlainTally() as tally:
+            encode(clip, QP_LDP, dev, "ldp", SRANGE)
+        print(tally.line(f"416x240 LDP QP{QP_LDP} I + P, untimed"),
+              flush=True)
+        on_card = []
+        for _, f, qp, gop, sr, sp, ts, must in jobs:
+            for k in ("ldp_ts_tbs", "intra_ts_tbs"):
+                pframe_dev.DBG_COUNTERS[k] = 0
+            on_card.append(encode(f, qp, dev, gop, sr, sp, ts)[:2]
+                           + (must and pframe_dev.DBG_COUNTERS[must],))
         cpu = cpu_run.result()
-    for (frames, qp, gop, _), (a, adt), (b, bdt) in zip(jobs, on_card,
-                                                        cpu):
-        h, w = frames[0][0].shape
-        what = f"{w}x{h} {gop.upper()} QP{qp} {len(frames)} frames"
+    labels = [f"{f[0][0].shape[1]}x{f[0][0].shape[0]} {what}{gop.upper()}"
+              f"{' ' + sp.upper() if gop == 'ldp' else ''}"
+              f"{' TS' if ts else ''} QP{qp} {len(f)} frames"
+              for what, f, qp, gop, _, sp, ts, _ in jobs]
+    musts = [j[7] for j in jobs]
+    if full_ai:
+        on_card = [(ai_bs, ai_dt, None)] + on_card
+        labels = [f"416x240 AI {os.path.basename(AI_CFG)} QP{QP_AI} "
+                  f"1 frame"] + labels
+        musts = [None] + musts
+    for what, must, (a, adt, fired), (b, bdt) in zip(labels, musts,
+                                                     on_card, cpu):
         if a != b:
             fail(f"{what}: card and CPU streams differ")
+        if must and not fired:
+            fail(f"{what}: no TB chose transform skip on the card "
+                 f"({must} 0)")
         print(f"parity: {what} card == CPU ({len(a)} bytes; card "
-              f"{adt:.1f} s, CPU {bdt:.1f} s)", flush=True)
+              f"{adt:.1f} s, CPU {bdt:.1f} s"
+              + (f"; {must} {fired} on the card" if must else "") + ")",
+              flush=True)
+    tmp.cleanup()
 
     print(f"total: {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

@@ -25,21 +25,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hm_dsp.cuh"
+
 namespace {
 
-__constant__ int kLuma[4][8] = {
-    {0, 0, 0, 64, 0, 0, 0, 0},
-    {-1, 4, -10, 58, 17, -5, 1, 0},
-    {-1, 4, -11, 40, 40, -11, 4, -1},
-    {0, 1, -5, 17, 58, -10, 4, -1}};
+using hm::IF_FILTER_PREC;
+using hm::IF_INTERNAL_OFFS;
+using hm::IF_INTERNAL_PREC;
+using hm::kLuma;
 
 __constant__ int kChroma[8][4] = {
     {0, 64, 0, 0},   {-2, 58, 10, -2}, {-4, 54, 16, -2}, {-6, 46, 28, -4},
     {-4, 36, 36, -4}, {-4, 28, 46, -6}, {-2, 16, 54, -4}, {-2, 10, 58, -2}};
-
-constexpr int IF_FILTER_PREC = 6;
-constexpr int IF_INTERNAL_PREC = 14;
-constexpr int IF_INTERNAL_OFFS = 1 << (IF_INTERNAL_PREC - 1);
 
 __global__ void mc_kernel(const int* __restrict__ refs,
                           const int* __restrict__ ridx,

@@ -20,19 +20,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hm_dsp.cuh"
+
 namespace {
 
-__device__ __forceinline__ void fwht8(int* v) {
-#pragma unroll
-  for (int h = 1; h < 8; h <<= 1)
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      if ((i & h) == 0) {
-        const int a = v[i], b = v[i + h];
-        v[i] = a + b;
-        v[i + h] = a - b;
-      }
-}
+using hm::fwht8;
 
 __global__ void satd_kernel(const int* __restrict__ a,
                             const int* __restrict__ b, int* __restrict__ out,

@@ -14,6 +14,14 @@
 // TBs are staged in shared memory; stage 1 writes its rounded (and,
 // inverse, clipped) intermediate to shared memory, one barrier, stage 2
 // reads it.  Accumulation is int32: |sum| <= n * 90 * 2^15 < 2^31.
+//
+// TS mode (hm_transform_skip): the 4x4 transform skip of 8.6.4.2,
+// bit-exact with hmtpu/ops/transform.py:84 transform_skip_fwd
+// (resi << ts_shift) and :89 transform_skip_inv (((d << (5 + log2)) +
+// (1 << (bdShift - 1))) >> bdShift, clipped to 16 bits).  One int32 read
+// and one write per sample and a shift or two between them: bound by
+// bytes, and at the encoder's batches (a few hundred 4x4 TBs) by the
+// launch.  One thread per sample, 256 to a block.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -93,7 +101,26 @@ int launch(const void* x, const void* t, void* out, int nb, int n,
   return (int)cudaGetLastError();
 }
 
+__global__ void transform_skip_kernel(const int* __restrict__ x,
+                                      int* __restrict__ out, int n,
+                                      int inverse, int s1, int s2) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n) return;
+  const int v = x[k];
+  // inverse: s1 = 5 + log2 nTbS, s2 = bdShift; forward: s1 = ts_shift
+  out[k] = inverse ? clip16(((v << s1) + (1 << (s2 - 1))) >> s2) : v << s1;
+}
+
 }  // namespace
+
+extern "C" int hm_transform_skip(const void* x, void* out, int n,
+                                 int inverse, int s1, int s2, void* stream) {
+  if (n < 1 || s1 < 0 || s1 > 15 || (inverse && (s2 < 1 || s2 > 20)))
+    return cudaErrorInvalidValue;
+  transform_skip_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      (const int*)x, (int*)out, n, inverse, s1, s2);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int hm_int_transform_fwd(const void* x, const void* t, void* out,
                                     int nb, int n, int shift1, int shift2,

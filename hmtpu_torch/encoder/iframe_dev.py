@@ -14,7 +14,9 @@ deblocking and SAO, all on the tensors' device.
     priced; per 16x16 region one 16x16 CU trial overwrites its four 8x8
     CUs where it wins; likewise per 32x32 where the picture's width and
     height are multiples of 32.  At 416x240 (h % 32 == 16) the pass runs
-    the 8 and 16 levels only.
+    the 8 and 16 levels only.  With the PPS's transform skip on, the 4x4
+    TBs (the luma PUs of an NxN CU, the chroma of 8x8 CUs) are coded both
+    ways and the cheaper kept (`_code_ts_sel`).
 
 The state lives in flat tensors with one spare slot at the end: lanes
 that are padding in a level write there (the reference sends them to an
@@ -37,7 +39,7 @@ from hmtpu_torch.encoder.intra_rdo import (
     _satd,
     hadamard2d,
 )
-from hmtpu_torch.encoder.pframe_dev import _code, _intra_scan_sel
+from hmtpu_torch.encoder.pframe_dev import _code, _code_ts_sel, _intra_scan_sel
 from hmtpu_torch.ops.deblock import deblock_frame_dev
 from hmtpu_torch.ops.intra_pred import (
     filter_reference_batched,
@@ -64,8 +66,6 @@ from hmtpu_torch.search.wavefront import (
 
 K8 = 2       # full-RD candidates per 8x8 CU
 K16 = 2      # per 16x16 / 32x32 CU
-
-ROADMAP_TS = "transform skip on the AI path (ROADMAP.md A14)"
 
 
 @lru_cache(maxsize=None)
@@ -150,9 +150,9 @@ def iframe_pass(org_y, org_u, org_v, qp: int, qpc: int, cbflat,
                 qp_factor=0.57, sdh: bool = False, ts: bool = False):
     """Decision pass.  Planes are int32 (H, W) / (H/2, W/2) tensors on
     the pass's device, cbflat the (NUM_CTX*2,) float32 bits table there;
-    qp and qpc are host integers.  Returns the state dict (int32)."""
-    if ts:
-        raise NotImplementedError(ROADMAP_TS)
+    qp and qpc are host integers.  ts: the 4x4 TBs (the luma PUs of an
+    NxN CU, the chroma of 8x8 CUs) get the transform-skip trial.
+    Returns the state dict (int32)."""
     dev = org_y.device
     st8 = _dev_static(w, h, log2_ctu, dev)
     bw, bh = w // 8, h // 8
@@ -235,10 +235,17 @@ def iframe_pass(org_y, org_u, org_v, qp: int, qpc: int, cbflat,
         sel_c = torch.cat([msel, msel]) if log2 - 1 == 2 else None
         levY, recY, dY, bY = _code(repK(org), pred, qp, log2, bd, lam,
                                    cbflat, True, sdh=sdh, scan_sel=sel_y)
-        levC, recC, dC, bC = _code(
-            torch.cat([repK(orgu), repK(orgv)]), torch.cat([cpu, cpv]),
-            qpc, log2 - 1, bd, lam_c, cbflat, False, wchroma, sdh=sdh,
-            scan_sel=sel_c)
+        orgs_c = torch.cat([repK(orgu), repK(orgv)])
+        if ts and log2 == 3:
+            # 4x4 chroma TBs of an 8x8 CU: the transform-skip trial
+            levC, recC, dC, bC, ts_c = _code_ts_sel(
+                orgs_c, torch.cat([cpu, cpv]), qpc, bd, lam_c, cbflat,
+                False, wchroma, sdh=sdh, scan_sel=sel_c)
+        else:
+            levC, recC, dC, bC = _code(
+                orgs_c, torch.cat([cpu, cpv]), qpc, log2 - 1, bd, lam_c,
+                cbflat, False, wchroma, sdh=sdh, scan_sel=sel_c)
+            ts_c = torch.zeros((2 * B * K,), dtype=torch.bool, device=dev)
         levU, levV = levC[:B * K], levC[B * K:]
         recU, recV = recC[:B * K], recC[B * K:]
         dU, dV = dC[:B * K], dC[B * K:]
@@ -251,7 +258,7 @@ def iframe_pass(org_y, org_u, org_v, qp: int, qpc: int, cbflat,
             + cbf_luma_bits(
                 cbflat, (levY.reshape(-1, n * n) != 0).any(1))
         return (pred, levY, recY, dY, bY, levU, recU, dU, bU,
-                levV, recV, dV, bV, b_cbf)
+                levV, recV, dV, bV, b_cbf), (ts_c[:B * K], ts_c[B * K:])
 
     def pick_best(modes, parts, mode_bits, lam_):
         """argmin over the K candidates; returns flat pick indices into
@@ -299,31 +306,35 @@ def iframe_pass(org_y, org_u, org_v, qp: int, qpc: int, cbflat,
         def pu(vals, avail, mode, org):
             line = sub_line(vals, avail)
             pred = predict_one_mode(line, line, mode, 4, True, bd)
+            if ts:
+                return _code_ts_sel(org, pred, qp, bd, lam, cbflat, True,
+                                    sdh=sdh, scan_sel=_intra_scan_sel(mode),
+                                    use_dst=True)
             return _code(org, pred, qp, 2, bd, lam, cbflat, True,
                          sdh=sdh, scan_sel=_intra_scan_sel(mode),
-                         use_dst=True)
+                         use_dst=True) + (F[:, 0],)
 
         cat = lambda *a: torch.cat(a, 1)
         # PU0 (x, y): all references external (iref8[8:25])
-        lev0, rec0, d0, bb0 = pu(
+        lev0, rec0, d0, bb0, tsl0 = pu(
             iref8[:, 8:25],
             cat(r4(aL), r4(aL), aC[:, None], r4(aA), r4(aA)),
             m4[:, 0], o4[:, 0])
         # PU1 (x+4, y): lower-left internal-unavailable, left = PU0's
         # right column, corner/top external
-        lev1, rec1, d1, bb1 = pu(
+        lev1, rec1, d1, bb1, tsl1 = pu(
             cat(z4, rec0[:, :, 3].flip(1), iref8[:, 20:21],
                 iref8[:, 21:29]),
             cat(F, T, aA[:, None], r4(aA), r4(aAR)), m4[:, 1], o4[:, 1])
         # PU2 (x, y+4): left external (lower then upper), top = PU0 +
         # PU1 bottom rows
-        lev2, rec2, d2, bb2 = pu(
+        lev2, rec2, d2, bb2, tsl2 = pu(
             cat(iref8[:, 4:8], iref8[:, 8:12], iref8[:, 12:13],
                 rec0[:, 3, :], rec1[:, 3, :]),
             cat(r4(aBL), r4(aL), aL[:, None], T, T), m4[:, 2], o4[:, 2])
         # PU3 (x+4, y+4): below-left/top-right unavailable, left =
         # PU2's right column, corner = PU0[3,3], top = PU1 bottom row
-        lev3, rec3, d3, bb3 = pu(
+        lev3, rec3, d3, bb3, tsl3 = pu(
             cat(z4, rec2[:, :, 3].flip(1), rec0[:, 3, 3][:, None],
                 rec1[:, 3, :], z4),
             cat(F, T, T1, T, F), m4[:, 3], o4[:, 3])
@@ -333,11 +344,20 @@ def iframe_pass(org_y, org_u, org_v, qp: int, qpc: int, cbflat,
                            ref_line("rec_v", st8["g4"], b)])
         mc = torch.cat([m4[:, 0], m4[:, 0]])
         c2 = predict_one_mode(irefc, irefc, mc, 4, False, bd)
-        levC, recC, dC, bC = _code(
-            torch.cat([orgu, orgv]), c2, qpc, 2, bd, lam_c, cbflat, False,
-            wchroma, sdh=sdh, scan_sel=_intra_scan_sel(mc))
+        if ts:
+            levC, recC, dC, bC, tsc = _code_ts_sel(
+                torch.cat([orgu, orgv]), c2, qpc, bd, lam_c, cbflat, False,
+                wchroma, sdh=sdh, scan_sel=_intra_scan_sel(mc))
+        else:
+            levC, recC, dC, bC = _code(
+                torch.cat([orgu, orgv]), c2, qpc, 2, bd, lam_c, cbflat,
+                False, wchroma, sdh=sdh, scan_sel=_intra_scan_sel(mc))
+            tsc = torch.zeros((2 * B,), dtype=torch.bool, device=dev)
         levCu, levCv = levC[:B], levC[B:]
         recCu, recCv = recC[:B], recC[B:]
+        # transform-skip flags: bits 0-3 the luma PUs, 4 cb, 5 cr
+        tsf_n = sum(f.to(torch.int32) << k for k, f in enumerate(
+            (tsl0, tsl1, tsl2, tsl3, tsc[:B], tsc[B:])))
 
         # rate: part NxN + 4x(mode + cbf + residual) + chroma; MPM
         # pricing per PU with internal neighbour modes (approximation
@@ -362,7 +382,7 @@ def iframe_pass(org_y, org_u, org_v, qp: int, qpc: int, cbflat,
         lev8 = quad(lev0, lev1, lev2, lev3)
         cbf_any = (nz[0] | nz[1] | nz[2] | nz[3]).to(torch.int32)
         return (cost, m4, rec8, recCu, recCv, lev8, levCu, levCv,
-                cbf_any)
+                cbf_any, tsf_n)
 
     def plane_index(x0, y0, n, valid, width, spare):
         """(B, n, n) flat indices of the n x n blocks at (x0, y0);
@@ -391,8 +411,8 @@ def iframe_pass(org_y, org_u, org_v, qp: int, qpc: int, cbflat,
         mb = intra_mode_mpm_bits(cbflat, modes, lm[:, None],
                                  am[:, None]) \
             + part_size_2nx2n_bits(cbflat) + chroma_dm_bits(cbflat)
-        parts = try_modes(b, modes, org8[b], org4u[b], org4v[b],
-                          st8["g8"], st8["g4"], 8, 3)
+        parts, (ts_u, ts_v) = try_modes(b, modes, org8[b], org4u[b],
+                                        org4v[b], st8["g8"], st8["g4"], 8, 3)
         ki, pick, cost = pick_best(modes, parts, mb, lam)
         (_, levY, recY, _, _, levU, recU, _, _, levV, recV, _, _,
          _) = parts
@@ -402,10 +422,12 @@ def iframe_pass(org_y, org_u, org_v, qp: int, qpc: int, cbflat,
                            levV[pick].reshape(B, 16)], 1)
         wmode = torch.gather(modes, 1, ki[:, None])[:, 0]
         cbfy8 = (levY[pick].reshape(B, 64) != 0).any(1).to(torch.int32)
+        tsf2 = (ts_u[pick].to(torch.int32) << 4) \
+            | (ts_v[pick].to(torch.int32) << 5)
 
         # ---- NxN trial against the 2Nx2N winner
         (cost_n, m4, rec8n, recCun, recCvn, lev8n, levCun, levCvn,
-         cbf_n) = nxn_trial(b, bxi, byi, lm, am, org4u[b], org4v[b])
+         cbf_n, tsf_n) = nxn_trial(b, bxi, byi, lm, am, org4u[b], org4v[b])
         use_n = cost_n < cost
         cost = torch.minimum(cost, cost_n)
         w3 = lambda a, bn: torch.where(use_n[:, None, None], bn, a)
@@ -427,7 +449,7 @@ def iframe_pass(org_y, org_u, org_v, qp: int, qpc: int, cbflat,
                (out_y, out_u, out_v), torch.where(valid, b, P),
                dict(imode=wmode, imode4=imode4_o,
                     part=use_n.to(torch.int32), cusz=0, cbfy=cbfy8,
-                    levs=o_lev, tsf=0))
+                    levs=o_lev, tsf=torch.where(use_n, tsf_n, tsf2)))
         return cost
 
     # one step per z-scan dependency level, in order; the CU sizes the
@@ -463,7 +485,7 @@ def iframe_pass(org_y, org_u, org_v, qp: int, qpc: int, cbflat,
         lm, am = mpm_neighbours(corner, gxb * 2, gyb * 2, gyb * 16)
         mb = intra_mode_mpm_bits(cbflat, modes, lm[:, None],
                                  am[:, None]) + chroma_dm_bits(cbflat)
-        parts = try_modes(g, modes, org16[g], org8u[g], org8v[g],
+        parts, _ = try_modes(g, modes, org16[g], org8u[g], org8v[g],
                           st8["g16"], st8["g8c"], 16, 4)
         ki, pick, cost16 = pick_best(modes, parts, mb, lam)
         (_, levY, recY, _, _, levU, recU, _, _, levV, recV, _, _,
@@ -520,7 +542,7 @@ def iframe_pass(org_y, org_u, org_v, qp: int, qpc: int, cbflat,
         lm, am = mpm_neighbours(corner, qxb * 4, qyb * 4, qyb * 32)
         mb = intra_mode_mpm_bits(cbflat, modes, lm[:, None],
                                  am[:, None]) + chroma_dm_bits(cbflat)
-        parts = try_modes(g, modes, org32[g], org16u[g], org16v[g],
+        parts, _ = try_modes(g, modes, org32[g], org16u[g], org16v[g],
                           st8["g32"], st8["g16c"], 32, 5)
         ki, pick, cost32 = pick_best(modes, parts, mb, lam)
         (_, levY, recY, _, _, levU, recU, _, _, levV, recV, _, _,

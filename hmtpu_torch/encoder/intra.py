@@ -42,6 +42,7 @@ class IntraFrameEncoder:
             iframe_full_pass,
             unpack_iframe_state,
         )
+        from hmtpu_torch.encoder.pframe_dev import DBG_COUNTERS
 
         sps = self.sps
         w, h = sps.pic_width, sps.pic_height
@@ -59,6 +60,10 @@ class IntraFrameEncoder:
             sdh=bool(self.pps.sign_data_hiding),
             ts=bool(self.pps.transform_skip_enabled))
         st = {k: v.cpu().numpy().astype(np.int32) for k, v in st.items()}
+        # TBs that chose transform skip: bits 0-3 the NxN luma PUs, 4-5
+        # the chroma TBs of each 8x8 CU
+        DBG_COUNTERS["intra_ts_tbs"] += int(sum(
+            ((st["tsf"] >> k) & 1).sum() for k in range(6)))
         mode8, depth8, decisions = unpack_iframe_state(
             st, w, h, sps.log2_ctu_size)
         recon = Frame(st["rec_y"].reshape(h, w),
@@ -85,6 +90,15 @@ class IntraFrameEncoder:
         n_ctu_x = sps.pic_width_in_ctus
         n_ctu_y = sps.pic_height_in_ctus
         ctu = sps.ctu_size
+
+        ts_on = bool(self.pps.transform_skip_enabled)
+
+        def emit_ts_flag(log2, is_luma, val):
+            """transform_skip_flag: first element of residual_coding
+            for 4x4 TBs when the PPS enables TS (7.3.8.11)."""
+            if ts_on and log2 == 2:
+                enc.encode_bin(OFF["TRANSFORMSKIP_FLAG"]
+                               + (0 if is_luma else 1), int(val))
 
         # PU-granular (4x4) mode map for MPM derivation, built in
         # decode order; equals replicated mode8 while no NxN CU exists
@@ -143,9 +157,11 @@ class IntraFrameEncoder:
                 enc.residual(d.lev_y, log2, True,
                              intra_scan_idx(mode, log2, True), sdh)
             if cbf_cb:
+                emit_ts_flag(clog2, False, getattr(d, "ts_cb", 0))
                 enc.residual(d.lev_cb, clog2, False,
                              intra_scan_idx(mode, clog2, False), sdh)
             if cbf_cr:
+                emit_ts_flag(clog2, False, getattr(d, "ts_cr", 0))
                 enc.residual(d.lev_cr, clog2, False,
                              intra_scan_idx(mode, clog2, False), sdh)
 
@@ -170,19 +186,23 @@ class IntraFrameEncoder:
             cbf_cr = bool(d.lev_cr.any())
             enc.encode_bin(OFF["QT_CBF_CHROMA"] + 0, int(cbf_cb))
             enc.encode_bin(OFF["QT_CBF_CHROMA"] + 0, int(cbf_cr))
+            ts4 = getattr(d, "ts_y4", (0, 0, 0, 0))
             for p, (dx, dy) in enumerate(offs):
                 sub = d.lev_y[dy:dy + 4, dx:dx + 4]
                 cbf = bool(sub.any())
                 enc.encode_bin(OFF["QT_CBF_LUMA"] + 0, int(cbf))
                 if cbf:
+                    emit_ts_flag(2, True, ts4[p])
                     enc.residual(sub, 2, True,
                                  intra_scan_idx(ms[p], 2, True), sdh)
                 if p == 3:
                     if cbf_cb:
+                        emit_ts_flag(2, False, getattr(d, "ts_cb", 0))
                         enc.residual(d.lev_cb, 2, False,
                                      intra_scan_idx(ms[0], 2, False),
                                      sdh)
                     if cbf_cr:
+                        emit_ts_flag(2, False, getattr(d, "ts_cr", 0))
                         enc.residual(d.lev_cr, 2, False,
                                      intra_scan_idx(ms[0], 2, False),
                                      sdh)

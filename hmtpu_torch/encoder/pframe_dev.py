@@ -25,8 +25,14 @@ padding lanes write (the reference sends them out of range, which XLA
 drops); it is updated in place.  Ties go to the first index, as in the
 reference: `argmin`, and a stable sort for the merge finalists.
 
-B slices (the `_b` closures), transform skip, the DCT-IF sub-pel search
-and the Jacobi decision are not ported (ROADMAP.md A17, A16, A16/B16).
+With the PPS's transform skip on, the 4x4 chroma TBs of 8x8 CUs are
+coded both ways and the cheaper kept (`_code_ts_sel`; the skip pair is
+K1's TS mode).  Sub-pel: NN-FME as above, HM's DCT-IF search (K9,
+`subpel="dctif"`), or none.  Every coding step (`_code`) prices its TBs
+in one K10 launch (RDOQ, dequantisation and the TB rate).
+
+B slices (the `_b` closures) and the Jacobi decision are not ported
+(ROADMAP.md A17; the Jacobi decision is not queued).
 """
 from __future__ import annotations
 
@@ -57,7 +63,6 @@ from hmtpu_torch.ops.intra_pred import (
     predict_all_modes,
     predict_one_mode,
 )
-from hmtpu_torch.ops.quant import dequantize_t, quantize_t
 from hmtpu_torch.ops.ratebits import (
     cbf_chroma_bits,
     cbf_luma_bits,
@@ -73,11 +78,16 @@ from hmtpu_torch.ops.ratebits import (
     rqt_root_cbf_bits,
     skip_flag_bits,
     split_flag_bits,
-    tb_bits,
+    ts_flag_bits,
 )
-from hmtpu_torch.ops.rdoq import rdoq_tb
+from hmtpu_torch.ops.rdoq import rdoq_code
 from hmtpu_torch.ops.sao import sao_frame_dev
-from hmtpu_torch.ops.transform import forward_transform, inverse_transform
+from hmtpu_torch.ops.transform import (
+    forward_transform,
+    inverse_transform,
+    transform_skip_fwd,
+    transform_skip_inv,
+)
 from hmtpu_torch.search.wavefront import (
     amvp_candidates_dev,
     block_schedule,
@@ -93,15 +103,14 @@ INTRA_GATE = 24.0          # evaluate intra only when inter cost > gate*lam
 BIG = 3e38                 # float32 "never wins"
 
 # host-side event counters (introspection for tests/diagnostics)
-DBG_COUNTERS = {"cu64_merge": 0, "cu64_amvp": 0}
+DBG_COUNTERS = {"cu64_merge": 0, "cu64_amvp": 0, "ldp_ts_tbs": 0,
+                "intra_ts_tbs": 0}
 
 # per-8x8-cell state columns
 (K_KIND, K_MI, K_MVDX, K_MVDY, K_MVPI, K_DIR, K_MVX, K_MVY, K_REF, K_SZ,
  K_CBFY, K_MVX1, K_MVY1, K_REF1) = range(14)
 
 ROADMAP_B = "B slices / gop='ra' (ROADMAP.md A17)"
-ROADMAP_DCTIF = "subpel='dctif' (ROADMAP.md A16, B16)"
-ROADMAP_TS = "transform skip on the LDP path (ROADMAP.md A16)"
 
 
 def _intra_scan_sel(m):
@@ -113,31 +122,57 @@ def _intra_scan_sel(m):
         .to(torch.int32)
 
 
-def _code(org, pred, qp: int, log2: int, bd: int, lam=None, cbflat=None,
+def _code(org, pred, qp: int, log2: int, bd: int, lam, cbflat,
           is_luma=True, dw=None, sdh: bool = False, scan_sel=None,
-          use_dst: bool = False, rdoq: bool = True):
-    """transform -> quant (RDOQ when lam is given) -> dequant -> inverse
-    -> clip; returns (lev, rec, sse, bits).
+          use_dst: bool = False, rdoq: bool = True, ts: bool = False):
+    """transform -> quant (RDOQ, or deadzone with rdoq=False) -> dequant
+    -> inverse -> clip; returns (lev, rec, sse, bits).
 
     Bits are the CABAC-state-aware estimate of ops/ratebits.py; 0.0 for
     an all-zero TB (cbf priced at CU level).  dw is HM's chroma
     distortion weight applied to the returned SSE (chroma callers pass
-    lam = lambda/dw).  lam and dw are float32 0-d tensors."""
+    lam = lambda/dw).  lam and dw are float32 0-d tensors.  ts=True
+    codes the TB in transform-skip mode (4x4 only)."""
     n = 1 << log2
     resi = org - pred
-    coef = forward_transform(resi, n, bd, use_dst=use_dst)
-    if lam is not None:
-        lev = rdoq_tb(coef, qp, log2, bd, lam, cbflat, is_luma,
-                      sdh=sdh, scan_sel=scan_sel, trellis=rdoq)
-    else:
-        lev = quantize_t(coef, qp, log2, bd, False)
-    deq = dequantize_t(lev, qp, log2, bd)
-    r = inverse_transform(deq, n, bd, use_dst=use_dst)
+    coef = transform_skip_fwd(resi, n, bd) if ts \
+        else forward_transform(resi, n, bd, use_dst=use_dst)
+    lev, deq, bits = rdoq_code(coef, qp, log2, bd, lam, cbflat, is_luma,
+                               sdh=sdh, scan_sel=scan_sel, trellis=rdoq)
+    r = transform_skip_inv(deq, n, bd) if ts \
+        else inverse_transform(deq, n, bd, use_dst=use_dst)
     rec = torch.clamp(pred + r, 0, (1 << bd) - 1)
     sse = ((org - rec) ** 2).sum((-1, -2)).to(torch.float32)
     if dw is not None:
         sse = sse * dw          # HM chroma distortion weight
-    return lev, rec, sse, tb_bits(lev, cbflat, log2, is_luma, 0, sdh)
+    return lev, rec, sse, bits
+
+
+def _code_ts_sel(org, pred, qp: int, bd: int, lam, cbflat, is_luma,
+                 dw=None, sdh: bool = False, scan_sel=None,
+                 use_dst: bool = False, rdoq: bool = True):
+    """4x4 TBs coded both ways (DCT/DST and transform skip), the cheaper
+    kept per TB with the transform_skip_flag bit priced in (the batched
+    form of TComTrQuant::transformNxN's TS trial + RDOQTS).  Returns
+    (lev, rec, sse, bits with the flag, use_ts)."""
+    l0, r0, d0, b0 = _code(org, pred, qp, 2, bd, lam, cbflat, is_luma, dw,
+                           sdh, scan_sel, use_dst, rdoq)
+    l1, r1, d1, b1 = _code(org, pred, qp, 2, bd, lam, cbflat, is_luma, dw,
+                           sdh, scan_sel, use_dst, rdoq, ts=True)
+    B = l0.shape[0]
+    nz0 = (l0.reshape(B, 16) != 0).any(1)
+    nz1 = (l1.reshape(B, 16) != 0).any(1)
+    zeros = torch.zeros((B,), dtype=torch.int32, device=org.device)
+    f0 = ts_flag_bits(cbflat, zeros, is_luma)
+    f1 = ts_flag_bits(cbflat, zeros + 1, is_luma)
+    # the flag exists only when the TB is coded (cbf=1)
+    bits0 = b0 + torch.where(nz0, f0, 0.0)
+    bits1 = b1 + torch.where(nz1, f1, 0.0)
+    use_ts = nz1 & (d1 + lam * bits1 < d0 + lam * bits0)
+    pick = lambda a, b_: torch.where(
+        use_ts.reshape((-1,) + (1,) * (a.dim() - 1)), b_, a)
+    return (pick(l0, l1), pick(r0, r1), torch.where(use_ts, d1, d0),
+            torch.where(use_ts, bits1, bits0), use_ts)
 
 
 @lru_cache(maxsize=None)
@@ -216,9 +251,8 @@ def wavefront_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v,
     the 8x8 grid (quarter-pel, ref index), mv16 / mv32 the same on the
     16 and (padded) 32 grids; ref_pocs a host list, cur_poc, col_poc,
     qp, qpc and n_active host ints; col the collocated field (4 tensors
-    on the 8x8 grid) or None.  Returns the state dict (int32)."""
-    if ts:
-        raise NotImplementedError(ROADMAP_TS)
+    on the 8x8 grid) or None.  ts: the 4x4 chroma TBs of 8x8 CUs get
+    the transform-skip trial.  Returns the state dict (int32)."""
     dev = org_y.device
     st8 = _dev_static(w, h, log2_ctu, dev)
     bw, bh = w // 8, h // 8
@@ -257,10 +291,23 @@ def wavefront_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v,
                                    mvxf, mvyf, 4, 4, bd)
     lev_ay, rec_ay, d_ay, b_ay = code(org_blk, pred_a, qp, 3, bd, lam,
                                       cbflat, True, sdh=sdh)
-    lev_au, rec_au, d_au, b_au = code(orgu_blk, pred_au, qpc, 2, bd, lam_c,
-                                      cbflat, False, wchroma, sdh=sdh)
-    lev_av, rec_av, d_av, b_av = code(orgv_blk, pred_av, qpc, 2, bd, lam_c,
-                                      cbflat, False, wchroma, sdh=sdh)
+    if ts:
+        levAC, recAC, dAC, bAC, tsAC = _code_ts_sel(
+            torch.cat([orgu_blk, orgv_blk]), torch.cat([pred_au, pred_av]),
+            qpc, bd, lam_c, cbflat, False, wchroma, sdh=sdh, rdoq=rdoq)
+        lev_au, lev_av = levAC[:P], levAC[P:]
+        rec_au, rec_av = recAC[:P], recAC[P:]
+        d_au, d_av = dAC[:P], dAC[P:]
+        b_au, b_av = bAC[:P], bAC[P:]
+        ts_a = tsAC[:P].to(torch.int32) | (tsAC[P:].to(torch.int32) << 1)
+    else:
+        lev_au, rec_au, d_au, b_au = code(orgu_blk, pred_au, qpc, 2, bd,
+                                          lam_c, cbflat, False, wchroma,
+                                          sdh=sdh)
+        lev_av, rec_av, d_av, b_av = code(orgv_blk, pred_av, qpc, 2, bd,
+                                          lam_c, cbflat, False, wchroma,
+                                          sdh=sdh)
+        ts_a = torch.zeros((P,), **i32)
     dist_a = d_ay + d_au + d_av
     bits_a_lev = b_ay + b_au + b_av
     cbf_a8 = (any_nz(lev_ay, P), any_nz(lev_au, P), any_nz(lev_av, P))
@@ -357,7 +404,9 @@ def wavefront_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v,
         priced per candidate by its exact 3-plane SSE; the top-F
         candidates by screening coded with deadzone quantisation; the
         winner recoded with the RDOQ trellis.  extra_*: intra TBs fused
-        into the same coding batches, returned after the merge lanes."""
+        into the same coding batches, returned after the merge lanes.
+        With ts, the winner's (and the extras') 4x4 chroma TBs take the
+        transform-skip trial."""
         B = org.shape[0]
         M = max_merge
         F = min(2, M)
@@ -434,9 +483,18 @@ def wavefront_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v,
             orgs_c = two(orgs_c)
             preds_c = torch.cat([preds_c, extra_c])
             selc = torch.cat([torch.zeros((2 * B,), **i32), sel_c])
-        levC, recC, dC, bC = code(orgs_c, preds_c, qpc, log2y - 1, bd,
-                                  lam_c, cbflat, False, wchroma, sdh=sdh,
-                                  scan_sel=selc)
+        if ts and log2y == 3:
+            # 4x4 chroma TBs: the transform-skip trial per TB, its flag
+            # priced in (TComTrQuant.cpp:1460 TS branch)
+            levC, recC, dC, bC, ts_c = _code_ts_sel(
+                orgs_c, preds_c, qpc, bd, lam_c, cbflat, False, wchroma,
+                sdh=sdh, scan_sel=selc, rdoq=rdoq)
+        else:
+            levC, recC, dC, bC = code(orgs_c, preds_c, qpc, log2y - 1, bd,
+                                      lam_c, cbflat, False, wchroma,
+                                      sdh=sdh, scan_sel=selc)
+            ts_c = torch.zeros((orgs_c.shape[0],), dtype=torch.bool,
+                               device=dev)
         lev_my, rec_my, d_my, b_my = levY[:B], recY[:B], dY[:B], bY[:B]
         lev_mu, rec_mu = levC[:B], recC[:B]
         lev_mv, rec_mv = levC[B:2 * B], recC[B:2 * B]
@@ -464,6 +522,10 @@ def wavefront_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v,
             pred_sk_v=gt(pred_crM, mi_skip),
             lev_my=lev_my, rec_my=rec_my, lev_mu=lev_mu, rec_mu=rec_mu,
             lev_mv=lev_mv, rec_mv=rec_mv, cbf_m=(y_nz, cb_nz, cr_nz),
+            ts_m=ts_c[:B].to(torch.int32) | (ts_c[B:2 * B].to(torch.int32)
+                                              << 1),
+            ts_extra=ts_c[2 * B:3 * B].to(torch.int32)
+            | (ts_c[3 * B:].to(torch.int32) << 1),
             extra=(levY[B:], recY[B:], dY[B:], bY[B:],
                    levC[2 * B:], recC[2 * B:], dC[2 * B:], bC[2 * B:]))
 
@@ -599,7 +661,8 @@ def wavefront_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v,
                                f96(mrd["lev_my"], mrd["lev_mu"],
                                    mrd["lev_mv"]),
                                lev_a96[b], f96(lev_iy, lev_iu, lev_iv)),
-                    tsf=0))
+                    tsf=pick4(torch.zeros((B,), **i32), mrd["ts_m"],
+                              ts_a[b], mrd["ts_extra"])))
         return costs.amin(1)
 
     def finish_state():
@@ -787,14 +850,13 @@ def full_pframe_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v, nn,
     planes on the device for the DPB)."""
     from hmtpu_torch.models.nnfme import predict_offsets
     from hmtpu_torch.search.me import (
+        frac_refine_batch,
         integer_me,
         integer_me_levels,
         regularize_mv_field,
         satd_batch,
     )
 
-    if subpel == "dctif":
-        raise NotImplementedError(ROADMAP_DCTIF)
     if decision != "scan":
         raise NotImplementedError(
             f"decision={decision!r}: the Jacobi decision is not ported")
@@ -863,17 +925,27 @@ def full_pframe_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v, nn,
                                          lam_sqrt, iters=3)
 
     def subpel_level(mx, my, rr, sten, n, org_plane):
-        """Quarter-pel MVs of one level's (gh, gw) integer field."""
-        if subpel != "nn":
+        """Quarter-pel MVs of one level's (gh, gw) integer field: the
+        NN-FME offsets behind their SATD gate, HM's DCT-IF search (K9;
+        the 32 level refines the edge-padded org against the unpadded
+        references, whose clamped reads are the edge replication), or
+        the integer MVs."""
+        if subpel not in ("nn", "dctif"):
             return mx * 4, my * 4
         gh_, gw_ = mx.shape
+        q = ar(gh_ * gw_)
+        xs, ys = (q % gw_) * n, (q // gw_) * n
+        if subpel == "dctif":
+            gx, gy = frac_refine_batch(refs_y, xs, ys, _blockify(org_plane, n),
+                                       mx.reshape(-1), my.reshape(-1), n, bd,
+                                       ridx=rr.reshape(-1))
+            return gx.reshape(gh_, gw_), gy.reshape(gh_, gw_)
         st9 = sten.reshape(-1, 9).to(torch.float32)
         sizes = torch.full((gh_ * gw_,), n, dtype=torch.int32, device=dev)
         _, offs = predict_offsets(nn, st9, sizes, sizes)
-        q = ar(gh_ * gw_)
-        gx, gy = nn_gate(rr.reshape(-1), (q % gw_) * n, (q // gw_) * n,
-                         _blockify(org_plane, n), mx.reshape(-1),
-                         my.reshape(-1), mx.reshape(-1) * 4 + offs[:, 0],
+        gx, gy = nn_gate(rr.reshape(-1), xs, ys, _blockify(org_plane, n),
+                         mx.reshape(-1), my.reshape(-1),
+                         mx.reshape(-1) * 4 + offs[:, 0],
                          my.reshape(-1) * 4 + offs[:, 1], n)
         return gx.reshape(gh_, gw_), gy.reshape(gh_, gw_)
 
@@ -1067,6 +1139,8 @@ class PFrameDeviceEncoder(PFrameEncoder):
         cusz = blk[..., K_SZ]
         imode = st["imode"].reshape(bh, bw)
         tsf = st["tsf"].reshape(bh, bw)
+        DBG_COUNTERS["ldp_ts_tbs"] += int((tsf & 1).sum()
+                                          + ((tsf >> 1) & 1).sum())
         levs = st["levs"].reshape(bh, bw, 96)
         levy = levs[..., :64].reshape(bh, bw, 8, 8)
         levcb = levs[..., 64:80].reshape(bh, bw, 4, 4)

@@ -141,12 +141,9 @@ def _check_slice(cfg: EncoderConfig) -> None:
     todo = (
         (cfg.gop not in ("ai", "ldp"),
          f"gop={cfg.gop!r}: the RA path (ROADMAP.md A17)"),
-        (cfg.gop == "ldp" and cfg.subpel == "dctif",
-         "subpel='dctif' (ROADMAP.md A16, B16)"),
         (cfg.gop == "ldp" and cfg.decision != "scan",
          f"decision={cfg.decision!r}: the Jacobi decision (ROADMAP.md, "
          f"never ported)"),
-        (cfg.transform_skip, "transform skip (ROADMAP.md A14)"),
         (cfg.bit_depth != 8, "Main10 (ROADMAP.md A15)"),
         (not cfg.wavefront,
          "wavefront=False: the host-loop encoders (ROADMAP.md, not "
@@ -200,14 +197,19 @@ class Encoder:
             self.sps.ptl.lower_bit_rate_constraint = True
         elif prof not in ("", "main", "main10"):
             raise ValueError(f"unsupported profile {cfg.profile}")
+        # TS reaches AI (4x4 luma and chroma TBs) and LDP (the 4x4 chroma
+        # TBs of the device P pass)
         self.pps = Pps(init_qp=cfg.qp, sign_data_hiding=cfg.sign_data_hiding,
                        deblocking_filter_disabled=not cfg.deblock,
-                       transform_skip_enabled=False,
+                       transform_skip_enabled=cfg.transform_skip,
                        entropy_coding_sync_enabled=False)
         self.vps = Vps(max_dec_pic_buffering=self.sps.max_dec_pic_buffering,
                        max_num_reorder_pics=self.sps.max_num_reorder_pics,
                        ptl=self.sps.ptl)
         self.results: list[FrameResult] = []
+        # called with (poc, reconstructed Frame) as each picture is
+        # finished, in output order: the pictures the hash SEI hashes
+        self.recon_sink = None
         self._poc_base = 0
         self.dpb: list[tuple[int, Frame]] = []   # (poc, recon) newest last
         self._last_idr = 0                       # input index of last IDR
@@ -383,6 +385,8 @@ class Encoder:
         if cfg.decoded_picture_hash:
             digests = picture_md5(recon.planes(), [cfg.bit_depth] * 3)
             nals.append(make_hash_sei_nal(digests))
+        if self.recon_sink is not None:
+            self.recon_sink(launched["poc"], recon)
         maxv = (1 << cfg.bit_depth) - 1
         total_bits = sum(len(n.to_bytes()) * 8 for n in nals)
         t_end = time.time()
@@ -466,6 +470,8 @@ class Encoder:
             nals.append(make_hash_sei_nal(digests))
 
         self.dpb.append((0, recon))
+        if self.recon_sink is not None:
+            self.recon_sink(poc, recon)
         maxv = (1 << cfg.bit_depth) - 1
         total_bits = sum(len(n.to_bytes()) * 8 for n in nals)
         self.results.append(FrameResult(

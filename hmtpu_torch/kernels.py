@@ -3,8 +3,9 @@
 Each source is compiled by nvcc for `sm_90a` into a shared library with
 a plain C interface and loaded with ctypes.  Libraries go to the
 package's `build/` directory under a name that carries the source hash,
-so a changed source rebuilds and concurrent builders never clash (each
-writes a private temp file and renames it into place).
+so a changed source (or a changed shared header, `csrc/*.cuh`) rebuilds
+and concurrent builders never clash (each writes a private temp file and
+renames it into place).
 
 Every exported C function launches its kernel on the stream it is given
 and returns the `cudaGetLastError()` code of that launch; `launch`
@@ -38,6 +39,7 @@ SOURCES = {
     "transform": {
         "hm_int_transform_fwd": "pppiiiip",
         "hm_int_transform_inv": "pppiiiip",
+        "hm_transform_skip": "ppiiiip",
     },
     "intra_pred": {
         "hm_intra_filter": "ppiiiip",
@@ -62,12 +64,19 @@ SOURCES = {
     "satd": {
         "hm_satd8": "pppiip",
     },
+    "frac_refine": {
+        "hm_frac_refine": "ppppppppp" "iiiiii" "p",
+    },
+    "rdoq": {
+        "hm_rdoq": "ppppppppp" "iiiiiiiiiiiii" "ff" "p",
+    },
 }
 
 # kernel name -> (source, file:line of the hmtpu function it replaces)
 KERNELS = {
     "int_transform_fwd": ("transform", "hmtpu/ops/transform.py:38"),
     "int_transform_inv": ("transform", "hmtpu/ops/transform.py:58"),
+    "transform_skip": ("transform", "hmtpu/ops/transform.py:84,89"),
     "intra_filter": ("intra_pred", "hmtpu/ops/intra_pred.py:230"),
     "intra_pred": ("intra_pred", "hmtpu/ops/intra_pred.py:69,149"),
     "deblock": ("deblock", "hmtpu/ops/deblock.py:471"),
@@ -77,6 +86,9 @@ KERNELS = {
     "nnfme": ("nnfme", "hmtpu/models/nnfme.py:127,143"),
     "mc_dctif": ("mc_dctif", "hmtpu/ops/interp.py:173"),
     "satd8": ("satd", "hmtpu/search/me.py:159"),
+    "frac_refine": ("frac_refine", "hmtpu/search/me.py:249"),
+    "rdoq": ("rdoq", "hmtpu/ops/rdoq.py:43,hmtpu/ops/ratebits.py:161,"
+                     "hmtpu/ops/quant.py:78,91"),
 }
 COUNTS = dict.fromkeys(KERNELS, 0)
 
@@ -93,8 +105,13 @@ def source_path(src: str) -> str:
 
 
 def _so_path(src: str) -> str:
-    with open(source_path(src), "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:16]
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [source_path(src)] + [os.path.join(CSRC, f)
+                                      for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    tag = h.hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"hmtpu_torch_{src}_{tag}.so")
 
 

@@ -1,6 +1,7 @@
 """CABAC-aware rate estimation for the RDO decision pass: the port of
 hmtpu/ops/ratebits.py (`tb_bits` :161, `ep_eg1_bits` :152 and the CU
-flag helpers :305-450, intra and inter).
+flag helpers :305-450, intra and inter, `ts_flag_bits` :313 among
+them).
 
 `tb_bits` is the batched, exact-bin-identity reproduction of the
 residual_coding() syntax (7.3.8.11, TEncSbac::codeCoeffNxN): every
@@ -188,7 +189,19 @@ def tb_bits(lev, cbflat, log2: int, is_luma: bool,
 
     lev: (..., size, size) int32 raster levels; cbflat: (NUM_CTX*2,)
     float32 with cbflat[2*ctx+v] = bits of coding v in ctx.  Returns
-    (...,) float32; 0.0 for all-zero TBs (the caller prices cbf)."""
+    (...,) float32; 0.0 for all-zero TBs (the caller prices cbf).  On a
+    CUDA tensor it launches K10 on the levels (ops/rdoq.py `k10`)."""
+    if lev.is_cuda:
+        from hmtpu_torch.ops.rdoq import k10
+
+        return k10(lev, log2, is_luma, scan_idx, cbflat=cbflat, sdh=sdh,
+                   lev_in=True, want=("bits",))[0]
+    return tb_bits_plain(lev, cbflat, log2, is_luma, scan_idx, sdh)
+
+
+def tb_bits_plain(lev, cbflat, log2: int, is_luma: bool,
+                  scan_idx: int = 0, sdh: bool = False):
+    """The plain version of K10's TB rate."""
     dev = lev.device
     t = _tb_tables(log2, scan_idx, is_luma, dev)
     npos, ncg = t["npos"], t["ncg"]
@@ -315,6 +328,12 @@ def tb_bits(lev, cbflat, log2: int, is_luma: bool,
 
 def _gc(cbflat, ctx: int, val):
     return cbflat[2 * ctx + val.to(torch.int64)]
+
+
+def ts_flag_bits(cbflat, val, is_luma: bool):
+    """transform_skip_flag (7.3.8.11; one ctx luma, one chroma)."""
+    return _gc(cbflat, OFF["TRANSFORMSKIP_FLAG"] + (0 if is_luma else 1),
+               val)
 
 
 def split_flag_bits(cbflat, val, depth_ctx):

@@ -12,29 +12,40 @@ rounded-level significance map, as in hmtpu.
 
 Costs are float32 in hmtpu's order of operations; sums are taken in
 float64 and rounded once (ratebits.fsum), so the card and the CPU agree.
+
+On a CUDA tensor `rdoq_tb` launches the hand-written kernel K10
+(csrc/rdoq.cu), which runs the same stages and the TB rate in one
+launch; `rdoq_code` returns the levels, their dequantisation and their
+`tb_bits` price from that one launch (the coding step of both decision
+passes).  `tb_bits`, `quantize_t` and `dequantize_t` reach K10 through
+`k10` as well.  On a CPU tensor every function runs its plain version.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from hmtpu_torch import kernels
 from hmtpu_torch.common.lambdas import exp2_int
 from hmtpu_torch.common.scan import _SCANS
 from hmtpu_torch.ops.quant import (
     COEFF_MAX,
     QUANT_SHIFT,
     _QUANT_SCALES,
+    dequant_params,
+    dequantize_t_plain,
     transform_shift,
 )
 from hmtpu_torch.ops.ratebits import (
     _remainder_ep_bits,
     _tb_tables,
+    _tb_tables_np,
     excl_suffix_count,
     fsum,
     gcb,
     last_pos_bits_table,
     prev_processed_flag,
-    tb_bits,
+    tb_bits_plain,
 )
 
 _C1FLAG = 8
@@ -57,6 +68,20 @@ def _scan_rank_table(scan_idx: int, device):
     return t
 
 
+def _quant_params(qp: int, log2: int, bd: int):
+    """(qbits, scale, 2^qbits / scale as float32, distortion scale) of
+    the integer quantiser at this QP and size."""
+    qpp = int(qp) + 6 * (bd - 8)
+    per, rem = qpp // 6, qpp % 6
+    qbits = QUANT_SHIFT + per + transform_shift(log2, bd)
+    scale = _QUANT_SCALES[rem]
+    # distortion of coding |level| l: (a - l*2^qbits/scale)^2 scaled to
+    # pixel SSE by 2^-2*(15-bd-log2); 2^qbits as the reference rounds it
+    inv = float(exp2_int(qbits) / np.float32(scale))
+    cscale = float(np.float32(2.0 ** (-2 * (15 - bd - log2))))
+    return qbits, scale, inv, cscale
+
+
 def rdoq_tb(coef, qp: int, log2: int, bd: int, lam, cbflat,
             is_luma: bool, scan_idx: int = 0, sdh: bool = False,
             scan_sel=None, trellis: bool = True):
@@ -65,6 +90,112 @@ def rdoq_tb(coef, qp: int, log2: int, bd: int, lam, cbflat,
 
     scan_sel: optional (...,) per-TB coding-scan id (0 diag / 1 hor /
     2 ver); only the SDH parity stage needs the true scan."""
+    if coef.is_cuda:
+        return k10(coef, log2, is_luma, scan_idx, cbflat=cbflat, qp=qp,
+                   bd=bd, lam=lam, sdh=sdh, scan_sel=scan_sel,
+                   trellis=trellis, want=("lev",))[0]
+    return rdoq_tb_plain(coef, qp, log2, bd, lam, cbflat, is_luma,
+                         scan_idx, sdh, scan_sel, trellis)
+
+
+def rdoq_code(coef, qp: int, log2: int, bd: int, lam, cbflat,
+              is_luma: bool, sdh: bool = False, scan_sel=None,
+              trellis: bool = True):
+    """The coding step of `_code`: (levels, dequantised coefficients,
+    tb_bits price with the SDH sign rule) of a batch of TBs; one K10
+    launch on the card."""
+    if coef.is_cuda:
+        return k10(coef, log2, is_luma, 0, cbflat=cbflat, qp=qp, bd=bd,
+                   lam=lam, sdh=sdh, scan_sel=scan_sel, trellis=trellis,
+                   want=("lev", "deq", "bits"))
+    lev = rdoq_tb_plain(coef, qp, log2, bd, lam, cbflat, is_luma, 0, sdh,
+                        scan_sel, trellis)
+    return (lev, dequantize_t_plain(lev, qp, log2, bd),
+            tb_bits_plain(lev, cbflat, log2, is_luma, 0, sdh))
+
+
+# ---------------------------------------------------------------------------
+# K10: the launch
+
+_K10_TABS: dict = {}
+
+
+def _k10_tables(log2: int, scan_idx: int, is_luma: bool, device):
+    """The kernel's packed tables of one (size, scan, component): int32
+    [scans, sig_tab, right, below, last_x, last_y, scan rank table] and
+    float32 [w_cnt, ep_cnt] (the layout of `Tabs` in csrc/rdoq.cu)."""
+    key = (log2, scan_idx, is_luma, str(device))
+    t = _K10_TABS.get(key)
+    if t is None:
+        n = _tb_tables_np(log2, scan_idx, is_luma)
+        ranks = _scan_rank_table(scan_idx, "cpu").numpy()
+        ti = np.concatenate([np.asarray(n[k]).reshape(-1) for k in (
+            "scans", "sig_tab", "right", "below", "last_x", "last_y")]
+            + [ranks.reshape(-1)]).astype(np.int32)
+        tf = np.concatenate([n["w_cnt"].reshape(-1),
+                             n["ep_cnt"].reshape(-1)]).astype(np.float32)
+        t = (torch.as_tensor(ti).to(device),
+             torch.as_tensor(tf).to(device),
+             {k: n[k] for k in ("ctx_x", "ctx_y", "sig_cg_base",
+                                "one_base", "abs_base")})
+        _K10_TABS[key] = t
+    return t
+
+
+_F_LEV_IN, _F_TRELLIS, _F_SDH, _F_LUMA = 1, 2, 4, 8
+
+
+def k10(x, log2: int, is_luma: bool, scan_idx: int = 0, *, cbflat=None,
+        qp: int = 0, bd: int = 8, lam=None, sdh: bool = False,
+        scan_sel=None, trellis: bool = False, lev_in: bool = False,
+        add=None, want=("lev",)):
+    """Launch K10 on a batch of (..., n, n) int32 TBs on the card.  x is
+    coefficients (quantised by the trellis when `trellis`, else by the
+    deadzone rounding `add`, by default HM's inter 85/512, then the SDH
+    parity stage when `sdh`), or levels when `lev_in`.  Returns the
+    `want`ed outputs among "lev" (levels), "deq" (their dequantisation
+    at qp) and "bits" (their tb_bits price, SDH sign rule when `sdh`)."""
+    n = 1 << log2
+    if x.shape[-1] != n or x.shape[-2] != n:
+        raise ValueError(f"rdoq: expected (..., {n}, {n}), got "
+                         f"{tuple(x.shape)}")
+    dev = x.device
+    lead = x.shape[:-2]
+    x = x.to(torch.int32).contiguous()
+    nb = x.numel() // (n * n)
+    tabs_i, tabs_f, ctx = _k10_tables(log2, scan_idx, is_luma, dev)
+    qbits, scale, inv, cscale = _quant_params(qp, log2, bd)
+    iscale, dq_shift = dequant_params(qp, log2, bd)
+    if add is None:
+        add = 85 << (qbits - 9)
+    flags = (_F_LEV_IN * lev_in + _F_TRELLIS * (trellis and not lev_in)
+             + _F_SDH * sdh + _F_LUMA * is_luma)
+    needs_lam = not lev_in and (trellis or sdh)
+    if needs_lam:
+        lam = torch.as_tensor(lam, dtype=torch.float32,
+                              device=dev).reshape(1).contiguous()
+    outs = {k: torch.empty(lead + ((n, n) if k != "bits" else ()),
+                           dtype=torch.float32 if k == "bits"
+                           else torch.int32, device=dev)
+            for k in want}
+    if nb:
+        sel = None if scan_sel is None else \
+            scan_sel.to(torch.int32).reshape(-1).contiguous()
+        kernels.launch(
+            "rdoq", "hm_rdoq", x,
+            None if cbflat is None else cbflat.to(torch.float32).contiguous(),
+            lam if needs_lam else None, sel, tabs_i, tabs_f,
+            outs.get("lev"), outs.get("deq"), outs.get("bits"),
+            nb, log2, flags, scale, qbits, add, iscale, dq_shift,
+            ctx["ctx_x"], ctx["ctx_y"], ctx["sig_cg_base"],
+            ctx["one_base"], ctx["abs_base"], inv, cscale)
+    return tuple(outs[k] for k in want)
+
+
+def rdoq_tb_plain(coef, qp: int, log2: int, bd: int, lam, cbflat,
+                  is_luma: bool, scan_idx: int = 0, sdh: bool = False,
+                  scan_sel=None, trellis: bool = True):
+    """The plain version of K10's quantisation (rdoq_tb's stages)."""
     dev = coef.device
     t = _tb_tables(log2, scan_idx, is_luma, dev)
     npos, ncg = t["npos"], t["ncg"]
@@ -75,17 +206,9 @@ def rdoq_tb(coef, qp: int, log2: int, bd: int, lam, cbflat,
     a = sc.abs().reshape(g)
 
     # ---- quant scaling (integer path of xQuant, round-half start)
-    qpp = int(qp) + 6 * (bd - 8)
-    per, rem = qpp // 6, qpp % 6
-    qbits = QUANT_SHIFT + per + transform_shift(log2, bd)
-    scale = _QUANT_SCALES[rem]
+    qbits, scale, inv, cscale = _quant_params(qp, log2, bd)
     maxabs = torch.clamp((a * scale + (1 << (qbits - 1))) >> qbits,
                          max=COEFF_MAX).to(torch.int32)
-
-    # distortion of coding |level| l: (a - l*2^qbits/scale)^2 scaled to
-    # pixel SSE by 2^-2*(15-bd-log2); 2^qbits as the reference rounds it
-    inv = float(exp2_int(qbits) / np.float32(scale))
-    cscale = float(np.float32(2.0 ** (-2 * (15 - bd - log2))))
     af = a.to(torch.float32)
 
     def dist(lv):
@@ -253,7 +376,7 @@ def rdoq_tb(coef, qp: int, log2: int, bd: int, lam, cbflat,
     # deadzone quantisation with tb_bits and keep the per-block winner
     def exact_rd(lv):
         d = fsum(dist(lv), (-1, -2))
-        b = tb_bits(to_raster(lv), cbflat, log2, is_luma, scan_idx)
+        b = tb_bits_plain(to_raster(lv), cbflat, log2, is_luma, scan_idx)
         nz = (lv != 0).any(-1).any(-1)
         return d + lam * (b + nz.to(torch.float32))
 

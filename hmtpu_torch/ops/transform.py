@@ -3,10 +3,12 @@ inverses, bit-exact with the reference's partialButterfly* kernels
 (TComTrQuant.cpp:388+, xT :1952).
 
 `forward_transform` / `inverse_transform` keep hmtpu's signatures
-(hmtpu/ops/transform.py:38,58).  On a CUDA tensor they launch the
-hand-written kernel K1 (csrc/transform.cu); on a CPU tensor they run
-the plain PyTorch version beside it (`*_plain`), which is the same
-two-stage integer matrix product with the same rounding points.
+(hmtpu/ops/transform.py:38,58), and so do the transform-skip pair
+`transform_skip_fwd` / `transform_skip_inv` (:84,89).  On a CUDA tensor
+they launch the hand-written kernel K1 (csrc/transform.cu; the skip pair
+its TS mode); on a CPU tensor they run the plain PyTorch version beside
+it (`*_plain`), which is the same two-stage integer matrix product (or
+shift) with the same rounding points.
 
 All arithmetic is integer with arithmetic right shifts; intermediate
 clipping follows the spec's 16-bit dynamic range.  The sums fit in
@@ -118,3 +120,58 @@ def inverse_transform(coeff, size: int, bit_depth: int = 8,
         return _launch("int_transform_inv", "hm_int_transform_inv",
                        coeff, size, use_dst, *_shifts_inv(bit_depth))
     return inverse_transform_plain(coeff, size, bit_depth, use_dst)
+
+
+# ---------------------------------------------------------------------------
+# transform skip (8.6.4.2 transform_skip_flag branch; the encoder twin of
+# TComTrQuant xTransformSkip / xITransformSkip): the "transform" is a
+# shift to the coefficient scale, quant and dequant are unchanged.
+# Main profile: 4x4 only.
+
+def ts_shift(size: int, bit_depth: int) -> int:
+    return MAX_TR_DYNAMIC_RANGE - bit_depth - (size.bit_length() - 1)
+
+
+def _ts_inv_shifts(size: int, bit_depth: int):
+    """(left shift 5 + log2 nTbS, bdShift) of the inverse."""
+    return 5 + (size.bit_length() - 1), 20 - bit_depth
+
+
+def transform_skip_fwd_plain(residual, size: int, bit_depth: int = 8):
+    return residual << ts_shift(size, bit_depth)
+
+
+def transform_skip_inv_plain(coeff, size: int, bit_depth: int = 8):
+    up, bd_shift = _ts_inv_shifts(size, bit_depth)
+    out = ((coeff << up) + (1 << (bd_shift - 1))) >> bd_shift
+    return torch.clamp(out, COEFF_MIN, COEFF_MAX).to(torch.int32)
+
+
+def _launch_ts(x, size: int, inverse: bool, s1: int, s2: int):
+    if x.shape[-1] != size or x.shape[-2] != size:
+        raise ValueError(f"expected (..., {size}, {size}), got "
+                         f"{tuple(x.shape)}")
+    x = x.to(torch.int32).contiguous()
+    out = torch.empty_like(x)
+    if x.numel():
+        kernels.launch("transform_skip", "hm_transform_skip", x, out,
+                       x.numel(), int(inverse), s1, s2)
+    return out
+
+
+def transform_skip_fwd(residual, size: int, bit_depth: int = 8):
+    """residual -> coefficient-scale values (Main profile: 4x4 only)."""
+    if residual.is_cuda:
+        return _launch_ts(residual, size, False, ts_shift(size, bit_depth),
+                          0)
+    return transform_skip_fwd_plain(residual, size, bit_depth)
+
+
+def transform_skip_inv(coeff, size: int, bit_depth: int = 8):
+    """dequantised coefficients -> residual: r = d << (5 + log2 nTbS)
+    (= 7 for the Main-profile 4x4 case), then the common bdShift
+    rounding stage (spec 8.6.4.2), clipped to 16 bits."""
+    if coeff.is_cuda:
+        return _launch_ts(coeff, size, True,
+                          *_ts_inv_shifts(size, bit_depth))
+    return transform_skip_inv_plain(coeff, size, bit_depth)

@@ -2,22 +2,24 @@
 coherence pass: the port of hmtpu/search/me.py (`integer_me_sad_volume`
 :29, `_bits_of` :63, `_volume_best` :72, `integer_me` :107,
 `integer_me_levels` :120, `satd_batch` :159, `_block_sad_int` :178,
-`regularize_mv_field` :194, `mv_bits_dev_f` :239).
+`regularize_mv_field` :194, `mv_bits_dev_f` :239, `_FRAC_OFFS` :174,
+`frac_refine_batch` :249).
 
-Two hand-written kernels live behind these functions:
+Three hand-written kernels live behind these functions:
 
   K5 me_sad (csrc/me_sad.cu)   `integer_me_levels` on a CUDA tensor:
       the full +-srange window of every 8x8 block, summed to 16x16 and
       32x32 in the same pass, the motion cost added and the argmin and
       3x3 SAD stencil taken without writing the SAD volume;
-  K8 satd8 (csrc/satd.cu)      `satd_batch` on a CUDA tensor.
+  K8 satd8 (csrc/satd.cu)      `satd_batch` on a CUDA tensor;
+  K9 frac_refine (csrc/frac_refine.cu)  `frac_refine_batch` on a CUDA
+      stack: HM's two-stage DCT-IF sub-pel search, both stages and all
+      18 candidates of a block in one thread block.
 
-On CPU tensors both run their plain PyTorch versions (`*_plain`), the
-reference's own formulation (the SAD volume, then argmin).  The
-coherence pass is plain PyTorch on every device.
-
-The DCT-IF sub-pel search (`frac_refine_batch`, the `subpel="dctif"`
-arm) is not ported yet (ROADMAP.md A16/B16).
+On CPU tensors they run their plain PyTorch versions (`*_plain`), the
+reference's own formulation (the SAD volume, then argmin; the candidate
+loop over K7's and K8's plain versions).  The coherence pass is plain
+PyTorch on every device.
 """
 from __future__ import annotations
 
@@ -285,3 +287,71 @@ def regularize_mv_field(refs, org_y, mvx, mvy, ridx, lam_sqrt,
         mvy = torch.gather(torch.stack([c[1] for c in cands]), 0, best)[0]
         ridx = torch.gather(torch.stack([c[2] for c in cands]), 0, best)[0]
     return mvx, mvy, ridx
+
+
+# ---------------------------------------------------------------------------
+# DCT-IF fractional refinement (the subpel="dctif" arm)
+
+# (dy, dx) of the 9 candidates of a stage, the centre first
+_FRAC_OFFS = np.array([(0, 0), (0, -1), (0, 1), (-1, 0), (1, 0),
+                       (-1, -1), (-1, 1), (1, -1), (1, 1)], np.int32)
+
+
+def frac_refine_batch_plain(refs, xs0, ys0, org_blocks, int_mvx, int_mvy,
+                            bsize: int, bd: int = 8, ridx=None):
+    """Plain version of K9: nine half-pel candidates around the integer
+    MV, then nine quarter-pel candidates around the half-pel winner,
+    each priced by SATD against its DCT-IF prediction; the first of
+    least cost wins (xPatternSearchFracDIF semantics,
+    TEncSearch.cpp:5232-5268).  Returns quarter-pel MVs."""
+    from hmtpu_torch.ops.interp import mc_batch_plain
+
+    if refs.dim() == 2:
+        refs = refs[None]
+    if ridx is None:
+        ridx = torch.zeros_like(xs0)
+    offs = torch.as_tensor(_FRAC_OFFS, dtype=torch.int64).to(refs.device)
+
+    def stage(mvq_x, mvq_y, step):
+        costs = torch.stack([satd_batch_plain(
+            org_blocks, mc_batch_plain(
+                refs, ridx, xs0, ys0, mvq_x + int(_FRAC_OFFS[k, 1]) * step,
+                mvq_y + int(_FRAC_OFFS[k, 0]) * step, bsize, bsize, False,
+                bd), bsize) for k in range(9)], 1)            # (B, 9)
+        best = costs.argmin(1)
+        return (mvq_x + (offs[best, 1] * step).to(mvq_x.dtype),
+                mvq_y + (offs[best, 0] * step).to(mvq_y.dtype))
+
+    mv = stage(int_mvx * 4, int_mvy * 4, 2)
+    return stage(*mv, 1)
+
+
+def frac_refine_batch(refs, xs0, ys0, org_blocks, int_mvx, int_mvy,
+                      bsize: int, bd: int = 8, ridx=None):
+    """HM-shaped two-stage fractional refinement, batched (hmtpu
+    me.py:249): `refs` is one (H, W) plane, or a (R, H, W) stack with
+    per-block `ridx`; org_blocks (B, n, n), integer MVs (B,).  K9 on a
+    CUDA stack, the plain version on a CPU one."""
+    if not refs.is_cuda:
+        return frac_refine_batch_plain(refs, xs0, ys0, org_blocks, int_mvx,
+                                       int_mvy, bsize, bd, ridx)
+    if refs.dim() == 2:
+        refs = refs[None]
+    if bsize not in (8, 16, 32) or tuple(org_blocks.shape[1:]) != \
+            (bsize, bsize):
+        raise ValueError(f"frac_refine: expected (B, {bsize}, {bsize}) "
+                         f"org blocks of 8, 16 or 32, got "
+                         f"{tuple(org_blocks.shape)}")
+    i32 = lambda a: a.to(torch.int32).contiguous()
+    B = int(org_blocks.shape[0])
+    if ridx is None:
+        ridx = torch.zeros((B,), dtype=torch.int32, device=refs.device)
+    out_x = torch.empty((B,), dtype=torch.int32, device=refs.device)
+    out_y = torch.empty_like(out_x)
+    if B:
+        r, h, w = refs.shape
+        kernels.launch("frac_refine", "hm_frac_refine", i32(refs),
+                       i32(ridx), i32(xs0), i32(ys0), i32(org_blocks),
+                       i32(int_mvx), i32(int_mvy), out_x, out_y, B, r, h,
+                       w, bsize, bd)
+    return out_x, out_y

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels of hmtpu_torch against their plain
 PyTorch versions, on the card.  Every output must be equal: the
-kernels are integer, except NN-FME's (K6), whose kernel and plain
-version round every float32 product and sum in the same order.  Skips
+kernels are integer, except NN-FME's (K6) and RDOQ's (K10), whose
+kernels and plain versions round every float32 operation in the same
+order (K10's float64 sums round once to float32).  Skips
 where there is no CUDA card; on the card:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -246,9 +247,86 @@ def test_satd_kernel(dev, n):
         assert torch.equal(got, me.satd_batch_plain(a, b, n))
 
 
-def test_ldp_encode_card_equals_cpu(dev):
-    """Four 64x64 pictures through the low-delay-P path with NN-FME on
-    the card and on the CPU: the same bytes."""
+def test_transform_skip_kernel(dev):
+    from hmtpu_torch.ops import transform as t
+
+    rng = np.random.RandomState(4)
+    for nb in (1, 300):
+        res = _i32(rng.randint(-255, 256, (nb, 4, 4)), dev)
+        deq = _i32(rng.randint(-(1 << 15), 1 << 15, (nb, 4, 4)), dev)
+        got = _launched("transform_skip",
+                        lambda: t.transform_skip_fwd(res, 4))
+        assert torch.equal(got, t.transform_skip_fwd_plain(res, 4))
+        got = _launched("transform_skip",
+                        lambda: t.transform_skip_inv(deq, 4))
+        assert torch.equal(got, t.transform_skip_inv_plain(deq, 4))
+
+
+@pytest.mark.parametrize("n", [8, 16, 32])
+def test_frac_refine_kernel(dev, n):
+    from hmtpu_torch.search import me
+
+    rng = np.random.RandomState(n)
+    h, w = 240, 416
+    refs = _i32(rng.randint(0, 256, (4, h, w)), dev)
+    gw, gh = -(-w // n), -(-h // n)
+    q = np.arange(gw * gh)
+    org = _i32(rng.randint(0, 256, (q.size, n, n)), dev)
+    args = [_i32(a, dev) for a in ((q % gw) * n, (q // gw) * n)]
+    mv = [_i32(rng.randint(-40, 41, q.size), dev) for _ in range(2)]
+    ridx = _i32(rng.randint(0, 4, q.size), dev)
+    got = _launched("frac_refine", lambda: me.frac_refine_batch(
+        refs, *args, org, *mv, n, 8, ridx=ridx))
+    want = me.frac_refine_batch_plain(refs, *args, org, *mv, n, 8,
+                                      ridx=ridx)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("log2", [2, 3, 4, 5])
+def test_rdoq_kernel(dev, log2):
+    from hmtpu_torch.common.constants import SliceType
+    from hmtpu_torch.common.lambdas import frame_lambdas
+    from hmtpu_torch.entropy.contexts import make_contexts
+    from hmtpu_torch.entropy.fracbits import ctx_bits_table
+    from hmtpu_torch.ops import quant, ratebits, rdoq, transform
+
+    n = 1 << log2
+    rng = np.random.RandomState(log2)
+    res = _i32(rng.randint(-60, 61, (64, n, n)) // rng.randint(
+        1, 9, (64, 1, 1)), dev)
+    cb = torch.as_tensor(ctx_bits_table(make_contexts(
+        SliceType.P, 22)).reshape(-1)).to(dev)
+    for ts in (False, True) if n == 4 else (False,):
+        coef = transform.transform_skip_fwd(res, n) if ts \
+            else transform.forward_transform(res, n)
+        for luma in (True, False):
+            lam = torch.tensor(frame_lambdas(22, 22, 0.4624)[0 if luma else 3],
+                               dtype=torch.float32, device=dev)
+            sel = _i32(rng.randint(0, 3, 64), dev) if n <= 8 else None
+            for trellis in (True, False):
+                for sdh in (True, False):
+                    got = _launched("rdoq", lambda: rdoq.rdoq_code(
+                        coef, 22, log2, 8, lam, cb, luma, sdh=sdh,
+                        scan_sel=sel, trellis=trellis))
+                    lev = rdoq.rdoq_tb_plain(coef, 22, log2, 8, lam, cb,
+                                             luma, 0, sdh, sel, trellis)
+                    assert torch.equal(got[0], lev)
+                    assert torch.equal(got[1], quant.dequantize_t_plain(
+                        lev, 22, log2))
+                    bits = ratebits.tb_bits_plain(lev, cb, log2, luma, 0,
+                                                  sdh)
+                    assert torch.equal(got[2].view(torch.int32),
+                                       bits.view(torch.int32))
+            assert torch.equal(
+                _launched("rdoq", lambda: quant.quantize_t(coef, 22, log2)),
+                quant.quantize_t_plain(coef, 22, log2))
+
+
+@pytest.mark.parametrize("subpel,ts", [("nn", False), ("dctif", True)])
+def test_ldp_encode_card_equals_cpu(dev, subpel, ts):
+    """Four 64x64 pictures through the low-delay-P path (NN-FME; or HM's
+    DCT-IF search with transform skip) on the card and on the CPU: the
+    same bytes."""
     from hmtpu_torch.encoder.top import Encoder, EncoderConfig
     from hmtpu_torch.io.yuv import Frame
 
@@ -265,6 +343,52 @@ def test_ldp_encode_card_equals_cpu(dev):
     out = []
     for d in (dev, "cpu"):
         enc = Encoder(EncoderConfig(width=64, height=64, qp=27, gop="ldp",
-                                    subpel="nn", search_range=8), device=d)
+                                    subpel=subpel, search_range=8,
+                                    transform_skip=ts), device=d)
         out.append(enc.encode_sequence(frames))
     assert out[0] == out[1]
+
+
+def _screen(w, h, n):
+    """Screen content where transform skip wins (the seed-11 generator of
+    the repo's transform-skip tests): coloured strokes on a flat
+    background, drifting so P frames carry chroma residual."""
+    rng = np.random.RandomState(11)
+    marks = [(rng.randint(0, w // 2 - 8), rng.randint(0, h // 2 - 4),
+              rng.randint(3, 8)) for _ in range(40)]
+    out = []
+    for t in range(n):
+        y = np.full((h, w), 90, np.uint8)
+        u = np.full((h // 2, w // 2), 100, np.uint8)
+        v = np.full((h // 2, w // 2), 150, np.uint8)
+        for x0, y0, ln in marks:
+            x = (x0 + t) % (w // 2 - 8)
+            u[y0:y0 + 2, x:x + ln] = 230
+            v[y0:y0 + 2, x:x + ln] = 40
+            y[2 * y0:2 * y0 + 4, 2 * x:2 * x + 2 * ln] = 200
+        out.append((y, u, v))
+    return out
+
+
+@pytest.mark.parametrize("gop,counter", [("ai", "intra_ts_tbs"),
+                                         ("ldp", "ldp_ts_tbs")])
+def test_transform_skip_chosen_card_equals_cpu(dev, gop, counter):
+    """Screen content at 64x64 (AI: 2 pictures; LDP with HM's DCT-IF
+    search: 4) with transform skip on the card and on the CPU: the same
+    bytes, and some TB chose transform skip on the card."""
+    from hmtpu_torch.encoder import pframe_dev
+    from hmtpu_torch.encoder.top import Encoder, EncoderConfig
+    from hmtpu_torch.io.yuv import Frame
+
+    frames = [Frame(*p, 8) for p in _screen(64, 64, 2 if gop == "ai"
+                                            else 4)]
+    out, fired = [], []
+    for d in (dev, "cpu"):
+        pframe_dev.DBG_COUNTERS[counter] = 0
+        enc = Encoder(EncoderConfig(width=64, height=64, qp=27, gop=gop,
+                                    subpel="dctif", search_range=8,
+                                    transform_skip=True), device=d)
+        out.append(enc.encode_sequence(frames))
+        fired.append(pframe_dev.DBG_COUNTERS[counter])
+    assert out[0] == out[1]
+    assert fired[0] > 0 and fired[0] == fired[1]

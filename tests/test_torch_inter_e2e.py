@@ -1,14 +1,19 @@
 """The low-delay-P slice of hmtpu_torch against hmtpu: the same clip
-through `Encoder(gop="ldp", subpel="nn")` of both packages, the port on
-the CPU (every kernel's plain version), at the geometry and config of
-hmtpu's own LDP test (tests/test_inter_e2e.py: 64x64, 3 frames of
-`synth_clip`, QP 32, search range 8), so that hmtpu's XLA compile of
-`full_pframe_pass` is the one that test makes (and its persistent
-cache entry can serve it).
+through `Encoder(gop="ldp")` of both packages, the port on the CPU
+(every kernel's plain version), at the geometry and config of hmtpu's
+own LDP tests, so that hmtpu's XLA compile of `full_pframe_pass` is the
+one those tests make (and its persistent cache entry can serve it):
 
-One test checks, in order: frame 1's `full_pframe_pass` state (every
-array, dtype and value), the Annex-B stream byte for byte, and hmtpu's
-own decoder on the port's stream with every picture hash matching.
+  - NN-FME and HM's DCT-IF sub-pel search (tests/test_inter_e2e.py
+    `test_ldp_encode_decode_hash`: 64x64, 3 frames of `synth_clip`,
+    QP 32, search range 8): frame 1's `full_pframe_pass` state (every
+    array, dtype and value), the Annex-B stream byte for byte, and
+    hmtpu's own decoder on the port's stream with every picture hash
+    matching;
+  - transform skip on the 4x4 chroma TBs (tests/test_transform_skip.py
+    `test_ts_ldp_decode_and_flags_fire`: 96x64, QP 27, no sub-pel, 4
+    frames of chroma screen content): the stream byte for byte, the
+    hashes, and TS chosen by some TB.
 """
 import numpy as np
 import pytest
@@ -39,7 +44,7 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _encode(mod, encoder, config, frame_t, to_numpy, **kw):
+def _encode(mod, encoder, config, frame_t, to_numpy, subpel, **kw):
     """Encode the clip; return (stream, the P passes' states as numpy,
     results).  The states are read by wrapping the module's
     full_pframe_pass, which the P-frame encoder looks up at call time."""
@@ -57,19 +62,20 @@ def _encode(mod, encoder, config, frame_t, to_numpy, **kw):
                           v.astype(np.int32))
                   for y, u, v in synth_clip(W, H, FRAMES)]
         enc = encoder(config(width=W, height=H, qp=QP, gop="ldp",
-                             subpel="nn", search_range=8), **kw)
+                             subpel=subpel, search_range=8), **kw)
         bs = enc.encode_sequence(frames)
     finally:
         mod.full_pframe_pass = inner
     return bs, seen, enc.results
 
 
-def test_ldp_nn_slice_matches_hmtpu():
+@pytest.mark.parametrize("subpel", ["nn", "dctif"])
+def test_ldp_nn_slice_matches_hmtpu(subpel):
     j_bs, j_st, _ = _encode(j_pframe_dev, JEncoder, JConfig, JFrame,
                             lambda st: {k: np.asarray(v)
-                                        for k, v in st.items()})
+                                        for k, v in st.items()}, subpel)
     p_bs, p_st, p_res = _encode(p_pframe_dev, PEncoder, PConfig, PFrame,
-                                state_to_numpy, device="cpu")
+                                state_to_numpy, subpel, device="cpu")
 
     # frame 1's pass state: every array, dtype and value
     assert len(p_st) == len(j_st) == FRAMES - 1
@@ -87,3 +93,42 @@ def test_ldp_nn_slice_matches_hmtpu():
     assert all(r.psnr_y > 25 for r in p_res)
     # the P pictures predict from their references: far fewer bits
     assert all(r.bits < p_res[0].bits // 2 for r in p_res[1:])
+
+
+def _screenish_chroma(w, h, n):
+    """tests/test_transform_skip.py's chroma screen content (seed 11):
+    coloured text-like strokes on a flat background, drifting so P
+    frames carry chroma residual; planes as numpy (y, u, v)."""
+    rng = np.random.RandomState(11)
+    marks = [(rng.randint(0, w // 2 - 8), rng.randint(0, h // 2 - 4),
+              rng.randint(3, 8)) for _ in range(40)]
+    out = []
+    for t in range(n):
+        y = np.full((h, w), 90, np.uint8)
+        u = np.full((h // 2, w // 2), 100, np.uint8)
+        v = np.full((h // 2, w // 2), 150, np.uint8)
+        for x0, y0, ln in marks:
+            x = (x0 + t) % (w // 2 - 8)
+            u[y0:y0 + 2, x:x + ln] = 230
+            v[y0:y0 + 2, x:x + ln] = 40
+            y[2 * y0:2 * y0 + 4, 2 * x:2 * x + 2 * ln] = 200
+        out.append(tuple(p.astype(np.int32) for p in (y, u, v)))
+    return out
+
+
+def test_ldp_transform_skip_matches_hmtpu():
+    planes = _screenish_chroma(96, 64, 4)
+    cfg = dict(width=96, height=64, qp=27, gop="ldp", subpel="none",
+               transform_skip=True)
+    j_enc = JEncoder(JConfig(**cfg))
+    j_bs = j_enc.encode_sequence([JFrame(*p) for p in planes])
+    p_pframe_dev.DBG_COUNTERS["ldp_ts_tbs"] = 0
+    p_enc = PEncoder(PConfig(**cfg), device="cpu")
+    assert p_enc.pps.transform_skip_enabled
+    p_bs = p_enc.encode_sequence([PFrame(*p) for p in planes])
+    assert p_pframe_dev.DBG_COUNTERS["ldp_ts_tbs"] > 0, \
+        "no chroma TB chose transform skip on chroma screen content"
+    assert p_bs == j_bs
+    pics = Decoder().decode_annexb(p_bs)
+    assert [p.poc for p in pics] == list(range(4))
+    assert all(p.hash_ok is True for p in pics)

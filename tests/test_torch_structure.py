@@ -1,6 +1,7 @@
 """hmtpu_torch's boundaries: it loads neither JAX nor hmtpu, it never
 falls back to the CPU on its own, and options outside the all-intra and
-low-delay-P slices say which ROADMAP.md item brings them."""
+low-delay-P slices (DCT-IF or NN-FME sub-pel, transform skip) say which
+ROADMAP.md item brings them."""
 import os
 import shutil
 import subprocess
@@ -36,7 +37,9 @@ for n in names:
     importlib.import_module(n)
 for n in ("hmtpu_torch.search.me", "hmtpu_torch.models.nnfme",
           "hmtpu_torch.ops.interp", "hmtpu_torch.encoder.pframe_dev",
-          "hmtpu_torch.common.motion", "hmtpu_torch.entropy.inter_syntax"):
+          "hmtpu_torch.common.motion", "hmtpu_torch.entropy.inter_syntax",
+          "hmtpu_torch.apps.encoder_app", "hmtpu_torch.apps.options",
+          "hmtpu_torch.utils.analyze"):
     assert n in names, n
 # the NN-FME weights load from the port's own data files
 from hmtpu_torch.encoder.top import Encoder, EncoderConfig
@@ -68,10 +71,7 @@ def test_no_card_raises_without_fallback(monkeypatch):
         resolve("meta")
 
 
-# LDP (ROADMAP.md A2) runs; its default sub-pel arm, DCT-IF, is A16
 @pytest.mark.parametrize("opt,item", [
-    pytest.param(dict(gop="ldp"), "A16", id="opt0-A2"),
-    (dict(transform_skip=True), "A14"),
     (dict(bit_depth=10), "A15"), (dict(target_kbps=500.0), "A16"),
     (dict(wpp=True), "A16"), (dict(wavefront=False), "ROADMAP.md"),
     (dict(gop="ra"), "A17"),
@@ -79,6 +79,18 @@ def test_no_card_raises_without_fallback(monkeypatch):
 def test_options_outside_the_slice_raise(opt, item):
     with pytest.raises(NotImplementedError, match=item):
         Encoder(EncoderConfig(**opt), device="cpu")
+
+
+@pytest.mark.parametrize("opt", [
+    dict(gop="ldp"), dict(gop="ldp", subpel="none", transform_skip=True),
+    dict(gop="ai", transform_skip=True)])
+def test_slice_configs_construct(opt):
+    """The LDP defaults (DCT-IF sub-pel) and transform skip on both
+    paths are in the port: the encoder builds, and the PPS signals TS."""
+    enc = Encoder(EncoderConfig(**opt), device="cpu")
+    assert enc.pps.transform_skip_enabled == opt.get("transform_skip",
+                                                     False)
+    assert enc.cfg.subpel == opt.get("subpel", "dctif")
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
