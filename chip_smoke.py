@@ -9,7 +9,7 @@ when every phase passed):
   1. device    the card's name and power limit (nvidia-smi);
   2. build     nvcc for every kernel source in hmtpu_torch/csrc, one
                process per source, all started together;
-  3. kernels   each kernel (K1-K10 and K1's transform-skip mode) against
+  3. kernels   each kernel (K1-K12 and K1's transform-skip mode) against
                its plain PyTorch version on seeded inputs at the shapes
                the main paths give it: they must be equal (the float32
                outputs of K6 and K10 bit for bit: kernel and plain version
@@ -32,7 +32,16 @@ when every phase passed):
                in process, QP 22, 2 frames of the same clip at 416x240,
                counts reset before and read after: K1-K5, K7, K9, K10
                and K1-TS must be > 0;
-  6. ai        cfg/encoder_intra_main.cfg as shipped (QP 32, transform
+  6. ra10      the random-access Main10 cfg
+               (cfg/encoder_randomaccess_main10.cfg as shipped: QP 32,
+               10 bits, GOP 8 of B pictures, search range 64, DCT-IF,
+               SAO; BASELINE config 4) through the CLI on 9 frames of the
+               clip at 416x240 as 10-bit samples (the 8-bit clip << 2):
+               the IDR and one whole GOP, coded as POC 0, 8, 4, 2, 1, 3,
+               6, 5, 7.  Counts reset before and read after: K1-K5, K7
+               and K9-K12 must be > 0; 8 B slices, and bi-predicted CUs
+               (DBG_COUNTERS["ra_bi_cus"]) > 0.  Never left out;
+  7. ai        cfg/encoder_intra_main.cfg as shipped (QP 32, transform
                skip on, SDH off) on the clip's first frame through the
                CLI: K1-K4, K10 and K1-TS must be > 0.  When the run has
                passed FULL_AI_BEFORE_S seconds by then, this phase is
@@ -43,20 +52,24 @@ when every phase passed):
                comparison) and a 64x64 LDP I + P pair under
                torch.profiler (device operations and their time: a
                416x240 frame issues too many for the profiler);
-  7. parity    the ai phase's stream through the same CLI on the CPU
-               (the plain versions, in a worker process) must equal the
+  8. parity    the ai phase's stream through the same CLI on the CPU
+               (the plain versions, in worker processes) must equal the
                card's byte for byte; likewise 64x64 AI clips of 2 frames
                (transform skip off), 96x64 screen-content AI clips of 2
                frames with transform skip, 64x64 LDP clips of 4 frames
                (NN-FME; DCT-IF sub-pel with transform skip), each at QP
                22 and 37, search range 8, and a 96x64 screen-content LDP
                clip of 4 frames with DCT-IF sub-pel and transform skip at
-               QP 27.  On the screen-content clips some TB must have chosen
-               transform skip on the card (the I pass, or the P pass);
-  8. tally     meanwhile, untimed: the calls of the plain-torch queue-B
-               functions on the ldp phase's encode and the bytes of the
-               tensors they take and give (a bound for argument bytes
-               only).
+               QP 27; 64x64 Main10 random-access clips of 9 frames (DCT-IF,
+               search range 8) at QP 22 and 37, and an 8-bit one with
+               NN-FME at QP 27.  On the screen-content clips some TB must
+               have chosen transform skip on the card (the I pass, or the
+               P pass), on the RA clips some CU bi-prediction;
+  9. tally     meanwhile, untimed: the calls of the plain-torch queue-B
+               functions on the ldp phase's encode and on a 2-frame
+               416x240 RA Main10 encode (an I and a B picture), and the
+               bytes of the tensors they take and give (a bound for
+               argument bytes only).
 
 Imports nothing from hmtpu or JAX.  The last line of the output is
 {"ok": true, "device": {...}}.
@@ -87,13 +100,19 @@ QP_AI, QP_LDP, SRANGE, LDP_FRAMES = 32, 22, 64, 2
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LDP_CFG = os.path.join(ROOT, "cfg", "encoder_lowdelay_P_main.cfg")
 AI_CFG = os.path.join(ROOT, "cfg", "encoder_intra_main.cfg")
+RA_CFG = os.path.join(ROOT, "cfg", "encoder_randomaccess_main10.cfg")
+RA_FRAMES = 9
+# the parity phase's CPU side: worker processes and torch threads each
+# (the card's machine has 8 cores; the card's own dispatch takes one)
+CPU_WORKERS, CPU_THREADS = 3, 2
 # the full-width all-intra phase runs only while the check is within
 # this many seconds.  What follows it (the phase itself, the untimed
-# tally, the parity jobs, whose CPU side in the worker is the longest
-# chain) took about 230 s on the host of the first full run and may take
-# 1.9 times that on a slow host (the spread seen so far), about 440 s:
-# 600 s leaves that inside the 1200 s limit, 900 s would not
-FULL_AI_BEFORE_S = 600.0
+# tallies and the parity jobs' card side, about 8 + 60 + 100 s; their
+# CPU side, 316 s of jobs, runs alongside in CPU_WORKERS processes) took
+# about 170 s on the host of the slice's first full run; 1.9 times that
+# on a slow host (the spread seen so far) is about 320 s: 800 s leaves
+# it inside the 1200 s limit
+FULL_AI_BEFORE_S = 800.0
 
 
 def fail(msg: str) -> None:
@@ -166,6 +185,7 @@ DEVICE_FN = {
     "nnfme": "nnfme_kernel", "mc_dctif": "mc_kernel",
     "satd8": "satd_kernel", "transform_skip": "transform_skip_kernel",
     "frac_refine": "frac_kernel", "rdoq": "rdoq_kernel",
+    "mc_dctif_i": "mc_kernel", "bi_pred": "bi_pred_kernel",
 }
 
 
@@ -303,8 +323,8 @@ def kernel_cases(dev):
                   lambda: sao.apply_sao_dev(y, params, 64, 8),
                   lambda: sao.apply_sao_plain(y, params, 64, 8),
                   (2 * H * W + nctu * 7) * 4, 12 * H * W, None))
-    return cases + inter_kernel_cases(dev, rng) + slice3_kernel_cases(dev,
-                                                                       rng)
+    return cases + inter_kernel_cases(dev, rng) \
+        + slice3_kernel_cases(dev, rng) + slice4_kernel_cases(dev, rng)
 
 
 def first_p_lambda_sqrt() -> np.float32:
@@ -602,6 +622,66 @@ def slice3_kernel_cases(dev, rng):
     return cases
 
 
+def ra_lanes() -> int:
+    """The widest cell batch of the 416x240 z-scan (lanes of one level
+    of block_schedule32): the B of the B pass's merge calls."""
+    from hmtpu_torch.search.wavefront import block_schedule32
+
+    return int(block_schedule32(W, H, 6)["lv_blk"].shape[1])
+
+
+def slice4_kernel_cases(dev, rng):
+    """K11 and K12 at the shapes of the 416x240 B pass at 10 bits: one
+    cell batch's merge candidates (lanes x 5), each candidate's
+    hypotheses from a union stack of 3 references."""
+    from hmtpu_torch.ops import interp
+
+    t32 = lambda a: torch.as_tensor(np.asarray(a, np.int32)).to(dev)
+    bd, M = 10, 5
+    nblk = ra_lanes() * M
+    cases = []
+
+    # K11: luma 8x8 is timed; luma 16, 32 and chroma 4, 8, 16 checked
+    def mci_case(chroma, n):
+        h, w = (H // 2, W // 2) if chroma else (H, W)
+        refs = t32(rng.randint(0, 1 << bd, (3, h, w)))
+        span = 4 * (n + 24)
+        args = [t32(a) for a in (
+            rng.randint(0, 3, nblk), rng.randint(0, w // n, nblk) * n,
+            rng.randint(0, h // n, nblk) * n, rng.randint(-span, span, nblk),
+            rng.randint(-span, span, nblk))]
+        return (refs, args,
+                lambda: interp.mc_batch(refs, *args, n, n, chroma, bd,
+                                        inter=True),
+                lambda: interp.mc_batch_i_plain(refs, *args, n, n, chroma,
+                                                bd))
+
+    refs, args, k, pl = mci_case(False, 8)
+    samples, macs = mc_work(refs, *args, 8, False)
+    more = [mci_case(c, n)[2:] for c, n in ((False, 16), (False, 32),
+                                          (True, 4), (True, 8), (True, 16))]
+    cases.append(("mc_dctif_i", k, pl, (samples + 5 * nblk + nblk * 64) * 4,
+                  2 * macs, None, more))
+
+    # K12: the same batch's two hypotheses per candidate and its
+    # directions; per sample two adds and a shift (bi) or an add and a
+    # shift (uni), a select and a clip: 5 operations counted
+    lo, hi = -(8192 + 600), (1 << 14) - 8192 + 600
+
+    def bp_case(nb, n):
+        i0, i1 = (t32(rng.randint(lo, hi, (nb, n, n))) for _ in range(2))
+        cdir = t32(rng.randint(1, 4, nb))
+        return (lambda: interp.bi_pred(i0, i1, cdir, bd),
+                lambda: interp.bi_pred_plain(i0, i1, cdir, bd))
+
+    k, pl = bp_case(nblk, 8)
+    cases.append(("bi_pred", k, pl, (3 * nblk * 64 + nblk) * 4,
+                  5 * nblk * 64, None,
+                  [bp_case(nblk, 16), bp_case(nblk, 32),
+                   bp_case(2 * nblk // M, 4)]))
+    return cases
+
+
 # the plain-torch device functions of queue B that have no hand kernel yet
 # (item, module, function): PlainTally counts their calls in an untimed
 # encode and sums the bytes of the tensors their calls take as arguments
@@ -615,6 +695,8 @@ PLAIN_FUNCS = (
     ("B10", "hmtpu_torch.encoder.pframe_dev", "amvp_candidates_dev"),
     ("B10", "hmtpu_torch.encoder.pframe_dev", "temporal_cand_grid_dev"),
     ("B11", "hmtpu_torch.encoder.pframe_dev", "wavefront_pass"),
+    ("B15", "hmtpu_torch.encoder.pframe_dev", "merge_candidates_dev_b"),
+    ("B15", "hmtpu_torch.encoder.pframe_dev", "amvp_candidates_dev_b"),
     ("B13 _choose_params", "hmtpu_torch.ops.sao", "_choose_params"),
     ("B14", "hmtpu_torch.encoder.iframe_dev", "iframe_pass"),
 )
@@ -683,7 +765,8 @@ def max_err(a, b) -> float:
 
 
 def encode(frames, qp, device, gop="ai", srange=16, subpel=None,
-           ts=False):
+           ts=False, bd=8):
+    """8-bit frames through Encoder; at bd 10 as 10-bit samples (<< 2)."""
     from hmtpu_torch.encoder.top import Encoder, EncoderConfig
     from hmtpu_torch.io.yuv import Frame
 
@@ -691,20 +774,27 @@ def encode(frames, qp, device, gop="ai", srange=16, subpel=None,
     if subpel is None:
         subpel = "nn" if gop == "ldp" else "none"
     cfg = EncoderConfig(width=w, height=h, qp=qp, gop=gop, subpel=subpel,
-                        search_range=srange, transform_skip=ts)
+                        search_range=srange, transform_skip=ts, bit_depth=bd)
     enc = Encoder(cfg, device=device)
     t0 = time.time()
-    bs = enc.encode_sequence([Frame(*f, 8) for f in frames])
+    bs = enc.encode_sequence([
+        Frame(*(np.asarray(p, np.int32) << (bd - 8) for p in f), bd)
+        for f in frames])
     if device != "cpu":
         torch.cuda.synchronize()
     return bs, time.time() - t0, enc.results
 
 
-def write_yuv(path, frames):
+def write_yuv(path, frames, bd=8):
+    """Planar 4:2:0; at bd 10 the 8-bit samples << 2, 16 bits each."""
     with open(path, "wb") as f:
         for planes in frames:
             for p in planes:
-                f.write(np.ascontiguousarray(p, np.uint8).tobytes())
+                if bd == 8:
+                    f.write(np.ascontiguousarray(p, np.uint8).tobytes())
+                else:
+                    f.write((np.asarray(p, np.uint16) << (bd - 8))
+                            .astype("<u2").tobytes())
 
 
 def cli_encode(args, device):
@@ -723,19 +813,14 @@ def cli_encode(args, device):
         return f.read(), dt, enc
 
 
-def cpu_streams(jobs):
-    """Each job's stream and seconds on the CPU (the plain version of
-    every kernel); run in a worker.  A job is (frames, qp, gop, search
-    range, sub-pel, transform skip), or ("cli", args) for the CLI."""
-    torch.set_num_threads(4)
-    out = []
-    for job in jobs:
-        if job[0] == "cli":
-            out.append(cli_encode(job[1], "cpu")[:2])
-        else:
-            f, qp, gop, sr, sp, ts = job
-            out.append(encode(f, qp, "cpu", gop, sr, sp, ts)[:2])
-    return out
+def cpu_stream(job):
+    """A job's stream and seconds on the CPU (the plain version of every
+    kernel); run in a worker.  A job is (frames, qp, gop, search range,
+    sub-pel, transform skip, bit depth), or ("cli", args) for the CLI."""
+    torch.set_num_threads(CPU_THREADS)
+    if job[0] == "cli":
+        return cli_encode(job[1], "cpu")[:2]
+    return encode(job[0], job[1], "cpu", *job[2:])[:2]
 
 
 def check_results(results, what):
@@ -768,11 +853,13 @@ def run_counted(label, fn, names, kernels):
     return out, counts, util
 
 
-def frame_line(label, results, util):
+def frame_line(label, results, util, gop8=False):
     parts = []
     for r in results:
-        p = f"POC{r.poc} {r.slice_type} {r.seconds:.3f} s"
-        if r.slice_type == "P":
+        p = f"POC{r.poc} {r.slice_type}" \
+            + (f" (GOP position {r.poc % 8})" if gop8 else "") \
+            + f" {r.seconds:.3f} s"
+        if r.slice_type in ("P", "B"):
             p += (f" (device pass {r.device_seconds:.3f} s, host finish + "
                   f"CABAC {r.host_seconds:.3f} s)")
         parts.append(p)
@@ -879,7 +966,8 @@ def main() -> None:
 
     # ---- 4. the main path: low-delay P with NN-FME
     ldp_names = [k for k in kernels.KERNELS
-                 if k not in ("frac_refine", "transform_skip")]
+                 if k not in ("frac_refine", "transform_skip", "mc_dctif_i",
+                              "bi_pred")]
     (bs, dt, results), counts, util = run_counted(
         "ldp", lambda: encode(clip, QP_LDP, dev, "ldp", SRANGE),
         ldp_names, kernels)
@@ -904,7 +992,8 @@ def main() -> None:
     size = ["-wdt", str(W), "-hgt", str(H), "-i", yuv]
 
     # ---- 5. the anchor cfg with HM's DCT-IF sub-pel search, via the CLI
-    dctif_names = [k for k in kernels.KERNELS if k not in ("nnfme", "satd8")]
+    dctif_names = [k for k in kernels.KERNELS
+                   if k not in ("nnfme", "satd8", "mc_dctif_i", "bi_pred")]
     pframe_dev.DBG_COUNTERS["ldp_ts_tbs"] = 0
     (d_bs, d_dt, d_enc), d_counts, d_util = run_counted(
         "ldp_dctif", lambda: cli_encode(
@@ -929,7 +1018,46 @@ def main() -> None:
                       f"V {r.psnr_v:.4f}" for r in d_res), flush=True)
     frame_line("ldp_dctif", d_res, d_util)
 
-    # ---- 6. cfg/encoder_intra_main.cfg as shipped, via the CLI
+    # ---- 6. random access at Main10 (BASELINE config 4), via the CLI
+    ra_clip = synth_clip(W, H, RA_FRAMES, seed=42)
+    yuv10 = os.path.join(tmp.name, "clip10.yuv")
+    write_yuv(yuv10, ra_clip, 10)
+    ra_names = [k for k in kernels.KERNELS
+                if k not in ("nnfme", "satd8", "transform_skip")]
+    pframe_dev.DBG_COUNTERS["ra_bi_cus"] = 0
+    (r_bs, r_dt, r_enc), r_counts, r_util = run_counted(
+        "ra10", lambda: cli_encode(
+            ["-c", RA_CFG, "--InputBitDepth=10", "-f", str(RA_FRAMES),
+             "-wdt", str(W), "-hgt", str(H), "-i", yuv10, "-b",
+             os.path.join(tmp.name, "ra10.hevc")], dev),
+        ra_names, kernels)
+    for name in ("mc_dctif_i", "bi_pred"):
+        rows[name]["launches"] = r_counts[name]
+    r_res = r_enc.results
+    check_results(r_res, "ra10")
+    n_bi = pframe_dev.DBG_COUNTERS["ra_bi_cus"]
+    order = [r.poc for r in r_res]
+    if (r_enc.cfg.gop, r_enc.cfg.bit_depth, r_enc.cfg.subpel) \
+            != ("ra", 10, "dctif") or order != [0, 8, 4, 2, 1, 3, 6, 5, 7]:
+        fail(f"ra10: the cfg gave gop {r_enc.cfg.gop} bit depth "
+             f"{r_enc.cfg.bit_depth} sub-pel {r_enc.cfg.subpel}, coding "
+             f"order {order}")
+    if [r.slice_type for r in r_res] != ["I"] + ["B"] * 8:
+        fail(f"ra10: slice types {[r.slice_type for r in r_res]}")
+    if n_bi <= 0:
+        fail("ra10: no CU was bi-predicted")
+    kbps = sum(r.bits for r in r_res) / RA_FRAMES * 50 / 1000.0
+    print(f"ra10: {os.path.basename(RA_CFG)} (QP{r_enc.cfg.qp}, 10 bits, "
+          f"SR{r_enc.cfg.search_range}, {r_enc.cfg.subpel}, SAO "
+          f"{int(r_enc.cfg.sao)}), 416x240, {RA_FRAMES} frames, "
+          f"{len(r_bs)} bytes, {r_dt:.3f} s, {RA_FRAMES / r_dt:.4f} fps, "
+          f"{kbps:.3f} kbps at 50 fps, bi-predicted CUs (ra_bi_cus) "
+          f"{n_bi}, PSNR "
+          + ", ".join(f"POC{r.poc} Y {r.psnr_y:.4f} U {r.psnr_u:.4f} "
+                      f"V {r.psnr_v:.4f}" for r in r_res), flush=True)
+    frame_line("ra10", r_res, r_util, gop8=True)
+
+    # ---- 7. cfg/encoder_intra_main.cfg as shipped, via the CLI
     ai_args = ["-c", AI_CFG, "-f", "1", *size, "-b",
                os.path.join(tmp.name, "ai.hevc")]
     full_ai = time.time() - t_start < FULL_AI_BEFORE_S
@@ -979,46 +1107,65 @@ def main() -> None:
             pframe_dev.rdoq_code = rdoq.rdoq_code
         profile_encode(args.profile, "ldp_64x64_I_P",
                        lambda: encode(small[:2], QP_LDP, dev, "ldp", 8))
+        profile_encode(args.profile, "ra_64x64_main10",
+                       lambda: encode(synth_clip(64, 64, 9, seed=3), 32,
+                                      dev, "ra", 8, "dctif", bd=10))
 
-    # ---- 7. card against CPU: the CPU's streams come from a worker
-    # process on the machine's other cores while this one dispatches the
+    # ---- 8. card against CPU: the CPU's streams come from worker
+    # processes on the machine's other cores while this one dispatches the
     # same clips to the card.  A job is (content, frames, qp, gop, search
-    # range, sub-pel, transform skip, the DBG_COUNTERS entry that must be
-    # > 0 on the card: transform skip chosen by some TB)
+    # range, sub-pel, transform skip, bit depth, the DBG_COUNTERS entry
+    # that must be > 0 on the card: transform skip chosen by some TB, or
+    # bi-prediction chosen by some CU)
     screen = screen_clip(96, 64, 4)
-    jobs = [("", small[:2], qp, "ai", 16, None, False, None)
+    small9 = synth_clip(64, 64, RA_FRAMES, seed=3)
+    jobs = [("", small[:2], qp, "ai", 16, None, False, 8, None)
             for qp in (22, 37)] \
-        + [("screen ", screen[:2], qp, "ai", 16, None, True, "intra_ts_tbs")
-           for qp in (22, 37)] \
-        + [("", small, qp, "ldp", 8, sp, ts, None)
+        + [("screen ", screen[:2], qp, "ai", 16, None, True, 8,
+            "intra_ts_tbs") for qp in (22, 37)] \
+        + [("", small, qp, "ldp", 8, sp, ts, 8, None)
            for sp, ts in (("nn", False), ("dctif", True))
            for qp in (22, 37)] \
-        + [("screen ", screen, 27, "ldp", 8, "dctif", True, "ldp_ts_tbs")]
+        + [("screen ", screen, 27, "ldp", 8, "dctif", True, 8,
+            "ldp_ts_tbs")] \
+        + [("Main10 ", small9, qp, "ra", 8, "dctif", False, 10, "ra_bi_cus")
+           for qp in (22, 37)] \
+        + [("", small9, 27, "ra", 8, "nn", False, 8, "ra_bi_cus")]
     ai_cpu_args = ai_args[:-1] + [os.path.join(tmp.name, "ai_cpu.hevc")]
+    cpu_jobs = ([("cli", ai_cpu_args)] if full_ai else []) \
+        + [j[1:8] for j in jobs]
     ctx = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx) as pool:
-        cpu_run = pool.submit(cpu_streams, ([("cli", ai_cpu_args)]
-                                            if full_ai else [])
-                              + [j[1:7] for j in jobs])
-        # ---- 8. meanwhile, the calls and argument bytes of the
+    with concurrent.futures.ProcessPoolExecutor(
+            CPU_WORKERS, mp_context=ctx) as pool:
+        # the workers take jobs in submission order: the 416x240 AI
+        # stream first, then the list from its end (the longer jobs)
+        order = ([0] if full_ai else []) + sorted(
+            range(len(cpu_jobs) - len(jobs), len(cpu_jobs)), reverse=True)
+        futs = {i: pool.submit(cpu_stream, cpu_jobs[i]) for i in order}
+        # ---- 9. meanwhile, the calls and argument bytes of the
         # plain-torch queue-B functions on the main path, in an untimed
-        # encode of the ldp phase's clip (their wrappers cost host time)
+        # encode of the ldp phase's clip, and of B15's on a 2-frame
+        # 416x240 RA Main10 encode (their wrappers cost host time)
         with PlainTally() as tally:
             encode(clip, QP_LDP, dev, "ldp", SRANGE)
         print(tally.line(f"416x240 LDP QP{QP_LDP} I + P, untimed"),
               flush=True)
+        with PlainTally() as tally:
+            encode(ra_clip[:2], 32, dev, "ra", SRANGE, "dctif", bd=10)
+        print(tally.line("416x240 RA Main10 QP32 I + B, untimed"),
+              flush=True)
         on_card = []
-        for _, f, qp, gop, sr, sp, ts, must in jobs:
-            for k in ("ldp_ts_tbs", "intra_ts_tbs"):
+        for _, f, qp, gop, sr, sp, ts, bd, must in jobs:
+            for k in ("ldp_ts_tbs", "intra_ts_tbs", "ra_bi_cus"):
                 pframe_dev.DBG_COUNTERS[k] = 0
-            on_card.append(encode(f, qp, dev, gop, sr, sp, ts)[:2]
+            on_card.append(encode(f, qp, dev, gop, sr, sp, ts, bd)[:2]
                            + (must and pframe_dev.DBG_COUNTERS[must],))
-        cpu = cpu_run.result()
+        cpu = [futs[i].result() for i in range(len(cpu_jobs))]
     labels = [f"{f[0][0].shape[1]}x{f[0][0].shape[0]} {what}{gop.upper()}"
-              f"{' ' + sp.upper() if gop == 'ldp' else ''}"
+              f"{' ' + sp.upper() if gop in ('ldp', 'ra') else ''}"
               f"{' TS' if ts else ''} QP{qp} {len(f)} frames"
-              for what, f, qp, gop, _, sp, ts, _ in jobs]
-    musts = [j[7] for j in jobs]
+              for what, f, qp, gop, _, sp, ts, _, _ in jobs]
+    musts = [j[8] for j in jobs]
     if full_ai:
         on_card = [(ai_bs, ai_dt, None)] + on_card
         labels = [f"416x240 AI {os.path.basename(AI_CFG)} QP{QP_AI} "
@@ -1029,8 +1176,8 @@ def main() -> None:
         if a != b:
             fail(f"{what}: card and CPU streams differ")
         if must and not fired:
-            fail(f"{what}: no TB chose transform skip on the card "
-                 f"({must} 0)")
+            fail(f"{what}: {must} 0 on the card (no TB chose transform "
+                 f"skip, or no CU bi-prediction)")
         print(f"parity: {what} card == CPU ({len(a)} bytes; card "
               f"{adt:.1f} s, CPU {bdt:.1f} s"
               + (f"; {must} {fired} on the card" if must else "") + ")",

@@ -10,9 +10,12 @@ TEncAnalyze summary.
 `--device` (before the HM options; `cuda` by default, which raises when
 there is no card) is the port's one addition.  `ReconFile` is written
 from the encoder's own reconstructed pictures, the ones the decoded
-picture hash SEI hashes.  Options outside the port's slices (random
-access, InternalBitDepth 10, RateControl, WaveFrontSynchro) raise the
-encoder's NotImplementedError naming their ROADMAP.md item.
+picture hash SEI hashes, in output order.  The random-access cfg's B
+`Frame1`-`Frame8` rows select `gop="ra"`; `InternalBitDepth: 10` (or
+`Profile: main10`) runs Main10, reading and writing 16-bit samples when
+`InputBitDepth` is 10.  Options outside the port's slices (bit depths
+above 10, RateControl, WaveFrontSynchro) raise the encoder's
+NotImplementedError naming their ROADMAP.md item.
 """
 from __future__ import annotations
 

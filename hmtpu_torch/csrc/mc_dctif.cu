@@ -22,6 +22,16 @@
 // intermediate stage subtracts the 14-bit offset only when both phases
 // are non-zero; copy, H-only and V-only take the reference's own
 // roundings.
+//
+// K11 mc_dctif_i (hm_mc_dctif_i) is the same kernel at intermediate
+// precision, bit-exact with hmtpu/ops/interp.py:227 _mc_batch_jax_i as
+// reached through mc_luma_batch_refs_i :281 and mc_chroma_batch_refs_i
+// :288: the hypotheses of B-slice bi-prediction, int32 and unclipped,
+// with HM's is_last=False rules (copy (s << (14 - bd)) - 8192; H-only and
+// V-only (sum - (8192 << (bd - 8))) >> (bd - 8); both phases the
+// intermediate stage then >> 6).  The offsets make the sums negative, so
+// every shift is an arithmetic shift of a signed int.  Bound and design
+// as K7's: one thread block per block, the patch staged in shared memory.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -38,6 +48,7 @@ __constant__ int kChroma[8][4] = {
     {0, 64, 0, 0},   {-2, 58, 10, -2}, {-4, 54, 16, -2}, {-6, 46, 28, -4},
     {-4, 36, 36, -4}, {-4, 28, 46, -6}, {-2, 16, 54, -4}, {-2, 10, 58, -2}};
 
+template <bool kInter>
 __global__ void mc_kernel(const int* __restrict__ refs,
                           const int* __restrict__ ridx,
                           const int* __restrict__ xs0,
@@ -90,6 +101,23 @@ __global__ void mc_kernel(const int* __restrict__ refs,
   for (int k = threadIdx.x; k < nh * nw; k += blockDim.x) {
     const int i = k / nw, j = k - (k / nw) * nw;
     int v;
+    if (kInter) {
+      if (fx == 0 && fy == 0) {
+        v = (patch[(i + half) * pw + j + half] << (IF_INTERNAL_PREC - bd)) -
+            IF_INTERNAL_OFFS;
+      } else if (fy == 0) {
+        v = (tmp[(i + half) * nw + j] - (IF_INTERNAL_OFFS << shift1)) >>
+            shift1;
+      } else {
+        int acc2 = 0;
+        for (int t = 0; t < ntaps; ++t) acc2 += cy[t] * tmp[(i + t) * nw + j];
+        v = acc2 >> IF_FILTER_PREC;
+        // V-only: the horizontal pass was phase 0 (x64)
+        if (fx == 0) v = (v - (IF_INTERNAL_OFFS << shift1)) >> shift1;
+      }
+      o[k] = v;
+      continue;
+    }
     if (fx == 0 && fy == 0) {
       v = patch[(i + half) * pw + j + half];
     } else if (fy == 0) {
@@ -106,21 +134,39 @@ __global__ void mc_kernel(const int* __restrict__ refs,
   }
 }
 
-}  // namespace
-
-extern "C" int hm_mc_dctif(const void* refs, const void* ridx, const void* xs0,
-                           const void* ys0, const void* mvx, const void* mvy,
-                           void* out, int nb, int R, int H, int W, int nw,
-                           int nh, int chroma, int bd, void* stream) {
+template <bool kInter>
+int launch_mc(const void* refs, const void* ridx, const void* xs0,
+              const void* ys0, const void* mvx, const void* mvy, void* out,
+              int nb, int R, int H, int W, int nw, int nh, int chroma, int bd,
+              void* stream) {
   if (nw < 1 || nh < 1 || nw > 64 || nh > 64 || R < 1 || bd < 8 || bd > 14)
     return cudaErrorInvalidValue;
   const int ntaps = chroma ? 4 : 8;
   const int pw = nw + ntaps - 1, ph = nh + ntaps - 1;
   const size_t smem = (size_t)(ph * pw + ph * nw) * sizeof(int);
   const int threads = nw * nh >= 256 ? 256 : 128;
-  mc_kernel<<<nb, threads, smem, (cudaStream_t)stream>>>(
+  mc_kernel<kInter><<<nb, threads, smem, (cudaStream_t)stream>>>(
       (const int*)refs, (const int*)ridx, (const int*)xs0, (const int*)ys0,
       (const int*)mvx, (const int*)mvy, (int*)out, R, H, W, nw, nh, chroma,
       bd);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int hm_mc_dctif(const void* refs, const void* ridx, const void* xs0,
+                           const void* ys0, const void* mvx, const void* mvy,
+                           void* out, int nb, int R, int H, int W, int nw,
+                           int nh, int chroma, int bd, void* stream) {
+  return launch_mc<false>(refs, ridx, xs0, ys0, mvx, mvy, out, nb, R, H, W,
+                          nw, nh, chroma, bd, stream);
+}
+
+extern "C" int hm_mc_dctif_i(const void* refs, const void* ridx,
+                             const void* xs0, const void* ys0, const void* mvx,
+                             const void* mvy, void* out, int nb, int R, int H,
+                             int W, int nw, int nh, int chroma, int bd,
+                             void* stream) {
+  return launch_mc<true>(refs, ridx, xs0, ys0, mvx, mvy, out, nb, R, H, W, nw,
+                         nh, chroma, bd, stream);
 }

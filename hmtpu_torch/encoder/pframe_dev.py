@@ -1,6 +1,6 @@
-"""Device-resident P-slice encoder: the port of hmtpu/encoder/pframe_dev.py
-(`_code` :188, `wavefront_pass` :255 on P slices, `full_pframe_pass`
-:1506, `PFrameDeviceEncoder` :1858).  The whole per-frame mode decision
+"""Device-resident P- and B-slice encoder: the port of
+hmtpu/encoder/pframe_dev.py (`_code` :188, `wavefront_pass` :255,
+`full_pframe_pass` :1506, `PFrameDeviceEncoder` :1858).  The whole per-frame mode decision
 (skip / merge / AMVP inter / intra), residual coding, reconstruction and
 in-loop filters run on the tensors' device; the host pulls the decision
 state and writes the slice with the native CABAC engine.
@@ -31,8 +31,17 @@ K1's TS mode).  Sub-pel: NN-FME as above, HM's DCT-IF search (K9,
 `subpel="dctif"`), or none.  Every coding step (`_code`) prices its TBs
 in one K10 launch (RDOQ, dequantisation and the TB rate).
 
-B slices (the `_b` closures) and the Jacobi decision are not ported
-(ROADMAP.md A17; the Jacobi decision is not queued).
+B slices (random access): the references of both lists are deduped
+into one union stack (`l0map` / `l1map` index it per list); ME searches
+every reference of both lists and keeps the best (list, ref, MV) per
+block, without the coherence pass; every merge candidate is predicted
+at intermediate precision (K11) and screened on the approximate final
+samples or the bi-average (K12); the winner's uni prediction is redone
+at final precision (K7) and its bi-average taken from the exact
+hypotheses; the AMVP candidate is the ME's (uni-directional) one.  No
+TMVP and no transform skip in B slices.  The host writes B slices with
+the Python slice walk (encoder/pframe.py); P slices with the native
+CABAC engine.  The Jacobi decision is not ported (not queued).
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from hmtpu_torch.common.constants import SliceType
 from hmtpu_torch.common.lambdas import frame_lambdas
 from hmtpu_torch.common.motion import (
     MotionCtx,
@@ -57,7 +67,14 @@ from hmtpu_torch.entropy.fracbits import ctx_bits_table
 from hmtpu_torch.entropy.headers import SliceHeader
 from hmtpu_torch.io.yuv import Frame
 from hmtpu_torch.ops.deblock import deblock_frame_dev
-from hmtpu_torch.ops.interp import mc_chroma_batch_refs, mc_luma_batch_refs
+from hmtpu_torch.ops.interp import (
+    bi_average_t,
+    bi_pred,
+    mc_chroma_batch_refs,
+    mc_chroma_batch_refs_i,
+    mc_luma_batch_refs,
+    mc_luma_batch_refs_i,
+)
 from hmtpu_torch.ops.intra_pred import (
     filter_reference_batched,
     predict_all_modes,
@@ -67,6 +84,7 @@ from hmtpu_torch.ops.ratebits import (
     cbf_chroma_bits,
     cbf_luma_bits,
     chroma_dm_bits,
+    inter_dir_bits,
     intra_mode_mpm_bits,
     merge_flag_bits,
     merge_idx_bits,
@@ -90,10 +108,12 @@ from hmtpu_torch.ops.transform import (
 )
 from hmtpu_torch.search.wavefront import (
     amvp_candidates_dev,
+    amvp_candidates_dev_b,
     block_schedule,
     block_schedule16,
     block_schedule32,
     merge_candidates_dev,
+    merge_candidates_dev_b,
     scale_mv_pair_dev,
     static_ref_gather,
     temporal_cand_grid_dev,
@@ -104,13 +124,11 @@ BIG = 3e38                 # float32 "never wins"
 
 # host-side event counters (introspection for tests/diagnostics)
 DBG_COUNTERS = {"cu64_merge": 0, "cu64_amvp": 0, "ldp_ts_tbs": 0,
-                "intra_ts_tbs": 0}
+                "intra_ts_tbs": 0, "ra_bi_cus": 0}
 
 # per-8x8-cell state columns
 (K_KIND, K_MI, K_MVDX, K_MVDY, K_MVPI, K_DIR, K_MVX, K_MVY, K_REF, K_SZ,
  K_CBFY, K_MVX1, K_MVY1, K_REF1) = range(14)
-
-ROADMAP_B = "B slices / gop='ra' (ROADMAP.md A17)"
 
 
 def _intra_scan_sel(m):
@@ -237,22 +255,48 @@ def _scalar(v, device):
     return torch.tensor(v, dtype=torch.float32, device=device)
 
 
+def _list_maps(l0map, l1map, device):
+    """A B slice's per-list union indices as int64 tensors (None for P)."""
+    if l1map is None:
+        return None
+    return tuple(torch.tensor(m, dtype=torch.int64, device=device)
+                 for m in (l0map, l1map))
+
+
+def _union_idx(r, lx, maps):
+    """(ref within its list, list) -> index into the union reference
+    stack of a B slice; P slices (maps None) index the stack by r."""
+    if maps is None:
+        return r
+    l0m, l1m = maps
+    i64 = lambda a: a.to(torch.int64)
+    return torch.where(lx == 0, l0m[i64(torch.clamp(r, 0, len(l0m) - 1))],
+                       l1m[i64(torch.clamp(r, 0, len(l1m) - 1))])
+
+
 def wavefront_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v,
                    mv_x, mv_y, mv_ref, ref_pocs, cur_poc: int,
                    mv16=None, mv32=None, qp: int = 32, qpc: int = 32,
                    col=None, col_poc: int = 0, cbflat=None,
+                   mv_lx=None, ref_pocs_l1=None,
                    *, w: int, h: int, num_ref: int, max_merge: int,
                    bd: int = 8, qp_factor=0.57, levels: int = 1,
                    tmvp: bool = False, log2_ctu: int = 6,
                    sdh: bool = False, rdoq: bool = True, n_active=None,
-                   ts: bool = False):
-    """The P-slice decision pass.  Planes and the reference stacks are
-    int32 tensors on the pass's device; mv_* the phase-1 ME field on
+                   ts: bool = False, num_ref_l1: int = 0,
+                   l0map: tuple = None, l1map: tuple = None):
+    """The P- or B-slice decision pass.  Planes and the reference stacks
+    are int32 tensors on the pass's device; mv_* the phase-1 ME field on
     the 8x8 grid (quarter-pel, ref index), mv16 / mv32 the same on the
     16 and (padded) 32 grids; ref_pocs a host list, cur_poc, col_poc,
     qp, qpc and n_active host ints; col the collocated field (4 tensors
     on the 8x8 grid) or None.  ts: the 4x4 chroma TBs of 8x8 CUs get
-    the transform-skip trial.  Returns the state dict (int32)."""
+    the transform-skip trial.
+
+    B slices (num_ref_l1 > 0): refs_* hold the union of both lists,
+    l0map / l1map give each list's union index per reference, mv_lx and
+    the fourth entries of mv16 / mv32 the ME's list per block, and
+    ref_pocs_l1 the list-1 POCs.  Returns the state dict (int32)."""
     dev = org_y.device
     st8 = _dev_static(w, h, log2_ctu, dev)
     bw, bh = w // 8, h // 8
@@ -265,6 +309,12 @@ def wavefront_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v,
     ar = lambda n: torch.arange(n, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     ref_pocs_t = torch.tensor(list(ref_pocs), **i32)
+    is_b = num_ref_l1 > 0
+    maps = _list_maps(l0map, l1map, dev) if is_b else None
+    union_idx = lambda r, lx: _union_idx(r, lx, maps)
+    if is_b:
+        ref_pocs_l1_t = torch.tensor(list(ref_pocs_l1), **i32)
+
     nb_ok, nb_flat = st8["nb_ok"], st8["nb_flat"]
     sub_y, none_y = st8["g8"]
     sub_u, none_c = st8["g4"]
@@ -283,11 +333,13 @@ def wavefront_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v,
     # ---- phase 1a: AMVP candidate prediction + residual for all blocks
     mvxf, mvyf = mv_x.reshape(-1), mv_y.reshape(-1)
     rself = mv_ref.reshape(-1)
-    pred_a = mc_luma_batch_refs(refs_y, rself, x0_all, y0_all, mvxf, mvyf,
+    lxf = mv_lx.reshape(-1) if is_b else None
+    rsu = union_idx(rself, lxf)
+    pred_a = mc_luma_batch_refs(refs_y, rsu, x0_all, y0_all, mvxf, mvyf,
                                 8, 8, bd)
-    pred_au = mc_chroma_batch_refs(refs_u, rself, bx_all * 4, by_all * 4,
+    pred_au = mc_chroma_batch_refs(refs_u, rsu, bx_all * 4, by_all * 4,
                                    mvxf, mvyf, 4, 4, bd)
-    pred_av = mc_chroma_batch_refs(refs_v, rself, bx_all * 4, by_all * 4,
+    pred_av = mc_chroma_batch_refs(refs_v, rsu, bx_all * 4, by_all * 4,
                                    mvxf, mvyf, 4, 4, bd)
     lev_ay, rec_ay, d_ay, b_ay = code(org_blk, pred_a, qp, 3, bd, lam,
                                       cbflat, True, sdh=sdh)
@@ -529,35 +581,192 @@ def wavefront_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v,
             extra=(levY[B:], recY[B:], dY[B:], bY[B:],
                    levC[2 * B:], recC[2 * B:], dC[2 * B:], bC[2 * B:]))
 
-    def amvp_rd(nbv, nmx, nmy, nrf, aref, amx, amy, tlev, g):
-        """AMVP list (per-lane target ref) -> mvp index, mvd and their
-        bits plus the ref_idx bits."""
-        nb_refpoc = ref_pocs_t[torch.clamp(nrf, 0, num_ref - 1)
-                               .to(torch.int64)]
-        takw = {} if tlev is None else dict(
-            t_ok=tlev[0][g], t_mvx=tlev[3][g], t_mvy=tlev[4][g])
-        p0x, p0y, p1x, p1y = amvp_candidates_dev(
-            nbv, nmx, nmy, nb_refpoc, ref_pocs_t[aref.to(torch.int64)],
-            cur_poc, **takw)
+    def neighbours(nb_idx, nb_avail):
+        nbp = st["blk"][nb_idx]                          # (B, 5, 14)
+        return nb_avail & (nbp[..., K_DIR] > 0), nbp
+
+    def amvp_rd(nbv, nbp, aref, amx, amy, tlev, g, lxb, depth: int):
+        """AMVP list (per-lane target list and ref) -> mvp index, mvd and
+        their bits plus the ref_idx (and, in B slices, inter_pred_idc)
+        bits; and the AMVP CU's motion (dir, L0 and L1 fields)."""
+        nmx, nmy, nrf = nbp[..., K_MVX], nbp[..., K_MVY], nbp[..., K_REF]
+        i64 = lambda a: a.to(torch.int64)
+        if is_b:
+            nmx1, nmy1, nrf1 = (nbp[..., K_MVX1], nbp[..., K_MVY1],
+                                nbp[..., K_REF1])
+            tpoc = torch.where(
+                lxb == 0, ref_pocs_t[i64(torch.clamp(aref, 0, num_ref - 1))],
+                ref_pocs_l1_t[i64(torch.clamp(aref, 0, num_ref_l1 - 1))])
+            p0x, p0y, p1x, p1y = amvp_candidates_dev_b(
+                nbv, nbp[..., K_DIR], nmx, nmy,
+                ref_pocs_t[i64(torch.clamp(nrf, 0, num_ref - 1))],
+                nmx1, nmy1,
+                ref_pocs_l1_t[i64(torch.clamp(nrf1, 0, num_ref_l1 - 1))],
+                lxb, tpoc, cur_poc)
+        else:
+            takw = {} if tlev is None else dict(
+                t_ok=tlev[0][g], t_mvx=tlev[3][g], t_mvy=tlev[4][g])
+            p0x, p0y, p1x, p1y = amvp_candidates_dev(
+                nbv, nmx, nmy, ref_pocs_t[i64(torch.clamp(nrf, 0,
+                                                          num_ref - 1))],
+                ref_pocs_t[i64(aref)], cur_poc, **takw)
         bits0 = mvd_bits(cbflat, amx - p0x, amy - p0y)
         bits1 = mvd_bits(cbflat, amx - p1x, amy - p1y)
         use1 = bits1 < bits0
         mvdx = torch.where(use1, amx - p1x, amx - p0x)
         mvdy = torch.where(use1, amy - p1y, amy - p0y)
+        zero = torch.zeros_like(amx)
+        if is_b:
+            b_refa = torch.where(
+                lxb == 0, ref_idx_bits(cbflat, aref, num_ref),
+                ref_idx_bits(cbflat, aref, num_ref_l1)) \
+                + inter_dir_bits(cbflat, 1 + lxb, depth)
+            u0a = lxb == 0
+            sel = lambda a, l1: torch.where(u0a == (not l1), a, 0)
+            mot = (1 + lxb, sel(amx, 0), sel(amy, 0), sel(aref, 0),
+                   sel(amx, 1), sel(amy, 1), sel(aref, 1))
+        else:
+            b_refa = ref_idx_bits(cbflat, aref, num_ref, n_active=n_active)
+            mot = (zero + 1, amx, amy, aref, zero, zero, zero)
         return (use1.to(torch.int32), mvdx, mvdy,
-                torch.minimum(bits0, bits1),
-                ref_idx_bits(cbflat, aref, num_ref, n_active=n_active))
+                torch.minimum(bits0, bits1), b_refa, mot)
 
-    def merge_list(nbv, nmx, nmy, nrf, tlev, g):
+    def merge_rd(org, orgu, orgv, x0, y0, n: int, log2y: int, nbv, nbp,
+                 tlev, g, b_skip1, b_inter, **extra):
+        """The merge and skip hypotheses of one CU batch: P slices through
+        p_merge_all_rd, B slices through b_merge_rd.  Adds the skip and
+        merge winners' motion (dir, L0, L1) as "sk" and "mg"."""
+        if is_b:
+            return b_merge_rd(org, orgu, orgv, x0, y0, n, log2y, nbv, nbp,
+                              b_skip1, b_inter, **extra)
+        nmx, nmy, nrf = nbp[..., K_MVX], nbp[..., K_MVY], nbp[..., K_REF]
         tkw = {} if tlev is None else dict(
             t_ok=tlev[0][g], t_mvx=tlev[1][g], t_mvy=tlev[2][g])
-        return merge_candidates_dev(nbv, nmx, nmy, nrf, num_ref, max_merge,
-                                    n_active=n_active, **tkw)
+        cmx, cmy, crf = merge_candidates_dev(nbv, nmx, nmy, nrf, num_ref,
+                                             max_merge, n_active=n_active,
+                                             **tkw)
+        mrd = p_merge_all_rd(org, orgu, orgv, x0, y0, n, log2y, cmx, cmy,
+                             crf, b_skip1, b_inter, **extra)
+        zero = torch.zeros_like(mrd["sk_mvx"])
+        for k in ("sk", "mg"):
+            mrd[k] = (zero + 1, mrd[k + "_mvx"], mrd[k + "_mvy"],
+                      mrd[k + "_ref"], zero, zero, zero)
+        return mrd
 
-    def neighbours(nb_idx, nb_avail):
-        nbp = st["blk"][nb_idx]                          # (B, 5, 14)
-        nbv = nb_avail & (nbp[..., K_DIR] > 0)
-        return nbv, nbp[..., K_MVX], nbp[..., K_MVY], nbp[..., K_REF]
+    def merge_b_nxn(nbv, nbp, x0, y0, n):
+        """B-slice merge list, every candidate's hypotheses at
+        intermediate precision (K11) and its screening prediction: the
+        bi-average where the candidate is bi, else the approximate final
+        samples of its list's hypothesis (K12)."""
+        B, M = x0.shape[0], max_merge
+        rep = lambda a: a.repeat_interleave(M)
+        cands = merge_candidates_dev_b(
+            nbv, nbp[..., K_DIR], nbp[..., K_MVX], nbp[..., K_MVY],
+            nbp[..., K_REF], nbp[..., K_MVX1], nbp[..., K_MVY1],
+            nbp[..., K_REF1], ref_pocs_t, ref_pocs_l1_t, num_ref,
+            num_ref_l1, max_merge)
+        cdir, cmx, cmy, crf, cmx1, cmy1, crf1 = cands
+        zl = torch.zeros_like(cdir.reshape(-1))
+        i0 = mc_luma_batch_refs_i(refs_y, union_idx(crf.reshape(-1), zl),
+                                  rep(x0), rep(y0), cmx.reshape(-1),
+                                  cmy.reshape(-1), n, n, bd)
+        i1 = mc_luma_batch_refs_i(refs_y,
+                                  union_idx(crf1.reshape(-1), zl + 1),
+                                  rep(x0), rep(y0), cmx1.reshape(-1),
+                                  cmy1.reshape(-1), n, n, bd)
+        pred_l = bi_pred(i0, i1, cdir.reshape(-1), bd).reshape(B, M, n, n)
+        return cands, i0.reshape(B, M, n, n), i1.reshape(B, M, n, n), pred_l
+
+    def merge_b_winner(cands, i0, i1, mi, x0, y0, n):
+        """The winning candidate's motion and its exact luma and chroma
+        prediction: the uni prediction at final precision (K7), the
+        bi-average of the exact hypotheses (K12; chroma's from K11)."""
+        B = x0.shape[0]
+        rowsB = ar(B)
+        wm = tuple(torch.gather(a, 1, mi[:, None])[:, 0] for a in cands)
+        w_dir, w_mvx, w_mvy, w_ref, w_mvx1, w_mvy1, w_ref1 = wm
+        uses0 = (w_dir & 1) > 0
+        u0w = union_idx(w_ref, torch.zeros_like(w_dir))
+        u1w = union_idx(w_ref1, torch.ones_like(w_dir))
+        uref = torch.where(uses0, u0w, u1w)
+        umx = torch.where(uses0, w_mvx, w_mvx1)
+        umy = torch.where(uses0, w_mvy, w_mvy1)
+        pred_u = mc_luma_batch_refs(refs_y, uref, x0, y0, umx, umy, n, n,
+                                    bd)
+        w_bi = (w_dir == 3)[:, None, None]
+        pred_m = torch.where(w_bi, bi_average_t(i0[rowsB, mi], i1[rowsB, mi],
+                                                bd), pred_u)
+        cx, cy, nc = two(x0 // 2), two(y0 // 2), n // 2
+        pc_u = mc_chroma_batch_refs(refs_c, torch.cat([uref, uref + Ru]),
+                                    cx, cy, two(umx), two(umy), nc, nc, bd)
+        pc_i0 = mc_chroma_batch_refs_i(refs_c, torch.cat([u0w, u0w + Ru]),
+                                       cx, cy, two(w_mvx), two(w_mvy), nc,
+                                       nc, bd)
+        pc_i1 = mc_chroma_batch_refs_i(refs_c, torch.cat([u1w, u1w + Ru]),
+                                       cx, cy, two(w_mvx1), two(w_mvy1), nc,
+                                       nc, bd)
+        pred_c2 = torch.where(two(w_bi), bi_average_t(pc_i0, pc_i1, bd),
+                              pc_u)
+        return wm, pred_m, pred_c2[:B], pred_c2[B:]
+
+    def b_merge_rd(org, orgu, orgv, x0, y0, n: int, log2y: int, nbv, nbp,
+                   b_skip1, b_inter, extra_y=None, extra_c=None,
+                   sel_y=None, sel_c=None):
+        """B-slice merge RD: the candidate with the least screening SSE +
+        merge_idx bits wins, its exact prediction is coded with the RDOQ
+        trellis (the 8x8 level's intra TBs ride the same batches) and
+        priced as skip and as merge.  Returns p_merge_all_rd's keys."""
+        B = org.shape[0]
+        cands, i0, i1, pred_l = merge_b_nxn(nbv, nbp, x0, y0, n)
+        ssq = lambda a, b_: ((a - b_) ** 2).sum((-1, -2))
+        mi = (ssq(org[:, None], pred_l).to(torch.float32)
+              + lam * bits_mi_row[None]).argmin(1)
+        wm, pred_m, pred_mu, pred_mv = merge_b_winner(cands, i0, i1, mi, x0,
+                                                      y0, n)
+        msse3 = ssq(org, pred_m).to(torch.float32) + wchroma * (
+            ssq(orgu, pred_mu) + ssq(orgv, pred_mv)).to(torch.float32)
+        orgs_y, preds_y, sely = org, pred_m, None
+        if extra_y is not None:
+            orgs_y = two(org)
+            preds_y = torch.cat([pred_m, extra_y])
+            sely = torch.cat([torch.zeros((B,), **i32), sel_y])
+        levY, recY, dY, bY = code(orgs_y, preds_y, qp, log2y, bd, lam,
+                                  cbflat, True, sdh=sdh, scan_sel=sely)
+        orgs_c = torch.cat([orgu, orgv])
+        preds_c = torch.cat([pred_mu, pred_mv])
+        selc = None
+        if extra_c is not None:
+            orgs_c = two(orgs_c)
+            preds_c = torch.cat([preds_c, extra_c])
+            selc = torch.cat([torch.zeros((2 * B,), **i32), sel_c])
+        levC, recC, dC, bC = code(orgs_c, preds_c, qpc, log2y - 1, bd,
+                                  lam_c, cbflat, False, wchroma, sdh=sdh,
+                                  scan_sel=selc)
+        lev_my, lev_mu, lev_mv = levY[:B], levC[:B], levC[B:2 * B]
+        cbf_m = (any_nz(lev_my, B), any_nz(lev_mu, B), any_nz(lev_mv, B))
+        b_mi = merge_idx_bits(cbflat, mi, max_merge)
+        mi = mi.to(torch.int32)
+        zi = torch.zeros((B,), **i32)
+        return dict(
+            cost_skip=msse3 + lam * (b_skip1 + b_mi),
+            cost_merge=dY[:B] + dC[:B] + dC[B:2 * B] + lam * (
+                b_inter + merge_flag_bits(cbflat, torch.ones_like(mi))
+                + b_mi + cbf_bits_inter(*cbf_m) + bY[:B] + bC[:B]
+                + bC[B:2 * B]),
+            mi_skip=mi, mi_merge=mi, sk=wm, mg=wm,
+            pred_sk_y=pred_m, pred_sk_u=pred_mu, pred_sk_v=pred_mv,
+            lev_my=lev_my, rec_my=recY[:B], lev_mu=lev_mu,
+            rec_mu=recC[:B], lev_mv=lev_mv, rec_mv=recC[B:2 * B],
+            cbf_m=cbf_m, ts_m=zi, ts_extra=zi,
+            extra=(levY[B:], recY[B:], dY[B:], bY[B:],
+                   levC[2 * B:], recC[2 * B:], dC[2 * B:], bC[2 * B:]))
+
+    def motion_cols(pick, mrd, amot, zero):
+        """The state's motion columns (dir, mvx, mvy, ref, mvx1, mvy1,
+        ref1) of the chosen skip / merge / AMVP (/ intra: zero)
+        hypothesis."""
+        return [pick(s_, m_, a_, zero) for s_, m_, a_ in
+                zip(mrd["sk"], mrd["mg"], amot)]
 
     def cell_step(blk, valid):
         """Decide one batch of 8x8 CUs against the committed state
@@ -567,7 +776,7 @@ def wavefront_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v,
         x0, y0 = bxi * 8, byi * 8
         B = blk.shape[0]
         org, orgu, orgv = org_blk[b], orgu_blk[b], orgv_blk[b]
-        nbv, nmx, nmy, nrf = neighbours(nb_flat[b], nb_ok[b])
+        nbv, nbp = neighbours(nb_flat[b], nb_ok[b])
 
         bL = torch.where(bxi > 0, b - 1, 0)
         bA = torch.where(byi > 0, b - bw, 0)
@@ -587,10 +796,9 @@ def wavefront_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v,
         cp2 = predict_one_mode(irefc, irefc, two(im), 4, False, bd)
         isel = _intra_scan_sel(im)
 
-        cmx, cmy, crf = merge_list(nbv, nmx, nmy, nrf, t8, b)
-        mrd = p_merge_all_rd(org, orgu, orgv, x0, y0, 8, 3, cmx, cmy, crf,
-                             b_skip1, b_inter, extra_y=ipred, extra_c=cp2,
-                             sel_y=isel, sel_c=two(isel))
+        mrd = merge_rd(org, orgu, orgv, x0, y0, 8, 3, nbv, nbp, t8, b,
+                       b_skip1, b_inter, extra_y=ipred, extra_c=cp2,
+                       sel_y=isel, sel_c=two(isel))
         cost_skip, cost_merge = mrd["cost_skip"], mrd["cost_merge"]
         cbf_m = mrd["cbf_m"]
         (lev_iy, rec_iy, d_iy, b_iy, levC2, recC2, dC2,
@@ -598,8 +806,9 @@ def wavefront_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v,
         lev_iu, lev_iv = levC2[:B], levC2[B:]
 
         aref, amx, amy = rself[b], mvxf[b], mvyf[b]
-        mvpi, mvdx, mvdy, bits_mvd, b_refa = amvp_rd(
-            nbv, nmx, nmy, nrf, aref, amx, amy, t8, b)
+        mvpi, mvdx, mvdy, bits_mvd, b_refa, amot = amvp_rd(
+            nbv, nbp, aref, amx, amy, t8, b, lxf[b] if is_b else None,
+            log2_ctu - 3)
         cost_amvp = dist_a[b] + lam * (
             b_inter + merge_flag_bits(cbflat, torch.zeros_like(b))
             + mvp_idx_bits(cbflat, mvpi) + bits_mvd + b_refa
@@ -638,17 +847,14 @@ def wavefront_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v,
         f96 = lambda a8, c4a, c4b: torch.cat(
             [a8.reshape(B, 64), c4a.reshape(B, 16), c4b.reshape(B, 16)], 1)
         zero = torch.zeros_like(amx)
-        o_blk = torch.stack([
-            choice, mi, mvdx, mvdy, mvpi,
-            torch.where(choice == 3, 0, 1).to(torch.int32),
-            pick4(mrd["sk_mvx"], mrd["mg_mvx"], amx, zero),
-            pick4(mrd["sk_mvy"], mrd["mg_mvy"], amy, zero),
-            pick4(mrd["sk_ref"], mrd["mg_ref"], aref, zero),
-            zero,
-            pick4(torch.zeros((B,), dtype=torch.bool, device=dev),
-                  cbf_m[0], any_nz(lev_ay[b], B),
-                  any_nz(lev_iy, B)).to(torch.int32),
-            zero, zero, zero], 1).to(torch.int32)
+        mot = motion_cols(pick4, mrd, amot, zero)
+        o_blk = torch.stack(
+            [choice, mi, mvdx, mvdy, mvpi] + mot[:4] + [
+                zero,
+                pick4(torch.zeros((B,), dtype=torch.bool, device=dev),
+                      cbf_m[0], any_nz(lev_ay[b], B),
+                      any_nz(lev_iy, B)).to(torch.int32)] + mot[4:],
+            1).to(torch.int32)
         commit(x0, y0, 8, valid,
                (pick4(mrd["pred_sk_y"], mrd["rec_my"], rec_ay[b], rec_iy),
                 pick4(mrd["pred_sk_u"], mrd["rec_mu"], rec_au[b],
@@ -676,25 +882,28 @@ def wavefront_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v,
         return finish_state()
 
     def hoisted_amvp(mvs, n, log2, gw_, gh_, orgs):
-        """Per-region AMVP prediction + residual at CU size n."""
-        mx, my, rr = (a.reshape(-1) for a in mvs)
+        """Per-region AMVP prediction + residual at CU size n; mvs =
+        (mvx, mvy, ref[, list])."""
+        mx, my, rr = (a.reshape(-1) for a in mvs[:3])
+        lx = mvs[3].reshape(-1) if is_b else None
+        ru = union_idx(rr, lx)
         q = ar(gw_ * gh_)
         qy, qx = q // gw_, q % gw_
-        pa = mc_luma_batch_refs(refs_y, rr, qx * n, qy * n, mx, my, n, n,
+        pa = mc_luma_batch_refs(refs_y, ru, qx * n, qy * n, mx, my, n, n,
                                 bd)
-        pau = mc_chroma_batch_refs(refs_u, rr, qx * (n // 2), qy * (n // 2),
+        pau = mc_chroma_batch_refs(refs_u, ru, qx * (n // 2), qy * (n // 2),
                                    mx, my, n // 2, n // 2, bd)
-        pav = mc_chroma_batch_refs(refs_v, rr, qx * (n // 2), qy * (n // 2),
+        pav = mc_chroma_batch_refs(refs_v, ru, qx * (n // 2), qy * (n // 2),
                                    mx, my, n // 2, n // 2, bd)
         ly, ry, dy_, by_ = code(orgs[0], pa, qp, log2, bd, lam, cbflat,
                                 True, sdh=sdh)
-        lu, ru, du, bu = code(orgs[1], pau, qpc, log2 - 1, bd, lam_c,
-                              cbflat, False, wchroma, sdh=sdh)
+        lu, ru_, du, bu = code(orgs[1], pau, qpc, log2 - 1, bd, lam_c,
+                               cbflat, False, wchroma, sdh=sdh)
         lv, rv, dv, bv = code(orgs[2], pav, qpc, log2 - 1, bd, lam_c,
                               cbflat, False, wchroma, sdh=sdh)
         m = gw_ * gh_
-        return dict(mx=mx, my=my, r=rr, rec=(ry, ru, rv), dist=dy_ + du + dv,
-                    bits=by_ + bu + bv,
+        return dict(mx=mx, my=my, r=rr, lx=lx, rec=(ry, ru_, rv),
+                    dist=dy_ + du + dv, bits=by_ + bu + bv,
                     cbf=(any_nz(ly, m), any_nz(lu, m), any_nz(lv, m)),
                     cbfy=any_nz(ly, m),
                     lev=torch.cat([ly.reshape(m, -1), lu.reshape(m, -1),
@@ -707,16 +916,16 @@ def wavefront_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v,
         (cost without split bit, choice, o_blk fields, outputs)."""
         B = g.shape[0]
         org, orgu, orgv = orgs[0][g], orgs[1][g], orgs[2][g]
-        nbv, nmx, nmy, nrf = neighbours(nb_idx, nb_avail)
+        nbv, nbp = neighbours(nb_idx, nb_avail)
         l_blk, a_blk, b_skip1, b_skip0 = mode_prices(g, corner, gx, gy)
         b_inter = b_skip0 + part_size_2nx2n_bits(cbflat) \
             + pred_mode_bits(cbflat, torch.zeros_like(g))
-        cmx, cmy, crf = merge_list(nbv, nmx, nmy, nrf, tlev, g)
-        mrd = p_merge_all_rd(org, orgu, orgv, gx * n, gy * n, n, log2,
-                             cmx, cmy, crf, b_skip1, b_inter)
+        mrd = merge_rd(org, orgu, orgv, gx * n, gy * n, n, log2, nbv, nbp,
+                       tlev, g, b_skip1, b_inter)
         aref, amx, amy = hoist["r"][g], hoist["mx"][g], hoist["my"][g]
-        mvpi, mvdx, mvdy, bits_mvd, b_refa = amvp_rd(
-            nbv, nmx, nmy, nrf, aref, amx, amy, tlev, g)
+        mvpi, mvdx, mvdy, bits_mvd, b_refa, amot = amvp_rd(
+            nbv, nbp, aref, amx, amy, tlev, g,
+            hoist["lx"][g] if is_b else None, log2_ctu - log2)
         cost_amvp = hoist["dist"][g] + lam * (
             b_inter + merge_flag_bits(cbflat, torch.zeros_like(g))
             + mvp_idx_bits(cbflat, mvpi) + bits_mvd + b_refa
@@ -731,7 +940,7 @@ def wavefront_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v,
         c = torch.where((c == 1) & m_zero, 0, c)
         mi = torch.where(c == 0, mrd["mi_skip"], mrd["mi_merge"])
 
-        def pick3(s, m, a):
+        def pick3(s, m, a, _=None):
             cc = c.reshape((-1,) + (1,) * (s.dim() - 1))
             return torch.where(cc == 0, s, torch.where(cc == 1, m, a))
 
@@ -744,16 +953,13 @@ def wavefront_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v,
         rec = tuple(pick3(s, m, a[g]) for s, m, a in zip(
             (mrd["pred_sk_y"], mrd["pred_sk_u"], mrd["pred_sk_v"]),
             (mrd["rec_my"], mrd["rec_mu"], mrd["rec_mv"]), hoist["rec"]))
-        zero = torch.zeros_like(c)
-        o_blk = torch.stack([
-            c, mi, mvdx, mvdy, mvpi, torch.ones_like(c),
-            pick3(mrd["sk_mvx"], mrd["mg_mvx"], amx),
-            pick3(mrd["sk_mvy"], mrd["mg_mvy"], amy),
-            pick3(mrd["sk_ref"], mrd["mg_ref"], aref),
-            torch.full_like(c, log2 - 3),
-            pick3(torch.zeros((B,), dtype=torch.bool, device=dev),
-                  cbf_m[0], hoist["cbfy"][g]).to(torch.int32),
-            zero, zero, zero], 1).to(torch.int32)
+        mot = motion_cols(pick3, mrd, amot, None)
+        o_blk = torch.stack(
+            [c, mi, mvdx, mvdy, mvpi] + mot[:4] + [
+                torch.full_like(c, log2 - 3),
+                pick3(torch.zeros((B,), dtype=torch.bool, device=dev),
+                      cbf_m[0], hoist["cbfy"][g]).to(torch.int32)] + mot[4:],
+            1).to(torch.int32)
         return costs.amin(1), l_blk, a_blk, o_blk, o_lev, rec
 
     # ---- 16 level: per 16x16 region, four 8x8 CUs inside the scan,
@@ -842,12 +1048,18 @@ def full_pframe_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v, nn,
                      ctu: int = 64, cb_off: int = 0, cr_off: int = 0,
                      qp_factor=0.57, tmvp: bool = False, sdh: bool = False,
                      rdoq: bool = True, decision: str = "scan",
-                     ts: bool = False):
+                     ts: bool = False, ref_pocs_l1=None,
+                     num_ref_l1: int = 0, l0map: tuple = None,
+                     l1map: tuple = None):
     """ME + sub-pel + wavefront decision + in-loop filters, with the
-    reference's compact output dtypes.  The L0 stack is padded to
-    num_ref; `n_active` is the real count (padded references never win
-    the ME selection).  Returns (state dict, the int32 reconstruction
-    planes on the device for the DPB)."""
+    reference's compact output dtypes.  P slices: the L0 stack is padded
+    to num_ref; `n_active` is the real count (padded references never
+    win the ME selection).  B slices (num_ref_l1 > 0): refs_* hold the
+    union of both lists (l0map / l1map index it per list), and integer
+    ME searches every reference of both lists, keeping the best (list,
+    ref, MV) per block for the AMVP candidate (bi candidates enter
+    through the merge list).  Returns (state dict, the int32
+    reconstruction planes on the device for the DPB)."""
     from hmtpu_torch.models.nnfme import predict_offsets
     from hmtpu_torch.search.me import (
         frac_refine_batch,
@@ -862,6 +1074,7 @@ def full_pframe_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v, nn,
             f"decision={decision!r}: the Jacobi decision is not ported")
     dev = org_y.device
     bw, bh = w // 8, h // 8
+    is_b = num_ref_l1 > 0
     if n_active is None:
         n_active = num_ref
     lam_sqrt_ = frame_lambdas(qp, qpc, qp_factor)[1]
@@ -881,15 +1094,27 @@ def full_pframe_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v, nn,
         return (torch.where(better, nn_qx, int_x * 4),
                 torch.where(better, nn_qy, int_y * 4))
 
-    def ref_cost(sad, r):
-        """SAD + ref-idx signalling bits; padded refs never win."""
-        refbits = 0.0 if num_ref == 1 else float(1 + min(r, num_ref - 2))
+    # (list, ref within the list, union index) of every searched ref
+    ref_lists = [(0, r, u) for r, u in enumerate(
+        l0map if is_b else range(num_ref))]
+    if is_b:
+        ref_lists += [(1, r, u) for r, u in enumerate(l1map)]
+    lx_tab = torch.tensor([m[0] for m in ref_lists], dtype=torch.int32,
+                          device=dev)
+    r_tab = torch.tensor([m[1] for m in ref_lists], dtype=torch.int32,
+                         device=dev)
+
+    def ref_cost(sad, lx, r):
+        """SAD + ref-idx signalling bits; padded L0 refs never win."""
+        nr = num_ref if lx == 0 else num_ref_l1
+        refbits = 0.0 if nr == 1 else float(1 + min(r, nr - 2))
         cost = sad.to(torch.float32) + lam_sqrt * refbits
-        return cost if r < n_active else cost + BIG
+        return cost + BIG if lx == 0 and r >= n_active else cost
 
     def pick_best_ref(entries):
-        """argmin over the per-reference candidates of one level (the
-        first reference wins ties)."""
+        """argmin over the per-(list, ref) candidates of one level (the
+        first wins ties); returns (mvx, mvy, ref within its list, list,
+        stencil)."""
         sel = torch.stack([e[2] for e in entries]).argmin(0)
         mvs = torch.stack([torch.stack(e[0]) for e in entries])  # (R,2,..)
         mvsel = torch.gather(mvs, 0, sel[None, None].expand(
@@ -897,32 +1122,36 @@ def full_pframe_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v, nn,
         stens = torch.stack([e[1] for e in entries])         # (R,..,3,3)
         sten = torch.gather(stens, 0, sel[None, :, :, None, None].expand(
             (1,) + stens.shape[1:]))[0]
-        return mvsel[0], mvsel[1], sel.to(torch.int32), sten
+        return mvsel[0], mvsel[1], r_tab[sel], lx_tab[sel], sten
 
     two_level = w % 16 == 0 and h % 16 == 0
     if two_level:
         qw0, qh0 = (bw // 2 + 1) // 2, (bh // 2 + 1) // 2
         acc = {8: [], 16: [], 32: []}
-        for r in range(num_ref):
-            lev = integer_me_levels(refs_y[r], org_y, srange, lam_sqrt_,
+        for lx, r, u in ref_lists:
+            lev = integer_me_levels(refs_y[u], org_y, srange, lam_sqrt_,
                                     qh0, qw0)
             for n, (mv, sten, sad) in lev.items():
-                acc[n].append((mv, sten, ref_cost(sad, r)))
+                acc[n].append((mv, sten, ref_cost(sad, lx, r)))
         me_out = {n: pick_best_ref(e) for n, e in acc.items()}
-        mvx, mvy, rsel, stencil = me_out[8]
+        mvx, mvy, rsel, lxsel, stencil = me_out[8]
     else:
         z = torch.zeros((bh, bw), dtype=torch.int32, device=dev)
         entries = []
-        for r in range(num_ref):
-            mv, sten, sad = integer_me(refs_y[r], org_y, 8, srange,
+        for lx, r, u in ref_lists:
+            mv, sten, sad = integer_me(refs_y[u], org_y, 8, srange,
                                        lam_sqrt, z, z)
-            entries.append((mv, sten, ref_cost(sad, r)))
-        mvx, mvy, rsel, stencil = pick_best_ref(entries)
+            entries.append((mv, sten, ref_cost(sad, lx, r)))
+        mvx, mvy, rsel, lxsel, stencil = pick_best_ref(entries)
 
-    # coherence pass: trade per-block SAD optimality for a mergeable
-    # motion field
-    mvx, mvy, rsel = regularize_mv_field(refs_y, org_y, mvx, mvy, rsel,
-                                         lam_sqrt, iters=3)
+    # coherence pass (P slices): trade per-block SAD optimality for a
+    # mergeable motion field
+    if not is_b:
+        mvx, mvy, rsel = regularize_mv_field(refs_y, org_y, mvx, mvy, rsel,
+                                             lam_sqrt, iters=3)
+
+    maps = _list_maps(l0map, l1map, dev) if is_b else None
+    union_idx = lambda rr, ll: _union_idx(rr, ll, maps)
 
     def subpel_level(mx, my, rr, sten, n, org_plane):
         """Quarter-pel MVs of one level's (gh, gw) integer field: the
@@ -949,23 +1178,28 @@ def full_pframe_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v, nn,
                          my.reshape(-1) * 4 + offs[:, 1], n)
         return gx.reshape(gh_, gw_), gy.reshape(gh_, gw_)
 
-    mvq_x, mvq_y = subpel_level(mvx, mvy, rsel, stencil, 8, org_y)
+    mvq_x, mvq_y = subpel_level(mvx, mvy, union_idx(rsel, lxsel), stencil,
+                                8, org_y)
     mv16 = mv32 = None
     if two_level:
-        m16x, m16y, r16, s16 = me_out[16]
-        mv16 = subpel_level(m16x, m16y, r16, s16, 16, org_y) + (r16,)
-        m32x, m32y, r32, s32 = me_out[32]
+        m16x, m16y, r16, lx16, s16 = me_out[16]
+        mv16 = subpel_level(m16x, m16y, union_idx(r16, lx16), s16, 16,
+                            org_y) + (r16,) + ((lx16,) if is_b else ())
+        m32x, m32y, r32, lx32, s32 = me_out[32]
         orgp = _edge_pad(org_y, qh0 * 32, qw0 * 32)
-        mv32 = subpel_level(m32x, m32y, r32, s32, 32, orgp) + (r32,)
+        mv32 = subpel_level(m32x, m32y, union_idx(r32, lx32), s32, 32,
+                            orgp) + (r32,) + ((lx32,) if is_b else ())
 
     st = wavefront_pass(
         org_y, org_u, org_v, refs_y, refs_u, refs_v, mvq_x, mvq_y, rsel,
         ref_pocs, cur_poc, mv16=mv16, mv32=mv32, qp=qp, qpc=qpc, col=col,
-        col_poc=col_poc, cbflat=cbflat, w=w, h=h, num_ref=num_ref,
+        col_poc=col_poc, cbflat=cbflat, mv_lx=lxsel if is_b else None,
+        ref_pocs_l1=ref_pocs_l1, w=w, h=h, num_ref=num_ref,
         max_merge=max_merge, bd=bd, qp_factor=qp_factor,
         levels=3 if two_level else 1, tmvp=tmvp,
         log2_ctu=ctu.bit_length() - 1, sdh=sdh, rdoq=rdoq,
-        n_active=n_active, ts=ts)
+        n_active=None if is_b else n_active, ts=ts and not is_b,
+        num_ref_l1=num_ref_l1, l0map=l0map, l1map=l1map)
 
     # ---- in-loop filters on the device (8.7.2 deblock, 8.7.3 SAO)
     if deblock or sao:
@@ -977,18 +1211,19 @@ def full_pframe_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v, nn,
             rep4 = lambda a: a.reshape(bh, bw).repeat_interleave(2, 0) \
                 .repeat_interleave(2, 1)
             dirf = blk[:, K_DIR]
-            u0f = (dirf & 1) > 0
-            zero = torch.zeros_like(dirf)
+            u0f, u1f = (dirf & 1) > 0, (dirf & 2) > 0
             # 8.7.2.4: the cbf condition counts luma coefficients only
-            ref_pocs_t = torch.tensor(list(ref_pocs), dtype=torch.int32,
-                                      device=dev)
-            rp0 = torch.where(u0f, ref_pocs_t[torch.clamp(
-                blk[:, K_REF], 0, num_ref - 1).to(torch.int64)], -1)
+            pocs = lambda pl, col_, nr: torch.tensor(
+                list(pl), dtype=torch.int32, device=dev)[torch.clamp(
+                    blk[:, col_], 0, nr - 1).to(torch.int64)]
+            rp0 = torch.where(u0f, pocs(ref_pocs, K_REF, num_ref), -1)
+            rp1 = torch.where(u1f, pocs(ref_pocs_l1, K_REF1, num_ref_l1),
+                              -1) if is_b else torch.full_like(dirf, -1)
             mv_x4 = torch.stack([rep4(torch.where(u0f, blk[:, K_MVX], 0)),
-                                 rep4(zero)])
+                                 rep4(torch.where(u1f, blk[:, K_MVX1], 0))])
             mv_y4 = torch.stack([rep4(torch.where(u0f, blk[:, K_MVY], 0)),
-                                 rep4(zero)])
-            refpoc4 = torch.stack([rep4(rp0), rep4(zero - 1)])
+                                 rep4(torch.where(u1f, blk[:, K_MVY1], 0))])
+            refpoc4 = torch.stack([rep4(rp0), rep4(rp1)])
             # 8-pel edges interior to a 16x16 / 32x32 CU are no boundaries
             cusz8 = blk[:, K_SZ].reshape(bh, bw)
             ev = torch.arange(bw - 1, device=dev)
@@ -1021,8 +1256,10 @@ def full_pframe_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v, nn,
 
 
 class PFrameDeviceEncoder(PFrameEncoder):
-    """P-slice encoder: the decision pass on the device (`launch`), the
-    host side and the native slice writer (`finish`, `_entropy_pass`)."""
+    """P- and B-slice encoder: the decision pass on the device
+    (`launch`), the host side (`finish`) and the slice writer
+    (`_entropy_pass`: the native engine for P slices, the Python walk
+    for B slices)."""
 
     def __init__(self, *a, qp_factor: float = 0.57, tmvp: bool = True,
                  ctx_states=None, rdoq: bool = True,
@@ -1043,10 +1280,13 @@ class PFrameDeviceEncoder(PFrameEncoder):
         self.device = device
 
     def launch(self, frame: Frame, qp: int, refs: list[Frame],
-               ref_pocs: list[int], poc: int, sh: SliceHeader):
+               ref_pocs: list[int], poc: int, sh: SliceHeader,
+               refs_l1=None, ref_pocs_l1=None):
         """Run the frame's device pass; returns the context for finish().
         Reference frames carrying `.dev` (device planes from an earlier
-        pass) are used in place: the DPB stays on the device."""
+        pass) are used in place: the DPB stays on the device.  For a B
+        slice the two lists are deduped by POC into one union stack;
+        l0map / l1map index it per list."""
         sps = self.sps
         w, h = sps.pic_width, sps.pic_height
         dev = self.device
@@ -1057,10 +1297,24 @@ class PFrameDeviceEncoder(PFrameEncoder):
             return d[i] if d is not None else torch.as_tensor(
                 np.asarray(host, np.int32)).to(dev)
 
-        union_refs = list(refs)
+        is_b = sh.slice_type == SliceType.B and bool(ref_pocs_l1)
+        l0map = l1map = None
+        num_ref_l1 = 0
+        if is_b:
+            union_pocs, union_refs = [], []
+            for p, r in zip(list(ref_pocs) + list(ref_pocs_l1),
+                            list(refs) + list(refs_l1)):
+                if p not in union_pocs:
+                    union_pocs.append(p)
+                    union_refs.append(r)
+            l0map = tuple(union_pocs.index(p) for p in ref_pocs)
+            l1map = tuple(union_pocs.index(p) for p in ref_pocs_l1)
+            num_ref_l1 = len(ref_pocs_l1)
+        else:
+            union_refs = list(refs)
         n_active = len(refs)
         ref_pocs = list(ref_pocs)
-        if self.pad_refs > n_active:
+        if not is_b and self.pad_refs > n_active:
             union_refs += [union_refs[-1]] * (self.pad_refs - n_active)
             ref_pocs += [ref_pocs[-1]] * (self.pad_refs - n_active)
         refs_y = torch.stack([plane(r, 0, r.y) for r in union_refs])
@@ -1072,7 +1326,7 @@ class PFrameDeviceEncoder(PFrameEncoder):
         # collocated motion for TMVP: the device tensors attached to
         # reference 0 by its own pass (col pic = RefPicList0[0]); an IDR
         # col pic has no motion, so the candidate never exists
-        use_tmvp = self.tmvp and sh.temporal_mvp
+        use_tmvp = self.tmvp and sh.temporal_mvp and not is_b
         col_in = getattr(refs[0], "dev_col", None) if use_tmvp else None
         if col_in is not None:
             col, col_poc = col_in
@@ -1090,14 +1344,17 @@ class PFrameDeviceEncoder(PFrameEncoder):
             torch.as_tensor(np.asarray(frame.v, np.int32)).to(dev),
             refs_y, refs_u, refs_v, self.nn_params, ref_pocs, poc, qp, qpc,
             col, col_poc, cbflat, n_active, w=w, h=h,
-            num_ref=len(union_refs), max_merge=sh.max_num_merge_cand,
+            num_ref=len(refs) if is_b else len(union_refs),
+            max_merge=sh.max_num_merge_cand,
             bd=self.bd, srange=self.search_range, subpel=self.subpel,
             deblock=deblock_on, sao=sao_on, ctu=sps.ctu_size,
             cb_off=self.pps.cb_qp_offset, cr_off=self.pps.cr_qp_offset,
             qp_factor=self.qp_factor, tmvp=use_tmvp,
             sdh=bool(self.pps.sign_data_hiding), rdoq=self.rdoq,
             decision=self.decision,
-            ts=bool(self.pps.transform_skip_enabled))
+            ts=bool(self.pps.transform_skip_enabled),
+            ref_pocs_l1=list(ref_pocs_l1) if is_b else None,
+            num_ref_l1=num_ref_l1, l0map=l0map, l1map=l1map)
         # this frame's L0 motion on the 8x8 grid, kept on the device as
         # the next frame's collocated field
         bw, bh = w // 8, h // 8
@@ -1112,7 +1369,9 @@ class PFrameDeviceEncoder(PFrameEncoder):
                     deblock_on=deblock_on, ref_pocs=list(ref_pocs),
                     poc=poc, num_ref=len(refs),
                     max_merge=sh.max_num_merge_cand, col_out=col_out,
-                    col_ref=refs[0], tmvp=use_tmvp)
+                    col_ref=refs[0], tmvp=use_tmvp,
+                    ref_pocs_l1=list(ref_pocs_l1) if is_b else [],
+                    num_ref_l1=num_ref_l1)
 
     def finish(self, ctx):
         """Pull the decision state and build the host-side outputs:
@@ -1136,7 +1395,10 @@ class PFrameDeviceEncoder(PFrameEncoder):
         kind, mi, mvdx, mvdy, mvpi = (blk[..., k] for k in range(5))
         fdir = blk[..., K_DIR]
         fmvx, fmvy, fref = blk[..., K_MVX], blk[..., K_MVY], blk[..., K_REF]
+        fmvx1, fmvy1, fref1 = (blk[..., K_MVX1], blk[..., K_MVY1],
+                               blk[..., K_REF1])
         cusz = blk[..., K_SZ]
+        is_b = ctx["num_ref_l1"] > 0
         imode = st["imode"].reshape(bh, bw)
         tsf = st["tsf"].reshape(bh, bw)
         DBG_COUNTERS["ldp_ts_tbs"] += int((tsf & 1).sum()
@@ -1180,11 +1442,15 @@ class PFrameDeviceEncoder(PFrameEncoder):
         # motion field (4x4 granularity) for later frames
         field = PicMotion.create(w, h)
         rep = lambda a: np.repeat(np.repeat(a, 2, 0), 2, 1)
-        u0m = (fdir & 1) > 0
+        u0m, u1m = (fdir & 1) > 0, (fdir & 2) > 0
         field.inter_dir[:] = rep(fdir)
         field.mv[0, ..., 0] = rep(np.where(u0m, fmvx, 0))
         field.mv[0, ..., 1] = rep(np.where(u0m, fmvy, 0))
         field.ref_idx[0] = rep(np.where(u0m, fref, -1))
+        if is_b:
+            field.mv[1, ..., 0] = rep(np.where(u1m, fmvx1, 0))
+            field.mv[1, ..., 1] = rep(np.where(u1m, fmvy1, 0))
+            field.ref_idx[1] = rep(np.where(u1m, fref1, -1))
 
         # ---- skip-region collapse: merge uniform all-skip regions into
         # one large skip CU.  A pure entropy-level transform -- same-MV
@@ -1197,9 +1463,10 @@ class PFrameDeviceEncoder(PFrameEncoder):
         col_np = getattr(ctx["col_ref"], "col_np", None) \
             if ctx["tmvp"] else None
         mctx = MotionCtx(field, w, h, sps.log2_ctu_size, ctx["ref_pocs"],
-                         [], cur_poc=ctx["poc"], col=col_np)
+                         ctx["ref_pocs_l1"], cur_poc=ctx["poc"], col=col_np)
         max_merge = ctx["max_merge"]
         num_ref = ctx["num_ref"]
+        num_ref_l1 = ctx["num_ref_l1"]
         uni = lambda a, cy, cx, nc: (a[cy:cy + nc, cx:cx + nc]
                                      == a[cy, cx]).all()
 
@@ -1213,19 +1480,26 @@ class PFrameDeviceEncoder(PFrameEncoder):
             if x0 + size <= w and y0 + size <= h and log2 > 3:
                 nc = size // 8
                 if (kind[cy:cy + nc, cx:cx + nc] == 0).all() and all(
-                        uni(a, cy, cx, nc) for a in (fmvx, fmvy, fref,
-                                                     fdir)):
-                    want = (int(fmvx[cy, cx]), int(fmvy[cy, cx]))
+                        uni(a, cy, cx, nc) for a in (fmvx, fmvy, fref, fdir,
+                                                     fmvx1, fmvy1, fref1)):
+                    wdir = int(fdir[cy, cx])
+                    want = ((int(fmvx[cy, cx]), int(fmvy[cy, cx])),
+                            (int(fmvx1[cy, cx]), int(fmvy1[cy, cx])))
+                    wref = (int(fref[cy, cx]), int(fref1[cy, cx]))
                     cands = merge_candidates(mctx, x0, y0, size, size,
-                                             max_merge, num_ref, False, 0)
+                                             max_merge, num_ref, is_b,
+                                             num_ref_l1)
                     for ci, c in enumerate(cands):
-                        if c.inter_dir == int(fdir[cy, cx]) \
-                                and c.mv[0] == want \
-                                and c.ref_idx[0] == int(fref[cy, cx]):
-                            depth8[cy:cy + nc, cx:cx + nc] = \
-                                sps.log2_ctu_size - log2
-                            mi[cy, cx] = ci
-                            return
+                        if c.inter_dir != wdir or any(
+                                (wdir >> lx) & 1 and (
+                                    c.mv[lx] != want[lx]
+                                    or c.ref_idx[lx] != wref[lx])
+                                for lx in (0, 1)):
+                            continue
+                        depth8[cy:cy + nc, cx:cx + nc] = \
+                            sps.log2_ctu_size - log2
+                        mi[cy, cx] = ci
+                        return
             if log2 > 3:
                 half = size >> 1
                 for dy, dx in ((0, 0), (0, half), (half, 0), (half, half)):
@@ -1261,8 +1535,9 @@ class PFrameDeviceEncoder(PFrameEncoder):
             """Re-signal a uniform-motion inter CTU as ONE 64x64 CU with
             four 32x32 TBs (transform_tree split inferred, 7.3.8.8): the
             quadrant coefficients and the motion field are unchanged, so
-            the reconstruction (and deblocking) are untouched."""
-            if x0 + 64 > w or y0 + 64 > h:
+            the reconstruction (and deblocking) are untouched.  P slices
+            only."""
+            if is_b or x0 + 64 > w or y0 + 64 > h:
                 return
             cy, cx = y0 // 8, x0 // 8
             ks = kind[cy:cy + 8, cx:cx + 8]
@@ -1328,7 +1603,11 @@ class PFrameDeviceEncoder(PFrameEncoder):
 
         decisions = _decisions(kind, mi, mvdx, mvdy, mvpi, fmvx, fmvy, fref,
                                cusz, imode, tsf, levy, levcb, levcr, lev16y,
-                               lev16cb, lev16cr, lev32y, lev32cb, lev32cr)
+                               lev16cb, lev16cr, lev32y, lev32cb, lev32cr,
+                               (fdir, fmvx1, fmvy1, fref1) if is_b else None)
+        DBG_COUNTERS["ra_bi_cus"] += sum(
+            d.kind != "intra" and d.inter_dir == 3
+            for d in decisions.values())
         modes = np.where(kind == 3, imode, -1).astype(np.int32)
         skip_map = (kind == 0).astype(np.int32)
         intra_map = (kind == 3).astype(np.int32)
@@ -1341,7 +1620,9 @@ class PFrameDeviceEncoder(PFrameEncoder):
             refpoc=np.asarray(ctx["ref_pocs"], np.int32)[
                 np.clip(fref, 0, ctx["num_ref"] - 1)],
             poc=ctx["poc"])
-        self._nat = dict(
+        # the native slice writer speaks P syntax; B slices take the
+        # Python walk in _entropy_pass
+        self._nat = None if is_b else dict(
             kind=kind, mi=mi, mvdx=mvdx, mvdy=mvdy, mvpi=mvpi, refi=fref,
             imode=imode, levy=levy, levcb=levcb, levcr=levcr,
             lev16y=lev16y, lev16cb=lev16cb, lev16cr=lev16cr,
@@ -1350,11 +1631,17 @@ class PFrameDeviceEncoder(PFrameEncoder):
 
     def _entropy_pass(self, qp, modes, skip_map, intra_map, decisions,
                       sh: SliceHeader, sao=None) -> bytes:
-        """Whole-slice serialisation in one native call from the
-        decision tensors (no Python walk: the native engine is
-        required).  sao = ("packed", (n_ctu, 21) params) or None."""
+        """P slices: whole-slice serialisation in one native call from
+        the decision tensors (the native engine is required); sao =
+        ("packed", (n_ctu, 21) params) or None.  B slices: the Python
+        slice walk over the decisions; sao = (grid, luma, chroma) or
+        None."""
         from hmtpu_torch.entropy.recorder import encode_pslice_native
 
+        if self._nat is None:
+            return super()._entropy_pass(qp, modes, skip_map, intra_map,
+                                         decisions, sh, sao=sao,
+                                         depth8=self._depth8)
         sps = self.sps
         nat = self._nat
         sao_packed, sl, sc = None, 0, 0
@@ -1386,8 +1673,26 @@ class PFrameDeviceEncoder(PFrameEncoder):
 
 def _decisions(kind, mi, mvdx, mvdy, mvpi, fmvx, fmvy, fref, cusz, imode,
                tsf, levy, levcb, levcr, lev16y, lev16cb, lev16cr, lev32y,
-               lev32cb, lev32cr) -> dict:
-    """The per-CU decision records (PuDec) keyed by CU origin."""
+               lev32cb, lev32cr, bfields=None) -> dict:
+    """The per-CU decision records (PuDec) keyed by CU origin.  B
+    slices: bfields = (dir, mvx1, mvy1, ref1) adds inter_pred_idc and
+    the list-1 motion (and, for AMVP on list 1, its mvd and mvp index:
+    the CU's one mvd belongs to the list it uses)."""
+
+    def b_kw(byi, bxi, k):
+        if bfields is None:
+            return {}
+        fdir, fmvx1, fmvy1, fref1 = bfields
+        d = int(fdir[byi, bxi])
+        kw = dict(inter_dir=d)
+        if d & 2:
+            kw["mv_l1"] = (int(fmvx1[byi, bxi]), int(fmvy1[byi, bxi]))
+            kw["ref_idx_l1"] = int(fref1[byi, bxi])
+            if k == 2:
+                kw["mvd_l1"] = (int(mvdx[byi, bxi]), int(mvdy[byi, bxi]))
+                kw["mvp_idx_l1"] = int(mvpi[byi, bxi])
+        return kw
+
     bh, bw = kind.shape
     ts_cb, ts_cr = (tsf & 1), ((tsf >> 1) & 1)
     decisions: dict[tuple, PuDec] = {}
@@ -1432,6 +1737,8 @@ def _decisions(kind, mi, mvdx, mvdy, mvpi, fmvx, fmvy, fref, cusz, imode,
                             ts_cb=int(ts_cb[byi, bxi]),
                             ts_cr=int(ts_cr[byi, bxi]))
             mrg = int(mi[byi, bxi])
+            if sz < 3:
+                common.update(b_kw(byi, bxi, k))
             if k == 0:
                 decisions[key] = PuDec("skip", merge_idx=mrg, **common)
             elif k == 1:

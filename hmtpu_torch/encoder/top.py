@@ -1,9 +1,14 @@
 """Encoder top level: parameter sets, GOP walk and access-unit assembly
 (the port of hmtpu/encoder/top.py: `EncoderConfig`, and `Encoder` with
 `gop_depth` :113, `lambda_qp_factor` :136, `_load_nn` :224,
-`_ldp_lists` :277, `encode_sequence` :379, `_launch_p` :458,
-`_finish_p` :514 and `encode_frame_au` :582) on the all-intra and the
-low-delay-P paths.
+`_ldp_lists` :277, `RA_GOP8` and `_ra_schedule` :302-324,
+`encode_sequence` :379, `_launch_p` :458, `_finish_p` :514 and
+`encode_frame_au` :582) on the all-intra, low-delay-P and random-access
+paths, at 8 and 10 bits (Main and Main10).
+
+Random access codes hierarchical GOP-8 B pictures one access unit at a
+time, as the reference does (no launch/finish pipeline): the B slice's
+device pass and its host side run back to back.
 
 `Encoder(cfg, device="cuda")` runs the frame passes on the card and
 raises when there is none; `device="cpu"` runs the plain PyTorch
@@ -52,8 +57,8 @@ class EncoderConfig:
     frames: int = 0            # 0 = all
     deblock: bool = True       # in-loop deblocking filter
     sao: bool = True           # sample adaptive offset
-    # GOP: "ai" = all intra, "ldp" = low-delay P ("ra" comes with the
-    # B slices)
+    # GOP: "ai" = all intra, "ldp" = low-delay P, "ra" = random access
+    # (hierarchical GOP-8 B pictures)
     gop: str = "ai"
     intra_period: int = 0
     num_refs: int = 1
@@ -138,13 +143,15 @@ def lambda_qp_factor(base_factor: float, qp: int, depth: int) -> float:
 
 def _check_slice(cfg: EncoderConfig) -> None:
     """Raise for options outside the ported slices."""
+    if cfg.gop not in ("ai", "ldp", "ra"):
+        raise ValueError(f"unknown gop {cfg.gop!r}")
     todo = (
-        (cfg.gop not in ("ai", "ldp"),
-         f"gop={cfg.gop!r}: the RA path (ROADMAP.md A17)"),
         (cfg.gop == "ldp" and cfg.decision != "scan",
          f"decision={cfg.decision!r}: the Jacobi decision (ROADMAP.md, "
          f"never ported)"),
-        (cfg.bit_depth != 8, "Main10 (ROADMAP.md A15)"),
+        (cfg.bit_depth not in (8, 10),
+         f"bit_depth={cfg.bit_depth}: the RExt bit depths (ROADMAP.md "
+         f"A15)"),
         (not cfg.wavefront,
          "wavefront=False: the host-loop encoders (ROADMAP.md, not "
          "ported)"),
@@ -176,14 +183,26 @@ class Encoder:
             temporal_mvp_enabled=cfg.tmvp and cfg.gop == "ldp"
             and cfg.wavefront,
         )
-        if cfg.gop == "ldp":
+        if cfg.gop == "ra":
+            # hierarchical GOP-8: up to 4 retained refs + reordering
+            self.sps.max_dec_pic_buffering = 6
+            self.sps.max_num_reorder_pics = 4
+        elif cfg.gop == "ldp":
             # HM LDP RPS keeps GOP anchors + startup recents (up to 7)
             self.sps.max_dec_pic_buffering = 8
+        if cfg.sei_buffering_period and cfg.gop == "ra":
+            # pic_timing_hrd writes a constant dpb_output_delay, which
+            # is only conformant when the stream has no reordering
+            raise ValueError("sei_buffering_period supports ai/ldp GOPs")
         if cfg.sei_buffering_period:
             self.sps.vui_timing_present = True
             self.sps.hrd_present = True
             self.sps.time_scale = int(cfg.frame_rate * 1000)
             self.sps.num_units_in_tick = 1000
+        if cfg.bit_depth == 10:
+            # Main10 profile signalling (A.3.3)
+            self.sps.ptl.general_profile_idc = 2
+            self.sps.ptl.general_profile_compatibility = 1 << 2
         prof = (cfg.profile or "").lower().replace("_", "-")
         if prof in ("main-rext", "high-throughput-rext"):
             # RExt profile signalling (A.3.5/A.3.6): constraint flags
@@ -193,22 +212,24 @@ class Encoder:
             self.sps.ptl.general_profile_compatibility = 1 << idc
             self.sps.ptl.bit_depth_constraint = max(cfg.bit_depth, 8)
             self.sps.ptl.chroma_constraint = self.sps.chroma_format
-            self.sps.ptl.intra_constraint = True
+            self.sps.ptl.intra_constraint = \
+                prof == "high-throughput-rext" or cfg.gop == "ai"
             self.sps.ptl.lower_bit_rate_constraint = True
         elif prof not in ("", "main", "main10"):
             raise ValueError(f"unsupported profile {cfg.profile}")
         # TS reaches AI (4x4 luma and chroma TBs) and LDP (the 4x4 chroma
-        # TBs of the device P pass)
+        # TBs of the device P pass); the B pass does not speak it
         self.pps = Pps(init_qp=cfg.qp, sign_data_hiding=cfg.sign_data_hiding,
                        deblocking_filter_disabled=not cfg.deblock,
-                       transform_skip_enabled=cfg.transform_skip,
+                       transform_skip_enabled=cfg.transform_skip
+                       and cfg.gop in ("ai", "ldp"),
                        entropy_coding_sync_enabled=False)
         self.vps = Vps(max_dec_pic_buffering=self.sps.max_dec_pic_buffering,
                        max_num_reorder_pics=self.sps.max_num_reorder_pics,
                        ptl=self.sps.ptl)
         self.results: list[FrameResult] = []
-        # called with (poc, reconstructed Frame) as each picture is
-        # finished, in output order: the pictures the hash SEI hashes
+        # called with (poc, reconstructed Frame) in output (POC) order:
+        # the pictures the hash SEI hashes
         self.recon_sink = None
         self._poc_base = 0
         self.dpb: list[tuple[int, Frame]] = []   # (poc, recon) newest last
@@ -217,7 +238,7 @@ class Encoder:
         # next same-position frame's device RDO (entropy/fracbits.py)
         self._ctx_harvest: dict[int, object] = {}
         self.nn_params = None
-        if cfg.gop == "ldp" and cfg.subpel == "nn":
+        if cfg.gop in ("ldp", "ra") and cfg.subpel == "nn":
             self.nn_params = self._load_nn(cfg, self.device)
 
     @staticmethod
@@ -246,7 +267,9 @@ class Encoder:
         (TEncSlice::initEncSlice I_SLICE branch)."""
         if self.cfg.gop == "ai":
             return 0.57
-        nb = max(len(self.cfg.gop_qp_offsets), 4) - 1
+        gop_size = 8 if self.cfg.gop == "ra" \
+            else max(len(self.cfg.gop_qp_offsets), 4)
+        nb = gop_size - 1
         return 0.57 * (1.0 - min(max(0.05 * nb, 0.0), 0.5))
 
     def _is_idr(self, poc: int) -> bool:
@@ -283,6 +306,32 @@ class Encoder:
                 keep.add(q)            # startup fills
         return l0, keep
 
+    # hierarchical GOP-8 random-access structure in coding order:
+    # (display offset within GOP, referenced display offsets)
+    RA_GOP8 = (
+        (8, (0,)),
+        (4, (0, 8)),
+        (2, (0, 4, 8)),
+        (1, (0, 2, 4)),
+        (3, (2, 4, 0)),
+        (6, (4, 8, 0)),
+        (5, (4, 6, 8)),
+        (7, (6, 8, 4)),
+    )
+
+    def _ra_schedule(self, n: int) -> list[tuple[int, tuple[int, ...]]]:
+        """Coding-order schedule [(poc, referenced pocs)] for n frames:
+        full hierarchical GOP-8 groups, low-delay tail."""
+        sched = [(0, ())]
+        base = 0
+        while base + 8 <= n - 1:
+            for off, refs in self.RA_GOP8:
+                sched.append((base + off, tuple(base + r for r in refs)))
+            base += 8
+        for poc in range(base + 1, n):
+            sched.append((poc, (poc - 1,)))
+        return sched
+
     def save_checkpoint(self, path: str) -> None:
         raise NotImplementedError(f"hmtpu_torch: {ROADMAP_CKPT} is not "
                                   f"ported yet")
@@ -296,7 +345,11 @@ class Encoder:
         every picture an IDR.  Low-delay P: an IDR, then P pictures in a
         two-phase pipeline -- while the device computes frame N+1 (whose
         references live on the device), the host pulls frame N's
-        decision state and runs entropy coding and the hash."""
+        decision state and runs entropy coding and the hash.  Random
+        access: the IDR, then GOP-8 B pictures in coding order, one
+        access unit at a time."""
+        if self.cfg.gop == "ra":
+            return self._encode_ra(frames)
         out = bytearray()
         poc0 = self._poc_base
         pending = None
@@ -316,6 +369,119 @@ class Encoder:
             out.extend(write_annexb(self._finish_p(pending)))
         self._poc_base = poc0 + len(frames)
         return bytes(out)
+
+    def _encode_ra(self, frames: list[Frame]) -> bytes:
+        """The random-access sequence: the whole schedule, each picture
+        coded with the pictures it or a later one still references."""
+        if self._poc_base:
+            raise NotImplementedError(f"hmtpu_torch: a second RA segment "
+                                      f"needs {ROADMAP_CKPT}")
+        out = bytearray()
+        sched = self._ra_schedule(len(frames))
+        dpb_map: dict[int, Frame] = {}
+        pending, next_out = {}, 0
+        for i, (poc, used) in enumerate(sched):
+            future = set()
+            for _, u in sched[i:]:
+                future.update(u)
+            retained = {p: f for p, f in dpb_map.items() if p in future}
+            if poc == 0:
+                nals = self.encode_frame_au(frames[0], 0)
+            else:
+                nals = self._encode_b_au(frames[poc], poc, used, retained)
+            out.extend(write_annexb(nals))
+            dpb_map = dict(retained)
+            dpb_map[poc] = self._last_recon
+            pending[poc] = self._last_recon
+            while next_out in pending:        # output order
+                if self.recon_sink is not None:
+                    self.recon_sink(next_out, pending[next_out])
+                del pending[next_out]
+                next_out += 1
+        self.dpb = sorted(dpb_map.items())
+        self._poc_base = len(frames)
+        return bytes(out)
+
+    def _encode_b_au(self, frame: Frame, poc: int, used, retained: dict):
+        """One B access unit (hmtpu's `encode_frame_au` RA branch): the
+        RPS covers the retained pictures, L0 and L1 in their default
+        order, the GOP-8 QP offset and lambda factor of the picture's
+        temporal layer, no TMVP."""
+        from hmtpu_torch.encoder.pframe_dev import PFrameDeviceEncoder
+
+        t0 = time.time()
+        cfg = self.cfg
+        # hierarchical QP/lambda per temporal layer (the reference
+        # encoder_randomaccess GOP8 table: offsets 1/2/3/4, factors
+        # 0.442/0.3536/0.68)
+        off_fac = {0: (1, 0.442), 4: (2, 0.3536), 2: (3, 0.3536),
+                   6: (3, 0.3536)}
+        ra_off, ra_fac = off_fac.get(poc % 8, (4, 0.68))
+        qp = min(cfg.qp + ra_off, 51)
+        past_u = sorted((p for p in used if p < poc), reverse=True)
+        futr_u = sorted(p for p in used if p > poc)
+        ref_pocs = past_u + futr_u                  # L0 default order
+        ref_pocs_l1 = futr_u + past_u               # L1 default order
+        all_pocs = set(retained) | set(used)
+        negs = [(poc - p, p in used)
+                for p in sorted((q for q in all_pocs if q < poc),
+                                reverse=True)]
+        poss = [(p - poc, p in used)
+                for p in sorted(q for q in all_pocs if q > poc)]
+        sh = SliceHeader(
+            slice_type=SliceType.B, pps_id=0, slice_qp=qp,
+            pic_order_cnt_lsb=poc & ((1 << 8) - 1),
+            nal_type=NalUnitType.TRAIL_R,
+            negative_refs=negs, positive_refs=poss,
+            num_ref_idx_l0=len(ref_pocs), num_ref_idx_l1=len(ref_pocs_l1),
+            five_minus_max_num_merge_cand=5 - cfg.max_num_merge_cand)
+        pe = PFrameDeviceEncoder(self.sps, self.pps, subpel=cfg.subpel,
+                                 nn_params=self.nn_params,
+                                 search_range=cfg.search_range,
+                                 qp_factor=ra_fac, tmvp=False,
+                                 rdoq=cfg.rdoq, device=self.device)
+        ctx = pe.launch(frame, qp, [retained[p] for p in ref_pocs],
+                        ref_pocs, poc, sh, [retained[p] for p in ref_pocs_l1],
+                        ref_pocs_l1)
+        recon, _, decisions, maps = pe.finish(ctx)
+        sao = None
+        if self.sps.sao_enabled:
+            ny = self.sps.pic_height_in_ctus
+            nx = self.sps.pic_width_in_ctus
+            grid = grid_from_packed(pe._sao_packed.reshape(ny, nx, 3, 7))
+            sh.sao_luma = True
+            sh.sao_chroma = True
+            sao = (grid, True, True)
+        slice_rbsp = pe._entropy_pass(qp, *maps, decisions, sh, sao=sao)
+        nals = self._prefix_seis(False) + self._slice_nals(sh, slice_rbsp,
+                                                            recon)
+        t_end = time.time()
+        self._account(poc, nals, frame, recon, t_end - t0, "B",
+                      device_seconds=pe.t_fetched - t0,
+                      host_seconds=t_end - pe.t_fetched)
+        self._last_recon = recon
+        return nals
+
+    def _slice_nals(self, sh: SliceHeader, slice_rbsp: bytes,
+                    recon: Frame) -> list[NalUnit]:
+        """The slice NAL unit and, when configured, the decoded picture
+        hash SEI of its reconstruction."""
+        bw = write_slice_header(sh, self.sps, self.pps)
+        bw.write_bytes(slice_rbsp)
+        nals = [NalUnit(sh.nal_type, bw.get_bytes())]
+        if self.cfg.decoded_picture_hash:
+            nals.append(make_hash_sei_nal(picture_md5(
+                recon.planes(), [self.cfg.bit_depth] * 3)))
+        return nals
+
+    def _account(self, poc: int, nals: list[NalUnit], frame: Frame,
+                 recon: Frame, seconds: float, stype: str, **kw) -> None:
+        """The access unit's bits and PSNR into `results`."""
+        maxv = (1 << self.cfg.bit_depth) - 1
+        self.results.append(FrameResult(
+            poc, sum(len(n.to_bytes()) * 8 for n in nals),
+            psnr(frame.y, recon.y, maxv), psnr(frame.u, recon.u, maxv),
+            psnr(frame.v, recon.v, maxv), seconds, stype, **kw))
 
     # -- two-phase P-frame pipeline ------------------------------------------
     def _launch_p(self, frame: Frame, poc: int) -> dict:
@@ -378,27 +544,16 @@ class Encoder:
         slice_rbsp = pe._entropy_pass(sh.slice_qp, *maps, decisions, sh,
                                       sao=sao)
         self._ctx_harvest[launched["gpos"]] = pe.final_ctx
-        bw = write_slice_header(sh, self.sps, self.pps)
-        bw.write_bytes(slice_rbsp)
-        nals = self._prefix_seis(False)
-        nals.append(NalUnit(sh.nal_type, bw.get_bytes()))
-        if cfg.decoded_picture_hash:
-            digests = picture_md5(recon.planes(), [cfg.bit_depth] * 3)
-            nals.append(make_hash_sei_nal(digests))
+        nals = self._prefix_seis(False) + self._slice_nals(sh, slice_rbsp,
+                                                            recon)
         if self.recon_sink is not None:
             self.recon_sink(launched["poc"], recon)
-        maxv = (1 << cfg.bit_depth) - 1
-        total_bits = sum(len(n.to_bytes()) * 8 for n in nals)
         t_end = time.time()
-        self.results.append(FrameResult(
-            launched["poc"], total_bits,
-            psnr(frame.y, recon.y, maxv),
-            psnr(frame.u, recon.u, maxv),
-            psnr(frame.v, recon.v, maxv),
-            t_end - launched["t0"], "P",
-            device_seconds=(launched["t_launched"] - launched["t0"])
-            + (pe.t_fetched - t_finish),
-            host_seconds=t_end - pe.t_fetched))
+        self._account(launched["poc"], nals, frame, recon,
+                      t_end - launched["t0"], "P",
+                      device_seconds=(launched["t_launched"] - launched["t0"])
+                      + (pe.t_fetched - t_finish),
+                      host_seconds=t_end - pe.t_fetched)
         return nals
 
     def _prefix_seis(self, is_idr: bool) -> list[NalUnit]:
@@ -461,23 +616,11 @@ class Encoder:
             sh.sao_chroma = True
             sao = (grid, True, True)
         slice_rbsp = fe._entropy_pass(qp, mode8, depth8, decisions, sao=sao)
-
-        bw = write_slice_header(sh, self.sps, self.pps)
-        bw.write_bytes(slice_rbsp)
-        nals.append(NalUnit(sh.nal_type, bw.get_bytes()))
-        if cfg.decoded_picture_hash:
-            digests = picture_md5(recon.planes(), [cfg.bit_depth] * 3)
-            nals.append(make_hash_sei_nal(digests))
+        nals += self._slice_nals(sh, slice_rbsp, recon)
 
         self.dpb.append((0, recon))
-        if self.recon_sink is not None:
+        self._last_recon = recon
+        if self.recon_sink is not None and cfg.gop != "ra":
             self.recon_sink(poc, recon)
-        maxv = (1 << cfg.bit_depth) - 1
-        total_bits = sum(len(n.to_bytes()) * 8 for n in nals)
-        self.results.append(FrameResult(
-            poc, total_bits,
-            psnr(frame.y, recon.y, maxv),
-            psnr(frame.u, recon.u, maxv),
-            psnr(frame.v, recon.v, maxv),
-            time.time() - t0, "I"))
+        self._account(poc, nals, frame, recon, time.time() - t0, "I")
         return nals

@@ -60,6 +60,10 @@ SOURCES = {
     },
     "mc_dctif": {
         "hm_mc_dctif": "ppppppp" "iiiiiiii" "p",
+        "hm_mc_dctif_i": "ppppppp" "iiiiiiii" "p",
+    },
+    "bi_pred": {
+        "hm_bi_pred": "pppp" "iii" "p",
     },
     "satd": {
         "hm_satd8": "pppiip",
@@ -85,6 +89,9 @@ KERNELS = {
     "me_sad": ("me_sad", "hmtpu/search/me.py:29,72,120"),
     "nnfme": ("nnfme", "hmtpu/models/nnfme.py:127,143"),
     "mc_dctif": ("mc_dctif", "hmtpu/ops/interp.py:173"),
+    "mc_dctif_i": ("mc_dctif", "hmtpu/ops/interp.py:227"),
+    "bi_pred": ("bi_pred", "hmtpu/ops/interp.py:295,"
+                           "hmtpu/encoder/pframe_dev.py:292,440"),
     "satd8": ("satd", "hmtpu/search/me.py:159"),
     "frac_refine": ("frac_refine", "hmtpu/search/me.py:249"),
     "rdoq": ("rdoq", "hmtpu/ops/rdoq.py:43,hmtpu/ops/ratebits.py:161,"

@@ -439,6 +439,15 @@ def ref_idx_bits(cbflat, r, num_ref: int, n_active=None):
     return b
 
 
+def inter_dir_bits(cbflat, inter_dir, depth: int):
+    """inter_pred_idc (9.3.3.7): bin0 ctx = CtDepth, bin1 ctx 4 when
+    not BI (the 2Nx2N form)."""
+    bi = inter_dir == 3
+    b = _gc(cbflat, OFF["INTER_DIR"] + depth, bi)
+    return b + torch.where(
+        bi, 0.0, _gc(cbflat, OFF["INTER_DIR"] + 4, inter_dir == 2))
+
+
 def mvd_bits(cbflat, mvdx, mvdy):
     """Both components of mvd_coding (7.3.8.9): two ctx bins, EG1
     remainder, EP sign."""

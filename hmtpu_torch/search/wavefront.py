@@ -9,12 +9,14 @@ neighbours) was written by earlier levels.  Also here: the per-block
 substituted reference-line gather maps (8.4.4.2.2 collapses to a
 constant gather because availability is geometric).
 
-Device derivations (plain PyTorch on the pass's device; B10 in
-ROADMAP.md queues their hand kernel): the P-slice merge list
-(8.5.3.1.2 with the temporal candidate), the AMVP list (8.5.3.1.5/6)
-with POC-distance scaling (8.5.3.1.3), the collocated candidate grid
-(8.5.3.2.8) and the MVD bit estimate.  The B-slice forms (`_b`) come
-with the random-access slice of the port.
+Device derivations (plain PyTorch on the pass's device; B10 and B15 in
+ROADMAP.md queue their hand kernel, fused into B11's level walker): the
+P-slice merge list (8.5.3.1.2 with the temporal candidate), the AMVP
+list (8.5.3.1.5/6) with POC-distance scaling (8.5.3.1.3), the
+collocated candidate grid (8.5.3.2.8), the MVD bit estimate, and the
+B-slice forms: the two-list merge list with the combined
+bi-predictive candidates (8.5.3.1.3, `merge_candidates_dev_b`) and the
+two-list AMVP list (`amvp_candidates_dev_b`).
 """
 from __future__ import annotations
 
@@ -341,6 +343,131 @@ def merge_candidates_dev(nb_valid, nb_mvx, nb_mvy, nb_ref,
     return cand_mvx, cand_mvy, cand_ref
 
 
+def merge_candidates_dev_b(nb_valid, nb_dir, nb_mvx0, nb_mvy0, nb_ref0,
+                           nb_mvx1, nb_mvy1, nb_ref1,
+                           ref_pocs_l0, ref_pocs_l1,
+                           num_ref_l0: int, num_ref_l1: int,
+                           max_merge: int):
+    """Vectorised merge list for B slices (8.5.3.1.2): two-list spatial
+    candidates with full-motion pruning, combined bi-predictive
+    candidates (8.5.3.1.3) in the spec's 12-pair priority order, then
+    dir=3 zero fill (the common/motion.py merge_candidates is_b path,
+    which the decoder re-derives).
+
+    nb_* are (B, 5) in slot order [A1, B1, B0, A0, B2]; nb_valid folds
+    z-scan availability AND inter-ness.  ref_pocs_l* are (R,) POC
+    tensors for the combined candidates' identity check.  Returns (dir,
+    mvx0, mvy0, ref0, mvx1, mvy1, ref1), each (B, max_merge) int32."""
+    v = nb_valid
+    u0 = (nb_dir & 1) > 0
+    u1 = (nb_dir & 2) > 0
+
+    def same(i, j):
+        eq0 = ~(u0[:, i] | u0[:, j]) | (
+            u0[:, i] & u0[:, j] & (nb_mvx0[:, i] == nb_mvx0[:, j])
+            & (nb_mvy0[:, i] == nb_mvy0[:, j])
+            & (nb_ref0[:, i] == nb_ref0[:, j]))
+        eq1 = ~(u1[:, i] | u1[:, j]) | (
+            u1[:, i] & u1[:, j] & (nb_mvx1[:, i] == nb_mvx1[:, j])
+            & (nb_mvy1[:, i] == nb_mvy1[:, j])
+            & (nb_ref1[:, i] == nb_ref1[:, j]))
+        return v[:, i] & v[:, j] & (nb_dir[:, i] == nb_dir[:, j]) \
+            & eq0 & eq1
+
+    incl = [v[:, SLOT_A1],
+            v[:, SLOT_B1] & ~same(SLOT_B1, SLOT_A1),
+            v[:, SLOT_B0] & ~same(SLOT_B0, SLOT_B1),
+            v[:, SLOT_A0] & ~same(SLOT_A0, SLOT_A1)]
+    cnt4 = sum(f.to(torch.int32) for f in incl)
+    incl.append(v[:, SLOT_B2] & ~same(SLOT_B2, SLOT_A1)
+                & ~same(SLOT_B2, SLOT_B1) & (cnt4 < 4))
+    incl = torch.stack(incl, 1)                        # (B, 5)
+    inci = incl.to(torch.int32)
+    pos = torch.cumsum(inci, 1) - inci
+    target = torch.where(incl & (pos < max_merge), pos, max_merge) \
+        .to(torch.int64)
+    b = nb_mvx0.shape[0]
+    dev = nb_mvx0.device
+    rows = torch.arange(b, device=dev)[:, None]
+
+    def scatter(vals, tgt):
+        out = torch.zeros((b, max_merge + 1), dtype=torch.int32, device=dev)
+        out[rows, tgt] = vals.to(torch.int32)
+        return out[:, :max_merge]
+
+    cdir = scatter(nb_dir, target)
+    cx0 = scatter(nb_mvx0, target)
+    cy0 = scatter(nb_mvy0, target)
+    cr0 = scatter(nb_ref0, target)
+    cx1 = scatter(nb_mvx1, target)
+    cy1 = scatter(nb_mvy1, target)
+    cr1 = scatter(nb_ref1, target)
+    n_sp = torch.clamp(inci.sum(1), max=max_merge)     # (B,)
+
+    # combined bi-predictive candidates from pairs of list entries
+    PRIORITY = ((0, 1), (1, 0), (0, 2), (2, 0), (1, 2), (2, 1),
+                (0, 3), (3, 0), (1, 3), (3, 1), (2, 3), (3, 2))
+    inc_flags, pair_ids = [], []
+    for p, (i0, i1) in enumerate(PRIORITY):
+        if i0 >= max_merge or i1 >= max_merge:
+            inc_flags.append(torch.zeros((b,), dtype=torch.bool,
+                                         device=dev))
+            pair_ids.append((0, 0))
+            continue
+        d0, d1 = cdir[:, i0], cdir[:, i1]
+        poc0 = ref_pocs_l0[torch.clamp(cr0[:, i0], 0, num_ref_l0 - 1)
+                           .to(torch.int64)]
+        poc1 = ref_pocs_l1[torch.clamp(cr1[:, i1], 0, num_ref_l1 - 1)
+                           .to(torch.int64)]
+        dup = (poc0 == poc1) & (cx0[:, i0] == cx1[:, i1]) \
+            & (cy0[:, i0] == cy1[:, i1])
+        ok = (n_sp > i0) & (n_sp > i1) & (p < n_sp * (n_sp - 1)) \
+            & ((d0 & 1) > 0) & ((d1 & 2) > 0) & ~dup
+        inc_flags.append(ok)
+        pair_ids.append((i0, i1))
+    incc = torch.stack(inc_flags, 1)                   # (B, 12)
+    incci = incc.to(torch.int32)
+    cpos = torch.cumsum(incci, 1) - incci
+    slot = n_sp[:, None] + cpos
+    tgt_c = torch.where(incc & (slot < max_merge), slot, max_merge) \
+        .to(torch.int64)
+    g = lambda a, k: torch.stack([a[:, ids[k]] for ids in pair_ids], 1)
+    gx0, gy0, gr0 = g(cx0, 0), g(cy0, 0), g(cr0, 0)
+    gx1, gy1, gr1 = g(cx1, 1), g(cy1, 1), g(cr1, 1)
+
+    # scatter the combined entries on top (positions past the spatial
+    # count; the spare column takes the rest)
+    def overlay(cur, vals):
+        padded = torch.cat([cur, torch.zeros((b, 1), dtype=torch.int32,
+                                             device=dev)], 1)
+        padded[rows, tgt_c] = vals
+        return padded[:, :max_merge]
+
+    cx0 = overlay(cx0, gx0)
+    cy0 = overlay(cy0, gy0)
+    cr0 = overlay(cr0, gr0)
+    cx1 = overlay(cx1, gx1)
+    cy1 = overlay(cy1, gy1)
+    cr1 = overlay(cr1, gr1)
+    cdir = overlay(cdir, torch.full_like(gx0, 3))
+    n_tot = torch.clamp(n_sp + incci.sum(1), max=max_merge)
+
+    # zero-MV fill: dir=3, ref idx cycling 0..min(R0,R1)-1
+    num_ref = min(num_ref_l0, num_ref_l1)
+    k = torch.arange(max_merge, device=dev)[None, :]
+    fill = k >= n_tot[:, None]
+    fill_ref = k - n_tot[:, None]
+    fill_ref = torch.where(fill_ref < num_ref, fill_ref, 0).to(torch.int32)
+    cx0 = torch.where(fill, 0, cx0)
+    cy0 = torch.where(fill, 0, cy0)
+    cr0 = torch.where(fill, fill_ref, cr0)
+    cx1 = torch.where(fill, 0, cx1)
+    cy1 = torch.where(fill, 0, cy1)
+    cr1 = torch.where(fill, fill_ref, cr1)
+    cdir = torch.where(fill, 3, cdir)
+    return cdir, cx0, cy0, cr0, cx1, cy1, cr1
+
+
 def _scale_mv_dev(mvx, mvy, tb, td):
     """8.5.3.1.3 distance scaling, C-truncation division semantics."""
     abs_td = td.abs()
@@ -375,6 +502,54 @@ def amvp_candidates_dev(nb_valid, nb_mvx, nb_mvy, nb_refpoc,
     unscaled_ok = nb_valid & (nb_refpoc == target_poc)
     return _amvp_assemble(nb_valid, unscaled_ok, nb_mvx, nb_mvy,
                           smvx, smvy, t_ok, t_mvx, t_mvy)
+
+
+def amvp_candidates_dev_b(nb_valid, nb_dir,
+                          nb_mvx0, nb_mvy0, nb_poc0,
+                          nb_mvx1, nb_mvy1, nb_poc1,
+                          lx, target_poc, cur_poc,
+                          t_ok=None, t_mvx=None, t_mvy=None):
+    """Vectorised AMVP list for B slices: the neighbour candidate may
+    come from either of its lists -- same-POC match checked in order
+    (LX, LY), then scaled from the first present list (the
+    common/motion.py amvp_candidates from_pos, which the decoder
+    re-derives).
+
+    nb_poc0/1 are the POCs of each neighbour's list-0/1 references
+    ((B, 5), junk where the list is unused); lx the block's target list
+    ((B,) in {0, 1}); target_poc the POC of its reference ((B,)).
+    Returns (mvp0x, mvp0y, mvp1x, mvp1y)."""
+    target_poc = target_poc[:, None]
+    lxc = lx[:, None]
+    ux = torch.where(lxc == 0, (nb_dir & 1) > 0, (nb_dir & 2) > 0) \
+        & nb_valid
+    uy = torch.where(lxc == 0, (nb_dir & 2) > 0, (nb_dir & 1) > 0) \
+        & nb_valid
+    mxx = torch.where(lxc == 0, nb_mvx0, nb_mvx1)
+    mxy = torch.where(lxc == 0, nb_mvy0, nb_mvy1)
+    pxp = torch.where(lxc == 0, nb_poc0, nb_poc1)
+    myx = torch.where(lxc == 0, nb_mvx1, nb_mvx0)
+    myy = torch.where(lxc == 0, nb_mvy1, nb_mvy0)
+    pyp = torch.where(lxc == 0, nb_poc1, nb_poc0)
+
+    # unscaled: same reference POC, LX first then LY
+    hitx = ux & (pxp == target_poc)
+    hity = uy & (pyp == target_poc)
+    unscaled_ok = hitx | hity
+    u_mvx = torch.where(hitx, mxx, myx)
+    u_mvy = torch.where(hitx, mxy, myy)
+
+    # the scaled pass: a same-POC match at the slot still wins (from_pos
+    # checks it before scaling); else scale the first present list
+    pick_poc = torch.where(ux, pxp, pyp)
+    pick_x = torch.where(ux, mxx, myx)
+    pick_y = torch.where(ux, mxy, myy)
+    tb = cur_poc - target_poc
+    s_mvx, s_mvy = _scale_mv_dev(pick_x, pick_y, tb, cur_poc - pick_poc)
+    s_mvx = torch.where(unscaled_ok, u_mvx, s_mvx)
+    s_mvy = torch.where(unscaled_ok, u_mvy, s_mvy)
+    return _amvp_assemble(nb_valid, unscaled_ok, u_mvx, u_mvy,
+                          s_mvx, s_mvy, t_ok, t_mvx, t_mvy)
 
 
 def _amvp_assemble(nb_valid, unscaled_ok, nb_mvx, nb_mvy, smvx, smvy,

@@ -7,9 +7,13 @@ the port on the CPU.
     tests/test_transform_skip.py's screen content (96x64): the two
     streams byte for byte, the port's ReconFile equal to hmtpu's decoder
     output with every picture hash matching, and TS chosen by some TB;
+  - the random-access Main10 cfg (cfg/encoder_randomaccess_main10.cfg,
+    BASELINE config 4) resolves to the same EncoderConfig through both
+    CLIs (no encode);
   - the options outside the port's slices raise NotImplementedError
     naming their ROADMAP.md item, through the CLI.
 """
+import dataclasses
 import os
 
 import numpy as np
@@ -23,6 +27,7 @@ from hmtpu_torch.encoder import iframe_dev as p_iframe_dev
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 AI_CFG = os.path.join(ROOT, "cfg", "encoder_intra_main.cfg")
+RA_CFG = os.path.join(ROOT, "cfg", "encoder_randomaccess_main10.cfg")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -86,11 +91,12 @@ def test_ai_transform_skip_cli_matches_hmtpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["-c", os.path.join(ROOT, "cfg", "encoder_randomaccess_main10.cfg")],
-     "A17"),
-    (["-c", AI_CFG, "--InternalBitDepth=10"], "A15"),
-    (["-c", AI_CFG, "--RateControl=1", "--TargetBitrate=200000"], "A16"),
-    (["-c", AI_CFG, "--WaveFrontSynchro=1"], "A16")])
+    pytest.param(["-c", AI_CFG, "--InternalBitDepth=12"], "A15",
+                 id="extra1-A15"),
+    pytest.param(["-c", AI_CFG, "--RateControl=1", "--TargetBitrate=200000"],
+                 "A16", id="extra2-A16"),
+    pytest.param(["-c", AI_CFG, "--WaveFrontSynchro=1"], "A16",
+                 id="extra3-A16")])
 def test_cli_options_outside_the_slice_raise(tmp_path, extra, item):
     args = extra + ["-i", str(tmp_path / "none.yuv"), "-b",
                     str(tmp_path / "out.hevc")]
@@ -107,3 +113,34 @@ def test_cli_device_flag():
         == (["-q", "22"], "cuda:0")
     assert p_app._split_device(["-q", "22"], "cuda") == (["-q", "22"],
                                                         "cuda")
+
+
+def test_ra_main10_cfg_resolves_as_hmtpu(tmp_path, monkeypatch):
+    """Both CLIs on the RA Main10 cfg as shipped: each builds its
+    EncoderConfig from the cfg's B Frame1-Frame8 rows, InternalBitDepth
+    10 and Profile main10; the fields must agree.  The encoder is
+    stopped where it is constructed, so nothing is encoded."""
+    seen = {}
+
+    class Built(Exception):
+        pass
+
+    def capture(name):
+        def make(cfg, *a, **k):
+            seen[name] = dataclasses.asdict(cfg)
+            raise Built
+        return make
+
+    monkeypatch.setattr(j_app, "Encoder", capture("j"))
+    monkeypatch.setattr(p_app, "Encoder", capture("p"))
+    args = ["-c", RA_CFG, "-i", str(tmp_path / "in.yuv"), "-wdt", "416",
+            "-hgt", "240", "-f", "9", "-b", str(tmp_path / "out.hevc")]
+    for fn in (lambda: j_app.main(args),
+               lambda: p_app.main(args, device="cpu")):
+        with pytest.raises(Built):
+            fn()
+    assert seen["p"] == seen["j"]
+    cfg = seen["p"]
+    assert (cfg["gop"], cfg["bit_depth"], cfg["qp"], cfg["subpel"],
+            cfg["search_range"], cfg["sao"]) == ("ra", 10, 32, "dctif", 64,
+                                                 True)

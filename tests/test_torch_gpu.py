@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels of hmtpu_torch against their plain
-PyTorch versions, on the card.  Every output must be equal: the
+"""The hand-written CUDA kernels of hmtpu_torch (K1-K12) against their
+plain PyTorch versions, on the card.  Every output must be equal: the
 kernels are integer, except NN-FME's (K6) and RDOQ's (K10), whose
 kernels and plain versions round every float32 operation in the same
 order (K10's float64 sums round once to float32).  Skips
@@ -234,6 +234,50 @@ def test_mc_dctif_kernel(dev, chroma, n):
     assert torch.equal(got, interp.mc_batch_plain(refs, *args, n, n, chroma))
 
 
+@pytest.mark.parametrize("chroma,n,bd", [(False, 8, 10), (False, 16, 8),
+                                         (False, 32, 10), (True, 4, 10),
+                                         (True, 8, 8), (True, 16, 10)])
+def test_mc_dctif_i_kernel(dev, chroma, n, bd):
+    """K11: the unclipped intermediate-precision hypotheses, every phase,
+    MVs past the edges, 8 and 10 bits."""
+    from hmtpu_torch.ops import interp
+
+    rng = np.random.RandomState(n + 50 * chroma + bd)
+    h, w = (120, 208) if chroma else (240, 416)
+    refs = _i32(rng.randint(0, 1 << bd, (4, h, w)), dev)
+    nb = (h // n) * (w // n)
+    q = np.arange(nb)
+    xs, ys = (q % (w // n)) * n, (q // (w // n)) * n
+    span = 4 * (n + 24)
+    mvx, mvy = rng.randint(-span, span, (2, nb))
+    mvx[:64], mvy[:64] = np.arange(64) - 32, (np.arange(64) * 5) % 64 - 32
+    args = [_i32(a, dev) for a in (rng.randint(0, 4, nb), xs, ys, mvx, mvy)]
+    got = _launched("mc_dctif_i", lambda: interp.mc_batch(
+        refs, *args, n, n, chroma, bd, inter=True))
+    assert torch.equal(got, interp.mc_batch_i_plain(refs, *args, n, n,
+                                                    chroma, bd))
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+def test_bi_pred_kernel(dev, bd):
+    """K12: the bi-average where the pair is bi, else the approximate
+    final samples of the hypothesis in use; and with every pair bi."""
+    from hmtpu_torch.ops import interp
+
+    rng = np.random.RandomState(bd)
+    lo, hi = -(8192 + 600), (1 << 14) - 8192 + 600
+    for nb, n in ((1560 * 5, 8), (390 * 5, 16), (3, 4)):
+        i0 = _i32(rng.randint(lo, hi, (nb, n, n)), dev)
+        i1 = _i32(rng.randint(lo, hi, (nb, n, n)), dev)
+        cdir = _i32(rng.randint(1, 4, nb), dev)
+        got = _launched("bi_pred", lambda: interp.bi_pred(i0, i1, cdir, bd))
+        assert torch.equal(got, interp.bi_pred_plain(i0, i1, cdir, bd))
+        bi = torch.full_like(cdir, 3)
+        assert torch.equal(
+            _launched("bi_pred", lambda: interp.bi_average_t(i0, i1, bd)),
+            interp.bi_pred_plain(i0, i1, bi, bd))
+
+
 @pytest.mark.parametrize("n", [8, 16, 32])
 def test_satd_kernel(dev, n):
     from hmtpu_torch.search import me
@@ -392,3 +436,34 @@ def test_transform_skip_chosen_card_equals_cpu(dev, gop, counter):
         fired.append(pframe_dev.DBG_COUNTERS[counter])
     assert out[0] == out[1]
     assert fired[0] > 0 and fired[0] == fired[1]
+
+
+@pytest.mark.parametrize("qp", [22, 37])
+def test_ra_main10_card_equals_cpu(dev, qp):
+    """Nine 64x64 Main10 pictures through the random-access path (the
+    IDR and one GOP of 8 B pictures, HM's DCT-IF search) on the card and
+    on the CPU: the same bytes, and bi-predicted CUs on the card."""
+    from hmtpu_torch.encoder import pframe_dev
+    from hmtpu_torch.encoder.top import Encoder, EncoderConfig
+    from hmtpu_torch.io.yuv import Frame
+
+    rng = np.random.RandomState(9)
+    yy, xx = np.mgrid[0:64, 0:64]
+    frames = []
+    for t in range(9):
+        y = 512 + 240 * np.sin((xx + 2 * t) / 9.0) * np.cos((yy - t) / 7.0) \
+            + rng.randint(-12, 13, (64, 64))
+        u = np.full((32, 32), 480) + rng.randint(-8, 9, (32, 32))
+        v = np.full((32, 32), 544) + rng.randint(-8, 9, (32, 32))
+        frames.append(Frame(*(np.clip(a, 0, 1023).astype(np.int32)
+                              for a in (y, u, v)), 10))
+    out, bi = [], []
+    for d in (dev, "cpu"):
+        pframe_dev.DBG_COUNTERS["ra_bi_cus"] = 0
+        enc = Encoder(EncoderConfig(width=64, height=64, qp=qp, gop="ra",
+                                    bit_depth=10, subpel="dctif",
+                                    search_range=8), device=d)
+        out.append(enc.encode_sequence(frames))
+        bi.append(pframe_dev.DBG_COUNTERS["ra_bi_cus"])
+    assert out[0] == out[1]
+    assert bi[0] == bi[1]

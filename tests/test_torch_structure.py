@@ -1,6 +1,6 @@
 """hmtpu_torch's boundaries: it loads neither JAX nor hmtpu, it never
-falls back to the CPU on its own, and options outside the all-intra and
-low-delay-P slices (DCT-IF or NN-FME sub-pel, transform skip) say which
+falls back to the CPU on its own, and options outside the all-intra,
+low-delay-P and random-access slices (8 and 10 bits) say which
 ROADMAP.md item brings them."""
 import os
 import shutil
@@ -39,8 +39,22 @@ for n in ("hmtpu_torch.search.me", "hmtpu_torch.models.nnfme",
           "hmtpu_torch.ops.interp", "hmtpu_torch.encoder.pframe_dev",
           "hmtpu_torch.common.motion", "hmtpu_torch.entropy.inter_syntax",
           "hmtpu_torch.apps.encoder_app", "hmtpu_torch.apps.options",
-          "hmtpu_torch.utils.analyze"):
+          "hmtpu_torch.utils.analyze", "hmtpu_torch.encoder.pframe",
+          "hmtpu_torch.search.wavefront"):
     assert n in names, n
+# the random-access slice's functions and kernels
+from hmtpu_torch import kernels
+from hmtpu_torch.ops import interp
+from hmtpu_torch.search import wavefront
+for f in ("mc_luma_batch_refs_i", "mc_chroma_batch_refs_i", "bi_average_t",
+          "bi_pred", "mc_batch_i_plain", "bi_pred_plain"):
+    assert callable(getattr(interp, f)), f
+for f in ("merge_candidates_dev_b", "amvp_candidates_dev_b"):
+    assert callable(getattr(wavefront, f)), f
+assert kernels.KERNELS["mc_dctif_i"][0] == "mc_dctif"
+assert kernels.KERNELS["bi_pred"][0] == "bi_pred"
+for src in kernels.SOURCES:
+    assert os.path.exists(kernels.source_path(src)), src
 # the NN-FME weights load from the port's own data files
 from hmtpu_torch.encoder.top import Encoder, EncoderConfig
 from hmtpu_torch.models import nnfme
@@ -65,6 +79,8 @@ def test_no_card_raises_without_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Encoder(EncoderConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        Encoder(EncoderConfig(gop="ra", bit_depth=10, subpel="dctif"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve("cuda")
     assert resolve("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
@@ -72,10 +88,12 @@ def test_no_card_raises_without_fallback(monkeypatch):
 
 
 @pytest.mark.parametrize("opt,item", [
-    (dict(bit_depth=10), "A15"), (dict(target_kbps=500.0), "A16"),
-    (dict(wpp=True), "A16"), (dict(wavefront=False), "ROADMAP.md"),
-    (dict(gop="ra"), "A17"),
-    (dict(gop="ldp", subpel="nn", decision="jacobi"), "never ported")])
+    pytest.param(dict(bit_depth=12), "A15", id="opt0-A15"),
+    pytest.param(dict(target_kbps=500.0), "A16", id="opt1-A16"),
+    pytest.param(dict(wpp=True), "A16", id="opt2-A16"),
+    pytest.param(dict(wavefront=False), "ROADMAP.md", id="opt3-ROADMAP.md"),
+    pytest.param(dict(gop="ldp", subpel="nn", decision="jacobi"),
+                 "never ported", id="opt5-never ported")])
 def test_options_outside_the_slice_raise(opt, item):
     with pytest.raises(NotImplementedError, match=item):
         Encoder(EncoderConfig(**opt), device="cpu")
@@ -83,14 +101,21 @@ def test_options_outside_the_slice_raise(opt, item):
 
 @pytest.mark.parametrize("opt", [
     dict(gop="ldp"), dict(gop="ldp", subpel="none", transform_skip=True),
-    dict(gop="ai", transform_skip=True)])
+    dict(gop="ai", transform_skip=True),
+    pytest.param(dict(gop="ra", bit_depth=10), id="ra-main10"),
+    pytest.param(dict(gop="ai", bit_depth=10), id="ai-main10")])
 def test_slice_configs_construct(opt):
-    """The LDP defaults (DCT-IF sub-pel) and transform skip on both
-    paths are in the port: the encoder builds, and the PPS signals TS."""
+    """The LDP defaults (DCT-IF sub-pel), transform skip on the AI and LDP
+    paths, and random access and Main10 are in the port: the encoder
+    builds, the PPS signals TS (never in B slices) and the SPS the
+    Main10 profile."""
     enc = Encoder(EncoderConfig(**opt), device="cpu")
     assert enc.pps.transform_skip_enabled == opt.get("transform_skip",
                                                      False)
     assert enc.cfg.subpel == opt.get("subpel", "dctif")
+    main10 = opt.get("bit_depth", 8) == 10
+    assert enc.sps.ptl.general_profile_idc == (2 if main10 else 1)
+    assert (enc.sps.max_num_reorder_pics > 0) == (opt["gop"] == "ra")
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
