@@ -9,14 +9,21 @@ when every phase passed):
   1. device    the card's name and power limit (nvidia-smi);
   2. build     nvcc for every kernel source in hmtpu_torch/csrc, one
                process per source, all started together;
-  3. kernels   each kernel (K1-K12 and K1's transform-skip mode) against
+  3. kernels   each kernel (K1-K16 and K1's transform-skip mode) against
                its plain PyTorch version on seeded inputs at the shapes
                the main paths give it: they must be equal (the float32
-               outputs of K6 and K10 bit for bit: kernel and plain version
-               round in the same order).  Each is timed with CUDA events,
-               beside its plain version, the bound for its bytes and
-               operations, and for the transform a float64 torch.matmul
-               yardstick; torch.profiler gives each one's own device time;
+               outputs of K6, K10, K15 and K16 bit for bit: kernel and
+               plain version round in the same order; K14's loss,
+               accuracy and d-logits within RTOL, its expf / logf against
+               torch's exp / log; K15 twice, the same bits).  K13 is
+               timed at 1920x1080, search range 64, and checked at
+               416x240 and 64x56 with non-zero predictors; K14-K16 at
+               batch 1024 of the trainer's QP-22 records.  Each is timed
+               with CUDA events, beside its plain version, the bound for
+               its bytes and operations, and a library yardstick where one
+               PyTorch call computes the same function (a float64
+               torch.matmul for the transform, fused torch.optim.Adam for
+               K16); torch.profiler gives each one's own device time;
   4. ldp       the main path: the low-delay-P encode with NN-FME
                (416x240, QP 22, GOP QP offsets 3/2/3/1, 4 references,
                search range 64, CTU 64, TMVP, RDOQ, SDH, deblocking and
@@ -52,7 +59,19 @@ when every phase passed):
                comparison) and a 64x64 LDP I + P pair under
                torch.profiler (device operations and their time: a
                416x240 frame issues too many for the profiler);
-  8. parity    the ai phase's stream through the same CLI on the CPU
+  8. nnfme_train  the NN-FME trainer at tools/train_nnfme.py's defaults
+               through `hmtpu_torch.apps.train_nnfme.main` in process
+               (416x240 synthetic clip, 24 frames, SR 16, QPs
+               22/27/32/37, 60 epochs, batch 1024, lr 3e-3, seed 0) into
+               a temporary directory, counts reset before and read after:
+               K13, K9, K14, K15 and K16 > 0, K15's and K16's launches
+               equal to the steps, no call of a plain version; per QP the
+               rows, extraction seconds, steps, training seconds and
+               steps/s, the validation accuracy and the majority-class
+               share;
+  9. hd_extract  extraction alone at 1920x1080 (the clip generator's 4
+               frames, QP 22, SR 64): seconds per frame pair; K13, K9 > 0;
+ 10. parity    the ai phase's stream through the same CLI on the CPU
                (the plain versions, in worker processes) must equal the
                card's byte for byte; likewise 64x64 AI clips of 2 frames
                (transform skip off), 96x64 screen-content AI clips of 2
@@ -62,17 +81,28 @@ when every phase passed):
                clip of 4 frames with DCT-IF sub-pel and transform skip at
                QP 27; 64x64 Main10 random-access clips of 9 frames (DCT-IF,
                search range 8) at QP 22 and 37, and an 8-bit one with
-               NN-FME at QP 27.  On the screen-content clips some TB must
-               have chosen transform skip on the card (the I pass, or the
-               P pass), on the RA clips some CU bi-prediction;
-  9. tally     meanwhile, untimed: the calls of the plain-torch queue-B
+               NN-FME at QP 27; a 64x56 LDP clip of 4 frames (NN-FME, SR 8,
+               QP 27: the P pass's single-level ME, K13 > 0 on the card);
+               a 64x64 LDP NN-FME clip of 4 frames at QP 22 with the
+               freshly trained QP-22 weights.  On the screen-content clips
+               some TB must have chosen transform skip on the card (the I
+               pass, or the P pass), on the RA clips some CU
+               bi-prediction.  In the same workers: the trainer's records
+               of frames 0-2 at QP 22 extracted on the CPU must equal the
+               card's; its first TRACK_STEPS steps at QP 22 on the CPU
+               must track the losses of the card's timed run within
+               TRACK_RTOL; the first 1920x1080 frame pair's records at
+               SR 16 must equal the card's;
+ 11. tally     meanwhile, untimed: the calls of the plain-torch queue-B
                functions on the ldp phase's encode and on a 2-frame
                416x240 RA Main10 encode (an I and a B picture), and the
                bytes of the tensors they take and give (a bound for
                argument bytes only).
 
 Imports nothing from hmtpu or JAX.  The last line of the output is
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}.  Every process the check starts (nvcc,
+nvidia-smi, the parity workers and multiprocessing's resource tracker)
+is stopped before it exits, after a failed phase too.
 """
 from __future__ import annotations
 
@@ -81,10 +111,12 @@ import concurrent.futures
 import json
 import multiprocessing
 import os
+import signal
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -113,11 +145,98 @@ CPU_WORKERS, CPU_THREADS = 3, 2
 # on a slow host (the spread seen so far) is about 320 s: 800 s leaves
 # it inside the 1200 s limit
 FULL_AI_BEFORE_S = 800.0
+# the NN-FME trainer at tools/train_nnfme.py's defaults (the synthetic
+# 416x240 clip of 24 frames, search range 16, QPs 22/27/32/37, 60 epochs
+# of batch 1024); its first TRACK_STEPS steps at QP 22 run again on the
+# CPU, whose losses must stay within TRACK_RTOL of those of the card's
+# timed run.  The two differ only where the CPU's exp / log and the
+# card's expf / logf round an ulp apart, which the following steps
+# carry: 20 steps against hmtpu (another order of every sum) stayed
+# within 2e-7 (the CPU tests), 50 steps card against CPU within 1.2e-7;
+# 1e-5 is about 80 times that, and a hundredth of what one step moves
+# the loss (about 1e-3 at lr 3e-3)
+TRAIN_FRAMES, TRAIN_SR, TRAIN_QPS, TRAIN_EPOCHS, TRAIN_BATCH = \
+    24, 16, (22, 27, 32, 37), 60, 1024
+TRACK_STEPS, TRACK_EPOCHS, TRACK_RTOL = 50, 2, 1e-5
+# extraction at HM's class-B size: 1920x1080 (1080 = 67.5 x 16: the
+# single-level ME), 4 frames, search range 64; one frame pair again on
+# the CPU at search range 16 (about 20 s there)
+HD_W, HD_H, HD_FRAMES, HD_SR, HD_CPU_SR = 1920, 1080, 4, 64, 16
+# K14 rounds expf / logf where its plain version calls torch's exp / log:
+# its float outputs (the loss, the accuracy, the d-logits) are held to
+# this relative tolerance; every other kernel to equality
+RTOL = {"nnfme_fwd": 1e-6}
+# the kernels of the training slice: the encodes at sides that are
+# multiples of 16 launch none of them
+TRAIN_KERNELS = ("me_sad1", "nnfme_fwd", "nnfme_bwd", "adam")
 
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", flush=True)
     sys.exit(1)
+
+
+def stop_children(grace_s: float = 10.0, tracker: bool = True) -> None:
+    """Stop every process this one started that still runs: the parity
+    workers and nvcc or nvidia-smi after a failed phase, and (with
+    `tracker`) multiprocessing's resource tracker, which the worker pool
+    starts and which otherwise lives on past this process.  Descendants
+    get SIGTERM, then SIGKILL after grace_s seconds; the tracker ignores
+    SIGTERM and ends when its pipe closes, which it does only once the
+    workers (which hold the pipe too) are gone."""
+    from multiprocessing import resource_tracker
+
+    rt = resource_tracker._resource_tracker
+    alive = [p for p in _descendants() if p != rt._pid]
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in alive:
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+        deadline = time.time() + grace_s
+        while alive and time.time() < deadline:
+            alive = [p for p in alive if not _gone(p)]
+            time.sleep(0.05)
+        if not alive:
+            break
+    if tracker:
+        rt._stop()
+    left = [p for p in _descendants() if p != rt._pid]
+    if left:
+        print(f"chip_smoke: processes {left} outlived SIGKILL", flush=True)
+
+
+def _descendants() -> list[int]:
+    parent = {}
+    for d in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if stat[0] not in ("Z", "X"):
+            parent[int(d)] = int(stat[1])
+    out, todo = [], [os.getpid()]
+    while todo:
+        p = todo.pop()
+        kids = [c for c, pp in parent.items() if pp == p]
+        out += kids
+        todo += kids
+    return out
+
+
+def _gone(pid: int) -> bool:
+    try:
+        if os.waitpid(pid, os.WNOHANG)[0] == pid:
+            return True
+    except ChildProcessError:
+        pass
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] in ("Z", "X")
+    except OSError:
+        return True
 
 
 def synth_clip(width, height, frames, seed=42):
@@ -186,6 +305,10 @@ DEVICE_FN = {
     "satd8": "satd_kernel", "transform_skip": "transform_skip_kernel",
     "frac_refine": "frac_kernel", "rdoq": "rdoq_kernel",
     "mc_dctif_i": "mc_kernel", "bi_pred": "bi_pred_kernel",
+    "me_sad1": "me1_kernel", "adam": "adam_kernel",
+    # the forward and backward and the second pass of their reductions
+    "nnfme_fwd": ("fwd_kernel", "colsum_kernel"),
+    "nnfme_bwd": ("bwd_kernel", "colsum_kernel"),
 }
 
 
@@ -194,17 +317,19 @@ def self_device_us(evt) -> float:
                    getattr(evt, "self_cuda_time_total", 0.0))
 
 
-def device_ms(fn, fname: str, iters: int = 20) -> float:
+def device_ms(fn, fname, iters: int = 20) -> float:
     """Device milliseconds per call of fn spent in CUDA functions named
-    like `fname` (torch.profiler, device activity): the kernel's own time,
-    without the host's launch cost that time_cuda sees at small shapes."""
+    like `fname` (or any name of a tuple; torch.profiler, device
+    activity): the kernel's own time, without the host's launch cost that
+    time_cuda sees at small shapes."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if fname in e.key]
+    names = fname if isinstance(fname, tuple) else (fname,)
+    evs = [e for e in prof.key_averages() if any(n in e.key for n in names)]
     if not evs:
         fail(f"profiler saw no {fname} launch")
     return sum(self_device_us(e) for e in evs) / 1e3 / iters
@@ -324,7 +449,8 @@ def kernel_cases(dev):
                   lambda: sao.apply_sao_plain(y, params, 64, 8),
                   (2 * H * W + nctu * 7) * 4, 12 * H * W, None))
     return cases + inter_kernel_cases(dev, rng) \
-        + slice3_kernel_cases(dev, rng) + slice4_kernel_cases(dev, rng)
+        + slice3_kernel_cases(dev, rng) + slice4_kernel_cases(dev, rng) \
+        + slice5_kernel_cases(dev, rng)
 
 
 def first_p_lambda_sqrt() -> np.float32:
@@ -682,6 +808,114 @@ def slice4_kernel_cases(dev, rng):
     return cases
 
 
+_HD: list = []
+
+
+def hd_clip():
+    """The generator's 1920x1080 clip, HD_FRAMES frames (made once)."""
+    if not _HD:
+        _HD.extend(synth_clip(HD_W, HD_H, HD_FRAMES, seed=42))
+    return _HD
+
+
+def frames_of(clip):
+    from hmtpu_torch.io.yuv import Frame
+
+    return [Frame(*(np.asarray(p, np.int32) for p in f)) for f in clip]
+
+
+def mlp_work(nb):
+    """Multiply-adds of the MLP's three layers for nb rows."""
+    return nb * (17 * 22 + 22 * 20 + 20 * 49)
+
+
+def slice5_kernel_cases(dev, rng):
+    """K13 at 1920x1080, search range 64, one reference (checked at
+    416x240 and 64x56, search ranges 16 and 64, non-zero predictors), and
+    K14-K16 at batch 1024 of the trainer's QP-22 records (the clip's
+    first frame pair at search range 16), from the port's init (seed 0)
+    with the rows' fitted mean and std."""
+    from hmtpu_torch.models import dataset, nnfme, train
+    from hmtpu_torch.search import me
+
+    t32 = lambda a: torch.as_tensor(np.asarray(a, np.int32)).to(dev)
+    lam = np.float32(np.sqrt(0.57 * 2.0 ** ((QP_LDP - 12) / 3.0)))
+    cases = []
+
+    def me1_case(clip, sr):
+        h, w = clip[0][0].shape
+        org, ref = t32(clip[1][0]), t32(clip[0][0])
+        px, py = (t32(rng.randint(-64, 65, (h // 8, w // 8)))
+                  for _ in range(2))
+        return (lambda: me.integer_me(ref, org, 8, sr, lam, px, py),
+                lambda: me.integer_me_plain(ref, org, 8, sr, lam, px, py))
+
+    kfn, pfn = me1_case(hd_clip()[:2], HD_SR)
+    more = [me1_case(c, sr) for c in (synth_clip(W, H, 2, seed=42),
+                                      synth_clip(64, 56, 2, seed=3))
+            for sr in (16, 64)]
+    nblk = (HD_H // 8) * (HD_W // 8)
+    # two planes and two predictor fields in, 12 int32 per block out; per
+    # displacement and sample a subtract, an absolute value and an add
+    cases.append(("me_sad1", kfn, pfn,
+                  (2 * HD_H * HD_W + 2 * nblk + 12 * nblk) * 4,
+                  3 * HD_H * HD_W * (2 * HD_SR + 1) ** 2, None, more))
+
+    c9, hh, ww, ll = dataset.extract_clip(
+        frames_of(synth_clip(W, H, 2, seed=42)), 22, TRAIN_SR, device=dev)
+    nb = TRAIN_BATCH
+    mean, std = train.standardize_fit(c9[:nb])
+    init = nnfme.init_random(torch.Generator().manual_seed(0), dev)
+    fields = {k: getattr(init, k).cpu().numpy() for k in nnfme.PACK_ORDER}
+    fields.update(mean=mean, std=std)
+    pk = nnfme.params_from_arrays(fields, dev).packed
+    c9, hh, ww, ll = (torch.as_tensor(a[:nb]).to(dev) for a in (c9, hh, ww,
+                                                                 ll))
+    # K14: per row the MLP (a multiply and an add per term, the biases,
+    # ReLU and affine of 42 units, the standardisation), the max and
+    # argmax, 49 subtractions, exponentials and sums, the log and loss,
+    # and 49 d-logits (an exponential again, a multiply): ~4,050
+    cases.append(("nnfme_fwd",
+                  lambda: train.loss_fwd(pk, c9, hh, ww, ll),
+                  lambda: train.loss_fwd_plain(pk, c9, hh, ww, ll),
+                  (nb * 12 + nnfme.PACK_SIZE + nb * 91 + 2) * 4,
+                  2 * mlp_work(nb) + nb * (3 * 42 + 3 * 9 + 2 * 49
+                                           + 5 * 49 + 4), None))
+    _, saved = train.loss_fwd(pk, c9, hh, ww, ll)
+    one = torch.ones(1, dtype=torch.float32, device=dev)
+    bwd = lambda: train.loss_bwd(pk, c9, hh, ww, *saved, one)
+    # K15: per row the three layers back (a multiply and an add per
+    # term), the features and activations again, and each parameter's
+    # product and sum; then the blocks' partials summed
+    cases.append(("nnfme_bwd", bwd,
+                  lambda: train.loss_bwd_plain(pk, c9, hh, ww, *saved, one),
+                  (nb * (11 + 91) + nnfme.PACK_SIZE + 1
+                   + nnfme.PACK_SIZE) * 4,
+                  2 * mlp_work(nb) + nb * (3 * 9 + 4 * 42 + 2 * 9 * 4)
+                  + 2 * nb * nnfme.PACK_SIZE
+                  + -(-nb // train.KROWS) * nnfme.PACK_SIZE, None,
+                  # run to run: the same bits
+                  [(bwd, bwd)]))
+    grad = bwd()
+    n = nnfme.PACK_SIZE
+    base = (pk.clone(), torch.as_tensor(rng.randn(n) * 1e-3, dtype=torch
+                                        .float32).to(dev),
+            torch.as_tensor(rng.rand(n) * 1e-5, dtype=torch.float32).to(dev))
+    kb, pb = [b.clone() for b in base], [b.clone() for b in base]
+    lp = torch.nn.Parameter(pk.clone())
+    lp.grad = grad.clone()
+    fused = torch.optim.Adam([lp], lr=3e-3, fused=True)
+    # K16: per parameter 13 operations; p, g, mu, nu in, p, mu, nu out
+    cases.append(("adam",
+                  lambda: (train.adam_update(kb[0], grad, kb[1], kb[2], 7,
+                                             3e-3), tuple(kb))[1],
+                  lambda: (train.adam_update_plain(pb[0], grad, pb[1],
+                                                   pb[2], 7, 3e-3),
+                           tuple(pb))[1],
+                  7 * n * 4, 13 * n, fused.step))
+    return cases
+
+
 # the plain-torch device functions of queue B that have no hand kernel yet
 # (item, module, function): PlainTally counts their calls in an untimed
 # encode and sums the bytes of the tensors their calls take as arguments
@@ -699,7 +933,22 @@ PLAIN_FUNCS = (
     ("B15", "hmtpu_torch.encoder.pframe_dev", "amvp_candidates_dev_b"),
     ("B13 _choose_params", "hmtpu_torch.ops.sao", "_choose_params"),
     ("B14", "hmtpu_torch.encoder.iframe_dev", "iframe_pass"),
-)
+) + tuple(
+    # B8's flag helpers (hmtpu/ops/ratebits.py:305-450), as the passes
+    # import them
+    ("B8 flags", f"hmtpu_torch.encoder.{mod}", fn)
+    for mod, fns in (
+        ("pframe_dev", ("cbf_chroma_bits", "cbf_luma_bits", "chroma_dm_bits",
+                        "inter_dir_bits", "intra_mode_mpm_bits",
+                        "merge_flag_bits", "merge_idx_bits", "mvd_bits",
+                        "mvp_idx_bits", "part_size_2nx2n_bits",
+                        "pred_mode_bits", "ref_idx_bits",
+                        "rqt_root_cbf_bits", "skip_flag_bits",
+                        "split_flag_bits", "ts_flag_bits")),
+        ("iframe_dev", ("cbf_chroma_bits", "cbf_luma_bits", "chroma_dm_bits",
+                        "intra_mode_mpm_bits", "part_size_2nx2n_bits",
+                        "part_size_nxn_bits", "split_flag_bits")))
+    for fn in fns)
 
 
 def tensor_bytes(x) -> int:
@@ -712,18 +961,29 @@ def tensor_bytes(x) -> int:
     return 0
 
 
-class PlainTally:
-    """Wraps PLAIN_FUNCS while in use: calls and argument bytes per
-    item.  The wrappers cost host time, so no timed encode runs under
-    it."""
+# the plain versions of the training path's kernels (K13, K9, K14-K16),
+# as (item, module, function): none may run on the card's path
+TRAIN_PLAIN_FUNCS = (
+    ("K13", "hmtpu_torch.search.me", "integer_me_plain"),
+    ("K9", "hmtpu_torch.search.me", "frac_refine_batch_plain"),
+    ("K14", "hmtpu_torch.models.train", "loss_fwd_plain"),
+    ("K15", "hmtpu_torch.models.train", "loss_bwd_plain"),
+    ("K16", "hmtpu_torch.models.train", "adam_update_plain"))
 
-    def __init__(self):
+
+class PlainTally:
+    """Wraps `funcs` ((item, module, function), PLAIN_FUNCS by default)
+    while in use: calls and argument bytes per item.  The wrappers cost
+    host time when they are called, so no timed encode runs under it."""
+
+    def __init__(self, funcs=PLAIN_FUNCS):
+        self.funcs = funcs
         self.calls, self.bytes, self._saved = {}, {}, []
 
     def __enter__(self):
         import importlib
 
-        for item, mod, fn in PLAIN_FUNCS:
+        for item, mod, fn in self.funcs:
             m = importlib.import_module(mod)
             inner = getattr(m, fn)
 
@@ -756,6 +1016,19 @@ def same(a, b) -> bool:
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
 
 
+def close(a, b, rtol) -> bool:
+    """Equal shapes and dtypes; floats within rtol (relative) or 1e-12,
+    integers equal."""
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(close(x, y, rtol)
+                                        for x, y in zip(a, b))
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    return torch.allclose(a, b, rtol=rtol, atol=1e-12)
+
+
 def max_err(a, b) -> float:
     if isinstance(a, (tuple, list)):
         return max(max_err(x, y) for x, y in zip(a, b))
@@ -765,8 +1038,9 @@ def max_err(a, b) -> float:
 
 
 def encode(frames, qp, device, gop="ai", srange=16, subpel=None,
-           ts=False, bd=8):
-    """8-bit frames through Encoder; at bd 10 as 10-bit samples (<< 2)."""
+           ts=False, bd=8, nn_dir=None):
+    """8-bit frames through Encoder; at bd 10 as 10-bit samples (<< 2);
+    NN-FME weights from nn_dir when given, else the port's own."""
     from hmtpu_torch.encoder.top import Encoder, EncoderConfig
     from hmtpu_torch.io.yuv import Frame
 
@@ -774,7 +1048,8 @@ def encode(frames, qp, device, gop="ai", srange=16, subpel=None,
     if subpel is None:
         subpel = "nn" if gop == "ldp" else "none"
     cfg = EncoderConfig(width=w, height=h, qp=qp, gop=gop, subpel=subpel,
-                        search_range=srange, transform_skip=ts, bit_depth=bd)
+                        search_range=srange, transform_skip=ts, bit_depth=bd,
+                        nn_weights_dir=nn_dir)
     enc = Encoder(cfg, device=device)
     t0 = time.time()
     bs = enc.encode_sequence([
@@ -816,11 +1091,36 @@ def cli_encode(args, device):
 def cpu_stream(job):
     """A job's stream and seconds on the CPU (the plain version of every
     kernel); run in a worker.  A job is (frames, qp, gop, search range,
-    sub-pel, transform skip, bit depth), or ("cli", args) for the CLI."""
+    sub-pel, transform skip, bit depth, NN-FME weights directory), or
+    ("cli", args) for the CLI; or ("records", clip, qp, search range):
+    the extracted records and seconds; or ("track", rows, steps): the
+    losses of the trainer's first steps and seconds."""
     torch.set_num_threads(CPU_THREADS)
+    t0 = time.time()
     if job[0] == "cli":
         return cli_encode(job[1], "cpu")[:2]
+    if job[0] == "records":
+        from hmtpu_torch.models import dataset
+
+        _, clip, qp, sr = job
+        return (dataset.extract_clip(frames_of(clip), qp, sr, device="cpu"),
+                time.time() - t0)
+    if job[0] == "track":
+        # the port's init from seed 0 for TRACK_EPOCHS epochs: the same
+        # first batches as the trainer's run
+        from hmtpu_torch.models import train
+
+        losses = []
+        train.train(*job[1], epochs=TRACK_EPOCHS, batch_size=TRAIN_BATCH,
+                    device="cpu", losses=losses)
+        return [float(x) for x in losses[:job[2]]], time.time() - t0
     return encode(job[0], job[1], "cpu", *job[2:])[:2]
+
+
+def train_steps(n_rows) -> int:
+    """`train`'s steps over n_rows records at the trainer's defaults."""
+    n_tr = n_rows - max(1, int(n_rows * 0.2))
+    return TRAIN_EPOCHS * -(-n_tr // TRAIN_BATCH)
 
 
 def check_results(results, what):
@@ -929,17 +1229,19 @@ def main() -> None:
     # ---- 3. kernels against their plain versions
     rows = {}
     for name, kfn, pfn, nbytes, ops, lib, *more in kernel_cases(dev):
+        agree = same if name not in RTOL \
+            else (lambda a, b, r=RTOL[name]: close(a, b, r))
         got, want = kfn(), pfn()
         torch.cuda.synchronize()
-        err = max_err(got, want)
-        if not same(got, want):
+        err, exact = max_err(got, want), same(got, want)
+        if not agree(got, want):
             fail(f"{name}: kernel disagrees with its plain version "
                  f"(max abs err {err})")
         for k2, p2 in (more[0] if more else ()):
             g2, w2 = k2(), p2()
             torch.cuda.synchronize()
             err = max(err, max_err(g2, w2))
-            if not same(g2, w2):
+            if not agree(g2, w2):
                 w0 = w2[0] if isinstance(w2, (tuple, list)) else w2
                 fail(f"{name}: kernel disagrees with its plain version at "
                      f"shape {tuple(w0.shape)} (max abs err {err})")
@@ -954,7 +1256,10 @@ def main() -> None:
             replaces=repl, launches=0, max_abs_err=err,
             ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
             library_ms=lms, device_ms=dms)
-        print(f"kernel {name}: equal to plain; {ms:.4f} ms per call, "
+        print(f"kernel {name}: "
+              + ("equal to plain" if exact else
+                 f"within {RTOL[name]} (relative) of plain")
+              + f"; {ms:.4f} ms per call, "
               f"{dms:.4f} ms on the device (plain {pms:.4f} ms, bound "
               f"{bms:.6f} ms by {by}"
               + (f", library call {lms:.4f} ms" if lms else "")
@@ -967,7 +1272,7 @@ def main() -> None:
     # ---- 4. the main path: low-delay P with NN-FME
     ldp_names = [k for k in kernels.KERNELS
                  if k not in ("frac_refine", "transform_skip", "mc_dctif_i",
-                              "bi_pred")]
+                              "bi_pred") + TRAIN_KERNELS]
     (bs, dt, results), counts, util = run_counted(
         "ldp", lambda: encode(clip, QP_LDP, dev, "ldp", SRANGE),
         ldp_names, kernels)
@@ -993,7 +1298,8 @@ def main() -> None:
 
     # ---- 5. the anchor cfg with HM's DCT-IF sub-pel search, via the CLI
     dctif_names = [k for k in kernels.KERNELS
-                   if k not in ("nnfme", "satd8", "mc_dctif_i", "bi_pred")]
+                   if k not in ("nnfme", "satd8", "mc_dctif_i", "bi_pred")
+                   + TRAIN_KERNELS]
     pframe_dev.DBG_COUNTERS["ldp_ts_tbs"] = 0
     (d_bs, d_dt, d_enc), d_counts, d_util = run_counted(
         "ldp_dctif", lambda: cli_encode(
@@ -1023,7 +1329,8 @@ def main() -> None:
     yuv10 = os.path.join(tmp.name, "clip10.yuv")
     write_yuv(yuv10, ra_clip, 10)
     ra_names = [k for k in kernels.KERNELS
-                if k not in ("nnfme", "satd8", "transform_skip")]
+                if k not in ("nnfme", "satd8", "transform_skip")
+                + TRAIN_KERNELS]
     pframe_dev.DBG_COUNTERS["ra_bi_cus"] = 0
     (r_bs, r_dt, r_enc), r_counts, r_util = run_counted(
         "ra10", lambda: cli_encode(
@@ -1083,6 +1390,72 @@ def main() -> None:
               f"the ldp_dctif I frame ran the TS I pass at 416x240",
               flush=True)
 
+    # ---- 8. the NN-FME trainer at its defaults (tools/train_nnfme.py's),
+    # through its entry point in process, into a temporary directory
+    from hmtpu_torch.apps import train_nnfme
+    from hmtpu_torch.models import dataset
+
+    train_dir = os.path.join(tmp.name, "nnfme")
+    csv_dir = os.path.join(tmp.name, "sse")
+    train_names = ["me_sad1", "frac_refine", "nnfme_fwd", "nnfme_bwd",
+                   "adam"]
+    train_args = ["--size", f"{W}x{H}", "--frames", str(TRAIN_FRAMES),
+                  "--qps", ",".join(str(q) for q in TRAIN_QPS), "--epochs",
+                  str(TRAIN_EPOCHS), "--search-range", str(TRAIN_SR),
+                  "--out", train_dir, "--csv-dir", csv_dir]
+    train_losses = {}
+    t0 = time.time()
+    with PlainTally(TRAIN_PLAIN_FUNCS) as plain:
+        _, t_counts, t_util = run_counted(
+            "nnfme_train", lambda: train_nnfme.main(train_args, train_losses),
+            train_names, kernels)
+    t_train = time.time() - t0
+    if plain.calls:
+        fail(f"nnfme_train: calls of a plain version on the card's path "
+             f"({plain.calls})")
+    n_rows = (TRAIN_FRAMES - 1) * (W // 8) * (H // 8)
+    steps = len(TRAIN_QPS) * train_steps(n_rows)
+    if t_counts["adam"] != steps or t_counts["nnfme_bwd"] != steps:
+        fail(f"nnfme_train: {t_counts['adam']} K16 and "
+             f"{t_counts['nnfme_bwd']} K15 launches for {steps} steps")
+    for name in ("me_sad1", "nnfme_fwd", "nnfme_bwd", "adam"):
+        rows[name]["launches"] = t_counts[name]
+    from hmtpu_torch.models import nnfme
+
+    for qp in TRAIN_QPS:
+        prm = nnfme.load_npz(os.path.join(train_dir, f"qp{qp}.npz"), dev)
+        if not bool(torch.isfinite(prm.packed).all()):
+            fail(f"nnfme_train: qp{qp}.npz has a value that is not finite")
+    print(f"nnfme_train: {W}x{H}, {TRAIN_FRAMES} frames, SR{TRAIN_SR}, QPs "
+          f"{'/'.join(str(q) for q in TRAIN_QPS)}, {TRAIN_EPOCHS} epochs: "
+          f"{n_rows} rows and {steps // len(TRAIN_QPS)} steps per QP, "
+          f"{t_train:.3f} s in all; no plain-version call; card "
+          f"utilization (nvidia-smi, {len(t_util)} samples) mean "
+          f"{np.mean(t_util) if t_util else float('nan'):.2f} %", flush=True)
+    rows22 = dataset.read_sse_csv(os.path.join(csv_dir, "SSE_22.csv"))
+    if len(rows22[3]) != n_rows:
+        fail(f"nnfme_train: SSE_22.csv has {len(rows22[3])} rows")
+    card_track = [float(x) for x in train_losses[22][:TRACK_STEPS]]
+
+    # ---- 9. extraction at 1920x1080 (the single-level ME at SR 64)
+    hd = frames_of(hd_clip())
+
+    def hd_run():
+        secs = []
+        for i in range(1, len(hd)):
+            t0 = time.time()
+            dataset.extract_frame_records(hd[i], hd[i - 1], 22, HD_SR,
+                                          device=dev)
+            secs.append(time.time() - t0)
+        return secs
+
+    hd_secs, _, hd_util = run_counted("hd_extract", hd_run,
+                                      ["me_sad1", "frac_refine"], kernels)
+    print(f"hd_extract: {HD_W}x{HD_H}, QP22, SR{HD_SR}, {HD_FRAMES} frames, "
+          f"{(HD_W // 8) * (HD_H // 8)} records a pair: seconds per frame "
+          f"pair " + ", ".join(f"{t:.4f}" for t in hd_secs), flush=True)
+    hd_card = dataset.extract_clip(hd[:2], 22, HD_CPU_SR, device=dev)
+
     if args.profile:
         from hmtpu_torch.ops import quant, ratebits, rdoq
 
@@ -1111,38 +1484,54 @@ def main() -> None:
                        lambda: encode(synth_clip(64, 64, 9, seed=3), 32,
                                       dev, "ra", 8, "dctif", bd=10))
 
-    # ---- 8. card against CPU: the CPU's streams come from worker
+    # ---- 10. card against CPU: the CPU's streams come from worker
     # processes on the machine's other cores while this one dispatches the
     # same clips to the card.  A job is (content, frames, qp, gop, search
-    # range, sub-pel, transform skip, bit depth, the DBG_COUNTERS entry
-    # that must be > 0 on the card: transform skip chosen by some TB, or
-    # bi-prediction chosen by some CU)
+    # range, sub-pel, transform skip, bit depth, what must be > 0 on the
+    # card: a DBG_COUNTERS entry (transform skip chosen by some TB, or
+    # bi-prediction chosen by some CU) or "kernel:" and a kernel's
+    # launches, the NN-FME weights directory or None for the port's own)
     screen = screen_clip(96, 64, 4)
     small9 = synth_clip(64, 64, RA_FRAMES, seed=3)
-    jobs = [("", small[:2], qp, "ai", 16, None, False, 8, None)
+    jobs = [("", small[:2], qp, "ai", 16, None, False, 8, None, None)
             for qp in (22, 37)] \
         + [("screen ", screen[:2], qp, "ai", 16, None, True, 8,
-            "intra_ts_tbs") for qp in (22, 37)] \
-        + [("", small, qp, "ldp", 8, sp, ts, 8, None)
+            "intra_ts_tbs", None) for qp in (22, 37)] \
+        + [("", small, qp, "ldp", 8, sp, ts, 8, None, None)
            for sp, ts in (("nn", False), ("dctif", True))
            for qp in (22, 37)] \
         + [("screen ", screen, 27, "ldp", 8, "dctif", True, 8,
-            "ldp_ts_tbs")] \
-        + [("Main10 ", small9, qp, "ra", 8, "dctif", False, 10, "ra_bi_cus")
-           for qp in (22, 37)] \
-        + [("", small9, 27, "ra", 8, "nn", False, 8, "ra_bi_cus")]
+            "ldp_ts_tbs", None)] \
+        + [("Main10 ", small9, qp, "ra", 8, "dctif", False, 10, "ra_bi_cus",
+            None) for qp in (22, 37)] \
+        + [("", small9, 27, "ra", 8, "nn", False, 8, "ra_bi_cus", None)] \
+        + [("", synth_clip(64, 56, 4, seed=3), 27, "ldp", 8, "nn", False, 8,
+            "kernel:me_sad1", None)] \
+        + [("freshly trained QP22 weights, ", small, 22, "ldp", 8, "nn",
+            False, 8, None, train_dir)]
     ai_cpu_args = ai_args[:-1] + [os.path.join(tmp.name, "ai_cpu.hevc")]
     cpu_jobs = ([("cli", ai_cpu_args)] if full_ai else []) \
-        + [j[1:8] for j in jobs]
+        + [j[1:8] + (j[9],) for j in jobs]
+    # the trainer's records and first steps, and one 1920x1080 frame pair
+    extra_jobs = {"records": ("records", synth_clip(W, H, 3, seed=42), 22,
+                              TRAIN_SR),
+                  "track": ("track", rows22, TRACK_STEPS),
+                  "hd": ("records", hd_clip()[:2], 22, HD_CPU_SR)}
     ctx = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(
-            CPU_WORKERS, mp_context=ctx) as pool:
+    pool = concurrent.futures.ProcessPoolExecutor(CPU_WORKERS, mp_context=ctx)
+    try:
         # the workers take jobs in submission order: the 416x240 AI
-        # stream first, then the list from its end (the longer jobs)
-        order = ([0] if full_ai else []) + sorted(
-            range(len(cpu_jobs) - len(jobs), len(cpu_jobs)), reverse=True)
-        futs = {i: pool.submit(cpu_stream, cpu_jobs[i]) for i in order}
-        # ---- 9. meanwhile, the calls and argument bytes of the
+        # stream first, then the 1920x1080 records and the trainer's, then
+        # the list from its end (the longer jobs)
+        futs = {}
+        if full_ai:
+            futs[0] = pool.submit(cpu_stream, cpu_jobs[0])
+        extra = {k: pool.submit(cpu_stream, j)
+                 for k, j in extra_jobs.items()}
+        for i in sorted(range(len(cpu_jobs) - len(jobs), len(cpu_jobs)),
+                        reverse=True):
+            futs[i] = pool.submit(cpu_stream, cpu_jobs[i])
+        # ---- 11. meanwhile, the calls and argument bytes of the
         # plain-torch queue-B functions on the main path, in an untimed
         # encode of the ldp phase's clip, and of B15's on a 2-frame
         # 416x240 RA Main10 encode (their wrappers cost host time)
@@ -1155,16 +1544,32 @@ def main() -> None:
         print(tally.line("416x240 RA Main10 QP32 I + B, untimed"),
               flush=True)
         on_card = []
-        for _, f, qp, gop, sr, sp, ts, bd, must in jobs:
+        for _, f, qp, gop, sr, sp, ts, bd, must, nn_dir in jobs:
             for k in ("ldp_ts_tbs", "intra_ts_tbs", "ra_bi_cus"):
                 pframe_dev.DBG_COUNTERS[k] = 0
-            on_card.append(encode(f, qp, dev, gop, sr, sp, ts, bd)[:2]
-                           + (must and pframe_dev.DBG_COUNTERS[must],))
+            if must and must.startswith("kernel:"):
+                kernels.COUNTS[must[7:]] = 0
+            out = encode(f, qp, dev, gop, sr, sp, ts, bd, nn_dir)[:2]
+            fired = must and (kernels.COUNTS[must[7:]]
+                              if must.startswith("kernel:")
+                              else pframe_dev.DBG_COUNTERS[must])
+            on_card.append(out + (fired,))
         cpu = [futs[i].result() for i in range(len(cpu_jobs))]
+        extra = {k: f.result() for k, f in extra.items()}
+    finally:
+        if sys.exc_info()[0] is not None:
+            # a failed phase: the queued jobs are dropped and the workers
+            # stopped, not waited for
+            pool.shutdown(wait=False, cancel_futures=True)
+            stop_children(tracker=False)
+        # the pool's queues (and their semaphores) go before stop_children
+        # ends the resource tracker
+        pool.shutdown()
+        del pool
     labels = [f"{f[0][0].shape[1]}x{f[0][0].shape[0]} {what}{gop.upper()}"
               f"{' ' + sp.upper() if gop in ('ldp', 'ra') else ''}"
               f"{' TS' if ts else ''} QP{qp} {len(f)} frames"
-              for what, f, qp, gop, _, sp, ts, _, _ in jobs]
+              for what, f, qp, gop, _, sp, ts, _, _, _ in jobs]
     musts = [j[8] for j in jobs]
     if full_ai:
         on_card = [(ai_bs, ai_dt, None)] + on_card
@@ -1177,11 +1582,38 @@ def main() -> None:
             fail(f"{what}: card and CPU streams differ")
         if must and not fired:
             fail(f"{what}: {must} 0 on the card (no TB chose transform "
-                 f"skip, or no CU bi-prediction)")
+                 f"skip, no CU bi-prediction, or the kernel did not run)")
         print(f"parity: {what} card == CPU ({len(a)} bytes; card "
               f"{adt:.1f} s, CPU {bdt:.1f} s"
               + (f"; {must} {fired} on the card" if must else "") + ")",
               flush=True)
+    # the trainer's records, its first steps and the 1920x1080 pair
+    (recs, rdt), (cpu_track, tdt), (hd_cpu, hdt) = (
+        extra[k] for k in ("records", "track", "hd"))
+    n3 = 2 * (W // 8) * (H // 8)
+    if not all(np.array_equal(a, b[:n3]) and a.dtype == b.dtype
+               for a, b in zip(recs, rows22)):
+        fail("nnfme_train: the first 3 frames' records on the CPU differ "
+             "from the card's")
+    print(f"parity: nnfme_train records of frames 0-2 at QP22 card == CPU "
+          f"({n3} rows; CPU {rdt:.1f} s)", flush=True)
+    a, b = np.array(card_track), np.array(cpu_track)
+    rel = float(np.abs(a - b).max() / np.abs(b).max()) \
+        if len(a) == len(b) == TRACK_STEPS else float("inf")
+    if not rel <= TRACK_RTOL:
+        fail(f"nnfme_train: the CPU's first {TRACK_STEPS} losses do not "
+             f"track the card's (max relative difference {rel})")
+    print(f"parity: nnfme_train first {TRACK_STEPS} steps at QP22, losses "
+          f"{a[0]:.6f} -> {a[-1]:.6f} on the card, max relative difference "
+          f"to the CPU's {rel:.3e} (bound {TRACK_RTOL}; CPU {tdt:.1f} s)",
+          flush=True)
+    if not all(np.array_equal(x, y) and x.dtype == y.dtype
+               for x, y in zip(hd_card, hd_cpu)):
+        fail("hd_extract: the records of the first frame pair differ "
+             "between the card and the CPU")
+    print(f"parity: hd_extract {HD_W}x{HD_H} frames 0-1 at QP22 SR"
+          f"{HD_CPU_SR} card == CPU ({len(hd_cpu[3])} records; CPU "
+          f"{hdt:.1f} s)", flush=True)
     tmp.cleanup()
 
     print(f"total: {time.time() - t_start:.1f} s", flush=True)
@@ -1193,4 +1625,18 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    except BaseException as e:
+        # a failed phase: say why, stop what the check started and leave
+        # at once (the worker pool's semaphores may still be registered,
+        # and multiprocessing's exit hooks would start a new resource
+        # tracker to unregister them)
+        if not isinstance(e, SystemExit):
+            traceback.print_exc()
+        stop_children()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(e.code if isinstance(e, SystemExit)
+                 and isinstance(e.code, int) else 1)
+    stop_children()

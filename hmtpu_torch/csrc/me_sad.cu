@@ -1,3 +1,6 @@
+// K5 me_sad and K13 me_sad1 (the single-level form, further below; it
+// shares K5's window staging and its (cost, index) tie merge).
+//
 // K5 me_sad: full-window integer motion estimation for the 8x8, 16x16
 // and 32x32 CU levels of one reference, bit-exact with
 // hmtpu/search/me.py:120 integer_me_levels (the 8x8 SAD volume of
@@ -57,6 +60,25 @@ __device__ __forceinline__ bool better(float c, int i, float bc, int bi) {
   return c < bc || (c == bc && i < bi);
 }
 
+// Stage one 32x32 region: its (32 + 2R)^2 window of reference samples
+// around (y0, x0), edge-replicated by clamped reads (HM's margin
+// padding), and its source samples (zero outside the picture).
+__device__ void stage_region(int* win, int* sorg, const int* __restrict__ ref,
+                             const int* __restrict__ org, int H, int W, int R,
+                             int y0, int x0) {
+  const int S = 32 + 2 * R;
+  for (int k = threadIdx.x; k < S * S; k += blockDim.x) {
+    const int wy = k / S, wx = k - (k / S) * S;
+    const int yy = min(max(y0 - R + wy, 0), H - 1);
+    const int xx = min(max(x0 - R + wx, 0), W - 1);
+    win[k] = ref[(size_t)yy * W + xx];
+  }
+  for (int k = threadIdx.x; k < 32 * 32; k += blockDim.x) {
+    const int yy = y0 + (k >> 5), xx = x0 + (k & 31);
+    sorg[k] = (yy < H && xx < W) ? org[(size_t)yy * W + xx] : 0;
+  }
+}
+
 // SAD of region cell (cy, cx) at window offset (dyi, dxi)
 __device__ int cell_sad(const int* win, int S, const int* org, int cy, int cx,
                         int dyi, int dxi) {
@@ -89,16 +111,7 @@ __global__ void __launch_bounds__(kThreads)
   int* sten = best + 21;                          // 21 x 9 stencil sums
 
   const int t = threadIdx.x;
-  for (int k = t; k < S * S; k += kThreads) {
-    const int wy = k / S, wx = k - (k / S) * S;
-    const int yy = min(max(y0 - R + wy, 0), H - 1);
-    const int xx = min(max(x0 - R + wx, 0), W - 1);
-    win[k] = ref[(size_t)yy * W + xx];
-  }
-  for (int k = t; k < 32 * 32; k += kThreads) {
-    const int yy = y0 + (k >> 5), xx = x0 + (k & 31);
-    sorg[k] = (yy < H && xx < W) ? org[(size_t)yy * W + xx] : 0;
-  }
+  stage_region(win, sorg, ref, org, H, W, R, y0, x0);
   for (int k = t; k < 21 * 9; k += kThreads) sten[k] = 0;
   __syncthreads();
 
@@ -204,6 +217,110 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+
+// K13 me_sad1: the single-level form, bit-exact with
+// hmtpu/search/me.py:107 integer_me for 8x8 blocks (the SAD volume of
+// integer_me_sad_volume :29 and the argmin + stencil of _volume_best :72)
+// with a quarter-pel MV predictor per block in the motion cost, for any
+// picture whose sides are multiples of 8 (the P pass takes it where a
+// side is not a multiple of 16; dataset extraction always).  The work and
+// its bound are K5's; there is no 16/32 sum.  One thread block per 32x32
+// region of the picture, staged as K5 stages it; cells of the last row or
+// column of regions that lie outside the picture are masked.  Thread t
+// owns cell t % 16 (row-major in the region) and displacement lane t / 16,
+// keeps a running (cost, index) minimum over its displacements in
+// increasing index order (strictly smaller cost only), and the 16 partial
+// minima of a cell are merged on (cost, index): ties go to the first
+// index in row-major (dy, dx) order.  The cost is K5's, float32(SAD) +
+// float32(bits(4 dx - px) + bits(4 dy - py)) * lambda_sqrt with separately
+// rounded operations.  The nine stencil SADs (clamped to the window) are
+// then recomputed from the staged window, one (cell, point) per thread.
+__global__ void __launch_bounds__(kThreads)
+    me1_kernel(const int* __restrict__ ref, const int* __restrict__ org,
+               const int* __restrict__ pmx, const int* __restrict__ pmy,
+               int* __restrict__ out, int H, int W, int R, float lam) {
+  extern __shared__ int sm[];
+  const int side = 2 * R + 1;
+  const int D = side * side;
+  const int S = 32 + 2 * R;
+  const int bh = H / 8, bw = W / 8;
+  const int rw = (W + 31) / 32;
+  const int qy = blockIdx.x / rw, qx = blockIdx.x - (blockIdx.x / rw) * rw;
+  const int y0 = qy * 32, x0 = qx * 32;
+
+  int* win = sm;                                  // S * S
+  int* sorg = win + S * S;                        // 32 * 32
+  float* rc = (float*)(sorg + 32 * 32);           // kThreads
+  int* ri = (int*)(rc + kThreads);                // kThreads
+  int* best = ri + kThreads;                      // 16 winners
+
+  const int t = threadIdx.x;
+  stage_region(win, sorg, ref, org, H, W, R, y0, x0);
+  __syncthreads();
+
+  const int c = t & 15, g = t >> 4;
+  const int cy = c >> 2, cx = c & 3;
+  const int by = qy * 4 + cy, bx = qx * 4 + cx;
+  float bc = FLT_MAX;
+  int bi = 0x7fffffff;
+  if (by < bh && bx < bw) {
+    int o[64];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) o[i * 8 + j] = sorg[(cy * 8 + i) * 32 + cx * 8 + j];
+    const int px = pmx[(size_t)by * bw + bx], py = pmy[(size_t)by * bw + bx];
+    for (int d = g; d < D; d += kGroups) {
+      const int dyi = d / side, dxi = d - (d / side) * side;
+      const int* w0 = win + (cy * 8 + dyi) * S + cx * 8 + dxi;
+      int s = 0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s += abs(o[i * 8 + j] - w0[i * S + j]);
+      const float mv = __fmul_rn((float)(bits_of((dxi - R) * 4 - px)
+                                         + bits_of((dyi - R) * 4 - py)), lam);
+      const float cc = __fadd_rn((float)s, mv);
+      if (cc < bc) { bc = cc; bi = d; }
+    }
+  }
+  rc[t] = bc;
+  ri[t] = bi;
+  __syncthreads();
+
+  if (t < 16) {
+    float mc = FLT_MAX;
+    int mi = 0x7fffffff;
+    for (int k = 0; k < kGroups; ++k)
+      if (better(rc[k * 16 + t], ri[k * 16 + t], mc, mi)) {
+        mc = rc[k * 16 + t];
+        mi = ri[k * 16 + t];
+      }
+    best[t] = mi;
+  }
+  __syncthreads();
+
+  // per block: mvx, mvy, best SAD, the 3x3 stencil
+  for (int k = t; k < 16 * 9; k += kThreads) {
+    const int cell = k / 9, p = k - (k / 9) * 9;
+    const int ccy = cell >> 2, ccx = cell & 3;
+    const int bby = qy * 4 + ccy, bbx = qx * 4 + ccx;
+    if (bby >= bh || bbx >= bw) continue;
+    const int b = best[cell];
+    const int bdy = b / side, bdx = b - (b / side) * side;
+    const int oy = min(max(bdy + p / 3 - 1, 0), side - 1);
+    const int ox = min(max(bdx + p % 3 - 1, 0), side - 1);
+    const int sad = cell_sad(win, S, sorg, ccy, ccx, oy, ox);
+    int* o_ = out + ((size_t)bby * bw + bbx) * 12;
+    o_[3 + p] = sad;
+    if (p == 4) {
+      o_[0] = bdx - R;
+      o_[1] = bdy - R;
+      o_[2] = sad;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int hm_me_sad_levels(const void* ref, const void* org, void* out8,
@@ -222,5 +339,24 @@ extern "C" int hm_me_sad_levels(const void* ref, const void* org, void* out8,
   me_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       (const int*)ref, (const int*)org, (int*)out8, (int*)out16, (int*)out32,
       H, W, R, lam);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hm_me_sad1(const void* ref, const void* org, const void* pmx,
+                          const void* pmy, void* out, int H, int W, int R,
+                          float lam, void* stream) {
+  if (H <= 0 || W <= 0 || H % 8 || W % 8 || R < 0 || R > 64)
+    return cudaErrorInvalidValue;
+  const int S = 32 + 2 * R;
+  const size_t smem = (size_t)(S * S + 32 * 32) * sizeof(int)
+                      + (size_t)kThreads * (sizeof(float) + sizeof(int))
+                      + (size_t)16 * sizeof(int);
+  cudaError_t e = cudaFuncSetAttribute(
+      me1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = ((H + 31) / 32) * ((W + 31) / 32);
+  me1_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      (const int*)ref, (const int*)org, (const int*)pmx, (const int*)pmy,
+      (int*)out, H, W, R, lam);
   return (int)cudaGetLastError();
 }

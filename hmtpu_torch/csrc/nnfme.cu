@@ -17,44 +17,16 @@
 // rounded multiply and one rounded add per term (__fmul_rn, __fadd_rn:
 // no FMA contraction) and the standardisation with __fsub_rn /
 // __fdiv_rn / __fmul_rn, so the plain PyTorch version (the same loop)
-// gives the same bits on the card and on the CPU.
+// gives the same bits on the card and on the CPU.  That arithmetic lives
+// in nnfme.cuh, which K14 (nnfme_train.cu) shares.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "nnfme.cuh"
+
 namespace {
 
-constexpr int kPack = 9 * 3 + 32 * 2 + 22 * 17 + 22 * 3 + 20 * 22 + 20 * 3 +
-                      49 * 20 + 49;
-
-// size -> embedding row (the height table keeps the reference's
-// 16-before-12 order)
-__constant__ int kRowH[65] = {0, 0, 0, 0, 1, 0, 0, 0, 2, 0, 0, 0, 4, 0, 0, 0,
-                              3, 0, 0, 0, 0, 0, 0, 0, 5, 0, 0, 0, 0, 0, 0, 0,
-                              6, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-                              0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-                              7};
-__constant__ int kRowW[65] = {0, 0, 0, 0, 1, 0, 0, 0, 2, 0, 0, 0, 3, 0, 0, 0,
-                              4, 0, 0, 0, 0, 0, 0, 0, 5, 0, 0, 0, 0, 0, 0, 0,
-                              6, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-                              0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-                              7};
-
-template <int K, int N>
-__device__ __forceinline__ void dense(const float* in, const float* w,
-                                      const float* b, float* out) {
-  for (int j = 0; j < N; ++j) {
-    float acc = 0.0f;
-#pragma unroll
-    for (int k = 0; k < K; ++k) acc = __fadd_rn(acc, __fmul_rn(in[k], w[j * K + k]));
-    out[j] = __fadd_rn(acc, b[j]);
-  }
-}
-
-__device__ __forceinline__ void relu_affine(float* h, const float* g,
-                                            const float* beta, int n) {
-  for (int j = 0; j < n; ++j)
-    h[j] = __fadd_rn(__fmul_rn(fmaxf(h[j], 0.0f), g[j]), beta[j]);
-}
+using namespace nnfme;
 
 __global__ void nnfme_kernel(const float* __restrict__ pack,
                              const float* __restrict__ costs,
@@ -68,39 +40,14 @@ __global__ void nnfme_kernel(const float* __restrict__ pack,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= nb) return;
 
-  const float* mean = p;
-  const float* stdv = mean + 9;
-  const float* gin = stdv + 9;
-  const float* emb_h = gin + 9;
-  const float* emb_w = emb_h + 32;
-  const float* w1 = emb_w + 32;
-  const float* b1 = w1 + 22 * 17;
-  const float* g1 = b1 + 22;
-  const float* beta1 = g1 + 22;
-  const float* w2 = beta1 + 22;
-  const float* b2 = w2 + 20 * 22;
-  const float* g2 = b2 + 20;
-  const float* beta2 = g2 + 20;
-  const float* w3 = beta2 + 20;
-  const float* b3 = w3 + 49 * 20;
-
-  float feat[17];
-  const int rh = kRowH[min(max(heights[i], 0), 64)];
-  const int rw = kRowW[min(max(widths[i], 0), 64)];
-  for (int k = 0; k < 4; ++k) {
-    feat[k] = emb_h[rh * 4 + k];
-    feat[4 + k] = emb_w[rw * 4 + k];
-  }
-  for (int k = 0; k < 9; ++k)
-    feat[8 + k] = __fmul_rn(
-        __fdiv_rn(__fsub_rn(costs[(size_t)i * 9 + k], mean[k]), stdv[k]), gin[k]);
-
-  float h1[22], h2[20], lg[49];
-  dense<17, 22>(feat, w1, b1, h1);
-  relu_affine(h1, g1, beta1, 22);
-  dense<22, 20>(h1, w2, b2, h2);
-  relu_affine(h2, g2, beta2, 20);
-  dense<20, 49>(h2, w3, b3, lg);
+  float feat[17], u[9], v[9], h1[22], h2[20], lg[49];
+  features(p, costs + (size_t)i * 9, row_h(heights[i]), row_w(widths[i]),
+           feat, u, v);
+  dense<17, 22>(feat, p + oW1, p + oB1, h1);
+  relu_affine(h1, p + oG1, p + oBeta1, h1, 22);
+  dense<22, 20>(h1, p + oW2, p + oB2, h2);
+  relu_affine(h2, p + oG2, p + oBeta2, h2, 20);
+  dense<20, 49>(h2, p + oW3, p + oB3, lg);
 
   int best = 0;
   for (int j = 0; j < 49; ++j)

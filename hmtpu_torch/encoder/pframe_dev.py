@@ -1140,7 +1140,7 @@ def full_pframe_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v, nn,
         entries = []
         for lx, r, u in ref_lists:
             mv, sten, sad = integer_me(refs_y[u], org_y, 8, srange,
-                                       lam_sqrt, z, z)
+                                       lam_sqrt_, z, z)
             entries.append((mv, sten, ref_cost(sad, lx, r)))
         mvx, mvy, rsel, lxsel, stencil = pick_best_ref(entries)
 

@@ -54,6 +54,7 @@ SOURCES = {
     },
     "me_sad": {
         "hm_me_sad_levels": "pppppiiifp",
+        "hm_me_sad1": "pppppiiifp",
     },
     "nnfme": {
         "hm_nnfme": "pppppppip",
@@ -74,6 +75,11 @@ SOURCES = {
     "rdoq": {
         "hm_rdoq": "ppppppppp" "iiiiiiiiiiiii" "ff" "p",
     },
+    "nnfme_train": {
+        "hm_nnfme_fwd": "pppppppppp" "if" "p",
+        "hm_nnfme_bwd": "pppppppppp" "i" "p",
+        "hm_adam": "pppp" "ffffffff" "i" "p",
+    },
 }
 
 # kernel name -> (source, file:line of the hmtpu function it replaces)
@@ -87,6 +93,7 @@ KERNELS = {
     "sao_stats": ("sao", "hmtpu/ops/sao.py:282"),
     "sao_apply": ("sao", "hmtpu/ops/sao.py:358"),
     "me_sad": ("me_sad", "hmtpu/search/me.py:29,72,120"),
+    "me_sad1": ("me_sad", "hmtpu/search/me.py:107,29,72"),
     "nnfme": ("nnfme", "hmtpu/models/nnfme.py:127,143"),
     "mc_dctif": ("mc_dctif", "hmtpu/ops/interp.py:173"),
     "mc_dctif_i": ("mc_dctif", "hmtpu/ops/interp.py:227"),
@@ -96,6 +103,9 @@ KERNELS = {
     "frac_refine": ("frac_refine", "hmtpu/search/me.py:249"),
     "rdoq": ("rdoq", "hmtpu/ops/rdoq.py:43,hmtpu/ops/ratebits.py:161,"
                      "hmtpu/ops/quant.py:78,91"),
+    "nnfme_fwd": ("nnfme_train", "hmtpu/models/train.py:38-43,49"),
+    "nnfme_bwd": ("nnfme_train", "hmtpu/models/train.py:49-50"),
+    "adam": ("nnfme_train", "hmtpu/models/train.py:51-53"),
 }
 COUNTS = dict.fromkeys(KERNELS, 0)
 

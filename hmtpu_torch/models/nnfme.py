@@ -1,7 +1,8 @@
 """NN-FME: the per-QP MLP that replaces DCT-IF fractional-pel motion
 search (the fork's contribution), the port of hmtpu/models/nnfme.py
-(`NnFmeParams` :34, the row tables :52-61, `load_npz` :105, `forward`
-:127, `predict_offsets` :143).
+(`NnFmeParams` :34, the row tables :52-61, `save_npz` :100, `load_npz`
+:105, `init_random` :111, `forward` :127, `predict_offsets` :143,
+`class_of_offsets` :153).
 
 Architecture (TEncSearch.cpp:85-131 of the reference):
   x = (costs9 - mean) / std * gin
@@ -20,9 +21,10 @@ the card and the CPU give the same bits.  hmtpu's XLA dot sums in
 another order: logits agree with it to about 1e-4 (absolute), and the
 class agrees wherever the top two logits are further apart than that.
 
-Training (hmtpu/models/train.py, dataset.py) is not ported yet
-(ROADMAP.md A19); the weights are the in-repo per-QP files under
-models/weights/.
+The encoder loads the per-QP files under models/weights/ (or those of
+`EncoderConfig.nn_weights_dir`); models/dataset.py and models/train.py
+make new ones (python -m hmtpu_torch.apps.train_nnfme).  `NnFme` is the
+trainable form: the fields packed into one `nn.Parameter`.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from hmtpu_torch import kernels
+from hmtpu_torch.device import resolve
 
 WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "weights")
@@ -87,9 +90,85 @@ def params_from_arrays(d, device) -> NnFmeParams:
     return NnFmeParams(**t, packed=packed)
 
 
-def load_npz(path: str, device="cpu") -> NnFmeParams:
+_SHAPES = {"mean": (9,), "std": (9,), "gin": (9,), "emb_h": (8, 4),
+           "emb_w": (8, 4), "w1": (22, 17), "b1": (22,), "g1": (22,),
+           "beta1": (22,), "w2": (20, 22), "b2": (20,), "g2": (20,),
+           "beta2": (20,), "w3": (49, 20), "b3": (49,)}
+
+
+def params_from_packed(packed) -> NnFmeParams:
+    """NnFmeParams whose fields are views of one packed (PACK_SIZE,)
+    float32 vector."""
+    if tuple(packed.shape) != (PACK_SIZE,):
+        raise ValueError(f"nnfme: packed parameters must be ({PACK_SIZE},),"
+                         f" got {tuple(packed.shape)}")
+    fields, o = {}, 0
+    for k in PACK_ORDER:
+        n = int(np.prod(_SHAPES[k]))
+        fields[k] = packed[o:o + n].view(_SHAPES[k])
+        o += n
+    return NnFmeParams(**fields, packed=packed)
+
+
+def load_npz(path: str, device="cuda") -> NnFmeParams:
+    """A qp*.npz weight file (this package's or hmtpu's) on `device`
+    (the card unless the caller asks for the CPU)."""
     with np.load(path) as z:
-        return params_from_arrays(z, device)
+        return params_from_arrays(z, resolve(device))
+
+
+def save_npz(path: str, params: NnFmeParams) -> None:
+    """The 15 fields as float32 arrays by name, hmtpu's layout: the file
+    loads in both packages."""
+    np.savez(path, **{k: getattr(params, k).detach().cpu().numpy()
+                      .astype(np.float32) for k in PACK_ORDER})
+
+
+def init_random(generator: torch.Generator, device="cuda") -> NnFmeParams:
+    """hmtpu's random init (normal x 0.1 embeddings, glorot-uniform
+    weights, zero biases, unit BN scales, mean 5e4, std 1.5e5), drawn on
+    the CPU from `generator` and then moved to `device`, so the card and
+    the CPU start from the same numbers.  torch's generator is not
+    jax.random: the same seed gives other numbers than hmtpu's."""
+    def glorot(shape):
+        # jax.nn.initializers.glorot_uniform: fan_in = shape[-2],
+        # fan_out = shape[-1], limit sqrt(6 / (fan_in + fan_out))
+        limit = float(np.sqrt(6.0 / (shape[-2] + shape[-1])))
+        return torch.empty(shape).uniform_(-1.0, 1.0,
+                                           generator=generator) * limit
+
+    f = {
+        "emb_h": torch.randn((8, 4), generator=generator) * 0.1,
+        "emb_w": torch.randn((8, 4), generator=generator) * 0.1,
+        "w1": glorot((22, 17)), "b1": torch.zeros(22),
+        "g1": torch.ones(22), "beta1": torch.zeros(22),
+        "w2": glorot((20, 22)), "b2": torch.zeros(20),
+        "g2": torch.ones(20), "beta2": torch.zeros(20),
+        "w3": glorot((49, 20)), "b3": torch.zeros(49),
+        "gin": torch.ones(9),
+        "mean": torch.full((9,), 5e4), "std": torch.full((9,), 1.5e5),
+    }
+    return params_from_arrays({k: v.numpy() for k, v in f.items()},
+                              resolve(device))
+
+
+class NnFme(torch.nn.Module):
+    """The trainable NN-FME MLP: its 15 fields packed into one float32
+    `nn.Parameter` (PACK_ORDER, K6's layout, which K14-K16 read too)."""
+
+    def __init__(self, params: NnFmeParams):
+        super().__init__()
+        self.packed = torch.nn.Parameter(params.packed.detach().clone())
+
+    def params(self) -> NnFmeParams:
+        """The fields as views of the parameter (detached)."""
+        return params_from_packed(self.packed.detach())
+
+
+def class_of_offsets(qx, qy):
+    """Ground-truth class from the true quarter-pel offsets (dataset
+    extraction; the inverse of cls -> (cls % 7 - 3, cls // 7 - 3))."""
+    return (qy + 3) * 7 + (qx + 3)
 
 
 _LUTS: dict = {}
@@ -114,19 +193,35 @@ def _dense(a, w, b):
     return acc + b
 
 
+def forward_parts(params: NnFmeParams, costs9, heights, widths):
+    """The plain forward with what the training kernels keep: a dict of
+    the size-table rows `rh`, `rw` (B,), the standardisation's `u` =
+    costs - mean and `v` = u / std (B, 9), the features `feat` (B, 17),
+    the pre-activations `z1` (B, 22) and `z2` (B, 20), the activations
+    `a1` = relu(z1), `a2`, `h1` = a1 g1 + beta1, `h2`, and the `logits`
+    (B, 49); each operation rounded as K6 rounds it."""
+    lut_h, lut_w = _luts(costs9.device)
+    rh = lut_h[torch.clamp(heights.to(torch.int64), 0, 64)].to(torch.int64)
+    rw = lut_w[torch.clamp(widths.to(torch.int64), 0, 64)].to(torch.int64)
+    u = costs9 - params.mean
+    v = u / params.std
+    feat = torch.cat([params.emb_h[rh], params.emb_w[rw], v * params.gin],
+                     -1)                                   # (B, 17)
+    z1 = _dense(feat, params.w1, params.b1)
+    a1 = torch.clamp(z1, min=0.0)
+    h1 = a1 * params.g1 + params.beta1
+    z2 = _dense(h1, params.w2, params.b2)
+    a2 = torch.clamp(z2, min=0.0)
+    h2 = a2 * params.g2 + params.beta2
+    return dict(rh=rh, rw=rw, u=u, v=v, feat=feat, z1=z1, a1=a1, h1=h1,
+                z2=z2, a2=a2, h2=h2,
+                logits=_dense(h2, params.w3, params.b3))
+
+
 def forward_plain(params: NnFmeParams, costs9, heights, widths):
     """Plain version of K6's logits: (B, 9) float32 costs, (B,) int pel
     sizes -> (B, 49) float32 logits."""
-    lut_h, lut_w = _luts(costs9.device)
-    x = (costs9 - params.mean) / params.std * params.gin
-    e0 = params.emb_h[lut_h[heights.to(torch.int64)].to(torch.int64)]
-    e1 = params.emb_w[lut_w[widths.to(torch.int64)].to(torch.int64)]
-    feat = torch.cat([e0, e1, x], -1)                     # (B, 17)
-    h1 = torch.clamp(_dense(feat, params.w1, params.b1), min=0.0)
-    h1 = h1 * params.g1 + params.beta1
-    h2 = torch.clamp(_dense(h1, params.w2, params.b2), min=0.0)
-    h2 = h2 * params.g2 + params.beta2
-    return _dense(h2, params.w3, params.b3)
+    return forward_parts(params, costs9, heights, widths)["logits"]
 
 
 def _classes(logits):

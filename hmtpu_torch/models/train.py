@@ -1,0 +1,380 @@
+"""NN-FME training loop, the port of hmtpu/models/train.py (`TrainState`
+:22, `loss_fn` :38, `train_step` :46, `standardize_fit` :57, `train`
+:62): the 17->22->20->49 MLP, 49-way softmax cross-entropy, Adam at lr
+3e-3, batch 1024.  optax's Adam state is `AdamState`; the optimizer has
+no object of its own (`adam_update` is the step).
+
+Three hand-written kernels carry one step on the card (csrc/nnfme_train.cu):
+
+  K14 nnfme_fwd  `loss_fwd`: the forward, each row's cross-entropy and
+      hit, the mean loss and accuracy, and for the backward the logits'
+      gradient and the two pre-activations;
+  K15 nnfme_bwd  `loss_bwd`: the gradient of all 2060 packed parameters,
+      summed over the batch in a fixed order (the same bits every run);
+  K16 adam       `adam_update`: optax.adam's update, in place.
+
+`NnFmeLoss` is the autograd.Function around K14 (forward) and K15
+(backward).  On CPU tensors each wrapper runs its plain version
+(`*_plain`), which repeats the kernel's operations in the same order.
+The parameters, Adam's moments and the data live on the device; a step
+gathers its batch with a device index tensor and never waits for the
+card.  The parameters and moments are updated in place.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from hmtpu_torch import kernels
+from hmtpu_torch.device import resolve
+from hmtpu_torch.models.nnfme import (PACK_ORDER, PACK_SIZE, NnFme,
+                                      NnFmeParams, forward_parts,
+                                      init_random, params_from_packed)
+
+# batch rows per thread block of K14 and K15; the plain versions sum a
+# block's rows, then the blocks, in the same order
+KROWS = 64
+B1, B2, EPS = 0.9, 0.999, 1e-8
+
+
+class AdamState(NamedTuple):
+    """optax's ScaleByAdamState: the moments as packed (PACK_SIZE,)
+    float32 tensors, `count` the number of updates made (a host int)."""
+    mu: torch.Tensor
+    nu: torch.Tensor
+    count: int
+
+
+class TrainState(NamedTuple):
+    model: NnFme
+    opt_state: AdamState
+    step: int
+
+
+def init_train_state(params: NnFmeParams) -> TrainState:
+    """The model from `params` (on their device), zero moments."""
+    model = NnFme(params)
+    z = torch.zeros_like(params.packed)
+    return TrainState(model, AdamState(z, z.clone(), 0), 0)
+
+
+# ---------------------------------------------------------------------------
+# the plain versions' fixed summation order
+
+def _block_sums(x):
+    """(B, n) -> (ceil(B / KROWS), n): each block of KROWS rows summed in
+    ascending row order from 0 (missing rows of the last block add 0)."""
+    B = x.shape[0]
+    nb = -(-B // KROWS)
+    xp = torch.zeros((nb * KROWS, x.shape[1]), dtype=torch.float32,
+                     device=x.device)
+    xp[:B] = x
+    xp = xp.reshape(nb, KROWS, -1)
+    acc = torch.zeros((nb, xp.shape[2]), dtype=torch.float32,
+                      device=x.device)
+    for r in range(KROWS):
+        acc = acc + xp[:, r]
+    return acc
+
+
+def _div(a, b: float):
+    """a / b correctly rounded on every device (torch's CUDA division by
+    a Python number multiplies by its reciprocal)."""
+    return a / torch.full_like(a, b)
+
+
+def _col_sum(part, div=None):
+    """The blocks' partials summed in ascending block order from 0, then
+    divided by `div` when given."""
+    acc = torch.zeros(part.shape[1], dtype=torch.float32, device=part.device)
+    for b in range(part.shape[0]):
+        acc = acc + part[b]
+    return _div(acc, div) if div else acc
+
+
+def _dense_t(d, w):
+    """d @ w with every product and sum rounded in ascending j order:
+    (B, J) x (J, K) -> (B, K)."""
+    acc = torch.zeros((d.shape[0], w.shape[1]), dtype=torch.float32,
+                      device=d.device)
+    for j in range(d.shape[1]):
+        acc = acc + d[:, j:j + 1] * w[j][None, :]
+    return acc
+
+
+def _drelu(z):
+    """d maximum(z, 0) / dz as JAX takes it: 0.5 at exactly 0."""
+    return torch.where(z > 0, 1.0, torch.where(z == 0, 0.5, 0.0)) \
+        .to(torch.float32)
+
+
+def _inv(B: int) -> float:
+    return float(np.float32(1.0) / np.float32(B))
+
+
+# ---------------------------------------------------------------------------
+# K14: forward, loss and the logits' gradient
+
+def loss_fwd_plain(packed, costs9, heights, widths, labels,
+                   want_grad: bool = True):
+    """Plain version of K14; same return value as `loss_fwd`."""
+    B = int(costs9.shape[0])
+    f = forward_parts(params_from_packed(packed), costs9, heights, widths)
+    lg = f["logits"]
+    best = lg.argmax(-1)                                  # first on ties
+    m = lg.gather(1, best[:, None])[:, 0]
+    e = torch.exp(lg - m[:, None])
+    s = torch.zeros(B, dtype=torch.float32, device=lg.device)
+    for j in range(49):
+        s = s + e[:, j]
+    y = torch.clamp(labels.to(torch.int64), 0, 48)
+    loss = (torch.log(s) + m) - lg.gather(1, y[:, None])[:, 0]
+    hit = (best == y).to(torch.float32)
+    out = _col_sum(_block_sums(torch.stack([loss, hit], 1)), float(B))
+    if not want_grad:
+        return out, None
+    inv_b = _inv(B)
+    dl = e * (torch.tensor(inv_b, dtype=torch.float32, device=lg.device)
+              / s)[:, None]
+    ar = torch.arange(B, device=lg.device)
+    dl[ar, y] = dl[ar, y] - inv_b
+    return out, (f["z1"], f["z2"], dl)
+
+
+def loss_fwd(packed, costs9, heights, widths, labels,
+             want_grad: bool = True):
+    """The mean softmax cross-entropy and the accuracy of the MLP on a
+    batch (loss_fn's two values), as one (2,) float32 tensor, and for the
+    backward (z1 (B, 22), z2 (B, 20), d mean loss / d logits (B, 49)), or
+    None when not `want_grad`.  K14 on CUDA tensors, the plain version on
+    CPU ones."""
+    if not costs9.is_cuda:
+        return loss_fwd_plain(packed, costs9, heights, widths, labels,
+                              want_grad)
+    B = int(costs9.shape[0])
+    if B == 0 or tuple(costs9.shape) != (B, 9) \
+            or tuple(packed.shape) != (PACK_SIZE,):
+        raise ValueError(f"nnfme_fwd: expected (B, 9) costs, B > 0, and "
+                         f"({PACK_SIZE},) parameters, got "
+                         f"{tuple(costs9.shape)} / {tuple(packed.shape)}")
+    dev = costs9.device
+    e = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
+    i32 = lambda a: a.to(torch.int32).contiguous()
+    out, part = e(2), e(-(-B // KROWS), 2)
+    saved = (e(B, 22), e(B, 20), e(B, 49)) if want_grad else None
+    kernels.launch("nnfme_fwd", "hm_nnfme_fwd", packed.detach(),
+                   costs9.to(torch.float32).contiguous(), i32(heights),
+                   i32(widths), i32(labels), *(saved or (None,) * 3), part,
+                   out, B, _inv(B))
+    return out, saved
+
+
+def loss_fn(params: NnFmeParams, costs9, heights, widths, labels):
+    """(mean softmax cross-entropy, accuracy) of the MLP on a batch, as
+    device scalars: K14 without the backward's tensors."""
+    with torch.no_grad():
+        out, _ = loss_fwd(params.packed, costs9, heights, widths, labels,
+                          want_grad=False)
+    return out[0], out[1]
+
+
+# ---------------------------------------------------------------------------
+# K15: the backward and the batch reduction
+
+def row_grads_plain(packed, costs9, heights, widths, z1, z2, dl, gscale):
+    """Each row's share of the gradient, (B, PACK_SIZE) in PACK_ORDER,
+    every product and sum rounded as K15 rounds it."""
+    p = params_from_packed(packed)
+    f = forward_parts(p, costs9, heights, widths)
+    u, v, feat = f["u"], f["v"], f["feat"]
+    a1, a2 = torch.clamp(z1, min=0.0), torch.clamp(z2, min=0.0)
+    h1, h2 = a1 * p.g1 + p.beta1, a2 * p.g2 + p.beta2
+    dl = dl * gscale
+    dh2 = _dense_t(dl, p.w3)
+    dz2 = (dh2 * p.g2) * _drelu(z2)
+    dh1 = _dense_t(dz2, p.w2)
+    dz1 = (dh1 * p.g1) * _drelu(z1)
+    df = _dense_t(dz1, p.w1)
+    dx = df[:, 8:]
+    dv = dx * p.gin
+    emb = lambda rows, d: torch.where(
+        rows[:, None, None] == torch.arange(8, device=d.device)[None, :, None],
+        d[:, None, :], 0.0)
+    outer = lambda a, b: (a[:, :, None] * b[:, None, :]).reshape(a.shape[0],
+                                                                   -1)
+    g = {"mean": -(dv / p.std),
+         "std": -((dv * (1.0 / (p.std * p.std))) * u),
+         "gin": dx * v,
+         "emb_h": emb(f["rh"], df[:, 0:4]), "emb_w": emb(f["rw"], df[:, 4:8]),
+         "w1": outer(dz1, feat), "b1": dz1, "g1": dh1 * a1, "beta1": dh1,
+         "w2": outer(dz2, h1), "b2": dz2, "g2": dh2 * a2, "beta2": dh2,
+         "w3": outer(dl, h2), "b3": dl}
+    return torch.cat([g[k].reshape(g[k].shape[0], -1) for k in PACK_ORDER],
+                     1)
+
+
+def loss_bwd_plain(packed, costs9, heights, widths, z1, z2, dl, gscale):
+    """Plain version of K15."""
+    return _col_sum(_block_sums(row_grads_plain(
+        packed, costs9, heights, widths, z1, z2, dl, gscale)))
+
+
+def loss_bwd(packed, costs9, heights, widths, z1, z2, dl, gscale):
+    """The gradient of the mean loss (scaled by the (1,) cotangent
+    `gscale`) with respect to all PACK_SIZE parameters, from K14's saved
+    tensors: K15 on CUDA tensors, the plain version on CPU ones."""
+    if not costs9.is_cuda:
+        return loss_bwd_plain(packed, costs9, heights, widths, z1, z2, dl,
+                              gscale)
+    B = int(costs9.shape[0])
+    if B == 0 or tuple(dl.shape) != (B, 49):
+        raise ValueError(f"nnfme_bwd: expected (B, 49) d-logits, B > 0, got"
+                         f" {tuple(dl.shape)}")
+    dev = costs9.device
+    grad = torch.empty(PACK_SIZE, dtype=torch.float32, device=dev)
+    part = torch.empty((-(-B // KROWS), PACK_SIZE), dtype=torch.float32,
+                       device=dev)
+    i32 = lambda a: a.to(torch.int32).contiguous()
+    kernels.launch("nnfme_bwd", "hm_nnfme_bwd", packed.detach(),
+                   costs9.to(torch.float32).contiguous(), i32(heights),
+                   i32(widths), z1, z2, dl,
+                   gscale.to(torch.float32).contiguous(), part, grad, B)
+    return grad
+
+
+class NnFmeLoss(torch.autograd.Function):
+    """[mean cross-entropy, accuracy] of the MLP on a batch as one (2,)
+    tensor, differentiable in the packed parameters (the accuracy's
+    cotangent is ignored): K14 forward, K15 backward."""
+
+    @staticmethod
+    def forward(ctx, packed, costs9, heights, widths, labels):
+        out, saved = loss_fwd(packed, costs9, heights, widths, labels)
+        ctx.save_for_backward(packed, costs9, heights, widths, *saved)
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        packed, costs9, heights, widths, z1, z2, dl = ctx.saved_tensors
+        grad = loss_bwd(packed, costs9, heights, widths, z1, z2, dl,
+                        gout[:1])
+        return grad, None, None, None, None
+
+
+# ---------------------------------------------------------------------------
+# K16: optax.adam's update
+
+def _adam_scalars(count: int, lr: float):
+    """float32 b1, 1 - b1, b2, 1 - b2, the bias corrections 1 - b^count
+    (numpy's float32 power), eps and -lr, as Python floats."""
+    f = np.float32
+    return [float(x) for x in (
+        f(B1), f(1 - B1), f(B2), f(1 - B2),
+        f(1) - f(B1) ** f(count), f(1) - f(B2) ** f(count), f(EPS),
+        f(-lr))]
+
+
+def adam_update_plain(p, g, mu, nu, count: int, lr: float) -> None:
+    """Plain version of K16 (in place)."""
+    b1, omb1, b2, omb2, bc1, bc2, eps, neg_lr = _adam_scalars(count, lr)
+    m = omb1 * g + b1 * mu
+    v = omb2 * (g * g) + b2 * nu
+    mu.copy_(m)
+    nu.copy_(v)
+    p.copy_(p + neg_lr * (_div(m, bc1) / (torch.sqrt(_div(v, bc2)) + eps)))
+
+
+def adam_update(p, g, mu, nu, count: int, lr: float) -> None:
+    """One Adam update of the packed parameters `p` with gradient `g`,
+    moments `mu`, `nu` updated in place, `count` the update's number
+    (1 for the first): K16 on CUDA tensors, the plain version on CPU
+    ones."""
+    if not p.is_cuda:
+        adam_update_plain(p, g, mu, nu, count, lr)
+        return
+    n = int(p.numel())
+    if not (g.numel() == mu.numel() == nu.numel() == n) or count < 1:
+        raise ValueError("adam: parameters, gradient and moments must "
+                         "match, count >= 1")
+    kernels.launch("adam", "hm_adam", p, g, mu, nu,
+                   *_adam_scalars(count, lr), n)
+
+
+# ---------------------------------------------------------------------------
+# the loop
+
+
+def train_step(state: TrainState, costs9, heights, widths, labels,
+               lr: float = 3e-3):
+    """One optimizer step on a batch: returns (the state, updated in
+    place, with step + 1; mean loss; accuracy), the two numbers as device
+    scalars."""
+    packed = state.model.packed
+    out = NnFmeLoss.apply(packed, costs9, heights, widths, labels)
+    # the cotangent of (mean loss, accuracy): the loss's gradient alone,
+    # made on the device (a copy from the host would sync it every step)
+    seed = torch.zeros(2, dtype=torch.float32, device=out.device)
+    seed[0] = 1.0
+    grad, = torch.autograd.grad(out, packed, grad_outputs=seed)
+    opt = state.opt_state
+    with torch.no_grad():
+        adam_update(packed, grad, opt.mu, opt.nu, opt.count + 1, lr)
+    out = out.detach()
+    return (TrainState(state.model, opt._replace(count=opt.count + 1),
+                       state.step + 1), out[0], out[1])
+
+
+def standardize_fit(costs9: np.ndarray):
+    """Per-feature mean/std (the notebook's sklearn mapper export)."""
+    return costs9.mean(axis=0), costs9.std(axis=0) + 1e-8
+
+
+def train(costs9: np.ndarray, heights: np.ndarray, widths: np.ndarray,
+          labels: np.ndarray, epochs: int = 200, batch_size: int = 1024,
+          lr: float = 3e-3, val_split: float = 0.2, seed: int = 0,
+          log_every: int = 0, device="cuda",
+          init: NnFmeParams | None = None, losses: list | None = None):
+    """Returns (params with the fitted mean/std folded in and trained,
+    validation accuracy).  hmtpu's batches: numpy RandomState(seed)
+    permutations, the last partial batch kept, the validation 20 % from
+    the same permutation.  `init`: the starting parameters (e.g. hmtpu's
+    init carried across), else the port's init from `seed`.  `losses`
+    collects each step's loss (a device scalar)."""
+    dev = resolve(device)
+    rng = np.random.RandomState(seed)
+    n = len(labels)
+    perm = rng.permutation(n)
+    n_val = max(1, int(n * val_split))
+    vi, ti = perm[:n_val], perm[n_val:]
+    mean, std = standardize_fit(costs9[ti])
+
+    if init is None:
+        init = init_random(torch.Generator().manual_seed(seed), dev)
+    start = params_from_packed(init.packed.detach().to(dev).clone())
+    start.mean.copy_(torch.as_tensor(np.asarray(mean, np.float32)))
+    start.std.copy_(torch.as_tensor(np.asarray(std, np.float32)))
+    state = init_train_state(start)
+
+    c9 = torch.as_tensor(np.asarray(costs9, np.float32)).to(dev)
+    hh = torch.as_tensor(np.asarray(heights, np.int32)).to(dev)
+    ww = torch.as_tensor(np.asarray(widths, np.int32)).to(dev)
+    ll = torch.as_tensor(np.asarray(labels, np.int32)).to(dev)
+    vt = torch.as_tensor(vi).to(dev)
+
+    def val_acc():
+        return float(loss_fn(state.model.params(), c9[vt], hh[vt], ww[vt],
+                             ll[vt])[1])
+
+    for ep in range(epochs):
+        order = torch.as_tensor(rng.permutation(ti)).to(dev)
+        for s in range(0, len(ti), batch_size):
+            b = order[s:s + batch_size]
+            state, loss, _ = train_step(state, c9[b], hh[b], ww[b], ll[b],
+                                        lr=lr)
+            if losses is not None:
+                losses.append(loss)
+        if log_every and (ep + 1) % log_every == 0:
+            print(f"epoch {ep + 1}: val acc {val_acc():.4f}")
+    return state.model.params(), val_acc()

@@ -5,12 +5,15 @@ coherence pass: the port of hmtpu/search/me.py (`integer_me_sad_volume`
 `regularize_mv_field` :194, `mv_bits_dev_f` :239, `_FRAC_OFFS` :174,
 `frac_refine_batch` :249).
 
-Three hand-written kernels live behind these functions:
+Four hand-written kernels live behind these functions:
 
   K5 me_sad (csrc/me_sad.cu)   `integer_me_levels` on a CUDA tensor:
       the full +-srange window of every 8x8 block, summed to 16x16 and
       32x32 in the same pass, the motion cost added and the argmin and
       3x3 SAD stencil taken without writing the SAD volume;
+  K13 me_sad1 (csrc/me_sad.cu)  `integer_me` on a CUDA tensor: the same
+      search at one level (8x8 blocks, any sides that are multiples of
+      8) with a quarter-pel predictor per block in the motion cost;
   K8 satd8 (csrc/satd.cu)      `satd_batch` on a CUDA tensor;
   K9 frac_refine (csrc/frac_refine.cu)  `frac_refine_batch` on a CUDA
       stack: HM's two-stage DCT-IF sub-pel search, both stages and all
@@ -101,19 +104,48 @@ def _volume_best(vol, srange: int, lambda_sqrt, pred_mv_x, pred_mv_y):
             stencil, best_sad)
 
 
+# the ME window is staged in shared memory: (32 + 2 * srange)^2 samples
+ME_MAX_SRANGE = 64
+
+
+def integer_me_plain(ref, org, bsize: int, srange: int, lambda_sqrt,
+                     pred_mv_x, pred_mv_y):
+    """Plain version of K13: the SAD volume, then `_volume_best`."""
+    vol = integer_me_sad_volume(ref, org, bsize, srange)
+    return _volume_best(vol, srange, lambda_sqrt, pred_mv_x, pred_mv_y)
+
+
 def integer_me(ref, org, bsize: int, srange: int, lambda_sqrt,
                pred_mv_x, pred_mv_y):
     """Full-window integer ME for every aligned block of one size, with
-    a quarter-pel MV predictor in the motion cost (the one-level form,
-    for pictures whose sides are not multiples of 16).  Plain PyTorch
-    only: the card runs the three-level kernel."""
-    if ref.is_cuda:
-        raise NotImplementedError(
-            "hmtpu_torch: single-level integer ME on the card (pictures "
-            "with a side that is not a multiple of 16) is not ported yet "
-            "(ROADMAP.md B1)")
-    vol = integer_me_sad_volume(ref, org, bsize, srange)
-    return _volume_best(vol, srange, lambda_sqrt, pred_mv_x, pred_mv_y)
+    a quarter-pel MV predictor per block (By, Bx) in the motion cost
+    (the one-level form: pictures whose sides are not multiples of 16,
+    and dataset extraction).  K13 on CUDA planes (8x8 blocks, sides
+    multiples of 8), the plain version on CPU ones.  Returns ((mvx, mvy)
+    full-pel, (By, Bx, 3, 3) SAD stencil, best SAD), int32."""
+    if not ref.is_cuda:
+        return integer_me_plain(ref, org, bsize, srange, lambda_sqrt,
+                                pred_mv_x, pred_mv_y)
+    h, w = org.shape
+    if bsize != 8 or h % 8 or w % 8 or ref.shape != org.shape:
+        raise ValueError(f"me_sad1: 8x8 blocks of planes that match and "
+                         f"are multiples of 8, got bsize {bsize}, "
+                         f"{tuple(ref.shape)} / {tuple(org.shape)}")
+    if not 0 <= srange <= ME_MAX_SRANGE:
+        raise ValueError(f"me_sad1: search range up to {ME_MAX_SRANGE}, "
+                         f"got {srange}")
+    bh, bw = h // 8, w // 8
+    if tuple(pred_mv_x.shape) != (bh, bw) \
+            or tuple(pred_mv_y.shape) != (bh, bw):
+        raise ValueError(f"me_sad1: predictors must be ({bh}, {bw})")
+    i32 = lambda a: a.to(torch.int32).contiguous()
+    # per block: mvx, mvy, best SAD, the 3x3 stencil
+    o = torch.empty((bh * bw, 12), dtype=torch.int32, device=ref.device)
+    kernels.launch("me_sad1", "hm_me_sad1", i32(ref), i32(org),
+                   i32(pred_mv_x), i32(pred_mv_y), o, h, w, srange,
+                   float(lambda_sqrt))
+    return ((o[:, 0].reshape(bh, bw), o[:, 1].reshape(bh, bw)),
+            o[:, 3:].reshape(bh, bw, 3, 3), o[:, 2].reshape(bh, bw))
 
 
 def integer_me_levels_plain(ref, org, srange: int, lambda_sqrt,
@@ -136,10 +168,6 @@ def integer_me_levels_plain(ref, org, srange: int, lambda_sqrt,
         16: _volume_best(vol16, srange, lambda_sqrt, z(gh, gw), z(gh, gw)),
         32: _volume_best(vol32, srange, lambda_sqrt, z(qh, qw), z(qh, qw)),
     }
-
-
-# the ME window is staged in shared memory: (32 + 2 * srange)^2 samples
-ME_MAX_SRANGE = 64
 
 
 def integer_me_levels(ref, org, srange: int, lambda_sqrt, qh: int, qw: int):

@@ -1,8 +1,10 @@
-"""The hand-written CUDA kernels of hmtpu_torch (K1-K12) against their
+"""The hand-written CUDA kernels of hmtpu_torch (K1-K16) against their
 plain PyTorch versions, on the card.  Every output must be equal: the
-kernels are integer, except NN-FME's (K6) and RDOQ's (K10), whose
-kernels and plain versions round every float32 operation in the same
-order (K10's float64 sums round once to float32).  Skips
+kernels are integer, except NN-FME's (K6), RDOQ's (K10) and the
+trainer's (K14-K16), whose kernels and plain versions round every
+float32 operation in the same order (K10's float64 sums round once to
+float32); K14's loss and d-logits round expf / logf where the plain
+version calls torch's exp / log, and agree to 1e-6 (relative).  Skips
 where there is no CUDA card; on the card:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -467,3 +469,111 @@ def test_ra_main10_card_equals_cpu(dev, qp):
         bi.append(pframe_dev.DBG_COUNTERS["ra_bi_cus"])
     assert out[0] == out[1]
     assert bi[0] == bi[1]
+
+
+@pytest.mark.parametrize("h,w,srange", [(56, 64, 8), (40, 72, 64),
+                                        (240, 416, 16), (240, 416, 64)])
+def test_me_sad1_kernel(dev, h, w, srange):
+    """K13, the single-level integer ME, against its plain version with
+    non-zero quarter-pel predictors, at sides that are not multiples of
+    16 or 32 (the regions of the last row and column are partly outside
+    the picture)."""
+    from hmtpu_torch.search import me
+
+    rng = np.random.RandomState(h * w + srange)
+    org, ref = (_i32(a, dev) for a in _textured(rng, h, w))
+    for lam, span in ((np.float32(0.0), 0), (np.float32(7.3), 64)):
+        px, py = (_i32(rng.randint(-span, span + 1, (h // 8, w // 8)), dev)
+                  for _ in range(2))
+        got = _launched("me_sad1", lambda: me.integer_me(
+            ref, org, 8, srange, lam, px, py))
+        want = me.integer_me_plain(ref, org, 8, srange, lam, px, py)
+        (gx, gy), gst, gsad = got
+        (wx, wy), wst, wsad = want
+        for g, wnt in ((gx, wx), (gy, wy), (gst, wst), (gsad, wsad)):
+            assert g.shape == wnt.shape and torch.equal(g, wnt)
+    # a flat picture: every displacement ties, the first index wins
+    flat = torch.full((h, w), 90, dtype=torch.int32, device=dev)
+    z = torch.zeros((h // 8, w // 8), dtype=torch.int32, device=dev)
+    (mx, my), _, _ = _launched("me_sad1", lambda: me.integer_me(
+        flat, flat, 8, srange, np.float32(0.0), z, z))
+    assert bool((mx == -srange).all()) and bool((my == -srange).all())
+
+
+def _train_batch(dev, nb, seed):
+    """Seeded rows at sizes 8/16/32 and QP-22-like costs, the in-repo
+    QP 22 weights with the batch's own mean/std."""
+    from hmtpu_torch.models import nnfme
+
+    rng = np.random.RandomState(seed)
+    base = rng.randint(200, 6000, (nb, 1))
+    c9 = (base + rng.randint(0, 900, (nb, 9))).astype(np.float32)
+    d = dict(np.load(f"{nnfme.WEIGHTS_DIR}/qp22.npz"))
+    d.update(mean=c9.mean(0), std=c9.std(0) + 1e-8)
+    params = nnfme.params_from_arrays(d, dev)
+    t = lambda a: torch.as_tensor(a).to(dev)
+    return (params, t(c9), t(rng.choice([8, 16, 32], nb).astype(np.int32)),
+            t(rng.choice([8, 16, 32], nb).astype(np.int32)),
+            t(rng.randint(0, 49, nb).astype(np.int32)))
+
+
+@pytest.mark.parametrize("nb", [1, 100, 1024])
+def test_nnfme_train_kernels(dev, nb):
+    """K14, K15 and K16 against their plain versions on the card.  K14's
+    pre-activations are equal (K6's operations); its loss, accuracy and
+    d-logits round expf / logf where the plain version calls torch's
+    exp / log: within 1e-6 (relative).  K15 and K16 do only correctly
+    rounded operations in the plain versions' order: equal, and K15's
+    gradient has the same bits on every run."""
+    from hmtpu_torch.models import train
+
+    params, c9, hh, ww, ll = _train_batch(dev, nb, nb)
+    p = params.packed
+    out, saved = _launched("nnfme_fwd", lambda: train.loss_fwd(
+        p, c9, hh, ww, ll))
+    wout, wsaved = train.loss_fwd_plain(p, c9, hh, ww, ll)
+    torch.testing.assert_close(out, wout, rtol=1e-6, atol=0)
+    assert torch.equal(saved[0], wsaved[0]) and torch.equal(saved[1],
+                                                             wsaved[1])
+    torch.testing.assert_close(saved[2], wsaved[2], rtol=1e-6, atol=1e-12)
+    vout, none = _launched("nnfme_fwd", lambda: train.loss_fwd(
+        p, c9, hh, ww, ll, want_grad=False))
+    assert none is None and torch.equal(vout, out)
+
+    one = torch.ones(1, dtype=torch.float32, device=dev)
+    g1 = _launched("nnfme_bwd", lambda: train.loss_bwd(p, c9, hh, ww,
+                                                       *saved, one))
+    g2 = train.loss_bwd(p, c9, hh, ww, *saved, one)
+    torch.cuda.synchronize()
+    assert torch.equal(g1.view(torch.int32), g2.view(torch.int32))
+    assert torch.equal(g1, train.loss_bwd_plain(p, c9, hh, ww, *saved, one))
+
+    mu = torch.randn(p.numel(), device=dev) * 1e-3
+    nu = torch.rand(p.numel(), device=dev) * 1e-5
+    pk, mk, nk = p.clone(), mu.clone(), nu.clone()
+    _launched("adam", lambda: train.adam_update(pk, g1, mk, nk, 7, 3e-3))
+    train.adam_update_plain(p, g1, mu, nu, 7, 3e-3)
+    for a, b in ((pk, p), (mk, mu), (nk, nu)):
+        assert torch.equal(a, b)
+
+
+def test_nnfme_loss_autograd_backward(dev):
+    """The autograd.Function's backward (K15 on K14's saved tensors)
+    against the plain backward on the same tensors (equal) and against
+    the plain forward + backward (the d-logits' exp rounding: 1e-5 of
+    the largest gradient)."""
+    from hmtpu_torch.models import train
+
+    params, c9, hh, ww, ll = _train_batch(dev, 777, 3)
+    packed = params.packed.clone().requires_grad_(True)
+    out = train.NnFmeLoss.apply(packed, c9, hh, ww, ll)
+    seed = torch.tensor([1.0, 0.0], device=dev)
+    g, = torch.autograd.grad(out, packed, grad_outputs=seed)
+    _, saved = train.loss_fwd(params.packed, c9, hh, ww, ll)
+    one = seed[:1]
+    assert torch.equal(g, train.loss_bwd_plain(params.packed, c9, hh, ww,
+                                               *saved, one))
+    _, psaved = train.loss_fwd_plain(params.packed, c9, hh, ww, ll)
+    want = train.loss_bwd_plain(params.packed, c9, hh, ww, *psaved, one)
+    torch.testing.assert_close(g, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))

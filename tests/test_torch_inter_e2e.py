@@ -13,7 +13,11 @@ one those tests make (and its persistent cache entry can serve it):
   - transform skip on the 4x4 chroma TBs (tests/test_transform_skip.py
     `test_ts_ldp_decode_and_flags_fire`: 96x64, QP 27, no sub-pel, 4
     frames of chroma screen content): the stream byte for byte, the
-    hashes, and TS chosen by some TB.
+    hashes, and TS chosen by some TB;
+  - a 64x56 picture (2 frames, NN-FME, QP 32, search range 8), whose
+    height is not a multiple of 16: the P pass takes the single-level
+    integer ME (K13's plain version here); the stream byte for byte and
+    the hashes.  hmtpu compiles this geometry once.
 """
 import numpy as np
 import pytest
@@ -131,4 +135,20 @@ def test_ldp_transform_skip_matches_hmtpu():
     assert p_bs == j_bs
     pics = Decoder().decode_annexb(p_bs)
     assert [p.poc for p in pics] == list(range(4))
+    assert all(p.hash_ok is True for p in pics)
+
+
+def test_ldp_single_level_me_matches_hmtpu():
+    planes = [tuple(p.astype(np.int32) for p in f)
+              for f in synth_clip(64, 56, 2)]
+    cfg = dict(width=64, height=56, qp=QP, gop="ldp", subpel="nn",
+               search_range=8)
+    j_bs = JEncoder(JConfig(**cfg)).encode_sequence(
+        [JFrame(*p) for p in planes])
+    p_enc = PEncoder(PConfig(**cfg), device="cpu")
+    p_bs = p_enc.encode_sequence([PFrame(*p) for p in planes])
+    assert [r.slice_type for r in p_enc.results] == ["I", "P"]
+    assert p_bs == j_bs
+    pics = Decoder().decode_annexb(p_bs)
+    assert [p.poc for p in pics] == [0, 1]
     assert all(p.hash_ok is True for p in pics)

@@ -267,7 +267,8 @@ def test_nnfme_weights_ship_with_the_port():
         for k in a.files:
             eq(a[k], b[k])
         assert pnn.load_npz(os.path.join(
-            pnn.WEIGHTS_DIR, f"qp{qp}.npz")).packed.numel() == pnn.PACK_SIZE
+            pnn.WEIGHTS_DIR, f"qp{qp}.npz"), "cpu").packed.numel() \
+            == pnn.PACK_SIZE
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,13 @@
 """hmtpu_torch's boundaries: it loads neither JAX nor hmtpu, it never
-falls back to the CPU on its own, and options outside the all-intra,
-low-delay-P and random-access slices (8 and 10 bits) say which
-ROADMAP.md item brings them."""
+falls back to the CPU on its own (the encoder, the NN-FME trainer and
+the weight loader), and options outside the all-intra, low-delay-P and
+random-access slices (8 and 10 bits) say which ROADMAP.md item brings
+them."""
 import os
 import shutil
 import subprocess
 import sys
+import time
 
 import pytest
 import torch
@@ -28,6 +30,7 @@ def _python(code_or_args, cwd=ROOT, env_extra=None):
 def test_imports_neither_jax_nor_hmtpu():
     code = """
 import importlib, os, pkgutil, sys
+import torch
 import hmtpu_torch
 import hmtpu_torch.encoder.top
 import chip_smoke
@@ -40,7 +43,9 @@ for n in ("hmtpu_torch.search.me", "hmtpu_torch.models.nnfme",
           "hmtpu_torch.common.motion", "hmtpu_torch.entropy.inter_syntax",
           "hmtpu_torch.apps.encoder_app", "hmtpu_torch.apps.options",
           "hmtpu_torch.utils.analyze", "hmtpu_torch.encoder.pframe",
-          "hmtpu_torch.search.wavefront"):
+          "hmtpu_torch.search.wavefront", "hmtpu_torch.models.dataset",
+          "hmtpu_torch.models.train", "hmtpu_torch.apps.train_nnfme",
+          "hmtpu_torch.utils.gen_test_yuv"):
     assert n in names, n
 # the random-access slice's functions and kernels
 from hmtpu_torch import kernels
@@ -53,6 +58,21 @@ for f in ("merge_candidates_dev_b", "amvp_candidates_dev_b"):
     assert callable(getattr(wavefront, f)), f
 assert kernels.KERNELS["mc_dctif_i"][0] == "mc_dctif"
 assert kernels.KERNELS["bi_pred"][0] == "bi_pred"
+# the training slice's functions and kernels
+from hmtpu_torch.models import dataset, train
+from hmtpu_torch.search import me
+for m, fs in ((dataset, ("extract_frame_records", "extract_clip",
+                         "write_sse_csv", "read_sse_csv")),
+              (train, ("loss_fn", "loss_fwd", "loss_fwd_plain", "loss_bwd",
+                       "loss_bwd_plain", "adam_update", "adam_update_plain",
+                       "train_step", "train", "standardize_fit")),
+              (me, ("integer_me", "integer_me_plain"))):
+    for f in fs:
+        assert callable(getattr(m, f)), f
+assert issubclass(train.NnFmeLoss, torch.autograd.Function)
+assert kernels.KERNELS["me_sad1"][0] == "me_sad"
+for k in ("nnfme_fwd", "nnfme_bwd", "adam"):
+    assert kernels.KERNELS[k][0] == "nnfme_train", k
 for src in kernels.SOURCES:
     assert os.path.exists(kernels.source_path(src)), src
 # the NN-FME weights load from the port's own data files
@@ -60,7 +80,7 @@ from hmtpu_torch.encoder.top import Encoder, EncoderConfig
 from hmtpu_torch.models import nnfme
 for qp in (22, 27, 32, 37):
     p = Encoder._load_nn(EncoderConfig(qp=qp), "cpu")
-    ref = nnfme.load_npz(f"{nnfme.WEIGHTS_DIR}/qp{qp}.npz")
+    ref = nnfme.load_npz(f"{nnfme.WEIGHTS_DIR}/qp{qp}.npz", "cpu")
     assert all(bool((a == b).all()) for a, b in zip(p, ref))
 assert nnfme.WEIGHTS_DIR.startswith(os.path.dirname(hmtpu_torch.__file__))
 bad = sorted(m for m in sys.modules
@@ -74,10 +94,20 @@ assert not bad, bad
     assert int(r.stdout.split()[0]) >= 40
 
 
-def test_no_card_raises_without_fallback(monkeypatch):
+def test_no_card_raises_without_fallback(monkeypatch, tmp_path):
+    from hmtpu_torch.apps import train_nnfme
+    from hmtpu_torch.models import nnfme
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Encoder(EncoderConfig())
+    # the trainer and the weight loader default to the card too
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_nnfme.main(["--size", "64x64", "--frames", "2", "--qps", "27",
+                          "--epochs", "1", "--out", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        nnfme.load_npz(os.path.join(nnfme.WEIGHTS_DIR, "qp22.npz"))
+    assert not os.listdir(tmp_path)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Encoder(EncoderConfig(gop="ra", bit_depth=10, subpel="dctif"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -128,6 +158,39 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
     r = _python(["chip_smoke.py"], cwd=str(tmp_path))
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+@pytest.mark.parametrize("failed", [False, True])
+def test_chip_smoke_stops_what_it_started(failed):
+    """The check's worker pool (spawn) leaves nothing running: its
+    workers, a job still running in one of them after a failed phase, and
+    multiprocessing's resource tracker, which would outlive the check."""
+    code = f"""
+import concurrent.futures, multiprocessing, time
+import chip_smoke
+pool = concurrent.futures.ProcessPoolExecutor(
+    2, mp_context=multiprocessing.get_context("spawn"))
+assert pool.submit(abs, -3).result() == 3
+from multiprocessing import resource_tracker
+started = chip_smoke._descendants()
+assert len(started) >= 2, started   # a worker and the tracker
+assert resource_tracker._resource_tracker._pid in started, started
+if {failed}:
+    pool.submit(time.sleep, 120)
+    time.sleep(0.5)
+    pool.shutdown(wait=False, cancel_futures=True)
+    chip_smoke.stop_children(tracker=False)
+pool.shutdown()
+del pool
+chip_smoke.stop_children()
+print("left", chip_smoke._descendants())
+"""
+    t0 = time.time()
+    r = _python(code)
+    assert r.returncode == 0, r.stderr
+    assert "left []" in r.stdout, r.stdout
+    assert "leaked" not in r.stderr, r.stderr
+    assert time.time() - t0 < 100
 
 
 def test_kernel_launch_takes_only_int32_cuda_tensors():
