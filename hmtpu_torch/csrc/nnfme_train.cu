@@ -40,6 +40,13 @@
 // order of operations: mu = (1-b1) g + b1 mu, nu = (1-b2) g^2 + b2 nu,
 // m^ = mu / bc1, v^ = nu / bc2 (bc = 1 - b^count, computed by the caller
 // in float32), p = p + (-lr) m^ / (sqrt(v^) + eps), in place.
+//
+// K14's exp and log are not the library's expf / logf, whose last bit
+// differs from the CPU's exp / log: hm_expf and hm_logf below (Cephes'
+// expf / logf polynomials) round every operation on its own, and the
+// plain version (models/train.py exp_f32 / log_f32) does the same
+// operations, so K14 and its plain version agree bit for bit on the card
+// and on the CPU alike.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -52,6 +59,52 @@ using namespace nnfme;
 
 constexpr int kRows = 64;          // batch rows per thread block
 constexpr int kBwdThreads = 256;
+
+// e^x: x = k ln2 + r (ln2 in two parts), a degree-7 polynomial in r, times
+// 2^k from its bits; 0 below x = -87 (e^-87 is 1.6e-38, just above the
+// smallest normal float32); for x <= 88
+__device__ __forceinline__ float hm_expf(float x) {
+  if (x < -87.0f) return 0.0f;
+  const float k = floorf(__fadd_rn(__fmul_rn(x, 1.44269504088896341f), 0.5f));
+  const float r = __fsub_rn(__fsub_rn(x, __fmul_rn(k, 0.693359375f)),
+                            __fmul_rn(k, -2.12194440e-4f));
+  const float z = __fmul_rn(r, r);
+  float y = __fadd_rn(__fmul_rn(r, 1.9875691500e-4f), 1.3981999507e-3f);
+  y = __fadd_rn(__fmul_rn(y, r), 8.3334519073e-3f);
+  y = __fadd_rn(__fmul_rn(y, r), 4.1665795894e-2f);
+  y = __fadd_rn(__fmul_rn(y, r), 1.6666665459e-1f);
+  y = __fadd_rn(__fmul_rn(y, r), 5.0000001201e-1f);
+  y = __fadd_rn(__fadd_rn(__fmul_rn(y, z), r), 1.0f);
+  return __fmul_rn(y, __int_as_float(((int)k + 127) << 23));
+}
+
+// log x for a positive normal x: x = m 2^e with m in [sqrt(1/2), sqrt(2)),
+// a degree-9 polynomial in m - 1, plus e ln2 (in two parts)
+__device__ __forceinline__ float hm_logf(float x) {
+  const int b = __float_as_int(x);
+  int e = (b >> 23) - 126;
+  float m = __int_as_float((b & 0x007fffff) | 0x3f000000);
+  if (m < 0.707106781186547524f) {
+    e -= 1;
+    m = __fsub_rn(__fadd_rn(m, m), 1.0f);
+  } else {
+    m = __fsub_rn(m, 1.0f);
+  }
+  const float z = __fmul_rn(m, m);
+  float y = __fadd_rn(__fmul_rn(m, 7.0376836292e-2f), -1.1514610310e-1f);
+  y = __fadd_rn(__fmul_rn(y, m), 1.1676998740e-1f);
+  y = __fadd_rn(__fmul_rn(y, m), -1.2420140846e-1f);
+  y = __fadd_rn(__fmul_rn(y, m), 1.4249322787e-1f);
+  y = __fadd_rn(__fmul_rn(y, m), -1.6668057665e-1f);
+  y = __fadd_rn(__fmul_rn(y, m), 2.0000714765e-1f);
+  y = __fadd_rn(__fmul_rn(y, m), -2.4999993993e-1f);
+  y = __fadd_rn(__fmul_rn(y, m), 3.3333331174e-1f);
+  y = __fmul_rn(__fmul_rn(y, m), z);
+  const float fe = (float)e;
+  y = __fadd_rn(y, __fmul_rn(fe, -2.12194440e-4f));
+  y = __fadd_rn(y, __fmul_rn(z, -0.5f));
+  return __fadd_rn(__fadd_rn(m, y), __fmul_rn(fe, 0.693359375f));
+}
 
 __device__ __forceinline__ void load_pack(float* p, const float* pack) {
   for (int k = threadIdx.x; k < kPack; k += blockDim.x) p[k] = pack[k];
@@ -89,15 +142,16 @@ __global__ void __launch_bounds__(kRows)
       if (lg[j] > lg[best]) best = j;
     const float m = lg[best];
     float s = 0.0f;
-    for (int j = 0; j < 49; ++j) s = __fadd_rn(s, expf(__fsub_rn(lg[j], m)));
+    for (int j = 0; j < 49; ++j)
+      s = __fadd_rn(s, hm_expf(__fsub_rn(lg[j], m)));
     const int y = min(max(labels[i], 0), 48);
-    loss = __fsub_rn(__fadd_rn(logf(s), m), lg[y]);
+    loss = __fsub_rn(__fadd_rn(hm_logf(s), m), lg[y]);
     hit = best == y ? 1.0f : 0.0f;
     if (dlo != nullptr) {
       // d(mean loss)/d logit_j = exp(l_j - m) * ((1/B) / s) - [j == y] / B
       const float gs = __fdiv_rn(inv_b, s);
       for (int j = 0; j < 49; ++j) {
-        float d = __fmul_rn(expf(__fsub_rn(lg[j], m)), gs);
+        float d = __fmul_rn(hm_expf(__fsub_rn(lg[j], m)), gs);
         if (j == y) d = __fadd_rn(d, -inv_b);
         dlo[(size_t)i * 49 + j] = d;
       }

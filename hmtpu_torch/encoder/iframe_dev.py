@@ -11,10 +11,10 @@ deblocking and SAO, all on the tensors' device.
   phase 2: a Python loop over the static z-scan dependency levels (the
     reference's `lax.scan`): per 8x8 CU the K candidates and the NxN
     split are predicted from committed reconstruction, coded (RDOQ) and
-    priced; per 16x16 region one 16x16 CU trial overwrites its four 8x8
-    CUs where it wins; likewise per 32x32 where the picture's width and
-    height are multiples of 32.  At 416x240 (h % 32 == 16) the pass runs
-    the 8 and 16 levels only.  With the PPS's transform skip on, the 4x4
+    priced (the modes' bits by K20); per 16x16 region one 16x16 CU trial
+    overwrites its four 8x8 CUs where it wins; likewise per 32x32 where
+    the picture's width and height are multiples of 32.  At 416x240
+    (h % 32 == 16) the pass runs the 8 and 16 levels only.  With the PPS's transform skip on, the 4x4
     TBs (the luma PUs of an NxN CU, the chroma of 8x8 CUs) are coded both
     ways and the cheaper kept (`_code_ts_sel`).
 
@@ -52,6 +52,7 @@ from hmtpu_torch.ops.ratebits import (
     cbf_luma_bits,
     chroma_dm_bits,
     intra_mode_mpm_bits,
+    intra_mode_mpm_bits_nxn,
     part_size_2nx2n_bits,
     part_size_nxn_bits,
     split_flag_bits,
@@ -362,10 +363,7 @@ def iframe_pass(org_y, org_u, org_v, qp: int, qpc: int, cbflat,
         # rate: part NxN + 4x(mode + cbf + residual) + chroma; MPM
         # pricing per PU with internal neighbour modes (approximation
         # for the decision only -- the writer derives the exact lists)
-        mb = intra_mode_mpm_bits(cbflat, m4[:, 0], lm, am) \
-            + intra_mode_mpm_bits(cbflat, m4[:, 1], m4[:, 0], am) \
-            + intra_mode_mpm_bits(cbflat, m4[:, 2], lm, m4[:, 0]) \
-            + intra_mode_mpm_bits(cbflat, m4[:, 3], m4[:, 2], m4[:, 1])
+        mb = intra_mode_mpm_bits_nxn(cbflat, m4, lm, am)
         nz = [(lv.reshape(B, 16) != 0).any(1)
               for lv in (lev0, lev1, lev2, lev3)]
         b_cbf = sum(cbf_luma_bits(cbflat, z, trafo_depth_is0=False)

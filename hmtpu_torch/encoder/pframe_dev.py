@@ -6,18 +6,20 @@ in-loop filters run on the tensors' device; the host pulls the decision
 state and writes the slice with the native CABAC engine.
 
   ME       integer ME of every 8x8 / 16x16 / 32x32 block against every
-           reference (K5), the coherence pass over the 8x8 field, NN-FME
-           sub-pel offsets (K6) kept only where their SATD (K8) beats the
-           integer MV's (the NN gate; its MC is K7);
+           reference (K5), the coherence pass over the 8x8 field (K19),
+           NN-FME sub-pel offsets (K6) kept only where their SATD (K8)
+           beats the integer MV's (the NN gate; its MC is K7);
   phase 1  (no neighbour dependencies) the AMVP candidate's prediction
            (K7) and residual coding for every block at each level, the
            open-loop intra mode of every 8x8 block;
   phase 2  a Python loop over the static z-scan dependency levels (the
-           reference's `lax.scan`): per 8x8 CU the exact merge list, every
-           candidate's prediction (K7), two finalists coded without and
-           the winner with the RDOQ trellis, the AMVP list and its mvd
-           bits, the exact intra prediction; per 16x16 and 32x32 region
-           one larger inter CU trial that overwrites where it wins;
+           reference's `lax.scan`): per 8x8 CU the exact merge list
+           (K17), every candidate's prediction (K7), two finalists coded
+           without and the winner with the RDOQ trellis, the AMVP list and
+           its mvd, ref_idx and inter_pred_idc bits (K18, `amvp_rd`), the
+           exact intra prediction and its mode's bits (K20); per 16x16 and
+           32x32 region one larger inter CU trial that overwrites where it
+           wins;
   filters  deblocking (K3) and SAO (K4).
 
 The state lives in flat tensors with one spare slot at the end, where
@@ -51,6 +53,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from hmtpu_torch import kernels
 from hmtpu_torch.common.constants import SliceType
 from hmtpu_torch.common.lambdas import frame_lambdas
 from hmtpu_torch.common.motion import (
@@ -62,7 +65,7 @@ from hmtpu_torch.common.motion import (
 from hmtpu_torch.common.spec_tables import chroma_qp_from_luma
 from hmtpu_torch.encoder.intra_rdo import _MODE_BITS, _satd
 from hmtpu_torch.encoder.pframe import PFrameEncoder, PuDec
-from hmtpu_torch.entropy.contexts import make_contexts
+from hmtpu_torch.entropy.contexts import OFF, make_contexts
 from hmtpu_torch.entropy.fracbits import ctx_bits_table
 from hmtpu_torch.entropy.headers import SliceHeader
 from hmtpu_torch.io.yuv import Frame
@@ -272,6 +275,105 @@ def _union_idx(r, lx, maps):
     i64 = lambda a: a.to(torch.int64)
     return torch.where(lx == 0, l0m[i64(torch.clamp(r, 0, len(l0m) - 1))],
                        l1m[i64(torch.clamp(r, 0, len(l1m) - 1))])
+
+
+def amvp_rd(cbflat, nbv, nbp, aref, amx, amy, ref_pocs, cur_poc: int,
+            num_ref: int, *, t=None, n_active=None, lx=None,
+            ref_pocs_l1=None, num_ref_l1: int = 0, depth: int = 0):
+    """The AMVP hypothesis's signalling of a CU batch: K18 on CUDA
+    tensors, the plain version on CPU ones; arguments and results as
+    `amvp_rd_plain`."""
+    if not nbp.is_cuda:
+        return amvp_rd_plain(cbflat, nbv, nbp, aref, amx, amy, ref_pocs,
+                             cur_poc, num_ref, t=t, n_active=n_active, lx=lx,
+                             ref_pocs_l1=ref_pocs_l1, num_ref_l1=num_ref_l1,
+                             depth=depth)
+    B = nbp.shape[0]
+    is_b = lx is not None
+    if nbp.dim() != 3 or nbp.shape[1] != 5 or nbp.shape[2] <= K_REF1 \
+            or tuple(nbv.shape) != (B, 5) \
+            or ref_pocs.numel() < num_ref or num_ref < 1 \
+            or (is_b and (ref_pocs_l1 is None
+                          or not 1 <= num_ref_l1 <= ref_pocs_l1.numel())):
+        raise ValueError(f"amvp_rd: (B, 5) valid flags and (B, 5, 14) state "
+                         f"rows with the lists' POCs, got {tuple(nbv.shape)}, "
+                         f"{tuple(nbp.shape)}, {num_ref} / {num_ref_l1} "
+                         f"references")
+    dev = nbp.device
+    oi = torch.empty((10, B), dtype=torch.int32, device=dev)
+    of = torch.empty((2, B), dtype=torch.float32, device=dev)
+    if B:
+        i32 = lambda a: a.to(torch.int32).contiguous()
+        # ref_idx's cMax (0: not coded); P slices code n_active - 1
+        cmax0 = 0 if num_ref <= 1 else (
+            num_ref - 1 if is_b or n_active is None
+            else max(n_active - 1, 0))
+        cmax1 = max(num_ref_l1 - 1, 0)
+        kernels.launch(
+            "amvp_rd", "hm_amvp_rd", i32(nbv), i32(nbp), i32(aref),
+            i32(amx), i32(amy), i32(lx) if is_b else None,
+            None if t is None else torch.stack([i32(a) for a in t], 1),
+            i32(ref_pocs), i32(ref_pocs_l1) if is_b else None, cbflat, oi,
+            of, B, nbp.shape[2], K_DIR, K_MVX, K_MVY, K_REF, K_MVX1, K_MVY1,
+            K_REF1, int(cur_poc), num_ref, num_ref_l1 if is_b else 1, cmax0,
+            cmax1, depth, OFF["MVD"], OFF["REF_PIC"], OFF["INTER_DIR"])
+    return oi[0], oi[1], oi[2], of[0], of[1], tuple(oi[3:])
+
+
+def amvp_rd_plain(cbflat, nbv, nbp, aref, amx, amy, ref_pocs, cur_poc: int,
+                  num_ref: int, *, t=None, n_active=None, lx=None,
+                  ref_pocs_l1=None, num_ref_l1: int = 0, depth: int = 0):
+    """Plain version of K18: per lane the AMVP list (P: with the temporal
+    candidate t = (t_ok, t_mvx, t_mvy) scaled to the lane's reference; B
+    slices, lx given: the lane's target list lx), the mvd against both
+    predictors (predictor 1 only when its bits are lower), the ref_idx
+    bits (P: cMax from n_active when given) and, in B slices, the
+    inter_pred_idc bits at CU depth `depth`.
+
+    nbv (B, 5) bool, the neighbours' validity; nbp (B, 5, 14) their state
+    rows (K_* columns); aref / amx / amy (B,) the searched reference and
+    quarter-pel MV; ref_pocs (/ ref_pocs_l1) the lists' POC tensors.
+    Returns (mvp index int32, mvdx, mvdy, mvd bits, ref_idx (+ dir) bits,
+    the AMVP CU's motion (dir, mvx0, mvy0, ref0, mvx1, mvy1, ref1))."""
+    nmx, nmy, nrf = nbp[..., K_MVX], nbp[..., K_MVY], nbp[..., K_REF]
+    i64 = lambda a: a.to(torch.int64)
+    is_b = lx is not None
+    takw = {} if t is None else dict(t_ok=t[0], t_mvx=t[1], t_mvy=t[2])
+    if is_b:
+        nmx1, nmy1, nrf1 = (nbp[..., K_MVX1], nbp[..., K_MVY1],
+                            nbp[..., K_REF1])
+        tpoc = torch.where(
+            lx == 0, ref_pocs[i64(torch.clamp(aref, 0, num_ref - 1))],
+            ref_pocs_l1[i64(torch.clamp(aref, 0, num_ref_l1 - 1))])
+        p0x, p0y, p1x, p1y = amvp_candidates_dev_b(
+            nbv, nbp[..., K_DIR], nmx, nmy,
+            ref_pocs[i64(torch.clamp(nrf, 0, num_ref - 1))], nmx1, nmy1,
+            ref_pocs_l1[i64(torch.clamp(nrf1, 0, num_ref_l1 - 1))],
+            lx, tpoc, cur_poc, **takw)
+    else:
+        p0x, p0y, p1x, p1y = amvp_candidates_dev(
+            nbv, nmx, nmy, ref_pocs[i64(torch.clamp(nrf, 0, num_ref - 1))],
+            ref_pocs[i64(aref)], cur_poc, **takw)
+    bits0 = mvd_bits(cbflat, amx - p0x, amy - p0y)
+    bits1 = mvd_bits(cbflat, amx - p1x, amy - p1y)
+    use1 = bits1 < bits0
+    mvdx = torch.where(use1, amx - p1x, amx - p0x)
+    mvdy = torch.where(use1, amy - p1y, amy - p0y)
+    zero = torch.zeros_like(amx)
+    if is_b:
+        b_refa = torch.where(
+            lx == 0, ref_idx_bits(cbflat, aref, num_ref),
+            ref_idx_bits(cbflat, aref, num_ref_l1)) \
+            + inter_dir_bits(cbflat, 1 + lx, depth)
+        u0a = lx == 0
+        sel = lambda a, l1: torch.where(u0a == (not l1), a, 0)
+        mot = (1 + lx, sel(amx, 0), sel(amy, 0), sel(aref, 0),
+               sel(amx, 1), sel(amy, 1), sel(aref, 1))
+    else:
+        b_refa = ref_idx_bits(cbflat, aref, num_ref, n_active=n_active)
+        mot = (zero + 1, amx, amy, aref, zero, zero, zero)
+    return (use1.to(torch.int32), mvdx, mvdy,
+            torch.minimum(bits0, bits1), b_refa, mot)
 
 
 def wavefront_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v,
@@ -585,51 +687,14 @@ def wavefront_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v,
         nbp = st["blk"][nb_idx]                          # (B, 5, 14)
         return nb_avail & (nbp[..., K_DIR] > 0), nbp
 
-    def amvp_rd(nbv, nbp, aref, amx, amy, tlev, g, lxb, depth: int):
-        """AMVP list (per-lane target list and ref) -> mvp index, mvd and
-        their bits plus the ref_idx (and, in B slices, inter_pred_idc)
-        bits; and the AMVP CU's motion (dir, L0 and L1 fields)."""
-        nmx, nmy, nrf = nbp[..., K_MVX], nbp[..., K_MVY], nbp[..., K_REF]
-        i64 = lambda a: a.to(torch.int64)
-        if is_b:
-            nmx1, nmy1, nrf1 = (nbp[..., K_MVX1], nbp[..., K_MVY1],
-                                nbp[..., K_REF1])
-            tpoc = torch.where(
-                lxb == 0, ref_pocs_t[i64(torch.clamp(aref, 0, num_ref - 1))],
-                ref_pocs_l1_t[i64(torch.clamp(aref, 0, num_ref_l1 - 1))])
-            p0x, p0y, p1x, p1y = amvp_candidates_dev_b(
-                nbv, nbp[..., K_DIR], nmx, nmy,
-                ref_pocs_t[i64(torch.clamp(nrf, 0, num_ref - 1))],
-                nmx1, nmy1,
-                ref_pocs_l1_t[i64(torch.clamp(nrf1, 0, num_ref_l1 - 1))],
-                lxb, tpoc, cur_poc)
-        else:
-            takw = {} if tlev is None else dict(
-                t_ok=tlev[0][g], t_mvx=tlev[3][g], t_mvy=tlev[4][g])
-            p0x, p0y, p1x, p1y = amvp_candidates_dev(
-                nbv, nmx, nmy, ref_pocs_t[i64(torch.clamp(nrf, 0,
-                                                          num_ref - 1))],
-                ref_pocs_t[i64(aref)], cur_poc, **takw)
-        bits0 = mvd_bits(cbflat, amx - p0x, amy - p0y)
-        bits1 = mvd_bits(cbflat, amx - p1x, amy - p1y)
-        use1 = bits1 < bits0
-        mvdx = torch.where(use1, amx - p1x, amx - p0x)
-        mvdy = torch.where(use1, amy - p1y, amy - p0y)
-        zero = torch.zeros_like(amx)
-        if is_b:
-            b_refa = torch.where(
-                lxb == 0, ref_idx_bits(cbflat, aref, num_ref),
-                ref_idx_bits(cbflat, aref, num_ref_l1)) \
-                + inter_dir_bits(cbflat, 1 + lxb, depth)
-            u0a = lxb == 0
-            sel = lambda a, l1: torch.where(u0a == (not l1), a, 0)
-            mot = (1 + lxb, sel(amx, 0), sel(amy, 0), sel(aref, 0),
-                   sel(amx, 1), sel(amy, 1), sel(aref, 1))
-        else:
-            b_refa = ref_idx_bits(cbflat, aref, num_ref, n_active=n_active)
-            mot = (zero + 1, amx, amy, aref, zero, zero, zero)
-        return (use1.to(torch.int32), mvdx, mvdy,
-                torch.minimum(bits0, bits1), b_refa, mot)
+    def amvp_cu(nbv, nbp, aref, amx, amy, tlev, g, lxb, depth: int):
+        """`amvp_rd` for one CU batch of the pass (TMVP in P slices)."""
+        t = None if tlev is None or is_b \
+            else (tlev[0][g], tlev[3][g], tlev[4][g])
+        return amvp_rd(cbflat, nbv, nbp, aref, amx, amy, ref_pocs_t,
+                       cur_poc, num_ref, t=t, n_active=n_active, lx=lxb,
+                       ref_pocs_l1=ref_pocs_l1_t if is_b else None,
+                       num_ref_l1=num_ref_l1, depth=depth)
 
     def merge_rd(org, orgu, orgv, x0, y0, n: int, log2y: int, nbv, nbp,
                  tlev, g, b_skip1, b_inter, **extra):
@@ -806,7 +871,7 @@ def wavefront_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v,
         lev_iu, lev_iv = levC2[:B], levC2[B:]
 
         aref, amx, amy = rself[b], mvxf[b], mvyf[b]
-        mvpi, mvdx, mvdy, bits_mvd, b_refa, amot = amvp_rd(
+        mvpi, mvdx, mvdy, bits_mvd, b_refa, amot = amvp_cu(
             nbv, nbp, aref, amx, amy, t8, b, lxf[b] if is_b else None,
             log2_ctu - 3)
         cost_amvp = dist_a[b] + lam * (
@@ -923,7 +988,7 @@ def wavefront_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v,
         mrd = merge_rd(org, orgu, orgv, gx * n, gy * n, n, log2, nbv, nbp,
                        tlev, g, b_skip1, b_inter)
         aref, amx, amy = hoist["r"][g], hoist["mx"][g], hoist["my"][g]
-        mvpi, mvdx, mvdy, bits_mvd, b_refa, amot = amvp_rd(
+        mvpi, mvdx, mvdy, bits_mvd, b_refa, amot = amvp_cu(
             nbv, nbp, aref, amx, amy, tlev, g,
             hoist["lx"][g] if is_b else None, log2_ctu - log2)
         cost_amvp = hoist["dist"][g] + lam * (

@@ -80,6 +80,17 @@ SOURCES = {
         "hm_nnfme_bwd": "pppppppppp" "i" "p",
         "hm_adam": "pppp" "ffffffff" "i" "p",
     },
+    "mvcand": {
+        "hm_merge_cands": "ppppp" "iiiiii" "p",
+        "hm_amvp_rd": "pppppppppppp" "iiiiiiiiiiiiiiiiii" "p",
+    },
+    "mv_regularize": {
+        "hm_mv_regularize": "ppppppppp" "iii" "p",
+    },
+    "mode_bits": {
+        "hm_mpm_bits": "ppppp" "iii" "p",
+        "hm_mpm_bits4": "ppppp" "ii" "p",
+    },
 }
 
 # kernel name -> (source, file:line of the hmtpu function it replaces)
@@ -106,6 +117,13 @@ KERNELS = {
     "nnfme_fwd": ("nnfme_train", "hmtpu/models/train.py:38-43,49"),
     "nnfme_bwd": ("nnfme_train", "hmtpu/models/train.py:49-50"),
     "adam": ("nnfme_train", "hmtpu/models/train.py:51-53"),
+    "merge_cands": ("mvcand", "hmtpu/search/wavefront.py:295,357"),
+    "amvp_rd": ("mvcand", "hmtpu/encoder/pframe_dev.py:815-826,487-514,"
+                          "hmtpu/search/wavefront.py:497,519,"
+                          "hmtpu/ops/ratebits.py:439,399,429"),
+    "mv_regularize": ("mv_regularize", "hmtpu/search/me.py:194"),
+    "mpm_bits": ("mode_bits", "hmtpu/ops/ratebits.py:378,"
+                              "hmtpu/encoder/iframe_dev.py:353-356"),
 }
 COUNTS = dict.fromkeys(KERNELS, 0)
 

@@ -85,6 +85,21 @@ def _div(a, b: float):
     return a / torch.full_like(a, b)
 
 
+def _sqrt(a):
+    """float32 square root correctly rounded on every device, as K16's
+    `__fsqrt_rn` (torch's CPU sqrt is not: it differs from the card's in
+    the last bit): the float64 root rounded to float32, then moved to its
+    neighbour where the exact float64 test of the midpoint between them
+    says so (squares of 25-bit midpoints are exact in float64)."""
+    ad = a.double()
+    y = torch.sqrt(ad).to(torch.float32)
+    for step, wrong in ((float("inf"), lambda m: m * m < ad),
+                        (0.0, lambda m: m * m > ad)):
+        nb = torch.nextafter(y, torch.full_like(y, step))
+        y = torch.where(wrong((y.double() + nb.double()) * 0.5), nb, y)
+    return y
+
+
 def _col_sum(part, div=None):
     """The blocks' partials summed in ascending block order from 0, then
     divided by `div` when given."""
@@ -115,6 +130,60 @@ def _inv(B: int) -> float:
 
 
 # ---------------------------------------------------------------------------
+# the exp and log of K14 and its plain version: Cephes' expf / logf with
+# every operation rounded on its own (csrc/nnfme_train.cu hm_expf /
+# hm_logf do the same operations), so that the card and the CPU agree bit
+# for bit, where torch's exp / log on the CPU and on the card differ in
+# the last bit
+
+_f32 = lambda v: float(np.float32(v))
+_LOG2E, _LN2_HI, _LN2_LO = (_f32(1.44269504088896341), _f32(0.693359375),
+                            _f32(-2.12194440e-4))
+_EXP_P = tuple(_f32(v) for v in (1.9875691500e-4, 1.3981999507e-3,
+                                 8.3334519073e-3, 4.1665795894e-2,
+                                 1.6666665459e-1, 5.0000001201e-1))
+_LOG_P = tuple(_f32(v) for v in (7.0376836292e-2, -1.1514610310e-1,
+                                 1.1676998740e-1, -1.2420140846e-1,
+                                 1.4249322787e-1, -1.6668057665e-1,
+                                 2.0000714765e-1, -2.4999993993e-1,
+                                 3.3333331174e-1))
+_SQRT_HALF = _f32(0.707106781186547524)
+
+
+def exp_f32(x):
+    """e^x of float32 x <= 88: x = k ln2 + r, a degree-7 polynomial in r,
+    times 2^k from its bits; 0 below x = -87."""
+    k = torch.floor(x * _LOG2E + 0.5)
+    r = (x - k * _LN2_HI) - k * _LN2_LO
+    z = r * r
+    y = r * _EXP_P[0] + _EXP_P[1]
+    for c in _EXP_P[2:]:
+        y = y * r + c
+    y = (y * z + r) + 1.0
+    k = torch.clamp(k, -126.0, 127.0).to(torch.int32)
+    y = y * ((k + 127) << 23).view(torch.float32)
+    return torch.where(x < -87.0, 0.0, y)
+
+
+def log_f32(x):
+    """log x of positive normal float32 x: x = m 2^e with m in
+    [sqrt(1/2), sqrt(2)), a degree-9 polynomial in m - 1, plus e ln2."""
+    b = x.contiguous().view(torch.int32)
+    m = ((b & 0x007fffff) | 0x3f000000).view(torch.float32)
+    low = m < _SQRT_HALF
+    e = ((b >> 23) - 126 - low.to(torch.int32)).to(torch.float32)
+    m = torch.where(low, (m + m) - 1.0, m - 1.0)
+    z = m * m
+    y = m * _LOG_P[0] + _LOG_P[1]
+    for c in _LOG_P[2:]:
+        y = y * m + c
+    y = (y * m) * z
+    y = y + e * _LN2_LO
+    y = y + z * -0.5
+    return (m + y) + e * _LN2_HI
+
+
+# ---------------------------------------------------------------------------
 # K14: forward, loss and the logits' gradient
 
 def loss_fwd_plain(packed, costs9, heights, widths, labels,
@@ -125,12 +194,12 @@ def loss_fwd_plain(packed, costs9, heights, widths, labels,
     lg = f["logits"]
     best = lg.argmax(-1)                                  # first on ties
     m = lg.gather(1, best[:, None])[:, 0]
-    e = torch.exp(lg - m[:, None])
+    e = exp_f32(lg - m[:, None])
     s = torch.zeros(B, dtype=torch.float32, device=lg.device)
     for j in range(49):
         s = s + e[:, j]
     y = torch.clamp(labels.to(torch.int64), 0, 48)
-    loss = (torch.log(s) + m) - lg.gather(1, y[:, None])[:, 0]
+    loss = (log_f32(s) + m) - lg.gather(1, y[:, None])[:, 0]
     hit = (best == y).to(torch.float32)
     out = _col_sum(_block_sums(torch.stack([loss, hit], 1)), float(B))
     if not want_grad:
@@ -283,7 +352,7 @@ def adam_update_plain(p, g, mu, nu, count: int, lr: float) -> None:
     v = omb2 * (g * g) + b2 * nu
     mu.copy_(m)
     nu.copy_(v)
-    p.copy_(p + neg_lr * (_div(m, bc1) / (torch.sqrt(_div(v, bc2)) + eps)))
+    p.copy_(p + neg_lr * (_div(m, bc1) / (_sqrt(_div(v, bc2)) + eps)))
 
 
 def adam_update(p, g, mu, nu, count: int, lr: float) -> None:

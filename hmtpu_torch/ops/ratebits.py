@@ -21,6 +21,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from hmtpu_torch import kernels
 from hmtpu_torch.common.scan import SCAN_VER, cg_scan_order, scan_order
 from hmtpu_torch.entropy.contexts import OFF
 from hmtpu_torch.entropy.residual import (
@@ -365,8 +366,61 @@ def chroma_dm_bits(cbflat):
 
 
 def intra_mode_mpm_bits(cbflat, mode, lm, am):
-    """prev_intra_luma_pred_flag + mpm_idx / rem_intra_luma_pred_mode
-    pricing with the 8.4.2 candidate list from neighbour modes."""
+    """The intra luma mode's rate: K20 on CUDA tensors, the plain version
+    on CPU ones.  mode (..., K); lm and am of mode's shape, or with its
+    last dimension 1 (one neighbour pair for K candidate modes).  float32
+    of mode's shape."""
+    if not mode.is_cuda:
+        return intra_mode_mpm_bits_plain(cbflat, mode, lm, am)
+    n_lane, n_pair = mode.numel(), lm.numel()
+    k = n_lane // max(n_pair, 1)
+    if am.shape != lm.shape or n_pair * k != n_lane or (
+            tuple(lm.shape) != tuple(mode.shape)
+            and tuple(lm.shape) != tuple(mode.shape[:-1]) + (1,)):
+        raise ValueError(f"mpm_bits: neighbour modes {tuple(lm.shape)} / "
+                         f"{tuple(am.shape)} for modes {tuple(mode.shape)}")
+    out = torch.empty(mode.shape, dtype=torch.float32, device=mode.device)
+    if n_lane:
+        i32 = lambda a: a.to(torch.int32).contiguous()
+        kernels.launch("mpm_bits", "hm_mpm_bits", cbflat, i32(mode), i32(lm),
+                       i32(am), out, n_lane, k, OFF["INTRA_PRED_MODE"])
+    return out
+
+
+def intra_mode_mpm_bits_nxn(cbflat, m4, lm, am):
+    """The NxN CU's four luma PUs' mode rate, each PU's neighbours the
+    earlier PUs' modes where they lie inside the CU (an approximation for
+    the decision; the writer derives the exact lists): K20's four-PU form
+    on CUDA tensors (one launch), the plain version on CPU ones.  m4
+    (B, 4) in z-order, lm / am (B,); float32 (B,)."""
+    if not m4.is_cuda:
+        return intra_mode_mpm_bits_nxn_plain(cbflat, m4, lm, am)
+    b = m4.shape[0]
+    if tuple(m4.shape) != (b, 4) or tuple(lm.shape) != (b,) \
+            or tuple(am.shape) != (b,):
+        raise ValueError(f"mpm_bits: expected (B, 4) modes and (B,) "
+                         f"neighbours, got {tuple(m4.shape)}, "
+                         f"{tuple(lm.shape)}, {tuple(am.shape)}")
+    out = torch.empty((b,), dtype=torch.float32, device=m4.device)
+    if b:
+        i32 = lambda a: a.to(torch.int32).contiguous()
+        kernels.launch("mpm_bits", "hm_mpm_bits4", cbflat, i32(m4), i32(lm),
+                       i32(am), out, b, OFF["INTRA_PRED_MODE"])
+    return out
+
+
+def intra_mode_mpm_bits_nxn_plain(cbflat, m4, lm, am):
+    """Plain version of K20's four-PU form: ((a + b) + c) + d."""
+    f = intra_mode_mpm_bits_plain
+    return f(cbflat, m4[:, 0], lm, am) + f(cbflat, m4[:, 1], m4[:, 0], am) \
+        + f(cbflat, m4[:, 2], lm, m4[:, 0]) \
+        + f(cbflat, m4[:, 3], m4[:, 2], m4[:, 1])
+
+
+def intra_mode_mpm_bits_plain(cbflat, mode, lm, am):
+    """Plain version of K20: prev_intra_luma_pred_flag + mpm_idx /
+    rem_intra_luma_pred_mode pricing with the 8.4.2 candidate list from
+    neighbour modes."""
     eq = lm == am
     lt2 = lm < 2
     m0 = torch.where(eq & lt2, 0, lm)

@@ -252,7 +252,7 @@ def satd_batch(a, b, bsize: int):
 
 
 # ---------------------------------------------------------------------------
-# motion-field coherence (B4: plain PyTorch on every device)
+# motion-field coherence (K19 on the card)
 
 def _block_sad_int(refs, ridx, mvx, mvy, org_blk, bw, bh):
     """SAD of every 8x8 block against its (integer-pel mvx, mvy) into
@@ -282,12 +282,43 @@ def mv_bits_dev_f(vx, vy):
 
 def regularize_mv_field(refs, org_y, mvx, mvy, ridx, lam_sqrt,
                         iters: int = 3):
-    """Motion-field coherence pass: each block re-picks its (mv, ref)
-    among {self, its 4 neighbours, zero} minimising SAD + lam_sqrt *
-    bits, where a candidate equal to a current neighbour costs 2 bits
-    and another pays its mvd bits against the left neighbour.  Jacobi
-    iterations; the neighbour shift wraps around the picture edge, as
-    the reference's `roll` does.  mv in full pel, (bh, bw)."""
+    """The motion-field coherence pass: K19 on CUDA tensors (one launch
+    per Jacobi round), the plain version on CPU ones; arguments and
+    results as `regularize_mv_field_plain`."""
+    if not refs.is_cuda:
+        return regularize_mv_field_plain(refs, org_y, mvx, mvy, ridx,
+                                         lam_sqrt, iters)
+    r, h, w = refs.shape
+    bh, bw = h // 8, w // 8
+    if tuple(org_y.shape) != (h, w) or h % 8 or w % 8 or any(
+            tuple(a.shape) != (bh, bw) for a in (mvx, mvy, ridx)):
+        raise ValueError(f"mv_regularize: (R, H, W) references, an (H, W) "
+                         f"picture with sides multiples of 8 and (H/8, W/8) "
+                         f"fields, got {tuple(refs.shape)}, "
+                         f"{tuple(org_y.shape)}, {tuple(mvx.shape)}")
+    lam = torch.as_tensor(lam_sqrt, dtype=torch.float32,
+                          device=refs.device).reshape(())
+    i32 = lambda a: a.to(torch.int32).contiguous()
+    cur = (i32(mvx), i32(mvy), i32(ridx))
+    buf = torch.empty((2, 3, bh, bw), dtype=torch.int32, device=refs.device)
+    refs, org_y = i32(refs), i32(org_y)
+    for k in range(iters):
+        nxt = buf[k % 2]
+        kernels.launch("mv_regularize", "hm_mv_regularize", refs, org_y,
+                       *cur, lam, nxt[0], nxt[1], nxt[2], r, h, w)
+        cur = (nxt[0], nxt[1], nxt[2])
+    return cur
+
+
+def regularize_mv_field_plain(refs, org_y, mvx, mvy, ridx, lam_sqrt,
+                              iters: int = 3):
+    """Plain version of K19: the motion-field coherence pass: each block
+    re-picks its (mv, ref) among {self, its 4 neighbours, zero} minimising
+    SAD + lam_sqrt * bits, where a candidate equal to a current neighbour
+    costs 2 bits and another pays its mvd bits against the left
+    neighbour.  Jacobi iterations; the neighbour shift wraps around the
+    picture edge, as the reference's `roll` does.  mv in full pel,
+    (bh, bw)."""
     bh, bw = mvx.shape
     org_blk = org_y.reshape(bh, 8, bw, 8).transpose(1, 2)
 

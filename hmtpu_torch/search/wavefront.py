@@ -9,14 +9,16 @@ neighbours) was written by earlier levels.  Also here: the per-block
 substituted reference-line gather maps (8.4.4.2.2 collapses to a
 constant gather because availability is geometric).
 
-Device derivations (plain PyTorch on the pass's device; B10 and B15 in
-ROADMAP.md queue their hand kernel, fused into B11's level walker): the
-P-slice merge list (8.5.3.1.2 with the temporal candidate), the AMVP
-list (8.5.3.1.5/6) with POC-distance scaling (8.5.3.1.3), the
-collocated candidate grid (8.5.3.2.8), the MVD bit estimate, and the
-B-slice forms: the two-list merge list with the combined
-bi-predictive candidates (8.5.3.1.3, `merge_candidates_dev_b`) and the
-two-list AMVP list (`amvp_candidates_dev_b`).
+Device derivations: the P-slice merge list (8.5.3.1.2 with the temporal
+candidate), the AMVP list (8.5.3.1.5/6) with POC-distance scaling
+(8.5.3.1.3), the collocated candidate grid (8.5.3.2.8), the MVD bit
+estimate, and the B-slice forms: the two-list merge list with the
+combined bi-predictive candidates (8.5.3.1.3, `merge_candidates_dev_b`)
+and the two-list AMVP list (`amvp_candidates_dev_b`).  Both merge lists
+run K17 (`csrc/mvcand.cu`) on CUDA tensors and their plain versions on
+CPU ones; the AMVP lists are K18's plain versions
+(`encoder/pframe_dev.amvp_rd`).  The collocated grid and its scaling are
+plain PyTorch on every device (ROADMAP.md queue B).
 """
 from __future__ import annotations
 
@@ -24,6 +26,8 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+from hmtpu_torch import kernels
 
 # neighbour slot order used throughout: [A1, B1, B0, A0, B2]
 # block-grid offsets (dy, dx) of the 8x8 block containing each sample
@@ -279,11 +283,52 @@ def _first(flags, *vals):
     return (found,) + tuple(torch.gather(v, 1, idx)[:, 0] for v in vals)
 
 
+def _i32(a):
+    return a.to(torch.int32).contiguous()
+
+
+def _check_lanes(name, max_merge, *nb):
+    b = nb[0].shape[0]
+    for a in nb:
+        if tuple(a.shape) != (b, 5):
+            raise ValueError(f"{name}: neighbour arrays must be (B, 5), got "
+                             f"{tuple(a.shape)}")
+    if not 1 <= max_merge <= 5:
+        raise ValueError(f"{name}: max_merge {max_merge} outside 1..5")
+    return b
+
+
 def merge_candidates_dev(nb_valid, nb_mvx, nb_mvy, nb_ref,
                          num_ref: int, max_merge: int,
                          t_ok=None, t_mvx=None, t_mvy=None,
                          n_active=None):
-    """Vectorised merge list (8.5.3.1.2, P slice).
+    """The P-slice merge list: K17 on CUDA tensors, the plain version on
+    CPU ones; arguments and results as `merge_candidates_dev_plain`."""
+    if not nb_mvx.is_cuda:
+        return merge_candidates_dev_plain(nb_valid, nb_mvx, nb_mvy, nb_ref,
+                                          num_ref, max_merge, t_ok, t_mvx,
+                                          t_mvy, n_active)
+    b = _check_lanes("merge_cands", max_merge, nb_valid, nb_mvx, nb_mvy,
+                     nb_ref)
+    out = torch.empty((3, b, max_merge), dtype=torch.int32,
+                      device=nb_mvx.device)
+    if b:
+        nb = torch.stack([_i32(nb_valid), _i32(nb_mvx), _i32(nb_mvy),
+                          _i32(nb_ref)], -1)
+        t = None if t_ok is None else torch.stack(
+            [_i32(t_ok), _i32(t_mvx), _i32(t_mvy)], 1)
+        limit = num_ref if n_active is None else n_active
+        kernels.launch("merge_cands", "hm_merge_cands", nb, t, None, None,
+                       out, b, 4, max_merge, int(limit), 0, 0)
+    return out[0], out[1], out[2]
+
+
+def merge_candidates_dev_plain(nb_valid, nb_mvx, nb_mvy, nb_ref,
+                               num_ref: int, max_merge: int,
+                               t_ok=None, t_mvx=None, t_mvy=None,
+                               n_active=None):
+    """Plain version of K17's P form: the vectorised merge list
+    (8.5.3.1.2, P slice).
 
     nb_* are (B, 5) in slot order [A1, B1, B0, A0, B2]; nb_valid already
     folds z-scan availability AND inter-coded-ness of the neighbour.
@@ -348,7 +393,37 @@ def merge_candidates_dev_b(nb_valid, nb_dir, nb_mvx0, nb_mvy0, nb_ref0,
                            ref_pocs_l0, ref_pocs_l1,
                            num_ref_l0: int, num_ref_l1: int,
                            max_merge: int):
-    """Vectorised merge list for B slices (8.5.3.1.2): two-list spatial
+    """The B-slice merge list: K17 on CUDA tensors, the plain version on
+    CPU ones; arguments and results as `merge_candidates_dev_b_plain`."""
+    nb = (nb_valid, nb_dir, nb_mvx0, nb_mvy0, nb_ref0, nb_mvx1, nb_mvy1,
+          nb_ref1)
+    if not nb_mvx0.is_cuda:
+        return merge_candidates_dev_b_plain(*nb, ref_pocs_l0, ref_pocs_l1,
+                                            num_ref_l0, num_ref_l1,
+                                            max_merge)
+    b = _check_lanes("merge_cands", max_merge, *nb)
+    if not (1 <= num_ref_l0 <= ref_pocs_l0.numel()
+            and 1 <= num_ref_l1 <= ref_pocs_l1.numel()):
+        raise ValueError(f"merge_cands: {num_ref_l0} / {num_ref_l1} "
+                         f"references, {ref_pocs_l0.numel()} / "
+                         f"{ref_pocs_l1.numel()} POCs")
+    out = torch.empty((7, b, max_merge), dtype=torch.int32,
+                      device=nb_mvx0.device)
+    if b:
+        kernels.launch("merge_cands", "hm_merge_cands",
+                       torch.stack([_i32(a) for a in nb], -1), None,
+                       _i32(ref_pocs_l0), _i32(ref_pocs_l1), out, b, 8,
+                       max_merge, 0, num_ref_l0, num_ref_l1)
+    return tuple(out)
+
+
+def merge_candidates_dev_b_plain(nb_valid, nb_dir, nb_mvx0, nb_mvy0,
+                                 nb_ref0, nb_mvx1, nb_mvy1, nb_ref1,
+                                 ref_pocs_l0, ref_pocs_l1,
+                                 num_ref_l0: int, num_ref_l1: int,
+                                 max_merge: int):
+    """Plain version of K17's B form: the vectorised merge list for B
+    slices (8.5.3.1.2): two-list spatial
     candidates with full-motion pruning, combined bi-predictive
     candidates (8.5.3.1.3) in the spec's 12-pair priority order, then
     dir=3 zero fill (the common/motion.py merge_candidates is_b path,

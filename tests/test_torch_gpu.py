@@ -1,11 +1,10 @@
-"""The hand-written CUDA kernels of hmtpu_torch (K1-K16) against their
+"""The hand-written CUDA kernels of hmtpu_torch (K1-K20) against their
 plain PyTorch versions, on the card.  Every output must be equal: the
-kernels are integer, except NN-FME's (K6), RDOQ's (K10) and the
-trainer's (K14-K16), whose kernels and plain versions round every
+kernels are integer, except NN-FME's (K6), RDOQ's (K10), the trainer's
+(K14-K16, K14 with the exp and log its plain version shares) and the
+rate pieces of K18 and K20, whose kernels and plain versions round every
 float32 operation in the same order (K10's float64 sums round once to
-float32); K14's loss and d-logits round expf / logf where the plain
-version calls torch's exp / log, and agree to 1e-6 (relative).  Skips
-where there is no CUDA card; on the card:
+float32).  Skips where there is no CUDA card; on the card:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -519,12 +518,11 @@ def _train_batch(dev, nb, seed):
 
 @pytest.mark.parametrize("nb", [1, 100, 1024])
 def test_nnfme_train_kernels(dev, nb):
-    """K14, K15 and K16 against their plain versions on the card.  K14's
-    pre-activations are equal (K6's operations); its loss, accuracy and
-    d-logits round expf / logf where the plain version calls torch's
-    exp / log: within 1e-6 (relative).  K15 and K16 do only correctly
-    rounded operations in the plain versions' order: equal, and K15's
-    gradient has the same bits on every run."""
+    """K14, K15 and K16 against their plain versions on the card: equal
+    (K14's pre-activations are K6's operations, its exp and log the plain
+    version's own; K15 and K16 do only correctly rounded operations in
+    the plain versions' order), and K15's gradient has the same bits on
+    every run."""
     from hmtpu_torch.models import train
 
     params, c9, hh, ww, ll = _train_batch(dev, nb, nb)
@@ -532,10 +530,9 @@ def test_nnfme_train_kernels(dev, nb):
     out, saved = _launched("nnfme_fwd", lambda: train.loss_fwd(
         p, c9, hh, ww, ll))
     wout, wsaved = train.loss_fwd_plain(p, c9, hh, ww, ll)
-    torch.testing.assert_close(out, wout, rtol=1e-6, atol=0)
-    assert torch.equal(saved[0], wsaved[0]) and torch.equal(saved[1],
-                                                             wsaved[1])
-    torch.testing.assert_close(saved[2], wsaved[2], rtol=1e-6, atol=1e-12)
+    assert torch.equal(out, wout)
+    for a, b in zip(saved, wsaved):
+        assert torch.equal(a, b)
     vout, none = _launched("nnfme_fwd", lambda: train.loss_fwd(
         p, c9, hh, ww, ll, want_grad=False))
     assert none is None and torch.equal(vout, out)
@@ -559,9 +556,8 @@ def test_nnfme_train_kernels(dev, nb):
 
 def test_nnfme_loss_autograd_backward(dev):
     """The autograd.Function's backward (K15 on K14's saved tensors)
-    against the plain backward on the same tensors (equal) and against
-    the plain forward + backward (the d-logits' exp rounding: 1e-5 of
-    the largest gradient)."""
+    against the plain backward on the same tensors and against the
+    plain forward + backward: equal."""
     from hmtpu_torch.models import train
 
     params, c9, hh, ww, ll = _train_batch(dev, 777, 3)
@@ -575,5 +571,134 @@ def test_nnfme_loss_autograd_backward(dev):
                                                *saved, one))
     _, psaved = train.loss_fwd_plain(params.packed, c9, hh, ww, ll)
     want = train.loss_bwd_plain(params.packed, c9, hh, ww, *psaved, one)
-    torch.testing.assert_close(g, want, rtol=0,
-                               atol=1e-5 * float(want.abs().max()))
+    assert torch.equal(g, want)
+
+
+# ---------------------------------------------------------------------------
+# K17-K20: the z-scan's candidate and mode-rate derivations; the z-scan's
+# lane counts (1560 8x8 cells, 390 16x16 regions of 416x240) and odd ones
+
+def _nb_rows(rng, B, bi):
+    """(B, 5) validity and (B, 5, 14) state rows from small alphabets, so
+    that pruning, duplicate predictors and equal bits occur."""
+    from hmtpu_torch.encoder import pframe_dev as pf
+
+    nbp = np.zeros((B, 5, 14), np.int32)
+    ndir = rng.randint(0, 4 if bi else 2, (B, 5))
+    nbp[..., pf.K_DIR] = ndir
+    for k, alpha in ((pf.K_MVX, [-40, -3, 0, 5, 130]), (pf.K_MVY, [-7, 0, 64]),
+                     (pf.K_MVX1, [-9, 0, 5]), (pf.K_MVY1, [0, 3])):
+        nbp[..., k] = rng.choice(alpha, (B, 5))
+    nbp[..., pf.K_REF] = rng.randint(0, 4, (B, 5))
+    nbp[..., pf.K_REF1] = rng.randint(0, 2, (B, 5))
+    return (rng.rand(B, 5) < 0.85) & (ndir > 0), nbp
+
+
+def _cbflat(dev, qp, b_slice):
+    from hmtpu_torch.common.constants import SliceType
+    from hmtpu_torch.entropy.contexts import make_contexts
+    from hmtpu_torch.entropy.fracbits import ctx_bits_table
+
+    st = SliceType.B if b_slice else SliceType.P
+    return torch.as_tensor(ctx_bits_table(make_contexts(st, qp))
+                           .reshape(-1)).to(dev)
+
+
+def _same(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("B", [1, 3, 257, 1560])
+def test_merge_cands_kernel(dev, B):
+    from hmtpu_torch.search import wavefront as wf
+
+    rng = np.random.RandomState(B)
+    valid, nbp = _nb_rows(rng, B, True)
+    v = torch.as_tensor(valid).to(dev)
+    col = lambda k: _i32(nbp[..., k], dev)
+    tok = torch.as_tensor(rng.rand(B) < 0.5).to(dev)
+    tx, ty = (_i32(rng.randint(-4, 5, B), dev) for _ in range(2))
+    for mm, kw in ((5, {}), (5, dict(t_ok=tok, t_mvx=tx, t_mvy=ty,
+                                     n_active=2)), (3, dict(n_active=4))):
+        args = (v, col(6), col(7), col(8), 4, mm)
+        got = _launched("merge_cands",
+                        lambda: wf.merge_candidates_dev(*args, **kw))
+        _same(got, wf.merge_candidates_dev_plain(*args, **kw))
+    pocs0, pocs1 = _i32([2, 8, 4], dev), _i32([8, 16], dev)
+    for mm in (5, 2):
+        args = (v, col(5), col(6), col(7), col(8), col(11), col(12),
+                col(13), pocs0, pocs1, 3, 2, mm)
+        got = _launched("merge_cands",
+                        lambda: wf.merge_candidates_dev_b(*args))
+        _same(got, wf.merge_candidates_dev_b_plain(*args))
+
+
+@pytest.mark.parametrize("B", [1, 3, 257, 1560])
+def test_amvp_rd_kernel(dev, B):
+    from hmtpu_torch.encoder import pframe_dev as pf
+
+    rng = np.random.RandomState(B + 1)
+    for bi in (False, True):
+        valid, nbp = _nb_rows(rng, B, bi)
+        nbv = torch.as_tensor(valid).to(dev)
+        nbp = _i32(nbp, dev)
+        aref = _i32(rng.randint(0, 2, B), dev)
+        amx = _i32(rng.choice([-40, -3, 0, 5, 130, 3], B), dev)
+        amy = _i32(rng.choice([-7, 0, 2, 64], B), dev)
+        pocs0 = _i32([7, 6, 3, 2], dev)
+        cb = _cbflat(dev, 22 if bi else 37, bi)
+        if bi:
+            kw = dict(lx=_i32(rng.randint(0, 2, B), dev),
+                      ref_pocs_l1=_i32([16, 12], dev), num_ref_l1=2, depth=1)
+        else:
+            kw = dict(t=(torch.as_tensor(rng.rand(B) < 0.5).to(dev),
+                         _i32(rng.randint(-30, 31, B), dev),
+                         _i32(rng.randint(-30, 31, B), dev)), n_active=3)
+        args = (cb, nbv, nbp, aref, amx, amy, pocs0, 8, 4)
+        got = _launched("amvp_rd", lambda: pf.amvp_rd(*args, **kw))
+        want = pf.amvp_rd_plain(*args, **kw)
+        _same(got[:5], want[:5])
+        _same(got[5], want[5])
+
+
+@pytest.mark.parametrize("h,w", [(240, 416), (56, 64), (8, 16)])
+def test_mv_regularize_kernel(dev, h, w):
+    from hmtpu_torch.search import me
+
+    rng = np.random.RandomState(h + w)
+    org = _i32(rng.randint(0, 256, (h, w)), dev)
+    refs = _i32(np.clip(org.cpu().numpy()[None] + rng.randint(-9, 10,
+                                                              (3, h, w)),
+                        0, 255), dev)
+    bh, bw = h // 8, w // 8
+    mvx = _i32(rng.choice([-3, 0, 2, 5], (bh, bw)), dev)
+    mvy = _i32(rng.choice([-1, 0, 4], (bh, bw)), dev)
+    ridx = _i32(rng.randint(0, 3, (bh, bw)), dev)
+    lam = torch.tensor(6.25, device=dev)
+    before = kernels.COUNTS["mv_regularize"]
+    got = me.regularize_mv_field(refs, org, mvx, mvy, ridx, lam, iters=3)
+    torch.cuda.synchronize()
+    assert kernels.COUNTS["mv_regularize"] == before + 3
+    _same(got, me.regularize_mv_field_plain(refs, org, mvx, mvy, ridx, lam,
+                                            iters=3))
+
+
+@pytest.mark.parametrize("B", [1, 3, 257, 1560])
+def test_mpm_bits_kernel(dev, B):
+    from hmtpu_torch.ops import ratebits as rb
+
+    rng = np.random.RandomState(B + 2)
+    cb = _cbflat(dev, 32, False)
+    lm = _i32(rng.choice([0, 1, 2, 10, 26, 34], B), dev)
+    am = _i32(rng.choice([0, 1, 2, 10, 26, 34], B), dev)
+    modes = _i32(rng.randint(0, 35, (B, 35)), dev)
+    for args in ((cb, modes, lm[:, None], am[:, None]),
+                 (cb, modes[:, 0], lm, am)):
+        got = _launched("mpm_bits", lambda: rb.intra_mode_mpm_bits(*args))
+        want = rb.intra_mode_mpm_bits_plain(*args)
+        assert torch.equal(got, want)
+    m4 = _i32(rng.choice([0, 1, 2, 10, 26, 34], (B, 4)), dev)
+    got = _launched("mpm_bits",
+                    lambda: rb.intra_mode_mpm_bits_nxn(cb, m4, lm, am))
+    assert torch.equal(got, rb.intra_mode_mpm_bits_nxn_plain(cb, m4, lm, am))

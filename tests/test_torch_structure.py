@@ -73,6 +73,22 @@ assert issubclass(train.NnFmeLoss, torch.autograd.Function)
 assert kernels.KERNELS["me_sad1"][0] == "me_sad"
 for k in ("nnfme_fwd", "nnfme_bwd", "adam"):
     assert kernels.KERNELS[k][0] == "nnfme_train", k
+# the z-scan derivations' kernels and their plain versions
+from hmtpu_torch.encoder import pframe_dev
+from hmtpu_torch.ops import ratebits
+for m, fs in ((wavefront, ("merge_candidates_dev_plain",
+                           "merge_candidates_dev_b_plain")),
+              (pframe_dev, ("amvp_rd", "amvp_rd_plain")),
+              (me, ("regularize_mv_field", "regularize_mv_field_plain")),
+              (ratebits, ("intra_mode_mpm_bits_plain",
+                          "intra_mode_mpm_bits_nxn",
+                          "intra_mode_mpm_bits_nxn_plain")),
+              (train, ("exp_f32", "log_f32"))):
+    for f in fs:
+        assert callable(getattr(m, f)), f
+for k, src in (("merge_cands", "mvcand"), ("amvp_rd", "mvcand"),
+               ("mv_regularize", "mv_regularize"), ("mpm_bits", "mode_bits")):
+    assert kernels.KERNELS[k][0] == src, k
 for src in kernels.SOURCES:
     assert os.path.exists(kernels.source_path(src)), src
 # the NN-FME weights load from the port's own data files
