@@ -9,13 +9,23 @@ when every phase passed):
   1. device    the card's name and power limit (nvidia-smi);
   2. build     nvcc for every kernel source in hmtpu_torch/csrc, one
                process per source, all started together;
-  3. kernels   each kernel (K1-K16 and K1's transform-skip mode) against
-               its plain PyTorch version on seeded inputs at the shapes
-               the main paths give it, and K17-K20 (after phase 11's
-               untimed encodes) on the inputs of the widest call of each
-               form captured there: K17's and K18's P form (timed) and B
-               form, K19, K20's one-mode form of the I pass (timed), of
-               the P pass and its four-PU form.  They must be equal (the
+  3. kernels   each kernel (K1, K3-K16 and K1's transform-skip mode)
+               against its plain PyTorch version on seeded inputs at the
+               shapes the main paths give it, and K2 and K17-K22 (after
+               phase 11's untimed encodes) on the inputs of the widest
+               call of each form captured there: K2 as the P pass calls
+               it per level lane (the 8x8 luma filter and prediction at 8
+               bits timed; the chroma 4x4 pair and the RA Main10 forms
+               checked), K17's and K18's P form (timed) and B
+               form, K19, K20's one-mode form of the P pass (timed) and its
+               I-pass forms (K candidates, four PUs) on seeded modes; K21
+               (the I z-scan walker, one launch per level) on the ai
+               phase's frame (timed, its row), the ldp phase's I frame and
+               a 64x64 frame (the 32 level), each timed beside
+               iframe_pass_plain on the card,
+               every state array equal; K22 (the fused RMD) at n = 8
+               (timed, its row), 4, 16 and 32 and in the P pass's form
+               (n = 8, k = 1) beside rmd_plain.  They must be equal (the
                float32 outputs of K6, K10, K14-K16, K18 and K20 bit for
                bit: kernel and plain version round in the same order, K14
                with the exp and log they share; K15 twice, the same
@@ -34,7 +44,7 @@ when every phase passed):
                SAO) of 2 frames (an I and a P picture) of a seeded
                synthetic clip through Encoder.encode_sequence, every
                kernel count reset before and read after: each of K1-K8,
-               K10 and K17-K20 must be > 0.  Seconds per frame, and for
+               K10 and K17-K22 must be > 0.  Seconds per frame, and for
                the P
                frame the device pass apart from the host's finish +
                CABAC; nvidia-smi samples the card's utilization meanwhile;
@@ -43,7 +53,7 @@ when every phase passed):
                (--SubPel=dctif; BASELINE config 2) through the port's CLI
                in process, QP 22, 2 frames of the same clip at 416x240,
                counts reset before and read after: K1-K5, K7, K9, K10,
-               K17-K20 and K1-TS must be > 0;
+               K17-K22 and K1-TS must be > 0;
   6. ra10      the random-access Main10 cfg
                (cfg/encoder_randomaccess_main10.cfg as shipped: QP 32,
                10 bits, GOP 8 of B pictures, search range 64, DCT-IF,
@@ -51,20 +61,28 @@ when every phase passed):
                clip at 416x240 as 10-bit samples (the 8-bit clip << 2):
                the IDR and one whole GOP, coded as POC 0, 8, 4, 2, 1, 3,
                6, 5, 7.  Counts reset before and read after: K1-K5, K7,
-               K9-K12, K17, K18 and K20 must be > 0; 8 B slices, and
+               K9-K12, K17, K18 and K20-K22 must be > 0; 8 B slices, and
                bi-predicted CUs (DBG_COUNTERS["ra_bi_cus"]) > 0.  Never
                left out;
   7. ai        cfg/encoder_intra_main.cfg as shipped (QP 32, transform
                skip on, SDH off) on the clip's first frame through the
-               CLI: K1-K4, K10, K20 and K1-TS must be > 0.  When the run
+               CLI: K21, K22, K3 and K4 must be > 0 (the I pass codes,
+               predicts and prices inside K21).  When the run
                has passed FULL_AI_BEFORE_S seconds by then, this phase is
                left out (the ldp_dctif I frame ran the same I pass with
                transform skip at full width) and the parity jobs below
                keep the 64x64 all-intra checks.  With --profile, a 64x64
-               AI frame (with K10, and with K10's plain version for
-               comparison) and a 64x64 LDP I + P pair under
-               torch.profiler (device operations and their time: a
-               416x240 frame issues too many for the profiler);
+               AI frame, a 64x64 LDP I + P pair (with K10, and with K10's
+               plain version in the P pass's coding step for comparison)
+               and 9 64x64 RA Main10 frames under torch.profiler (device
+               operations and their time: a 416x240 frame issues too many
+               for the profiler);
+  7b. rext     BASELINE config 5, cfg/encoder_intra_high_throughput_rext.cfg
+               as shipped (QP 32, 10 bits, transform skip, SDH, the
+               High-Throughput-RExt profile), through the CLI on the
+               clip's first 2 frames as 10-bit samples: K21, K22, K3 and
+               K4 must be > 0; seconds per frame and the TBs that chose
+               transform skip;
   8. nnfme_train  the NN-FME trainer at tools/train_nnfme.py's defaults
                through `hmtpu_torch.apps.train_nnfme.main` in process
                (416x240 synthetic clip, 24 frames, SR 16, QPs
@@ -77,7 +95,9 @@ when every phase passed):
                share;
   9. hd_extract  extraction alone at 1920x1080 (the clip generator's 4
                frames, QP 22, SR 64): seconds per frame pair; K13, K9 > 0;
- 10. parity    the ai phase's stream through the same CLI on the CPU
+ 10. parity    the RExt cfg at 96x64 (3 frames, 10-bit samples) through
+               the CLI on the card and on the CPU; the ai phase's stream
+               through the same CLI on the CPU
                (the plain versions, in worker processes) must equal the
                card's byte for byte; likewise 64x64 AI clips of 2 frames
                (transform skip off), 96x64 screen-content AI clips of 2
@@ -104,9 +124,10 @@ when every phase passed):
                functions on the ldp phase's encode and on a 2-frame
                416x240 RA Main10 encode (an I and a B picture), and the
                bytes of the tensors they take and give (a bound for
-               argument bytes only); the same two encodes capture the
-               inputs of K17-K20 (Capture), which phase 3's last checks
-               use.
+               argument bytes only); the same two encodes, an untimed AI
+               encode of the ai phase's frame and a 64x64 AI frame capture
+               the inputs of K2 and K17-K21 (Capture), which phase 3's
+               last checks use; none of them may call iframe_pass_plain or rmd_plain.
 
 Imports nothing from hmtpu or JAX.  The last line of the output is
 {"ok": true, "device": {...}}.  Every process the check starts (nvcc,
@@ -142,6 +163,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 LDP_CFG = os.path.join(ROOT, "cfg", "encoder_lowdelay_P_main.cfg")
 AI_CFG = os.path.join(ROOT, "cfg", "encoder_intra_main.cfg")
 RA_CFG = os.path.join(ROOT, "cfg", "encoder_randomaccess_main10.cfg")
+RX_CFG = os.path.join(ROOT, "cfg", "encoder_intra_high_throughput_rext.cfg")
+RX_FRAMES = 2
 RA_FRAMES = 9
 # the parity phase's CPU side: worker processes and torch threads each
 # (the card's machine has 8 cores; the card's own dispatch takes one)
@@ -280,10 +303,10 @@ def screen_clip(width, height, frames):
     return out
 
 
-def time_cuda(fn, iters: int) -> float:
+def time_cuda(fn, iters: int, warm: int = 2) -> float:
     """Mean milliseconds per call of fn over `iters` calls, CUDA events
-    around the loop, after warm-up."""
-    for _ in range(2):
+    around the loop, after `warm` calls of warm-up."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -313,6 +336,7 @@ DEVICE_FN = {
     "nnfme_bwd": ("bwd_kernel", "colsum_kernel"),
     "merge_cands": "merge_kernel", "amvp_rd": "amvp_kernel",
     "mv_regularize": "reg_kernel", "mpm_bits": "mpm_kernel",
+    "i_walk": "iwalk_kernel", "i_rmd": "rmd_kernel",
 }
 
 
@@ -352,7 +376,7 @@ def kernel_cases(dev):
     """(name, kernel call, plain call, bytes, ops, library call[, more
     (kernel call, plain call) pairs checked but not timed]) at the main
     paths' shapes, inputs made from a seed."""
-    from hmtpu_torch.ops import deblock, intra_pred, sao, transform
+    from hmtpu_torch.ops import deblock, sao, transform
 
     rng = np.random.RandomState(1)
     t32 = lambda a: torch.as_tensor(np.asarray(a, np.int32)).to(dev)
@@ -394,25 +418,6 @@ def kernel_cases(dev):
                   lambda: rts << transform.ts_shift(4, 8),
                   [(lambda: transform.transform_skip_inv(dts, 4),
                     lambda: transform.transform_skip_inv_plain(dts, 4))]))
-
-    # K2: the rough mode decision at n=8, P = 1560 blocks of 416x240
-    p8, n = (W // 8) * (H // 8), 8
-    line = 4 * n + 1
-    ref = t32(rng.randint(0, 256, (p8, line)))
-    reff = intra_pred.filter_reference_plain(ref, n, 8, False)
-    cases.append(("intra_filter",
-                  lambda: intra_pred.filter_reference_batched(ref, n, 8,
-                                                              False),
-                  lambda: intra_pred.filter_reference_plain(ref, n, 8,
-                                                            False),
-                  2 * p8 * line * 4, 4 * p8 * line, None))
-    cases.append(("intra_pred",
-                  lambda: intra_pred.predict_all_modes(ref, reff, n),
-                  lambda: intra_pred.predict_modes_plain(
-                      ref, reff, torch.arange(35, device=dev)
-                      .expand(p8, 35), n),
-                  (2 * p8 * line + p8 * 35 + p8 * 35 * n * n) * 4,
-                  5 * p8 * 35 * n * n, None))
 
     # K3: one 416x240 picture (intra, random cbf and CU sizes)
     y = t32(rng.randint(60, 200, (H, W)))
@@ -930,18 +935,21 @@ def slice5_kernel_cases(dev, rng):
 # and give back, a bound for argument bytes only (a pass's own reads and
 # writes of intermediates are not in it)
 PLAIN_FUNCS = (
-    ("B9 _satd", "hmtpu_torch.encoder.pframe_dev", "_satd"),
-    ("B9 _satd", "hmtpu_torch.encoder.iframe_dev", "_satd"),
     ("B10 temporal", "hmtpu_torch.encoder.pframe_dev",
      "temporal_cand_grid_dev"),
     ("B10 temporal", "hmtpu_torch.encoder.pframe_dev", "scale_mv_pair_dev"),
     ("B11", "hmtpu_torch.encoder.pframe_dev", "wavefront_pass"),
     ("B13 _choose_params", "hmtpu_torch.ops.sao", "_choose_params"),
-    ("B14", "hmtpu_torch.encoder.iframe_dev", "iframe_pass"),
+    # the plain versions of K21 and K22 (B14, B9): none may run on the
+    # card's path
+    ("K21 plain", "hmtpu_torch.encoder.iframe_dev", "iframe_pass_plain"),
+    ("K22 plain", "hmtpu_torch.encoder.intra_rdo", "rmd_plain"),
+    ("K22 plain", "hmtpu_torch.encoder.iframe_dev", "rmd_plain"),
 ) + tuple(
     # B8's remaining flag helpers (hmtpu/ops/ratebits.py:305-450), as the
     # passes import them (mvd, ref_idx, inter_dir and the MPM pricing are
-    # K18's and K20's)
+    # K18's and K20's; the I pass's are folded into K21, and only its plain
+    # version calls them)
     ("B8 flags", f"hmtpu_torch.encoder.{mod}", fn)
     for mod, fns in (
         ("pframe_dev", ("cbf_chroma_bits", "cbf_luma_bits", "chroma_dm_bits",
@@ -1013,11 +1021,21 @@ class PlainTally:
             f"(argument bytes only)" for k in sorted(self.calls))
 
 
-# K17-K20 are held against their plain versions on inputs captured from
-# the passes: (kernel, form, module, wrapper as the pass calls it, the
-# lanes of a call's arguments); Capture keeps, per form, the arguments of
-# the call with the most lanes
+# K2 and K17-K21 are held against their plain versions on inputs captured
+# from the passes: (kernel, form (or a function of the call's arguments that
+# gives it), module, wrapper as the pass calls it, the lanes of a call's
+# arguments); Capture keeps, per form, the arguments of the call with the
+# most lanes
 CAPTURED = (
+    # K2 as the P / B pass calls it per level lane: the intra candidate's
+    # reference line filtered (8x8 luma), then predicted with the block's
+    # mode (luma n = 8, chroma n = 4); one form per bit depth
+    ("intra_filter", lambda a, k: f"bd{a[2]}",
+     "hmtpu_torch.encoder.pframe_dev", "filter_reference_batched",
+     lambda a, k: a[0].shape[0]),
+    ("intra_pred", lambda a, k: f"n{a[3]} bd{a[5]}",
+     "hmtpu_torch.encoder.pframe_dev", "predict_one_mode",
+     lambda a, k: a[0].shape[0]),
     ("merge_cands", "P", "hmtpu_torch.encoder.pframe_dev",
      "merge_candidates_dev", lambda a, k: a[0].shape[0]),
     ("merge_cands", "B", "hmtpu_torch.encoder.pframe_dev",
@@ -1026,12 +1044,12 @@ CAPTURED = (
      lambda a, k: a[2].shape[0]),
     ("mv_regularize", "P", "hmtpu_torch.search.me", "regularize_mv_field",
      lambda a, k: a[2].numel()),
-    ("mpm_bits", "I", "hmtpu_torch.encoder.iframe_dev",
-     "intra_mode_mpm_bits", lambda a, k: a[1].numel()),
-    ("mpm_bits", "NxN", "hmtpu_torch.encoder.iframe_dev",
-     "intra_mode_mpm_bits_nxn", lambda a, k: a[1].shape[0]),
     ("mpm_bits", "P", "hmtpu_torch.encoder.pframe_dev",
-     "intra_mode_mpm_bits", lambda a, k: a[1].numel()))
+     "intra_mode_mpm_bits", lambda a, k: a[1].numel()),
+    # K21 (and K22 inside it): one form per picture size, QP and TS
+    ("i_walk", lambda a, k: f"{k['w']}x{k['h']} QP{a[3]}"
+     + (" TS" if k.get("ts") else ""), "hmtpu_torch.encoder.iframe_dev",
+     "iframe_pass", lambda a, k: 1))
 
 
 def _clone(x):
@@ -1061,7 +1079,8 @@ class Capture:
 
             def wrap(*a, _inner=inner, _name=name, _form=form, _lanes=lanes,
                      **k):
-                f = _form or ("B" if k.get("lx") is not None else "P")
+                f = _form(a, k) if callable(_form) else (
+                    _form or ("B" if k.get("lx") is not None else "P"))
                 n = _lanes(a, k)
                 if n > self.got.get((_name, f), (-1,))[0]:
                     self.got[(_name, f)] = (n, _clone(a), _clone(k))
@@ -1110,20 +1129,32 @@ def reg_work(refs, org, mvx, mvy, ridx, lam, iters):
     return nbytes, iters * bh * bw * 6 * (64 * 3 + 20)
 
 
+def predict_one_mode_plain(ref_unfilt, ref_filt, mode, n, is_luma=True,
+                           bit_depth=8):
+    """predict_one_mode through K2's plain version."""
+    from hmtpu_torch.ops import intra_pred
+
+    return intra_pred.predict_modes_plain(ref_unfilt, ref_filt,
+                                          mode[:, None], n, is_luma,
+                                          bit_depth)[:, 0]
+
+
 def captured_cases(got):
-    """K17-K20 on the arguments Capture kept from the untimed 416x240 LDP
-    and RA Main10 encodes: the LDP form timed (the main path's), the
-    others checked.  Bytes: each input the function needs read once and
-    each output written once; operations: a count per lane of its integer
-    steps."""
+    """K2 and K17-K20 on the arguments Capture kept from the untimed
+    416x240 LDP and RA Main10 encodes: the LDP form timed (the main
+    path's), the others checked.  Bytes: each input the function needs
+    read once and each output written once; operations: a count per lane
+    of its integer steps."""
     from hmtpu_torch.encoder import pframe_dev as pf
+    from hmtpu_torch.ops import intra_pred as ip
     from hmtpu_torch.ops import ratebits as rb
     from hmtpu_torch.search import me
     from hmtpu_torch.search import wavefront as wf
 
-    need = (("merge_cands", "P"), ("merge_cands", "B"), ("amvp_rd", "P"),
-            ("amvp_rd", "B"), ("mv_regularize", "P"), ("mpm_bits", "I"),
-            ("mpm_bits", "NxN"), ("mpm_bits", "P"))
+    need = (("intra_filter", "bd8"), ("intra_pred", "n8 bd8"),
+            ("intra_pred", "n4 bd8"), ("merge_cands", "P"),
+            ("merge_cands", "B"), ("amvp_rd", "P"),
+            ("amvp_rd", "B"), ("mv_regularize", "P"), ("mpm_bits", "P"))
     missing = [k for k in need if k not in got]
     if missing:
         fail(f"capture: no call of {missing} in the untimed encodes")
@@ -1135,7 +1166,34 @@ def captured_cases(got):
         _, a, k = got[key]
         return lambda: fn(*a, **k)
 
+    def also(pairs):
+        # forms checked beside the timed one, where the encodes made them
+        return [(call(kf, key), call(pf_, key)) for kf, pf_, key in pairs
+                if key in got]
+
     cases = []
+    # K2: the P pass's 8x8 luma lines, read and written once, about 4
+    # operations a sample; the prediction reads both lines and the mode
+    # and writes the block, about 5 operations a sample.  The chroma 4x4
+    # pair and the 10-bit forms checked
+    _, a, k = got[("intra_filter", "bd8")]
+    nl, line = a[0].shape
+    cases.append((
+        "intra_filter", call(ip.filter_reference_batched,
+                             ("intra_filter", "bd8")),
+        call(ip.filter_reference_plain, ("intra_filter", "bd8")),
+        2 * nl * line * 4, 4 * nl * line, None,
+        also([(ip.filter_reference_batched, ip.filter_reference_plain,
+               ("intra_filter", "bd10"))])))
+    _, a, k = got[("intra_pred", "n8 bd8")]
+    nl, line = a[0].shape
+    cases.append((
+        "intra_pred", call(ip.predict_one_mode, ("intra_pred", "n8 bd8")),
+        call(predict_one_mode_plain, ("intra_pred", "n8 bd8")),
+        (2 * nl * line + nl + nl * 64) * 4, 5 * nl * 64, None,
+        also([(ip.predict_one_mode, predict_one_mode_plain,
+               ("intra_pred", f)) for f in ("n4 bd8", "n8 bd10",
+                                            "n4 bd10")])))
     # K17: per lane 5 neighbour rows in, M candidates out; about 60
     # integer steps (P: the five prunings, six placements, the fill)
     _, a, k = got[("merge_cands", "P")]
@@ -1174,18 +1232,133 @@ def captured_cases(got):
                   call(me.regularize_mv_field_plain, ("mv_regularize", "P")),
                   rb_, ro_, None))
     # K20: the modes and the neighbour pairs in, the bits out; about 20
-    # steps a lane (the MPM list, three compares, one or two sums)
-    _, a, k = got[("mpm_bits", "I")]
+    # steps a lane (the MPM list, three compares, one or two sums).  The P
+    # pass's form is timed: the I pass prices its modes inside K21 now, so
+    # K20's K-candidate and four-PU forms are checked on seeded modes at
+    # that pass's width (7 CUs)
+    _, a, k = got[("mpm_bits", "P")]
     n = a[1].numel()
-    cases.append(("mpm_bits", call(rb.intra_mode_mpm_bits, ("mpm_bits", "I")),
-                  call(rb.intra_mode_mpm_bits_plain, ("mpm_bits", "I")),
+    cb = a[0]
+    rng = np.random.RandomState(20)
+    pick = lambda shape: torch.as_tensor(rng.choice(
+        [0, 1, 2, 10, 18, 26, 34], shape).astype(np.int32)).to(cb.device)
+    modes, lm, am, m4 = pick((7, 2)), pick((7, 1)), pick((7, 1)), pick((7, 4))
+    cases.append(("mpm_bits", call(rb.intra_mode_mpm_bits, ("mpm_bits", "P")),
+                  call(rb.intra_mode_mpm_bits_plain, ("mpm_bits", "P")),
                   tensor_bytes(a[1:]) + n * 4 + 2 * 4, 20 * n, None,
-                  [(call(rb.intra_mode_mpm_bits_nxn, ("mpm_bits", "NxN")),
-                    call(rb.intra_mode_mpm_bits_nxn_plain,
-                         ("mpm_bits", "NxN"))),
-                   (call(rb.intra_mode_mpm_bits, ("mpm_bits", "P")),
-                    call(rb.intra_mode_mpm_bits_plain, ("mpm_bits", "P")))]))
+                  [(lambda: rb.intra_mode_mpm_bits(cb, modes, lm, am),
+                    lambda: rb.intra_mode_mpm_bits_plain(cb, modes, lm, am)),
+                   (lambda: rb.intra_mode_mpm_bits_nxn(cb, m4, lm[:, 0],
+                                                       am[:, 0]),
+                    lambda: rb.intra_mode_mpm_bits_nxn_plain(
+                        cb, m4, lm[:, 0], am[:, 0]))]))
     return cases
+
+
+def walk_work(w, h, ts):
+    """Bytes and operations of one K21 pass (all its levels): the source
+    planes, the table, the gather maps, schedules and candidates it reads
+    once, the state it writes once; operations per coded TB of side n
+    (every candidate of every CU is coded, so the count follows the
+    geometry): the transform and its inverse, 4 n^3 multiply-adds, and
+    about 200 per coefficient for the RDOQ trellis, its pricing and the
+    reconstruction."""
+    from hmtpu_torch.encoder import iframe_dev as idv
+
+    st = idv._i_static(w, h, 6)
+    P, npx = (w // 8) * (h // 8), w * h * 3 // 2
+    tables = sum(a.size for v in st.values() if v is not None
+                 for a in (v if isinstance(v, tuple) else (v,)))
+    nbytes = 4 * (npx + 2 * 186 + tables + 3 * P) + 4 * (npx + P * 104)
+    tb = lambda n: 8 * n ** 3 + 200 * n * n
+    ts2 = 2 if ts else 1
+    cell = 2 * (tb(8) + 2 * ts2 * tb(4)) + 4 * ts2 * tb(4) + 2 * ts2 * tb(4)
+    ops = P * cell
+    if st["sched16"] is not None:
+        ops += (P // 4) * 2 * (tb(16) + 2 * tb(8))
+    if st["sched32"] is not None:
+        ops += (P // 16) * 2 * (tb(32) + 2 * tb(16))
+    return nbytes, ops
+
+
+def walk_cases(got):
+    """K21 on the I passes Capture kept (the 416x240 ai frame, the ldp
+    phase's I frame, a 64x64 frame with the 32 level) against
+    `iframe_pass_plain` on the card, and K22 against `rmd_plain` at each
+    block size on their planes: (name, label, kernel call, plain call,
+    bytes, operations).  The first case of each kernel is its row."""
+    from hmtpu_torch.common.lambdas import frame_lambdas
+    from hmtpu_torch.encoder import iframe_dev as idv
+    from hmtpu_torch.encoder.intra_rdo import rmd, rmd_plain
+
+    forms = (f"{W}x{H} QP{QP_AI} TS", f"{W}x{H} QP{QP_LDP}", "64x64 QP32")
+    missing = [f for f in forms if ("i_walk", f) not in got]
+    if missing:
+        fail(f"capture: no I pass of {missing} in the untimed encodes "
+             f"(got {sorted(f for k, f in got if k == 'i_walk')})")
+    cases = []
+    for f in forms:
+        _, a, k = got[("i_walk", f)]
+        state = lambda d: tuple(d[x] for x in sorted(d))
+        cases.append((
+            "i_walk", f, lambda a=a, k=k: state(idv.iframe_pass(*a, **k)),
+            lambda a=a, k=k: state(idv.iframe_pass_plain(*a, **k)),
+            *walk_work(k["w"], k["h"], k.get("ts", False))))
+    # K22: the I pass's forms at 416x240 (n = 8, 4, 16) and 64x64 (n = 32),
+    # and the P pass's (n = 8, k = 1, no strong smoothing)
+    for f, n, k, sis in ((forms[0], 8, 2, True), (forms[0], 4, 1, True),
+                         (forms[0], 16, 2, True), (forms[2], 32, 2, True),
+                         (forms[1], 8, 1, False)):
+        _, a, kw = got[("i_walk", f)]
+        plane, qp, qpc = a[0], a[3], a[4]
+        hh, ww = plane.shape
+        sd = idv._dev_static(ww, hh, 6, plane.device)
+        g = sd["g4l" if n == 4 else f"g{n}"]
+        args = dict(bd=kw.get("bd", 8), sis=sis, lam_sqrt=frame_lambdas(
+            qp, qpc, kw.get("qp_factor", 0.57))[1])
+        nb = (hh // n) * (ww // n)
+        cases.append((
+            "i_rmd", f"{ww}x{hh} n={n} k={k}"
+            + ("" if sis else " (P pass)"),
+            lambda p=plane, g=g, n=n, k=k, args=args: rmd(p, g, n, k, **args),
+            lambda p=plane, g=g, n=n, k=k, args=args: rmd_plain(
+                p, g, n, k, **args),
+            4 * (hh * ww + nb * (4 * n + 2 + k)), 35 * nb * n * n * 20))
+    return cases
+
+
+def check_walk(cases, rows) -> None:
+    """Each case's kernel against its plain version on the card (equal),
+    timed: the kernel over a few calls, the plain version once (a
+    416x240 plain I pass takes seconds); the first case of a kernel gives
+    its row."""
+    from hmtpu_torch import kernels
+
+    for name, label, kfn, pfn, nbytes, ops in cases:
+        got = kfn()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        want = pfn()
+        torch.cuda.synchronize()
+        pms = (time.time() - t0) * 1e3
+        err = max_err(got, want)
+        if not same(got, want):
+            fail(f"{name} ({label}): kernel disagrees with its plain version "
+                 f"(max abs err {err})")
+        iters = 3 if name == "i_walk" else 50
+        ms = time_cuda(kfn, iters, warm=1)
+        dms = device_ms(kfn, DEVICE_FN[name], iters=iters)
+        bms, by = bound_ms(nbytes, ops)
+        print(f"kernel {name} ({label}): equal to plain; {ms:.4f} ms per "
+              f"call, {dms:.4f} ms on the device (plain {pms:.4f} ms, once; "
+              f"bound {bms:.6f} ms by {by})", flush=True)
+        if name not in rows:
+            src, repl = kernels.KERNELS[name]
+            rows[name] = dict(
+                name=name, route="cuda", source=f"hmtpu_torch/csrc/{src}.cu",
+                replaces=repl, launches=0, max_abs_err=err, ms=ms,
+                plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=None,
+                device_ms=dms)
 
 
 def same(a, b) -> bool:
@@ -1540,8 +1713,7 @@ def main() -> None:
     full_ai = time.time() - t_start < FULL_AI_BEFORE_S
     if full_ai:
         ai_names = [k for k, (src, _) in kernels.KERNELS.items()
-                    if src in ("transform", "intra_pred", "deblock", "sao",
-                               "rdoq", "mode_bits")]
+                    if src in ("iwalk", "i_rmd", "deblock", "sao")]
         (ai_bs, ai_dt, ai_enc), _, ai_util = run_counted(
             "ai", lambda: cli_encode(ai_args, dev), ai_names, kernels)
         ai_res = ai_enc.results
@@ -1559,6 +1731,38 @@ def main() -> None:
               f"{time.time() - t_start:.1f} s, over {FULL_AI_BEFORE_S} s); "
               f"the ldp_dctif I frame ran the TS I pass at 416x240",
               flush=True)
+
+    # ---- 7b. BASELINE config 5, the High-Throughput-RExt cfg as shipped
+    # (10 bits, TS, SDH), via the CLI on the clip's first frames as 10-bit
+    # samples
+    rx_args = ["-c", RX_CFG, "--InputBitDepth=10", "-f", str(RX_FRAMES),
+               "-wdt", str(W), "-hgt", str(H), "-i", yuv10, "-b",
+               os.path.join(tmp.name, "rext.hevc")]
+    rx_names = [k for k, (src, _) in kernels.KERNELS.items()
+                if src in ("iwalk", "i_rmd", "deblock", "sao")]
+    pframe_dev.DBG_COUNTERS["intra_ts_tbs"] = 0
+    (rx_bs, rx_dt, rx_enc), rx_counts, rx_util = run_counted(
+        "rext", lambda: cli_encode(rx_args, dev), rx_names, kernels)
+    rx_res = rx_enc.results
+    check_results(rx_res, "rext")
+    if (rx_enc.cfg.bit_depth, rx_enc.cfg.gop, rx_enc.cfg.profile,
+            rx_enc.pps.transform_skip_enabled) \
+            != (10, "ai", "high-throughput-rext", True) \
+            or [r.slice_type for r in rx_res] != ["I"] * RX_FRAMES:
+        fail(f"rext: the cfg gave bit depth {rx_enc.cfg.bit_depth}, gop "
+             f"{rx_enc.cfg.gop}, profile {rx_enc.cfg.profile}, TS "
+             f"{rx_enc.pps.transform_skip_enabled}, slices "
+             f"{[r.slice_type for r in rx_res]}")
+    print(f"rext: {os.path.basename(RX_CFG)} (QP{rx_enc.cfg.qp}, 10 bits, "
+          f"TS, SDH {int(rx_enc.pps.sign_data_hiding)}), {W}x{H}, "
+          f"{RX_FRAMES} frames, {len(rx_bs)} bytes, {rx_dt:.3f} s, "
+          f"{RX_FRAMES / rx_dt:.4f} fps, "
+          f"{sum(r.bits for r in rx_res) / RX_FRAMES * 50 / 1000.0:.3f} "
+          f"kbps at 50 fps, transform-skip TBs (intra_ts_tbs) "
+          f"{pframe_dev.DBG_COUNTERS['intra_ts_tbs']}, PSNR "
+          + ", ".join(f"POC{r.poc} Y {r.psnr_y:.4f} U {r.psnr_u:.4f} "
+                      f"V {r.psnr_v:.4f}" for r in rx_res), flush=True)
+    frame_line("rext", rx_res, rx_util)
 
     # ---- 8. the NN-FME trainer at its defaults (tools/train_nnfme.py's),
     # through its entry point in process, into a temporary directory
@@ -1640,16 +1844,17 @@ def main() -> None:
         os.makedirs(args.profile, exist_ok=True)
         profile_encode(args.profile, "ai_64x64",
                        lambda: encode(small[:1], QP_AI, dev))
-        # the same frame with K10's plain version in the coding step,
-        # for the device-operation count K10 removes (comparison only)
-        pframe_dev.rdoq_code = plain_rdoq_code
-        try:
-            profile_encode(args.profile, "ai_64x64_plain_rdoq",
-                           lambda: encode(small[:1], QP_AI, dev))
-        finally:
-            pframe_dev.rdoq_code = rdoq.rdoq_code
         profile_encode(args.profile, "ldp_64x64_I_P",
                        lambda: encode(small[:2], QP_LDP, dev, "ldp", 8))
+        # the same pair with K10's plain version in the P pass's coding
+        # step (the I pass codes inside K21), for the device-operation
+        # count K10 removes (comparison only)
+        pframe_dev.rdoq_code = plain_rdoq_code
+        try:
+            profile_encode(args.profile, "ldp_64x64_I_P_plain_rdoq",
+                           lambda: encode(small[:2], QP_LDP, dev, "ldp", 8))
+        finally:
+            pframe_dev.rdoq_code = rdoq.rdoq_code
         profile_encode(args.profile, "ra_64x64_main10",
                        lambda: encode(synth_clip(64, 64, 9, seed=3), 32,
                                       dev, "ra", 8, "dctif", bd=10))
@@ -1680,7 +1885,14 @@ def main() -> None:
         + [("freshly trained QP22 weights, ", small, 22, "ldp", 8, "nn",
             False, 8, None, train_dir)]
     ai_cpu_args = ai_args[:-1] + [os.path.join(tmp.name, "ai_cpu.hevc")]
-    cpu_jobs = ([("cli", ai_cpu_args)] if full_ai else []) \
+    # BASELINE config 5 at tests/test_rext.py's size: 96x64, 3 frames as
+    # 10-bit samples, through the CLI
+    yuv_rx = os.path.join(tmp.name, "rext96x64.yuv")
+    write_yuv(yuv_rx, synth_clip(96, 64, 3, seed=42), 10)
+    rx_small = ["-c", RX_CFG, "--InputBitDepth=10", "-f", "3", "-wdt", "96",
+                "-hgt", "64", "-i", yuv_rx, "-b"]
+    cpu_jobs = [("cli", rx_small + [os.path.join(tmp.name, "rx_cpu.hevc")])] \
+        + ([("cli", ai_cpu_args)] if full_ai else []) \
         + [j[1:8] + (j[9],) for j in jobs]
     # the trainer's records and first steps, and one 1920x1080 frame pair
     extra_jobs = {"records": ("records", synth_clip(W, H, 3, seed=42), 22,
@@ -1693,9 +1905,9 @@ def main() -> None:
         # the workers take jobs in submission order: the 416x240 AI
         # stream first, then the 1920x1080 records and the trainer's, then
         # the list from its end (the longer jobs)
-        futs = {}
+        futs = {0: pool.submit(cpu_stream, cpu_jobs[0])}
         if full_ai:
-            futs[0] = pool.submit(cpu_stream, cpu_jobs[0])
+            futs[1] = pool.submit(cpu_stream, cpu_jobs[1])
         extra = {k: pool.submit(cpu_stream, j)
                  for k, j in extra_jobs.items()}
         for i in sorted(range(len(cpu_jobs) - len(jobs), len(cpu_jobs)),
@@ -1705,24 +1917,48 @@ def main() -> None:
         # plain-torch queue-B functions on the main path, in an untimed
         # encode of the ldp phase's clip, and of B15's on a 2-frame
         # 416x240 RA Main10 encode (their wrappers cost host time)
-        # and the inputs of K17-K20's checks
+        # and the inputs of K2's and K17-K20's checks
         with PlainTally() as tally, Capture() as cap:
             encode(clip, QP_LDP, dev, "ldp", SRANGE)
         print(tally.line(f"416x240 LDP QP{QP_LDP} I + P, untimed"),
               flush=True)
+        plain_calls = dict(tally.calls)
         with PlainTally() as tally, Capture(cap.got):
             encode(ra_clip[:2], 32, dev, "ra", SRANGE, "dctif", bd=10)
         print(tally.line("416x240 RA Main10 QP32 I + B, untimed"),
               flush=True)
-        # ---- 3 (continued). K17-K20 against their plain versions on the
-        # captured inputs; their launches are the ldp phase's
+        # and K21's inputs on the ai phase's frame and at 64x64 (the 32
+        # level)
+        with PlainTally() as tally_ai, Capture(cap.got):
+            cli_encode(ai_args[:-1] + [os.path.join(tmp.name, "ai_c.hevc")],
+                       dev)
+            encode(small[:1], QP_AI, dev)
+        for t in (plain_calls, tally.calls, tally_ai.calls):
+            bad = {k: v for k, v in t.items() if k.startswith(("K21", "K22"))}
+            if bad:
+                fail(f"plain versions of K21 / K22 ran on the card: {bad}")
+        print("plain: no call of iframe_pass_plain or rmd_plain in the "
+              "untimed LDP, RA Main10 and AI encodes", flush=True)
+        # ---- 3 (continued). K2 and K17-K20 against their plain versions
+        # on the captured inputs; their launches are the ldp phase's
         captured = captured_cases(cap.got)
         check_kernels(captured, rows)
         for name, *_ in captured:
             rows[name]["launches"] = counts[name]
-        print("kernels K17-K20 launches: " + "; ".join(
+        print("kernels K2, K17-K20 launches: " + "; ".join(
             f"{name} ldp {counts[name]}, ldp_dctif {d_counts[name]}, ra10 "
             f"{r_counts[name]}" for name, *_ in captured), flush=True)
+        # K21 and K22 against iframe_pass_plain and rmd_plain on the card
+        check_walk(walk_cases(cap.got), rows)
+        for name in ("i_walk", "i_rmd"):
+            rows[name]["launches"] = counts[name]
+        print("kernels K21-K22 launches: " + "; ".join(
+            f"{name} ldp {counts[name]}, ldp_dctif {d_counts[name]}, ra10 "
+            f"{r_counts[name]}, rext {rx_counts[name]}"
+            for name in ("i_walk", "i_rmd")), flush=True)
+        # the RExt parity clip's card side (its CPU side is a worker job)
+        rx_card = cli_encode(rx_small + [os.path.join(tmp.name,
+                                                      "rx_card.hevc")], dev)
         on_card = []
         for _, f, qp, gop, sr, sp, ts, bd, must, nn_dir in jobs:
             for k in ("ldp_ts_tbs", "intra_ts_tbs", "ra_bi_cus"):
@@ -1756,6 +1992,10 @@ def main() -> None:
         labels = [f"416x240 AI {os.path.basename(AI_CFG)} QP{QP_AI} "
                   f"1 frame"] + labels
         musts = [None] + musts
+    on_card = [rx_card[:2] + (None,)] + on_card
+    labels = [f"96x64 RExt {os.path.basename(RX_CFG)} 10 bits 3 frames"] \
+        + labels
+    musts = [None] + musts
     for what, must, (a, adt, fired), (b, bdt) in zip(labels, musts,
                                                      on_card, cpu):
         if a != b:

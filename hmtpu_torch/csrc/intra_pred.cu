@@ -10,7 +10,8 @@
 // z-scan) the call is bound by launch cost, then by the bytes of the
 // predictions it writes.
 //
-// Design: hm_intra_pred runs one thread block per reference line: the
+// Design (the arithmetic is intra_pred.cuh's, shared with K21 and K22):
+// hm_intra_pred runs one thread block per reference line: the
 // unfiltered and filtered lines and the block's DC value are staged in
 // shared memory, and the threads walk the block's (mode, y, x) outputs
 // with coalesced writes.  The angular taps are derived per sample from
@@ -19,35 +20,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "intra_pred.cuh"
+
 namespace {
-
-// intraPredAngle, modes 2..34 (Table 8-5)
-__constant__ int kAngles[33] = {32, 26, 21, 17, 13, 9, 5, 2, 0, -2, -5,
-                                -9, -13, -17, -21, -26, -32, -26, -21,
-                                -17, -13, -9, -5, -2, 0, 2, 5, 9, 13, 17,
-                                21, 26, 32};
-
-__device__ __forceinline__ int inv_angle(int a) {
-  switch (a) {
-    case -2: return -4096;
-    case -5: return -1638;
-    case -9: return -910;
-    case -13: return -630;
-    case -17: return -482;
-    case -21: return -390;
-    case -26: return -315;
-    case -32: return -256;
-    default: return 0;
-  }
-}
-
-// 8.4.4.2.3 filtering decision (should_filter in ops/intra_ref.py)
-__device__ __forceinline__ bool uses_filtered(int mode, int n, int is_luma) {
-  if (!is_luma || mode == 1 || n == 4) return false;
-  int d = min(abs(mode - 26), abs(mode - 10));
-  int thres = n == 8 ? 7 : (n == 16 ? 1 : 0);
-  return d > thres;
-}
 
 __global__ void filter_kernel(const int* __restrict__ ref,
                               int* __restrict__ out, int nb, int n, int bd,
@@ -57,30 +32,7 @@ __global__ void filter_kernel(const int* __restrict__ ref,
   if (id >= (long long)nb * line) return;
   const int b = (int)(id / line);
   const int k = (int)(id - (long long)b * line);
-  const int* r = ref + (long long)b * line;
-  int v = r[k];
-  if (k > 0 && k < line - 1) v = (r[k - 1] + 2 * r[k] + r[k + 1] + 2) >> 2;
-  if (strong && n == 32) {
-    const int thr = 1 << (bd - 5);
-    const int corner = r[2 * n];
-    const int topmid = r[2 * n + 1 + (n - 1)];
-    const int topend = r[4 * n];
-    const int leftmid = r[2 * n - 1 - (n - 1)];
-    const int leftend = r[0];
-    const bool bi = abs(corner + topend - 2 * topmid) < thr &&
-                    abs(corner + leftend - 2 * leftmid) < thr;
-    if (bi) {
-      v = r[k];
-      if (k >= 1 && k <= 2 * n - 1) {          // left column, y = 2n-1-k
-        const int y = 2 * n - 1 - k;
-        v = ((63 - y) * corner + (y + 1) * leftend + 32) >> 6;
-      } else if (k >= 2 * n + 1 && k <= 4 * n - 1) {   // top row
-        const int x = k - (2 * n + 1);
-        v = ((63 - x) * corner + (x + 1) * topend + 32) >> 6;
-      }
-    }
-  }
-  out[id] = v;
+  out[id] = hm::filter_sample(ref + (long long)b * line, k, n, bd, strong);
 }
 
 __global__ void pred_kernel(const int* __restrict__ ref_u,
@@ -99,68 +51,20 @@ __global__ void pred_kernel(const int* __restrict__ ref_u,
     sf[k] = ref_f[(long long)b * line + k];
   }
   __syncthreads();
-  int log2n = 0;
-  while ((1 << log2n) < n) ++log2n;
-  if (threadIdx.x == 0) {
-    int s = n;
-    for (int i = 0; i < n; ++i) s += su[2 * n + 1 + i] + su[2 * n - 1 - i];
-    sdc[0] = s >> (log2n + 1);
-  }
+  const int log2n = hm::log2_of(n);
+  if (threadIdx.x == 0) sdc[0] = hm::intra_dc(su, n, log2n);
   __syncthreads();
   const int dc = sdc[0];
-  const int maxv = (1 << bd) - 1;
   const int nn = n * n;
   const int total = m_per * nn;
-  const bool edge = is_luma && n < 32;
   for (int e = threadIdx.x; e < total; e += blockDim.x) {
     const int mi = e / nn;
     const int yx = e - mi * nn;
     const int y = yx / n;
     const int x = yx - y * n;
     const int mode = modes[(long long)b * m_per + mi];
-    const int* r = uses_filtered(mode, n, is_luma) ? sf : su;
-    int v;
-    if (mode == 0) {               // planar
-      v = ((n - 1 - x) * r[2 * n - 1 - y] + (x + 1) * r[3 * n + 1] +
-           (n - 1 - y) * r[2 * n + 1 + x] + (y + 1) * r[n - 1] + n) >>
-          (log2n + 1);
-    } else if (mode == 1) {        // DC
-      v = dc;
-      if (edge) {
-        if (y == 0 && x == 0)
-          v = (su[2 * n - 1] + 2 * dc + su[2 * n + 1] + 2) >> 2;
-        else if (x == 0)
-          v = (su[2 * n - 1 - y] + 3 * dc + 2) >> 2;
-        else if (y == 0)
-          v = (su[2 * n + 1 + x] + 3 * dc + 2) >> 2;
-      }
-    } else {                       // angular
-      const int a = kAngles[mode - 2];
-      const int inv = inv_angle(a);
-      const bool vert = mode >= 18;
-      const int major = vert ? y : x;
-      const int minor = vert ? x : y;
-      const int ii = ((major + 1) * a) >> 5;
-      const int ff = ((major + 1) * a) & 31;
-      const int t0 = minor + ii + 1;
-      const int t1 = min(t0 + 1, 2 * n);
-      int i0, i1;
-      if (vert) {
-        i0 = t0 >= 0 ? 2 * n + t0 : 2 * n - ((t0 * inv + 128) >> 8);
-        i1 = t1 >= 0 ? 2 * n + t1 : 2 * n - ((t1 * inv + 128) >> 8);
-      } else {
-        i0 = t0 >= 0 ? 2 * n - t0 : 2 * n + ((t0 * inv + 128) >> 8);
-        i1 = t1 >= 0 ? 2 * n - t1 : 2 * n + ((t1 * inv + 128) >> 8);
-      }
-      v = ((32 - ff) * r[i0] + ff * r[i1] + 16) >> 5;
-      if (edge && mode == 26 && x == 0)
-        v = min(max(su[2 * n + 1] + ((su[2 * n - 1 - y] - su[2 * n]) >> 1),
-                    0), maxv);
-      if (edge && mode == 10 && y == 0)
-        v = min(max(su[2 * n - 1] + ((su[2 * n + 1 + x] - su[2 * n]) >> 1),
-                    0), maxv);
-    }
-    out[(long long)b * total + e] = v;
+    out[(long long)b * total + e] =
+        hm::pred_sample(su, sf, dc, mode, n, log2n, is_luma, bd, y, x);
   }
 }
 

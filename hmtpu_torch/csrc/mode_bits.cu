@@ -11,27 +11,15 @@
 //
 // What bounds it on the H100: neither bytes nor operations (three int32
 // reads and one float32 write a lane, 1,560 x 35 lanes at most); a call is
-// one short launch.  Design: one thread per lane, elementwise.
+// one short launch.  Design: one thread per lane, elementwise, over the
+// functions of mode_bits.cuh (shared with the I z-scan walker K21).
 #include <cuda_runtime.h>
+
+#include "mode_bits.cuh"
 
 namespace {
 
-__device__ __forceinline__ int mod32(int v) { return ((v % 32) + 32) % 32; }
-
-// tab: the flat fractional-bit table; ctx: INTRA_PRED_MODE's offset
-__device__ __forceinline__ float mpm_bits(const float* tab, int ctx, int mode,
-                                          int lm, int am) {
-  const bool eq = lm == am, lt2 = lm < 2;
-  const int m0 = eq && lt2 ? 0 : lm;
-  const int m1 = eq ? (lt2 ? 1 : 2 + mod32(lm + 29)) : am;
-  const int m2_eq = lt2 ? 26 : 2 + mod32(lm - 1);
-  const int m2_ne = lm != 0 && am != 0 ? 0 : (lm != 1 && am != 1 ? 1 : 26);
-  const int m2 = eq ? m2_eq : m2_ne;
-  const bool in0 = mode == m0;
-  if (in0 || mode == m1 || mode == m2)
-    return __fadd_rn(__fadd_rn(tab[2 * ctx + 1], 1.0f), in0 ? 0.0f : 1.0f);
-  return __fadd_rn(tab[2 * ctx], 5.0f);
-}
+using hm::mpm_bits;
 
 // mode: (N,) with N = lanes; lm / am: (N / K,): lane i reads entry i / K
 __global__ void mpm_kernel(const float* __restrict__ tab,
@@ -52,12 +40,7 @@ __global__ void mpm4_kernel(const float* __restrict__ tab,
                             float* __restrict__ out, int N, int ctx) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= N) return;
-  const int p0 = m4[4 * i], p1 = m4[4 * i + 1], p2 = m4[4 * i + 2],
-            p3 = m4[4 * i + 3], l = lm[i], a = am[i];
-  float s = mpm_bits(tab, ctx, p0, l, a);
-  s = __fadd_rn(s, mpm_bits(tab, ctx, p1, p0, a));
-  s = __fadd_rn(s, mpm_bits(tab, ctx, p2, l, p0));
-  out[i] = __fadd_rn(s, mpm_bits(tab, ctx, p3, p2, p1));
+  out[i] = hm::mpm_bits4(tab, ctx, m4 + 4 * i, lm[i], am[i]);
 }
 
 }  // namespace

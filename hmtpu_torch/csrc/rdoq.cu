@@ -16,7 +16,8 @@
 // search), which the plain version runs as hundreds of small tensor
 // operations per call; here it is one launch per call.
 //
-// Design: one thread block per TB, one thread per 4x4 coefficient group
+// Design (the arithmetic is rdoq.cuh's, shared with the I z-scan walker
+// K21): one thread block per TB, one thread per 4x4 coefficient group
 // (CG; up to 64).  Coefficients, levels and per-position costs sit in
 // shared memory in the coding scan order; a CG's thread walks its 16
 // positions in reverse scan order, which is the coder's order, and
@@ -37,533 +38,36 @@
 //   - every argmin keeps the first index of least value; right shifts of
 //     negative ints are arithmetic.
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
+
+#include "rdoq.cuh"
 
 namespace {
 
-constexpr int C1FLAG = 8;
-constexpr int COEFF_MIN = -(1 << 15);
-constexpr int COEFF_MAX = (1 << 15) - 1;
-constexpr int MAX_NCG = 64;
-constexpr int MAX_SIZE = 32;
-constexpr int NPART = 5;  // csbf, sig, greater-1, greater-2, remainder
-
-constexpr int F_LEV_IN = 1;   // x holds levels: price / dequantise only
-constexpr int F_TRELLIS = 2;  // the RDOQ trellis (else deadzone)
-constexpr int F_SDH = 4;      // sign data hiding (parity stage, sign bits)
-constexpr int F_LUMA = 8;
-
 struct Params {
+  hm::RdoqCfg c;
   const int* x;         // (B, n*n) raster coefficients, or levels
-  const float* cb;      // (NUM_CTX*2,) fractional bits per (ctx, bin)
   const float* lam;     // device scalar lambda (trellis and SDH only)
   const int* scan_sel;  // (B,) coding scan of each TB, or null
-  const int* tabs_i;    // packed int tables (see Tabs)
-  const float* tabs_f;  // packed float tables (see Tabs)
   int* lev_out;         // (B, n*n) raster levels, or null
   int* deq_out;         // (B, n*n) dequantised coefficients, or null
   float* bits_out;      // (B,) TB rate, or null
-  int log2, flags, scale, qbits, add, iscale, dq_shift;
-  int ctx_x, ctx_y, sig_cg_base, one_base, abs_base;
-  float inv, cscale;
 };
-
-// views into the packed tables of one (size, scan, component)
-struct Tabs {
-  const int *scans, *sig_tab, *right, *below, *last_x, *last_y, *rank_tab;
-  const float *w_cnt, *ep_cnt;
-};
-
-__device__ __forceinline__ Tabs tabs(const Params& P, int npos, int ncg) {
-  Tabs t;
-  t.scans = P.tabs_i;
-  t.sig_tab = t.scans + npos;       // (4, npos)
-  t.right = t.sig_tab + 4 * npos;   // (ncg,), ncg = none
-  t.below = t.right + ncg;
-  t.last_x = t.below + ncg;         // (npos,)
-  t.last_y = t.last_x + npos;
-  t.rank_tab = t.last_y + npos;     // (3, 16)
-  t.w_cnt = P.tabs_f;               // (size, 15, 2)
-  t.ep_cnt = t.w_cnt + 30 * (1 << P.log2);
-  return t;
-}
-
-struct Fixed {
-  int cg_sig[MAX_NCG];  // rounded-level significance per CG (trellis)
-  int g1any[MAX_NCG];
-  int cg_last[MAX_NCG];
-  int t_sig[MAX_NCG];   // tb_bits: the priced levels' CG state
-  int t_g1any[MAX_NCG];
-  int t_last[MAX_NCG];
-  int t_signs[MAX_NCG];
-  double part[NPART][MAX_NCG];
-  float lxb[MAX_SIZE], lyb[MAX_SIZE];
-  int last_pos, t_last_pos, best_last, use_zero, use_fb;
-  float bits, rd_fb;
-};
-
-struct Smem {
-  Fixed* f;
-  int *sc, *a, *maxabs, *fb, *lev;    // scan order
-  float *d0, *cost, *sigb1, *tmp;
-};
-
-__device__ __forceinline__ float fmul(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ float fadd(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ float fsub(float a, float b) {
-  return __fsub_rn(a, b);
-}
-
-__device__ __forceinline__ float cbits(const Params& P, int ctx, int bin) {
-  return __ldg(P.cb + ctx * 2 + bin);
-}
-
-// (a - l * 2^qbits / scale)^2 scaled to pixel SSE
-__device__ __forceinline__ float dist(const Params& P, int a, int l) {
-  const float d = fsub((float)a, fmul((float)l, P.inv));
-  return fmul(fmul(d, d), P.cscale);
-}
-
-// EP bits of xWriteCoefRemainExGolomb(sym, rice)
-__device__ __forceinline__ float rem_bits(int sym, int rice) {
-  if (sym < (3 << rice)) return (float)((sym >> rice) + 1 + rice);
-  const int x = sym - (3 << rice) + (1 << rice);
-  return (float)(4 + 2 * (31 - __clz(x)) - rice);
-}
-
-__device__ __forceinline__ int cg_flag(const int* flags, int idx, int ncg) {
-  return idx < ncg ? flags[idx] : 0;
-}
-
-// ---------------------------------------------------------------------------
-// tb_bits on the |levels| A (scan order) of this block's TB; every thread
-// calls it, thread 0's float32 result is returned to all
-
-__device__ float tb_bits(const Params& P, const Tabs& T, Smem& S,
-                         const int* A, bool sdh, int npos, int ncg) {
-  Fixed& F = *S.f;
-  const int t = threadIdx.x;
-  if (t < ncg) {
-    const int base = t * 16;
-    int sig = 0, last = -1, cnt = 0, g1 = 0;
-    for (int j = 15; j >= 0; --j) {
-      const int a = A[base + j];
-      if (a > 0) {
-        if (last < 0) last = base + j;
-        if (cnt < C1FLAG && a > 1) g1 = 1;
-        sig = 1;
-        ++cnt;
-      }
-    }
-    F.t_sig[t] = sig;
-    F.t_last[t] = last;
-    F.t_g1any[t] = g1;
-  }
-  __syncthreads();
-  if (t == 0) {
-    int lp = -1;
-    for (int ci = 0; ci < ncg; ++ci) lp = max(lp, F.t_last[ci]);
-    F.t_last_pos = lp;
-  }
-  __syncthreads();
-  const int last_pos = F.t_last_pos;
-  const int last_cg = last_pos >> 4;
-  if (t < ncg) {
-    const int ci = t, base = ci * 16;
-    const int rs = cg_flag(F.t_sig, T.right[ci], ncg);
-    const int bs = cg_flag(F.t_sig, T.below[ci], ncg);
-    const int cg_sig = F.t_sig[ci];
-    double part[NPART] = {0.0, 0.0, 0.0, 0.0, 0.0};
-    // coded_sub_block_flag, CGs strictly between 0 and the last
-    if (ci > 0 && ci < last_cg)
-      part[0] = cbits(P, P.sig_cg_base + (rs | bs), cg_sig);
-    // sig_coeff_flag; the DC bin is inferred when an explicitly coded
-    // CG's only significance is at position 0
-    const bool cg_coded = cg_sig || ci == 0;
-    bool rest_zero = true;
-    for (int j = 1; j < 16; ++j) rest_zero = rest_zero && A[base + j] == 0;
-    const bool dc_skip = ci > 0 && ci < last_cg && cg_sig && rest_zero;
-    const int patt = rs + 2 * bs;
-    for (int j = 0; j < 16; ++j) {
-      const int p = base + j;
-      if (p < last_pos && cg_coded && !(j == 0 && dc_skip))
-        part[1] += cbits(P, T.sig_tab[patt * npos + p], A[p] > 0);
-    }
-    // ctx_set: +1 when the previously processed coded CG (the nearest
-    // higher index) had a greater-1; +2 for a luma CG other than 0
-    int cs = 0;
-    for (int j = ci + 1; j < ncg; ++j)
-      if (F.t_sig[j] && j <= last_cg) {
-        cs = F.t_g1any[j];
-        break;
-      }
-    if ((P.flags & F_LUMA) && ci > 0) cs += 2;
-    // the coder's walk, last to first position: greater-1 state,
-    // greater-2, escape base and the Rice adaptation
-    int rank = 0, g1cnt = 0, ge2cnt = 0, rice = 0, n_sig = 0;
-    int g2val = -1, maxp = -1, minp = 99;
-    for (int j = 15; j >= 0; --j) {
-      const int a = A[base + j];
-      const bool s = a > 0;
-      const bool grp = s && rank < C1FLAG;
-      const bool g1 = a > 1;
-      if (grp) {
-        const int c1 = g1cnt > 0 ? 0 : min(1 + rank, 3);
-        part[2] += cbits(P, P.one_base + cs * 4 + c1, g1);
-      }
-      if (grp && g1) {
-        if (g2val < 0) g2val = a > 2;
-        ++g1cnt;
-      }
-      const int bse = rank < C1FLAG ? (ge2cnt > 0 ? 2 : 3) : 1;
-      if (s && a >= bse) {
-        part[4] += rem_bits(max(a - bse, 0), rice);
-        if (a > (3 << rice)) rice = min(rice + 1, 4);
-      }
-      if (s) {
-        if (a >= 2) ++ge2cnt;
-        maxp = max(maxp, j);
-        minp = min(minp, j);
-        ++n_sig;
-        ++rank;
-      }
-    }
-    if (g1cnt > 0) part[3] = cbits(P, P.abs_base + cs, g2val);
-    const int hide = sdh && (maxp - minp) > 3;
-    F.t_signs[ci] = n_sig > 0 ? n_sig - hide : 0;
-    for (int k = 0; k < NPART; ++k) F.part[k][ci] = part[k];
-  }
-  __syncthreads();
-  if (t == 0) {
-    float bits = 0.f;
-    if (last_pos >= 0) {
-      const int lx = T.last_x[last_pos], ly = T.last_y[last_pos];
-      double sx = 0.0, sy = 0.0;
-      for (int k = 0; k < 30; ++k) {
-        sx += (double)fmul(T.w_cnt[lx * 30 + k], cbits(P, P.ctx_x, k));
-        sy += (double)fmul(T.w_cnt[ly * 30 + k], cbits(P, P.ctx_y, k));
-      }
-      bits = fadd(fadd(fadd((float)sx, (float)sy), T.ep_cnt[lx]),
-                  T.ep_cnt[ly]);
-      int signs = 0;
-      for (int ci = 0; ci < ncg; ++ci) signs += F.t_signs[ci];
-      for (int k = 0; k < NPART; ++k) {
-        double s = 0.0;
-        for (int ci = 0; ci < ncg; ++ci) s += F.part[k][ci];
-        // the plain version adds the sign count before the remainders
-        if (k == NPART - 1) bits = fadd(bits, (float)signs);
-        bits = fadd(bits, (float)s);
-      }
-    }
-    F.bits = bits;
-  }
-  __syncthreads();
-  return F.bits;
-}
-
-// ---------------------------------------------------------------------------
-// the RDOQ trellis on S.maxabs -> S.lev (stages 1-3 of rdoq_tb)
-
-__device__ void trellis(const Params& P, const Tabs& T, Smem& S, float lam,
-                        int npos, int ncg) {
-  Fixed& F = *S.f;
-  const int t = threadIdx.x;
-  const int size = 1 << P.log2;
-  if (t < ncg) {
-    // the rounded levels' significance and greater-1 flags per CG
-    const int base = t * 16;
-    int sig = 0, cnt = 0, g1 = 0;
-    for (int j = 15; j >= 0; --j) {
-      const int m = S.maxabs[base + j];
-      if (m > 0) {
-        if (cnt < C1FLAG && m > 1) g1 = 1;
-        sig = 1;
-        ++cnt;
-      }
-    }
-    F.cg_sig[t] = sig;
-    F.g1any[t] = g1;
-  }
-  if (t < size) {
-    // the last-position prefix + suffix bits of each coordinate
-    double sx = 0.0, sy = 0.0;
-    for (int k = 0; k < 30; ++k) {
-      sx += (double)fmul(T.w_cnt[t * 30 + k], cbits(P, P.ctx_x, k));
-      sy += (double)fmul(T.w_cnt[t * 30 + k], cbits(P, P.ctx_y, k));
-    }
-    F.lxb[t] = fadd((float)sx, T.ep_cnt[t]);
-    F.lyb[t] = fadd((float)sy, T.ep_cnt[t]);
-  }
-  __syncthreads();
-
-  // ---- stage 1: level choice per position among maxAbs, maxAbs-1, 0
-  if (t < ncg) {
-    const int ci = t, base = ci * 16;
-    const int rs = cg_flag(F.cg_sig, T.right[ci], ncg);
-    const int bs = cg_flag(F.cg_sig, T.below[ci], ncg);
-    const int patt = rs + 2 * bs;
-    int cs = 0;
-    for (int j = ci + 1; j < ncg; ++j)
-      if (F.cg_sig[j]) {
-        cs = F.g1any[j];
-        break;
-      }
-    if ((P.flags & F_LUMA) && ci > 0) cs += 2;
-    int rank[16], c1[16], rice_at[16];
-    int cnt = 0, g1cnt = 0, minr = 99;
-    for (int j = 15; j >= 0; --j) {
-      const int m = S.maxabs[base + j];
-      const bool s = m > 0;
-      rank[j] = cnt;
-      c1[j] = g1cnt > 0 ? 0 : min(1 + cnt, 3);
-      if (m > 1 && s && cnt < C1FLAG) ++g1cnt;
-      if (s && m >= 2) minr = min(minr, cnt);
-      if (s) ++cnt;
-    }
-    int rice = 0;
-    for (int j = 15; j >= 0; --j) {
-      const int m = S.maxabs[base + j];
-      rice_at[j] = rice;
-      const int bse = rank[j] < C1FLAG ? (rank[j] == minr ? 3 : 2) : 1;
-      if (m > 0 && m >= bse && m > (3 << rice)) rice = min(rice + 1, 4);
-    }
-    for (int j = 0; j < 16; ++j) {
-      const int p = base + j;
-      const int a = S.a[p], m = S.maxabs[p];
-      const bool scg = m > 0;
-      const int sctx = T.sig_tab[patt * npos + p];
-      const float sb0 = cbits(P, sctx, 0), sb1 = cbits(P, sctx, 1);
-      S.sigb1[p] = sb1;
-      const bool low = rank[j] < C1FLAG;
-      const bool has_g2 = rank[j] == minr;
-      const int bse = low ? (has_g2 ? 3 : 2) : 1;
-      const int one_ctx = P.one_base + cs * 4 + c1[j];
-      const int abs_ctx = P.abs_base + cs;
-      // bits of |level| lv > 0 without the sig flag, then the RD cost
-      auto cost_nz = [&](int lv) {
-        const bool g1 = lv > 1;
-        float r = low ? cbits(P, one_ctx, g1) : 0.f;
-        r = fadd(r, (has_g2 && g1 && low) ? cbits(P, abs_ctx, lv > 2) : 0.f);
-        r = fadd(r, lv >= bse ? rem_bits(max(lv - bse, 0), rice_at[j]) : 0.f);
-        r = fadd(r, 1.f);
-        return fadd(dist(P, a, lv), fmul(lam, fadd(r, sb1)));
-      };
-      const float c_max = cost_nz(m);
-      const int cand2 = max(m - 1, 0);
-      const float c_dec = cand2 > 0 ? cost_nz(cand2) : INFINITY;
-      const float c_zero = fadd(S.d0[p], fmul(lam, sb0));
-      S.lev[p] = (scg && c_dec < c_max && c_dec < c_zero)
-                     ? cand2
-                     : ((scg && c_zero <= c_max) ? 0 : m);
-      S.cost[p] = scg ? fminf(c_max, fminf(c_dec, c_zero)) : S.d0[p];
-    }
-    int last = -1;
-    for (int j = 15; j >= 0 && last < 0; --j)
-      if (S.lev[base + j] > 0) last = base + j;
-    F.cg_last[ci] = last;
-  }
-  __syncthreads();
-  if (t == 0) {
-    int lp = -1;
-    for (int ci = 0; ci < ncg; ++ci) lp = max(lp, F.cg_last[ci]);
-    F.last_pos = lp;
-  }
-  __syncthreads();
-
-  // ---- stage 2: zero a CG whose coded cost loses to its all-zero cost
-  if (t < ncg) {
-    const int ci = t, base = ci * 16;
-    const int rs = cg_flag(F.cg_sig, T.right[ci], ncg);
-    const int bs = cg_flag(F.cg_sig, T.below[ci], ncg);
-    const int csbf = P.sig_cg_base + (rs | bs);
-    double sc = 0.0, sd = 0.0;
-    for (int j = 0; j < 16; ++j) {
-      sc += (double)S.cost[base + j];
-      sd += (double)S.d0[base + j];
-    }
-    const float coded = fadd((float)sc, fmul(lam, cbits(P, csbf, 1)));
-    const float zero = fadd((float)sd, fmul(lam, cbits(P, csbf, 0)));
-    if (ci > 0 && ci < (F.last_pos >> 4) && zero < coded)
-      for (int j = 0; j < 16; ++j) {
-        S.lev[base + j] = 0;
-        S.cost[base + j] = S.d0[base + j];
-      }
-  }
-  __syncthreads();
-
-  // ---- stage 3: the best last position (its sig flag refunded, the
-  // last-position bits paid, the rest zeroed) against the all-zero TB
-  if (t == 0) {
-    double acc = 0.0;
-    for (int p = npos - 1; p >= 0; --p) {
-      acc += (double)S.d0[p];
-      S.tmp[p] = fsub((float)acc, S.d0[p]);
-    }
-    const float all_zero = (float)acc;
-    double pre = 0.0;
-    float best = INFINITY;
-    int bi = 0;
-    for (int p = 0; p < npos; ++p) {
-      const float c = S.cost[p];
-      pre += (double)c;
-      const float prefix = fsub((float)pre, c);
-      const float lb = fadd(F.lxb[T.last_x[p]], F.lyb[T.last_y[p]]);
-      float v = fadd(fadd(fadd(prefix, fsub(c, fmul(lam, S.sigb1[p]))),
-                          S.tmp[p]),
-                     fmul(lam, lb));
-      if (!(S.lev[p] > 0)) v = INFINITY;
-      if (v < best) {
-        best = v;
-        bi = p;
-      }
-    }
-    F.best_last = bi;
-    F.use_zero = all_zero <= best;
-  }
-  __syncthreads();
-  for (int p = t; p < npos; p += blockDim.x)
-    if (F.use_zero || p > F.best_last) S.lev[p] = 0;
-  __syncthreads();
-}
-
-// d(levels) + lambda * (bits + cbf) of the exact-rate guard; thread 0
-__device__ float exact_rd(const Params& P, Smem& S, const int* L, float bits,
-                          float lam, int npos) {
-  double d = 0.0;
-  bool nz = false;
-  for (int p = 0; p < npos; ++p) {
-    d += (double)dist(P, S.a[p], L[p]);
-    nz = nz || L[p] != 0;
-  }
-  return fadd((float)d, fmul(lam, fadd(bits, nz ? 1.f : 0.f)));
-}
-
-// sign data hiding parity (xQuant SDH branch) on S.lev, per CG
-__device__ void sdh_stage(const Params& P, const Tabs& T, Smem& S, int ncg) {
-  const int t = threadIdx.x;
-  if (t >= ncg) return;
-  const int base = t * 16;
-  const int sel = P.scan_sel ? P.scan_sel[blockIdx.x] : -1;
-  int rk[16];
-  for (int j = 0; j < 16; ++j) rk[j] = sel < 0 ? j : T.rank_tab[sel * 16 + j];
-  int maxp = -1, minp = 99, asum = 0;
-  for (int j = 0; j < 16; ++j) {
-    const int l = S.lev[base + j];
-    if (l != 0) {
-      maxp = max(maxp, rk[j]);
-      minp = min(minp, rk[j]);
-    }
-    asum += l;
-  }
-  int first_neg = 0;
-  for (int j = 0; j < 16; ++j)
-    if (S.lev[base + j] != 0 && rk[j] == minp && S.sc[base + j] < 0)
-      ++first_neg;
-  const bool bad = (maxp - minp) > 3 && (asum & 1) != first_neg;
-  if (!bad) return;
-  float best = INFINITY, best_inc = INFINITY, best_dec = INFINITY;
-  int pick = 0;
-  for (int j = 0; j < 16; ++j) {
-    const int l = S.lev[base + j], a = S.a[base + j];
-    const float now = dist(P, a, l);
-    const bool span = rk[j] >= minp && rk[j] <= maxp;
-    const float inc = (span && l < COEFF_MAX)
-                          ? fsub(dist(P, a, l + 1), now) : INFINITY;
-    const float dec = (span && l > 1) ? fsub(dist(P, a, l - 1), now)
-                                      : INFINITY;
-    const float m = fminf(inc, dec);
-    if (j == 0 || m < best) {
-      best = m;
-      pick = j;
-      best_inc = inc;
-      best_dec = dec;
-    }
-  }
-  S.lev[base + pick] += best_inc <= best_dec ? 1 : -1;
-}
 
 __global__ void rdoq_kernel(Params P) {
   extern __shared__ double sm_raw[];
-  const int npos = 1 << (2 * P.log2), ncg = npos >> 4;
-  const Tabs T = tabs(P, npos, ncg);
-  Smem S;
-  S.f = reinterpret_cast<Fixed*>(sm_raw);
-  int* ip = reinterpret_cast<int*>(S.f + 1);
-  S.sc = ip;
-  S.a = ip + npos;
-  S.maxabs = ip + 2 * npos;
-  S.fb = ip + 3 * npos;
-  S.lev = ip + 4 * npos;
-  float* fp = reinterpret_cast<float*>(ip + 5 * npos);
-  S.d0 = fp;
-  S.cost = fp + npos;
-  S.sigb1 = fp + 2 * npos;
-  S.tmp = fp + 3 * npos;
-  Fixed& F = *S.f;
+  const int npos = 1 << (2 * P.c.log2);
+  hm::RdoqSmem S = hm::rdoq_smem(sm_raw, npos);
   const int b = blockIdx.x, t = threadIdx.x;
-  const bool lev_in = P.flags & F_LEV_IN;
-  const bool sdh = P.flags & F_SDH;
-  const float lam = (P.flags & (F_TRELLIS | F_SDH)) && !lev_in ? *P.lam : 0.f;
-
-  for (int p = t; p < npos; p += blockDim.x) {
-    const int v = P.x[(size_t)b * npos + T.scans[p]];
-    const int a = abs(v);
-    S.sc[p] = v;
-    S.a[p] = a;
-    if (lev_in) {
-      S.lev[p] = a;
-    } else {
-      // int32 is enough: a <= 2^15, scale < 2^15, the offsets < 2^27
-      S.maxabs[p] = min((a * P.scale + (1 << (P.qbits - 1))) >> P.qbits,
-                        COEFF_MAX);
-      S.fb[p] = min((a * P.scale + P.add) >> P.qbits, COEFF_MAX);
-      const float af = (float)a;
-      S.d0[p] = fmul(fmul(af, af), P.cscale);
-      S.lev[p] = S.fb[p];
-    }
-  }
-  __syncthreads();
-
-  if (!lev_in) {
-    if (P.flags & F_TRELLIS) {
-      trellis(P, T, S, lam, npos, ncg);
-      // exact-rate guard: re-price the trellis result and the deadzone
-      // levels with tb_bits and keep the cheaper
-      const float b_fb = tb_bits(P, T, S, S.fb, false, npos, ncg);
-      if (t == 0) F.rd_fb = exact_rd(P, S, S.fb, b_fb, lam, npos);
-      const float b_lev = tb_bits(P, T, S, S.lev, false, npos, ncg);
-      if (t == 0) F.use_fb = F.rd_fb < exact_rd(P, S, S.lev, b_lev, lam, npos);
-      __syncthreads();
-      if (F.use_fb)
-        for (int p = t; p < npos; p += blockDim.x) S.lev[p] = S.fb[p];
-      __syncthreads();
-    }
-    if (sdh) {
-      sdh_stage(P, T, S, ncg);
-      __syncthreads();
-    }
-  }
-
-  const float bits =
-      P.bits_out ? tb_bits(P, T, S, S.lev, sdh, npos, ncg) : 0.f;
+  const bool lev_in = P.c.flags & hm::F_LEV_IN;
+  const float lam =
+      (P.c.flags & (hm::F_TRELLIS | hm::F_SDH)) && !lev_in ? *P.lam : 0.f;
+  const size_t o = (size_t)b * npos;
+  const float bits = hm::rdoq_tb(
+      P.c, lam, P.scan_sel ? P.scan_sel[b] : -1, P.x + o,
+      P.lev_out ? P.lev_out + o : nullptr, P.deq_out ? P.deq_out + o : nullptr,
+      P.bits_out != nullptr, S, t, blockDim.x);
   if (P.bits_out && t == 0) P.bits_out[b] = bits;
-  for (int p = t; p < npos; p += blockDim.x) {
-    const int l = S.sc[p] < 0 ? -S.lev[p] : S.lev[p];
-    const size_t o = (size_t)b * npos + T.scans[p];
-    if (P.lev_out) P.lev_out[o] = l;
-    if (P.deq_out) {
-      const int prod = l * P.iscale;
-      const int s = P.dq_shift;
-      const int v = s > 0 ? (prod + (1 << (s - 1))) >> s
-                          : min(max(prod, -(1 << 26)), 1 << 26) << (-s);
-      P.deq_out[o] = min(max(v, COEFF_MIN), COEFF_MAX);
-    }
-  }
 }
 
 }  // namespace
@@ -578,34 +82,35 @@ extern "C" int hm_rdoq(const void* x, const void* cb, const void* lam,
   if (log2 < 2 || log2 > 5 || nb < 0 || qbits < 1 || qbits > 30 ||
       dq_shift < -20 || dq_shift > 20)
     return cudaErrorInvalidValue;
-  if (!(flags & F_LEV_IN) && (flags & (F_TRELLIS | F_SDH)) && !lam)
+  if (!(flags & hm::F_LEV_IN) && (flags & (hm::F_TRELLIS | hm::F_SDH)) &&
+      !lam)
     return cudaErrorInvalidValue;
   Params P;
+  P.c.cb = (const float*)cb;
+  P.c.tabs_i = (const int*)tabs_i;
+  P.c.tabs_f = (const float*)tabs_f;
+  P.c.log2 = log2;
+  P.c.flags = flags;
+  P.c.scale = scale;
+  P.c.qbits = qbits;
+  P.c.add = add;
+  P.c.iscale = iscale;
+  P.c.dq_shift = dq_shift;
+  P.c.ctx_x = ctx_x;
+  P.c.ctx_y = ctx_y;
+  P.c.sig_cg_base = sig_cg_base;
+  P.c.one_base = one_base;
+  P.c.abs_base = abs_base;
+  P.c.inv = inv;
+  P.c.cscale = cscale;
   P.x = (const int*)x;
-  P.cb = (const float*)cb;
   P.lam = (const float*)lam;
   P.scan_sel = (const int*)scan_sel;
-  P.tabs_i = (const int*)tabs_i;
-  P.tabs_f = (const float*)tabs_f;
   P.lev_out = (int*)lev_out;
   P.deq_out = (int*)deq_out;
   P.bits_out = (float*)bits_out;
-  P.log2 = log2;
-  P.flags = flags;
-  P.scale = scale;
-  P.qbits = qbits;
-  P.add = add;
-  P.iscale = iscale;
-  P.dq_shift = dq_shift;
-  P.ctx_x = ctx_x;
-  P.ctx_y = ctx_y;
-  P.sig_cg_base = sig_cg_base;
-  P.one_base = one_base;
-  P.abs_base = abs_base;
-  P.inv = inv;
-  P.cscale = cscale;
-  const int npos = 1 << (2 * log2), ncg = npos >> 4;
-  const size_t smem = sizeof(Fixed) + (size_t)9 * npos * sizeof(int);
+  const int ncg = (1 << (2 * log2)) >> 4;
+  const size_t smem = hm::rdoq_smem_bytes(log2);
   const int threads = ncg > 32 ? 64 : 32;
   if (nb > 0)
     rdoq_kernel<<<nb, threads, smem, (cudaStream_t)stream>>>(P);

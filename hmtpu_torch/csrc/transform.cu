@@ -9,7 +9,8 @@
 // int32, far below either roofline.  PyTorch has no int32 matrix
 // product on CUDA, which is why this is a kernel at all.
 //
-// Design: one thread per coefficient, G = 256 / n^2 TBs per block (one
+// Design (the arithmetic is transform.cuh's, shared with the I z-scan
+// walker K21): one thread per coefficient, G = 256 / n^2 TBs per block (one
 // TB of 1024 threads at n = 32).  The transform matrix and the block's
 // TBs are staged in shared memory; stage 1 writes its rounded (and,
 // inverse, clipped) intermediate to shared memory, one barrier, stage 2
@@ -25,18 +26,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "transform.cuh"
+
 namespace {
-
-constexpr int COEFF_MIN = -(1 << 15);
-constexpr int COEFF_MAX = (1 << 15) - 1;
-
-__device__ __forceinline__ int rshift_round(int x, int s) {
-  return s > 0 ? (x + (1 << (s - 1))) >> s : x << (-s);
-}
-
-__device__ __forceinline__ int clip16(int x) {
-  return min(max(x, COEFF_MIN), COEFF_MAX);
-}
 
 template <bool INV>
 __global__ void transform_kernel(const int* __restrict__ x,
@@ -58,32 +50,10 @@ __global__ void transform_kernel(const int* __restrict__ x,
   const bool valid = tb < nb;
   s_x[threadIdx.x] = valid ? x[tb * nn + e] : 0;
   __syncthreads();
-  const int* X = s_x + g * nn;
   int* TMP = s_tmp + g * nn;
-
-  int acc = 0;
-  if (!INV) {
-    // tmp[i][j] = sum_k T[i][k] * res[j][k]
-    for (int k = 0; k < n; ++k) acc += s_t[i * n + k] * X[j * n + k];
-    TMP[e] = rshift_round(acc, shift1);
-  } else {
-    // tmp[i][j] = sum_k T[k][i] * coeff[k][j], clipped to 16 bits
-    for (int k = 0; k < n; ++k) acc += s_t[k * n + i] * X[k * n + j];
-    TMP[e] = clip16(rshift_round(acc, shift1));
-  }
+  TMP[e] = hm::tr_stage1<INV>(s_t, s_x + g * nn, n, i, j, shift1);
   __syncthreads();
-
-  acc = 0;
-  int r;
-  if (!INV) {
-    // coeff[i][j] = sum_k T[i][k] * tmp[j][k]
-    for (int k = 0; k < n; ++k) acc += s_t[i * n + k] * TMP[j * n + k];
-    r = rshift_round(acc, shift2);
-  } else {
-    // res[i][j] = sum_k tmp[i][k] * T[k][j]
-    for (int k = 0; k < n; ++k) acc += TMP[i * n + k] * s_t[k * n + j];
-    r = clip16(rshift_round(acc, shift2));
-  }
+  const int r = hm::tr_stage2<INV>(s_t, TMP, n, i, j, shift2);
   if (valid) out[tb * nn + e] = r;
 }
 
@@ -106,9 +76,8 @@ __global__ void transform_skip_kernel(const int* __restrict__ x,
                                       int inverse, int s1, int s2) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= n) return;
-  const int v = x[k];
   // inverse: s1 = 5 + log2 nTbS, s2 = bdShift; forward: s1 = ts_shift
-  out[k] = inverse ? clip16(((v << s1) + (1 << (s2 - 1))) >> s2) : v << s1;
+  out[k] = inverse ? hm::ts_inv(x[k], s1, s2) : hm::ts_fwd(x[k], s1);
 }
 
 }  // namespace

@@ -6,47 +6,55 @@ deblocking and SAO, all on the tensors' device.
 
   phase 1: open-loop rough mode decision (RMD) -- all 35 modes
     predicted from source-pixel reference lines per size, SATD + mode
-    bits, top-K candidates per block.
+    bits, top-K candidates per block (`rmd`: K22 on the card).
 
-  phase 2: a Python loop over the static z-scan dependency levels (the
-    reference's `lax.scan`): per 8x8 CU the K candidates and the NxN
-    split are predicted from committed reconstruction, coded (RDOQ) and
-    priced (the modes' bits by K20); per 16x16 region one 16x16 CU trial
-    overwrites its four 8x8 CUs where it wins; likewise per 32x32 where
-    the picture's width and height are multiples of 32.  At 416x240
-    (h % 32 == 16) the pass runs the 8 and 16 levels only.  With the PPS's transform skip on, the 4x4
-    TBs (the luma PUs of an NxN CU, the chroma of 8x8 CUs) are coded both
-    ways and the cheaper kept (`_code_ts_sel`).
+  phase 2: the static z-scan dependency levels in order (the reference's
+    `lax.scan`): per 8x8 CU the K candidates and the NxN split are
+    predicted from committed reconstruction, coded (RDOQ) and priced; per
+    16x16 region one 16x16 CU trial overwrites its four 8x8 CUs where it
+    wins; likewise per 32x32 where the picture's width and height are
+    multiples of 32.  At 416x240 (h % 32 == 16) the pass runs the 8 and
+    16 levels only.  With the PPS's transform skip on, the 4x4 TBs (the
+    luma PUs of an NxN CU, the chroma of 8x8 CUs) are coded both ways and
+    the cheaper kept (`_code_ts_sel`).
 
-The state lives in flat tensors with one spare slot at the end: lanes
-that are padding in a level write there (the reference sends them to an
+On CUDA tensors `iframe_pass` runs phase 2 as one launch of the walker
+kernel K21 (csrc/iwalk.cu) per level, every lane of the level a thread
+block that does the whole step (`iframe_walk`).  On CPU tensors it runs
+the plain version, `iframe_pass_plain`: a Python loop over the levels,
+each step a batch of the level's lanes in torch operations.  Its state
+lives in flat tensors with one spare slot at the end: lanes that are
+padding in a level write there (the reference sends them to an
 out-of-range index, which XLA drops and `index_put_` would not).  The
-state is updated in place.  Ties go to the first index everywhere, as
-in the reference: a stable sort for the top-K, `argmin`/`argmax` for
-the picks.
+state is updated in place.  Ties go to the first index everywhere, as in
+the reference: a stable sort for the top-K, `argmin`/`argmax` for the
+picks.
 """
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 
 import numpy as np
 import torch
 
+from hmtpu_torch import kernels
 from hmtpu_torch.common.lambdas import frame_lambdas
 from hmtpu_torch.encoder.intra_rdo import (
-    _MODE_BITS,
     LeafDecision,
-    _satd,
-    hadamard2d,
+    _blockify,
+    rmd,
+    rmd_plain,
 )
 from hmtpu_torch.encoder.pframe_dev import _code, _code_ts_sel, _intra_scan_sel
+from hmtpu_torch.entropy.contexts import OFF
 from hmtpu_torch.ops.deblock import deblock_frame_dev
 from hmtpu_torch.ops.intra_pred import (
     filter_reference_batched,
-    predict_all_modes,
     predict_modes,
     predict_one_mode,
 )
+from hmtpu_torch.ops.quant import dequant_params
 from hmtpu_torch.ops.ratebits import (
     cbf_chroma_bits,
     cbf_luma_bits,
@@ -57,7 +65,9 @@ from hmtpu_torch.ops.ratebits import (
     part_size_nxn_bits,
     split_flag_bits,
 )
+from hmtpu_torch.ops.rdoq import _k10_tables, _quant_params
 from hmtpu_torch.ops.sao import sao_frame_dev
+from hmtpu_torch.ops.transform import matrix
 from hmtpu_torch.search.wavefront import (
     block_schedule,
     block_schedule16,
@@ -100,66 +110,45 @@ _DEV_STATIC: dict = {}
 
 
 def _dev_static(w: int, h: int, log2_ctu: int, device):
-    """_i_static as tensors on `device` (int64 indices), one upload per
-    geometry."""
+    """_i_static as int32 tensors on `device`, one upload per geometry:
+    the gather maps g* as (sub, none), lv_blk and nb_ok, and where the
+    geometry has the level, lv16 / cells16 and lv32 / c16_32 / c8_32.
+    The plain pass indexes with them, K21 and K22 read them."""
     key = (w, h, log2_ctu, str(device))
-    st = _DEV_STATIC.get(key)
-    if st is None:
-        def conv(v):
-            if v is None:
-                return None
-            if isinstance(v, tuple):
-                return tuple(conv(x) for x in v)
-            t = torch.as_tensor(v)
-            if t.dtype != torch.bool:
-                t = t.to(torch.int64)
-            return t.to(device)
-        st = {k: conv(v) for k, v in _i_static(w, h, log2_ctu).items()}
-        _DEV_STATIC[key] = st
-    return st
-
-
-def _blockify(plane, n):
-    h, w = plane.shape
-    return plane.reshape(h // n, n, w // n, n).transpose(1, 2) \
-        .reshape(-1, n, n)
-
-
-def _satd4(resi):
-    """4x4 Hadamard SATD (xCalcHADs4x4 semantics, heuristic use)."""
-    return (hadamard2d(resi).abs().sum((-1, -2)) + 1) >> 1
-
-
-def _topk_modes(org_blk, ref_u, ref_f, n, bd, lam_sqrt, k):
-    """Open-loop RMD: SATD + flat mode bits, top-k modes per block
-    (ties to the lower mode, as lax.top_k)."""
-    preds = predict_all_modes(ref_u, ref_f, n, True, bd)
-    dist = (_satd4 if n == 4 else _satd)(org_blk[:, None] - preds)
-    mb = torch.as_tensor(_MODE_BITS, device=dist.device)
-    rd = dist.to(torch.float32) + lam_sqrt * mb[None]
-    idx = torch.sort(rd, dim=1, stable=True).indices[:, :k]
-    return idx.to(torch.int32)                          # (P, k)
+    t = _DEV_STATIC.get(key)
+    if t is None:
+        i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32)) \
+            .to(device).contiguous()
+        st = _i_static(w, h, log2_ctu)
+        t = {k: (i32(v[0]), i32(v[1])) for k, v in st.items()
+             if k.startswith("g") and v is not None}
+        t["lv_blk"], t["nb_ok"] = i32(st["lv_blk"]), i32(st["nb_ok"])
+        if st["sched16"] is not None:
+            t["lv16"], t["cells16"] = (i32(a) for a in st["sched16"])
+        if st["sched32"] is not None:
+            t["lv32"], t["c16_32"], t["c8_32"] = (i32(a)
+                                                  for a in st["sched32"])
+        _DEV_STATIC[key] = t
+    return t
 
 
 def _scalar(v, device):
     return torch.tensor(v, dtype=torch.float32, device=device)
 
 
-def iframe_pass(org_y, org_u, org_v, qp: int, qpc: int, cbflat,
-                *, w: int, h: int, bd: int = 8, sis: bool = False,
-                log2_ctu: int = 6,
-                qp_factor=0.57, sdh: bool = False, ts: bool = False):
-    """Decision pass.  Planes are int32 (H, W) / (H/2, W/2) tensors on
-    the pass's device, cbflat the (NUM_CTX*2,) float32 bits table there;
-    qp and qpc are host integers.  ts: the 4x4 TBs (the luma PUs of an
-    NxN CU, the chroma of 8x8 CUs) get the transform-skip trial.
-    Returns the state dict (int32)."""
+def iframe_pass_plain(org_y, org_u, org_v, qp: int, qpc: int, cbflat,
+                      *, w: int, h: int, bd: int = 8, sis: bool = False,
+                      log2_ctu: int = 6,
+                      qp_factor=0.57, sdh: bool = False, ts: bool = False):
+    """The plain version of K21 (and of K22, through rmd_plain): the
+    decision pass as torch operations, one batch of lanes per z-scan level
+    and step.  Arguments and result as iframe_pass."""
     dev = org_y.device
     st8 = _dev_static(w, h, log2_ctu, dev)
     bw, bh = w // 8, h // 8
     P = bw * bh
     lam_, lam_sqrt_, wchroma_, lam_c_ = frame_lambdas(qp, qpc, qp_factor)
-    lam, lam_sqrt = _scalar(lam_, dev), _scalar(lam_sqrt_, dev)
+    lam = _scalar(lam_, dev)
     wchroma, lam_c = _scalar(wchroma_, dev), _scalar(lam_c_, dev)
     mid = 1 << (bd - 1)
     org8 = _blockify(org_y, 8)
@@ -169,11 +158,8 @@ def iframe_pass(org_y, org_u, org_v, qp: int, qpc: int, cbflat,
 
     # ---- phase 1: RMD top-K per size from source-pixel refs
     def rmd(plane, gmap, n, k):
-        sub, none = gmap
-        oref = torch.where(none[:, None], mid, plane.reshape(-1)[sub])
-        oref_f = filter_reference_batched(oref, n, bd, strong=sis)
-        return _topk_modes(_blockify(plane, n), oref, oref_f, n, bd,
-                           lam_sqrt, k)
+        return rmd_plain(plane, gmap, n, k, bd=bd, lam_sqrt=lam_sqrt_,
+                         sis=sis)
 
     cand8 = rmd(org_y, st8["g8"], 8, K8)               # (P, K8)
     # NxN 4x4 PU candidates: open-loop top-1 mode per 4x4
@@ -188,23 +174,11 @@ def iframe_pass(org_y, org_u, org_v, qp: int, qpc: int, cbflat,
     quad_dx = torch.tensor([0, 1, 0, 1], device=dev)
 
     i32 = dict(dtype=torch.int32, device=dev)
-    # one spare slot per array: padding lanes write there
-    st = dict(
-        rec_y=torch.zeros(h * w + 1, **i32),
-        rec_u=torch.zeros(h * w // 4 + 1, **i32),
-        rec_v=torch.zeros(h * w // 4 + 1, **i32),
-        imode=torch.zeros(P + 1, **i32),
-        imode4=torch.zeros((P + 1, 4), **i32),
-        part=torch.zeros(P + 1, **i32),
-        cusz=torch.zeros(P + 1, **i32),
-        cbfy=torch.zeros(P + 1, **i32),
-        levs=torch.zeros((P + 1, 96), **i32),
-        tsf=torch.zeros(P + 1, **i32),
-    )
+    st = _new_state(w, h, dev)
 
     def ref_line(plane, gmap, b):
         sub, none = gmap
-        return torch.where(none[b, None], mid, st[plane][sub[b]])
+        return torch.where(none[b, None] != 0, mid, st[plane][sub[b]])
 
     def mpm_neighbours(b, bxi, byi, y0):
         bL = torch.where(bxi > 0, b - 1, 0)
@@ -295,7 +269,7 @@ def iframe_pass(org_y, org_u, org_v, qp: int, qpc: int, cbflat,
         m4 = cand4[sub_f]                              # (B, 4) z-order
         o4 = org4l[sub_f]                              # (B, 4, 4, 4)
         iref8 = ref_line("rec_y", st8["g8"], b)
-        nbo = st8["nb_ok"][b]
+        nbo = st8["nb_ok"][b] != 0
         aL, aA, aAR = nbo[:, 0], nbo[:, 1], nbo[:, 2]
         aBL, aC = nbo[:, 3], nbo[:, 4]
         r4 = lambda f: f[:, None].expand(B, 4)
@@ -452,7 +426,7 @@ def iframe_pass(org_y, org_u, org_v, qp: int, qpc: int, cbflat,
 
     # one step per z-scan dependency level, in order; the CU sizes the
     # picture's geometry allows (16 and 32 need both sides multiples)
-    if st8["sched16"] is None:
+    if "lv16" not in st8:
         for blk in st8["lv_blk"]:
             cell_step(blk, blk >= 0)
         return _strip(st)
@@ -463,7 +437,7 @@ def iframe_pass(org_y, org_u, org_v, qp: int, qpc: int, cbflat,
     org8u = _blockify(org_u, 8)
     org8v = _blockify(org_v, 8)
     cand16 = rmd(org_y, st8["g16"], 16, K16)
-    lv16, cells16 = st8["sched16"]
+    lv16, cells16 = st8["lv16"], st8["cells16"]
     one_bit = lambda g: split_flag_bits(cbflat, torch.ones_like(g),
                                         torch.ones_like(g))
     zero_bit = lambda g: split_flag_bits(cbflat, torch.zeros_like(g),
@@ -509,7 +483,7 @@ def iframe_pass(org_y, org_u, org_v, qp: int, qpc: int, cbflat,
                     levs=pack, tsf=0))
         return torch.where(use16, cost16, cost8)
 
-    if st8["sched32"] is None:
+    if "lv32" not in st8:
         for blk16 in lv16:
             region16(blk16, blk16 >= 0)
         return _strip(st)
@@ -520,7 +494,7 @@ def iframe_pass(org_y, org_u, org_v, qp: int, qpc: int, cbflat,
     org16u = _blockify(org_u, 16)
     org16v = _blockify(org_v, 16)
     cand32 = rmd(org_y, st8["g32"], 32, K16)
-    lv32, cells16_32, cells8_32 = st8["sched32"]
+    lv32, cells16_32, cells8_32 = st8["lv32"], st8["c16_32"], st8["c8_32"]
 
     def step32(blk32):
         valid = blk32 >= 0
@@ -567,6 +541,149 @@ def iframe_pass(org_y, org_u, org_v, qp: int, qpc: int, cbflat,
 
     for blk32 in lv32:
         step32(blk32)
+    return _strip(st)
+
+
+def _new_state(w: int, h: int, dev):
+    """The pass's state, zeroed, with one spare slot per array: the plain
+    version's padding lanes write there (K21's do nothing)."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    P = (w // 8) * (h // 8)
+    return dict(
+        rec_y=torch.zeros(h * w + 1, **i32),
+        rec_u=torch.zeros(h * w // 4 + 1, **i32),
+        rec_v=torch.zeros(h * w // 4 + 1, **i32),
+        imode=torch.zeros(P + 1, **i32),
+        imode4=torch.zeros((P + 1, 4), **i32),
+        part=torch.zeros(P + 1, **i32),
+        cusz=torch.zeros(P + 1, **i32),
+        cbfy=torch.zeros(P + 1, **i32),
+        levs=torch.zeros((P + 1, 96), **i32),
+        tsf=torch.zeros(P + 1, **i32),
+    )
+
+
+def iframe_pass(org_y, org_u, org_v, qp: int, qpc: int, cbflat,
+                *, w: int, h: int, bd: int = 8, sis: bool = False,
+                log2_ctu: int = 6,
+                qp_factor=0.57, sdh: bool = False, ts: bool = False):
+    """Decision pass.  Planes are int32 (H, W) / (H/2, W/2) tensors on
+    the pass's device, cbflat the (NUM_CTX*2,) float32 bits table there;
+    qp and qpc are host integers.  ts: the 4x4 TBs (the luma PUs of an
+    NxN CU, the chroma of 8x8 CUs) get the transform-skip trial.
+    Returns the state dict (int32).  On CUDA tensors the RMD is K22 and
+    each z-scan level one K21 launch; on CPU tensors the plain version
+    runs."""
+    if not org_y.is_cuda:
+        return iframe_pass_plain(org_y, org_u, org_v, qp, qpc, cbflat, w=w,
+                                 h=h, bd=bd, sis=sis, log2_ctu=log2_ctu,
+                                 qp_factor=qp_factor, sdh=sdh, ts=ts)
+    return iframe_walk(org_y, org_u, org_v, qp, qpc, cbflat, w=w, h=h, bd=bd,
+                       sis=sis, log2_ctu=log2_ctu, qp_factor=qp_factor,
+                       sdh=sdh, ts=ts)
+
+
+# ---------------------------------------------------------------------------
+# K21: the walker's arguments (csrc/iwalk.cuh `Args`, in `args_from`'s
+# order) and its launches
+
+IW_SCRATCH = 14676       # ints of a lane's scratch, iw::SCRATCH (checked)
+_IW_CTX = ("QT_CBF_LUMA", "QT_CBF_CHROMA", "PART_SIZE", "CHROMA_PRED_MODE",
+           "SPLIT_FLAG", "INTRA_PRED_MODE", "TRANSFORMSKIP_FLAG")
+_IW_TB_SETS = ((2, True), (2, False), (3, True), (3, False), (4, True),
+               (4, False), (5, True))
+_IW_TABLES: dict = {}
+
+
+def _iw_tables(dev):
+    """K21's constant tables on `dev`: the transform matrices and the
+    packed K10 tables of every TB size it codes, one upload per device."""
+    key = str(dev)
+    t = _IW_TABLES.get(key)
+    if t is not None:
+        return t
+    t = {"mats": torch.cat([matrix(n, False, dev).reshape(-1)
+                            for n in (4, 8, 16, 32)]
+                           + [matrix(4, True, dev).reshape(-1)])
+         .contiguous()}
+    tabs = [_k10_tables(l2, 0, luma, dev) for l2, luma in _IW_TB_SETS]
+    t["tabs_i"] = torch.cat([x[0] for x in tabs]).contiguous()
+    t["tabs_f"] = torch.cat([x[1] for x in tabs]).contiguous()
+    off_i = np.cumsum([0] + [x[0].numel() for x in tabs])
+    off_f = np.cumsum([0] + [x[1].numel() for x in tabs])
+    t["tab_ctx"] = [(int(off_i[j]), int(off_f[j]), x[2]["ctx_x"],
+                     x[2]["ctx_y"], x[2]["sig_cg_base"], x[2]["one_base"],
+                     x[2]["abs_base"]) for j, x in enumerate(tabs)]
+    _IW_TABLES[key] = t
+    return t
+
+
+def _iw_args(org, st, cand, sd, cbflat, scratch, *, w, h, bd, log2_ctu,
+             geom, qp, qpc, lams, sdh, ts, sis):
+    """(pointers, ints, floats) of iw::Args as ctypes arrays."""
+    nil = (None, None)
+    lv = sd[{8: "lv_blk", 16: "lv16", 32: "lv32"}[geom]]
+    tensors = [*org, *(st[k] for k in ("rec_y", "rec_u", "rec_v", "imode",
+                                       "imode4", "part", "cusz", "cbfy",
+                                       "levs", "tsf")),
+               cand.get(8), cand.get(4), cand.get(16), cand.get(32), lv,
+               sd["nb_ok"], *sd["g8"], *sd["g4"], *sd.get("g16", nil),
+               *sd.get("g8c", nil), *sd.get("g32", nil),
+               *sd.get("g16c", nil), sd.get("cells16"), sd.get("c16_32"),
+               sd.get("c8_32"), sd["mats"], cbflat, sd["tabs_i"],
+               sd["tabs_f"], scratch]
+    ptrs = [0 if x is None else x.data_ptr() for x in tensors]
+    ints = [w, h, bd, log2_ctu, geom, lv.shape[1], int(sdh), int(ts),
+            int(sis), IW_SCRATCH] + [OFF[c] for c in _IW_CTX]
+    flts = []
+    for (l2, luma), ctx in zip(_IW_TB_SETS, sd["tab_ctx"]):
+        q = qp if luma else qpc
+        qbits, scale, inv, cscale = _quant_params(q, l2, bd)
+        iscale, dq_shift = dequant_params(q, l2, bd)
+        ints += [*ctx, scale, qbits, 85 << (qbits - 9), iscale, dq_shift]
+        flts += [inv, cscale]
+    flts += [float(x) for x in lams]
+    return ((ctypes.c_longlong * len(ptrs))(*ptrs),
+            (ctypes.c_int * len(ints))(*ints),
+            (ctypes.c_float * len(flts))(*flts))
+
+
+def _k21_level(scratch, ptrs, ints, flts, level):
+    kernels.launch("i_walk", "hm_i_walk", scratch,
+                   *(x for arr in (ptrs, ints, flts)
+                     for x in (ctypes.addressof(arr), len(arr))), level)
+
+
+def iframe_walk(org_y, org_u, org_v, qp: int, qpc: int, cbflat, *, w: int,
+                h: int, bd: int = 8, sis: bool = False, log2_ctu: int = 6,
+                qp_factor=0.57, sdh: bool = False, ts: bool = False,
+                run_level=_k21_level):
+    """iframe_pass through the walker: the RMD candidates of every size
+    (`rmd`), then `run_level(scratch, ptrs, ints, flts, level)` once per
+    z-scan level of the geometry (K21 by default; the CPU tests give it
+    the host build of the lane code)."""
+    dev = org_y.device
+    sd = {**_dev_static(w, h, log2_ctu, dev), **_iw_tables(dev)}
+    lam_, lam_sqrt_, wchroma_, lam_c_ = frame_lambdas(qp, qpc, qp_factor)
+    geom = 32 if "lv32" in sd else 16 if "lv16" in sd else 8
+    r = lambda g, n, k: rmd(org_y, sd[g], n, k, bd=bd, lam_sqrt=lam_sqrt_,
+                            sis=sis)
+    cand = {8: r("g8", 8, K8), 4: r("g4l", 4, 1)}
+    if geom >= 16:
+        cand[16] = r("g16", 16, K16)
+    if geom == 32:
+        cand[32] = r("g32", 32, K16)
+    st = _new_state(w, h, dev)
+    lv = sd[{8: "lv_blk", 16: "lv16", 32: "lv32"}[geom]]
+    scratch = torch.zeros((lv.shape[1], IW_SCRATCH), dtype=torch.int32,
+                          device=dev)
+    org = tuple(p.to(torch.int32).contiguous() for p in (org_y, org_u, org_v))
+    cbflat = cbflat.to(torch.float32).contiguous()
+    args = _iw_args(org, st, cand, sd, cbflat, scratch, w=w, h=h, bd=bd,
+                    log2_ctu=log2_ctu, geom=geom, qp=qp, qpc=qpc,
+                    lams=(lam_, lam_c_, wchroma_), sdh=sdh, ts=ts, sis=sis)
+    for level in range(lv.shape[0]):
+        run_level(scratch, *args, level)
     return _strip(st)
 
 

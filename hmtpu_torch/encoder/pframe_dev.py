@@ -11,7 +11,8 @@ state and writes the slice with the native CABAC engine.
            beats the integer MV's (the NN gate; its MC is K7);
   phase 1  (no neighbour dependencies) the AMVP candidate's prediction
            (K7) and residual coding for every block at each level, the
-           open-loop intra mode of every 8x8 block;
+           open-loop intra mode of every 8x8 block (K22, the I pass's
+           rough mode decision at k = 1);
   phase 2  a Python loop over the static z-scan dependency levels (the
            reference's `lax.scan`): per 8x8 CU the exact merge list
            (K17), every candidate's prediction (K7), two finalists coded
@@ -63,7 +64,7 @@ from hmtpu_torch.common.motion import (
     merge_candidates,
 )
 from hmtpu_torch.common.spec_tables import chroma_qp_from_luma
-from hmtpu_torch.encoder.intra_rdo import _MODE_BITS, _satd
+from hmtpu_torch.encoder.intra_rdo import rmd
 from hmtpu_torch.encoder.pframe import PFrameEncoder, PuDec
 from hmtpu_torch.entropy.contexts import OFF, make_contexts
 from hmtpu_torch.entropy.fracbits import ctx_bits_table
@@ -80,7 +81,6 @@ from hmtpu_torch.ops.interp import (
 )
 from hmtpu_torch.ops.intra_pred import (
     filter_reference_batched,
-    predict_all_modes,
     predict_one_mode,
 )
 from hmtpu_torch.ops.ratebits import (
@@ -480,12 +480,12 @@ def wavefront_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v,
             root, cbf_bits_inter(y_nz, cb_nz, cr_nz), 0.0)
 
     # ---- phase 1b: open-loop intra mode per block (org-pixel refs)
-    oref = torch.where(none_y[:, None], mid, org_y.reshape(-1)[sub_y])
-    oref_f = filter_reference_batched(oref, 8, bd, strong=False)
-    opreds = predict_all_modes(oref, oref_f, 8, True, bd)
-    satd = _satd(org_blk[:, None] - opreds).to(torch.float32)
-    mb = torch.as_tensor(_MODE_BITS, device=dev)
-    imode = (satd + lam_sqrt * mb[None]).argmin(1).to(torch.int32)
+    # (K22 on the card: the first of a stable sort is argmin's first
+    # minimum), over the I pass's int32 gather map of the 8x8 blocks
+    from hmtpu_torch.encoder.iframe_dev import _dev_static as i_static
+
+    imode = rmd(org_y, i_static(w, h, log2_ctu, dev)["g8"], 8, 1, bd=bd,
+                lam_sqrt=lam_sqrt_, sis=False)[:, 0]
 
     lev_a96 = torch.cat([lev_ay.reshape(P, 64), lev_au.reshape(P, 16),
                          lev_av.reshape(P, 16)], 1)

@@ -9,7 +9,8 @@ renames it into place).
 
 Every exported C function launches its kernel on the stream it is given
 and returns the `cudaGetLastError()` code of that launch; `launch`
-raises when it is not 0.  Nothing here runs when a module is imported:
+raises when it is not 0.  Python ints go by value (a host array's
+address among them, for K21's argument arrays).  Nothing here runs when a module is imported:
 the build happens at the first launch, or in `build_all`, which starts
 one nvcc per source, all at once.
 
@@ -91,6 +92,14 @@ SOURCES = {
         "hm_mpm_bits": "ppppp" "iii" "p",
         "hm_mpm_bits4": "ppppp" "ii" "p",
     },
+    # scratch, then host arrays of the walk's pointers, ints and floats,
+    # each with its length
+    "iwalk": {
+        "hm_i_walk": "p" "pipipi" "i" "p",
+    },
+    "i_rmd": {
+        "hm_i_rmd": "pppp" "iiiiii" "f" "p",
+    },
 }
 
 # kernel name -> (source, file:line of the hmtpu function it replaces)
@@ -124,6 +133,11 @@ KERNELS = {
     "mv_regularize": ("mv_regularize", "hmtpu/search/me.py:194"),
     "mpm_bits": ("mode_bits", "hmtpu/ops/ratebits.py:378,"
                               "hmtpu/encoder/iframe_dev.py:353-356"),
+    "i_walk": ("iwalk", "hmtpu/encoder/iframe_dev.py:114,459,480,538,560,"
+                        "614"),
+    "i_rmd": ("i_rmd", "hmtpu/encoder/iframe_dev.py:102,135,94,"
+                       "hmtpu/encoder/intra_rdo.py:78,"
+                       "hmtpu/encoder/pframe_dev.py:364-369"),
 }
 COUNTS = dict.fromkeys(KERNELS, 0)
 

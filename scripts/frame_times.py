@@ -3,7 +3,8 @@ two trees of the port on one card in one run:
 
   ldp   LDP QP 22 with NN-FME, search range 64 (the main path): I + P;
   ra10  random access at Main10, QP 32, DCT-IF, search range 64, on the
-        first 3 frames (the IDR and two B pictures).
+        first 3 frames (the IDR and two B pictures);
+  ai    all-intra QP 32 with transform skip on the first frame.
 
     PYTHONPATH=<checkout of the port> python scripts/frame_times.py
 
@@ -54,7 +55,9 @@ def main() -> int:
     runs = (("ldp", clip[:2], dict(qp=22, gop="ldp", subpel="nn",
                                    search_range=64)),
             ("ra10", clip, dict(qp=32, gop="ra", subpel="dctif",
-                                search_range=64, bit_depth=10)))
+                                search_range=64, bit_depth=10)),
+            ("ai", clip[:1], dict(qp=32, gop="ai", subpel="none",
+                                  transform_skip=True)))
     for name, frames, cfg in runs:
         bs, dt, res = _encode(frames, **cfg)
         print(json.dumps({
@@ -66,6 +69,7 @@ def main() -> int:
                                                   None)}
                        for r in res]}), flush=True)
     return 0
+
 
 if __name__ == "__main__":
     sys.exit(main())

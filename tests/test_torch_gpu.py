@@ -11,6 +11,8 @@ float32).  Skips where there is no CUDA card; on the card:
 (--noconftest: the repo's root conftest loads JAX, which the card's
 machine does not need.)  Imports nothing of JAX or hmtpu.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -702,3 +704,99 @@ def test_mpm_bits_kernel(dev, B):
     got = _launched("mpm_bits",
                     lambda: rb.intra_mode_mpm_bits_nxn(cb, m4, lm, am))
     assert torch.equal(got, rb.intra_mode_mpm_bits_nxn_plain(cb, m4, lm, am))
+
+
+def _i_pass_inputs(dev, w, h, qp, bd, seed):
+    """Planes (card and CPU) of a textured picture, the I slice's
+    fractional-bit table, and qpc."""
+    from hmtpu_torch.common.constants import SliceType
+    from hmtpu_torch.common.spec_tables import chroma_qp_from_luma
+    from hmtpu_torch.entropy.contexts import make_contexts
+    from hmtpu_torch.entropy.fracbits import ctx_bits_table
+
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    y = 128 + 50 * np.sin(xx / 9.0) * np.cos(yy / 7.0)
+    y[:, : w // 2] += np.kron(rng.randint(-50, 51, (h // 4, w // 4)),
+                              np.ones((4, 4)))[:, : w // 2]
+    u = 128 + rng.randint(-20, 21, (h // 2, w // 2))
+    v = 128 + 30 * np.cos(xx[::2, ::2] / 11.0)
+    planes = [np.clip(p, 0, 255).astype(np.int32) << (bd - 8)
+              for p in (y, u, v)]
+    cb = ctx_bits_table(make_contexts(SliceType.I, qp)).reshape(-1)
+    on = lambda d: ([torch.as_tensor(p).to(d) for p in planes]
+                    + [torch.as_tensor(cb).to(d)])
+    return on(dev), on("cpu"), chroma_qp_from_luma(qp)
+
+
+@pytest.mark.parametrize("w,h,qp,bd,sdh,ts", [
+    (64, 64, 22, 8, False, False), (64, 64, 37, 8, True, True),
+    (64, 56, 27, 8, False, False), (80, 48, 32, 8, True, False),
+    (96, 64, 27, 10, False, True)])
+def test_i_walk_kernel(dev, w, h, qp, bd, sdh, ts):
+    """K21 (and K22 for its candidates) against the plain I pass on the
+    CPU: every state array equal; one K21 launch per z-scan level."""
+    from hmtpu_torch.encoder import iframe_dev as idv
+
+    card, cpu, qpc = _i_pass_inputs(dev, w, h, qp, bd, w + qp)
+    kw = dict(w=w, h=h, bd=bd, sis=True, sdh=sdh, ts=ts)
+    before = kernels.COUNTS["i_walk"]
+    got = _launched("i_rmd", lambda: idv.iframe_pass(*card[:3], qp, qpc,
+                                                     card[3], **kw))
+    st = idv._i_static(w, h, 6)
+    lv = (st["sched32"] or st["sched16"] or (st["lv_blk"],))[0]
+    assert kernels.COUNTS["i_walk"] - before == lv.shape[0]
+    want = idv.iframe_pass_plain(*cpu[:3], qp, qpc, cpu[3], **kw)
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+@pytest.mark.parametrize("n,k", [(4, 1), (8, 2), (8, 1), (16, 2), (32, 2)])
+def test_i_rmd_kernel(dev, n, k):
+    from hmtpu_torch.encoder.intra_rdo import rmd, rmd_plain
+    from hmtpu_torch.search.wavefront import static_ref_gather
+
+    rng = np.random.RandomState(n * k)
+    for bd in (8, 10):
+        plane = rng.randint(0, 1 << bd, (64, 96))
+        plane[:32] = 1 << (bd - 1)               # flat: every mode ties
+        sub, none = static_ref_gather(96, 64, 6, n)
+        for sis in (False, True):
+            kw = dict(bd=bd, lam_sqrt=np.float32(6.5), sis=sis)
+            got = _launched("i_rmd", lambda: rmd(
+                _i32(plane, dev), (_i32(sub, dev), _i32(none, dev)), n, k,
+                **kw))
+            want = rmd_plain(torch.as_tensor(plane.astype(np.int32)),
+                             (torch.as_tensor(sub).long(),
+                              torch.as_tensor(none)), n, k, **kw)
+            assert torch.equal(got.cpu(), want)
+
+
+def test_rext_card_equals_cpu(dev, tmp_path):
+    """BASELINE config 5 (the High-Throughput-RExt cfg, 10 bits, TS)
+    through the port's CLI at 96x64, 3 frames: card and CPU give the same
+    bytes, and the card's I passes ran K21 and K22."""
+    from hmtpu_torch.apps import encoder_app
+    from hmtpu_torch.utils.gen_test_yuv import synth_clip
+
+    cfg = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "cfg",
+        "encoder_intra_high_throughput_rext.cfg")
+    yuv = tmp_path / "in10.yuv"
+    with open(yuv, "wb") as f:
+        for planes in synth_clip(96, 64, 3):
+            for p in planes:
+                f.write((np.asarray(p, np.uint16) << 2).astype("<u2")
+                        .tobytes())
+    out = []
+    for d in ("cuda", "cpu"):
+        before = dict(kernels.COUNTS)
+        b = tmp_path / f"{d}.hevc"
+        assert encoder_app.main(
+            ["-c", cfg, "--InputBitDepth=10", "-f", "3", "-wdt", "96",
+             "-hgt", "64", "-i", str(yuv), "-b", str(b)], device=d) == 0
+        if d == "cuda":
+            assert all(kernels.COUNTS[k] > before[k]
+                       for k in ("i_walk", "i_rmd"))
+        out.append(b.read_bytes())
+    assert out[0] == out[1]

@@ -280,7 +280,7 @@ def test_satd():
         np.testing.assert_array_equal(pr._satd(tt(r)).numpy(),
                                       np.asarray(jr._satd(jnp.asarray(r))))
     from hmtpu.encoder.iframe_dev import _satd4 as j_satd4
-    from hmtpu_torch.encoder.iframe_dev import _satd4
+    from hmtpu_torch.encoder.intra_rdo import _satd4
 
     r = rng.randint(-255, 256, (6, 4, 4)).astype(np.int32)
     np.testing.assert_array_equal(_satd4(tt(r)).numpy(),
