@@ -11,18 +11,25 @@ when every phase passed):
                process per source, all started together;
   3. kernels   each kernel (K1, K3-K16 and K1's transform-skip mode)
                against its plain PyTorch version on seeded inputs at the
-               shapes the main paths give it, and K2 and K17-K22 (after
+               shapes the main paths give it, and K2 and K17-K25 (after
                phase 11's untimed encodes) on the inputs of the widest
-               call of each form captured there: K2 as the P pass calls
-               it per level lane (the 8x8 luma filter and prediction at 8
-               bits timed; the chroma 4x4 pair and the RA Main10 forms
-               checked), K17's and K18's P form (timed) and B
-               form, K19, K20's one-mode form of the P pass (timed) and its
-               I-pass forms (K candidates, four PUs) on seeded modes; K21
-               (the I z-scan walker, one launch per level) on the ai
-               phase's frame (timed, its row), the ldp phase's I frame and
-               a 64x64 frame (the 32 level), each timed beside
-               iframe_pass_plain on the card,
+               call of each form captured there: K23 (the P z-scan
+               walker, one launch per level) on the ldp phase's P frame
+               (timed, its row), ldp_dctif's (TS), a 64x56 frame (8x8
+               lanes) and a 64x64 one, each timed beside
+               wavefront_pass_plain on the card, every state array equal;
+               K24 on the three CU grids of ldp's P frame (the 8 grid
+               timed) and on seeded collocated fields at those shapes;
+               K25 on the ldp frames' SAO statistics; K2 as the plain P
+               pass on the card calls it per level lane (the 8x8 luma
+               filter and prediction at 8 bits timed; the chroma 4x4 pair
+               and the RA Main10 forms checked), K17's and K18's P form
+               (timed) and B form, K19, K20's one-mode form of the P pass
+               (timed) and its I-pass forms (K candidates, four PUs) on
+               seeded modes; K21 (the I z-scan walker, one launch per
+               level) on the ai phase's frame (timed, its row), the ldp
+               phase's I frame and a 64x64 frame (the 32 level), each
+               timed beside iframe_pass_plain on the card,
                every state array equal; K22 (the fused RMD) at n = 8
                (timed, its row), 4, 16 and 32 and in the P pass's form
                (n = 8, k = 1) beside rmd_plain.  They must be equal (the
@@ -43,17 +50,19 @@ when every phase passed):
                search range 64, CTU 64, TMVP, RDOQ, SDH, deblocking and
                SAO) of 2 frames (an I and a P picture) of a seeded
                synthetic clip through Encoder.encode_sequence, every
-               kernel count reset before and read after: each of K1-K8,
-               K10 and K17-K22 must be > 0.  Seconds per frame, and for
-               the P
+               kernel count reset before and read after: each of K1,
+               K3-K8, K10, K19 and K21-K25 must be > 0 (the P pass's
+               coding, candidates, intra prediction and mode bits run
+               inside K23: K2, K17, K18 and K20 are ra10's).  Seconds per
+               frame, and for the P
                frame the device pass apart from the host's finish +
                CABAC; nvidia-smi samples the card's utilization meanwhile;
   5. ldp_dctif the repo's anchor cfg (cfg/encoder_lowdelay_P_main.cfg,
                transform skip on) with HM's DCT-IF sub-pel search
                (--SubPel=dctif; BASELINE config 2) through the port's CLI
                in process, QP 22, 2 frames of the same clip at 416x240,
-               counts reset before and read after: K1-K5, K7, K9, K10,
-               K17-K22 and K1-TS must be > 0;
+               counts reset before and read after: K1, K3-K5, K7, K9,
+               K10, K19, K21-K25 and K1-TS must be > 0;
   6. ra10      the random-access Main10 cfg
                (cfg/encoder_randomaccess_main10.cfg as shipped: QP 32,
                10 bits, GOP 8 of B pictures, search range 64, DCT-IF,
@@ -61,7 +70,8 @@ when every phase passed):
                clip at 416x240 as 10-bit samples (the 8-bit clip << 2):
                the IDR and one whole GOP, coded as POC 0, 8, 4, 2, 1, 3,
                6, 5, 7.  Counts reset before and read after: K1-K5, K7,
-               K9-K12, K17, K18 and K20-K22 must be > 0; 8 B slices, and
+               K9-K12, K17, K18, K20-K22 and K25 must be > 0 (the B
+               slices run the plain P / B pass, not K23); 8 B slices, and
                bi-predicted CUs (DBG_COUNTERS["ra_bi_cus"]) > 0.  Never
                left out;
   7. ai        cfg/encoder_intra_main.cfg as shipped (QP 32, transform
@@ -124,10 +134,14 @@ when every phase passed):
                functions on the ldp phase's encode and on a 2-frame
                416x240 RA Main10 encode (an I and a B picture), and the
                bytes of the tensors they take and give (a bound for
-               argument bytes only); the same two encodes, an untimed AI
-               encode of the ai phase's frame and a 64x64 AI frame capture
-               the inputs of K2 and K17-K21 (Capture), which phase 3's
-               last checks use; none of them may call iframe_pass_plain or rmd_plain.
+               argument bytes only); the ldp encode may call none of the
+               plain versions of K21-K25 (wavefront_pass_plain,
+               t_level_plain, _choose_params_plain among them); the same
+               two encodes, untimed ldp_dctif, 64x56 and 64x64 LDP
+               encodes, an AI encode of the ai phase's frame and a 64x64
+               AI frame capture the inputs of K2, K17-K21, K23 and K25
+               (Capture), which phase 3's last checks use; none of them
+               may call iframe_pass_plain or rmd_plain.
 
 Imports nothing from hmtpu or JAX.  The last line of the output is
 {"ok": true, "device": {...}}.  Every process the check starts (nvcc,
@@ -191,6 +205,11 @@ TRACK_STEPS, TRACK_EPOCHS, TRACK_RTOL = 50, 2, 0.0
 # single-level ME), 4 frames, search range 64; one frame pair again on
 # the CPU at search range 16 (about 20 s there)
 HD_W, HD_H, HD_FRAMES, HD_SR, HD_CPU_SR = 1920, 1080, 4, 64, 16
+# the kernels whose P forms run inside K23 on the card: the LDP encodes
+# launch none of them (the I pass's forms run inside K21); ra10's B pass
+# still does
+P_INSIDE_K23 = ("intra_filter", "intra_pred", "merge_cands", "amvp_rd",
+                "mpm_bits")
 # the kernels of the training slice: the encodes at sides that are
 # multiples of 16 launch none of them
 TRAIN_KERNELS = ("me_sad1", "nnfme_fwd", "nnfme_bwd", "adam")
@@ -337,6 +356,8 @@ DEVICE_FN = {
     "merge_cands": "merge_kernel", "amvp_rd": "amvp_kernel",
     "mv_regularize": "reg_kernel", "mpm_bits": "mpm_kernel",
     "i_walk": "iwalk_kernel", "i_rmd": "rmd_kernel",
+    "p_walk": "pwalk_kernel", "tmvp_grid": "tmvp_kernel",
+    "sao_choose": "sao_choose_kernel",
 }
 
 
@@ -935,21 +956,20 @@ def slice5_kernel_cases(dev, rng):
 # and give back, a bound for argument bytes only (a pass's own reads and
 # writes of intermediates are not in it)
 PLAIN_FUNCS = (
-    ("B10 temporal", "hmtpu_torch.encoder.pframe_dev",
-     "temporal_cand_grid_dev"),
-    ("B10 temporal", "hmtpu_torch.encoder.pframe_dev", "scale_mv_pair_dev"),
-    ("B11", "hmtpu_torch.encoder.pframe_dev", "wavefront_pass"),
-    ("B13 _choose_params", "hmtpu_torch.ops.sao", "_choose_params"),
-    # the plain versions of K21 and K22 (B14, B9): none may run on the
-    # card's path
+    # the plain versions of K21-K25 (B14, B9, B11's P form, B10, B13):
+    # none may run on the ldp path (the B slices of ra10 run K23's, the
+    # plain P / B pass, by design)
     ("K21 plain", "hmtpu_torch.encoder.iframe_dev", "iframe_pass_plain"),
     ("K22 plain", "hmtpu_torch.encoder.intra_rdo", "rmd_plain"),
     ("K22 plain", "hmtpu_torch.encoder.iframe_dev", "rmd_plain"),
+    ("K23 plain", "hmtpu_torch.encoder.pframe_dev", "wavefront_pass_plain"),
+    ("K24 plain", "hmtpu_torch.encoder.pframe_dev", "t_level_plain"),
+    ("K25 plain", "hmtpu_torch.ops.sao", "_choose_params_plain"),
 ) + tuple(
     # B8's remaining flag helpers (hmtpu/ops/ratebits.py:305-450), as the
     # passes import them (mvd, ref_idx, inter_dir and the MPM pricing are
-    # K18's and K20's; the I pass's are folded into K21, and only its plain
-    # version calls them)
+    # K18's and K20's; the I pass's are folded into K21 and the P pass's
+    # into K23, and only their plain versions and the B pass call them)
     ("B8 flags", f"hmtpu_torch.encoder.{mod}", fn)
     for mod, fns in (
         ("pframe_dev", ("cbf_chroma_bits", "cbf_luma_bits", "chroma_dm_bits",
@@ -1021,8 +1041,8 @@ class PlainTally:
             f"(argument bytes only)" for k in sorted(self.calls))
 
 
-# K2 and K17-K21 are held against their plain versions on inputs captured
-# from the passes: (kernel, form (or a function of the call's arguments that
+# K2, K17-K21, K23 and K25 are held against their plain versions on inputs
+# captured from the passes: (kernel, form (or a function of the call's arguments that
 # gives it), module, wrapper as the pass calls it, the lanes of a call's
 # arguments); Capture keeps, per form, the arguments of the call with the
 # most lanes
@@ -1049,7 +1069,19 @@ CAPTURED = (
     # K21 (and K22 inside it): one form per picture size, QP and TS
     ("i_walk", lambda a, k: f"{k['w']}x{k['h']} QP{a[3]}"
      + (" TS" if k.get("ts") else ""), "hmtpu_torch.encoder.iframe_dev",
-     "iframe_pass", lambda a, k: 1))
+     "iframe_pass", lambda a, k: 1),
+    # K23 (and K24 inside it): the P pass, one form per picture size and
+    # TS (B slices apart); the widest call is the one with the most
+    # temporal candidates available
+    ("p_walk", lambda a, k: f"{k['w']}x{k['h']}"
+     + (" TS" if k.get("ts") else "")
+     + (" B" if k.get("num_ref_l1", 0) else ""),
+     "hmtpu_torch.encoder.pframe_dev", "wavefront_pass",
+     lambda a, k: 1 + (int(k["col"][2].sum())
+                       if k.get("col") is not None else 0)),
+    # K25: the SAO choice of a frame's three planes
+    ("sao_choose", lambda a, k: f"{a[6]}x{a[5]} CTUs",
+     "hmtpu_torch.ops.sao", "choose_params", lambda a, k: 1))
 
 
 def _clone(x):
@@ -1140,9 +1172,9 @@ def predict_one_mode_plain(ref_unfilt, ref_filt, mode, n, is_luma=True,
 
 
 def captured_cases(got):
-    """K2 and K17-K20 on the arguments Capture kept from the untimed
-    416x240 LDP and RA Main10 encodes: the LDP form timed (the main
-    path's), the others checked.  Bytes: each input the function needs
+    """K2 and K17-K20 on the arguments Capture kept: the P forms from the
+    plain P pass run on ldp's P frame on the card (timed), the B and
+    10-bit forms from the untimed 416x240 RA Main10 encode (checked).  Bytes: each input the function needs
     read once and each output written once; operations: a count per lane
     of its integer steps."""
     from hmtpu_torch.encoder import pframe_dev as pf
@@ -1327,6 +1359,122 @@ def walk_cases(got):
     return cases
 
 
+P_FORMS = (f"{W}x{H}", f"{W}x{H} TS", "64x56", "64x64")
+
+
+def pwalk_work(k, st):
+    """Bytes and operations of one K23 pass (all its levels), from its
+    arguments and its state: the source planes, the reference stacks, the
+    per-grid AMVP hypotheses, schedules and tables read once, the state
+    written once; operations per coded TB of side n as walk_work's, per
+    predicted block 2 x taps multiply-adds a sample in each direction.
+    Counted: every CU trial's merge candidates (predicted), its two
+    finalists (deadzone-coded) and its winner (recoded), and the intra
+    coding of the cells that chose intra (the cells that priced intra
+    without choosing it are not known from the state: left out, so the
+    bound stays a least time)."""
+    from hmtpu_torch.encoder import pframe_dev as pf
+
+    w, h, m = k["w"], k["h"], k["max_merge"]
+    P, npx = (w // 8) * (h // 8), w * h * 3 // 2
+    nref = k["num_ref"]
+    sd = pf._p_static(w, h, 6)
+    tables = sum(np.asarray(a).size for v in sd.values() if v is not None
+                 for a in (v if isinstance(v, tuple) else (v,)))
+    grids = P * (1 + 96 + 96 + 10)
+    if sd["sched32"] is not None:
+        grids += (P // 4) * (384 + 384 + 10) + (P // 16) * (1536 + 1536 + 10)
+    nbytes = 4 * (npx * (1 + nref) + tables + grids) \
+        + 4 * (npx + P * (14 + 96 + 1))
+    tb = lambda n: 8 * n ** 3 + 200 * n * n
+    mc = lambda n: 2 * (16 * n * n) + 2 * 2 * (8 * (n // 2) ** 2)
+    ts2 = 2 if k.get("ts") else 1
+    trial = lambda n, c: m * mc(n) + 2 * (tb(n) + 2 * tb(n // 2)) \
+        + tb(n) + 2 * c * tb(n // 2)
+    kind = st["blk"][:, pf.K_KIND].cpu().numpy()
+    ops = P * trial(8, ts2) + int((kind == 3).sum()) * (tb(8) + 2 * ts2
+                                                        * tb(4))
+    if sd["sched32"] is not None:
+        ops += (P // 4) * trial(16, 1) \
+            + int(sd["sched32"][5].sum()) * trial(32, 1)
+    return nbytes, ops
+
+
+def pwalk_cases(got):
+    """K23 on the P passes Capture kept (ldp's and ldp_dctif's P frames at
+    416x240, a 64x56 frame of geometry 8 and a 64x64 one) against
+    `wavefront_pass_plain` on the card: (name, label, kernel call, plain
+    call, bytes, operations); the first is its row."""
+    from hmtpu_torch.encoder import pframe_dev as pf
+
+    missing = [f for f in P_FORMS if ("p_walk", f) not in got]
+    if missing:
+        fail(f"capture: no P pass of {missing} in the untimed encodes "
+             f"(got {sorted(f for k, f in got if k == 'p_walk')})")
+    cases = []
+    for f in P_FORMS:
+        _, a, k = got[("p_walk", f)]
+        state = lambda d: tuple(d[x] for x in sorted(d))
+        st = pf.wavefront_pass(*a, **k)
+        cases.append((
+            "p_walk", f"{f} QP{k['qp']}", lambda a=a, k=k: state(pf.wavefront_pass(*a, **k)),
+            lambda a=a, k=k: state(pf.wavefront_pass_plain(*a, **k)),
+            *pwalk_work(k, st)))
+    return cases
+
+
+def p_kernel_cases(got, dev):
+    """K24 on the three CU grids of ldp's P frame (timed on the 8 grid;
+    its collocated field is the I frame's, which has no motion, so the
+    grids are checked again on seeded fields at the same shapes), K25 on
+    the ldp frames' statistics (luma and the Cb / Cr pair): check_kernels'
+    cases."""
+    from hmtpu_torch.encoder import pframe_dev as pf
+    from hmtpu_torch.ops import sao
+
+    _, a, k = got[("p_walk", P_FORMS[0])]
+    w, h, col, col_poc = k["w"], k["h"], k["col"], k["col_poc"]
+    pocs = torch.tensor(list(a[9]), dtype=torch.int32, device=dev)
+    bw, bh = w // 8, h // 8
+    gw, gh = w // 16, h // 16
+    grids = ((8, a[8].reshape(-1), bw, bh),
+             (16, k["mv16"][2].reshape(-1), gw, gh),
+             (32, k["mv32"][2].reshape(-1), (gw + 1) // 2, (gh + 1) // 2))
+    rng = np.random.RandomState(24)
+    seeded = tuple(torch.as_tensor(x).to(dev) for x in (
+        rng.randint(-300, 301, (bh, bw)).astype(np.int32),
+        rng.randint(-300, 301, (bh, bw)).astype(np.int32),
+        rng.rand(bh, bw) < 0.7,
+        (a[10] - 1 - rng.choice([0, 1, 2, 200, -150], (bh, bw)))
+        .astype(np.int32)))
+
+    def grid(fn, c, n, aref, gw_, gh_):
+        return lambda: fn(c, col_poc if c is col else a[10] - 1, n, aref,
+                          pocs, a[10], w=w, h=h, log2_ctu=6, gw=gw_, gh=gh_)
+
+    n, aref, gw8, gh8 = grids[0]
+    more = [(grid(pf.tmvp_grid, c, *g), grid(pf.tmvp_grid_plain, c, *g))
+            for c in (col, seeded) for g in grids][1:]
+    # per block: two collocated rows (4 ints each), the reference and
+    # its POC in; 5 ints out; about 40 integer steps
+    nb = gw8 * gh8
+    cases = [("tmvp_grid", grid(pf.tmvp_grid, col, *grids[0]),
+              grid(pf.tmvp_grid_plain, col, *grids[0]),
+              4 * (4 * bw * bh + nb + pocs.numel() + 5 * nb), 40 * nb, None,
+              more)]
+    # K25: per CTU three rows of 96 ints in, 21 out; per plane 48 offset
+    # choices of about 12 operations, 29 band runs of 3 and the picks
+    if ("sao_choose", f"{-(-w // 64)}x{-(-h // 64)} CTUs") not in got:
+        fail(f"capture: no SAO choice in the untimed ldp encode (got "
+             f"{sorted(f for k_, f in got if k_ == 'sao_choose')})")
+    _, sa, sk = got[("sao_choose", f"{-(-w // 64)}x{-(-h // 64)} CTUs")]
+    nctu = sa[5] * sa[6]
+    cases.append(("sao_choose", lambda: sao.choose_params(*sa, **sk),
+                  lambda: sao.choose_params_plain(*sa, **sk),
+                  4 * (3 * 96 + 21) * nctu + 4, 3 * 700 * nctu, None))
+    return cases
+
+
 def check_walk(cases, rows) -> None:
     """Each case's kernel against its plain version on the card (equal),
     timed: the kernel over a few calls, the plain version once (a
@@ -1345,7 +1493,7 @@ def check_walk(cases, rows) -> None:
         if not same(got, want):
             fail(f"{name} ({label}): kernel disagrees with its plain version "
                  f"(max abs err {err})")
-        iters = 3 if name == "i_walk" else 50
+        iters = 3 if name in ("i_walk", "p_walk") else 50
         ms = time_cuda(kfn, iters, warm=1)
         dms = device_ms(kfn, DEVICE_FN[name], iters=iters)
         bms, by = bound_ms(nbytes, ops)
@@ -1615,7 +1763,7 @@ def main() -> None:
     # ---- 4. the main path: low-delay P with NN-FME
     ldp_names = [k for k in kernels.KERNELS
                  if k not in ("frac_refine", "transform_skip", "mc_dctif_i",
-                              "bi_pred") + TRAIN_KERNELS]
+                              "bi_pred") + P_INSIDE_K23 + TRAIN_KERNELS]
     (bs, dt, results), counts, util = run_counted(
         "ldp", lambda: encode(clip, QP_LDP, dev, "ldp", SRANGE),
         ldp_names, kernels)
@@ -1642,7 +1790,7 @@ def main() -> None:
     # ---- 5. the anchor cfg with HM's DCT-IF sub-pel search, via the CLI
     dctif_names = [k for k in kernels.KERNELS
                    if k not in ("nnfme", "satd8", "mc_dctif_i", "bi_pred")
-                   + TRAIN_KERNELS]
+                   + P_INSIDE_K23 + TRAIN_KERNELS]
     pframe_dev.DBG_COUNTERS["ldp_ts_tbs"] = 0
     (d_bs, d_dt, d_enc), d_counts, d_util = run_counted(
         "ldp_dctif", lambda: cli_encode(
@@ -1673,7 +1821,8 @@ def main() -> None:
     write_yuv(yuv10, ra_clip, 10)
     ra_names = [k for k in kernels.KERNELS
                 if k not in ("nnfme", "satd8", "transform_skip",
-                             "mv_regularize") + TRAIN_KERNELS]
+                             "mv_regularize", "p_walk", "tmvp_grid")
+                + TRAIN_KERNELS]
     pframe_dev.DBG_COUNTERS["ra_bi_cus"] = 0
     (r_bs, r_dt, r_enc), r_counts, r_util = run_counted(
         "ra10", lambda: cli_encode(
@@ -1923,6 +2072,21 @@ def main() -> None:
         print(tally.line(f"416x240 LDP QP{QP_LDP} I + P, untimed"),
               flush=True)
         plain_calls = dict(tally.calls)
+        bad = {k: v for k, v in plain_calls.items()
+               if k.startswith(("K23", "K24", "K25"))}
+        if bad:
+            fail(f"plain versions of K23-K25 ran on the ldp path: {bad}")
+        print("plain: no call of wavefront_pass_plain, t_level_plain or "
+              "_choose_params_plain in the untimed LDP encode", flush=True)
+        # and K23's inputs on ldp_dctif's P frame (TS), a 64x56 frame
+        # (geometry 8) and a 64x64 one (its second P frame: TMVP from its
+        # predecessor's motion)
+        with Capture(cap.got):
+            cli_encode(["-c", LDP_CFG, "--SubPel=dctif", "-q", str(QP_LDP),
+                        "-f", str(LDP_FRAMES), *size, "-b",
+                        os.path.join(tmp.name, "ldp_dctif_c.hevc")], dev)
+            encode(synth_clip(64, 56, 3, seed=5), 27, dev, "ldp", 8, "nn")
+            encode(small[:3], 27, dev, "ldp", 8, "nn")
         with PlainTally() as tally, Capture(cap.got):
             encode(ra_clip[:2], 32, dev, "ra", SRANGE, "dctif", bd=10)
         print(tally.line("416x240 RA Main10 QP32 I + B, untimed"),
@@ -1939,12 +2103,28 @@ def main() -> None:
                 fail(f"plain versions of K21 / K22 ran on the card: {bad}")
         print("plain: no call of iframe_pass_plain or rmd_plain in the "
               "untimed LDP, RA Main10 and AI encodes", flush=True)
-        # ---- 3 (continued). K2 and K17-K20 against their plain versions
-        # on the captured inputs; their launches are the ldp phase's
+        # ---- 3 (continued). K23 against wavefront_pass_plain on the
+        # card (whose calls of K2, K17, K18 and K20 in their P forms are
+        # captured meanwhile), K24 and K25 against their plain versions;
+        # their launches are the ldp phase's
+        with Capture(cap.got):
+            check_walk(pwalk_cases(cap.got), rows)
+        check_kernels(p_kernel_cases(cap.got, dev), rows)
+        for name in ("p_walk", "tmvp_grid", "sao_choose"):
+            rows[name]["launches"] = counts[name]
+        print("kernels K23-K25 launches: " + "; ".join(
+            f"{name} ldp {counts[name]}, ldp_dctif {d_counts[name]}, ra10 "
+            f"{r_counts[name]}" for name in ("p_walk", "tmvp_grid",
+                                             "sao_choose")), flush=True)
+        # K2 and K17-K20 against their plain versions on the captured
+        # inputs (the P forms from the plain P pass above); their launches
+        # are ra10's, whose B pass runs them (the LDP encodes' P passes run
+        # their arithmetic inside K23)
         captured = captured_cases(cap.got)
         check_kernels(captured, rows)
         for name, *_ in captured:
-            rows[name]["launches"] = counts[name]
+            rows[name]["launches"] = counts[name] if name == "mv_regularize" \
+                else r_counts[name]
         print("kernels K2, K17-K20 launches: " + "; ".join(
             f"{name} ldp {counts[name]}, ldp_dctif {d_counts[name]}, ra10 "
             f"{r_counts[name]}" for name, *_ in captured), flush=True)

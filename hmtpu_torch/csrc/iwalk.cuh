@@ -35,25 +35,23 @@
 // (one thread), which the CPU tests drive level by level.
 #pragma once
 
-#include "hm_port.cuh"
-#include "intra_pred.cuh"
 #include "mode_bits.cuh"
-#include "rdoq.cuh"
-#include "transform.cuh"
+#include "walk.cuh"
 
 namespace iw {
 
 using namespace hm;
+using wk::NTB;
+using wk::TB_INTS;
+using wk::TbRes;
+using wk::code_tb;
+using wk::code_ts_sel;
+using wk::copy_block;
+using wk::gather_line;
+using wk::predict;
+using wk::scan_sel;
 
 constexpr int K = 2;        // RDOQ-coded candidates per CU (K8 = K16)
-// K10 table sets: log2 2..4 x (luma, chroma), then 32x32 luma
-constexpr int NTB = 7;
-constexpr int TB_INTS = 12;
-
-// the K10 table set of a TB size and component
-HM_FN int tb_set(int log2, bool luma) {
-  return (log2 - 2) * 2 + (luma ? 0 : 1);
-}
 
 // context offsets (entropy/contexts.py OFF) the flag prices read
 enum { C_CBF_LUMA, C_CBF_CHROMA, C_PART, C_CHROMA_DM, C_SPLIT, C_IPM, C_TS,
@@ -80,10 +78,7 @@ struct Args {
   int* scratch;                         // lanes x SCRATCH ints
   int w, h, bd, log2_ctu, geom, bmax, sdh, ts, sis, scratch_ints;
   int ctx[NCTX];
-  int tb[NTB][TB_INTS];  // per set: tabs_i / tabs_f offsets, ctx_x, ctx_y,
-                         // sig_cg_base, one_base, abs_base, scale, qbits,
-                         // add, iscale, dq_shift
-  float tbf[NTB][2];     // per set: inv, cscale
+  wk::Coder cd;          // the coding step's tables (walk.cuh)
   float lam, lam_c, wchroma;
 };
 
@@ -122,12 +117,19 @@ inline Args args_from(const long long* p, const int* v, const float* f) {
   a.scratch_ints = v[i++];
   for (int c = 0; c < NCTX; ++c) a.ctx[c] = v[i++];
   for (int s = 0; s < NTB; ++s)
-    for (int c = 0; c < TB_INTS; ++c) a.tb[s][c] = v[i++];
+    for (int c = 0; c < TB_INTS; ++c) a.cd.tb[s][c] = v[i++];
   int j = 0;
   for (int s = 0; s < NTB; ++s) {
-    a.tbf[s][0] = f[j++];
-    a.tbf[s][1] = f[j++];
+    a.cd.tbf[s][0] = f[j++];
+    a.cd.tbf[s][1] = f[j++];
   }
+  a.cd.mats = a.mats;
+  a.cd.cb = a.cb;
+  a.cd.tabs_i = a.tabs_i;
+  a.cd.tabs_f = a.tabs_f;
+  a.cd.bd = a.bd;
+  a.cd.sdh = a.sdh;
+  a.cd.ctx_ts = a.ctx[C_TS];
   a.lam = f[j++];
   a.lam_c = f[j++];
   a.wchroma = f[j++];
@@ -153,9 +155,8 @@ constexpr int S_LEVV = S_LEVU + K * 256;
 constexpr int S_RECY = S_LEVV + K * 256;
 constexpr int S_RECU = S_RECY + K * 1024;
 constexpr int S_RECV = S_RECU + K * 256;
-constexpr int S_W = S_RECV + K * 256;     // three work TBs
-constexpr int S_TS = S_W + 3 * 1024;      // the TS alternative's 4x4 lev, rec
-constexpr int S_LINE = S_TS + 32;         // a 4x4 PU's substituted line
+constexpr int S_W = S_RECV + K * 256;     // the coding work area (walk.cuh)
+constexpr int S_LINE = S_W + wk::WORK_INTS;  // a 4x4 PU's substituted line
 constexpr int S_ORG4 = S_LINE + 20;       // NxN: four PUs' source
 constexpr int S_PRED4 = S_ORG4 + 64;
 constexpr int S_LEV4 = S_PRED4 + 16;
@@ -164,170 +165,14 @@ constexpr int S_ORGC = S_REC4 + 64;       // NxN chroma pair
 constexpr int S_PREDC = S_ORGC + 32;
 constexpr int S_LEVC = S_PREDC + 32;
 constexpr int S_RECC = S_LEVC + 32;
-constexpr int S_SLOT = S_RECC + 32;       // coding results, 4 ints each
-constexpr int N_SLOTS = 16;
-constexpr int SCRATCH = S_SLOT + 4 * N_SLOTS;
+constexpr int SCRATCH = S_RECC + 32;
 
-// one coding step's result
-struct TbRes {
-  float sse, bits;
-  int nz, ts;
-};
-
-struct Lane {
+struct Lane : wk::Lane {
   const Args* ap;
-  int tid, nt;
-  RdoqSmem S;
-  int* s;  // this lane's scratch
 };
-
-HM_FN int scan_sel(int m) {
-  return (m >= 6 && m <= 14) ? 2 : ((m >= 22 && m <= 30) ? 1 : 0);
-}
 
 HM_FN float cbf_bits(const Args& a, int ctx, int nz) {
   return a.cb[2 * ctx + (nz ? 1 : 0)];
-}
-
-// the transform matrix of size n (DST at n = 4 when dst)
-HM_FN const int* mat(const Args& a, int n, bool dst) {
-  if (dst) return a.mats + 16 + 64 + 256 + 1024;
-  return a.mats + (n == 4 ? 0 : n == 8 ? 16 : n == 16 ? 80 : 336);
-}
-
-// ---------------------------------------------------------------------------
-// cooperative pieces; each ends with a barrier
-
-// line[k] = none ? mid : plane[sub[k]]
-HM_FN void gather_line(const Lane& L, const int* plane, const int* sub,
-                       int none, int len, int* out) {
-  const int mid = 1 << (L.ap->bd - 1);
-  for (int k = L.tid; k < len; k += L.nt) out[k] = none ? mid : plane[sub[k]];
-  HM_SYNC();
-}
-
-HM_FN void copy_block(const Lane& L, const int* plane, int width, int x0,
-                      int y0, int n, int* out) {
-  for (int e = L.tid; e < n * n; e += L.nt)
-    out[e] = plane[(y0 + e / n) * width + x0 + e % n];
-  HM_SYNC();
-}
-
-HM_FN void predict(const Lane& L, const int* su, const int* sf, int mode,
-                   int n, int luma, int* out) {
-  const int log2n = log2_of(n);
-  const int dc = intra_dc(su, n, log2n);
-  for (int e = L.tid; e < n * n; e += L.nt)
-    out[e] = pred_sample(su, sf, dc, mode, n, log2n, luma, L.ap->bd, e / n,
-                         e % n);
-  HM_SYNC();
-}
-
-// _code: transform (or skip) -> RDOQ, dequantisation and TB rate (K10)
-// -> inverse -> clip -> SSE (times dw when weighed); lev and rec raster
-HM_BIG TbRes code_tb(Lane& L, int log2, bool luma, bool dst, bool ts,
-                     int sel, float lam, bool weigh, float dw, const int* org,
-                     const int* pred, int* lev, int* rec, int slot) {
-  const Args& a = *L.ap;
-  const int n = 1 << log2, nn = n * n, tid = L.tid, nt = L.nt;
-  int* w1 = L.s + S_W;
-  int* w2 = w1 + 1024;
-  int* w3 = w2 + 1024;
-  for (int e = tid; e < nn; e += nt) w1[e] = org[e] - pred[e];
-  HM_SYNC();
-  if (ts) {
-    for (int e = tid; e < nn; e += nt)
-      w2[e] = ts_fwd(w1[e], 15 - a.bd - log2);
-    HM_SYNC();
-  } else {
-    transform_tb<false>(mat(a, n, dst), w1, w3, w2, n, log2 + a.bd + 6 - 15,
-                        log2 + 6, tid, nt);
-  }
-  const int s = tb_set(log2, luma);
-  RdoqCfg c;
-  c.cb = a.cb;
-  c.tabs_i = a.tabs_i + a.tb[s][0];
-  c.tabs_f = a.tabs_f + a.tb[s][1];
-  c.log2 = log2;
-  c.flags = F_TRELLIS | (a.sdh ? F_SDH : 0) | (luma ? F_LUMA : 0);
-  c.ctx_x = a.tb[s][2];
-  c.ctx_y = a.tb[s][3];
-  c.sig_cg_base = a.tb[s][4];
-  c.one_base = a.tb[s][5];
-  c.abs_base = a.tb[s][6];
-  c.scale = a.tb[s][7];
-  c.qbits = a.tb[s][8];
-  c.add = a.tb[s][9];
-  c.iscale = a.tb[s][10];
-  c.dq_shift = a.tb[s][11];
-  c.inv = a.tbf[s][0];
-  c.cscale = a.tbf[s][1];
-  const float bits = rdoq_tb(c, lam, sel, w2, lev, w1, true, L.S, tid, nt);
-  if (ts) {
-    for (int e = tid; e < nn; e += nt)
-      w2[e] = ts_inv(w1[e], 5 + log2, 20 - a.bd);
-    HM_SYNC();
-  } else {
-    transform_tb<true>(mat(a, n, dst), w1, w3, w2, n, 7, 20 - a.bd, tid, nt);
-  }
-  const int maxv = (1 << a.bd) - 1;
-  for (int e = tid; e < nn; e += nt)
-    rec[e] = iclamp(pred[e] + w2[e], 0, maxv);
-  HM_SYNC();
-  int* sl = L.s + S_SLOT + 4 * slot;
-  if (tid == 0) {
-    long long sse = 0;
-    int nz = 0;
-    for (int e = 0; e < nn; ++e) {
-      const long long d = org[e] - rec[e];
-      sse += d * d;
-      nz |= lev[e] != 0;
-    }
-    float d = (float)sse;
-    if (weigh) d = HM_FMUL(d, dw);  // HM's chroma distortion weight
-    ((float*)sl)[0] = d;
-    ((float*)sl)[1] = bits;
-    sl[2] = nz;
-  }
-  HM_SYNC();
-  TbRes r;
-  r.sse = ((float*)sl)[0];
-  r.bits = ((float*)sl)[1];
-  r.nz = sl[2];
-  r.ts = 0;
-  return r;
-}
-
-// _code_ts_sel: a 4x4 TB coded both ways, the TS one kept when coded and
-// strictly cheaper with the transform_skip_flag bit priced in
-HM_BIG TbRes code_ts_sel(Lane& L, bool luma, bool dst, int sel, float lam,
-                         bool weigh, float dw, const int* org,
-                         const int* pred, int* lev, int* rec) {
-  const Args& a = *L.ap;
-  int* levt = L.s + S_TS;
-  int* rect = levt + 16;
-  const TbRes r0 = code_tb(L, 2, luma, dst, false, sel, lam, weigh, dw, org,
-                           pred, lev, rec, 14);
-  const TbRes r1 = code_tb(L, 2, luma, dst, true, sel, lam, weigh, dw, org,
-                           pred, levt, rect, 15);
-  const int ctx = a.ctx[C_TS] + (luma ? 0 : 1);
-  const float b0 = HM_FADD(r0.bits, r0.nz ? a.cb[2 * ctx] : 0.f);
-  const float b1 = HM_FADD(r1.bits, r1.nz ? a.cb[2 * ctx + 1] : 0.f);
-  const bool use = r1.nz && HM_FADD(r1.sse, HM_FMUL(lam, b1)) <
-                                HM_FADD(r0.sse, HM_FMUL(lam, b0));
-  if (use) {
-    for (int e = L.tid; e < 16; e += L.nt) {
-      lev[e] = levt[e];
-      rec[e] = rect[e];
-    }
-    HM_SYNC();
-  }
-  TbRes r;
-  r.sse = use ? r1.sse : r0.sse;
-  r.bits = use ? b1 : b0;
-  r.nz = use ? r1.nz : r0.nz;
-  r.ts = use;
-  return r;
 }
 
 // mpm_neighbours: the left and above cells' modes (1 outside the picture
@@ -717,10 +562,12 @@ HM_BIG void walk_lane(const Args& a, int level, int lane, int tid, int nt,
   if (blk < 0) return;   // a padding lane does nothing
   Lane L;
   L.ap = &a;
+  L.cd = &a.cd;
   L.tid = tid;
   L.nt = nt;
   L.S = rdoq_smem(smem, 1 << (2 * (a.geom == 8 ? 3 : a.geom == 16 ? 4 : 5)));
   L.s = a.scratch + (size_t)lane * SCRATCH;
+  L.work = L.s + S_W;
   if (a.geom == 8)
     cell_step(L, blk);
   else if (a.geom == 16)

@@ -632,11 +632,20 @@ def _iw_args(org, st, cand, sd, cbflat, scratch, *, w, h, bd, log2_ctu,
                *sd.get("g16c", nil), sd.get("cells16"), sd.get("c16_32"),
                sd.get("c8_32"), sd["mats"], cbflat, sd["tabs_i"],
                sd["tabs_f"], scratch]
-    ptrs = [0 if x is None else x.data_ptr() for x in tensors]
     ints = [w, h, bd, log2_ctu, geom, lv.shape[1], int(sdh), int(ts),
             int(sis), IW_SCRATCH] + [OFF[c] for c in _IW_CTX]
+    return walk_args(tensors, ints, sd["tab_ctx"], qp, qpc, bd, lams)
+
+
+def walk_args(tensors, ints, tab_ctx, qp: int, qpc: int, bd: int, lams):
+    """A walker's (pointers, ints, floats) as ctypes arrays: the tensors'
+    device pointers (None: null), the given ints, then per K10 table set
+    (walk.cuh wk::Coder) its context offsets and quantiser ints, and the
+    floats: per set (inv, cscale), then `lams`."""
+    ptrs = [0 if x is None else x.data_ptr() for x in tensors]
+    ints = list(ints)
     flts = []
-    for (l2, luma), ctx in zip(_IW_TB_SETS, sd["tab_ctx"]):
+    for (l2, luma), ctx in zip(_IW_TB_SETS, tab_ctx):
         q = qp if luma else qpc
         qbits, scale, inv, cscale = _quant_params(q, l2, bd)
         iscale, dq_shift = dequant_params(q, l2, bd)

@@ -1,9 +1,10 @@
 """Device-resident P- and B-slice encoder: the port of
 hmtpu/encoder/pframe_dev.py (`_code` :188, `wavefront_pass` :255,
-`full_pframe_pass` :1506, `PFrameDeviceEncoder` :1858).  The whole per-frame mode decision
-(skip / merge / AMVP inter / intra), residual coding, reconstruction and
-in-loop filters run on the tensors' device; the host pulls the decision
-state and writes the slice with the native CABAC engine.
+`full_pframe_pass` :1506, `PFrameDeviceEncoder` :1858).  The whole
+per-frame mode decision (skip / merge / AMVP inter / intra), residual
+coding, reconstruction and in-loop filters run on the tensors' device;
+the host pulls the decision state and writes the slice with the native
+CABAC engine.
 
   ME       integer ME of every 8x8 / 16x16 / 32x32 block against every
            reference (K5), the coherence pass over the 8x8 field (K19),
@@ -13,15 +14,20 @@ state and writes the slice with the native CABAC engine.
            (K7) and residual coding for every block at each level, the
            open-loop intra mode of every 8x8 block (K22, the I pass's
            rough mode decision at k = 1);
-  phase 2  a Python loop over the static z-scan dependency levels (the
-           reference's `lax.scan`): per 8x8 CU the exact merge list
-           (K17), every candidate's prediction (K7), two finalists coded
-           without and the winner with the RDOQ trellis, the AMVP list and
-           its mvd, ref_idx and inter_pred_idc bits (K18, `amvp_rd`), the
-           exact intra prediction and its mode's bits (K20); per 16x16 and
-           32x32 region one larger inter CU trial that overwrites where it
-           wins;
-  filters  deblocking (K3) and SAO (K4).
+  phase 2  the static z-scan dependency levels (the reference's
+           `lax.scan`): per 8x8 CU the exact merge list, every candidate's
+           prediction, two finalists coded without and the winner with the
+           RDOQ trellis, the AMVP list and its mvd, ref_idx and
+           inter_pred_idc bits, the exact intra prediction and its mode's
+           bits; per 16x16 and 32x32 region one larger inter CU trial that
+           overwrites where it wins.  On the card a P slice walks them in
+           K23 (`pframe_walk`: one launch per level, the temporal
+           candidates of each CU grid from K24 before it); a B slice, and
+           the CPU, run the plain version (`wavefront_pass_plain`: a
+           Python loop over the levels, with K17, K7, K10, K18, K2 and K20
+           per batch on the card);
+  filters  deblocking (K3) and SAO (K4's statistics and apply, K25's
+           parameter choice).
 
 The state lives in flat tensors with one spare slot at the end, where
 padding lanes write (the reference sends them out of range, which XLA
@@ -48,6 +54,7 @@ CABAC engine.  The Jacobi decision is not ported (not queued).
 """
 from __future__ import annotations
 
+import ctypes
 import time
 from functools import lru_cache
 
@@ -376,18 +383,91 @@ def amvp_rd_plain(cbflat, nbv, nbp, aref, amx, amy, ref_pocs, cur_poc: int,
             torch.minimum(bits0, bits1), b_refa, mot)
 
 
+def t_level_plain(col, col_poc: int, n: int, aref, ref_pocs_t,
+                  cur_poc: int, *, w: int, h: int, log2_ctu: int,
+                  gw: int = None, gh: int = None):
+    """Plain version of K24: the collocated candidate of every block of
+    the n-grid (8.5.3.2.8, `temporal_cand_grid_dev`) scaled to reference
+    0 (merge) and to the block's searched reference aref (AMVP).  col the
+    collocated field (mvx, mvy, ok, ref POC on the 8x8 grid), ref_pocs_t
+    the L0 POCs as a tensor.  Returns (t_ok, merge x, y, AMVP x, y)."""
+    t_ok, rx, ry, rp = temporal_cand_grid_dev(
+        col[0], col[1], col[2], col[3], n, w, h, log2_ctu, gw=gw, gh=gh)
+    td = col_poc - rp
+    tmx, tmy = scale_mv_pair_dev(rx, ry, cur_poc - ref_pocs_t[0], td)
+    tax, tay = scale_mv_pair_dev(
+        rx, ry, cur_poc - ref_pocs_t[aref.to(torch.int64)], td)
+    return t_ok, tmx, tmy, tax, tay
+
+
+def tmvp_grid_plain(col, col_poc: int, n: int, aref, ref_pocs_t,
+                    cur_poc: int, *, w: int, h: int, log2_ctu: int,
+                    gw: int = None, gh: int = None):
+    """`tmvp_grid` through `t_level_plain`, on any device."""
+    return torch.stack([a.to(torch.int32) for a in t_level_plain(
+        col, col_poc, n, aref, ref_pocs_t, cur_poc, w=w, h=h,
+        log2_ctu=log2_ctu, gw=gw, gh=gh)])
+
+
+def tmvp_grid(col, col_poc: int, n: int, aref, ref_pocs_t, cur_poc: int,
+              *, w: int, h: int, log2_ctu: int, gw: int = None,
+              gh: int = None):
+    """`t_level_plain`'s five outputs as one (5, gw * gh) int32 tensor:
+    K24 on CUDA tensors, the plain version on CPU ones."""
+    if gw is None:
+        gw, gh = w // n, h // n
+    if not aref.is_cuda:
+        return tmvp_grid_plain(col, col_poc, n, aref, ref_pocs_t, cur_poc,
+                               w=w, h=h, log2_ctu=log2_ctu, gw=gw, gh=gh)
+    bw, bh = w // 8, h // 8
+    if aref.numel() != gw * gh or any(tuple(c.shape) != (bh, bw)
+                                      for c in col):
+        raise ValueError(f"tmvp_grid: a ({gh}, {gw}) grid of references "
+                         f"and ({bh}, {bw}) collocated fields, got "
+                         f"{tuple(aref.shape)}, "
+                         f"{[tuple(c.shape) for c in col]}")
+    i32 = lambda a: a.to(torch.int32).contiguous()
+    out = torch.empty((5, gw * gh), dtype=torch.int32, device=aref.device)
+    kernels.launch("tmvp_grid", "hm_tmvp_grid", *(i32(c) for c in col),
+                   i32(aref.reshape(-1)), i32(ref_pocs_t), out, n, gw, gh,
+                   w, h, log2_ctu, int(cur_poc), int(col_poc),
+                   ref_pocs_t.numel())
+    return out
+
+
 def wavefront_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v,
                    mv_x, mv_y, mv_ref, ref_pocs, cur_poc: int,
                    mv16=None, mv32=None, qp: int = 32, qpc: int = 32,
                    col=None, col_poc: int = 0, cbflat=None,
-                   mv_lx=None, ref_pocs_l1=None,
-                   *, w: int, h: int, num_ref: int, max_merge: int,
-                   bd: int = 8, qp_factor=0.57, levels: int = 1,
-                   tmvp: bool = False, log2_ctu: int = 6,
-                   sdh: bool = False, rdoq: bool = True, n_active=None,
-                   ts: bool = False, num_ref_l1: int = 0,
-                   l0map: tuple = None, l1map: tuple = None):
-    """The P- or B-slice decision pass.  Planes and the reference stacks
+                   mv_lx=None, ref_pocs_l1=None, **kw):
+    """The P- or B-slice decision pass (arguments and result as
+    `wavefront_pass_plain`): on CUDA tensors a P slice runs the walker
+    (`pframe_walk`: K23 once per z-scan level, K24 per CU grid), a B
+    slice the plain pass; CPU tensors run the plain pass."""
+    args = (org_y, org_u, org_v, refs_y, refs_u, refs_v, mv_x, mv_y, mv_ref,
+            ref_pocs, cur_poc, mv16, mv32, qp, qpc, col, col_poc, cbflat)
+    if not org_y.is_cuda or kw.get("num_ref_l1", 0) > 0:
+        return wavefront_pass_plain(*args, mv_lx=mv_lx,
+                                    ref_pocs_l1=ref_pocs_l1, **kw)
+    for k in ("num_ref_l1", "l0map", "l1map"):
+        kw.pop(k, None)
+    return pframe_walk(*args, **kw)
+
+
+def wavefront_pass_plain(org_y, org_u, org_v, refs_y, refs_u, refs_v,
+                         mv_x, mv_y, mv_ref, ref_pocs, cur_poc: int,
+                         mv16=None, mv32=None, qp: int = 32, qpc: int = 32,
+                         col=None, col_poc: int = 0, cbflat=None,
+                         mv_lx=None, ref_pocs_l1=None,
+                         *, w: int, h: int, num_ref: int, max_merge: int,
+                         bd: int = 8, qp_factor=0.57, levels: int = 1,
+                         tmvp: bool = False, log2_ctu: int = 6,
+                         sdh: bool = False, rdoq: bool = True,
+                         n_active=None, ts: bool = False,
+                         num_ref_l1: int = 0, l0map: tuple = None,
+                         l1map: tuple = None):
+    """The P- or B-slice decision pass, the plain version of K23 (and of
+    K24 through `t_level_plain`).  Planes and the reference stacks
     are int32 tensors on the pass's device; mv_* the phase-1 ME field on
     the 8x8 grid (quarter-pel, ref index), mv16 / mv32 the same on the
     16 and (padded) 32 grids; ref_pocs a host list, cur_poc, col_poc,
@@ -495,13 +575,8 @@ def wavefront_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v,
     # dense derivation per CU-grid level; merge targets reference 0,
     # AMVP the block's searched reference
     def t_level(n, aref, gw=None, gh=None):
-        t_ok, rx, ry, rp = temporal_cand_grid_dev(
-            col[0], col[1], col[2], col[3], n, w, h, log2_ctu, gw=gw, gh=gh)
-        td = col_poc - rp
-        tmx, tmy = scale_mv_pair_dev(rx, ry, cur_poc - ref_pocs_t[0], td)
-        tax, tay = scale_mv_pair_dev(
-            rx, ry, cur_poc - ref_pocs_t[aref.to(torch.int64)], td)
-        return t_ok, tmx, tmy, tax, tay
+        return t_level_plain(col, col_poc, n, aref, ref_pocs_t, cur_poc,
+                             w=w, h=h, log2_ctu=log2_ctu, gw=gw, gh=gh)
 
     t8 = t_level(8, rself) if tmvp else None
 
@@ -1102,6 +1177,181 @@ def wavefront_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v,
     for blk32 in lv32:
         step32(blk32)
     return finish_state()
+
+
+# ---------------------------------------------------------------------------
+# K23: the P walker's arguments (csrc/pwalk.cuh `Args`, in `args_from`'s
+# order) and its launches
+
+PW_SCRATCH = 25796       # ints of a lane's scratch, pw::SCRATCH (checked)
+_PW_CTX = ("SKIP_FLAG", "MERGE_FLAG", "MERGE_IDX", "PRED_MODE", "PART_SIZE",
+           "QT_CBF_LUMA", "QT_CBF_CHROMA", "QT_ROOT_CBF", "MVP_IDX", "MVD",
+           "REF_PIC", "SPLIT_FLAG", "CHROMA_PRED_MODE", "INTRA_PRED_MODE",
+           "TRANSFORMSKIP_FLAG")
+_PW_STATIC: dict = {}
+_HOIST_KEYS = ("ref", "mvx", "mvy", "cbf", "rec_y", "rec_u", "rec_v", "lev",
+               "ts", "dist", "bits")
+
+
+def _pw_static(w: int, h: int, log2_ctu: int, device):
+    """_p_static as int32 tensors on `device` (K23 reads them), one
+    upload per geometry."""
+    key = (w, h, log2_ctu, str(device))
+    t = _PW_STATIC.get(key)
+    if t is None:
+        i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32)) \
+            .to(device).contiguous()
+        st = _p_static(w, h, log2_ctu)
+        t = {k: i32(st[k]) for k in ("lv_blk", "nb_ok", "nb_flat")}
+        t["g8"], t["g4"] = (tuple(i32(a) for a in st[g])
+                            for g in ("g8", "g4"))
+        if st["sched32"] is not None:
+            t.update(zip(("lv16", "cells16", "nb16_ok", "nb16_cell"),
+                         (i32(a) for a in st["sched16"])))
+            t.update(zip(("lv32", "c16_32", "c8_32", "nb32_ok", "nb32_cell",
+                          "full32"), (i32(a) for a in st["sched32"])))
+        _PW_STATIC[key] = t
+    return t
+
+
+def _k23_level(scratch, ptrs, ints, flts, level):
+    kernels.launch("p_walk", "hm_p_walk", scratch,
+                   *(x for arr in (ptrs, ints, flts)
+                     for x in (ctypes.addressof(arr), len(arr))), level)
+
+
+def pframe_walk(org_y, org_u, org_v, refs_y, refs_u, refs_v, mv_x, mv_y,
+                mv_ref, ref_pocs, cur_poc: int, mv16=None, mv32=None,
+                qp: int = 32, qpc: int = 32, col=None, col_poc: int = 0,
+                cbflat=None, *, w: int, h: int, num_ref: int,
+                max_merge: int, bd: int = 8, qp_factor=0.57,
+                levels: int = 1, tmvp: bool = False, log2_ctu: int = 6,
+                sdh: bool = False, rdoq: bool = True, n_active=None,
+                ts: bool = False, run_level=_k23_level):
+    """wavefront_pass_plain's P form through the walker.  Before the
+    walk, over the whole frame: each grid's AMVP hypothesis (the block's
+    searched MV predicted and its residual coded), the open-loop intra
+    mode of every 8x8 block (`rmd`) and, with TMVP, each grid's temporal
+    candidates (`tmvp_grid`); then `run_level(scratch, ptrs, ints, flts,
+    level)` once per z-scan level of the geometry (K23 by default; the
+    CPU tests give it the host build of the lane code).  Arguments and
+    result as wavefront_pass_plain's (levels 1 or 3)."""
+    from hmtpu_torch.encoder.iframe_dev import _dev_static as i_static
+    from hmtpu_torch.encoder.iframe_dev import _iw_tables, walk_args
+
+    if levels not in (1, 3):
+        raise ValueError(f"pframe_walk: levels 1 or 3, got {levels}")
+    dev = org_y.device
+    sd = _pw_static(w, h, log2_ctu, dev)
+    tabs = _iw_tables(dev)
+    bw, bh = w // 8, h // 8
+    P = bw * bh
+    lam_, lam_sqrt_, wchroma_, lam_c_ = frame_lambdas(qp, qpc, qp_factor)
+    lam, wchroma, lam_c = (_scalar(v, dev) for v in (lam_, wchroma_, lam_c_))
+    i32 = dict(dtype=torch.int32, device=dev)
+    ic = lambda a: a.to(torch.int32).contiguous()
+    ref_pocs_t = torch.tensor(list(ref_pocs), **i32)
+    refs = tuple(ic(r) for r in (refs_y, refs_u, refs_v))
+
+    def hypothesis(mx, my, rr, n, gw, gh, orgs, with_ts=False):
+        """The AMVP hypothesis of every block of an n-grid (phase 1a of
+        the plain pass at n = 8, its hoisted 16 and 32 levels)."""
+        mx, my, rr = (a.reshape(-1) for a in (mx, my, rr))
+        m, nc, log2 = gw * gh, n // 2, n.bit_length() - 1
+        q = torch.arange(m, device=dev)
+        qy, qx = q // gw, q % gw
+        pa = mc_luma_batch_refs(refs[0], rr, qx * n, qy * n, mx, my, n, n,
+                                bd)
+        pu = mc_chroma_batch_refs(refs[1], rr, qx * nc, qy * nc, mx, my, nc,
+                                  nc, bd)
+        pv = mc_chroma_batch_refs(refs[2], rr, qx * nc, qy * nc, mx, my, nc,
+                                  nc, bd)
+        ly, ry, dy, by = _code(orgs[0], pa, qp, log2, bd, lam, cbflat, True,
+                               sdh=sdh, rdoq=rdoq)
+        if with_ts:
+            lc, rc, dc, bc, tsc = _code_ts_sel(
+                torch.cat([orgs[1], orgs[2]]), torch.cat([pu, pv]), qpc, bd,
+                lam_c, cbflat, False, wchroma, sdh=sdh, rdoq=rdoq)
+            (lu, lv), (ru, rv) = lc.split(m), rc.split(m)
+            (du, dv), (bu, bv) = dc.split(m), bc.split(m)
+            tsf = tsc[:m].to(torch.int32) | (tsc[m:].to(torch.int32) << 1)
+        else:
+            lu, ru, du, bu = _code(orgs[1], pu, qpc, log2 - 1, bd, lam_c,
+                                   cbflat, False, wchroma, sdh=sdh,
+                                   rdoq=rdoq)
+            lv, rv, dv, bv = _code(orgs[2], pv, qpc, log2 - 1, bd, lam_c,
+                                   cbflat, False, wchroma, sdh=sdh,
+                                   rdoq=rdoq)
+            tsf = None
+        nz = lambda lev: (lev.reshape(m, -1) != 0).any(1).to(torch.int32)
+        return dict(ref=rr, mvx=mx, mvy=my,
+                    cbf=nz(ly) | (nz(lu) << 1) | (nz(lv) << 2),
+                    rec_y=ry, rec_u=ru, rec_v=rv,
+                    lev=torch.cat([a.reshape(m, -1) for a in (ly, lu, lv)],
+                                  1),
+                    ts=tsf, dist=dy + du + dv, bits=by + bu + bv)
+
+    h8 = hypothesis(mv_x, mv_y, mv_ref, 8, bw, bh,
+                    (_blockify(org_y, 8), _blockify(org_u, 4),
+                     _blockify(org_v, 4)), with_ts=ts)
+    imode = rmd(org_y, i_static(w, h, log2_ctu, dev)["g8"], 8, 1, bd=bd,
+                lam_sqrt=lam_sqrt_, sis=False)[:, 0]
+    tg = lambda n, aref, **g: tmvp_grid(
+        col, col_poc, n, aref, ref_pocs_t, cur_poc, w=w, h=h,
+        log2_ctu=log2_ctu, **g) if tmvp else None
+    t8, t16, t32, h16, h32 = tg(8, mv_ref.reshape(-1)), None, None, {}, {}
+    if levels == 3:
+        gw, gh = bw // 2, bh // 2
+        qw, qh = (gw + 1) // 2, (gh + 1) // 2
+        t16 = tg(16, mv16[2].reshape(-1))
+        t32 = tg(32, mv32[2].reshape(-1), gw=qw, gh=qh)
+        h16 = hypothesis(*mv16[:3], 16, gw, gh,
+                         (_blockify(org_y, 16), _blockify(org_u, 8),
+                          _blockify(org_v, 8)))
+        h32 = hypothesis(
+            *mv32[:3], 32, qw, qh,
+            (_blockify(_edge_pad(org_y, qh * 32, qw * 32), 32),
+             _blockify(_edge_pad(org_u, qh * 16, qw * 16), 16),
+             _blockify(_edge_pad(org_v, qh * 16, qw * 16), 16)))
+
+    st = dict(
+        rec_y=torch.zeros(h * w + 1, **i32),
+        rec_u=torch.zeros(h * w // 4 + 1, **i32),
+        rec_v=torch.zeros(h * w // 4 + 1, **i32),
+        blk=torch.zeros((P + 1, 14), **i32),
+        levs=torch.zeros((P + 1, 96), **i32),
+        tsf=torch.zeros(P + 1, **i32),
+    )
+    geom = 32 if levels == 3 else 8
+    lv = sd["lv32" if geom == 32 else "lv_blk"]
+    scratch = torch.zeros((lv.shape[1], PW_SCRATCH), **i32)
+    opt = lambda a: None if a is None else ic(a)
+    cbflat = cbflat.to(torch.float32).contiguous()
+    tensors = [
+        *(ic(p) for p in (org_y, org_u, org_v)), *refs,
+        *(st[k] for k in ("rec_y", "rec_u", "rec_v", "blk", "levs", "tsf")),
+        ic(imode), sd["nb_ok"], sd["nb_flat"], *sd["g8"], *sd["g4"],
+        opt(t8), opt(t16), opt(t32), lv,
+        *(sd.get(k) for k in ("cells16", "nb16_ok", "nb16_cell", "c16_32",
+                              "c8_32", "nb32_ok", "nb32_cell", "full32")),
+        ref_pocs_t, tabs["mats"], cbflat, tabs["tabs_i"], tabs["tabs_f"],
+        scratch,
+        *(opt(hs.get(k)) if k not in ("dist", "bits") or not hs
+          else hs[k].to(torch.float32).contiguous()
+          for hs in (h8, h16, h32) for k in _HOIST_KEYS)]
+    cmax0 = 0 if num_ref <= 1 else (
+        num_ref - 1 if n_active is None else max(n_active - 1, 0))
+    ints = [w, h, bd, log2_ctu, geom, lv.shape[1], int(sdh), int(ts),
+            int(rdoq), refs[0].shape[0], num_ref, max_merge,
+            num_ref if n_active is None else n_active, cmax0, int(cur_poc),
+            PW_SCRATCH] + [OFF[c] for c in _PW_CTX]
+    args = walk_args(tensors, ints, tabs["tab_ctx"], qp, qpc, bd,
+                     (lam_, lam_c_, wchroma_))
+    for level in range(lv.shape[0]):
+        run_level(scratch, *args, level)
+    out = {k: v[:-1] for k, v in st.items()}
+    out["imode"] = imode
+    return out
 
 
 def full_pframe_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v, nn,

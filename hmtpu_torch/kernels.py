@@ -10,9 +10,9 @@ renames it into place).
 Every exported C function launches its kernel on the stream it is given
 and returns the `cudaGetLastError()` code of that launch; `launch`
 raises when it is not 0.  Python ints go by value (a host array's
-address among them, for K21's argument arrays).  Nothing here runs when a module is imported:
-the build happens at the first launch, or in `build_all`, which starts
-one nvcc per source, all at once.
+address among them, for K21's and K23's argument arrays).  Nothing here
+runs when a module is imported: the build happens at the first launch,
+or in `build_all`, which starts one nvcc per source, all at once.
 
 `COUNTS` holds one launch counter per kernel; each wrapper adds one
 where it launches its kernel, and nowhere else.
@@ -100,6 +100,15 @@ SOURCES = {
     "i_rmd": {
         "hm_i_rmd": "pppp" "iiiiii" "f" "p",
     },
+    "pwalk": {
+        "hm_p_walk": "p" "pipipi" "i" "p",
+    },
+    "tmvp": {
+        "hm_tmvp_grid": "ppppppp" "iiiiiiiii" "p",
+    },
+    "sao_choose": {
+        "hm_sao_choose": "ppppp" "ii" "p",
+    },
 }
 
 # kernel name -> (source, file:line of the hmtpu function it replaces)
@@ -138,6 +147,11 @@ KERNELS = {
     "i_rmd": ("i_rmd", "hmtpu/encoder/iframe_dev.py:102,135,94,"
                        "hmtpu/encoder/intra_rdo.py:78,"
                        "hmtpu/encoder/pframe_dev.py:364-369"),
+    "p_walk": ("pwalk", "hmtpu/encoder/pframe_dev.py:255,519,682,1017,1293,"
+                        "hmtpu/ops/ratebits.py:305-450"),
+    "tmvp_grid": ("tmvp", "hmtpu/search/wavefront.py:634,624,"
+                          "hmtpu/encoder/pframe_dev.py:381"),
+    "sao_choose": ("sao_choose", "hmtpu/ops/sao.py:305,267"),
 }
 COUNTS = dict.fromkeys(KERNELS, 0)
 

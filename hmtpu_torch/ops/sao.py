@@ -1,13 +1,14 @@
 """Sample adaptive offset (H.265 8.7.3): the port of hmtpu/ops/sao.py
 `sao_frame_dev` :383 with `_sao_stats_dev` :282, `_choose_params_dev`
-:305 and `apply_sao_dev` :358, plus the host types `CtuSaoParams`,
-`max_offset` and `grid_from_packed` that the entropy writer needs.
+:305 (with `_offsets_and_delta_dev` :267) and `apply_sao_dev` :358,
+plus the host types `CtuSaoParams`, `max_offset` and `grid_from_packed`
+that the entropy writer needs.
 
 On CUDA tensors the statistics and the apply step launch kernel K4
 (csrc/sao.cu: `sao_stats`, one block-level reduction per CTU, and
-`sao_apply`); on CPU tensors they run the plain PyTorch versions beside
-them.  The per-CTU RD choice of type, class and offsets stays plain
-PyTorch on either device: it is a small float32 computation per CTU.
+`sao_apply`), and the per-CTU RD choice of type, class and offsets of
+all three planes K25 (csrc/sao_choose.cu, one launch per frame); on CPU
+tensors they run the plain PyTorch versions beside them.
 
 Component order per CTU params: 0 = luma, 1 = Cb, 2 = Cr.
 Types: 0 = off, 1 = band, 2 = edge.  Params per CTU: (7,) =
@@ -143,6 +144,17 @@ def apply_sao_plain(rec, params, ctu: int, bd: int):
 def _sao_stats(org, rec, ctu: int, bd: int):
     if not rec.is_cuda:
         return sao_stats_plain(org, rec, ctu, bd)
+    h, w = rec.shape
+    return stats_views(sao_stats_rows(org, rec, ctu, bd), -(-h // ctu),
+                       -(-w // ctu))
+
+
+def sao_stats_rows(org, rec, ctu: int, bd: int):
+    """The statistics as K4 writes them: (CTUs, 96) int32 rows of edge
+    sums and counts (class x category), band sums and counts.  K4 on CUDA
+    tensors, the plain version (rearranged) on CPU ones."""
+    if not rec.is_cuda:
+        return stats_rows(*sao_stats_plain(org, rec, ctu, bd))
     org, rec = org.to(torch.int32).contiguous(), \
         rec.to(torch.int32).contiguous()
     h, w = rec.shape
@@ -150,12 +162,25 @@ def _sao_stats(org, rec, ctu: int, bd: int):
     out = torch.empty((ny * nx, 96), dtype=torch.int32, device=rec.device)
     kernels.launch("sao_stats", "hm_sao_stats", org, rec, out, h, w, ctu,
                    bd)
-    o = out.reshape(ny, nx, 96)
+    return out
+
+
+def stats_views(rows, ny: int, nx: int):
+    """(CTUs, 96) statistic rows -> (es, ec (4, 4, Y, X), bsum, bcnt
+    (32, Y, X)), the plain version's layout."""
+    o = rows.reshape(ny, nx, 96)
     es = o[..., 0:16].reshape(ny, nx, 4, 4).permute(2, 3, 0, 1)
     ec = o[..., 16:32].reshape(ny, nx, 4, 4).permute(2, 3, 0, 1)
-    bsum = o[..., 32:64].permute(2, 0, 1)
-    bcnt = o[..., 64:96].permute(2, 0, 1)
-    return es, ec, bsum, bcnt
+    return es, ec, o[..., 32:64].permute(2, 0, 1), \
+        o[..., 64:96].permute(2, 0, 1)
+
+
+def stats_rows(es, ec, bsum, bcnt):
+    """stats_views' inverse: the plain statistics as K4's rows."""
+    ny, nx = bsum.shape[1:]
+    f = lambda a, k: a.reshape(k, ny * nx).T
+    return torch.cat([f(es, 16), f(ec, 16), f(bsum, 32), f(bcnt, 32)],
+                     1).to(torch.int32).contiguous()
 
 
 def apply_sao_dev(rec, params, ctu: int, bd: int):
@@ -186,9 +211,10 @@ def _offsets_and_delta(e_sum, cnt, sign_constrained, max_off):
     return torch.where(take, shr, off), torch.where(take, d1, d0)
 
 
-def _choose_params(es, ec, bsum, bcnt, lam, bd: int, force_type=None,
-                   force_cls=None):
-    """RD choice per CTU (float32, hmtpu's order of operations).
+def _choose_params_plain(es, ec, bsum, bcnt, lam, bd: int, force_type=None,
+                         force_cls=None):
+    """Plain version of K25: the RD choice per CTU (float32, hmtpu's
+    order of operations).
     force_type/cls: Cr under Cb's shared type.  Returns (Y, X, 7)."""
     mo = max_offset(bd)
     esf, ecf = es.to(torch.float32), ec.to(torch.float32)
@@ -237,17 +263,49 @@ def _choose_params(es, ec, bsum, bcnt, lam, bd: int, force_type=None,
          offs[2].to(torch.int32), offs[3].to(torch.int32)], -1)
 
 
+def choose_params_plain(rows_y, rows_u, rows_v, lam, bd: int, ny: int,
+                        nx: int):
+    """`choose_params` through `_choose_params_plain`, on any device."""
+    p = lambda r, **k: _choose_params_plain(*stats_views(r, ny, nx), lam, bd,
+                                            **k)
+    p_cb = p(rows_u)
+    return torch.stack([p(rows_y), p_cb, p(rows_v, force_type=p_cb[..., 0],
+                                           force_cls=p_cb[..., 1])], 2)
+
+
+def choose_params(rows_y, rows_u, rows_v, lam, bd: int, ny: int,
+                  nx: int):
+    """Every CTU's SAO parameters of the three planes from their
+    statistic rows (`sao_stats_rows`), Cr under Cb's type and class: K25
+    on CUDA tensors (one launch), the plain version on CPU ones.  lam: a
+    float32 0-d tensor.  Returns (Y, X, 3, 7) int32."""
+    if not rows_y.is_cuda:
+        return choose_params_plain(rows_y, rows_u, rows_v, lam, bd, ny, nx)
+    out = torch.empty((ny, nx, 3, 7), dtype=torch.int32,
+                      device=rows_y.device)
+    kernels.launch("sao_choose", "hm_sao_choose",
+                   *(r.to(torch.int32).contiguous()
+                     for r in (rows_y, rows_u, rows_v)),
+                   lam.to(torch.float32).reshape(1).contiguous(), out,
+                   ny * nx, max_offset(bd))
+    return out
+
+
 def sao_frame_dev(org_y, rec_y, org_u, rec_u, org_v, rec_v, ctu: int,
                   lam, bd: int):
     """Estimate + apply SAO for a whole picture.  lam: float32 0-d
     tensor on the planes' device.  Returns (new_y, new_u, new_v,
     params (Y, X, 3, 7) int32) with the chroma type/class sharing rule
-    (Cr follows Cb)."""
-    p_y = _choose_params(*_sao_stats(org_y, rec_y, ctu, bd), lam, bd)
-    p_cb = _choose_params(*_sao_stats(org_u, rec_u, ctu // 2, bd), lam, bd)
-    p_cr = _choose_params(*_sao_stats(org_v, rec_v, ctu // 2, bd), lam, bd,
-                          force_type=p_cb[..., 0], force_cls=p_cb[..., 1])
+    (Cr follows Cb).  On the card: K4's statistics, K25's choice, K4's
+    apply."""
+    h, w = rec_y.shape
+    params = choose_params(
+        sao_stats_rows(org_y, rec_y, ctu, bd),
+        sao_stats_rows(org_u, rec_u, ctu // 2, bd),
+        sao_stats_rows(org_v, rec_v, ctu // 2, bd), lam, bd, -(-h // ctu),
+        -(-w // ctu))
+    p_y, p_cb, p_cr = params.unbind(2)
     new_y = apply_sao_dev(rec_y, p_y, ctu, bd)
     new_u = apply_sao_dev(rec_u, p_cb, ctu // 2, bd)
     new_v = apply_sao_dev(rec_v, p_cr, ctu // 2, bd)
-    return new_y, new_u, new_v, torch.stack([p_y, p_cb, p_cr], 2)
+    return new_y, new_u, new_v, params

@@ -2,6 +2,8 @@
 two trees of the port on one card in one run:
 
   ldp   LDP QP 22 with NN-FME, search range 64 (the main path): I + P;
+  ldp_dctif  LDP QP 22 with HM's DCT-IF sub-pel search and transform
+        skip, search range 64: I + P;
   ra10  random access at Main10, QP 32, DCT-IF, search range 64, on the
         first 3 frames (the IDR and two B pictures);
   ai    all-intra QP 32 with transform skip on the first frame.
@@ -54,6 +56,9 @@ def main() -> int:
             search_range=8)
     runs = (("ldp", clip[:2], dict(qp=22, gop="ldp", subpel="nn",
                                    search_range=64)),
+            ("ldp_dctif", clip[:2], dict(qp=22, gop="ldp", subpel="dctif",
+                                         transform_skip=True,
+                                         search_range=64)),
             ("ra10", clip, dict(qp=32, gop="ra", subpel="dctif",
                                 search_range=64, bit_depth=10)),
             ("ai", clip[:1], dict(qp=32, gop="ai", subpel="none",

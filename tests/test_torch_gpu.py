@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels of hmtpu_torch (K1-K20) against their
+"""The hand-written CUDA kernels of hmtpu_torch (K1-K25) against their
 plain PyTorch versions, on the card.  Every output must be equal: the
 kernels are integer, except NN-FME's (K6), RDOQ's (K10), the trainer's
 (K14-K16, K14 with the exp and log its plain version shares) and the
@@ -800,3 +800,98 @@ def test_rext_card_equals_cpu(dev, tmp_path):
                        for k in ("i_walk", "i_rmd"))
         out.append(b.read_bytes())
     assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("w,h,qp,subpel,ts,bd", [
+    (64, 64, 22, "nn", False, 8), (64, 64, 37, "dctif", True, 8),
+    (64, 56, 27, "nn", False, 8), (80, 48, 27, "dctif", False, 8),
+    (64, 64, 32, "dctif", False, 10)])
+def test_p_walk_kernel(dev, w, h, qp, subpel, ts, bd):
+    """K23 (with K24 for the temporal grids) against the plain P pass on
+    the card, on the P passes of a 3-frame LDP encode there: every state
+    array equal; one K23 launch per z-scan level."""
+    from hmtpu_torch.encoder import pframe_dev
+    from hmtpu_torch.encoder.top import Encoder, EncoderConfig
+    from hmtpu_torch.io.yuv import Frame
+    from hmtpu_torch.utils.gen_test_yuv import synth_clip
+
+    seen = []
+    inner = pframe_dev.wavefront_pass
+
+    def record(*a, **k):
+        before = kernels.COUNTS["p_walk"]
+        st = inner(*a, **k)
+        torch.cuda.synchronize()
+        seen.append((a, k, {x: v.clone() for x, v in st.items()},
+                     kernels.COUNTS["p_walk"] - before))
+        return st
+
+    pframe_dev.wavefront_pass = record
+    try:
+        enc = Encoder(EncoderConfig(width=w, height=h, qp=qp, gop="ldp",
+                                    subpel=subpel, search_range=8,
+                                    transform_skip=ts, bit_depth=bd),
+                      device="cuda")
+        enc.encode_sequence([Frame(*(np.asarray(p, np.int32) << (bd - 8)
+                                     for p in f), bd)
+                             for f in synth_clip(w, h, 3)])
+    finally:
+        pframe_dev.wavefront_pass = inner
+    assert len(seen) == 2
+    st = pframe_dev._p_static(w, h, 6)
+    lv = st["sched32"][0] if st["sched32"] is not None else st["lv_blk"]
+    for a, k, got, launches in seen:
+        assert launches == lv.shape[0]
+        want = pframe_dev.wavefront_pass_plain(*a, **k)
+        for x in want:
+            assert torch.equal(got[x], want[x]), x
+
+
+@pytest.mark.parametrize("w,h", [(64, 64), (80, 48), (416, 240)])
+def test_tmvp_grid_kernel(dev, w, h):
+    """K24 against its plain version (`t_level_plain`) on seeded
+    collocated fields, at the 8, 16 and padded 32 grids."""
+    from hmtpu_torch.encoder import pframe_dev
+
+    rng = np.random.RandomState(w * h)
+    bw, bh = w // 8, h // 8
+    col = (rng.randint(-300, 301, (bh, bw)), rng.randint(-300, 301, (bh, bw)),
+           rng.rand(bh, bw) < 0.7,
+           8 - rng.choice([1, 2, 3, 200, -150], (bh, bw)))
+    g16 = (w // 16, h // 16)
+    for pocs in ([8, 7, 6, 5], [8, -200, 140, 3]):
+        for n, gw, gh in ((8, bw, bh), (16,) + g16,
+                          (32, (g16[0] + 1) // 2, (g16[1] + 1) // 2)):
+            aref = rng.randint(0, 4, gw * gh)
+            run = lambda d: pframe_dev.tmvp_grid(
+                tuple(torch.as_tensor(c).to(d) for c in col), 8, n,
+                torch.as_tensor(aref.astype(np.int32)).to(d),
+                torch.tensor(pocs, dtype=torch.int32, device=d), 9, w=w,
+                h=h, log2_ctu=6, gw=gw, gh=gh)
+            got = _launched("tmvp_grid", lambda: run(dev))
+            assert torch.equal(got.cpu(), run("cpu"))
+
+
+@pytest.mark.parametrize("bd,qp", [(8, 22), (8, 37), (10, 32)])
+def test_sao_choose_kernel(dev, bd, qp):
+    """K25 against its plain version on seeded statistics of 28 CTUs
+    (416x240 at CTU 64), Cr under Cb's type and class."""
+    from hmtpu_torch.common.lambdas import frame_lambdas
+    from hmtpu_torch.ops import sao
+
+    rng = np.random.RandomState(bd + qp)
+    ny, nx = 4, 7
+    rows = []
+    for _ in range(3):
+        cnt = rng.choice([0, 1, 5, 60, 900], (ny * nx, 48))
+        s = (rng.randint(-12, 13, cnt.shape) * cnt << (bd - 8)) // 3
+        r = np.empty((ny * nx, 96), np.int32)
+        r[:, 0:16], r[:, 16:32] = s[:, :16], cnt[:, :16]
+        r[:, 32:64], r[:, 64:96] = s[:, 16:], cnt[:, 16:]
+        rows.append(r)
+    lam = torch.tensor(frame_lambdas(qp, qp, 0.57)[0], dtype=torch.float32)
+    got = _launched("sao_choose", lambda: sao.choose_params(
+        *(_i32(r, dev) for r in rows), lam.to(dev), bd, ny, nx))
+    want = sao.choose_params(*(torch.as_tensor(r) for r in rows), lam, bd,
+                             ny, nx)
+    assert torch.equal(got.cpu(), want)
