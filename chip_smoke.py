@@ -11,20 +11,26 @@ when every phase passed):
                process per source, all started together;
   3. kernels   each kernel (K1, K3-K16 and K1's transform-skip mode)
                against its plain PyTorch version on seeded inputs at the
-               shapes the main paths give it, and K2 and K17-K25 (after
+               shapes the main paths give it, and K2 and K17-K26 (after
                phase 11's untimed encodes) on the inputs of the widest
                call of each form captured there: K23 (the P z-scan
                walker, one launch per level) on the ldp phase's P frame
                (timed, its row), ldp_dctif's (TS), a 64x56 frame (8x8
                lanes) and a 64x64 one, each timed beside
                wavefront_pass_plain on the card, every state array equal;
+               K26 (the B z-scan walker, one launch per level) on each of
+               the ra10 phase's 8 B frames (416x240, 10 bits; the first
+               timed, its row) and on POC 8 and POC 2 of 64x64 and 64x56
+               8-bit RA encodes, each against wavefront_pass_plain on the
+               card, every state array equal;
                K24 on the three CU grids of ldp's P frame (the 8 grid
                timed) and on seeded collocated fields at those shapes;
                K25 on the ldp frames' SAO statistics; K2 as the plain P
                pass on the card calls it per level lane (the 8x8 luma
                filter and prediction at 8 bits timed; the chroma 4x4 pair
-               and the RA Main10 forms checked), K17's and K18's P form
-               (timed) and B form, K19, K20's one-mode form of the P pass
+               and the 10-bit forms checked), K17's and K18's P form
+               (timed) and B form (from the plain B pass run on the card
+               beside K26), K19, K20's one-mode form of the P pass
                (timed) and its I-pass forms (K candidates, four PUs) on
                seeded modes; K21 (the I z-scan walker, one launch per
                level) on the ai phase's frame (timed, its row), the ldp
@@ -53,7 +59,7 @@ when every phase passed):
                kernel count reset before and read after: each of K1,
                K3-K8, K10, K19 and K21-K25 must be > 0 (the P pass's
                coding, candidates, intra prediction and mode bits run
-               inside K23: K2, K17, K18 and K20 are ra10's).  Seconds per
+               inside K23, and no encode launches them).  Seconds per
                frame, and for the P
                frame the device pass apart from the host's finish +
                CABAC; nvidia-smi samples the card's utilization meanwhile;
@@ -69,11 +75,12 @@ when every phase passed):
                SAO; BASELINE config 4) through the CLI on 9 frames of the
                clip at 416x240 as 10-bit samples (the 8-bit clip << 2):
                the IDR and one whole GOP, coded as POC 0, 8, 4, 2, 1, 3,
-               6, 5, 7.  Counts reset before and read after: K1-K5, K7,
-               K9-K12, K17, K18, K20-K22 and K25 must be > 0 (the B
-               slices run the plain P / B pass, not K23); 8 B slices, and
-               bi-predicted CUs (DBG_COUNTERS["ra_bi_cus"]) > 0.  Never
-               left out;
+               6, 5, 7.  Counts reset before and read after: K1, K3-K5,
+               K7, K9, K10, K21, K22, K25 and K26 must be > 0, K26 once per
+               z-scan level of each B frame (the B slices' z-scan, with
+               K2, K11, K12, K17, K18 and K20's arithmetic inside it); 8 B
+               slices, and bi-predicted CUs (DBG_COUNTERS["ra_bi_cus"])
+               > 0.  Seconds per B frame beside the card.  Never left out;
   7. ai        cfg/encoder_intra_main.cfg as shipped (QP 32, transform
                skip on, SDH off) on the clip's first frame through the
                CLI: K21, K22, K3 and K4 must be > 0 (the I pass codes,
@@ -132,16 +139,17 @@ when every phase passed):
                SR 16 must equal the card's;
  11. tally     meanwhile, untimed: the calls of the plain-torch queue-B
                functions on the ldp phase's encode and on a 2-frame
-               416x240 RA Main10 encode (an I and a B picture), and the
-               bytes of the tensors they take and give (a bound for
+               416x240 RA Main10 encode of the ra10 phase's 9 frames, and
+               the bytes of the tensors they take and give (a bound for
                argument bytes only); the ldp encode may call none of the
                plain versions of K21-K25 (wavefront_pass_plain,
-               t_level_plain, _choose_params_plain among them); the same
-               two encodes, untimed ldp_dctif, 64x56 and 64x64 LDP
+               t_level_plain, _choose_params_plain among them), the RA
+               encode none of them and no B8 flag helper; the same
+               two encodes, untimed ldp_dctif, 64x56 and 64x64 LDP and RA
                encodes, an AI encode of the ai phase's frame and a 64x64
-               AI frame capture the inputs of K2, K17-K21, K23 and K25
-               (Capture), which phase 3's last checks use; none of them
-               may call iframe_pass_plain or rmd_plain.
+               AI frame capture the inputs of K2, K17-K21, K23, K25 and
+               K26 (Capture), which phase 3's last checks use; none of
+               them may call iframe_pass_plain or rmd_plain.
 
 Imports nothing from hmtpu or JAX.  The last line of the output is
 {"ok": true, "device": {...}}.  Every process the check starts (nvcc,
@@ -206,10 +214,15 @@ TRACK_STEPS, TRACK_EPOCHS, TRACK_RTOL = 50, 2, 0.0
 # the CPU at search range 16 (about 20 s there)
 HD_W, HD_H, HD_FRAMES, HD_SR, HD_CPU_SR = 1920, 1080, 4, 64, 16
 # the kernels whose P forms run inside K23 on the card: the LDP encodes
-# launch none of them (the I pass's forms run inside K21); ra10's B pass
-# still does
+# launch none of them (the I pass's forms run inside K21)
 P_INSIDE_K23 = ("intra_filter", "intra_pred", "merge_cands", "amvp_rd",
                 "mpm_bits")
+# the kernels whose B forms run inside K26 on the card, so the ra10 path
+# launches none of them: K2's filter and prediction (intra_filter,
+# intra_pred), K17's B merge list (merge_cands), K18's B AMVP list and
+# pricing (amvp_rd), K20's MPM pricing (mpm_bits), K11's intermediate
+# hypotheses (mc_dctif_i) and K12's bi-average and screening (bi_pred)
+B_INSIDE_K26 = P_INSIDE_K23 + ("mc_dctif_i", "bi_pred")
 # the kernels of the training slice: the encodes at sides that are
 # multiples of 16 launch none of them
 TRAIN_KERNELS = ("me_sad1", "nnfme_fwd", "nnfme_bwd", "adam")
@@ -357,7 +370,7 @@ DEVICE_FN = {
     "mv_regularize": "reg_kernel", "mpm_bits": "mpm_kernel",
     "i_walk": "iwalk_kernel", "i_rmd": "rmd_kernel",
     "p_walk": "pwalk_kernel", "tmvp_grid": "tmvp_kernel",
-    "sao_choose": "sao_choose_kernel",
+    "sao_choose": "sao_choose_kernel", "b_walk": "bwalk_kernel",
 }
 
 
@@ -956,20 +969,20 @@ def slice5_kernel_cases(dev, rng):
 # and give back, a bound for argument bytes only (a pass's own reads and
 # writes of intermediates are not in it)
 PLAIN_FUNCS = (
-    # the plain versions of K21-K25 (B14, B9, B11's P form, B10, B13):
-    # none may run on the ldp path (the B slices of ra10 run K23's, the
-    # plain P / B pass, by design)
+    # the plain versions of K21-K26 (B14, B9, B11's P and B forms, B10,
+    # B13): none may run on the card's encode paths
     ("K21 plain", "hmtpu_torch.encoder.iframe_dev", "iframe_pass_plain"),
     ("K22 plain", "hmtpu_torch.encoder.intra_rdo", "rmd_plain"),
     ("K22 plain", "hmtpu_torch.encoder.iframe_dev", "rmd_plain"),
-    ("K23 plain", "hmtpu_torch.encoder.pframe_dev", "wavefront_pass_plain"),
+    ("K23 / K26 plain", "hmtpu_torch.encoder.pframe_dev",
+     "wavefront_pass_plain"),
     ("K24 plain", "hmtpu_torch.encoder.pframe_dev", "t_level_plain"),
     ("K25 plain", "hmtpu_torch.ops.sao", "_choose_params_plain"),
 ) + tuple(
-    # B8's remaining flag helpers (hmtpu/ops/ratebits.py:305-450), as the
-    # passes import them (mvd, ref_idx, inter_dir and the MPM pricing are
-    # K18's and K20's; the I pass's are folded into K21 and the P pass's
-    # into K23, and only their plain versions and the B pass call them)
+    # B8's flag helpers (hmtpu/ops/ratebits.py:305-450), as the passes
+    # import them (mvd, ref_idx, inter_dir and the MPM pricing are K18's
+    # and K20's; the I pass's are folded into K21, the P pass's into K23
+    # and the B pass's into K26: only their plain versions call them)
     ("B8 flags", f"hmtpu_torch.encoder.{mod}", fn)
     for mod, fns in (
         ("pframe_dev", ("cbf_chroma_bits", "cbf_luma_bits", "chroma_dm_bits",
@@ -1041,7 +1054,7 @@ class PlainTally:
             f"(argument bytes only)" for k in sorted(self.calls))
 
 
-# K2, K17-K21, K23 and K25 are held against their plain versions on inputs
+# K2, K17-K21, K23, K25 and K26 are held against their plain versions on inputs
 # captured from the passes: (kernel, form (or a function of the call's arguments that
 # gives it), module, wrapper as the pass calls it, the lanes of a call's
 # arguments); Capture keeps, per form, the arguments of the call with the
@@ -1071,11 +1084,11 @@ CAPTURED = (
      + (" TS" if k.get("ts") else ""), "hmtpu_torch.encoder.iframe_dev",
      "iframe_pass", lambda a, k: 1),
     # K23 (and K24 inside it): the P pass, one form per picture size and
-    # TS (B slices apart); the widest call is the one with the most
-    # temporal candidates available
+    # TS; the widest call is the one with the most temporal candidates
+    # available.  K26: the B pass, one form per picture size and POC
     ("p_walk", lambda a, k: f"{k['w']}x{k['h']}"
      + (" TS" if k.get("ts") else "")
-     + (" B" if k.get("num_ref_l1", 0) else ""),
+     + (f" B POC{a[10]}" if k.get("num_ref_l1", 0) else ""),
      "hmtpu_torch.encoder.pframe_dev", "wavefront_pass",
      lambda a, k: 1 + (int(k["col"][2].sum())
                        if k.get("col") is not None else 0)),
@@ -1362,35 +1375,44 @@ def walk_cases(got):
 P_FORMS = (f"{W}x{H}", f"{W}x{H} TS", "64x56", "64x64")
 
 
-def pwalk_work(k, st):
-    """Bytes and operations of one K23 pass (all its levels), from its
-    arguments and its state: the source planes, the reference stacks, the
-    per-grid AMVP hypotheses, schedules and tables read once, the state
-    written once; operations per coded TB of side n as walk_work's, per
-    predicted block 2 x taps multiply-adds a sample in each direction.
-    Counted: every CU trial's merge candidates (predicted), its two
-    finalists (deadzone-coded) and its winner (recoded), and the intra
-    coding of the cells that chose intra (the cells that priced intra
-    without choosing it are not known from the state: left out, so the
-    bound stays a least time)."""
+def pwalk_work(a, k, st):
+    """Bytes and operations of one K23 or K26 pass (all its levels), from
+    its arguments and its state: the source planes, the reference stack,
+    the per-grid AMVP hypotheses (and, in a B slice, their lists),
+    schedules and tables read once, the state written once; operations
+    per coded TB of side n as walk_work's, per predicted block 2 x taps
+    multiply-adds a sample in each direction.  Counted: in a P slice
+    (K23) every CU trial's merge candidates (predicted), its two
+    finalists (deadzone-coded) and its winner (recoded); in a B slice
+    (K26) one luma hypothesis of every merge candidate (a bi candidate's
+    second is not known from the state), the winner's exact prediction
+    and its one coding; and the intra coding of the cells that chose
+    intra (the cells that priced intra without choosing it are not known
+    from the state: left out, so the bound stays a least time)."""
     from hmtpu_torch.encoder import pframe_dev as pf
 
     w, h, m = k["w"], k["h"], k["max_merge"]
     P, npx = (w // 8) * (h // 8), w * h * 3 // 2
-    nref = k["num_ref"]
+    nref, is_b = a[3].shape[0], k.get("num_ref_l1", 0) > 0
     sd = pf._p_static(w, h, 6)
     tables = sum(np.asarray(a).size for v in sd.values() if v is not None
                  for a in (v if isinstance(v, tuple) else (v,)))
-    grids = P * (1 + 96 + 96 + 10)
+    per = 11 if is_b else 10
+    grids = P * (1 + 96 + 96 + per)
     if sd["sched32"] is not None:
-        grids += (P // 4) * (384 + 384 + 10) + (P // 16) * (1536 + 1536 + 10)
+        grids += (P // 4) * (384 + 384 + per) \
+            + (P // 16) * (1536 + 1536 + per)
     nbytes = 4 * (npx * (1 + nref) + tables + grids) \
         + 4 * (npx + P * (14 + 96 + 1))
     tb = lambda n: 8 * n ** 3 + 200 * n * n
     mc = lambda n: 2 * (16 * n * n) + 2 * 2 * (8 * (n // 2) ** 2)
     ts2 = 2 if k.get("ts") else 1
-    trial = lambda n, c: m * mc(n) + 2 * (tb(n) + 2 * tb(n // 2)) \
-        + tb(n) + 2 * c * tb(n // 2)
+    if is_b:
+        trial = lambda n, c: m * 2 * (16 * n * n) + mc(n) + tb(n) \
+            + 2 * tb(n // 2)
+    else:
+        trial = lambda n, c: m * mc(n) + 2 * (tb(n) + 2 * tb(n // 2)) \
+            + tb(n) + 2 * c * tb(n // 2)
     kind = st["blk"][:, pf.K_KIND].cpu().numpy()
     ops = P * trial(8, ts2) + int((kind == 3).sum()) * (tb(8) + 2 * ts2
                                                         * tb(4))
@@ -1419,7 +1441,37 @@ def pwalk_cases(got):
         cases.append((
             "p_walk", f"{f} QP{k['qp']}", lambda a=a, k=k: state(pf.wavefront_pass(*a, **k)),
             lambda a=a, k=k: state(pf.wavefront_pass_plain(*a, **k)),
-            *pwalk_work(k, st)))
+            *pwalk_work(a, k, st)))
+    return cases
+
+
+# K26's forms: the ra10 phase's 8 B frames (the first is its row), POC 8
+# (one reference a list) and POC 2 (three) of 64x64 and 64x56 8-bit RA
+# encodes (geometry 32 and 8)
+B_FORMS = tuple(f"{W}x{H} B POC{p}" for p in (8, 4, 2, 1, 3, 6, 5, 7)) \
+    + tuple(f"{s} B POC{p}" for s in ("64x64", "64x56") for p in (8, 2))
+
+
+def bwalk_cases(got):
+    """K26 on the B passes Capture kept (B_FORMS) against
+    `wavefront_pass_plain` on the card: (name, label, kernel call, plain
+    call, bytes, operations); the first is its row."""
+    from hmtpu_torch.encoder import pframe_dev as pf
+
+    missing = [f for f in B_FORMS if ("p_walk", f) not in got]
+    if missing:
+        fail(f"capture: no B pass of {missing} in the untimed encodes "
+             f"(got {sorted(f for k, f in got if k == 'p_walk')})")
+    cases = []
+    for f in B_FORMS:
+        _, a, k = got[("p_walk", f)]
+        state = lambda d: tuple(d[x] for x in sorted(d))
+        st = pf.wavefront_pass(*a, **k)
+        cases.append((
+            "b_walk", f"{f} QP{k['qp']} {k['bd']} bits",
+            lambda a=a, k=k: state(pf.wavefront_pass(*a, **k)),
+            lambda a=a, k=k: state(pf.wavefront_pass_plain(*a, **k)),
+            *pwalk_work(a, k, st)))
     return cases
 
 
@@ -1475,11 +1527,11 @@ def p_kernel_cases(got, dev):
     return cases
 
 
-def check_walk(cases, rows) -> None:
+def check_walk(cases, rows, time_all=True) -> None:
     """Each case's kernel against its plain version on the card (equal),
-    timed: the kernel over a few calls, the plain version once (a
-    416x240 plain I pass takes seconds); the first case of a kernel gives
-    its row."""
+    timed: the kernel over a few calls (only the first case of a kernel
+    unless time_all), the plain version once (a 416x240 plain I pass
+    takes seconds); the first case of a kernel gives its row."""
     from hmtpu_torch import kernels
 
     for name, label, kfn, pfn, nbytes, ops in cases:
@@ -1493,7 +1545,11 @@ def check_walk(cases, rows) -> None:
         if not same(got, want):
             fail(f"{name} ({label}): kernel disagrees with its plain version "
                  f"(max abs err {err})")
-        iters = 3 if name in ("i_walk", "p_walk") else 50
+        if name in rows and not time_all:
+            print(f"kernel {name} ({label}): equal to plain (plain {pms:.4f} "
+                  f"ms, once)", flush=True)
+            continue
+        iters = 3 if name in ("i_walk", "p_walk", "b_walk") else 50
         ms = time_cuda(kfn, iters, warm=1)
         dms = device_ms(kfn, DEVICE_FN[name], iters=iters)
         bms, by = bound_ms(nbytes, ops)
@@ -1763,7 +1819,8 @@ def main() -> None:
     # ---- 4. the main path: low-delay P with NN-FME
     ldp_names = [k for k in kernels.KERNELS
                  if k not in ("frac_refine", "transform_skip", "mc_dctif_i",
-                              "bi_pred") + P_INSIDE_K23 + TRAIN_KERNELS]
+                              "bi_pred", "b_walk") + P_INSIDE_K23
+                 + TRAIN_KERNELS]
     (bs, dt, results), counts, util = run_counted(
         "ldp", lambda: encode(clip, QP_LDP, dev, "ldp", SRANGE),
         ldp_names, kernels)
@@ -1789,8 +1846,8 @@ def main() -> None:
 
     # ---- 5. the anchor cfg with HM's DCT-IF sub-pel search, via the CLI
     dctif_names = [k for k in kernels.KERNELS
-                   if k not in ("nnfme", "satd8", "mc_dctif_i", "bi_pred")
-                   + P_INSIDE_K23 + TRAIN_KERNELS]
+                   if k not in ("nnfme", "satd8", "mc_dctif_i", "bi_pred",
+                                "b_walk") + P_INSIDE_K23 + TRAIN_KERNELS]
     pframe_dev.DBG_COUNTERS["ldp_ts_tbs"] = 0
     (d_bs, d_dt, d_enc), d_counts, d_util = run_counted(
         "ldp_dctif", lambda: cli_encode(
@@ -1822,13 +1879,13 @@ def main() -> None:
     ra_names = [k for k in kernels.KERNELS
                 if k not in ("nnfme", "satd8", "transform_skip",
                              "mv_regularize", "p_walk", "tmvp_grid")
-                + TRAIN_KERNELS]
+                + B_INSIDE_K26 + TRAIN_KERNELS]
+    ra_args = ["-c", RA_CFG, "--InputBitDepth=10", "-f", str(RA_FRAMES),
+               "-wdt", str(W), "-hgt", str(H), "-i", yuv10, "-b"]
     pframe_dev.DBG_COUNTERS["ra_bi_cus"] = 0
     (r_bs, r_dt, r_enc), r_counts, r_util = run_counted(
         "ra10", lambda: cli_encode(
-            ["-c", RA_CFG, "--InputBitDepth=10", "-f", str(RA_FRAMES),
-             "-wdt", str(W), "-hgt", str(H), "-i", yuv10, "-b",
-             os.path.join(tmp.name, "ra10.hevc")], dev),
+            ra_args + [os.path.join(tmp.name, "ra10.hevc")], dev),
         ra_names, kernels)
     for name in ("mc_dctif_i", "bi_pred"):
         rows[name]["launches"] = r_counts[name]
@@ -1855,6 +1912,18 @@ def main() -> None:
           + ", ".join(f"POC{r.poc} Y {r.psnr_y:.4f} U {r.psnr_u:.4f} "
                       f"V {r.psnr_v:.4f}" for r in r_res), flush=True)
     frame_line("ra10", r_res, r_util, gop8=True)
+    from hmtpu_torch.search.wavefront import block_schedule32
+
+    n_levels = int(block_schedule32(W, H, 6)["lv_blk"].shape[0])
+    if r_counts["b_walk"] != 8 * n_levels:
+        fail(f"ra10: {r_counts['b_walk']} K26 launches for 8 B frames of "
+             f"{n_levels} z-scan levels")
+    b_secs = [r.seconds for r in r_res if r.slice_type == "B"]
+    b_dev = [r.device_seconds for r in r_res if r.slice_type == "B"]
+    print(f"ra10: K26 {r_counts['b_walk']} launches ({n_levels} a B frame); "
+          f"B frames {min(b_secs):.3f}-{max(b_secs):.3f} s (median "
+          f"{np.median(b_secs):.3f} s), device pass {min(b_dev):.3f}-"
+          f"{max(b_dev):.3f} s, on {card}", flush=True)
 
     # ---- 7. cfg/encoder_intra_main.cfg as shipped, via the CLI
     ai_args = ["-c", AI_CFG, "-f", "1", *size, "-b",
@@ -2087,9 +2156,22 @@ def main() -> None:
                         os.path.join(tmp.name, "ldp_dctif_c.hevc")], dev)
             encode(synth_clip(64, 56, 3, seed=5), 27, dev, "ldp", 8, "nn")
             encode(small[:3], 27, dev, "ldp", 8, "nn")
+        # and K26's inputs: the ra10 phase's B frames (the same CLI run),
+        # and 64x64 and 64x56 8-bit RA encodes; no plain version and no B8
+        # flag helper may run on their path
         with PlainTally() as tally, Capture(cap.got):
-            encode(ra_clip[:2], 32, dev, "ra", SRANGE, "dctif", bd=10)
-        print(tally.line("416x240 RA Main10 QP32 I + B, untimed"),
+            cli_encode(ra_args + [os.path.join(tmp.name, "ra10_c.hevc")],
+                       dev)
+            print(tally.line("416x240 RA Main10 QP32 I + 8 B, untimed"),
+                  flush=True)
+            for w_, h_, seed in ((64, 64, 3), (64, 56, 5)):
+                encode(synth_clip(w_, h_, RA_FRAMES, seed=seed), 27, dev,
+                       "ra", 8, "dctif")
+        if tally.calls:
+            fail(f"plain versions or B8 flag helpers ran on the RA path: "
+                 f"{tally.calls}")
+        print("plain: no call of wavefront_pass_plain, of a B8 flag helper "
+              "or of another plain version in the untimed RA encodes",
               flush=True)
         # and K21's inputs on the ai phase's frame and at 64x64 (the 32
         # level)
@@ -2103,23 +2185,26 @@ def main() -> None:
                 fail(f"plain versions of K21 / K22 ran on the card: {bad}")
         print("plain: no call of iframe_pass_plain or rmd_plain in the "
               "untimed LDP, RA Main10 and AI encodes", flush=True)
-        # ---- 3 (continued). K23 against wavefront_pass_plain on the
-        # card (whose calls of K2, K17, K18 and K20 in their P forms are
-        # captured meanwhile), K24 and K25 against their plain versions;
-        # their launches are the ldp phase's
+        # ---- 3 (continued). K23 and K26 against wavefront_pass_plain on
+        # the card (whose calls of K2, K17, K18 and K20 in their P and B
+        # forms are captured meanwhile), K24 and K25 against their plain
+        # versions; their launches are the ldp phase's (K26's ra10's)
         with Capture(cap.got):
             check_walk(pwalk_cases(cap.got), rows)
+            check_walk(bwalk_cases(cap.got), rows, time_all=False)
         check_kernels(p_kernel_cases(cap.got, dev), rows)
         for name in ("p_walk", "tmvp_grid", "sao_choose"):
             rows[name]["launches"] = counts[name]
-        print("kernels K23-K25 launches: " + "; ".join(
+        rows["b_walk"]["launches"] = r_counts["b_walk"]
+        print("kernels K23-K26 launches: " + "; ".join(
             f"{name} ldp {counts[name]}, ldp_dctif {d_counts[name]}, ra10 "
             f"{r_counts[name]}" for name in ("p_walk", "tmvp_grid",
-                                             "sao_choose")), flush=True)
+                                             "sao_choose", "b_walk")),
+              flush=True)
         # K2 and K17-K20 against their plain versions on the captured
-        # inputs (the P forms from the plain P pass above); their launches
-        # are ra10's, whose B pass runs them (the LDP encodes' P passes run
-        # their arithmetic inside K23)
+        # inputs (the P and B forms from the plain passes above); their
+        # launches are ra10's, 0: the encodes run their arithmetic inside
+        # K23 and K26
         captured = captured_cases(cap.got)
         check_kernels(captured, rows)
         for name, *_ in captured:

@@ -14,10 +14,12 @@
 // hundred thousand samples) the launch cost dominates both.
 //
 // Design: one thread a sample, a grid-stride loop, the pair's direction
-// read once a sample from the (N,) vector (it stays in L1).  The sums are
-// signed ints and every shift is arithmetic.
+// read once a sample from the (N,) vector (it stays in L1); the sample's
+// arithmetic is bi_pred.cuh's, which K26 runs too.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bi_pred.cuh"
 
 namespace {
 
@@ -26,24 +28,9 @@ __global__ void bi_pred_kernel(const int* __restrict__ i0,
                                const int* __restrict__ cdir,
                                int* __restrict__ out, long long total, int S,
                                int bd) {
-  const int shift = 15 - bd;
-  const int off = (1 << (shift - 1)) + 2 * 8192;
-  const int headroom = 14 - bd;
-  const int uoff = 8192 + (1 << (headroom - 1));
-  const int maxv = (1 << bd) - 1;
   for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       k < total; k += (long long)gridDim.x * blockDim.x) {
-    const int d = cdir[k / S];
-    const int a = i0[k], b = i1[k];
-    int v;
-    if (d == 3) {
-      v = (a + b + off) >> shift;
-    } else {
-      v = ((d & 1) ? a : b) + uoff;
-      v >>= headroom;
-    }
-    out[k] = min(max(v, 0), maxv);
-  }
+       k < total; k += (long long)gridDim.x * blockDim.x)
+    out[k] = hm::bi_pred_sample(i0[k], i1[k], cdir[k / S], bd);
 }
 
 }  // namespace

@@ -22,10 +22,9 @@ CABAC engine.
            bits; per 16x16 and 32x32 region one larger inter CU trial that
            overwrites where it wins.  On the card a P slice walks them in
            K23 (`pframe_walk`: one launch per level, the temporal
-           candidates of each CU grid from K24 before it); a B slice, and
-           the CPU, run the plain version (`wavefront_pass_plain`: a
-           Python loop over the levels, with K17, K7, K10, K18, K2 and K20
-           per batch on the card);
+           candidates of each CU grid from K24 before it), a B slice in
+           K26; the CPU runs the plain version (`wavefront_pass_plain`: a
+           Python loop over the levels);
   filters  deblocking (K3) and SAO (K4's statistics and apply, K25's
            parameter choice).
 
@@ -48,9 +47,10 @@ at intermediate precision (K11) and screened on the approximate final
 samples or the bi-average (K12); the winner's uni prediction is redone
 at final precision (K7) and its bi-average taken from the exact
 hypotheses; the AMVP candidate is the ME's (uni-directional) one.  No
-TMVP and no transform skip in B slices.  The host writes B slices with
-the Python slice walk (encoder/pframe.py); P slices with the native
-CABAC engine.  The Jacobi decision is not ported (not queued).
+TMVP and no transform skip in B slices.  On the card the B z-scan is
+K26 (one launch per level), with the same arithmetic inside it.  The
+host writes B slices with the Python slice walk (encoder/pframe.py); P
+slices with the native CABAC engine.  The Jacobi decision is not ported (not queued).
 """
 from __future__ import annotations
 
@@ -441,16 +441,14 @@ def wavefront_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v,
                    col=None, col_poc: int = 0, cbflat=None,
                    mv_lx=None, ref_pocs_l1=None, **kw):
     """The P- or B-slice decision pass (arguments and result as
-    `wavefront_pass_plain`): on CUDA tensors a P slice runs the walker
-    (`pframe_walk`: K23 once per z-scan level, K24 per CU grid), a B
-    slice the plain pass; CPU tensors run the plain pass."""
+    `wavefront_pass_plain`): CUDA tensors run the walker (`pframe_walk`:
+    in a P slice K23 once per z-scan level and K24 per CU grid, in a B
+    slice K26 once per level), CPU tensors the plain pass."""
     args = (org_y, org_u, org_v, refs_y, refs_u, refs_v, mv_x, mv_y, mv_ref,
-            ref_pocs, cur_poc, mv16, mv32, qp, qpc, col, col_poc, cbflat)
-    if not org_y.is_cuda or kw.get("num_ref_l1", 0) > 0:
-        return wavefront_pass_plain(*args, mv_lx=mv_lx,
-                                    ref_pocs_l1=ref_pocs_l1, **kw)
-    for k in ("num_ref_l1", "l0map", "l1map"):
-        kw.pop(k, None)
+            ref_pocs, cur_poc, mv16, mv32, qp, qpc, col, col_poc, cbflat,
+            mv_lx, ref_pocs_l1)
+    if not org_y.is_cuda:
+        return wavefront_pass_plain(*args, **kw)
     return pframe_walk(*args, **kw)
 
 
@@ -467,8 +465,8 @@ def wavefront_pass_plain(org_y, org_u, org_v, refs_y, refs_u, refs_v,
                          num_ref_l1: int = 0, l0map: tuple = None,
                          l1map: tuple = None):
     """The P- or B-slice decision pass, the plain version of K23 (and of
-    K24 through `t_level_plain`).  Planes and the reference stacks
-    are int32 tensors on the pass's device; mv_* the phase-1 ME field on
+    K24 through `t_level_plain`) and of K26.  Planes and the reference
+    stacks are int32 tensors on the pass's device; mv_* the phase-1 ME field on
     the 8x8 grid (quarter-pel, ref index), mv16 / mv32 the same on the
     16 and (padded) 32 grids; ref_pocs a host list, cur_poc, col_poc,
     qp, qpc and n_active host ints; col the collocated field (4 tensors
@@ -1180,10 +1178,12 @@ def wavefront_pass_plain(org_y, org_u, org_v, refs_y, refs_u, refs_v,
 
 
 # ---------------------------------------------------------------------------
-# K23: the P walker's arguments (csrc/pwalk.cuh `Args`, in `args_from`'s
-# order) and its launches
+# K23 and K26: the walkers' arguments (csrc/pwalk.cuh `Args`, in
+# `args_from`'s order; K26's csrc/bwalk.cuh `Args` appends the B slice's)
+# and their launches
 
 PW_SCRATCH = 25796       # ints of a lane's scratch, pw::SCRATCH (checked)
+BW_SCRATCH = 36548       # bw::SCRATCH: K23's areas and the hypotheses
 _PW_CTX = ("SKIP_FLAG", "MERGE_FLAG", "MERGE_IDX", "PRED_MODE", "PART_SIZE",
            "QT_CBF_LUMA", "QT_CBF_CHROMA", "QT_ROOT_CBF", "MVP_IDX", "MVD",
            "REF_PIC", "SPLIT_FLAG", "CHROMA_PRED_MODE", "INTRA_PRED_MODE",
@@ -1220,28 +1220,43 @@ def _k23_level(scratch, ptrs, ints, flts, level):
                      for x in (ctypes.addressof(arr), len(arr))), level)
 
 
+def _k26_level(scratch, ptrs, ints, flts, level):
+    kernels.launch("b_walk", "hm_b_walk", scratch,
+                   *(x for arr in (ptrs, ints, flts)
+                     for x in (ctypes.addressof(arr), len(arr))), level)
+
+
 def pframe_walk(org_y, org_u, org_v, refs_y, refs_u, refs_v, mv_x, mv_y,
                 mv_ref, ref_pocs, cur_poc: int, mv16=None, mv32=None,
                 qp: int = 32, qpc: int = 32, col=None, col_poc: int = 0,
-                cbflat=None, *, w: int, h: int, num_ref: int,
-                max_merge: int, bd: int = 8, qp_factor=0.57,
-                levels: int = 1, tmvp: bool = False, log2_ctu: int = 6,
-                sdh: bool = False, rdoq: bool = True, n_active=None,
-                ts: bool = False, run_level=_k23_level):
-    """wavefront_pass_plain's P form through the walker.  Before the
-    walk, over the whole frame: each grid's AMVP hypothesis (the block's
-    searched MV predicted and its residual coded), the open-loop intra
-    mode of every 8x8 block (`rmd`) and, with TMVP, each grid's temporal
-    candidates (`tmvp_grid`); then `run_level(scratch, ptrs, ints, flts,
-    level)` once per z-scan level of the geometry (K23 by default; the
-    CPU tests give it the host build of the lane code).  Arguments and
-    result as wavefront_pass_plain's (levels 1 or 3)."""
+                cbflat=None, mv_lx=None, ref_pocs_l1=None, *, w: int,
+                h: int, num_ref: int, max_merge: int, bd: int = 8,
+                qp_factor=0.57, levels: int = 1, tmvp: bool = False,
+                log2_ctu: int = 6, sdh: bool = False, rdoq: bool = True,
+                n_active=None, ts: bool = False, num_ref_l1: int = 0,
+                l0map: tuple = None, l1map: tuple = None, run_level=None):
+    """wavefront_pass_plain through the walker.  Before the walk, over
+    the whole frame: each grid's AMVP hypothesis (the block's searched MV
+    predicted, from its list's reference in a B slice, and its residual
+    coded), the open-loop intra mode of every 8x8 block (`rmd`) and, with
+    TMVP (P slices), each grid's temporal candidates (`tmvp_grid`); then
+    `run_level(scratch, ptrs, ints, flts, level)` once per z-scan level
+    of the geometry: K23 in a P slice, K26 in a B slice (num_ref_l1 > 0)
+    by default; the CPU tests give it the host build of the lane code.
+    Arguments and result as wavefront_pass_plain's (levels 1 or 3)."""
     from hmtpu_torch.encoder.iframe_dev import _dev_static as i_static
     from hmtpu_torch.encoder.iframe_dev import _iw_tables, walk_args
 
     if levels not in (1, 3):
         raise ValueError(f"pframe_walk: levels 1 or 3, got {levels}")
+    is_b = num_ref_l1 > 0
+    if is_b and (ts or tmvp or n_active is not None):
+        raise ValueError("pframe_walk: a B slice has no transform skip, "
+                         "no TMVP and no n_active")
+    if run_level is None:
+        run_level = _k26_level if is_b else _k23_level
     dev = org_y.device
+    maps = _list_maps(l0map, l1map, dev) if is_b else None
     sd = _pw_static(w, h, log2_ctu, dev)
     tabs = _iw_tables(dev)
     bw, bh = w // 8, h // 8
@@ -1253,19 +1268,21 @@ def pframe_walk(org_y, org_u, org_v, refs_y, refs_u, refs_v, mv_x, mv_y,
     ref_pocs_t = torch.tensor(list(ref_pocs), **i32)
     refs = tuple(ic(r) for r in (refs_y, refs_u, refs_v))
 
-    def hypothesis(mx, my, rr, n, gw, gh, orgs, with_ts=False):
+    def hypothesis(mx, my, rr, n, gw, gh, orgs, with_ts=False, lx=None):
         """The AMVP hypothesis of every block of an n-grid (phase 1a of
-        the plain pass at n = 8, its hoisted 16 and 32 levels)."""
+        the plain pass at n = 8, its hoisted 16 and 32 levels); in a B
+        slice each block's reference is rr of its list lx."""
         mx, my, rr = (a.reshape(-1) for a in (mx, my, rr))
+        uidx = _union_idx(rr, None if lx is None else lx.reshape(-1), maps)
         m, nc, log2 = gw * gh, n // 2, n.bit_length() - 1
         q = torch.arange(m, device=dev)
         qy, qx = q // gw, q % gw
-        pa = mc_luma_batch_refs(refs[0], rr, qx * n, qy * n, mx, my, n, n,
+        pa = mc_luma_batch_refs(refs[0], uidx, qx * n, qy * n, mx, my, n, n,
                                 bd)
-        pu = mc_chroma_batch_refs(refs[1], rr, qx * nc, qy * nc, mx, my, nc,
-                                  nc, bd)
-        pv = mc_chroma_batch_refs(refs[2], rr, qx * nc, qy * nc, mx, my, nc,
-                                  nc, bd)
+        pu = mc_chroma_batch_refs(refs[1], uidx, qx * nc, qy * nc, mx, my,
+                                  nc, nc, bd)
+        pv = mc_chroma_batch_refs(refs[2], uidx, qx * nc, qy * nc, mx, my,
+                                  nc, nc, bd)
         ly, ry, dy, by = _code(orgs[0], pa, qp, log2, bd, lam, cbflat, True,
                                sdh=sdh, rdoq=rdoq)
         if with_ts:
@@ -1293,7 +1310,7 @@ def pframe_walk(org_y, org_u, org_v, refs_y, refs_u, refs_v, mv_x, mv_y,
 
     h8 = hypothesis(mv_x, mv_y, mv_ref, 8, bw, bh,
                     (_blockify(org_y, 8), _blockify(org_u, 4),
-                     _blockify(org_v, 4)), with_ts=ts)
+                     _blockify(org_v, 4)), with_ts=ts, lx=mv_lx)
     imode = rmd(org_y, i_static(w, h, log2_ctu, dev)["g8"], 8, 1, bd=bd,
                 lam_sqrt=lam_sqrt_, sis=False)[:, 0]
     tg = lambda n, aref, **g: tmvp_grid(
@@ -1307,12 +1324,14 @@ def pframe_walk(org_y, org_u, org_v, refs_y, refs_u, refs_v, mv_x, mv_y,
         t32 = tg(32, mv32[2].reshape(-1), gw=qw, gh=qh)
         h16 = hypothesis(*mv16[:3], 16, gw, gh,
                          (_blockify(org_y, 16), _blockify(org_u, 8),
-                          _blockify(org_v, 8)))
+                          _blockify(org_v, 8)),
+                         lx=mv16[3] if is_b else None)
         h32 = hypothesis(
             *mv32[:3], 32, qw, qh,
             (_blockify(_edge_pad(org_y, qh * 32, qw * 32), 32),
              _blockify(_edge_pad(org_u, qh * 16, qw * 16), 16),
-             _blockify(_edge_pad(org_v, qh * 16, qw * 16), 16)))
+             _blockify(_edge_pad(org_v, qh * 16, qw * 16), 16)),
+            lx=mv32[3] if is_b else None)
 
     st = dict(
         rec_y=torch.zeros(h * w + 1, **i32),
@@ -1324,7 +1343,8 @@ def pframe_walk(org_y, org_u, org_v, refs_y, refs_u, refs_v, mv_x, mv_y,
     )
     geom = 32 if levels == 3 else 8
     lv = sd["lv32" if geom == 32 else "lv_blk"]
-    scratch = torch.zeros((lv.shape[1], PW_SCRATCH), **i32)
+    nscr = BW_SCRATCH if is_b else PW_SCRATCH
+    scratch = torch.zeros((lv.shape[1], nscr), **i32)
     opt = lambda a: None if a is None else ic(a)
     cbflat = cbflat.to(torch.float32).contiguous()
     tensors = [
@@ -1344,9 +1364,23 @@ def pframe_walk(org_y, org_u, org_v, refs_y, refs_u, refs_v, mv_x, mv_y,
     ints = [w, h, bd, log2_ctu, geom, lv.shape[1], int(sdh), int(ts),
             int(rdoq), refs[0].shape[0], num_ref, max_merge,
             num_ref if n_active is None else n_active, cmax0, int(cur_poc),
-            PW_SCRATCH] + [OFF[c] for c in _PW_CTX]
+            nscr] + [OFF[c] for c in _PW_CTX]
+    if is_b:
+        # K26's pointers after K23's: the list maps, the list-1 POCs, each
+        # grid's lists
+        tensors += [*(ic(m) for m in maps),
+                    torch.tensor(list(ref_pocs_l1), **i32),
+                    *(None if x is None else ic(x.reshape(-1)) for x in (
+                        mv_lx, mv16[3] if levels == 3 else None,
+                        mv32[3] if levels == 3 else None))]
     args = walk_args(tensors, ints, tabs["tab_ctx"], qp, qpc, bd,
                      (lam_, lam_c_, wchroma_))
+    if is_b:
+        # and its ints after K23's (which end with the coding tables'):
+        # list 1's ref_idx cMax, INTER_DIR's context offset
+        b_ints = (*args[1], num_ref_l1, max(num_ref_l1 - 1, 0),
+                  OFF["INTER_DIR"])
+        args = (args[0], (ctypes.c_int * len(b_ints))(*b_ints), args[2])
     for level in range(lv.shape[0]):
         run_level(scratch, *args, level)
     out = {k: v[:-1] for k, v in st.items()}

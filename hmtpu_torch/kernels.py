@@ -10,7 +10,7 @@ renames it into place).
 Every exported C function launches its kernel on the stream it is given
 and returns the `cudaGetLastError()` code of that launch; `launch`
 raises when it is not 0.  Python ints go by value (a host array's
-address among them, for K21's and K23's argument arrays).  Nothing here
+address among them, for K21's, K23's and K26's argument arrays).  Nothing here
 runs when a module is imported: the build happens at the first launch,
 or in `build_all`, which starts one nvcc per source, all at once.
 
@@ -109,6 +109,9 @@ SOURCES = {
     "sao_choose": {
         "hm_sao_choose": "ppppp" "ii" "p",
     },
+    "bwalk": {
+        "hm_b_walk": "p" "pipipi" "i" "p",
+    },
 }
 
 # kernel name -> (source, file:line of the hmtpu function it replaces)
@@ -152,6 +155,9 @@ KERNELS = {
     "tmvp_grid": ("tmvp", "hmtpu/search/wavefront.py:634,624,"
                           "hmtpu/encoder/pframe_dev.py:381"),
     "sao_choose": ("sao_choose", "hmtpu/ops/sao.py:305,267"),
+    "b_walk": ("bwalk", "hmtpu/encoder/pframe_dev.py:255,411,446,487,732,"
+                        "807,879,919,971,987,1065,1121,1177,1241,1263,1338,"
+                        "1394,1449,hmtpu/ops/ratebits.py:305-450"),
 }
 COUNTS = dict.fromkeys(KERNELS, 0)
 

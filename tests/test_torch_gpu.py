@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels of hmtpu_torch (K1-K25) against their
+"""The hand-written CUDA kernels of hmtpu_torch (K1-K26) against their
 plain PyTorch versions, on the card.  Every output must be equal: the
 kernels are integer, except NN-FME's (K6), RDOQ's (K10), the trainer's
 (K14-K16, K14 with the exp and log its plain version shares) and the
@@ -895,3 +895,58 @@ def test_sao_choose_kernel(dev, bd, qp):
     want = sao.choose_params(*(torch.as_tensor(r) for r in rows), lam, bd,
                              ny, nx)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("w,h,qp,bd,frames,keep,cut", [
+    (64, 64, 27, 8, 3, 2, 0), (64, 64, 30, 10, 3, 2, 0),
+    (64, 56, 27, 8, 3, 2, 0), (64, 32, 27, 8, 9, 3, 2)])
+def test_b_walk_kernel(dev, w, h, qp, bd, frames, keep, cut):
+    """K26 against the plain B pass on the card, on the B passes of a
+    random-access encode there (DCT-IF, search range 8; the 64x32 clip a
+    GOP whose content changes before frame 2, the encode stopped after
+    POC 2: lists of three references, L1-only CUs): every state array
+    equal; one K26 launch per z-scan level."""
+    from hmtpu_torch.encoder import pframe_dev
+    from hmtpu_torch.encoder.top import Encoder, EncoderConfig
+    from hmtpu_torch.io.yuv import Frame
+    from hmtpu_torch.utils.gen_test_yuv import synth_clip
+
+    clip = list(synth_clip(w, h, frames))
+    if cut:
+        other = list(synth_clip(w, h, frames, seed=7))
+        clip = clip[:cut] + [tuple(255 - p for p in f) for f in other[cut:]]
+    seen = []
+    inner = pframe_dev.wavefront_pass
+
+    class Enough(Exception):
+        pass
+
+    def record(*a, **k):
+        before = kernels.COUNTS["b_walk"]
+        st = inner(*a, **k)
+        torch.cuda.synchronize()
+        seen.append((a, k, {x: v.clone() for x, v in st.items()},
+                     kernels.COUNTS["b_walk"] - before))
+        if len(seen) == keep:
+            raise Enough
+        return st
+
+    pframe_dev.wavefront_pass = record
+    try:
+        enc = Encoder(EncoderConfig(width=w, height=h, qp=qp, gop="ra",
+                                    subpel="dctif", search_range=8,
+                                    bit_depth=bd), device="cuda")
+        enc.encode_sequence([Frame(*(np.asarray(p, np.int32) << (bd - 8)
+                                     for p in f), bd) for f in clip])
+    except Enough:
+        pass
+    finally:
+        pframe_dev.wavefront_pass = inner
+    assert len(seen) == keep
+    st = pframe_dev._p_static(w, h, 6)
+    lv = st["sched32"][0] if st["sched32"] is not None else st["lv_blk"]
+    for a, k, got, launches in seen:
+        assert k["num_ref_l1"] > 0 and launches == lv.shape[0]
+        want = pframe_dev.wavefront_pass_plain(*a, **k)
+        for x in want:
+            assert torch.equal(got[x], want[x]), x
