@@ -8,7 +8,10 @@ when every phase passed):
 
   1. device    the card's name and power limit (nvidia-smi);
   2. build     nvcc for every kernel source in hmtpu_torch/csrc, one
-               process per source, all started together;
+               process per source, all started together, and beside them
+               K23's phase-clock build (scripts/pwalk_phases.py); the
+               registers, stack frame and spills ptxas gives the walkers
+               K21, K23 and K26;
   3. kernels   each kernel (K1, K3-K16 and K1's transform-skip mode)
                against its plain PyTorch version on seeded inputs at the
                shapes the main paths give it, and K2 and K17-K26 (after
@@ -18,6 +21,9 @@ when every phase passed):
                (timed, its row), ldp_dctif's (TS), a 64x56 frame (8x8
                lanes) and a 64x64 one, each timed beside
                wavefront_pass_plain on the card, every state array equal;
+               then the phase build on ldp's P frame, its state equal to
+               K23's: one line a phase of a lane (cycles, share of the
+               lanes', count);
                K26 (the B z-scan walker, one launch per level) on each of
                the ra10 phase's 8 B frames (416x240, 10 bits; the first
                timed, its row) and on POC 8 and POC 2 of 64x64 and 64x56
@@ -1565,6 +1571,41 @@ def check_walk(cases, rows, time_all=True) -> None:
                 device_ms=dms)
 
 
+# the walkers whose ptxas figures the build prints: (kernel, source,
+# kernel function)
+WALKERS = (("K21 i_walk", "iwalk", "iwalk_kernel"),
+           ("K23 p_walk", "pwalk", "pwalk_kernel"),
+           ("K26 b_walk", "bwalk", "bwalk_kernel"))
+
+
+def ptxas_figures(log: str, fn: str) -> str:
+    """Registers, stack frame and spills of kernel function `fn` from
+    nvcc's -Xptxas -v output (its entry function's lines)."""
+    lines = log.splitlines()
+    at = [i for i, ln in enumerate(lines)
+          if "Compiling entry function" in ln and fn in ln]
+    if not at:
+        return "no ptxas output (no build log beside the library)"
+    frame = used = ""
+    for ln in lines[at[0] + 1:at[0] + 6]:
+        if "stack frame" in ln and not frame:
+            frame = ln.strip()
+        if "Used" in ln and "registers" in ln and not used:
+            used = ln.split(":", 1)[-1].strip()
+    return f"{used}; {frame}"
+
+
+def load_script(name: str):
+    """A module of the repo's scripts/ directory."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def same(a, b) -> bool:
     """Equal shapes, dtypes and values (floats bit for bit)."""
     if isinstance(a, (tuple, list)):
@@ -1799,14 +1840,22 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 
-    # ---- 2. build
+    # ---- 2. build (and beside it K23's phase-clock build,
+    # scripts/pwalk_phases.py, never the encode path's)
     t0 = time.time()
-    logs = kernels.build_all()
-    print(f"build: {len(logs)} sources in {time.time() - t0:.1f} s",
-          flush=True)
-    for src, log in logs.items():
+    phases = load_script("pwalk_phases")
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        ph_job = ex.submit(phases.build_phase_lib)
+        logs = kernels.build_all()
+        ph_lib, ph_log = ph_job.result()
+    print(f"build: {len(logs)} sources and K23's phase build in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    for src, log in list(logs.items()) + [("pwalk (phases)", ph_log)]:
         for ln in log.strip().splitlines():
             print(f"  nvcc {src}: {ln}", flush=True)
+    for name, src, fn in WALKERS:
+        print(f"ptxas {name} ({fn}): {ptxas_figures(logs[src], fn)}",
+              flush=True)
 
     # ---- 3. kernels against their plain versions
     rows = {}
@@ -2192,6 +2241,10 @@ def main() -> None:
         with Capture(cap.got):
             check_walk(pwalk_cases(cap.got), rows)
             check_walk(bwalk_cases(cap.got), rows, time_all=False)
+        # where K23's time goes on ldp's P pass: the phase-clock build (its
+        # state checked against K23's)
+        _, a, k = cap.got[("p_walk", P_FORMS[0])]
+        phases.print_rows(*phases.profile(ph_lib, a, k))
         check_kernels(p_kernel_cases(cap.got, dev), rows)
         for name in ("p_walk", "tmvp_grid", "sao_choose"):
             rows[name]["launches"] = counts[name]

@@ -29,7 +29,7 @@
 namespace {
 
 constexpr int THREADS = 128;
-static_assert(THREADS <= pw::RED_THREADS, "the SSE reduction's width");
+static_assert(THREADS <= bw::RED_THREADS, "the SSE reduction's width");
 
 __global__ void __launch_bounds__(THREADS)
     bwalk_kernel(const __grid_constant__ bw::Args a, int level) {

@@ -7,8 +7,9 @@
 // plain version (hmtpu_torch/encoder/pframe_dev.py `wavefront_pass_plain`:
 // `b_merge_rd`, `merge_b_nxn`, `merge_b_winner`, `amvp_cu`) runs it.
 //
-// The structure is K23's (pwalk.cuh: cell_step, large_cu, region16,
-// step32 and their commits); what differs in a B slice:
+// The structure is the P walk's (the cell step, the 16x16 and 32x32
+// trials, region16, step32 and their commits), on the whole block with
+// the lane's device scratch; what differs in a B slice:
 //   merge      the B merge list (combined bi-predictive candidates, the
 //              dir = 3 zero fill); every candidate's hypotheses at
 //              intermediate precision (K11's body) from the union stack
@@ -30,9 +31,10 @@
 //
 // The arguments are K23's (pw::Args, its transform-skip flag 0 and its
 // temporal grids null) followed by the B slice's: the list maps, the
-// list-1 POCs, the hoisted hypotheses' lists.  The lane's scratch is
-// K23's layout followed by the candidates' hypotheses.  Block-cooperative
-// as pwalk.cuh; compiles as host C++ (one thread) for the CPU tests.
+// list-1 POCs, the hoisted hypotheses' lists.  The lane's device scratch
+// is this file's S_* layout.
+// Block-cooperative (hm_port.cuh); compiles as host C++ (one thread) for
+// the CPU tests.
 #pragma once
 
 #include "bi_pred.cuh"
@@ -47,7 +49,6 @@ using pw::Hoist;
 using pw::INTRA_GATE;
 using pw::MAXM;
 using pw::Prices;
-using pw::RED_THREADS;
 using pw::cbv;
 using wk::TbRes;
 using wk::code_tb;
@@ -86,19 +87,76 @@ inline Args args_from(const long long* p, const int* v, const float* f) {
   return b;
 }
 
-// the lane's scratch: K23's areas (the winner's exact prediction in the
-// first candidate's slots), then both lists' luma hypotheses of every
-// candidate and the bi winner's chroma hypotheses of one plane
-constexpr int S_I0 = pw::SCRATCH;
+// the lane's device scratch (ints), sized for a 32x32 CU with MAXM
+// candidates: the source, the candidates' predictions (the winner's exact
+// prediction in the first candidate's slots), the coded winner, the MC
+// and intra work areas, the SSE partial sums, the coding work area, then
+// both lists' luma hypotheses of every candidate and the bi winner's
+// chroma hypotheses of one plane
+
+constexpr int S_ORGY = 0;                   // the CU's source, raster
+constexpr int S_ORGU = S_ORGY + 1024;
+constexpr int S_ORGV = S_ORGU + 256;
+constexpr int S_PREDY = S_ORGV + 256;       // per merge candidate
+constexpr int S_PREDU = S_PREDY + MAXM * 1024;
+constexpr int S_PREDV = S_PREDU + MAXM * 256;
+constexpr int S_LEVY = S_PREDV + MAXM * 256;  // the merge winner, coded
+constexpr int S_LEVU = S_LEVY + 1024;
+constexpr int S_LEVV = S_LEVU + 256;
+constexpr int S_RECY = S_LEVV + 256;
+constexpr int S_RECU = S_RECY + 1024;
+constexpr int S_RECV = S_RECU + 256;
+constexpr int S_DZL = S_RECV + 256;         // a finalist's levels, rec
+constexpr int S_DZR = S_DZL + 1024;
+constexpr int S_PATCH = S_DZR + 1024;       // MC: 39 x 39 patch, 39 x 32
+constexpr int S_TMP = S_PATCH + 39 * 39 + 1;
+constexpr int S_IREF = S_TMP + 39 * 32;     // intra: 8x8 luma line,
+constexpr int S_IREFF = S_IREF + 34;        // its filtered form,
+constexpr int S_IREFU = S_IREFF + 34;       // the chroma lines
+constexpr int S_IREFV = S_IREFU + 18;
+constexpr int S_IPY = S_IREFV + 18;         // prediction, levels, rec
+constexpr int S_IPU = S_IPY + 64;
+constexpr int S_IPV = S_IPU + 16;
+constexpr int S_ILY = S_IPV + 16;
+constexpr int S_ILU = S_ILY + 64;
+constexpr int S_ILV = S_ILU + 16;
+constexpr int S_IRY = S_ILV + 16;
+constexpr int S_IRU = S_IRY + 64;
+constexpr int S_IRV = S_IRU + 16;
+constexpr int RED_THREADS = 256;            // the SSE partial sums: 2 per
+constexpr int S_RED = S_IRV + 16;           // thread and candidate (int64)
+constexpr int S_SC = S_RED + 2 * 2 * MAXM * RED_THREADS;  // 3-plane SSEs
+constexpr int S_W = S_SC + 2 * MAXM;        // the coding work area
+constexpr int S_I0 = S_W + wk::WORK_INTS;
 constexpr int S_I1 = S_I0 + MAXM * 1024;
 constexpr int S_CI = S_I1 + MAXM * 1024;
 constexpr int SCRATCH = S_CI + 2 * 256;
-static_assert(SCRATCH % 2 == 0, "the int64 partial sums need 8-byte "
-                                "alignment in every lane's scratch");
+static_assert(S_RED % 2 == 0 && SCRATCH % 2 == 0,
+              "the int64 partial sums need 8-byte alignment in every "
+              "lane's scratch");
 
-struct Lane : pw::Lane {
+struct Lane : wk::Lane {
+  const pw::Args* ap;  // K23's arguments (bp->p)
   const Args* bp;
 };
+
+// the n x n block at (x0, y0) of reference r into py, pu, pv: luma and
+// chroma, the whole block
+HM_BIG void mc_cu(Lane& L, int r, int x0, int y0, int mx, int my, int n,
+                  int* py, int* pu, int* pv) {
+  const pw::Args& a = *L.ap;
+  int* s = L.s;
+  const int H = a.h, W = a.w, rr = iclamp(r, 0, a.R - 1);
+  const size_t ly = (size_t)H * W, lc = (size_t)(H / 2) * (W / 2);
+  mc_block<false>(a.refs_y + rr * ly, H, W, x0, y0, mx, my, n, n, 0, a.bd,
+                  s + S_PATCH, s + S_TMP, py, L.tid, L.nt);
+  mc_block<false>(a.refs_u + rr * lc, H / 2, W / 2, x0 / 2, y0 / 2, mx, my,
+                  n / 2, n / 2, 1, a.bd, s + S_PATCH, s + S_TMP, pu, L.tid,
+                  L.nt);
+  mc_block<false>(a.refs_v + rr * lc, H / 2, W / 2, x0 / 2, y0 / 2, mx, my,
+                  n / 2, n / 2, 1, a.bd, s + S_PATCH, s + S_TMP, pv, L.tid,
+                  L.nt);
+}
 
 // a hypothesis's motion: the seven state columns K_DIR .. K_REF, K_MVX1 ..
 struct Mot {
@@ -161,18 +219,18 @@ struct MergeRes {
 HM_FN void sse3(Lane& L, int n, const int* py, const int* pu, const int* pv,
                 long long* sy, long long* sc) {
   int* s = L.s;
-  long long* red = (long long*)(s + pw::S_RED);
+  long long* red = (long long*)(s + S_RED);
   const int nt = L.nt < RED_THREADS ? L.nt : RED_THREADS;
   const int nn = n * n, ncc = nn / 4;
   if (L.tid < nt) {
     long long a = 0, c = 0;
     for (int e = L.tid; e < nn; e += nt) {
-      const long long d = s[pw::S_ORGY + e] - py[e];
+      const long long d = s[S_ORGY + e] - py[e];
       a += d * d;
     }
     for (int e = L.tid; e < ncc; e += nt) {
-      const long long du = s[pw::S_ORGU + e] - pu[e];
-      const long long dv = s[pw::S_ORGV + e] - pv[e];
+      const long long du = s[S_ORGU + e] - pu[e];
+      const long long dv = s[S_ORGV + e] - pv[e];
       c += du * du + dv * dv;
     }
     red[L.tid] = a;
@@ -201,8 +259,8 @@ HM_FN void hyp(Lane& L, const int* planes, int H, int W, int u, int x0,
   const pw::Args& a = *L.ap;
   int* s = L.s;
   mc_block<true>(planes + (size_t)iclamp(u, 0, a.R - 1) * H * W, H, W, x0,
-                 y0, mx, my, n, n, chroma, a.bd, s + pw::S_PATCH,
-                 s + pw::S_TMP, out, L.tid, L.nt);
+                 y0, mx, my, n, n, chroma, a.bd, s + S_PATCH,
+                 s + S_TMP, out, L.tid, L.nt);
 }
 
 // every candidate of the B merge list hypothesised and screened, the
@@ -230,7 +288,7 @@ HM_BIG MergeRes b_merge_rd(Lane& L, int n, int log2, int x0, int y0,
           c[5][m], n, 0, s + S_I1 + m * nn);
   }
   // the screening: float(luma SSE) + lam * merge_idx bits, first minimum
-  long long* red = (long long*)(s + pw::S_RED);
+  long long* red = (long long*)(s + S_RED);
   const int nt = L.nt < RED_THREADS ? L.nt : RED_THREADS;
   for (int m = 0; m < M; ++m) {
     if (L.tid < nt) {
@@ -238,14 +296,14 @@ HM_BIG MergeRes b_merge_rd(Lane& L, int n, int log2, int x0, int y0,
       const int *p0 = s + S_I0 + m * nn, *p1 = s + S_I1 + m * nn;
       for (int e = L.tid; e < nn; e += nt) {
         const long long d =
-            s[pw::S_ORGY + e] - bi_pred_sample(p0[e], p1[e], c[0][m], a.bd);
+            s[S_ORGY + e] - bi_pred_sample(p0[e], p1[e], c[0][m], a.bd);
         acc += d * d;
       }
       red[m * RED_THREADS + L.tid] = acc;
     }
   }
   HM_SYNC();
-  float* sse = (float*)(s + pw::S_SC);
+  float* sse = (float*)(s + S_SC);
   if (L.tid == 0) {
     for (int m = 0; m < M; ++m) {
       long long t = 0;
@@ -273,9 +331,9 @@ HM_BIG MergeRes b_merge_rd(Lane& L, int n, int log2, int x0, int y0,
             c[4][mi], c[5][mi], c[6][mi]};
   const Mot& w = r.w;
   const int u0 = union_idx(b, w.ref, 0), u1 = union_idx(b, w.ref1, 1);
-  int* py = s + pw::S_PREDY;
-  int* pu = s + pw::S_PREDU;
-  int* pv = s + pw::S_PREDV;
+  int* py = s + S_PREDY;
+  int* pu = s + S_PREDU;
+  int* pv = s + S_PREDV;
   if (w.dir == 3) {
     const int *p0 = s + S_I0 + mi * nn, *p1 = s + S_I1 + mi * nn;
     for (int e = L.tid; e < nn; e += L.nt)
@@ -293,7 +351,7 @@ HM_BIG MergeRes b_merge_rd(Lane& L, int n, int log2, int x0, int y0,
     }
   } else {
     const bool l0 = (w.dir & 1) != 0;
-    pw::mc_cu(L, l0 ? u0 : u1, x0, y0, l0 ? w.mvx : w.mvx1,
+    mc_cu(L, l0 ? u0 : u1, x0, y0, l0 ? w.mvx : w.mvx1,
               l0 ? w.mvy : w.mvy1, n, py, pu, pv);
   }
   long long sy, sc;
@@ -303,14 +361,14 @@ HM_BIG MergeRes b_merge_rd(Lane& L, int n, int log2, int x0, int y0,
   // the winner coded once
   const bool tr = a.rdoq != 0;
   const TbRes ry = code_tb(L, log2, true, false, false, -1, a.lam, false, 0.f,
-                           s + pw::S_ORGY, py, s + pw::S_LEVY,
-                           s + pw::S_RECY, 0, tr);
+                           s + S_ORGY, py, s + S_LEVY,
+                           s + S_RECY, tr);
   const TbRes ru = code_tb(L, log2 - 1, false, false, false, -1, a.lam_c,
-                           true, a.wchroma, s + pw::S_ORGU, pu,
-                           s + pw::S_LEVU, s + pw::S_RECU, 0, tr);
+                           true, a.wchroma, s + S_ORGU, pu,
+                           s + S_LEVU, s + S_RECU, tr);
   const TbRes rv = code_tb(L, log2 - 1, false, false, false, -1, a.lam_c,
-                           true, a.wchroma, s + pw::S_ORGV, pv,
-                           s + pw::S_LEVV, s + pw::S_RECV, 0, tr);
+                           true, a.wchroma, s + S_ORGV, pv,
+                           s + S_LEVV, s + S_RECV, tr);
   r.cbf = ry.nz | (ru.nz << 1) | (rv.nz << 2);
   // skip: msse3 + lam * (b_skip1 + merge_idx)
   r.cost_skip = HM_FADD(msse3, HM_FMUL(a.lam, HM_FADD(b_skip1, bmi[mi])));
@@ -343,9 +401,9 @@ HM_BIG float cell_step(Lane& L, int blk) {
   int* s = L.s;
   const int bw = a.w / 8, byi = blk / bw, bxi = blk % bw;
   const int x0 = bxi * 8, y0 = byi * 8;
-  copy_block(L, a.org_y, a.w, x0, y0, 8, s + pw::S_ORGY);
-  copy_block(L, a.org_u, a.w / 2, x0 / 2, y0 / 2, 4, s + pw::S_ORGU);
-  copy_block(L, a.org_v, a.w / 2, x0 / 2, y0 / 2, 4, s + pw::S_ORGV);
+  copy_block(L, a.org_y, a.w, x0, y0, 8, s + S_ORGY);
+  copy_block(L, a.org_u, a.w / 2, x0 / 2, y0 / 2, 4, s + S_ORGU);
+  copy_block(L, a.org_v, a.w / 2, x0 / 2, y0 / 2, 4, s + S_ORGV);
   mvc::Motion nb[5];
   pw::neighbours(a, a.nb_flat + 5 * blk, a.nb_ok + 5 * blk, nb);
   const Prices pr = pw::mode_prices(a, blk, bxi, byi);
@@ -367,27 +425,27 @@ HM_BIG float cell_step(Lane& L, int blk) {
   if (!(inter_best <= HM_FMUL(INTRA_GATE, a.lam))) {
     // intra: the open-loop mode predicted from the committed samples
     const int im = a.imode[blk];
-    gather_line(L, a.rec_y, a.g8s + blk * 33, a.g8n[blk], 33, s + pw::S_IREF);
+    gather_line(L, a.rec_y, a.g8s + blk * 33, a.g8n[blk], 33, s + S_IREF);
     for (int k = L.tid; k < 33; k += L.nt)
-      s[pw::S_IREFF + k] = filter_sample(s + pw::S_IREF, k, 8, a.bd, 0);
+      s[S_IREFF + k] = filter_sample(s + S_IREF, k, 8, a.bd, 0);
     gather_line(L, a.rec_u, a.g4s + blk * 17, a.g4n[blk], 17,
-                s + pw::S_IREFU);
+                s + S_IREFU);
     gather_line(L, a.rec_v, a.g4s + blk * 17, a.g4n[blk], 17,
-                s + pw::S_IREFV);
-    predict(L, s + pw::S_IREF, s + pw::S_IREFF, im, 8, 1, s + pw::S_IPY);
-    predict(L, s + pw::S_IREFU, s + pw::S_IREFU, im, 4, 0, s + pw::S_IPU);
-    predict(L, s + pw::S_IREFV, s + pw::S_IREFV, im, 4, 0, s + pw::S_IPV);
+                s + S_IREFV);
+    predict(L, s + S_IREF, s + S_IREFF, im, 8, 1, s + S_IPY);
+    predict(L, s + S_IREFU, s + S_IREFU, im, 4, 0, s + S_IPU);
+    predict(L, s + S_IREFV, s + S_IREFV, im, 4, 0, s + S_IPV);
     const int sel = scan_sel(im);
     const bool tr = a.rdoq != 0;
     const TbRes ry = code_tb(L, 3, true, false, false, sel, a.lam, false, 0.f,
-                             s + pw::S_ORGY, s + pw::S_IPY, s + pw::S_ILY,
-                             s + pw::S_IRY, 0, tr);
+                             s + S_ORGY, s + S_IPY, s + S_ILY,
+                             s + S_IRY, tr);
     const TbRes ru = code_tb(L, 2, false, false, false, sel, a.lam_c, true,
-                             a.wchroma, s + pw::S_ORGU, s + pw::S_IPU,
-                             s + pw::S_ILU, s + pw::S_IRU, 0, tr);
+                             a.wchroma, s + S_ORGU, s + S_IPU,
+                             s + S_ILU, s + S_IRU, tr);
     const TbRes rv = code_tb(L, 2, false, false, false, sel, a.lam_c, true,
-                             a.wchroma, s + pw::S_ORGV, s + pw::S_IPV,
-                             s + pw::S_ILV, s + pw::S_IRV, 0, tr);
+                             a.wchroma, s + S_ORGV, s + S_IPV,
+                             s + S_ILV, s + S_IRV, tr);
     icbf = ry.nz | (ru.nz << 1) | (rv.nz << 2);
     const int lmode =
         (bxi > 0 && pr.l_blk[pw::K_KIND] == 3) ? a.imode[blk - 1] : 1;
@@ -416,18 +474,18 @@ HM_BIG float cell_step(Lane& L, int blk) {
   if (choice == 1 && !mr.cbf) choice = 0;
 
   // commit: reconstruction, levels, the row (no transform skip)
-  const int* ry = choice == 0 ? s + pw::S_PREDY
-                  : choice == 1 ? s + pw::S_RECY
+  const int* ry = choice == 0 ? s + S_PREDY
+                  : choice == 1 ? s + S_RECY
                   : choice == 2 ? h8.rec_y + blk * 64
-                                : s + pw::S_IRY;
-  const int* ru = choice == 0 ? s + pw::S_PREDU
-                  : choice == 1 ? s + pw::S_RECU
+                                : s + S_IRY;
+  const int* ru = choice == 0 ? s + S_PREDU
+                  : choice == 1 ? s + S_RECU
                   : choice == 2 ? h8.rec_u + blk * 16
-                                : s + pw::S_IRU;
-  const int* rv = choice == 0 ? s + pw::S_PREDV
-                  : choice == 1 ? s + pw::S_RECV
+                                : s + S_IRU;
+  const int* rv = choice == 0 ? s + S_PREDV
+                  : choice == 1 ? s + S_RECV
                   : choice == 2 ? h8.rec_v + blk * 16
-                                : s + pw::S_IRV;
+                                : s + S_IRV;
   for (int e = L.tid; e < 64; e += L.nt)
     a.rec_y[(y0 + e / 8) * a.w + x0 + e % 8] = ry[e];
   for (int e = L.tid; e < 16; e += L.nt) {
@@ -438,13 +496,13 @@ HM_BIG float cell_step(Lane& L, int blk) {
   for (int e = L.tid; e < 96; e += L.nt) {
     int v = 0;
     if (choice == 1)
-      v = e < 64 ? s[pw::S_LEVY + e] : e < 80 ? s[pw::S_LEVU + e - 64]
-                                              : s[pw::S_LEVV + e - 80];
+      v = e < 64 ? s[S_LEVY + e] : e < 80 ? s[S_LEVU + e - 64]
+                                              : s[S_LEVV + e - 80];
     else if (choice == 2)
       v = h8.lev[blk * 96 + e];
     else if (choice == 3)
-      v = e < 64 ? s[pw::S_ILY + e] : e < 80 ? s[pw::S_ILU + e - 64]
-                                             : s[pw::S_ILV + e - 80];
+      v = e < 64 ? s[S_ILY + e] : e < 80 ? s[S_ILU + e - 64]
+                                             : s[S_ILV + e - 80];
     a.levs[blk * 96 + e] = v;
   }
   if (L.tid == 0) {
@@ -485,9 +543,9 @@ HM_BIG LargeRes large_cu(Lane& L, int g, int gx, int gy, int corner, int n,
   const pw::Args& a = b.p;
   int* s = L.s;
   const int x0 = gx * n, y0 = gy * n;
-  copy_block(L, a.org_y, a.w, x0, y0, n, s + pw::S_ORGY);
-  copy_block(L, a.org_u, a.w / 2, x0 / 2, y0 / 2, n / 2, s + pw::S_ORGU);
-  copy_block(L, a.org_v, a.w / 2, x0 / 2, y0 / 2, n / 2, s + pw::S_ORGV);
+  copy_block(L, a.org_y, a.w, x0, y0, n, s + S_ORGY);
+  copy_block(L, a.org_u, a.w / 2, x0 / 2, y0 / 2, n / 2, s + S_ORGU);
+  copy_block(L, a.org_v, a.w / 2, x0 / 2, y0 / 2, n / 2, s + S_ORGV);
   mvc::Motion nb[5];
   pw::neighbours(a, nb_idx, nb_ok, nb);
   LargeRes r;
@@ -516,12 +574,12 @@ HM_BIG void commit_large(Lane& L, const LargeRes& r, int g, int gx, int gy,
   int* s = L.s;
   const int x0 = gx * n, y0 = gy * n, nn = n * n, nc = n / 2, ncc = nc * nc;
   const int c = r.c;
-  const int* ry = c == 0 ? s + pw::S_PREDY
-                  : c == 1 ? s + pw::S_RECY : hs.rec_y + (size_t)g * nn;
-  const int* ru = c == 0 ? s + pw::S_PREDU
-                  : c == 1 ? s + pw::S_RECU : hs.rec_u + (size_t)g * ncc;
-  const int* rv = c == 0 ? s + pw::S_PREDV
-                  : c == 1 ? s + pw::S_RECV : hs.rec_v + (size_t)g * ncc;
+  const int* ry = c == 0 ? s + S_PREDY
+                  : c == 1 ? s + S_RECY : hs.rec_y + (size_t)g * nn;
+  const int* ru = c == 0 ? s + S_PREDU
+                  : c == 1 ? s + S_RECU : hs.rec_u + (size_t)g * ncc;
+  const int* rv = c == 0 ? s + S_PREDV
+                  : c == 1 ? s + S_RECV : hs.rec_v + (size_t)g * ncc;
   for (int e = L.tid; e < nn; e += L.nt)
     a.rec_y[(y0 + e / n) * a.w + x0 + e % n] = ry[e];
   for (int e = L.tid; e < ncc; e += L.nt) {
@@ -535,9 +593,9 @@ HM_BIG void commit_large(Lane& L, const LargeRes& r, int g, int gx, int gy,
   for (int e = L.tid; e < tot; e += L.nt) {
     int v = 0;
     if (c == 1)
-      v = e < nn ? s[pw::S_LEVY + e]
-                 : e < nn + ncc ? s[pw::S_LEVU + e - nn]
-                                : s[pw::S_LEVV + e - nn - ncc];
+      v = e < nn ? s[S_LEVY + e]
+                 : e < nn + ncc ? s[S_LEVU + e - nn]
+                                : s[S_LEVV + e - nn - ncc];
     else if (c == 2)
       v = hs.lev[(size_t)g * tot + e];
     a.levs[cells[e / 96] * 96 + e % 96] = v;
@@ -613,7 +671,7 @@ HM_BIG void walk_lane(const Args& b, int level, int lane, int tid, int nt,
   L.nt = nt;
   L.S = rdoq_smem(smem, 1 << (2 * (a.geom == 8 ? 3 : 5)));
   L.s = a.scratch + (size_t)lane * SCRATCH;
-  L.work = L.s + pw::S_W;
+  L.work = L.s + S_W;
   if (a.geom == 8)
     cell_step(L, blk);
   else

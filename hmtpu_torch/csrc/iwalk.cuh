@@ -166,6 +166,7 @@ constexpr int S_PREDC = S_ORGC + 32;
 constexpr int S_LEVC = S_PREDC + 32;
 constexpr int S_RECC = S_LEVC + 32;
 constexpr int SCRATCH = S_RECC + 32;
+static_assert(S_W % 2 == 0, "the coding work area's int64 reduction");
 
 struct Lane : wk::Lane {
   const Args* ap;
@@ -224,7 +225,7 @@ HM_BIG TryRes try_modes(Lane& L, int row, const int* gls, const int* gln,
     const int sel_c = log2 - 1 == 2 ? scan_sel(m) : -1;
     const TbRes ry = code_tb(L, log2, true, false, false, sel_y, a.lam, false,
                              0.f, s + S_ORGY, py, s + S_LEVY + k * 1024,
-                             s + S_RECY + k * 1024, 3 * k);
+                             s + S_RECY + k * 1024);
     TbRes ru, rv;
     if (ts_c) {
       ru = code_ts_sel(L, false, false, sel_c, a.lam_c, true, a.wchroma,
@@ -236,10 +237,10 @@ HM_BIG TryRes try_modes(Lane& L, int row, const int* gls, const int* gln,
     } else {
       ru = code_tb(L, log2 - 1, false, false, false, sel_c, a.lam_c, true,
                    a.wchroma, s + S_ORGU, pu, s + S_LEVU + k * 256,
-                   s + S_RECU + k * 256, 3 * k + 1);
+                   s + S_RECU + k * 256);
       rv = code_tb(L, log2 - 1, false, false, false, sel_c, a.lam_c, true,
                    a.wchroma, s + S_ORGV, pv, s + S_LEVV + k * 256,
-                   s + S_RECV + k * 256, 3 * k + 2);
+                   s + S_RECV + k * 256);
     }
     // b_cbf = (cbf_cb + cbf_cr) + cbf_luma (trafo depth 0)
     const float b_cbf =
@@ -362,7 +363,7 @@ HM_BIG NxnRes nxn_trial(Lane& L, int b, int bxi, int byi, int x0, int y0,
     } else {
       pr[j] = code_tb(L, 2, true, true, false, sel, a.lam, false, 0.f,
                       s + S_ORG4 + 16 * j, s + S_PRED4, s + S_LEV4 + 16 * j,
-                      s + S_REC4 + 16 * j, 6 + j);
+                      s + S_REC4 + 16 * j);
     }
   }
 
@@ -382,7 +383,7 @@ HM_BIG NxnRes nxn_trial(Lane& L, int b, int bxi, int byi, int x0, int y0,
                                s + S_LEVC + o, s + S_RECC + o)
                  : code_tb(L, 2, false, false, false, selc, a.lam_c, true,
                            a.wchroma, s + S_ORGC + o, s + S_PREDC + o,
-                           s + S_LEVC + o, s + S_RECC + o, 10 + c);
+                           s + S_LEVC + o, s + S_RECC + o);
   }
 
   // rate: part NxN + the four PUs' mode, cbf and residual + chroma

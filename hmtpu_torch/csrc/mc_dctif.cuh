@@ -26,11 +26,11 @@ HM_CONST int kChroma[8][4] = {
     {-4, 36, 36, -4}, {-4, 28, 46, -6}, {-2, 16, 54, -4}, {-2, 10, 58, -2}};
 
 // ints of the patch and tmp areas of an nw x nh block
-HM_HD int mc_patch_ints(int nw, int nh, int chroma) {
+HM_HD constexpr int mc_patch_ints(int nw, int nh, int chroma) {
   const int ntaps = chroma ? 4 : 8;
   return (nh + ntaps - 1) * (nw + ntaps - 1);
 }
-HM_HD int mc_tmp_ints(int nw, int nh, int chroma) {
+HM_HD constexpr int mc_tmp_ints(int nw, int nh, int chroma) {
   return (nh + (chroma ? 4 : 8) - 1) * nw;
 }
 
@@ -55,7 +55,7 @@ HM_FN void mc_block(const int* plane, int H, int W, int xs0, int ys0, int mx,
     const int xx = iclamp(x - half + j, 0, W - 1);
     patch[k] = plane[(size_t)yy * W + xx];
   }
-  HM_SYNC();
+  HM_GSYNC(nt);
 
   const int* cx = chroma ? &kChroma[fx][0] : &kLuma[fx][0];
   const int* cy = chroma ? &kChroma[fy][0] : &kLuma[fy][0];
@@ -67,7 +67,7 @@ HM_FN void mc_block(const int* plane, int H, int W, int xs0, int ys0, int mx,
     for (int t = 0; t < ntaps; ++t) acc += cx[t] * patch[i * pw + j + t];
     tmp[k] = both ? (acc - (IF_INTERNAL_OFFS << shift1)) >> shift1 : acc;
   }
-  HM_SYNC();
+  HM_GSYNC(nt);
 
   const int maxv = (1 << bd) - 1;
   const int shift2 = IF_FILTER_PREC + (IF_INTERNAL_PREC - bd);
@@ -106,7 +106,7 @@ HM_FN void mc_block(const int* plane, int H, int W, int xs0, int ys0, int mx,
     }
     out[k] = iclamp(v, 0, maxv);
   }
-  HM_SYNC();
+  HM_GSYNC(nt);
 }
 
 }  // namespace hm

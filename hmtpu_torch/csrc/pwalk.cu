@@ -17,36 +17,41 @@
 // as thousands of torch operations a level from the host; here a level is
 // one launch.
 //
-// Design: one thread block of THREADS threads per lane (a cell, or a
-// 32x32 region of the level with its 16x16 regions and cells in z-order),
-// the steps in sequence; per-sample work split over the threads, K10's
-// working set in shared memory, the candidates' predictions and the coded
-// CUs in the lane's device scratch.  The AMVP hypotheses (K7 + K10 over
-// the whole frame), the open-loop intra modes (K22) and the temporal
-// candidates (K24) are computed before the walk and read here; the level
-// index is the only per-launch argument besides the frame's fixed ones.
-// Padding lanes (-1) return at once.
+// Design: one thread block of pw::THREADS (8 warps) per lane (a cell, or
+// a 32x32 region of the level with its 16x16 regions and cells in
+// z-order), the CU trials in sequence, each trial's independent items
+// side by side in groups of the block: the merge candidates' MC, the
+// finalists' deadzone codings with the intra arm's, the winner's recode,
+// a warp a coding in a cell (two at 16x16, the block at 32x32), under
+// warp or named barriers; the trial's whole working set in shared memory
+// (pw::SMEM_BYTES, at most 227 KB), no device scratch.  A level of the
+// earlier design (the whole block on one coding after another), profiled
+// with clocks on the H100 (scripts/pwalk_phases.py), spent 88 % of a lane
+// in its codings and 82 % of the last thread's time at barriers, waiting
+// for thread 0's stages: the rounds of tasks shorten that chain.  The
+// AMVP hypotheses (K7 + K10 over the whole frame), the open-loop intra
+// modes (K22) and the temporal candidates (K24) are computed before the
+// walk and read here; the level index is the only per-launch argument
+// besides the frame's fixed ones.  Padding lanes (-1) return at once.
 #include <cuda_runtime.h>
 
+#define HM_GROUPS  // groups of the block with their own barriers (hm_port.cuh)
 #include "pwalk.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
-static_assert(THREADS <= pw::RED_THREADS, "the SSE reduction's width");
-
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(pw::THREADS, 1)
     pwalk_kernel(const __grid_constant__ pw::Args a, int level) {
-  extern __shared__ double smem[];
+  extern __shared__ __align__(16) int smem[];
   pw::walk_lane(a, level, blockIdx.x, threadIdx.x, blockDim.x, smem);
 }
 
 }  // namespace
 
-// scratch: (bmax, pw::SCRATCH) int32 on the card; ptrs / ints / flts: host
-// arrays of n_ptrs pointers, n_ints ints and n_flts floats, which must be
-// pw::N_PTRS, N_INTS and N_FLTS (pw::args_from's order; the scratch
-// pointer among them is this one)
+// scratch: (bmax, 0) int32 on the card (K23 keeps its lane in shared
+// memory); ptrs / ints / flts: host arrays of n_ptrs pointers, n_ints ints
+// and n_flts floats, which must be pw::N_PTRS, N_INTS and N_FLTS
+// (pw::args_from's order; the scratch pointer among them is this one)
 extern "C" int hm_p_walk(void* scratch, const void* ptrs, int n_ptrs,
                          const void* ints, int n_ints, const void* flts,
                          int n_flts, int level, void* stream) {
@@ -54,17 +59,46 @@ extern "C" int hm_p_walk(void* scratch, const void* ptrs, int n_ptrs,
     return cudaErrorInvalidValue;
   pw::Args a = pw::args_from((const long long*)ptrs, (const int*)ints,
                              (const float*)flts);
-  if (a.scratch != scratch || a.scratch_ints != pw::SCRATCH ||
+  if (a.scratch != scratch || a.scratch_ints != 0 ||
       a.bmax < 1 || level < 0 || (a.geom != 8 && a.geom != 32) ||
       (a.bd != 8 && a.bd != 10) || a.max_merge < 1 ||
       a.max_merge > pw::MAXM || a.R < 1 || a.num_ref < 1)
     return cudaErrorInvalidValue;
-  const size_t smem = hm::rdoq_smem_bytes(a.geom == 8 ? 3 : 5);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        pwalk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // the arena's limit, raised once per device to the larger layout
+  static bool raised[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    e = cudaFuncSetAttribute(pwalk_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             pw::SMEM_BYTES);
     if (e != cudaSuccess) return (int)e;
+    raised[dev] = true;
   }
-  pwalk_kernel<<<a.bmax, THREADS, smem, (cudaStream_t)stream>>>(a, level);
+  const int smem = a.geom == 8 ? pw::SMEM8_BYTES : pw::SMEM_BYTES;
+  pwalk_kernel<<<a.bmax, pw::THREADS, smem, (cudaStream_t)stream>>>(a,
+                                                                     level);
   return (int)cudaGetLastError();
 }
+
+#ifdef HM_PHASE_CLOCK
+// the phase clocks' sums (hm_port.cuh) into host arrays of hm::HM_PH_N
+// uint64 each, then zeroed
+extern "C" int hm_p_walk_phases(void* cycles, void* counts) {
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(cycles, hm::hm_ph_cycles,
+                             sizeof(hm::hm_ph_cycles));
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(counts, hm::hm_ph_count,
+                             sizeof(hm::hm_ph_count));
+  static const unsigned long long zero[hm::HM_PH_N] = {};
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbol(hm::hm_ph_cycles, zero, sizeof(zero));
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbol(hm::hm_ph_count, zero, sizeof(zero));
+  return (int)e;
+}
+#endif

@@ -35,14 +35,20 @@
 // (argmin, the stable sort of the screening costs), and the 16 and 32
 // trials win only when strictly cheaper.
 //
-// Block-cooperative (hm_port.cuh): every thread of a lane's block runs
+// Group-cooperative (hm_port.cuh): every thread of a lane's block runs
 // the same control flow and derives the same scalars (lists, costs) from
-// the same reads; the per-sample loops are split over the threads, the
-// SSE partial sums reduced by thread 0.  The lane's scratch (the
-// candidates' predictions, the coded winner, the intra CU, the coding
-// work area) lies in device memory; K10's working set in shared memory.
-// The file also compiles as host C++ (one thread), which the CPU tests
-// drive level by level.
+// the same reads; a CU trial's independent items (the candidates' MC, the
+// finalists' codings, the winner's recode, the intra arm) run side by
+// side in groups of the block (a warp a coding in a cell, two at 16x16,
+// the block at 32x32), as "K23's lane" below says; the SSEs are exact
+// group sums.  The trial's whole working set (source, predictions, coded
+// CUs, each group's coding work area and K10 set) lies in shared memory.
+// The file also compiles as host C++ (one thread, one group), which the
+// CPU tests drive level by level.
+//
+// K26 (bwalk.cuh) walks the whole block over this file's helpers (the
+// arguments, the flag prices, motion and the step's rows) in its own
+// device-scratch layout.
 #pragma once
 
 #include "hm_port.cuh"
@@ -68,6 +74,16 @@ constexpr float INTRA_GATE = 24.0f;
 constexpr float BIG = 3e38f;
 constexpr int MAXM = mvc::kMaxMerge;
 constexpr int F = 2;  // merge finalists coded with deadzone quantisation
+
+// phase clock slots (hm_port.cuh; HM_PHASE_CLOCK builds only): each phase
+// of a CU trial by its size (log2 3, 4, 5), then the lane, the 16x16 and
+// 32x32 trials whole
+enum { PH_SRC, PH_MC, PH_SSE, PH_DZ, PH_RDOQ, PH_AMVP, PH_INTRA, PH_COMMIT,
+       PH_NPH };
+HM_FN int ph(int phase, int log2) { return phase * 3 + (log2 - 3); }
+constexpr int PH_LANE = 3 * PH_NPH, PH_T16 = PH_LANE + 1,
+              PH_T32 = PH_LANE + 2;
+static_assert(PH_T32 < HM_PH_BAR, "phase slots");
 
 // the state's per-cell columns (pframe_dev.py K_*)
 enum { K_KIND, K_MI, K_MVDX, K_MVDY, K_MVPI, K_DIR, K_MVX, K_MVY, K_REF,
@@ -176,50 +192,6 @@ inline Args args_from(const long long* p, const int* v, const float* f) {
 }
 
 // ---------------------------------------------------------------------------
-// the lane's scratch (ints), sized for a 32x32 CU with MAXM candidates
-
-constexpr int S_ORGY = 0;                   // the CU's source, raster
-constexpr int S_ORGU = S_ORGY + 1024;
-constexpr int S_ORGV = S_ORGU + 256;
-constexpr int S_PREDY = S_ORGV + 256;       // per merge candidate
-constexpr int S_PREDU = S_PREDY + MAXM * 1024;
-constexpr int S_PREDV = S_PREDU + MAXM * 256;
-constexpr int S_LEVY = S_PREDV + MAXM * 256;  // the merge winner, coded
-constexpr int S_LEVU = S_LEVY + 1024;
-constexpr int S_LEVV = S_LEVU + 256;
-constexpr int S_RECY = S_LEVV + 256;
-constexpr int S_RECU = S_RECY + 1024;
-constexpr int S_RECV = S_RECU + 256;
-constexpr int S_DZL = S_RECV + 256;         // a finalist's levels, rec
-constexpr int S_DZR = S_DZL + 1024;
-constexpr int S_PATCH = S_DZR + 1024;       // MC: 39 x 39 patch, 39 x 32
-constexpr int S_TMP = S_PATCH + 39 * 39 + 1;
-constexpr int S_IREF = S_TMP + 39 * 32;     // intra: 8x8 luma line,
-constexpr int S_IREFF = S_IREF + 34;        // its filtered form,
-constexpr int S_IREFU = S_IREFF + 34;       // the chroma lines
-constexpr int S_IREFV = S_IREFU + 18;
-constexpr int S_IPY = S_IREFV + 18;         // prediction, levels, rec
-constexpr int S_IPU = S_IPY + 64;
-constexpr int S_IPV = S_IPU + 16;
-constexpr int S_ILY = S_IPV + 16;
-constexpr int S_ILU = S_ILY + 64;
-constexpr int S_ILV = S_ILU + 16;
-constexpr int S_IRY = S_ILV + 16;
-constexpr int S_IRU = S_IRY + 64;
-constexpr int S_IRV = S_IRU + 16;
-constexpr int RED_THREADS = 256;            // the SSE partial sums: 2 per
-constexpr int S_RED = S_IRV + 16;           // thread and candidate (int64)
-constexpr int S_SC = S_RED + 2 * 2 * MAXM * RED_THREADS;  // 3-plane SSEs
-constexpr int S_W = S_SC + 2 * MAXM;        // the coding work area
-constexpr int SCRATCH = S_W + wk::WORK_INTS;
-static_assert(S_RED % 2 == 0 && SCRATCH % 2 == 0,
-              "the int64 partial sums need 8-byte alignment");
-
-struct Lane : wk::Lane {
-  const Args* ap;
-};
-
-// ---------------------------------------------------------------------------
 // the syntax-flag prices (ops/ratebits.py)
 
 HM_FN float cbv(const Args& a, int ctx, int bin) { return a.cb[2 * ctx + bin]; }
@@ -325,177 +297,16 @@ HM_FN float amvp_cost(const Args& a, const Hoist& hs, int g, float b_inter,
 }
 
 // ---------------------------------------------------------------------------
-// merge RD (p_merge_all_rd)
+// a merge trial's result
 
 struct MergeRes {
   float cost_skip, cost_merge;
-  int mi_skip, mi_merge, cbf, ts;
+  int mi_skip, mi_merge, cbf, ts, wf;  // wf: the winner's recode buffer
   int sk_mvx, sk_mvy, sk_ref, mg_mvx, mg_mvy, mg_ref;
 };
 
-// the n x n block at (x0, y0) of reference r into out: luma and chroma
-HM_BIG void mc_cu(Lane& L, int r, int x0, int y0, int mx, int my, int n,
-                  int* py, int* pu, int* pv) {
-  const Args& a = *L.ap;
-  int* s = L.s;
-  const int H = a.h, W = a.w, rr = iclamp(r, 0, a.R - 1);
-  const size_t ly = (size_t)H * W, lc = (size_t)(H / 2) * (W / 2);
-  mc_block<false>(a.refs_y + rr * ly, H, W, x0, y0, mx, my, n, n, 0, a.bd,
-                  s + S_PATCH, s + S_TMP, py, L.tid, L.nt);
-  mc_block<false>(a.refs_u + rr * lc, H / 2, W / 2, x0 / 2, y0 / 2, mx, my,
-                  n / 2, n / 2, 1, a.bd, s + S_PATCH, s + S_TMP, pu, L.tid,
-                  L.nt);
-  mc_block<false>(a.refs_v + rr * lc, H / 2, W / 2, x0 / 2, y0 / 2, mx, my,
-                  n / 2, n / 2, 1, a.bd, s + S_PATCH, s + S_TMP, pv, L.tid,
-                  L.nt);
-}
-
-// every merge candidate predicted, skip priced by its 3-plane SSE, the F
-// best by screening coded with deadzone quantisation, the winner recoded
-// (the trellis when rdoq) into S_LEV* / S_REC*; the source is in S_ORG*
-HM_BIG MergeRes merge_rd(Lane& L, int n, int log2, int x0, int y0,
-                         const mvc::Motion* nb, const Cand& t, float b_skip1,
-                         float b_inter) {
-  const Args& a = *L.ap;
-  int* s = L.s;
-  const int M = a.max_merge, nn = n * n, nc = n / 2, ncc = nc * nc;
-  int cmx[MAXM], cmy[MAXM], crf[MAXM];
-  mvc::merge_list_p(nb, t.ok, t.mx, t.my, M, a.limit, cmx, cmy, crf);
-  for (int m = 0; m < M; ++m)
-    mc_cu(L, crf[m], x0, y0, cmx[m], cmy[m], n, s + S_PREDY + m * nn,
-          s + S_PREDU + m * ncc, s + S_PREDV + m * ncc);
-
-  // the 3-plane SSE per candidate: integer partial sums, thread 0 adds
-  // them; float(ssd_y) + wchroma * float(ssd_u + ssd_v)
-  long long* red = (long long*)(s + S_RED);
-  const int nt = L.nt < RED_THREADS ? L.nt : RED_THREADS;
-  for (int m = 0; m < M; ++m) {
-    if (L.tid < nt) {
-      long long py = 0, pc = 0;
-      const int* p = s + S_PREDY + m * nn;
-      for (int e = L.tid; e < nn; e += nt) {
-        const long long d = s[S_ORGY + e] - p[e];
-        py += d * d;
-      }
-      const int* pu = s + S_PREDU + m * ncc;
-      const int* pv = s + S_PREDV + m * ncc;
-      for (int e = L.tid; e < ncc; e += nt) {
-        const long long du = s[S_ORGU + e] - pu[e];
-        const long long dv = s[S_ORGV + e] - pv[e];
-        pc += du * du + dv * dv;
-      }
-      red[(2 * m) * RED_THREADS + L.tid] = py;
-      red[(2 * m + 1) * RED_THREADS + L.tid] = pc;
-    }
-  }
-  HM_SYNC();
-  float* sse3 = (float*)(s + S_SC);
-  if (L.tid == 0) {
-    for (int m = 0; m < M; ++m) {
-      long long sy = 0, sc = 0;
-      for (int k = 0; k < nt; ++k) {
-        sy += red[(2 * m) * RED_THREADS + k];
-        sc += red[(2 * m + 1) * RED_THREADS + k];
-      }
-      sse3[m] = HM_FADD((float)sy, HM_FMUL(a.wchroma, (float)sc));
-    }
-  }
-  HM_SYNC();
-  float bmi[MAXM], cost_sk[MAXM], screen[MAXM];
-  for (int m = 0; m < M; ++m) {
-    const float e = sse3[m];
-    bmi[m] = merge_idx_bits(a, m);
-    cost_sk[m] = HM_FADD(e, HM_FMUL(a.lam, HM_FADD(b_skip1, bmi[m])));
-    screen[m] = HM_FADD(e, HM_FMUL(a.lam, bmi[m]));
-  }
-  MergeRes r;
-  r.mi_skip = 0;
-  for (int m = 1; m < M; ++m)
-    if (cost_sk[m] < cost_sk[r.mi_skip]) r.mi_skip = m;
-  r.cost_skip = cost_sk[r.mi_skip];
-
-  // the finalists: the stable sort's first F = repeated first minima
-  const int nf = M < F ? M : F;
-  int fidx[F];
-  for (int f = 0; f < nf; ++f) {
-    int best = -1;
-    for (int m = 0; m < M; ++m) {
-      bool taken = false;
-      for (int q = 0; q < f; ++q) taken = taken || fidx[q] == m;
-      if (!taken && (best < 0 || screen[m] < screen[best])) best = m;
-    }
-    fidx[f] = best;
-  }
-  float cost_f[F];
-  for (int f = 0; f < nf; ++f) {
-    const int m = fidx[f];
-    const TbRes ry = code_tb(L, log2, true, false, false, -1, a.lam, false,
-                             0.f, s + S_ORGY, s + S_PREDY + m * nn,
-                             s + S_DZL, s + S_DZR, 0, false);
-    const TbRes ru = code_tb(L, log2 - 1, false, false, false, -1, a.lam_c,
-                             true, a.wchroma, s + S_ORGU,
-                             s + S_PREDU + m * ncc, s + S_DZL, s + S_DZR, 0,
-                             false);
-    const TbRes rv = code_tb(L, log2 - 1, false, false, false, -1, a.lam_c,
-                             true, a.wchroma, s + S_ORGV,
-                             s + S_PREDV + m * ncc, s + S_DZL, s + S_DZR, 0,
-                             false);
-    // (dY + dCb + dCr) + lam * ((((bmi + cbf) + bY) + bCb) + bCr)
-    float b = HM_FADD(bmi[m], cbf_bits_inter(a, ry.nz, ru.nz, rv.nz));
-    b = HM_FADD(HM_FADD(HM_FADD(b, ry.bits), ru.bits), rv.bits);
-    cost_f[f] = HM_FADD(HM_FADD(HM_FADD(ry.sse, ru.sse), rv.sse),
-                        HM_FMUL(a.lam, b));
-  }
-  int fi = 0;
-  for (int f = 1; f < nf; ++f)
-    if (cost_f[f] < cost_f[fi]) fi = f;
-  const int wi = fidx[fi];
-  r.mi_merge = wi;
-
-  // the winner recoded; with transform skip its 4x4 chroma TBs both ways
-  const bool tr = a.rdoq != 0;
-  const TbRes ry = code_tb(L, log2, true, false, false, -1, a.lam, false, 0.f,
-                           s + S_ORGY, s + S_PREDY + wi * nn, s + S_LEVY,
-                           s + S_RECY, 0, tr);
-  TbRes ru, rv;
-  if (a.ts && log2 == 3) {
-    ru = code_ts_sel(L, false, false, -1, a.lam_c, true, a.wchroma,
-                     s + S_ORGU, s + S_PREDU + wi * ncc, s + S_LEVU,
-                     s + S_RECU, tr);
-    rv = code_ts_sel(L, false, false, -1, a.lam_c, true, a.wchroma,
-                     s + S_ORGV, s + S_PREDV + wi * ncc, s + S_LEVV,
-                     s + S_RECV, tr);
-  } else {
-    ru = code_tb(L, log2 - 1, false, false, false, -1, a.lam_c, true,
-                 a.wchroma, s + S_ORGU, s + S_PREDU + wi * ncc, s + S_LEVU,
-                 s + S_RECU, 0, tr);
-    rv = code_tb(L, log2 - 1, false, false, false, -1, a.lam_c, true,
-                 a.wchroma, s + S_ORGV, s + S_PREDV + wi * ncc, s + S_LEVV,
-                 s + S_RECV, 0, tr);
-  }
-  r.cbf = ry.nz | (ru.nz << 1) | (rv.nz << 2);
-  r.ts = ru.ts | (rv.ts << 1);
-  // (dY + dU + dV) + lam * ((((hdr + cbf) + bY) + bU) + bV), hdr =
-  // (b_inter + merge_flag) + merge_idx
-  const float hdr =
-      HM_FADD(HM_FADD(b_inter, cbv(a, a.ctx[C_MERGE_FLAG], 1)), bmi[wi]);
-  float b = HM_FADD(hdr, cbf_bits_inter(a, ry.nz, ru.nz, rv.nz));
-  b = HM_FADD(HM_FADD(HM_FADD(b, ry.bits), ru.bits), rv.bits);
-  r.cost_merge = HM_FADD(HM_FADD(HM_FADD(ry.sse, ru.sse), rv.sse),
-                         HM_FMUL(a.lam, b));
-  // an all-zero-residual merge IS skip with one extra flag
-  if (!r.cbf) r.cost_merge = BIG;
-  r.sk_mvx = cmx[r.mi_skip];
-  r.sk_mvy = cmy[r.mi_skip];
-  r.sk_ref = crf[r.mi_skip];
-  r.mg_mvx = cmx[wi];
-  r.mg_mvy = cmy[wi];
-  r.mg_ref = crf[wi];
-  return r;
-}
-
 // ---------------------------------------------------------------------------
-// the steps
+// the flags and rows of a step
 
 struct Prices {
   const int *l_blk, *a_blk;
@@ -530,80 +341,625 @@ HM_FN void write_row(int* row, int kind, int mi, const Amvp& am, int dir,
   for (int c = 0; c < NCOL; ++c) row[c] = v[c];
 }
 
+// ---------------------------------------------------------------------------
+// K23's lane: groups of the block side by side, the working set in shared
+// memory.
+//
+// A CU trial runs as rounds of independent tasks, each closed by the
+// block's barrier: R1 predicts every merge candidate's planes and sums each
+// plane's SSE (in a cell also the intra arm's predictions); R2 codes the
+// finalists with deadzone quantisation and, in a cell (8 groups),
+// already recodes every finalist (the RDOQ trellis, the
+// chroma transform-skip trials) of which the cost compare then keeps the
+// winner's, and in a cell codes the intra arm's TBs, whatever the gate
+// then decides (it passes for nearly every cell); with fewer groups (the
+// 16x16 and 32x32 trials) R3 recodes the winner alone.  Fewer, larger
+// groups there keep the block's shared memory small enough to leave the
+// L1 cache room for the coding tables and the threads' stacks (on the
+// H100 a larger arena ran slower: PERF.md).  A round's tasks go to the
+// groups heaviest first in a snake (`deal`); a group's coding work area,
+// K10 working set, MC patch and the deadzone codings' levels and
+// reconstruction are its own, a task's outputs are the task's own.
+// Between rounds every thread derives the same scalars
+// (lists, costs, choices) in the plain order.  The host build has one
+// group; `task_reverse` runs its task loops last task first, so the CPU
+// tests can show that no task reads what another task of its round
+// writes.
+
+constexpr int THREADS = 256;  // a lane's block: 8 warps
+constexpr int NG_8 = 8;   // groups of an 8x8 trial: a warp each
+constexpr int NG_16 = 4;  // of a 16x16 trial: two warps each
+constexpr int NG_32 = 1;  // of a 32x32 trial: the block
+HM_HD constexpr int ng_of(int n) {
+  return n == 8 ? NG_8 : n == 16 ? NG_16 : NG_32;
+}
+// whether a trial's finalists are recoded with their deadzone codings, in
+// one round (a cell), or the winner alone after them (the larger trials)
+HM_HD constexpr bool spec_of(int n) { return n == 8; }
+// its recode buffers: every finalist's, or the winner's
+HM_HD constexpr int nfb_of(int n) { return spec_of(n) ? F : 1; }
+constexpr int NTASK = 24;     // the most tasks of a round (a cell's R2: 21)
+
+#if !defined(__CUDACC__)
+inline int task_reverse = 0;  // host build: task loops last task first
+#endif
+
+// the task a loop's k-th iteration runs, of n
+HM_FN int task_of(int k, int n) {
+#if defined(__CUDACC__)
+  (void)n;
+  return k;
+#else
+  return task_reverse ? n - 1 - k : k;
+#endif
+}
+
+struct Grp {  // this thread's group: index, count, thread and size in it
+  int g, ng, tid, nt;
+};
+
+// the block's nt threads cut into `want` groups (one on the host)
+HM_FN Grp group_of(int tid, int nt, int want) {
+  Grp G;
+  G.ng = nt >= 32 * want ? want : 1;
+  G.nt = nt / G.ng;
+  G.g = tid / G.nt;
+  G.tid = tid - G.g * G.nt;
+  return G;
+}
+
+HM_HD constexpr int r4(int ints) { return (ints + 3) & ~3; }
+HM_HD constexpr int imax_c(int a, int b) { return a > b ? a : b; }
+
+// a group's area: its coding work area and K10 working set, its MC patch
+// (R1) and in the same place the deadzone codings' levels and
+// reconstruction (R2)
+struct GrpMem {
+  int *work, *k10, *patch, *tmp, *dzl, *dzr;
+};
+
+// one CU trial's shared memory (the intra arm and the TS alternatives
+// only in a cell)
+struct CuMem {
+  int *oy, *ou, *ov;                  // the source
+  int *py, *pu, *pv;                  // per merge candidate
+  int *ly, *lu, *lv, *ry, *ru, *rv;   // the recodes (nfb_of(n) buffers,
+  int *ltu, *ltv, *rtu, *rtv;         // buffer f at f times a plane),
+                                      // their chroma TS alternatives
+  int *iref, *ireff, *irefu, *irefv;  // intra: the reference lines,
+  int *ipy, *ipu, *ipv;               // the prediction, the coded CU
+  int *ily, *ilu, *ilv, *iry, *iru, *irv, *iltu, *iltv, *irtu, *irtv;
+  long long* sse;                     // (MAXM, 3) the candidates' SSEs
+  float *rsse, *rbits;                // (NTASK,) a round's results
+  int *rnz, *ord;                     // and its deal (thread 0's)
+  int* grp;
+  int gints;                          // ints of a group's area
+};
+
+// ints of a group's area at side n; places it at base when g is given
+HM_HD constexpr int grp_place(int n, int* base = nullptr,
+                              GrpMem* g = nullptr) {
+  int at = 0;
+#define PW_PUT(f, ints)            \
+  do {                             \
+    if (g) g->f = base + at;       \
+    at += r4(ints);                \
+  } while (0)
+  PW_PUT(work, wk::work_ints(n * n));
+  PW_PUT(k10, (int)(rdoq_smem_bytes(n == 8 ? 3 : n == 16 ? 4 : 5) / 4));
+  const int mc = at;
+  PW_PUT(patch, mc_patch_ints(n, n, 0));
+  PW_PUT(tmp, mc_tmp_ints(n, n, 0));
+  at = mc;
+  PW_PUT(dzl, n * n);
+  PW_PUT(dzr, n * n);
+  at = imax_c(at, mc + r4(mc_patch_ints(n, n, 0)) + r4(mc_tmp_ints(n, n, 0)));
+#undef PW_PUT
+  return at;
+}
+
+// ints of a trial's shared memory at side n with ng groups; places it at
+// base when m is given
+HM_HD constexpr int cu_place(int n, int ng, int* base = nullptr,
+                             CuMem* m = nullptr) {
+  const int nn = n * n, ncc = nn / 4, cell = n == 8, nb = nfb_of(n);
+  int at = 0;
+#define PW_PUT(f, ints)            \
+  do {                             \
+    if (m) m->f = (decltype(m->f))(base + at); \
+    at += r4(ints);                \
+  } while (0)
+  PW_PUT(oy, nn);
+  PW_PUT(ou, ncc);
+  PW_PUT(ov, ncc);
+  PW_PUT(py, MAXM * nn);
+  PW_PUT(pu, MAXM * ncc);
+  PW_PUT(pv, MAXM * ncc);
+  PW_PUT(ly, nb * nn);
+  PW_PUT(lu, nb * ncc);
+  PW_PUT(lv, nb * ncc);
+  PW_PUT(ry, nb * nn);
+  PW_PUT(ru, nb * ncc);
+  PW_PUT(rv, nb * ncc);
+  PW_PUT(ltu, nb * 16 * cell);
+  PW_PUT(ltv, nb * 16 * cell);
+  PW_PUT(rtu, nb * 16 * cell);
+  PW_PUT(rtv, nb * 16 * cell);
+  PW_PUT(iref, 34 * cell);
+  PW_PUT(ireff, 34 * cell);
+  PW_PUT(irefu, 18 * cell);
+  PW_PUT(irefv, 18 * cell);
+  PW_PUT(ipy, 64 * cell);
+  PW_PUT(ipu, 16 * cell);
+  PW_PUT(ipv, 16 * cell);
+  PW_PUT(ily, 64 * cell);
+  PW_PUT(ilu, 16 * cell);
+  PW_PUT(ilv, 16 * cell);
+  PW_PUT(iry, 64 * cell);
+  PW_PUT(iru, 16 * cell);
+  PW_PUT(irv, 16 * cell);
+  PW_PUT(iltu, 16 * cell);
+  PW_PUT(iltv, 16 * cell);
+  PW_PUT(irtu, 16 * cell);
+  PW_PUT(irtv, 16 * cell);
+  PW_PUT(sse, 2 * 3 * MAXM);
+  PW_PUT(rsse, NTASK);
+  PW_PUT(rbits, NTASK);
+  PW_PUT(rnz, NTASK);
+  PW_PUT(ord, NTASK);
+  const int gints = grp_place(n);
+  PW_PUT(grp, ng * gints);
+#undef PW_PUT
+  if (m) m->gints = gints;
+  return at;
+}
+
+// K23's dynamic shared memory: the largest trial's layout of a geometry
+// (8: cells alone; 32: with the 16x16 and 32x32 trials).  What a block
+// leaves of the SM's 256 KB is its L1 cache, which holds the coding
+// tables and the threads' stacks.
+constexpr int SMEM8_BYTES = 4 * cu_place(8, NG_8);
+constexpr int SMEM_BYTES =
+    4 * imax_c(cu_place(8, NG_8),
+               imax_c(cu_place(16, NG_16), cu_place(32, NG_32)));
+static_assert(SMEM_BYTES <= 232448,
+              "K23's shared memory: 227 KB a block on the H100");
+
+struct Walk {  // K23's lane: its Args, its block's threads and arena
+  const Args* ap;
+  int tid, nt;
+  int* smem;
+};
+
+HM_FN CuMem cu_mem(const Walk& W, int n, int ng) {
+  CuMem m{};
+  cu_place(n, ng, W.smem, &m);
+  return m;
+}
+
+HM_FN GrpMem grp_mem(const CuMem& m, int n, int g) {
+  GrpMem gm{};
+  grp_place(n, m.grp + g * m.gints, &gm);
+  return gm;
+}
+
+// group G's coding lane in its area (the block's own lane when G is the
+// whole block)
+HM_FN wk::Lane coder_of(const Walk& W, const GrpMem& gm, int tid, int nt,
+                        int n) {
+  wk::Lane L;
+  L.cd = &W.ap->cd;
+  L.tid = tid;
+  L.nt = nt;
+  L.S = rdoq_smem(gm.k10, n * n);
+  L.s = nullptr;
+  L.work = gm.work;
+  L.wstride = n * n;
+  return L;
+}
+
+// the block as one lane (copies of the source, commits)
+HM_FN wk::Lane block_of(const Walk& W) {
+  wk::Lane L;
+  L.cd = &W.ap->cd;
+  L.tid = W.tid;
+  L.nt = W.nt;
+  L.S = RdoqSmem{};
+  L.s = nullptr;
+  L.work = nullptr;
+  return L;
+}
+
+// a task's coding result into slot t, from the group's thread 0
+HM_FN void put_res(const CuMem& m, const wk::Lane& L, int t,
+                   const TbRes& r) {
+  if (L.tid == 0) {
+    m.rsse[t] = r.sse;
+    m.rbits[t] = r.bits;
+    m.rnz[t] = r.nz;
+  }
+}
+
+HM_FN TbRes get_res(const CuMem& m, int t) {
+  TbRes r;
+  r.sse = m.rsse[t];
+  r.bits = m.rbits[t];
+  r.nz = m.rnz[t];
+  r.ts = 0;
+  return r;
+}
+
+// positions 0 .. npos - 1 of a round of n tasks of weights w for ng
+// groups (group g takes positions g, g + ng, ...; npos = n rounded up to
+// ng): the tasks heaviest first (ties in index order), dealt in a snake
+// (odd waves run backwards), -1 where a position has none
+HM_FN void deal(const int* w, int n, int ng, int* ord) {
+  int srt[NTASK];
+  for (int i = 0; i < n; ++i) {
+    int j = i;
+    for (; j > 0 && w[srt[j - 1]] < w[i]; --j) srt[j] = srt[j - 1];
+    srt[j] = i;
+  }
+  const int npos = (n + ng - 1) / ng * ng;
+  for (int p = 0; p < npos; ++p) {
+    const int wave = p / ng, lane = p - wave * ng;
+    const int e = wave * ng + ((wave & 1) ? ng - 1 - lane : lane);
+    ord[p] = e < n ? srt[e] : -1;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// merge RD (p_merge_all_rd) in rounds
+
+struct Merge {  // the list and its screening, every thread alike
+  int M, nf, fidx[F];
+  int cmx[MAXM], cmy[MAXM], crf[MAXM];
+  float bmi[MAXM];
+};
+
+// R1's MC task t < 3 M: plane t / M of candidate t % M predicted, its SSE
+// against the source into m.sse
+HM_FN void mc_task(const Walk& W, const CuMem& m, const GrpMem& gm,
+                   wk::Lane& L, const Merge& g, int t, int n, int x0,
+                   int y0) {
+  const Args& a = *W.ap;
+  const int p = t / g.M, c = t - p * g.M, nc = n / 2;
+  const int nn = n * n, ncc = nc * nc;
+  const int rr = iclamp(g.crf[c], 0, a.R - 1);
+  const int H = p ? a.h / 2 : a.h, Wd = p ? a.w / 2 : a.w;
+  const int* ref = p == 0 ? a.refs_y + (size_t)rr * a.h * a.w
+                   : (p == 1 ? a.refs_u : a.refs_v) +
+                         (size_t)rr * (a.h / 2) * (a.w / 2);
+  int* out = p == 0 ? m.py + c * nn : (p == 1 ? m.pu : m.pv) + c * ncc;
+  const int* org = p == 0 ? m.oy : p == 1 ? m.ou : m.ov;
+  const int k = p ? nc : n;
+  mc_block<false>(ref, H, Wd, p ? x0 / 2 : x0, p ? y0 / 2 : y0, g.cmx[c],
+                  g.cmy[c], k, k, p != 0, a.bd, gm.patch, gm.tmp, out,
+                  L.tid, L.nt);
+  long long s = 0;
+  for (int e = L.tid; e < k * k; e += L.nt) {
+    const long long d = org[e] - out[e];
+    s += d * d;
+  }
+  s = group_sum(s, L.tid, L.nt, wk::red_of(L));
+  if (L.tid == 0) m.sse[3 * c + p] = s;
+}
+
+// after R1: skip priced by the 3-plane SSE (float(ssd_y) + wchroma *
+// float(ssd_u + ssd_v)), the screening costs, the F finalists
+HM_FN void merge_screen(const Args& a, const CuMem& m, float b_skip1,
+                        Merge& g, MergeRes& r) {
+  const int M = g.M;
+  float cost_sk[MAXM], screen[MAXM];
+  for (int c = 0; c < M; ++c) {
+    const long long* q = m.sse + 3 * c;
+    const float e = HM_FADD((float)q[0], HM_FMUL(a.wchroma,
+                                                 (float)(q[1] + q[2])));
+    g.bmi[c] = merge_idx_bits(a, c);
+    cost_sk[c] = HM_FADD(e, HM_FMUL(a.lam, HM_FADD(b_skip1, g.bmi[c])));
+    screen[c] = HM_FADD(e, HM_FMUL(a.lam, g.bmi[c]));
+  }
+  r.mi_skip = 0;
+  for (int c = 1; c < M; ++c)
+    if (cost_sk[c] < cost_sk[r.mi_skip]) r.mi_skip = c;
+  r.cost_skip = cost_sk[r.mi_skip];
+  // the finalists: the stable sort's first F = repeated first minima
+  g.nf = M < F ? M : F;
+  for (int f = 0; f < g.nf; ++f) {
+    int best = -1;
+    for (int c = 0; c < M; ++c) {
+      bool taken = false;
+      for (int q = 0; q < f; ++q) taken = taken || g.fidx[q] == c;
+      if (!taken && (best < 0 || screen[c] < screen[best])) best = c;
+    }
+    g.fidx[f] = best;
+  }
+}
+
+// R2's deadzone task t < 3 nf: plane t % 3 of finalist t / 3, its result
+// into slot t0 + t
+HM_FN void dz_task(const Walk& W, const CuMem& m, const GrpMem& gm,
+                   wk::Lane& L, const Merge& g, int t0, int t, int n,
+                   int log2) {
+  const Args& a = *W.ap;
+  const int f = t / 3, p = t - 3 * f, c = g.fidx[f];
+  const int nn = n * n, ncc = nn / 4;
+  const TbRes r =
+      p == 0 ? code_tb(L, log2, true, false, false, -1, a.lam, false, 0.f,
+                       m.oy, m.py + c * nn, gm.dzl, gm.dzr, false)
+             : code_tb(L, log2 - 1, false, false, false, -1, a.lam_c, true,
+                       a.wchroma, p == 1 ? m.ou : m.ov,
+                       (p == 1 ? m.pu : m.pv) + c * ncc, gm.dzl, gm.dzr,
+                       false);
+  put_res(m, L, t0 + t, r);
+}
+
+// the finalist (its index in fidx) of least deadzone cost, from R2's
+// results at t0
+HM_FN int merge_pick(const Args& a, const CuMem& m, const Merge& g, int t0) {
+  float cost_f[F];
+  for (int f = 0; f < g.nf; ++f) {
+    const TbRes ry = get_res(m, t0 + 3 * f), ru = get_res(m, t0 + 3 * f + 1),
+                rv = get_res(m, t0 + 3 * f + 2);
+    // (dY + dCb + dCr) + lam * ((((bmi + cbf) + bY) + bCb) + bCr)
+    float b = HM_FADD(g.bmi[g.fidx[f]], cbf_bits_inter(a, ry.nz, ru.nz,
+                                                        rv.nz));
+    b = HM_FADD(HM_FADD(HM_FADD(b, ry.bits), ru.bits), rv.bits);
+    cost_f[f] = HM_FADD(HM_FADD(HM_FADD(ry.sse, ru.sse), rv.sse),
+                        HM_FMUL(a.lam, b));
+  }
+  int fi = 0;
+  for (int f = 1; f < g.nf; ++f)
+    if (cost_f[f] < cost_f[fi]) fi = f;
+  return fi;
+}
+
+// the recode task j of finalist f, its result into slot t: 0 Y, 1 Cb,
+// 2 Cr (the trellis when rdoq), 3 and 4 their 4x4 transform-skip codings;
+// into the finalist's buffers (the one buffer when the winner alone is
+// recoded)
+HM_FN void rc_task(const Walk& W, const CuMem& m, wk::Lane& L,
+                   const Merge& g, int f, int j, int t, int n, int log2) {
+  const Args& a = *W.ap;
+  const int nn = n * n, ncc = nn / 4, c = g.fidx[f];
+  const int bf = spec_of(n) ? f : 0;
+  const bool tr = a.rdoq != 0;
+  TbRes r;
+  if (j == 0) {
+    r = code_tb(L, log2, true, false, false, -1, a.lam, false, 0.f, m.oy,
+                m.py + c * nn, m.ly + bf * nn, m.ry + bf * nn, tr);
+  } else {
+    const bool u = j == 1 || j == 3;
+    const int o = bf * (j >= 3 ? 16 : ncc);
+    r = code_tb(L, log2 - 1, false, false, j >= 3, -1, a.lam_c, true,
+                a.wchroma, u ? m.ou : m.ov, (u ? m.pu : m.pv) + c * ncc,
+                (j == 1 ? m.lu : j == 2 ? m.lv : j == 3 ? m.ltu : m.ltv) + o,
+                (j == 1 ? m.ru : j == 2 ? m.rv : j == 3 ? m.rtu : m.rtv) + o,
+                tr);
+  }
+  put_res(m, L, t, r);
+}
+
+// a chroma TB's result (slot t0) with its TS trial (slot t1); the TS
+// coding's levels and reconstruction copied in when chosen, the block
+// cooperating; every thread
+HM_FN TbRes ts_keep(const Walk& W, const CuMem& m, int t0, int t1, bool ts,
+                    int* lev, int* rec, const int* levt, const int* rect) {
+  const TbRes r0 = get_res(m, t0);
+  if (!ts) return r0;
+  const TbRes r = wk::ts_pick(W.ap->cd, false, W.ap->lam_c, r0,
+                              get_res(m, t1));
+  if (r.ts) {
+    for (int e = W.tid; e < 16; e += W.nt) {
+      lev[e] = levt[e];
+      rec[e] = rect[e];
+    }
+    HM_SYNC();
+  }
+  return r;
+}
+
+// the winner (finalist fi, its recodes' results at slot t0, nr of them):
+// its cbf, TS flags and cost (an all-zero residual leaves it to skip)
+HM_FN void merge_finish(const Walk& W, const CuMem& m, const Merge& g,
+                        int fi, int t0, int n, bool ts, float b_inter,
+                        MergeRes& r) {
+  const Args& a = *W.ap;
+  const int wi = g.fidx[fi], cc = n * n / 4, bf = spec_of(n) ? fi : 0;
+  r.wf = bf;
+  r.mi_merge = wi;
+  const TbRes ry = get_res(m, t0);
+  const TbRes ru = ts_keep(W, m, t0 + 1, t0 + 3, ts, m.lu + bf * cc,
+                           m.ru + bf * cc, m.ltu + bf * 16, m.rtu + bf * 16);
+  const TbRes rv = ts_keep(W, m, t0 + 2, t0 + 4, ts, m.lv + bf * cc,
+                           m.rv + bf * cc, m.ltv + bf * 16, m.rtv + bf * 16);
+  r.cbf = ry.nz | (ru.nz << 1) | (rv.nz << 2);
+  r.ts = ru.ts | (rv.ts << 1);
+  // (dY + dU + dV) + lam * ((((hdr + cbf) + bY) + bU) + bV), hdr =
+  // (b_inter + merge_flag) + merge_idx
+  const float hdr =
+      HM_FADD(HM_FADD(b_inter, cbv(a, a.ctx[C_MERGE_FLAG], 1)), g.bmi[wi]);
+  float b = HM_FADD(hdr, cbf_bits_inter(a, ry.nz, ru.nz, rv.nz));
+  b = HM_FADD(HM_FADD(HM_FADD(b, ry.bits), ru.bits), rv.bits);
+  r.cost_merge = HM_FADD(HM_FADD(HM_FADD(ry.sse, ru.sse), rv.sse),
+                         HM_FMUL(a.lam, b));
+  // an all-zero-residual merge IS skip with one extra flag
+  if (!r.cbf) r.cost_merge = BIG;
+  r.sk_mvx = g.cmx[r.mi_skip];
+  r.sk_mvy = g.cmy[r.mi_skip];
+  r.sk_ref = g.crf[r.mi_skip];
+  r.mg_mvx = g.cmx[wi];
+  r.mg_mvy = g.cmy[wi];
+  r.mg_ref = g.crf[wi];
+}
+
+// the source of the n x n CU at (x0, y0), the block cooperating
+HM_FN void copy_source(const Walk& W, const CuMem& m, int x0, int y0,
+                       int n) {
+  const Args& a = *W.ap;
+  wk::Lane B = block_of(W);
+  copy_block(B, a.org_y, a.w, x0, y0, n, m.oy);
+  copy_block(B, a.org_u, a.w / 2, x0 / 2, y0 / 2, n / 2, m.ou);
+  copy_block(B, a.org_v, a.w / 2, x0 / 2, y0 / 2, n / 2, m.ov);
+}
+
+// ---------------------------------------------------------------------------
+// the steps
+
+// R1's intra task t (0 luma, 1 Cb, 2 Cr) of cell b: the reference line
+// (luma also filtered) and the open-loop mode's prediction
+HM_FN void intra_pred_task(const Walk& W, const CuMem& m, wk::Lane& L,
+                           int b, int t) {
+  const Args& a = *W.ap;
+  const int im = a.imode[b];
+  if (t == 0) {
+    gather_line(L, a.rec_y, a.g8s + b * 33, a.g8n[b], 33, m.iref);
+    for (int k = L.tid; k < 33; k += L.nt)
+      m.ireff[k] = filter_sample(m.iref, k, 8, a.bd, 0);
+    HM_GSYNC(L.nt);
+    predict(L, m.iref, m.ireff, im, 8, 1, m.ipy);
+  } else {
+    int* line = t == 1 ? m.irefu : m.irefv;
+    gather_line(L, t == 1 ? a.rec_u : a.rec_v, a.g4s + b * 17, a.g4n[b], 17,
+                line);
+    predict(L, line, line, im, 4, 0, t == 1 ? m.ipu : m.ipv);
+  }
+}
+
+// R2's intra coding task t of cell b: 0 Y, 1 Cb, 2 Cr, 3 and 4 their TS
+// codings
+HM_FN void intra_code_task(const Walk& W, const CuMem& m, wk::Lane& L,
+                           int b, int t) {
+  const Args& a = *W.ap;
+  const int sel = scan_sel(a.imode[b]);
+  const bool tr = a.rdoq != 0;
+  TbRes r;
+  if (t == 0) {
+    r = code_tb(L, 3, true, false, false, sel, a.lam, false, 0.f, m.oy,
+                m.ipy, m.ily, m.iry, tr);
+  } else {
+    const bool u = t == 1 || t == 3;
+    r = code_tb(L, 2, false, false, t >= 3, sel, a.lam_c, true, a.wchroma,
+                u ? m.ou : m.ov, u ? m.ipu : m.ipv,
+                t == 1 ? m.ilu : t == 2 ? m.ilv : t == 3 ? m.iltu : m.iltv,
+                t == 1 ? m.iru : t == 2 ? m.irv : t == 3 ? m.irtu : m.irtv,
+                tr);
+  }
+  put_res(m, L, t, r);
+}
+
 // one 8x8 CU: returns the least of its four costs; commits its decision
-HM_BIG float cell_step(Lane& L, int b) {
-  const Args& a = *L.ap;
-  int* s = L.s;
+HM_BIG float cell_step(const Walk& W, int b) {
+  const Args& a = *W.ap;
+  const Grp G = group_of(W.tid, W.nt, NG_8);
+  const CuMem m = cu_mem(W, 8, G.ng);
+  const GrpMem gm = grp_mem(m, 8, G.g);
+  wk::Lane L = coder_of(W, gm, G.tid, G.nt, 8);
   const int bw = a.w / 8, P = bw * (a.h / 8), byi = b / bw, bxi = b % bw;
   const int x0 = bxi * 8, y0 = byi * 8;
-  copy_block(L, a.org_y, a.w, x0, y0, 8, s + S_ORGY);
-  copy_block(L, a.org_u, a.w / 2, x0 / 2, y0 / 2, 4, s + S_ORGU);
-  copy_block(L, a.org_v, a.w / 2, x0 / 2, y0 / 2, 4, s + S_ORGV);
+  HM_PH_START(t_src);
+  copy_source(W, m, x0, y0, 8);
   mvc::Motion nb[5];
   neighbours(a, a.nb_flat + 5 * b, a.nb_ok + 5 * b, nb);
   const Prices pr = mode_prices(a, b, bxi, byi);
   const float b_common = HM_FADD(pr.b_skip0, cbv(a, a.ctx[C_PART], 1));
   const float b_inter = HM_FADD(b_common, cbv(a, a.ctx[C_PRED_MODE], 0));
   const Cand t = t_cand(a.t8, P, b);
-  const MergeRes mr = merge_rd(L, 8, 3, x0, y0, nb, t, pr.b_skip1, b_inter);
+  Merge g;
+  g.M = a.max_merge;
+  mvc::merge_list_p(nb, t.ok, t.mx, t.my, g.M, a.limit, g.cmx, g.cmy, g.crf);
+  HM_PH_STOP(ph(PH_SRC, 3), t_src);
 
+  // R1: the candidates' planes and SSEs, the intra arm's predictions
+  HM_PH_START(t_mc);
+  const int n1 = 3 * g.M + 3;
+  for (int k = G.g; k < n1; k += G.ng) {
+    const int tk = task_of(k, n1);
+    if (tk < 3 * g.M)
+      mc_task(W, m, gm, L, g, tk, 8, x0, y0);
+    else
+      intra_pred_task(W, m, L, b, tk - 3 * g.M);
+  }
+  HM_SYNC();
+  HM_PH_STOP(ph(PH_MC, 3), t_mc);
+  HM_PH_START(t_sse);
+  MergeRes mr;
+  merge_screen(a, m, pr.b_skip1, g, mr);
+  HM_PH_STOP(ph(PH_SSE, 3), t_sse);
+
+  // R2: the intra arm's codings (slots 0 .. ni - 1), the finalists'
+  // deadzone codings (3 each), their recodes (nr each)
+  HM_PH_START(t_dz);
+  const int ni = a.ts ? 5 : 3, nr = a.ts ? 5 : 3, t_rc = ni + 3 * g.nf;
+  const int n2 = t_rc + nr * g.nf;
+  if (W.tid == 0) {
+    int w[NTASK];   // RDOQ luma 4, chroma 2; deadzone luma 2, chroma 1
+    for (int t2 = 0; t2 < n2; ++t2)
+      w[t2] = t2 < ni ? (t2 == 0 ? 4 : 2)
+              : t2 < t_rc ? ((t2 - ni) % 3 == 0 ? 2 : 1)
+                          : ((t2 - t_rc) % nr == 0 ? 4 : 2);
+    deal(w, n2, G.ng, m.ord);
+  }
+  HM_SYNC();
+  const int np2 = (n2 + G.ng - 1) / G.ng * G.ng;
+  for (int k = G.g; k < np2; k += G.ng) {
+    const int tk = m.ord[task_of(k, np2)];
+    if (tk < 0) continue;
+    if (tk < ni)
+      intra_code_task(W, m, L, b, tk);
+    else if (tk < t_rc)
+      dz_task(W, m, gm, L, g, ni, tk - ni, 8, 3);
+    else
+      rc_task(W, m, L, g, (tk - t_rc) / nr, (tk - t_rc) % nr, tk, 8, 3);
+  }
+  HM_SYNC();
+  HM_PH_STOP(ph(PH_DZ, 3), t_dz);
+
+  // the intra arm's results and the winner's
+  HM_PH_START(t_rq);
+  const TbRes iy = get_res(m, 0);
+  const TbRes iu = ts_keep(W, m, 1, 3, a.ts, m.ilu, m.iru, m.iltu, m.irtu);
+  const TbRes iv = ts_keep(W, m, 2, 4, a.ts, m.ilv, m.irv, m.iltv, m.irtv);
+  const int fi = merge_pick(a, m, g, ni);
+  merge_finish(W, m, g, fi, t_rc + nr * fi, 8, a.ts, b_inter, mr);
+  HM_PH_STOP(ph(PH_RDOQ, 3), t_rq);
+
+  HM_PH_START(t_am);
   const Hoist& h8 = a.h8;
   const int aref = h8.ref[b], amx = h8.mvx[b], amy = h8.mvy[b];
   const Amvp am = amvp(a, nb, aref, amx, amy, t);
   const float cost_amvp = amvp_cost(a, h8, b, b_inter, am);
+  HM_PH_STOP(ph(PH_AMVP, 3), t_am);
 
+  // intra, priced only when the best inter cost is above the gate
+  HM_PH_START(t_in);
   const float inter_best =
       fminf(mr.cost_skip, fminf(mr.cost_merge, cost_amvp));
   float cost_intra = BIG;
-  int icbf = 0, its = 0;
+  const int icbf = iy.nz | (iu.nz << 1) | (iv.nz << 2);
+  const int its = iu.ts | (iv.ts << 1);
+  const int im = a.imode[b];
   if (!(inter_best <= HM_FMUL(INTRA_GATE, a.lam))) {
-    // intra: the open-loop mode predicted from the committed samples
-    const int im = a.imode[b];
-    gather_line(L, a.rec_y, a.g8s + b * 33, a.g8n[b], 33, s + S_IREF);
-    for (int k = L.tid; k < 33; k += L.nt)
-      s[S_IREFF + k] = filter_sample(s + S_IREF, k, 8, a.bd, 0);
-    gather_line(L, a.rec_u, a.g4s + b * 17, a.g4n[b], 17, s + S_IREFU);
-    gather_line(L, a.rec_v, a.g4s + b * 17, a.g4n[b], 17, s + S_IREFV);
-    predict(L, s + S_IREF, s + S_IREFF, im, 8, 1, s + S_IPY);
-    predict(L, s + S_IREFU, s + S_IREFU, im, 4, 0, s + S_IPU);
-    predict(L, s + S_IREFV, s + S_IREFV, im, 4, 0, s + S_IPV);
-    const int sel = scan_sel(im);
-    const bool tr = a.rdoq != 0;
-    const TbRes ry = code_tb(L, 3, true, false, false, sel, a.lam, false, 0.f,
-                             s + S_ORGY, s + S_IPY, s + S_ILY, s + S_IRY, 0,
-                             tr);
-    TbRes ru, rv;
-    if (a.ts) {
-      ru = code_ts_sel(L, false, false, sel, a.lam_c, true, a.wchroma,
-                       s + S_ORGU, s + S_IPU, s + S_ILU, s + S_IRU, tr);
-      rv = code_ts_sel(L, false, false, sel, a.lam_c, true, a.wchroma,
-                       s + S_ORGV, s + S_IPV, s + S_ILV, s + S_IRV, tr);
-    } else {
-      ru = code_tb(L, 2, false, false, false, sel, a.lam_c, true, a.wchroma,
-                   s + S_ORGU, s + S_IPU, s + S_ILU, s + S_IRU, 0, tr);
-      rv = code_tb(L, 2, false, false, false, sel, a.lam_c, true, a.wchroma,
-                   s + S_ORGV, s + S_IPV, s + S_ILV, s + S_IRV, 0, tr);
-    }
-    icbf = ry.nz | (ru.nz << 1) | (rv.nz << 2);
-    its = ru.ts | (rv.ts << 1);
     const int* l_blk = pr.l_blk;
     const int* a_blk = pr.a_blk;
     const int lmode = (bxi > 0 && l_blk[K_KIND] == 3) ? a.imode[b - 1] : 1;
     const bool am_ok = byi > 0 && (y0 & ((1 << a.log2_ctu) - 1)) != 0;
     const int amode = (am_ok && a_blk[K_KIND] == 3) ? a.imode[b - bw] : 1;
     const float b_icbf = HM_FADD(
-        HM_FADD(cbf_chroma(a, ru.nz), cbf_chroma(a, rv.nz)),
-        cbf_luma(a, ry.nz));
+        HM_FADD(cbf_chroma(a, iu.nz), cbf_chroma(a, iv.nz)),
+        cbf_luma(a, iy.nz));
     // (dY + dU + dV) + lam * ((((((b_common + pred_mode) + mpm) + dm) +
     // cbf) + bY) + bU) + bV)
     float bs = HM_FADD(b_common, cbv(a, a.ctx[C_PRED_MODE], 1));
     bs = HM_FADD(bs, mpm_bits(a.cb, a.ctx[C_IPM], im, lmode, amode));
     bs = HM_FADD(bs, cbv(a, a.ctx[C_CHROMA_DM], 0));
     bs = HM_FADD(bs, b_icbf);
-    bs = HM_FADD(HM_FADD(HM_FADD(bs, ry.bits), ru.bits), rv.bits);
-    cost_intra = HM_FADD(HM_FADD(HM_FADD(ry.sse, ru.sse), rv.sse),
+    bs = HM_FADD(HM_FADD(HM_FADD(bs, iy.bits), iu.bits), iv.bits);
+    cost_intra = HM_FADD(HM_FADD(HM_FADD(iy.sse, iu.sse), iv.sse),
                          HM_FMUL(a.lam, bs));
   }
+  HM_PH_STOP(ph(PH_INTRA, 3), t_in);
+  HM_PH_START(t_cm);
 
   const float costs[4] = {mr.cost_skip, mr.cost_merge, cost_amvp,
                           cost_intra};
@@ -615,38 +971,38 @@ HM_BIG float cell_step(Lane& L, int b) {
 
   // commit: reconstruction, levels, the row, the TS flags
   const int ms = mr.mi_skip;
-  const int* ry = choice == 0 ? s + S_PREDY + ms * 64
-                  : choice == 1 ? s + S_RECY
+  const int wf = mr.wf;
+  const int* ry = choice == 0 ? m.py + ms * 64
+                  : choice == 1 ? m.ry + wf * 64
                   : choice == 2 ? h8.rec_y + b * 64
-                                : s + S_IRY;
-  const int* ru = choice == 0 ? s + S_PREDU + ms * 16
-                  : choice == 1 ? s + S_RECU
+                                : m.iry;
+  const int* ru = choice == 0 ? m.pu + ms * 16
+                  : choice == 1 ? m.ru + wf * 16
                   : choice == 2 ? h8.rec_u + b * 16
-                                : s + S_IRU;
-  const int* rv = choice == 0 ? s + S_PREDV + ms * 16
-                  : choice == 1 ? s + S_RECV
+                                : m.iru;
+  const int* rv = choice == 0 ? m.pv + ms * 16
+                  : choice == 1 ? m.rv + wf * 16
                   : choice == 2 ? h8.rec_v + b * 16
-                                : s + S_IRV;
-  for (int e = L.tid; e < 64; e += L.nt)
+                                : m.irv;
+  for (int e = W.tid; e < 64; e += W.nt)
     a.rec_y[(y0 + e / 8) * a.w + x0 + e % 8] = ry[e];
-  for (int e = L.tid; e < 16; e += L.nt) {
+  for (int e = W.tid; e < 16; e += W.nt) {
     const int o = (y0 / 2 + e / 4) * (a.w / 2) + x0 / 2 + e % 4;
     a.rec_u[o] = ru[e];
     a.rec_v[o] = rv[e];
   }
-  for (int e = L.tid; e < 96; e += L.nt) {
+  for (int e = W.tid; e < 96; e += W.nt) {
     int v = 0;
     if (choice == 1)
-      v = e < 64 ? s[S_LEVY + e] : e < 80 ? s[S_LEVU + e - 64]
-                                          : s[S_LEVV + e - 80];
+      v = e < 64 ? m.ly[wf * 64 + e] : e < 80 ? m.lu[wf * 16 + e - 64]
+                                              : m.lv[wf * 16 + e - 80];
     else if (choice == 2)
       v = h8.lev[b * 96 + e];
     else if (choice == 3)
-      v = e < 64 ? s[S_ILY + e] : e < 80 ? s[S_ILU + e - 64]
-                                         : s[S_ILV + e - 80];
+      v = e < 64 ? m.ily[e] : e < 80 ? m.ilu[e - 64] : m.ilv[e - 80];
     a.levs[b * 96 + e] = v;
   }
-  if (L.tid == 0) {
+  if (W.tid == 0) {
     int* row = a.blk + (size_t)b * NCOL;
     if (choice == 0)
       write_row(row, 0, mi, am, 1, mr.sk_mvx, mr.sk_mvy, mr.sk_ref, 0, 0);
@@ -661,6 +1017,7 @@ HM_BIG float cell_step(Lane& L, int b) {
                : choice == 2 ? (h8.ts ? h8.ts[b] : 0) : its;
   }
   HM_SYNC();
+  HM_PH_STOP(ph(PH_COMMIT, 3), t_cm);
   float best = costs[0];
   for (int c = 1; c < 4; ++c) best = fminf(best, costs[c]);
   return best;
@@ -675,16 +1032,21 @@ struct LargeRes {
 };
 
 // one n x n inter CU trial (skip / merge / the hoisted AMVP, one TU) at
-// grid position (gx, gy), from the committed state outside the region
-HM_BIG LargeRes large_cu(Lane& L, int g, int gx, int gy, int corner, int n,
-                         int log2, const int* nb_idx, const int* nb_ok,
-                         const int* tl, int npos, const Hoist& hs) {
-  const Args& a = *L.ap;
-  int* s = L.s;
+// grid position (gx, gy), from the committed state outside the region;
+// its predictions and coded winner stay in the arena for commit_large
+template <int LOG2>
+HM_BIG LargeRes large_cu(const Walk& W, int g, int gx, int gy, int corner,
+                         const int* nb_idx, const int* nb_ok, const int* tl,
+                         int npos, const Hoist& hs) {
+  constexpr int n = 1 << LOG2, log2 = LOG2;
+  const Args& a = *W.ap;
+  const Grp G = group_of(W.tid, W.nt, ng_of(n));
+  const CuMem m = cu_mem(W, n, G.ng);
+  const GrpMem gm = grp_mem(m, n, G.g);
+  wk::Lane L = coder_of(W, gm, G.tid, G.nt, n);
   const int x0 = gx * n, y0 = gy * n;
-  copy_block(L, a.org_y, a.w, x0, y0, n, s + S_ORGY);
-  copy_block(L, a.org_u, a.w / 2, x0 / 2, y0 / 2, n / 2, s + S_ORGU);
-  copy_block(L, a.org_v, a.w / 2, x0 / 2, y0 / 2, n / 2, s + S_ORGV);
+  HM_PH_START(t_src);
+  copy_source(W, m, x0, y0, n);
   mvc::Motion nb[5];
   neighbours(a, nb_idx, nb_ok, nb);
   LargeRes r;
@@ -693,7 +1055,52 @@ HM_BIG LargeRes large_cu(Lane& L, int g, int gx, int gy, int corner, int n,
       HM_FADD(HM_FADD(r.pr.b_skip0, cbv(a, a.ctx[C_PART], 1)),
               cbv(a, a.ctx[C_PRED_MODE], 0));
   const Cand t = t_cand(tl, npos, g);
-  r.mr = merge_rd(L, n, log2, x0, y0, nb, t, r.pr.b_skip1, b_inter);
+  Merge mg;
+  mg.M = a.max_merge;
+  mvc::merge_list_p(nb, t.ok, t.mx, t.my, mg.M, a.limit, mg.cmx, mg.cmy,
+                    mg.crf);
+  HM_PH_STOP(ph(PH_SRC, log2), t_src);
+
+  HM_PH_START(t_mc);
+  const int n1 = 3 * mg.M;
+  for (int k = G.g; k < n1; k += G.ng)
+    mc_task(W, m, gm, L, mg, task_of(k, n1), n, x0, y0);
+  HM_SYNC();
+  HM_PH_STOP(ph(PH_MC, log2), t_mc);
+  HM_PH_START(t_sse);
+  merge_screen(a, m, r.pr.b_skip1, mg, r.mr);
+  HM_PH_STOP(ph(PH_SSE, log2), t_sse);
+
+  // R2: the finalists' deadzone codings (slots 0 .. 3 nf - 1); R3
+  // recodes the winner alone
+  HM_PH_START(t_dz);
+  const int t_rc = 3 * mg.nf;
+  if (W.tid == 0) {
+    int w[NTASK];   // deadzone luma 2, chroma 1
+    for (int t2 = 0; t2 < t_rc; ++t2) w[t2] = t2 % 3 == 0 ? 2 : 1;
+    deal(w, t_rc, G.ng, m.ord);
+  }
+  HM_SYNC();
+  const int np2 = (t_rc + G.ng - 1) / G.ng * G.ng;
+  for (int k = G.g; k < np2; k += G.ng) {
+    const int tk = m.ord[task_of(k, np2)];
+    if (tk >= 0) dz_task(W, m, gm, L, mg, 0, tk, n, log2);
+  }
+  HM_SYNC();
+  HM_PH_STOP(ph(PH_DZ, log2), t_dz);
+
+  HM_PH_START(t_rq);
+  const int fi = merge_pick(a, m, mg, 0);
+  // R3 writes slots and buffers merge_pick does not read
+  for (int k = G.g; k < 3; k += G.ng) {
+    const int j3 = task_of(k, 3);
+    rc_task(W, m, L, mg, fi, j3, t_rc + 3 * fi + j3, n, log2);
+  }
+  HM_SYNC();
+  merge_finish(W, m, mg, fi, t_rc + 3 * fi, n, false, b_inter, r.mr);
+  HM_PH_STOP(ph(PH_RDOQ, log2), t_rq);
+
+  HM_PH_START(t_am);
   r.am = amvp(a, nb, hs.ref[g], hs.mvx[g], hs.mvy[g], t);
   const float costs[3] = {r.mr.cost_skip, r.mr.cost_merge,
                           amvp_cost(a, hs, g, b_inter, r.am)};
@@ -702,26 +1109,31 @@ HM_BIG LargeRes large_cu(Lane& L, int g, int gx, int gy, int corner, int n,
     if (costs[c] < costs[r.c]) r.c = c;
   if (r.c == 1 && !r.mr.cbf) r.c = 0;
   r.cost = fminf(costs[0], fminf(costs[1], costs[2]));
+  HM_PH_STOP(ph(PH_AMVP, log2), t_am);
   return r;
 }
 
-// commit a large CU trial to its `ncell` cells (`cells` in z-order)
-HM_BIG void commit_large(Lane& L, const LargeRes& r, int g, int gx, int gy,
-                         int n, int log2, const Hoist& hs, const int* cells,
+// commit a large CU trial to its `ncell` cells (`cells` in z-order), from
+// the arena large_cu left
+template <int LOG2>
+HM_BIG void commit_large(const Walk& W, const LargeRes& r, int g, int gx,
+                         int gy, const Hoist& hs, const int* cells,
                          int ncell) {
-  const Args& a = *L.ap;
-  int* s = L.s;
+  constexpr int n = 1 << LOG2, log2 = LOG2;
+  const Args& a = *W.ap;
+  const CuMem m = cu_mem(W, n, group_of(W.tid, W.nt, ng_of(n)).ng);
   const int x0 = gx * n, y0 = gy * n, nn = n * n, nc = n / 2, ncc = nc * nc;
-  const int c = r.c, ms = r.mr.mi_skip;
-  const int* ry = c == 0 ? s + S_PREDY + ms * nn
-                  : c == 1 ? s + S_RECY : hs.rec_y + (size_t)g * nn;
-  const int* ru = c == 0 ? s + S_PREDU + ms * ncc
-                  : c == 1 ? s + S_RECU : hs.rec_u + (size_t)g * ncc;
-  const int* rv = c == 0 ? s + S_PREDV + ms * ncc
-                  : c == 1 ? s + S_RECV : hs.rec_v + (size_t)g * ncc;
-  for (int e = L.tid; e < nn; e += L.nt)
+  const int c = r.c, ms = r.mr.mi_skip, wf = r.mr.wf;
+  HM_PH_START(t_cm);
+  const int* ry = c == 0 ? m.py + ms * nn
+                  : c == 1 ? m.ry + wf * nn : hs.rec_y + (size_t)g * nn;
+  const int* ru = c == 0 ? m.pu + ms * ncc
+                  : c == 1 ? m.ru + wf * ncc : hs.rec_u + (size_t)g * ncc;
+  const int* rv = c == 0 ? m.pv + ms * ncc
+                  : c == 1 ? m.rv + wf * ncc : hs.rec_v + (size_t)g * ncc;
+  for (int e = W.tid; e < nn; e += W.nt)
     a.rec_y[(y0 + e / n) * a.w + x0 + e % n] = ry[e];
-  for (int e = L.tid; e < ncc; e += L.nt) {
+  for (int e = W.tid; e < ncc; e += W.nt) {
     const int o = (y0 / 2 + e / nc) * (a.w / 2) + x0 / 2 + e % nc;
     a.rec_u[o] = ru[e];
     a.rec_v[o] = rv[e];
@@ -729,16 +1141,17 @@ HM_BIG void commit_large(Lane& L, const LargeRes& r, int g, int gx, int gy,
   // levs: the flat [Y | U | V] cut into 96-value slabs, one per cell in
   // `cells` order
   const int tot = nn + 2 * ncc;
-  for (int e = L.tid; e < tot; e += L.nt) {
+  for (int e = W.tid; e < tot; e += W.nt) {
     int v = 0;
     if (c == 1)
-      v = e < nn ? s[S_LEVY + e] : e < nn + ncc ? s[S_LEVU + e - nn]
-                                                : s[S_LEVV + e - nn - ncc];
+      v = e < nn ? m.ly[wf * nn + e]
+          : e < nn + ncc ? m.lu[wf * ncc + e - nn]
+                         : m.lv[wf * ncc + e - nn - ncc];
     else if (c == 2)
       v = hs.lev[(size_t)g * tot + e];
     a.levs[cells[e / 96] * 96 + e % 96] = v;
   }
-  if (L.tid == 0) {
+  if (W.tid == 0) {
     const MergeRes& mr = r.mr;
     const int mi = c == 0 ? mr.mi_skip : mr.mi_merge;
     for (int k = 0; k < ncell; ++k) {
@@ -756,65 +1169,69 @@ HM_BIG void commit_large(Lane& L, const LargeRes& r, int g, int gx, int gy,
     }
   }
   HM_SYNC();
+  HM_PH_STOP(ph(PH_COMMIT, log2), t_cm);
 }
 
 // four cell steps in z-order, then the 16x16 CU trial
-HM_BIG float region16(Lane& L, int g) {
-  const Args& a = *L.ap;
+HM_BIG float region16(const Walk& W, int g) {
+  const Args& a = *W.ap;
   const int bw = a.w / 8, gw = a.w / 16;
   const int* c4 = a.cells16 + 4 * g;
   float cost8 = 0.f;
-  for (int j = 0; j < 4; ++j) cost8 = HM_FADD(cost8, cell_step(L, c4[j]));
+  for (int j = 0; j < 4; ++j) cost8 = HM_FADD(cost8, cell_step(W, c4[j]));
   const int gx = g % gw, gy = g / gw;
-  const LargeRes r = large_cu(L, g, gx, gy, (gy * 2) * bw + gx * 2, 16, 4,
-                              a.nb16_cell + 5 * g, a.nb16_ok + 5 * g, a.t16,
-                              gw * (a.h / 16), a.h16);
+  HM_PH_START(t16);
+  const LargeRes r = large_cu<4>(W, g, gx, gy, (gy * 2) * bw + gx * 2,
+                                 a.nb16_cell + 5 * g, a.nb16_ok + 5 * g,
+                                 a.t16, gw * (a.h / 16), a.h16);
   // split_cu_flag at the 16 depth (ctx from neighbour depths)
   const float cost16 = HM_FADD(r.cost, split_bits(a, 0, r.pr, gx, gy, 1));
   cost8 = HM_FADD(cost8, split_bits(a, 1, r.pr, gx, gy, 1));
-  if (!(cost16 < cost8)) return cost8;
-  commit_large(L, r, g, gx, gy, 16, 4, a.h16, c4, 4);
-  return cost16;
+  const bool win = cost16 < cost8;
+  if (win) commit_large<4>(W, r, g, gx, gy, a.h16, c4, 4);
+  HM_PH_STOP(PH_T16, t16);
+  return win ? cost16 : cost8;
 }
 
 // four region16 steps, then the 32x32 CU trial where the region lies
 // inside the picture (the padded grid's partial regions never form one)
-HM_BIG void step32(Lane& L, int g) {
-  const Args& a = *L.ap;
+HM_BIG void step32(const Walk& W, int g) {
+  const Args& a = *W.ap;
   const int bw = a.w / 8, qw = (a.w / 16 + 1) / 2, qh = (a.h / 16 + 1) / 2;
   const int* c16 = a.c16_32 + 4 * g;
   float cost_sub = 0.f;
   for (int j = 0; j < 4; ++j)
-    if (c16[j] >= 0) cost_sub = HM_FADD(cost_sub, region16(L, c16[j]));
+    if (c16[j] >= 0) cost_sub = HM_FADD(cost_sub, region16(W, c16[j]));
   if (!a.full32[g]) return;
   const int gx = g % qw, gy = g / qw;
-  const LargeRes r = large_cu(L, g, gx, gy, (gy * 4) * bw + gx * 4, 32, 5,
-                              a.nb32_cell + 5 * g, a.nb32_ok + 5 * g, a.t32,
-                              qw * qh, a.h32);
+  HM_PH_START(t32);
+  const LargeRes r = large_cu<5>(W, g, gx, gy, (gy * 4) * bw + gx * 4,
+                                 a.nb32_cell + 5 * g, a.nb32_ok + 5 * g,
+                                 a.t32, qw * qh, a.h32);
   const float cost32 = HM_FADD(r.cost, split_bits(a, 0, r.pr, gx, gy, 2));
   cost_sub = HM_FADD(cost_sub, split_bits(a, 1, r.pr, gx, gy, 2));
   if (cost32 < cost_sub)
-    commit_large(L, r, g, gx, gy, 32, 5, a.h32, a.c8_32 + 16 * g, 16);
+    commit_large<5>(W, r, g, gx, gy, a.h32, a.c8_32 + 16 * g, 16);
+  HM_PH_STOP(PH_T32, t32);
 }
 
-// lane `lane` of level `level`: smem is K10's working set (8-byte
-// aligned, rdoq_smem_bytes of the geometry's largest TB)
+// lane `lane` of level `level`, the block's tid of nt threads; smem is
+// the arena (SMEM_BYTES, 16-byte aligned)
 HM_BIG void walk_lane(const Args& a, int level, int lane, int tid, int nt,
                       void* smem) {
   const int blk = a.lv[level * a.bmax + lane];
   if (blk < 0) return;   // a padding lane does nothing
-  Lane L;
-  L.ap = &a;
-  L.cd = &a.cd;
-  L.tid = tid;
-  L.nt = nt;
-  L.S = rdoq_smem(smem, 1 << (2 * (a.geom == 8 ? 3 : 5)));
-  L.s = a.scratch + (size_t)lane * SCRATCH;
-  L.work = L.s + S_W;
+  Walk W;
+  W.ap = &a;
+  W.tid = tid;
+  W.nt = nt;
+  W.smem = (int*)smem;
+  HM_PH_START(t_lane);
   if (a.geom == 8)
-    cell_step(L, blk);
+    cell_step(W, blk);
   else
-    step32(L, blk);
+    step32(W, blk);
+  HM_PH_STOP(PH_LANE, t_lane);
 }
 
 }  // namespace pw

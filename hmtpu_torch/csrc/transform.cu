@@ -22,7 +22,10 @@
 // (1 << (bdShift - 1))) >> bdShift, clipped to 16 bits).  One int32 read
 // and one write per sample and a shift or two between them: bound by
 // bytes, and at the encoder's batches (a few hundred 4x4 TBs) by the
-// launch.  One thread per sample, 256 to a block.
+// launch, the wrapper's host time included (ops/transform.py passes an
+// int32 contiguous input as it is).  Four samples a thread through one
+// 16-byte load and store, 256 threads to a block, a grid sized to the
+// work.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,23 +74,54 @@ int launch(const void* x, const void* t, void* out, int nb, int n,
   return (int)cudaGetLastError();
 }
 
+// inverse: s1 = 5 + log2 nTbS, s2 = bdShift; forward: s1 = ts_shift
+__device__ __forceinline__ int ts_one(int v, int inverse, int s1, int s2) {
+  return inverse ? hm::ts_inv(v, s1, s2) : hm::ts_fwd(v, s1);
+}
+
+// A shift (and a rounding shift back) per sample: bound by its bytes, so
+// VEC moves 16 bytes a thread (x and out 16-byte aligned), the last n % 4
+// samples one a thread; else one sample a thread.
+template <bool VEC>
 __global__ void transform_skip_kernel(const int* __restrict__ x,
                                       int* __restrict__ out, int n,
                                       int inverse, int s1, int s2) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n) return;
-  // inverse: s1 = 5 + log2 nTbS, s2 = bdShift; forward: s1 = ts_shift
-  out[k] = inverse ? hm::ts_inv(x[k], s1, s2) : hm::ts_fwd(x[k], s1);
+  if (!VEC) {
+    if (k < n) out[k] = ts_one(x[k], inverse, s1, s2);
+    return;
+  }
+  const int nv = n >> 2;
+  if (k < nv) {
+    int4 v = reinterpret_cast<const int4*>(x)[k];
+    v.x = ts_one(v.x, inverse, s1, s2);
+    v.y = ts_one(v.y, inverse, s1, s2);
+    v.z = ts_one(v.z, inverse, s1, s2);
+    v.w = ts_one(v.w, inverse, s1, s2);
+    reinterpret_cast<int4*>(out)[k] = v;
+  }
+  if (k < (n & 3)) out[4 * nv + k] = ts_one(x[4 * nv + k], inverse, s1, s2);
 }
 
 }  // namespace
 
-extern "C" int hm_transform_skip(const void* x, void* out, int n,
-                                 int inverse, int s1, int s2, void* stream) {
-  if (n < 1 || s1 < 0 || s1 > 15 || (inverse && (s2 < 1 || s2 > 20)))
+// mode: inverse | s1 << 1 | s2 << 8 (one argument: at the encoder's
+// shapes the caller's host time is the call's time)
+extern "C" int hm_transform_skip(const void* x, void* out, int n, int mode,
+                                 void* stream) {
+  const int inverse = mode & 1, s1 = (mode >> 1) & 127, s2 = mode >> 8;
+  if (n < 1 || s1 > 15 || (inverse && (s2 < 1 || s2 > 20)) ||
+      (!inverse && s2 != 0))
     return cudaErrorInvalidValue;
-  transform_skip_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      (const int*)x, (int*)out, n, inverse, s1, s2);
+  const bool vec = (((size_t)x | (size_t)out) & 15) == 0;
+  const int work = vec ? (n + 3) / 4 : n;
+  const int blocks = (work + 255) / 256;
+  if (vec)
+    transform_skip_kernel<true><<<blocks, 256, 0, (cudaStream_t)stream>>>(
+        (const int*)x, (int*)out, n, inverse, s1, s2);
+  else
+    transform_skip_kernel<false><<<blocks, 256, 0, (cudaStream_t)stream>>>(
+        (const int*)x, (int*)out, n, inverse, s1, s2);
   return (int)cudaGetLastError();
 }
 

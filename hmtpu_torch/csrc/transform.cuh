@@ -63,10 +63,10 @@ HM_FN void transform_tb(const int* T, const int* x, int* tmp, int* out, int n,
   const int nn = n * n;
   for (int e = tid; e < nn; e += nt)
     tmp[e] = tr_stage1<INV>(T, x, n, e / n, e % n, s1);
-  HM_SYNC();
+  HM_GSYNC(nt);
   for (int e = tid; e < nn; e += nt)
     out[e] = tr_stage2<INV>(T, tmp, n, e / n, e % n, s2);
-  HM_SYNC();
+  HM_GSYNC(nt);
 }
 
 }  // namespace hm

@@ -11,8 +11,9 @@
 //                the substituted reference line, a block of a plane, and
 //                one intra mode's prediction (K2's arithmetic,
 //                intra_pred.cuh).
-// Block-cooperative as hm_port.cuh says; every function ends with a
-// barrier.  Compiles as host C++ too.
+// Group-cooperative as hm_port.cuh says: a lane's threads (L.tid of L.nt)
+// are the whole block in K21 and K26, one group of the block in K23;
+// every function ends with the group's barrier.  Compiles as host C++ too.
 #pragma once
 
 #include "hm_port.cuh"
@@ -46,20 +47,29 @@ struct Coder {
   float tbf[NTB][2];     // per set: inv, cscale
 };
 
-constexpr int N_SLOTS = 16;
-// ints of a lane's coding work area: three work TBs, the TS alternative's
-// 4x4 levels and reconstruction, the result slots
-constexpr int WORK_INTS = 3 * 1024 + 32 + 4 * N_SLOTS;
+// ints of a coding work area for TBs of up to `stride` samples: three
+// work TBs, the TS alternative's 4x4 levels and reconstruction, the
+// group's reduction scratch (32 int64)
+HM_HD constexpr int work_ints(int stride) { return 3 * stride + 32 + 64; }
+constexpr int WORK_INTS = work_ints(1024);
 
-// one lane's thread, K10's working set (shared memory on the card) and
-// its coding work area (WORK_INTS ints of the lane's scratch)
+// one lane's thread (tid of the nt of its block or group), K10's working
+// set (shared memory on the card) and its coding work area (work_ints(
+// wstride) ints: the lane's scratch in K21 and K26, the group's shared
+// memory in K23)
 struct Lane {
   const Coder* cd;
   int tid, nt;
   RdoqSmem S;
   int* s;     // the lane's scratch
   int* work;  // its coding work area
+  int wstride = 1024;
 };
+
+// the lane's int64 reduction scratch (hm_port.cuh group_sum)
+HM_FN long long* red_of(const Lane& L) {
+  return (long long*)(L.work + 3 * L.wstride + 32);
+}
 
 // one coding step's result
 struct TbRes {
@@ -83,14 +93,14 @@ HM_FN void gather_line(const Lane& L, const int* plane, const int* sub,
                        int none, int len, int* out) {
   const int mid = 1 << (L.cd->bd - 1);
   for (int k = L.tid; k < len; k += L.nt) out[k] = none ? mid : plane[sub[k]];
-  HM_SYNC();
+  HM_GSYNC(L.nt);
 }
 
 HM_FN void copy_block(const Lane& L, const int* plane, int width, int x0,
                       int y0, int n, int* out) {
   for (int e = L.tid; e < n * n; e += L.nt)
     out[e] = plane[(y0 + e / n) * width + x0 + e % n];
-  HM_SYNC();
+  HM_GSYNC(L.nt);
 }
 
 HM_FN void predict(const Lane& L, const int* su, const int* sf, int mode,
@@ -100,31 +110,34 @@ HM_FN void predict(const Lane& L, const int* su, const int* sf, int mode,
   for (int e = L.tid; e < n * n; e += L.nt)
     out[e] = pred_sample(su, sf, dc, mode, n, log2n, luma, L.cd->bd, e / n,
                          e % n);
-  HM_SYNC();
+  HM_GSYNC(L.nt);
 }
 
 // _code: transform (or skip) -> RDOQ (the trellis, or deadzone when
 // !trellis), dequantisation and TB rate (K10) -> inverse -> clip -> SSE
-// (times dw when weighed); lev and rec raster
+// (times dw when weighed); lev and rec raster.  The result reaches every
+// thread of the lane.
 HM_BIG TbRes code_tb(Lane& L, int log2, bool luma, bool dst, bool ts,
                      int sel, float lam, bool weigh, float dw, const int* org,
-                     const int* pred, int* lev, int* rec, int slot,
+                     const int* pred, int* lev, int* rec,
                      bool trellis = true) {
   const Coder& a = *L.cd;
   const int n = 1 << log2, nn = n * n, tid = L.tid, nt = L.nt;
   int* w1 = L.work;
-  int* w2 = w1 + 1024;
-  int* w3 = w2 + 1024;
+  int* w2 = w1 + L.wstride;
+  int* w3 = w2 + L.wstride;
+  HM_PH_START(t_fwd);
   for (int e = tid; e < nn; e += nt) w1[e] = org[e] - pred[e];
-  HM_SYNC();
+  HM_GSYNC(L.nt);
   if (ts) {
     for (int e = tid; e < nn; e += nt)
       w2[e] = ts_fwd(w1[e], 15 - a.bd - log2);
-    HM_SYNC();
+    HM_GSYNC(L.nt);
   } else {
     transform_tb<false>(mat(a, n, dst), w1, w3, w2, n, log2 + a.bd + 6 - 15,
                         log2 + 6, tid, nt);
   }
+  HM_PH_STOP(HM_PH_CODE + PHC_FWD, t_fwd);
   const int s = tb_set(log2, luma);
   RdoqCfg c;
   c.cb = a.cb;
@@ -146,38 +159,52 @@ HM_BIG TbRes code_tb(Lane& L, int log2, bool luma, bool dst, bool ts,
   c.inv = a.tbf[s][0];
   c.cscale = a.tbf[s][1];
   const float bits = rdoq_tb(c, lam, sel, w2, lev, w1, true, L.S, tid, nt);
+  HM_PH_START(t_inv);
   if (ts) {
     for (int e = tid; e < nn; e += nt)
       w2[e] = ts_inv(w1[e], 5 + log2, 20 - a.bd);
-    HM_SYNC();
+    HM_GSYNC(L.nt);
   } else {
     transform_tb<true>(mat(a, n, dst), w1, w3, w2, n, 7, 20 - a.bd, tid, nt);
   }
+  // the SSE and the coded flag, exact integer sums over the lane
   const int maxv = (1 << a.bd) - 1;
-  for (int e = tid; e < nn; e += nt)
-    rec[e] = iclamp(pred[e] + w2[e], 0, maxv);
-  HM_SYNC();
-  int* sl = L.work + 3 * 1024 + 32 + 4 * slot;
-  if (tid == 0) {
-    long long sse = 0;
-    int nz = 0;
-    for (int e = 0; e < nn; ++e) {
-      const long long d = org[e] - rec[e];
-      sse += d * d;
-      nz |= lev[e] != 0;
-    }
-    float d = (float)sse;
-    if (weigh) d = HM_FMUL(d, dw);  // HM's chroma distortion weight
-    ((float*)sl)[0] = d;
-    ((float*)sl)[1] = bits;
-    sl[2] = nz;
+  long long sse = 0, nz = 0;
+  for (int e = tid; e < nn; e += nt) {
+    const int v = iclamp(pred[e] + w2[e], 0, maxv);
+    rec[e] = v;
+    const long long d = org[e] - v;
+    sse += d * d;
+    nz += lev[e] != 0;
   }
-  HM_SYNC();
+  sse = group_sum(sse, tid, nt, red_of(L));
+  nz = group_sum(nz, tid, nt, red_of(L));
+  HM_GSYNC(L.nt);
+  HM_PH_STOP(HM_PH_CODE + PHC_INV, t_inv);
   TbRes r;
-  r.sse = ((float*)sl)[0];
-  r.bits = ((float*)sl)[1];
-  r.nz = sl[2];
+  r.sse = (float)sse;
+  if (weigh) r.sse = HM_FMUL(r.sse, dw);  // HM's chroma distortion weight
+  r.bits = bits;
+  r.nz = nz != 0;
   r.ts = 0;
+  return r;
+}
+
+// the 4x4 TB's choice of _code_ts_sel from its two codings: the TS one
+// (r1) when coded and strictly cheaper with the transform_skip_flag bit
+// priced in; the result carries the flag's bits and ts
+HM_FN TbRes ts_pick(const Coder& a, bool luma, float lam, const TbRes& r0,
+                    const TbRes& r1) {
+  const int ctx = a.ctx_ts + (luma ? 0 : 1);
+  const float b0 = HM_FADD(r0.bits, r0.nz ? a.cb[2 * ctx] : 0.f);
+  const float b1 = HM_FADD(r1.bits, r1.nz ? a.cb[2 * ctx + 1] : 0.f);
+  const bool use = r1.nz && HM_FADD(r1.sse, HM_FMUL(lam, b1)) <
+                                HM_FADD(r0.sse, HM_FMUL(lam, b0));
+  TbRes r;
+  r.sse = use ? r1.sse : r0.sse;
+  r.bits = use ? b1 : b0;
+  r.nz = use ? r1.nz : r0.nz;
+  r.ts = use;
   return r;
 }
 
@@ -187,30 +214,20 @@ HM_BIG TbRes code_ts_sel(Lane& L, bool luma, bool dst, int sel, float lam,
                          bool weigh, float dw, const int* org,
                          const int* pred, int* lev, int* rec,
                          bool trellis = true) {
-  const Coder& a = *L.cd;
-  int* levt = L.work + 3 * 1024;
+  int* levt = L.work + 3 * L.wstride;
   int* rect = levt + 16;
   const TbRes r0 = code_tb(L, 2, luma, dst, false, sel, lam, weigh, dw, org,
-                           pred, lev, rec, 14, trellis);
+                           pred, lev, rec, trellis);
   const TbRes r1 = code_tb(L, 2, luma, dst, true, sel, lam, weigh, dw, org,
-                           pred, levt, rect, 15, trellis);
-  const int ctx = a.ctx_ts + (luma ? 0 : 1);
-  const float b0 = HM_FADD(r0.bits, r0.nz ? a.cb[2 * ctx] : 0.f);
-  const float b1 = HM_FADD(r1.bits, r1.nz ? a.cb[2 * ctx + 1] : 0.f);
-  const bool use = r1.nz && HM_FADD(r1.sse, HM_FMUL(lam, b1)) <
-                                HM_FADD(r0.sse, HM_FMUL(lam, b0));
-  if (use) {
+                           pred, levt, rect, trellis);
+  const TbRes r = ts_pick(*L.cd, luma, lam, r0, r1);
+  if (r.ts) {
     for (int e = L.tid; e < 16; e += L.nt) {
       lev[e] = levt[e];
       rec[e] = rect[e];
     }
-    HM_SYNC();
+    HM_GSYNC(L.nt);
   }
-  TbRes r;
-  r.sse = use ? r1.sse : r0.sse;
-  r.bits = use ? b1 : b0;
-  r.nz = use ? r1.nz : r0.nz;
-  r.ts = use;
   return r;
 }
 

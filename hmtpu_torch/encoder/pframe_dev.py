@@ -1182,8 +1182,8 @@ def wavefront_pass_plain(org_y, org_u, org_v, refs_y, refs_u, refs_v,
 # `args_from`'s order; K26's csrc/bwalk.cuh `Args` appends the B slice's)
 # and their launches
 
-PW_SCRATCH = 25796       # ints of a lane's scratch, pw::SCRATCH (checked)
-BW_SCRATCH = 36548       # bw::SCRATCH: K23's areas and the hypotheses
+BW_SCRATCH = 36548       # bw::SCRATCH (checked); K23 takes none (its
+                         # lane lies in shared memory)
 _PW_CTX = ("SKIP_FLAG", "MERGE_FLAG", "MERGE_IDX", "PRED_MODE", "PART_SIZE",
            "QT_CBF_LUMA", "QT_CBF_CHROMA", "QT_ROOT_CBF", "MVP_IDX", "MVD",
            "REF_PIC", "SPLIT_FLAG", "CHROMA_PRED_MODE", "INTRA_PRED_MODE",
@@ -1343,7 +1343,7 @@ def pframe_walk(org_y, org_u, org_v, refs_y, refs_u, refs_v, mv_x, mv_y,
     )
     geom = 32 if levels == 3 else 8
     lv = sd["lv32" if geom == 32 else "lv_blk"]
-    nscr = BW_SCRATCH if is_b else PW_SCRATCH
+    nscr = BW_SCRATCH if is_b else 0
     scratch = torch.zeros((lv.shape[1], nscr), **i32)
     opt = lambda a: None if a is None else ic(a)
     cbflat = cbflat.to(torch.float32).contiguous()

@@ -16,6 +16,13 @@ or in `build_all`, which starts one nvcc per source, all at once.
 
 `COUNTS` holds one launch counter per kernel; each wrapper adds one
 where it launches its kernel, and nowhere else.
+
+`launch` is on every call's path, and at small shapes its host time is
+the call's time: it looks each bound function up once (`_FNS`), reads
+the current stream's handle with PyTorch's raw-stream call, checks each
+tensor with the cheapest attribute reads (dtype, is_cuda, get_device,
+is_contiguous), and calls through `ctypes.PyDLL`, which keeps the GIL
+(a launch returns at once) instead of releasing and taking it again.
 """
 from __future__ import annotations
 
@@ -40,7 +47,7 @@ SOURCES = {
     "transform": {
         "hm_int_transform_fwd": "pppiiiip",
         "hm_int_transform_inv": "pppiiiip",
-        "hm_transform_skip": "ppiiiip",
+        "hm_transform_skip": "ppiip",
     },
     "intra_pred": {
         "hm_intra_filter": "ppiiiip",
@@ -161,7 +168,12 @@ KERNELS = {
 }
 COUNTS = dict.fromkeys(KERNELS, 0)
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[str, ctypes.PyDLL] = {}
+_FNS: dict[str, ctypes._CFuncPtr] = {}
+_I32, _F32 = torch.int32, torch.float32
+# the current stream's cudaStream_t of a device index; PyTorch's own
+# accessor, without the Stream object current_stream builds
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def reset_counts() -> None:
@@ -204,30 +216,43 @@ def _start_build(src: str):
     return proc, tmp, so
 
 
+def build_log_path(so: str) -> str:
+    """Where nvcc's output (ptxas' registers, stack and spills) is kept
+    beside library `so`."""
+    return so[:-len(".so")] + ".log"
+
+
 def _finish_build(src: str, job) -> str:
     if job is None:
-        return ""
+        log = build_log_path(_so_path(src))
+        if not os.path.exists(log):
+            return ""
+        with open(log) as f:
+            return f.read()
     proc, tmp, so = job
     out = proc.communicate()[0].decode(errors="replace")
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}.cu:\n{out}")
+    with open(build_log_path(so), "w") as f:
+        f.write(out)
     os.replace(tmp, so)
     return out
 
 
 def build_all() -> dict[str, str]:
     """Compile every source that has no library yet, one nvcc each, all
-    started together; returns nvcc's output per source."""
+    started together; returns nvcc's output per source (a library built
+    before gives the output kept beside it)."""
     jobs = {src: _start_build(src) for src in SOURCES}
     return {src: _finish_build(src, job) for src, job in jobs.items()}
 
 
-def _lib(src: str) -> ctypes.CDLL:
+def _lib(src: str) -> ctypes.PyDLL:
     lib = _LIBS.get(src)
     if lib is not None:
         return lib
     _finish_build(src, _start_build(src))
-    lib = ctypes.CDLL(_so_path(src))
+    lib = ctypes.PyDLL(_so_path(src))
     kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
     for fn, sig in SOURCES[src].items():
         f = getattr(lib, fn)
@@ -247,20 +272,35 @@ def launch(kernel: str, fn: str, *args) -> None:
     cargs = []
     for a in args:
         if isinstance(a, torch.Tensor):
-            if a.dtype not in (torch.int32, torch.float32):
-                raise TypeError(f"{kernel}: input has dtype {a.dtype}, "
+            dt = a.dtype
+            if dt is not _I32 and dt is not _F32:
+                raise TypeError(f"{kernel}: input has dtype {dt}, "
                                 f"expected torch.int32 or torch.float32")
-            if not a.is_cuda or (dev is not None and a.device != dev):
+            d = a.get_device() if a.is_cuda else None
+            if d is None or (dev is not None and d != dev):
                 raise ValueError(f"{kernel}: inputs must lie on one CUDA "
                                  f"device, got {a.device}")
             if not a.is_contiguous():
                 raise ValueError(f"{kernel}: inputs must be contiguous")
-            dev = a.device
+            dev = d
             a = a.data_ptr()
         cargs.append(a)
-    src = KERNELS[kernel][0]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = getattr(_lib(src), fn)(*cargs, stream)
-    if err != 0:
+    launch_checked(kernel, fn, dev, *cargs)
+
+
+def launch_checked(kernel: str, fn: str, dev: int, *cargs) -> None:
+    """`launch`'s call, for a wrapper that has itself made its tensors
+    int32 or float32, contiguous and on CUDA device `dev` and passes
+    their data pointers (K1's TS mode, whose call at the encoder's shapes
+    is its host time)."""
+    f = _FNS.get(fn) or _bind(kernel, fn)
+    err = f(*cargs, _raw_stream(dev) if _raw_stream is not None
+            else torch.cuda.current_stream(dev).cuda_stream)
+    if err:
         raise RuntimeError(f"{fn}: CUDA launch failed with error {err}")
     COUNTS[kernel] += 1
+
+
+def _bind(kernel: str, fn: str):
+    f = _FNS[fn] = getattr(_lib(KERNELS[kernel][0]), fn)
+    return f

@@ -147,23 +147,28 @@ def transform_skip_inv_plain(coeff, size: int, bit_depth: int = 8):
     return torch.clamp(out, COEFF_MIN, COEFF_MAX).to(torch.int32)
 
 
-def _launch_ts(x, size: int, inverse: bool, s1: int, s2: int):
-    if x.shape[-1] != size or x.shape[-2] != size:
-        raise ValueError(f"expected (..., {size}, {size}), got "
-                         f"{tuple(x.shape)}")
-    x = x.to(torch.int32).contiguous()
+def _launch_ts(x, mode: int):
+    """K1's TS mode (mode: inverse | s1 << 1 | s2 << 8) on CUDA tensor x,
+    elementwise like the plain version (any shape).  At the main path's
+    shapes the call's time is its host time: an int32 contiguous input
+    goes in as it is, the shifts travel as one int, and the tensors, made
+    int32 and contiguous here (the output like the input), go to the
+    kernel without kernels.launch's second look."""
+    if x.dtype is not torch.int32 or not x.is_contiguous():
+        x = x.to(torch.int32).contiguous()
     out = torch.empty_like(x)
-    if x.numel():
-        kernels.launch("transform_skip", "hm_transform_skip", x, out,
-                       x.numel(), int(inverse), s1, s2)
+    n = x.numel()
+    if n:
+        kernels.launch_checked("transform_skip", "hm_transform_skip",
+                               x.get_device(), x.data_ptr(), out.data_ptr(),
+                               n, mode)
     return out
 
 
 def transform_skip_fwd(residual, size: int, bit_depth: int = 8):
     """residual -> coefficient-scale values (Main profile: 4x4 only)."""
     if residual.is_cuda:
-        return _launch_ts(residual, size, False, ts_shift(size, bit_depth),
-                          0)
+        return _launch_ts(residual, ts_shift(size, bit_depth) << 1)
     return transform_skip_fwd_plain(residual, size, bit_depth)
 
 
@@ -172,6 +177,6 @@ def transform_skip_inv(coeff, size: int, bit_depth: int = 8):
     (= 7 for the Main-profile 4x4 case), then the common bdShift
     rounding stage (spec 8.6.4.2), clipped to 16 bits."""
     if coeff.is_cuda:
-        return _launch_ts(coeff, size, True,
-                          *_ts_inv_shifts(size, bit_depth))
+        up, bd_shift = _ts_inv_shifts(size, bit_depth)
+        return _launch_ts(coeff, 1 | up << 1 | bd_shift << 8)
     return transform_skip_inv_plain(coeff, size, bit_depth)

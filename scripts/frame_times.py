@@ -1,29 +1,83 @@
-"""Seconds per frame of two 416x240 encodes on the card, for comparing
+"""Seconds per frame of 416x240 encodes on the card, the trainer's
+seconds and a few kernel calls' host-bound milliseconds, for comparing
 two trees of the port on one card in one run:
 
-  ldp   LDP QP 22 with NN-FME, search range 64 (the main path): I + P;
+  ldp   LDP QP 22 with NN-FME, search range 64 (the main path): I + P,
+        encoded REPEAT times, each a new encoder (the first P pass of a
+        process also builds the geometry's host tables);
   ldp_dctif  LDP QP 22 with HM's DCT-IF sub-pel search and transform
-        skip, search range 64: I + P;
+        skip, search range 64: I + P, REPEAT times;
   ra10  random access at Main10, QP 32, DCT-IF, search range 64, on the
         first 3 frames (the IDR and two B pictures);
-  ai    all-intra QP 32 with transform skip on the first frame.
+  ai    all-intra QP 32 with transform skip on the first frame;
+  calls the milliseconds per call (CUDA events around 200 calls, after
+        2) of kernel wrappers whose call is its host time: K1's forward
+        transform at (14, 8, 8) and its transform-skip mode at (3120, 4,
+        4), K14's loss forward and K16's Adam step at the trainer's batch
+        of 1024 (the clip's first frame pair at search range 16, the
+        port's init from seed 0), K25's SAO choice on the ldp I frame's
+        statistics (kept from the first ldp encode);
+  nnfme_train  `train_nnfme.main` at its defaults (416x240, 24 frames,
+        QPs 22/27/32/37, 60 epochs, search range 16) into a temporary
+        directory: seconds.
 
     PYTHONPATH=<checkout of the port> python scripts/frame_times.py
 
 Each frame's seconds come from `Encoder.results` (the device pass of a P
-or B frame beside them), after a warm-up encode of a 64x64 clip; prints
-one JSON object per encode, with the number of hand kernels the tree has.
-Uses only the encoder's public entry points, so it runs against earlier
+or B frame beside them), after a warm-up encode of a 64x64 clip; beside
+them, the milliseconds of each frame's z-scan pass (`iframe_pass`: K21 on
+the card; `wavefront_pass`: K23 in P slices, K26 in B slices), timed with
+CUDA events around the call (a device sync before and after it, which
+the frames' seconds then include); prints one JSON object per encode,
+then one for the calls and one for the trainer, each with the number of
+hand kernels the tree has.
+Uses only the port's public entry points, so it runs against earlier
 trees of the port too.  Needs a CUDA card; imports nothing of JAX.
 """
 from __future__ import annotations
 
 import json
+import os
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+
+REPEAT = 4   # encodes of each LDP configuration a process
+
+
+class _PassTimes:
+    """CUDA-event milliseconds of every iframe_pass and wavefront_pass call
+    while in use: `ms` holds (function, milliseconds) in call order."""
+
+    def __enter__(self):
+        from hmtpu_torch.encoder import iframe_dev, pframe_dev
+
+        self.ms, self._saved = [], []
+        for mod, fn in ((iframe_dev, "iframe_pass"),
+                        (pframe_dev, "wavefront_pass")):
+            inner = getattr(mod, fn)
+
+            def timed(*a, _inner=inner, _fn=fn, **k):
+                b, e = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+                torch.cuda.synchronize()
+                b.record()
+                out = _inner(*a, **k)
+                e.record()
+                torch.cuda.synchronize()
+                self.ms.append((_fn, b.elapsed_time(e)))
+                return out
+
+            setattr(mod, fn, timed)
+            self._saved.append((mod, fn, inner))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn, inner in self._saved:
+            setattr(mod, fn, inner)
 
 
 def _encode(frames, device="cuda", **cfg):
@@ -43,36 +97,131 @@ def _encode(frames, device="cuda", **cfg):
     return bs, time.time() - t0, enc.results
 
 
+def _keep_first(mod, fn, kept):
+    """Wraps mod.fn until restored: the first call's arguments are copied
+    into `kept` as (args, kwargs); returns the restore function."""
+    inner = getattr(mod, fn)
+
+    def wrap(*a, **k):
+        if not kept:
+            kept.append(tuple(
+                x.clone() if isinstance(x, torch.Tensor) else x for x in a))
+            kept.append(dict(k))
+        return inner(*a, **k)
+
+    setattr(mod, fn, wrap)
+    return lambda: setattr(mod, fn, inner)
+
+
+def _time_call(fn, iters=200, warm=2) -> float:
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def _calls(clip, sao_call):
+    """The `calls` line's milliseconds per call, by wrapper."""
+    from hmtpu_torch.io.yuv import Frame
+    from hmtpu_torch.models import dataset, nnfme, train
+    from hmtpu_torch.ops import sao, transform
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(5)
+    t32 = lambda a: torch.as_tensor(np.asarray(a, np.int32)).to(dev)
+    res = t32(rng.randint(-255, 256, (14, 8, 8)))
+    ts = t32(rng.randint(-255, 256, (3120, 4, 4)))
+    c9, hh, ww, ll = dataset.extract_clip(
+        [Frame(*(np.asarray(p, np.int32) for p in f)) for f in clip[:2]],
+        22, 16, device=dev)
+    nb = 1024
+    mean, std = train.standardize_fit(c9[:nb])
+    init = nnfme.init_random(torch.Generator().manual_seed(0), dev)
+    fields = {k: getattr(init, k).cpu().numpy() for k in nnfme.PACK_ORDER}
+    fields.update(mean=mean, std=std)
+    pk = nnfme.params_from_arrays(fields, dev).packed
+    c9, hh, ww, ll = (torch.as_tensor(a[:nb]).to(dev)
+                      for a in (c9, hh, ww, ll))
+    n = nnfme.PACK_SIZE
+    p, g, mu, nu = (torch.as_tensor(rng.randn(n) * 1e-3,
+                                    dtype=torch.float32).to(dev)
+                    for _ in range(4))
+    nu.abs_()
+    sa, sk = sao_call
+    calls = {
+        "K1 forward_transform (14, 8, 8)":
+            lambda: transform.forward_transform(res, 8),
+        "K1-TS transform_skip_fwd (3120, 4, 4)":
+            lambda: transform.transform_skip_fwd(ts, 4),
+        "K14 loss_fwd (batch 1024)":
+            lambda: train.loss_fwd(pk, c9, hh, ww, ll),
+        f"K16 adam_update ({n})":
+            lambda: train.adam_update(p, g, mu, nu, 7, 3e-3),
+        "K25 choose_params (ldp I frame)":
+            lambda: sao.choose_params(*sa, **sk),
+    }
+    return {k: _time_call(f) for k, f in calls.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("frame_times: no CUDA device", file=sys.stderr)
         return 2
     from hmtpu_torch import kernels
+    from hmtpu_torch.apps import train_nnfme
+    from hmtpu_torch.ops import sao
     from hmtpu_torch.utils.gen_test_yuv import synth_clip
 
     kernels.build_all()
+    nk = len(kernels.KERNELS)
     clip = list(synth_clip(416, 240, 3, seed=42))
     _encode(synth_clip(64, 64, 2, seed=3), qp=22, gop="ldp", subpel="nn",
             search_range=8)
-    runs = (("ldp", clip[:2], dict(qp=22, gop="ldp", subpel="nn",
-                                   search_range=64)),
-            ("ldp_dctif", clip[:2], dict(qp=22, gop="ldp", subpel="dctif",
-                                         transform_skip=True,
-                                         search_range=64)),
-            ("ra10", clip, dict(qp=32, gop="ra", subpel="dctif",
-                                search_range=64, bit_depth=10)),
-            ("ai", clip[:1], dict(qp=32, gop="ai", subpel="none",
-                                  transform_skip=True)))
-    for name, frames, cfg in runs:
-        bs, dt, res = _encode(frames, **cfg)
-        print(json.dumps({
-            "config": name, "kernels": len(kernels.KERNELS),
-            "bytes": len(bs), "seconds": dt,
-            "frames": [{"poc": r.poc, "type": r.slice_type,
-                        "seconds": r.seconds,
-                        "device_seconds": getattr(r, "device_seconds",
-                                                  None)}
-                       for r in res]}), flush=True)
+    ldp = dict(qp=22, gop="ldp", subpel="nn", search_range=64)
+    runs = ([("ldp", clip[:2], ldp)] * REPEAT
+            + [("ldp_dctif", clip[:2], dict(qp=22, gop="ldp",
+                                            subpel="dctif",
+                                            transform_skip=True,
+                                            search_range=64))] * REPEAT
+            + [("ra10", clip, dict(qp=32, gop="ra", subpel="dctif",
+                                   search_range=64, bit_depth=10)),
+               ("ai", clip[:1], dict(qp=32, gop="ai", subpel="none",
+                                     transform_skip=True))])
+    sao_call = []
+    restore = _keep_first(sao, "choose_params", sao_call)
+    try:
+        for name, frames, cfg in runs:
+            with _PassTimes() as pt:
+                bs, dt, res = _encode(frames, **cfg)
+            restore()
+            print(json.dumps({
+                "config": name, "kernels": nk,
+                "bytes": len(bs), "seconds": dt,
+                "frames": [{"poc": r.poc, "type": r.slice_type,
+                            "seconds": r.seconds,
+                            "device_seconds": getattr(r, "device_seconds",
+                                                      None)}
+                           for r in res],
+                "passes": [{"fn": fn, "ms": ms} for fn, ms in pt.ms]}),
+                flush=True)
+    finally:
+        restore()
+    print(json.dumps({"config": "calls", "kernels": nk,
+                      "ms_per_call": _calls(clip, sao_call)}), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        train_nnfme.main(["--out", os.path.join(tmp, "w")])
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+    print(json.dumps({"config": "nnfme_train", "kernels": nk,
+                      "seconds": dt}), flush=True)
     return 0
 
 

@@ -48,12 +48,14 @@ extern "C" int pw_level(const void* scratch, const void* p, int np,
   if (np != pw::N_PTRS || nv != pw::N_INTS || nf != pw::N_FLTS) return 1;
   pw::Args a = pw::args_from((const long long*)p, (const int*)v,
                              (const float*)f);
-  if (a.scratch != scratch || a.scratch_ints != pw::SCRATCH) return 1;
-  std::vector<double> sm(hm::rdoq_smem_bytes(5) / sizeof(double) + 1);
+  if (a.scratch != scratch || a.scratch_ints != 0) return 1;
+  std::vector<double> sm(pw::SMEM_BYTES / sizeof(double) + 1);
   for (int lane = 0; lane < a.bmax; ++lane)
     pw::walk_lane(a, level, lane, 0, 1, sm.data());
   return 0;
 }
+// every task loop of the walk last task first (1) or in order (0)
+extern "C" void pw_task_reverse(int r) { pw::task_reverse = r; }
 // K24 over one grid
 extern "C" void tmvp_host(const int* mvx, const int* mvy, const int* ok,
                           const int* poc, const int* aref, const int* pocs,
@@ -84,6 +86,7 @@ def _build(d, csrc):
     lib = ctypes.CDLL(str(so))
     lib.pw_level.argtypes = [ctypes.c_void_p] \
         + [ctypes.c_void_p, ctypes.c_int] * 3 + [ctypes.c_int]
+    lib.pw_task_reverse.argtypes = [ctypes.c_int]
     lib.tmvp_host.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
     lib.sao_host.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
@@ -233,6 +236,61 @@ def test_walker_mutation_is_caught(tmp_path):
                    if x != "levs")
         differs.append(not torch.equal(got["levs"], want["levs"]))
     assert any(differs)
+
+
+def _walk_order(lib, name, reverse):
+    """Every state array of the case's passes through the host build with
+    its task loops in order or last task first: (got, want) pairs."""
+    lib.pw_task_reverse(int(reverse))
+    try:
+        return [(_walk(lib, a, k), want) for a, k, want in _captured(name)]
+    finally:
+        lib.pw_task_reverse(0)
+
+
+# geometry 32 with the transform-skip trials, and geometry 8
+_ORDER_CASES = ("64x64-ts-screen", "64x56-8only")
+
+
+@pytest.mark.parametrize("name", _ORDER_CASES)
+def test_walker_tasks_in_reverse_order(lanes, name):
+    """K23 runs a CU trial's independent items side by side (the
+    candidates' MC, the finalists' and the intra arm's codings, the
+    winner's recode): with every round's tasks run last task first, the
+    host build must still give the plain pass's state, bit for bit, so no
+    task reads what another task of its round writes."""
+    for got, want in _walk_order(lanes, name, True):
+        for key in sorted(want):
+            np.testing.assert_array_equal(got[key].numpy(),
+                                          want[key].numpy(), err_msg=key)
+
+
+def test_walker_cross_task_read_is_caught(tmp_path):
+    """A copy of the headers in which a finalist's chroma recode tasks
+    read its candidate's index from a slot its luma recode task writes:
+    right when the tasks run in order (heaviest first, as one thread runs
+    them), a race between groups on the card.  The reversed order must
+    disagree with the plain pass."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(CSRC, csrc)
+    p = csrc / "pwalk.cuh"
+    text = p.read_text()
+    edits = (("m.py + c * nn, m.ly + bf * nn, m.ry + bf * nn, tr);",
+              "m.py + c * nn, m.ly + bf * nn, m.ry + bf * nn, tr);\n"
+              "    if (L.tid == 0) m.rnz[NTASK - 1 - f] = c;"),
+             ("(u ? m.pu : m.pv) + c * ncc,",
+              "(u ? m.pu : m.pv) + iclamp(m.rnz[NTASK - 1 - f], 0, MAXM - 1)"
+              " * ncc,"))
+    for good, bad in edits:
+        assert text.count(good) == 1
+        text = text.replace(good, bad)
+    p.write_text(text)
+    lib = _build(tmp_path, csrc)
+    name = _ORDER_CASES[0]
+    for got, want in _walk_order(lib, name, False):
+        assert all(torch.equal(got[x], want[x]) for x in want)
+    assert any(not torch.equal(got[x], want[x])
+               for got, want in _walk_order(lib, name, True) for x in want)
 
 
 # ---------------------------------------------------------------------------
