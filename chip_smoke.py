@@ -9,9 +9,10 @@ when every phase passed):
   1. device    the card's name and power limit (nvidia-smi);
   2. build     nvcc for every kernel source in hmtpu_torch/csrc, one
                process per source, all started together, and beside them
-               K23's phase-clock build (scripts/pwalk_phases.py); the
-               registers, stack frame and spills ptxas gives the walkers
-               K21, K23 and K26;
+               K23's and K21's phase-clock builds
+               (scripts/pwalk_phases.py, iwalk_phases.py); the registers,
+               stack frame and spills ptxas gives the walkers K21, K23
+               and K26 and K5's kernels;
   3. kernels   each kernel (K1, K3-K16 and K1's transform-skip mode)
                against its plain PyTorch version on seeded inputs at the
                shapes the main paths give it, and K2 and K17-K26 (after
@@ -40,15 +41,18 @@ when every phase passed):
                (timed) and its I-pass forms (K candidates, four PUs) on
                seeded modes; K21 (the I z-scan walker, one launch per
                level) on the ai phase's frame (timed, its row), the ldp
-               phase's I frame and a 64x64 frame (the 32 level), each
-               timed beside iframe_pass_plain on the card,
-               every state array equal; K22 (the fused RMD) at n = 8
-               (timed, its row), 4, 16 and 32 and in the P pass's form
+               phase's I frame, a 64x64 frame (the 32 level) and the
+               rext phase's first frame (10 bits), each timed beside
+               iframe_pass_plain on the card, every state array equal,
+               then its phase build on the ai frame, its state equal to
+               K21's: one line a phase of a lane; K22 (the fused RMD) at
+               n = 8 (timed, its row), 4, 16 and 32 and in the P pass's form
                (n = 8, k = 1) beside rmd_plain.  They must be equal (the
                float32 outputs of K6, K10, K14-K16, K18 and K20 bit for
                bit: kernel and plain version round in the same order, K14
                with the exp and log they share; K15 twice, the same
-               bits).  K13 is
+               bits).  K5 is checked besides on ra10's 10-bit planes and
+               on a flat plane, where every displacement ties.  K13 is
                timed at 1920x1080, search range 64, and checked at
                416x240 and 64x56 with non-zero predictors; K14-K16 at
                batch 1024 of the trainer's QP-22 records.  Each is timed
@@ -363,7 +367,9 @@ DEVICE_FN = {
     "int_transform_inv": "transform_kernel<true>",
     "intra_filter": "filter_kernel", "intra_pred": "pred_kernel",
     "deblock": "deblock_kernel", "sao_stats": "stats_kernel",
-    "sao_apply": "apply_kernel", "me_sad": "me_kernel",
+    "sao_apply": "apply_kernel",
+    # the search, then the stencils and outputs
+    "me_sad": ("me_kernel", "me_out_kernel"),
     "nnfme": "nnfme_kernel", "mc_dctif": "mc_kernel",
     "satd8": "satd_kernel", "transform_skip": "transform_skip_kernel",
     "frac_refine": "frac_kernel", "rdoq": "rdoq_kernel",
@@ -565,12 +571,26 @@ def inter_kernel_cases(dev, rng):
     # displacement and sample a subtract, an absolute value and an add
     nd = (2 * SRANGE + 1) ** 2
     lanes = (H // 8) * (W // 8) + (H // 16) * (W // 16) + qh * qw
+    # checked besides: ra10's 10-bit planes (the clip << 2) and a flat
+    # plane, where every displacement ties (the first index wins)
+    ref10, org10 = ref << 2, org << 2
+    lam10 = np.float32(lam * 4)
+    flat_p = torch.full((H, W), 90, dtype=torch.int32, device=dev)
     cases.append(("me_sad",
                   lambda: flat(me.integer_me_levels(ref, org, SRANGE, lam,
                                                     qh, qw)),
                   lambda: flat(me.integer_me_levels_plain(ref, org, SRANGE,
                                                           lam, qh, qw)),
-                  2 * H * W * 4 + lanes * 12 * 4, 3 * H * W * nd, None))
+                  2 * H * W * 4 + lanes * 12 * 4, 3 * H * W * nd, None,
+                  [(lambda: flat(me.integer_me_levels(ref10, org10, SRANGE,
+                                                      lam10, qh, qw, 10)),
+                    lambda: flat(me.integer_me_levels_plain(
+                        ref10, org10, SRANGE, lam10, qh, qw))),
+                   (lambda: flat(me.integer_me_levels(flat_p, flat_p, SRANGE,
+                                                      np.float32(0.0), qh,
+                                                      qw)),
+                    lambda: flat(me.integer_me_levels_plain(
+                        flat_p, flat_p, SRANGE, np.float32(0.0), qh, qw)))]))
 
     # K6: the 1560 8x8 stencils of that search, the QP 22 weights
     sten = me.integer_me_levels_plain(ref, org, SRANGE, lam, qh, qw)[8][1]
@@ -1087,7 +1107,9 @@ CAPTURED = (
      "intra_mode_mpm_bits", lambda a, k: a[1].numel()),
     # K21 (and K22 inside it): one form per picture size, QP and TS
     ("i_walk", lambda a, k: f"{k['w']}x{k['h']} QP{a[3]}"
-     + (" TS" if k.get("ts") else ""), "hmtpu_torch.encoder.iframe_dev",
+     + (" TS" if k.get("ts") else "")
+     + (f" {k['bd']} bits" if k.get("bd", 8) != 8 else ""),
+     "hmtpu_torch.encoder.iframe_dev",
      "iframe_pass", lambda a, k: 1),
     # K23 (and K24 inside it): the P pass, one form per picture size and
     # TS; the widest call is the one with the most temporal candidates
@@ -1334,7 +1356,8 @@ def walk_work(w, h, ts):
 
 def walk_cases(got):
     """K21 on the I passes Capture kept (the 416x240 ai frame, the ldp
-    phase's I frame, a 64x64 frame with the 32 level) against
+    phase's I frame, a 64x64 frame with the 32 level, the rext phase's
+    first frame at 10 bits) against
     `iframe_pass_plain` on the card, and K22 against `rmd_plain` at each
     block size on their planes: (name, label, kernel call, plain call,
     bytes, operations).  The first case of each kernel is its row."""
@@ -1342,8 +1365,12 @@ def walk_cases(got):
     from hmtpu_torch.encoder import iframe_dev as idv
     from hmtpu_torch.encoder.intra_rdo import rmd, rmd_plain
 
-    forms = (f"{W}x{H} QP{QP_AI} TS", f"{W}x{H} QP{QP_LDP}", "64x64 QP32")
-    missing = [f for f in forms if ("i_walk", f) not in got]
+    rext = [f for k, f in got if k == "i_walk" and f.startswith(f"{W}x{H}")
+            and f.endswith(" TS 10 bits")]
+    forms = (f"{W}x{H} QP{QP_AI} TS", f"{W}x{H} QP{QP_LDP}", "64x64 QP32",
+             *rext[:1])
+    missing = [f for f in forms if ("i_walk", f) not in got] \
+        + ([] if rext else ["the rext frame"])
     if missing:
         fail(f"capture: no I pass of {missing} in the untimed encodes "
              f"(got {sorted(f for k, f in got if k == 'i_walk')})")
@@ -1571,11 +1598,14 @@ def check_walk(cases, rows, time_all=True) -> None:
                 device_ms=dms)
 
 
-# the walkers whose ptxas figures the build prints: (kernel, source,
-# kernel function)
-WALKERS = (("K21 i_walk", "iwalk", "iwalk_kernel"),
-           ("K23 p_walk", "pwalk", "pwalk_kernel"),
-           ("K26 b_walk", "bwalk", "bwalk_kernel"))
+# the kernels whose ptxas figures the build prints: (kernel, source,
+# kernel function): the walkers and K5
+PTXAS = (("K21 i_walk", "iwalk", "iwalk_kernel"),
+         ("K23 p_walk", "pwalk", "pwalk_kernel"),
+         ("K26 b_walk", "bwalk", "bwalk_kernel"),
+         ("K5 me_sad, 8 bits", "me_sad", "me_kernelILi4"),
+         ("K5 me_sad, 10 bits", "me_sad", "me_kernelILi2"),
+         ("K5 me_sad, stencils", "me_sad", "me_out_kernel"))
 
 
 def ptxas_figures(log: str, fn: str) -> str:
@@ -1840,20 +1870,24 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 
-    # ---- 2. build (and beside it K23's phase-clock build,
-    # scripts/pwalk_phases.py, never the encode path's)
+    # ---- 2. build (and beside it K23's and K21's phase-clock builds,
+    # scripts/pwalk_phases.py and iwalk_phases.py, never the encode path's)
     t0 = time.time()
     phases = load_script("pwalk_phases")
-    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+    iphases = load_script("iwalk_phases")
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
         ph_job = ex.submit(phases.build_phase_lib)
+        iph_job = ex.submit(phases.build_phase_lib, "iwalk")
         logs = kernels.build_all()
         ph_lib, ph_log = ph_job.result()
-    print(f"build: {len(logs)} sources and K23's phase build in "
+        iph_lib, iph_log = iph_job.result()
+    print(f"build: {len(logs)} sources and K23's and K21's phase builds in "
           f"{time.time() - t0:.1f} s", flush=True)
-    for src, log in list(logs.items()) + [("pwalk (phases)", ph_log)]:
+    for src, log in list(logs.items()) + [("pwalk (phases)", ph_log),
+                                          ("iwalk (phases)", iph_log)]:
         for ln in log.strip().splitlines():
             print(f"  nvcc {src}: {ln}", flush=True)
-    for name, src, fn in WALKERS:
+    for name, src, fn in PTXAS:
         print(f"ptxas {name} ({fn}): {ptxas_figures(logs[src], fn)}",
               flush=True)
 
@@ -2222,12 +2256,14 @@ def main() -> None:
         print("plain: no call of wavefront_pass_plain, of a B8 flag helper "
               "or of another plain version in the untimed RA encodes",
               flush=True)
-        # and K21's inputs on the ai phase's frame and at 64x64 (the 32
-        # level)
+        # and K21's inputs on the ai phase's frame, at 64x64 (the 32
+        # level) and on the rext phase's first frame (10 bits, TS, SDH)
         with PlainTally() as tally_ai, Capture(cap.got):
             cli_encode(ai_args[:-1] + [os.path.join(tmp.name, "ai_c.hevc")],
                        dev)
             encode(small[:1], QP_AI, dev)
+            cli_encode(rx_args[:4] + ["1"] + rx_args[5:-1]
+                       + [os.path.join(tmp.name, "rext_c.hevc")], dev)
         for t in (plain_calls, tally.calls, tally_ai.calls):
             bad = {k: v for k, v in t.items() if k.startswith(("K21", "K22"))}
             if bad:
@@ -2268,6 +2304,11 @@ def main() -> None:
             f"{r_counts[name]}" for name, *_ in captured), flush=True)
         # K21 and K22 against iframe_pass_plain and rmd_plain on the card
         check_walk(walk_cases(cap.got), rows)
+        # where K21's time goes on the ai frame: the phase-clock build (its
+        # state checked against K21's)
+        _, a, k = cap.got[("i_walk", f"{W}x{H} QP{QP_AI} TS")]
+        iphases.print_rows(f"ai frame, {W}x{H} QP{QP_AI} TS",
+                           *iphases.profile(iph_lib, a, k))
         for name in ("i_walk", "i_rmd"):
             rows[name]["launches"] = counts[name]
         print("kernels K21-K22 launches: " + "; ".join(

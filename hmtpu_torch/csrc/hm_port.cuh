@@ -9,23 +9,25 @@
 // HM_SYNC() is the block's barrier.  On the host nt = 1 and the barrier
 // is empty, so the same code runs as one sequential thread.
 //
-// A function of (tid, nt) may also run in a group of the block: the
-// block's threads cut into consecutive runs of nt (a multiple of 32 that
-// divides the block), tid the index inside the run.  HM_GSYNC(nt) is the
-// barrier of the caller's group.  A kernel whose source defines HM_GROUPS
-// before its includes (K23) gets the block's barrier when nt is the whole
-// block, __syncwarp() for one warp, else the named barrier 1 + group
-// (bar.sync id, nt; 16 exist a block, 0 is the block's); every other
+// A function of (tid, nt) may also run in a group of the block: a run of
+// nt consecutive threads (a multiple of 32) that starts at a multiple of
+// nt, tid the index inside the run.  HM_GSYNC(nt) is the barrier of the
+// caller's group.  A kernel whose source defines HM_GROUPS before its
+// includes (K21, K23) gets the block's barrier when nt is the whole
+// block, __syncwarp() for one warp, else a named barrier of its size and
+// group (group_sync; 16 exist a block, 0 is the block's); every other
 // kernel runs its groups as the whole block and gets the block's barrier
 // alone.  Sums that are exact in any order reduce over a group with
 // group_sum (integers) and group_sum_d (float64 multiples of 2^-15),
 // argmins with group_argmin.
 //
-// Phase clocks: a build with HM_PHASE_CLOCK (scripts/pwalk_phases.py; never
-// the encode path's) adds, on thread 0 of each block, the clock64() cycles
-// between HM_PH_START(t) and HM_PH_STOP(k, t) to hm_ph_cycles[k] and one
-// to hm_ph_count[k], and, on the block's last thread, the cycles it waits
-// at each barrier to slot HM_PH_BAR.  Without it both are empty.
+// Phase clocks: a build with HM_PHASE_CLOCK (scripts/pwalk_phases.py,
+// iwalk_phases.py; never the encode path's) adds, on thread 0 of each
+// block (HM_PH_STOP_IF: on the thread where its condition holds), the
+// clock64() cycles between HM_PH_START(t) and HM_PH_STOP(k, t) to
+// hm_ph_cycles[k] and one to hm_ph_count[k], and, on the block's last
+// thread, the cycles it waits at each barrier to slot HM_PH_BAR.  Without
+// it both are empty.
 #pragma once
 
 #include <math.h>
@@ -48,6 +50,14 @@
 #define HM_FADD(a, b) __fadd_rn((a), (b))
 #define HM_FSUB(a, b) __fsub_rn((a), (b))
 #define HM_CLZ(x) __clz(x)
+// the sum of the 4 bytes' absolute differences, the 2 halfwords'
+// absolute differences (packed: max - min borrows nothing across the
+// halves), and the funnel shift right of (hi:lo) by sh bits (0 <= sh <
+// 32)
+#define HM_VSADU4(a, b) __vsadu4((a), (b))
+#define HM_VABSDIFFU2(a, b) (__vmaxu2((a), (b)) - __vminu2((a), (b)))
+#define HM_FSHR(lo, hi, sh) __funnelshift_r((lo), (hi), (sh))
+#define HM_UNROLL _Pragma("unroll")
 #else
 #define HM_FN inline
 #define HM_HD inline
@@ -59,6 +69,12 @@
 #define HM_FADD(a, b) ((float)(a) + (float)(b))
 #define HM_FSUB(a, b) ((float)(a) - (float)(b))
 #define HM_CLZ(x) __builtin_clz(x)
+#define HM_VSADU4(a, b) hm::vsadu4_host((a), (b))
+#define HM_VABSDIFFU2(a, b) hm::vabsdiffu2_host((a), (b))
+#define HM_FSHR(lo, hi, sh)                                         \
+  ((unsigned)(((((unsigned long long)(hi)) << 32) | (unsigned)(lo)) >> \
+              (sh)))
+#define HM_UNROLL
 #endif
 
 namespace hm {
@@ -84,6 +100,12 @@ __device__ __forceinline__ void ph_add(int k, long long t0) {
     atomicAdd(&hm_ph_count[k], 1ull);
   }
 }
+__device__ __forceinline__ void ph_add_if(int k, long long t0, bool on) {
+  if (on) {
+    atomicAdd(&hm_ph_cycles[k], (unsigned long long)(clock64() - t0));
+    atomicAdd(&hm_ph_count[k], 1ull);
+  }
+}
 __device__ __forceinline__ void ph_bar(long long t0) {
   if (threadIdx.x == blockDim.x - 1) {
     atomicAdd(&hm_ph_cycles[HM_PH_BAR], (unsigned long long)(clock64() - t0));
@@ -93,10 +115,13 @@ __device__ __forceinline__ void ph_bar(long long t0) {
 #else
 HM_FN long long ph_now() { return 0; }
 HM_FN void ph_add(int, long long) {}
+HM_FN void ph_add_if(int, long long, bool) {}
 HM_FN void ph_bar(long long) {}
 #endif
 #define HM_PH_START(t) const long long t = hm::ph_now()
 #define HM_PH_STOP(k, t) hm::ph_add((k), (t))
+// the same, stamped by the thread where `on` holds (a team's first)
+#define HM_PH_STOP_IF(k, t, on) hm::ph_add_if((k), (t), (on))
 
 #if defined(__CUDACC__)
 __device__ __forceinline__ void block_sync() {
@@ -106,16 +131,22 @@ __device__ __forceinline__ void block_sync() {
 }
 
 #if defined(HM_GROUPS)
+// groups of a block of at most 8 warps, each starting at a multiple of its
+// size: a named barrier per (size, group), ids 1-4 for two warps, 5-6
+// three, 7-8 four, 9, 10, 11 five, six, seven
 __device__ __forceinline__ void group_sync(int nt) {
   const long long t0 = ph_now();
-  if (nt >= (int)blockDim.x)
+  if (nt >= (int)blockDim.x) {
     __syncthreads();
-  else if (nt == 32)
+  } else if (nt == 32) {
     __syncwarp();
-  else
-    asm volatile("bar.sync %0, %1;" ::"r"(1 + (int)threadIdx.x / nt),
+  } else {
+    const int w = nt >> 5;
+    const int base = w == 2 ? 1 : w == 3 ? 5 : w == 4 ? 7 : w + 4;
+    asm volatile("bar.sync %0, %1;" ::"r"(base + (int)threadIdx.x / nt),
                  "r"(nt)
                  : "memory");
+  }
   ph_bar(t0);
 }
 #endif
@@ -182,6 +213,26 @@ __device__ __forceinline__ void group_argmin(float& v, int& i, int tid,
 inline long long group_sum(long long v, int, int, long long*) { return v; }
 inline double group_sum_d(double v, int, int, double*) { return v; }
 inline void group_argmin(float&, int&, int, int, long long*) {}
+#endif
+
+#if !defined(__CUDACC__)
+// the host forms of HM_VSADU4 and HM_VABSDIFFU2
+inline unsigned vsadu4_host(unsigned a, unsigned b) {
+  unsigned s = 0;
+  for (int k = 0; k < 32; k += 8) {
+    const unsigned x = (a >> k) & 0xffu, y = (b >> k) & 0xffu;
+    s += x > y ? x - y : y - x;
+  }
+  return s;
+}
+inline unsigned vabsdiffu2_host(unsigned a, unsigned b) {
+  unsigned d = 0;
+  for (int k = 0; k < 32; k += 16) {
+    const unsigned x = (a >> k) & 0xffffu, y = (b >> k) & 0xffffu;
+    d |= (x > y ? x - y : y - x) << k;
+  }
+  return d;
+}
 #endif
 
 HM_FN int imin(int a, int b) { return a < b ? a : b; }

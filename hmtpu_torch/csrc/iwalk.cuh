@@ -1,8 +1,9 @@
 // K21 i_walk's lane code: one lane of one z-scan dependency level of the
 // I-frame decision pass, the port of hmtpu/encoder/iframe_dev.py:114
-// iframe_pass (`try_modes` :170, `nxn_trial` :258, the 8x8 cell step, the
-// 16x16 `region16` :480 and the 32x32 `step32` :560) as the port's plain
-// version (hmtpu_torch/encoder/iframe_dev.py `iframe_pass_plain`) runs it.
+// iframe_pass (`try_modes` :170, `nxn_trial` :258, the 8x8 cell step
+// :380, the 16x16 `region16` :470 and the 32x32 `step32` :549) as the
+// port's plain version (hmtpu_torch/encoder/iframe_dev.py
+// `iframe_pass_plain`) runs it.
 //
 // A lane reads the committed reconstruction and modes its neighbours
 // left behind in earlier levels, decides its CU(s) and commits in place:
@@ -22,36 +23,59 @@
 // entries the plain flag helpers (hmtpu/ops/ratebits.py:305-450) read.
 //
 // Parity with the plain version: every float32 operation is rounded on
-// its own, in the plain version's order (see each sum below); the
-// candidate pick keeps the first of equal costs, the NxN, 16 and 32
-// trials and the TS choice win only when strictly cheaper.
+// its own, in the plain version's order (see each sum below); integer
+// SSEs are exact group sums; the candidate pick keeps the first of equal
+// costs, the NxN, 16 and 32 trials and the TS choice win only when
+// strictly cheaper.
 //
-// Block-cooperative (hm_port.cuh): every thread of a lane's block runs
-// the same control flow; the per-sample loops are split over the threads,
-// scalar steps run on thread 0 and reach the others through the lane's
-// scratch after a barrier.  The lane's scratch (candidate predictions,
-// levels, reconstructions, reference lines) lies in device memory; K10's
-// working set in shared memory.  The file also compiles as host C++
-// (one thread), which the CPU tests drive level by level.
+// K21's lane (below): the block's warps in teams, the cells' and the
+// larger trials' codings side by side in groups of them, the whole
+// working set in shared memory.  The file also compiles as host C++ (one
+// thread, one group), which the CPU tests drive level by level.
 #pragma once
 
+#include "groups.cuh"
 #include "mode_bits.cuh"
 #include "walk.cuh"
 
 namespace iw {
 
 using namespace hm;
+using gp::deal;
+using gp::get_res;
+using gp::group_of;
+using gp::Grp;
+using gp::imax_c;
+using gp::NTASK;
+using gp::put_res;
+using gp::r4;
+using gp::Slots;
+using gp::task_of;
+#if !defined(__CUDACC__)
+using gp::task_reverse;
+#endif
 using wk::NTB;
 using wk::TB_INTS;
 using wk::TbRes;
 using wk::code_tb;
-using wk::code_ts_sel;
 using wk::copy_block;
 using wk::gather_line;
 using wk::predict;
 using wk::scan_sel;
 
 constexpr int K = 2;        // RDOQ-coded candidates per CU (K8 = K16)
+
+// phase clock slots (hm_port.cuh; HM_PHASE_CLOCK builds only): each phase
+// of a CU trial by its size (log2 3, 4, 5), then the lane, the 16x16 and
+// 32x32 regions whole (each trial beside its cells or regions)
+enum { PH_SRC, PH_PRED, PH_CODE, PH_NXN, PH_NXNC, PH_PICK, PH_COMMIT,
+       PH_JOIN, PH_NPH };
+HM_FN int ph(int phase, int log2) { return phase * 3 + (log2 - 3); }
+constexpr int PH_LANE = 3 * PH_NPH, PH_T16 = PH_LANE + 1,
+              PH_T32 = PH_T16 + 1;
+static_assert(PH_T32 < HM_PH_CODE, "phase slots");
+
+static_assert(PH_T32 < HM_PH_CODE, "phase slots");
 
 // context offsets (entropy/contexts.py OFF) the flag prices read
 enum { C_CBF_LUMA, C_CBF_CHROMA, C_PART, C_CHROMA_DM, C_SPLIT, C_IPM, C_TS,
@@ -136,144 +160,21 @@ inline Args args_from(const long long* p, const int* v, const float* f) {
   return a;
 }
 
-// ---------------------------------------------------------------------------
-// the lane's scratch (ints), sized for a 32x32 CU with K candidates
-
-constexpr int S_IREF = 0;                 // 4 * 32 + 1 luma line
-constexpr int S_IREFF = S_IREF + 132;     // its filtered form
-constexpr int S_IREFU = S_IREFF + 132;    // chroma lines, 2 * 32 + 1
-constexpr int S_IREFV = S_IREFU + 68;
-constexpr int S_ORGY = S_IREFV + 68;      // the CU's source, raster
-constexpr int S_ORGU = S_ORGY + 1024;
-constexpr int S_ORGV = S_ORGU + 256;
-constexpr int S_PREDY = S_ORGV + 256;     // per candidate
-constexpr int S_PREDU = S_PREDY + K * 1024;
-constexpr int S_PREDV = S_PREDU + K * 256;
-constexpr int S_LEVY = S_PREDV + K * 256;
-constexpr int S_LEVU = S_LEVY + K * 1024;
-constexpr int S_LEVV = S_LEVU + K * 256;
-constexpr int S_RECY = S_LEVV + K * 256;
-constexpr int S_RECU = S_RECY + K * 1024;
-constexpr int S_RECV = S_RECU + K * 256;
-constexpr int S_W = S_RECV + K * 256;     // the coding work area (walk.cuh)
-constexpr int S_LINE = S_W + wk::WORK_INTS;  // a 4x4 PU's substituted line
-constexpr int S_ORG4 = S_LINE + 20;       // NxN: four PUs' source
-constexpr int S_PRED4 = S_ORG4 + 64;
-constexpr int S_LEV4 = S_PRED4 + 16;
-constexpr int S_REC4 = S_LEV4 + 64;
-constexpr int S_ORGC = S_REC4 + 64;       // NxN chroma pair
-constexpr int S_PREDC = S_ORGC + 32;
-constexpr int S_LEVC = S_PREDC + 32;
-constexpr int S_RECC = S_LEVC + 32;
-constexpr int SCRATCH = S_RECC + 32;
-static_assert(S_W % 2 == 0, "the coding work area's int64 reduction");
-
-struct Lane : wk::Lane {
-  const Args* ap;
-};
-
 HM_FN float cbf_bits(const Args& a, int ctx, int nz) {
   return a.cb[2 * ctx + (nz ? 1 : 0)];
 }
 
 // mpm_neighbours: the left and above cells' modes (1 outside the picture
 // and above the CTU row)
-HM_FN void neighbours(const Lane& L, int b, int bxi, int byi, int y0,
+HM_FN void neighbours(const Args& a, int b, int bxi, int byi, int y0,
                       int* lm, int* am) {
-  const Args& a = *L.ap;
   const int bw = a.w / 8;
   *lm = bxi > 0 ? a.imode[b - 1] : 1;
   *am = (byi > 0 && (y0 & ((1 << a.log2_ctu) - 1)) != 0) ? a.imode[b - bw]
                                                           : 1;
 }
 
-struct TryRes {
-  int ki, nz, ts_u, ts_v;
-  float cost;
-};
-
-// try_modes + pick_best: the K candidates of an n x n CU (luma at (x0,
-// y0), gather rows `row`), coded against the committed state
-HM_BIG TryRes try_modes(Lane& L, int row, const int* gls, const int* gln,
-                        const int* gcs, const int* gcn, int n, int log2,
-                        int x0, int y0, const int* modes, const float* mb) {
-  const Args& a = *L.ap;
-  int* s = L.s;
-  const int nc = n / 2, ll = 4 * n + 1, lc = 2 * n + 1;
-  gather_line(L, a.rec_y, gls + row * ll, gln[row], ll, s + S_IREF);
-  gather_line(L, a.rec_u, gcs + row * lc, gcn[row], lc, s + S_IREFU);
-  gather_line(L, a.rec_v, gcs + row * lc, gcn[row], lc, s + S_IREFV);
-  for (int k = L.tid; k < ll; k += L.nt)
-    s[S_IREFF + k] = filter_sample(s + S_IREF, k, n, a.bd, a.sis);
-  copy_block(L, a.org_y, a.w, x0, y0, n, s + S_ORGY);
-  copy_block(L, a.org_u, a.w / 2, x0 / 2, y0 / 2, nc, s + S_ORGU);
-  copy_block(L, a.org_v, a.w / 2, x0 / 2, y0 / 2, nc, s + S_ORGV);
-  const bool ts_c = a.ts && log2 == 3;
-  float cost[K];
-  int nz[K], tsu[K], tsv[K];
-  for (int k = 0; k < K; ++k) {
-    const int m = modes[k];
-    int* py = s + S_PREDY + k * 1024;
-    int* pu = s + S_PREDU + k * 256;
-    int* pv = s + S_PREDV + k * 256;
-    predict(L, s + S_IREF, s + S_IREFF, m, n, 1, py);
-    predict(L, s + S_IREFU, s + S_IREFU, m, nc, 0, pu);
-    predict(L, s + S_IREFV, s + S_IREFV, m, nc, 0, pv);
-    // the mode-dependent coding scans drive the SDH parity groups: 8x8
-    // luma and 4x4 chroma TBs only
-    const int sel_y = log2 == 3 ? scan_sel(m) : -1;
-    const int sel_c = log2 - 1 == 2 ? scan_sel(m) : -1;
-    const TbRes ry = code_tb(L, log2, true, false, false, sel_y, a.lam, false,
-                             0.f, s + S_ORGY, py, s + S_LEVY + k * 1024,
-                             s + S_RECY + k * 1024);
-    TbRes ru, rv;
-    if (ts_c) {
-      ru = code_ts_sel(L, false, false, sel_c, a.lam_c, true, a.wchroma,
-                       s + S_ORGU, pu, s + S_LEVU + k * 256,
-                       s + S_RECU + k * 256);
-      rv = code_ts_sel(L, false, false, sel_c, a.lam_c, true, a.wchroma,
-                       s + S_ORGV, pv, s + S_LEVV + k * 256,
-                       s + S_RECV + k * 256);
-    } else {
-      ru = code_tb(L, log2 - 1, false, false, false, sel_c, a.lam_c, true,
-                   a.wchroma, s + S_ORGU, pu, s + S_LEVU + k * 256,
-                   s + S_RECU + k * 256);
-      rv = code_tb(L, log2 - 1, false, false, false, sel_c, a.lam_c, true,
-                   a.wchroma, s + S_ORGV, pv, s + S_LEVV + k * 256,
-                   s + S_RECV + k * 256);
-    }
-    // b_cbf = (cbf_cb + cbf_cr) + cbf_luma (trafo depth 0)
-    const float b_cbf =
-        HM_FADD(HM_FADD(cbf_bits(a, a.ctx[C_CBF_CHROMA], ru.nz),
-                        cbf_bits(a, a.ctx[C_CBF_CHROMA], rv.nz)),
-                cbf_bits(a, a.ctx[C_CBF_LUMA] + 1, ry.nz));
-    // (dY + dU + dV) + lam * ((bY + bU + bV + b_cbf) + mb)
-    const float bsum =
-        HM_FADD(HM_FADD(HM_FADD(HM_FADD(ry.bits, ru.bits), rv.bits), b_cbf),
-                mb[k]);
-    cost[k] = HM_FADD(HM_FADD(HM_FADD(ry.sse, ru.sse), rv.sse),
-                      HM_FMUL(a.lam, bsum));
-    nz[k] = ry.nz;
-    tsu[k] = ru.ts;
-    tsv[k] = rv.ts;
-  }
-  TryRes r;
-  r.ki = 0;
-  for (int k = 1; k < K; ++k)
-    if (cost[k] < cost[r.ki]) r.ki = k;
-  r.cost = cost[r.ki];
-  r.nz = nz[r.ki];
-  r.ts_u = tsu[r.ki];
-  r.ts_v = tsv[r.ki];
-  return r;
-}
-
-struct NxnRes {
-  float cost;
-  int nz, tsf;
-};
-
-// 8.4.4.2.2 substitution of a 17-sample PU line (thread 0)
+// 8.4.4.2.2 substitution of a 17-sample PU line (one thread)
 HM_FN void sub_line(const int* vals, const int* avail, int mid, int* out) {
   int first = -1;
   for (int e = 0; e < 17 && first < 0; ++e)
@@ -286,30 +187,278 @@ HM_FN void sub_line(const int* vals, const int* avail, int mid, int* out) {
   }
 }
 
-// nxn_trial: the four 4x4 PUs in z-order with exact sequential
-// reconstruction, then the chroma pair in PU 0's mode
-HM_BIG NxnRes nxn_trial(Lane& L, int b, int bxi, int byi, int x0, int y0,
-                        int lm, int am) {
-  const Args& a = *L.ap;
-  int* s = L.s;
-  const int mid = 1 << (a.bd - 1), gw4 = a.w / 4;
-  int m4[4];
-  for (int j = 0; j < 4; ++j)
-    m4[j] = a.cand4[(2 * byi + (j >> 1)) * gw4 + 2 * bxi + (j & 1)];
-  for (int e = L.tid; e < 64; e += L.nt) {
-    const int j = e >> 4, i = (e >> 2) & 3, x = e & 3;
-    s[S_ORG4 + e] =
-        a.org_y[(y0 + 4 * (j >> 1) + i) * a.w + x0 + 4 * (j & 1) + x];
+// ---------------------------------------------------------------------------
+// K21's lane: teams of warps, the codings side by side, the working set in
+// shared memory.
+//
+// A block of THREADS (8 warps) a lane, in teams: warps 0-5 walk the cells;
+// at geometry 16 warps 6-7 run the region's 16x16 trial beside its four
+// cells (it reads only state outside its region: its reference lines and
+// the corner's left and above modes, committed in earlier levels); at
+// geometry 32 warp 6 runs each region's 16x16 trial beside its cells and
+// warp 7 the 32x32 trial beside all four regions.  Only the compare
+// against the cells' cost and the commit wait for the team's barrier
+// (the block's, or at geometry 32 warps 0-6's for the 16x16 trials), in
+// the plain order: the cells' cost8, the split-flag terms, cost16 <
+// cost8, the commit.  A team's round of tasks is dealt to its groups
+// heaviest first (groups.cuh):
+//   a cell   one round: the candidates' 8x8 luma and 4x4 chroma codings,
+//            their chroma TS alternatives, the NxN chroma pair and its TS
+//            alternatives, each a task of one warp (warps 2-5); the NxN
+//            chain of four PUs in order, the critical path, on warps 0-1,
+//            each PU's two codings (with TS) one on each warp;
+//   a trial  the two candidates' luma and chroma codings, a task of one
+//            warp each.
+// Each group has its own coding work area and K10 set; a task writes only
+// its own outputs and result slot; every thread derives the scalars
+// between rounds in the plain order.  Sources, lines, predictions and
+// codings lie in shared memory (place_*); K21 takes no device scratch.
+// The host build runs every team on its one thread: the trials after
+// their cells, or (task_reverse) before them with every round's tasks
+// last first.
+
+constexpr int THREADS = 256;   // a lane's block at geometries 16 and 32
+constexpr int CELL_WARPS = 6;  // the cells' team (the block at geometry 8)
+constexpr int NG_CELL = 4;     // its one-warp coding groups (warps 2-5)
+constexpr int SCRATCH = 0;     // ints of device scratch a lane
+
+// the cells' tasks: the candidates' luma, chroma (k, plane), the NxN
+// chroma pair, then with TS the chroma TS alternatives and the pair's;
+// the NxN chain's slots: its halves' codings of a PU, then the PUs
+enum { T_Y = 0, T_C = 2, T_N = 6, T_TC = 8, T_TN = 12, NT_TS = 14,
+       NT_PLAIN = 8, S_HALF = 16, S_PU = 18 };
+static_assert(S_PU + 4 <= NTASK, "result slots");
+
+// a group's area: its coding work area and K10 set for TBs up to n x n
+struct GrpMem {
+  int *work, *k10;
+};
+HM_HD constexpr int grp_place(int n, int* base = nullptr,
+                              GrpMem* g = nullptr) {
+  int at = 0;
+  if (g) g->work = base + at;
+  at += r4(wk::work_ints(n * n));
+  if (g) g->k10 = base + at;
+  at += r4((int)(rdoq_smem_bytes(n == 4 ? 2 : n == 8 ? 3 : n == 16 ? 4 : 5) /
+                 4));
+  return at;
+}
+
+// the cells' shared memory
+struct CellMem {
+  int *iref, *ireff, *irefu, *irefv;  // the lines (the NxN trial's too)
+  int *oy, *ou, *ov, *o4;             // the source (o4: the PUs' order)
+  int *py, *pu, *pv, *pnu, *pnv;      // the candidates', the NxN pair's
+  int *ly, *ry, *lu, *ru, *lv, *rv;   // the candidates' codings (K each)
+  int *ltu, *rtu, *ltv, *rtv;         // their chroma TS alternatives
+  int *lnu, *rnu, *lnv, *rnv;         // the NxN chroma pair's codings
+  int *ltnu, *rtnu, *ltnv, *rtnv;     // and their TS alternatives
+  int *l4, *r4, *l4t, *r4t;           // the chain: the PUs' codings, a
+  int *line, *p4;                     // PU's TS one, line, prediction
+  float *rsse, *rbits;                // the round's result slots
+  int *rnz, *rts, *ord;               // and its deal (thread 0's)
+  int* grp;                           // the chain's halves, NG_CELL groups
+};
+HM_HD constexpr int place_cells(int* base = nullptr, CellMem* m = nullptr) {
+  int at = 0;
+#define IW_PUT(f, ints)                          \
+  do {                                           \
+    if (m) m->f = (decltype(m->f))(base + at);   \
+    at += r4(ints);                              \
+  } while (0)
+  IW_PUT(iref, 33);
+  IW_PUT(ireff, 33);
+  IW_PUT(irefu, 17);
+  IW_PUT(irefv, 17);
+  IW_PUT(oy, 64);
+  IW_PUT(ou, 16);
+  IW_PUT(ov, 16);
+  IW_PUT(o4, 64);
+  IW_PUT(py, K * 64);
+  IW_PUT(pu, K * 16);
+  IW_PUT(pv, K * 16);
+  IW_PUT(pnu, 16);
+  IW_PUT(pnv, 16);
+  IW_PUT(ly, K * 64);
+  IW_PUT(ry, K * 64);
+  IW_PUT(lu, K * 16);
+  IW_PUT(ru, K * 16);
+  IW_PUT(lv, K * 16);
+  IW_PUT(rv, K * 16);
+  IW_PUT(ltu, K * 16);
+  IW_PUT(rtu, K * 16);
+  IW_PUT(ltv, K * 16);
+  IW_PUT(rtv, K * 16);
+  IW_PUT(lnu, 16);
+  IW_PUT(rnu, 16);
+  IW_PUT(lnv, 16);
+  IW_PUT(rnv, 16);
+  IW_PUT(ltnu, 16);
+  IW_PUT(rtnu, 16);
+  IW_PUT(ltnv, 16);
+  IW_PUT(rtnv, 16);
+  IW_PUT(l4, 64);
+  IW_PUT(r4, 64);
+  IW_PUT(l4t, 16);
+  IW_PUT(r4t, 16);
+  IW_PUT(line, 17);
+  IW_PUT(p4, 16);
+  IW_PUT(rsse, NTASK);
+  IW_PUT(rbits, NTASK);
+  IW_PUT(rnz, NTASK);
+  IW_PUT(rts, NTASK);
+  IW_PUT(ord, NTASK);
+  IW_PUT(grp, 2 * grp_place(4) + NG_CELL * grp_place(8));
+  return at;
+}
+
+// a larger CU trial's shared memory (n = 16 or 32, ng groups)
+struct TrialMem {
+  int *iref, *ireff, *irefu, *irefv;
+  int *oy, *ou, *ov;
+  int *py, *pu, *pv;                  // per candidate
+  int *ly, *ry, *lu, *ru, *lv, *rv;   // the candidates' codings
+  float *rsse, *rbits;
+  int *rnz, *ord;
+  int* res;                           // the trial's (ki, nz) and cost
+  int* grp;
+};
+HM_HD constexpr int place_trial(int n, int ng, int* base = nullptr,
+                                TrialMem* m = nullptr) {
+  const int nn = n * n, ncc = nn / 4;
+  int at = 0;
+  IW_PUT(iref, 4 * n + 1);
+  IW_PUT(ireff, 4 * n + 1);
+  IW_PUT(irefu, 2 * n + 1);
+  IW_PUT(irefv, 2 * n + 1);
+  IW_PUT(oy, nn);
+  IW_PUT(ou, ncc);
+  IW_PUT(ov, ncc);
+  IW_PUT(py, K * nn);
+  IW_PUT(pu, K * ncc);
+  IW_PUT(pv, K * ncc);
+  IW_PUT(ly, K * nn);
+  IW_PUT(ry, K * nn);
+  IW_PUT(lu, K * ncc);
+  IW_PUT(ru, K * ncc);
+  IW_PUT(lv, K * ncc);
+  IW_PUT(rv, K * ncc);
+  IW_PUT(rsse, NTASK);
+  IW_PUT(rbits, NTASK);
+  IW_PUT(rnz, NTASK);
+  IW_PUT(ord, NTASK);
+  IW_PUT(res, 4);
+  IW_PUT(grp, ng * grp_place(n));
+#undef IW_PUT
+  return at;
+}
+
+// the teams after the cells' warps: the 16x16 trial's (two warps at
+// geometry 16, one at 32), then at geometry 32 the 32x32 trial's one;
+// the threads that meet for a 16x16 trial's compare and commit
+HM_HD constexpr int t16_warps(int geom) { return geom == 16 ? 2 : 1; }
+HM_HD constexpr int join16_threads(int geom) {
+  return 32 * (CELL_WARPS + t16_warps(geom));
+}
+
+// K21's dynamic shared memory at a geometry (bytes): the cells', the
+// 16x16 trial's, the 32x32 trial's
+HM_HD constexpr int smem_ints(int geom) {
+  return place_cells() + (geom >= 16 ? place_trial(16, t16_warps(geom)) : 0) +
+         (geom == 32 ? place_trial(32, 1) : 0);
+}
+HM_HD constexpr int smem_bytes(int geom) { return 4 * smem_ints(geom); }
+static_assert(smem_bytes(32) <= 232448,
+              "K21's shared memory: 227 KB a block on the H100");
+
+struct Walk {  // K21's lane: its Args, its block's threads and arena
+  const Args* ap;
+  int tid, nt;
+  int* smem;
+  HM_FN bool host() const { return nt < 32; }
+};
+
+// a team of nw warps from warp w0: this thread's place in it (the host's
+// one thread is in every team)
+struct Team {
+  int tid, nt;
+  bool in;
+};
+HM_FN Team team_of(const Walk& W, int w0, int nw) {
+  Team T;
+  if (W.host()) {
+    T.tid = 0;
+    T.nt = 1;
+    T.in = true;
+  } else {
+    T.tid = W.tid - 32 * w0;
+    T.nt = 32 * nw;
+    T.in = T.tid >= 0 && T.tid < T.nt;
   }
-  gather_line(L, a.rec_y, a.g8s + b * 33, a.g8n[b], 33, s + S_IREF);
-  const int* iref = s + S_IREF;
+  return T;
+}
+
+// a coding lane over a group's area (n x n TBs at most)
+HM_FN wk::Lane coder_of(const Args& a, const GrpMem& gm, int tid, int nt,
+                        int n) {
+  wk::Lane L;
+  L.cd = &a.cd;
+  L.tid = tid;
+  L.nt = nt;
+  L.S = rdoq_smem(gm.k10, n * n);
+  L.s = nullptr;
+  L.work = gm.work;
+  L.wstride = n * n;
+  return L;
+}
+
+// a team as a lane without a coding area (gathers, copies, predictions)
+HM_FN wk::Lane plain_of(const Args& a, const Team& T) {
+  wk::Lane L;
+  L.cd = &a.cd;
+  L.tid = T.tid;
+  L.nt = T.nt;
+  L.S = RdoqSmem{};
+  L.s = nullptr;
+  L.work = nullptr;
+  return L;
+}
+
+HM_FN Slots slots_of(const CellMem& m) {
+  return Slots{m.rsse, m.rbits, m.rnz, m.rts};
+}
+HM_FN Slots slots_of(const TrialMem& m) {
+  return Slots{m.rsse, m.rbits, m.rnz, nullptr};
+}
+
+// the chroma result of slot t, with its TS alternative (slot tt) when ts
+HM_FN TbRes chroma_res(const Args& a, const Slots& s, int t, int tt,
+                       bool ts) {
+  const TbRes r0 = get_res(s, t);
+  return ts ? wk::ts_pick(a.cd, false, a.lam_c, r0, get_res(s, tt)) : r0;
+}
+
+// ---------------------------------------------------------------------------
+// the 8x8 cell
+
+// the NxN chain on its group (G): the four PUs in z-order, each predicted
+// from the substituted line over the committed samples and the earlier
+// PUs' reconstruction; with TS each PU's two codings on the group's two
+// halves; the PUs' results into slots S_PU + j
+HM_FN void nxn_chain(const Walk& W, const CellMem& m, const Grp& G, int b,
+                     const int* m4, const GrpMem* ga) {
+  const Args& a = *W.ap;
+  const Slots sl = slots_of(m);
+  const int mid = 1 << (a.bd - 1);
+  const int* iref = m.iref;
   const int* nbo = a.nb_ok + 5 * b;
   const int aL = nbo[0], aA = nbo[1], aAR = nbo[2], aBL = nbo[3],
             aC = nbo[4];
-  TbRes pr[4];
+  wk::Lane P = coder_of(a, ga[0], G.tid, G.nt, 4);  // the whole group
+  const Grp H = group_of(G.tid, G.nt, a.ts ? 2 : 1);  // its halves
   for (int j = 0; j < 4; ++j) {
-    if (L.tid == 0) {
-      const int* r0 = s + S_REC4;
+    if (G.tid == 0) {
+      const int* r0 = m.r4;
       const int* r1 = r0 + 16;
       const int* r2 = r0 + 32;
       int v[17], av[17];
@@ -351,47 +500,192 @@ HM_BIG NxnRes nxn_trial(Lane& L, int b, int bxi, int byi, int x0, int y0,
       v[8] = j == 0 ? iref[16] : j == 1 ? iref[20] : j == 2 ? iref[12]
                                                            : r0[15];
       av[8] = j == 0 ? aC : j == 1 ? aA : j == 2 ? aL : 1;
-      sub_line(v, av, mid, s + S_LINE);
+      sub_line(v, av, mid, m.line);
     }
-    HM_SYNC();
-    predict(L, s + S_LINE, s + S_LINE, m4[j], 4, 1, s + S_PRED4);
+    HM_GSYNC(G.nt);
+    predict(P, m.line, m.line, m4[j], 4, 1, m.p4);
     const int sel = scan_sel(m4[j]);
-    if (a.ts) {
-      pr[j] = code_ts_sel(L, true, true, sel, a.lam, false, 0.f,
-                          s + S_ORG4 + 16 * j, s + S_PRED4,
-                          s + S_LEV4 + 16 * j, s + S_REC4 + 16 * j);
-    } else {
-      pr[j] = code_tb(L, 2, true, true, false, sel, a.lam, false, 0.f,
-                      s + S_ORG4 + 16 * j, s + S_PRED4, s + S_LEV4 + 16 * j,
-                      s + S_REC4 + 16 * j);
+    int* lj = m.l4 + 16 * j;
+    int* rj = m.r4 + 16 * j;
+    if (!a.ts) {
+      const TbRes r = code_tb(P, 2, true, true, false, sel, a.lam, false, 0.f,
+                              m.o4 + 16 * j, m.p4, lj, rj);
+      put_res(sl, P, S_PU + j, r);
+      continue;
+    }
+    // _code_ts_sel: the transform coding (half 0) and the TS one (half 1)
+    for (int k = H.g; k < 2; k += H.ng) {
+      const int h = task_of(k, 2);
+      wk::Lane L = coder_of(a, ga[h], H.tid, H.nt, 4);
+      const TbRes r = code_tb(L, 2, true, true, h == 1, sel, a.lam, false,
+                              0.f, m.o4 + 16 * j, m.p4, h ? m.l4t : lj,
+                              h ? m.r4t : rj);
+      put_res(sl, L, S_HALF + h, r);
+    }
+    HM_GSYNC(G.nt);
+    const TbRes r = wk::ts_pick(a.cd, true, a.lam, get_res(sl, S_HALF),
+                                get_res(sl, S_HALF + 1));
+    if (r.ts) {
+      for (int e = G.tid; e < 16; e += G.nt) {
+        lj[e] = m.l4t[e];
+        rj[e] = m.r4t[e];
+      }
+    }
+    HM_GSYNC(G.nt);
+    put_res(sl, P, S_PU + j, r);
+  }
+}
+
+// one of a cell's single tasks (T_*): its coding into its own buffers and
+// slot t
+HM_FN void cell_task(const Walk& W, const CellMem& m, wk::Lane& L, int t,
+                     const int* modes, int mc) {
+  const Args& a = *W.ap;
+  TbRes r;
+  if (t < T_C) {                       // a candidate's luma 8x8
+    r = code_tb(L, 3, true, false, false, scan_sel(modes[t]), a.lam, false,
+                0.f, m.oy, m.py + 64 * t, m.ly + 64 * t, m.ry + 64 * t);
+  } else if (t < T_N || (t >= T_TC && t < T_TN)) {
+    const bool tsc = t >= T_TC;        // a candidate's chroma 4x4
+    const int c = t - (tsc ? T_TC : T_C), k = c >> 1, v = c & 1;
+    const int o = 16 * k;
+    int* lev = v ? (tsc ? m.ltv : m.lv) : (tsc ? m.ltu : m.lu);
+    int* rec = v ? (tsc ? m.rtv : m.rv) : (tsc ? m.rtu : m.ru);
+    r = code_tb(L, 2, false, false, tsc, scan_sel(modes[k]), a.lam_c, true,
+                a.wchroma, v ? m.ov : m.ou, (v ? m.pv : m.pu) + o, lev + o,
+                rec + o);
+  } else {                             // the NxN chroma pair in PU 0's mode
+    const bool tsc = t >= T_TN;
+    const int v = t - (tsc ? T_TN : T_N);
+    int* lev = v ? (tsc ? m.ltnv : m.lnv) : (tsc ? m.ltnu : m.lnu);
+    int* rec = v ? (tsc ? m.rtnv : m.rnv) : (tsc ? m.rtnu : m.rnu);
+    r = code_tb(L, 2, false, false, tsc, scan_sel(mc), a.lam_c, true,
+                a.wchroma, v ? m.ov : m.ou, v ? m.pnv : m.pnu, lev, rec);
+  }
+  put_res(slots_of(m), L, t, r);
+}
+
+// one 8x8 CU on the cells' team (T): returns its cost; commits its
+// decision
+HM_BIG float cell_step(const Walk& W, const Team& T, int b) {
+  const Args& a = *W.ap;
+  CellMem m{};
+  place_cells(W.smem, &m);
+  const Slots sl = slots_of(m);
+  const int bw = a.w / 8, byi = b / bw, bxi = b % bw, gw4 = a.w / 4;
+  const int x0 = bxi * 8, y0 = byi * 8;
+  const int modes[K] = {a.cand8[K * b], a.cand8[K * b + 1]};
+  int m4[4];
+  for (int j = 0; j < 4; ++j)
+    m4[j] = a.cand4[(2 * byi + (j >> 1)) * gw4 + 2 * bxi + (j & 1)];
+  const int mc = m4[0];
+  const wk::Lane B = plain_of(a, T);
+
+  // sources and lines (the candidates' and the NxN trial's are the same)
+  HM_PH_START(t_src);
+  gather_line(B, a.rec_y, a.g8s + b * 33, a.g8n[b], 33, m.iref);
+  gather_line(B, a.rec_u, a.g4s + b * 17, a.g4n[b], 17, m.irefu);
+  gather_line(B, a.rec_v, a.g4s + b * 17, a.g4n[b], 17, m.irefv);
+  for (int k = T.tid; k < 33; k += T.nt)
+    m.ireff[k] = filter_sample(m.iref, k, 8, a.bd, a.sis);
+  for (int e = T.tid; e < 64; e += T.nt) {
+    const int j = e >> 4, i = (e >> 2) & 3, x = e & 3;
+    m.o4[e] = a.org_y[(y0 + 4 * (j >> 1) + i) * a.w + x0 + 4 * (j & 1) + x];
+  }
+  copy_block(B, a.org_y, a.w, x0, y0, 8, m.oy);
+  copy_block(B, a.org_u, a.w / 2, x0 / 2, y0 / 2, 4, m.ou);
+  copy_block(B, a.org_v, a.w / 2, x0 / 2, y0 / 2, 4, m.ov);
+  const int nt2 = a.ts ? NT_TS : NT_PLAIN;
+  if (T.tid == 0) {
+    int w[NTASK];   // the luma 8x8 codings 3, the 4x4 ones 1
+    for (int t = 0; t < nt2; ++t) w[t] = t < T_C ? 3 : 1;
+    deal(w, nt2, W.host() ? 1 : NG_CELL, m.ord);
+  }
+  HM_PH_STOP(ph(PH_SRC, 3), t_src);
+  HM_PH_START(t_pred);
+  for (int k = 0; k < K; ++k) {
+    predict(B, m.iref, m.ireff, modes[k], 8, 1, m.py + 64 * k);
+    predict(B, m.irefu, m.irefu, modes[k], 4, 0, m.pu + 16 * k);
+    predict(B, m.irefv, m.irefv, modes[k], 4, 0, m.pv + 16 * k);
+  }
+  predict(B, m.irefu, m.irefu, mc, 4, 0, m.pnu);
+  predict(B, m.irefv, m.irefv, mc, 4, 0, m.pnv);
+  HM_PH_STOP(ph(PH_PRED, 3), t_pred);
+
+  // the round: the chain on warps 0-1, the tasks on warps 2-5 (the host:
+  // the chain first, or last when the tasks run last first)
+  HM_PH_START(t_code);
+  GrpMem ga[2 + NG_CELL];
+  for (int g = 0; g < 2; ++g) grp_place(4, m.grp + g * grp_place(4), &ga[g]);
+  for (int g = 0; g < NG_CELL; ++g)
+    grp_place(8, m.grp + 2 * grp_place(4) + g * grp_place(8), &ga[2 + g]);
+  const int np2 = W.host() ? nt2 : (nt2 + NG_CELL - 1) / NG_CELL * NG_CELL;
+  if (W.host()) {
+    const Grp G = group_of(0, 1, 1);
+    for (int k = 0; k <= np2; ++k) {
+      const int kk = task_of(k, np2 + 1);
+      if (kk == 0) {
+        nxn_chain(W, m, G, b, m4, ga);
+      } else {
+        wk::Lane L = coder_of(a, ga[2], 0, 1, 8);
+        cell_task(W, m, L, m.ord[kk - 1], modes, mc);
+      }
+    }
+  } else if (T.tid < 64) {
+    HM_PH_START(t_nxn);
+    nxn_chain(W, m, group_of(T.tid, 64, 1), b, m4, ga);
+    HM_PH_STOP(ph(PH_NXN, 3), t_nxn);
+  } else {
+    const Grp G = group_of(T.tid - 64, T.nt - 64, NG_CELL);
+    wk::Lane L = coder_of(a, ga[2 + G.g], G.tid, G.nt, 8);
+    for (int k = G.g; k < np2; k += G.ng) {
+      const int t = m.ord[k];
+      if (t >= 0) cell_task(W, m, L, t, modes, mc);
     }
   }
+  HM_GSYNC(T.nt);
+  HM_PH_STOP(ph(PH_CODE, 3), t_code);
 
-  // chroma: one 4x4 TB pair, DM mode = PU 0's luma mode
-  const int mc = m4[0], selc = scan_sel(mc);
-  gather_line(L, a.rec_u, a.g4s + b * 17, a.g4n[b], 17, s + S_IREFU);
-  gather_line(L, a.rec_v, a.g4s + b * 17, a.g4n[b], 17, s + S_IREFV);
-  copy_block(L, a.org_u, a.w / 2, x0 / 2, y0 / 2, 4, s + S_ORGC);
-  copy_block(L, a.org_v, a.w / 2, x0 / 2, y0 / 2, 4, s + S_ORGC + 16);
-  predict(L, s + S_IREFU, s + S_IREFU, mc, 4, 0, s + S_PREDC);
-  predict(L, s + S_IREFV, s + S_IREFV, mc, 4, 0, s + S_PREDC + 16);
-  TbRes rc[2];
-  for (int c = 0; c < 2; ++c) {
-    const int o = 16 * c;
-    rc[c] = a.ts ? code_ts_sel(L, false, false, selc, a.lam_c, true,
-                               a.wchroma, s + S_ORGC + o, s + S_PREDC + o,
-                               s + S_LEVC + o, s + S_RECC + o)
-                 : code_tb(L, 2, false, false, false, selc, a.lam_c, true,
-                           a.wchroma, s + S_ORGC + o, s + S_PREDC + o,
-                           s + S_LEVC + o, s + S_RECC + o);
+  // try_modes + pick_best, nxn_trial's cost, in the plain order
+  HM_PH_START(t_pick);
+  int lm, am;
+  neighbours(a, b, bxi, byi, y0, &lm, &am);
+  float cost[K];
+  int nz[K], tsu[K], tsv[K];
+  for (int k = 0; k < K; ++k) {
+    // (mpm + part 2Nx2N) + chroma DM
+    const float mb =
+        HM_FADD(HM_FADD(mpm_bits(a.cb, a.ctx[C_IPM], modes[k], lm, am),
+                        a.cb[2 * a.ctx[C_PART] + 1]),
+                a.cb[2 * a.ctx[C_CHROMA_DM]]);
+    const TbRes ry = get_res(sl, T_Y + k);
+    const TbRes ru = chroma_res(a, sl, T_C + 2 * k, T_TC + 2 * k, a.ts);
+    const TbRes rv = chroma_res(a, sl, T_C + 2 * k + 1, T_TC + 2 * k + 1,
+                                a.ts);
+    // b_cbf = (cbf_cb + cbf_cr) + cbf_luma (trafo depth 0)
+    const float b_cbf =
+        HM_FADD(HM_FADD(cbf_bits(a, a.ctx[C_CBF_CHROMA], ru.nz),
+                        cbf_bits(a, a.ctx[C_CBF_CHROMA], rv.nz)),
+                cbf_bits(a, a.ctx[C_CBF_LUMA] + 1, ry.nz));
+    // (dY + dU + dV) + lam * ((bY + bU + bV + b_cbf) + mb)
+    const float bsum =
+        HM_FADD(HM_FADD(HM_FADD(HM_FADD(ry.bits, ru.bits), rv.bits), b_cbf),
+                mb);
+    cost[k] = HM_FADD(HM_FADD(HM_FADD(ry.sse, ru.sse), rv.sse),
+                      HM_FMUL(a.lam, bsum));
+    nz[k] = ry.nz;
+    tsu[k] = ru.ts;
+    tsv[k] = rv.ts;
   }
-
+  int ki = 0;
+  for (int k = 1; k < K; ++k)
+    if (cost[k] < cost[ki]) ki = k;
+  TbRes pr[4];
+  for (int j = 0; j < 4; ++j) pr[j] = get_res(sl, S_PU + j);
+  const TbRes rc[2] = {chroma_res(a, sl, T_N, T_TN, a.ts),
+                       chroma_res(a, sl, T_N + 1, T_TN + 1, a.ts)};
   // rate: part NxN + the four PUs' mode, cbf and residual + chroma
-  NxnRes r;
-  r.tsf = pr[0].ts | (pr[1].ts << 1) | (pr[2].ts << 2) | (pr[3].ts << 3) |
-          (rc[0].ts << 4) | (rc[1].ts << 5);
-  r.nz = pr[0].nz | pr[1].nz | pr[2].nz | pr[3].nz;
-  const float mb = mpm_bits4(a.cb, a.ctx[C_IPM], m4, lm, am);
+  const float mb4 = mpm_bits4(a.cb, a.ctx[C_IPM], m4, lm, am);
   // Python's sum() of the four luma cbf bits from 0, then the chroma pair
   float b_cbf = cbf_bits(a, a.ctx[C_CBF_LUMA], pr[0].nz);
   for (int j = 1; j < 4; ++j)
@@ -403,41 +697,29 @@ HM_BIG NxnRes nxn_trial(Lane& L, int b, int bxi, int byi, int x0, int y0,
   float d = pr[0].sse;
   for (int j = 1; j < 4; ++j) d = HM_FADD(d, pr[j].sse);
   d = HM_FADD(HM_FADD(d, rc[0].sse), rc[1].sse);
-  float bs = HM_FADD(mb, a.cb[2 * a.ctx[C_PART]]);
+  float bs = HM_FADD(mb4, a.cb[2 * a.ctx[C_PART]]);
   bs = HM_FADD(bs, a.cb[2 * a.ctx[C_CHROMA_DM]]);
   bs = HM_FADD(bs, b_cbf);
   for (int j = 0; j < 4; ++j) bs = HM_FADD(bs, pr[j].bits);
   bs = HM_FADD(HM_FADD(bs, rc[0].bits), rc[1].bits);
-  r.cost = HM_FADD(d, HM_FMUL(a.lam, bs));
-  return r;
-}
+  const float cost_n = HM_FADD(d, HM_FMUL(a.lam, bs));
+  const bool use_n = cost_n < cost[ki];
+  HM_PH_STOP(ph(PH_PICK, 3), t_pick);
 
-// one 8x8 CU: returns its cost; commits its decision
-HM_BIG float cell_step(Lane& L, int b) {
-  const Args& a = *L.ap;
-  int* s = L.s;
-  const int bw = a.w / 8, byi = b / bw, bxi = b % bw;
-  const int x0 = bxi * 8, y0 = byi * 8;
-  const int modes[K] = {a.cand8[K * b], a.cand8[K * b + 1]};
-  int lm, am;
-  neighbours(L, b, bxi, byi, y0, &lm, &am);
-  float mb[K];
-  for (int k = 0; k < K; ++k)   // (mpm + part 2Nx2N) + chroma DM
-    mb[k] = HM_FADD(HM_FADD(mpm_bits(a.cb, a.ctx[C_IPM], modes[k], lm, am),
-                            a.cb[2 * a.ctx[C_PART] + 1]),
-                    a.cb[2 * a.ctx[C_CHROMA_DM]]);
-  const TryRes t = try_modes(L, b, a.g8s, a.g8n, a.g4s, a.g4n, 8, 3, x0, y0,
-                             modes, mb);
-  const NxnRes nx = nxn_trial(L, b, bxi, byi, x0, y0, lm, am);
-  const bool use_n = nx.cost < t.cost;
-  const int ki = t.ki, wmode = modes[ki];
-  const int* ry = use_n ? s + S_REC4 : s + S_RECY + ki * 1024;
-  const int* ly = use_n ? s + S_LEV4 : s + S_LEVY + ki * 1024;
-  const int* ru = use_n ? s + S_RECC : s + S_RECU + ki * 256;
-  const int* rv = use_n ? s + S_RECC + 16 : s + S_RECV + ki * 256;
-  const int* lu = use_n ? s + S_LEVC : s + S_LEVU + ki * 256;
-  const int* lv = use_n ? s + S_LEVC + 16 : s + S_LEVV + ki * 256;
-  for (int e = L.tid; e < 64; e += L.nt) {
+  // commit: the winner's reconstruction, levels, modes and flags
+  HM_PH_START(t_cm);
+  const int o = 16 * ki;
+  const int* ry = use_n ? m.r4 : m.ry + 64 * ki;
+  const int* ly = use_n ? m.l4 : m.ly + 64 * ki;
+  const int* ru = use_n ? (rc[0].ts ? m.rtnu : m.rnu)
+                        : (tsu[ki] ? m.rtu : m.ru) + o;
+  const int* rv = use_n ? (rc[1].ts ? m.rtnv : m.rnv)
+                        : (tsv[ki] ? m.rtv : m.rv) + o;
+  const int* lu = use_n ? (rc[0].ts ? m.ltnu : m.lnu)
+                        : (tsu[ki] ? m.ltu : m.lu) + o;
+  const int* lv = use_n ? (rc[1].ts ? m.ltnv : m.lnv)
+                        : (tsv[ki] ? m.ltv : m.lv) + o;
+  for (int e = T.tid; e < 64; e += T.nt) {
     const int i = e >> 3, j = e & 7;
     // NxN: the PUs' 4x4 blocks in their quadrants
     const int src = use_n ? ((i >> 2) * 2 + (j >> 2)) * 16 + (i & 3) * 4 +
@@ -446,135 +728,282 @@ HM_BIG float cell_step(Lane& L, int b) {
     a.rec_y[(y0 + i) * a.w + x0 + j] = ry[src];
     a.levs[b * 96 + e] = ly[src];
   }
-  for (int e = L.tid; e < 16; e += L.nt) {
-    const int o = (y0 / 2 + (e >> 2)) * (a.w / 2) + x0 / 2 + (e & 3);
-    a.rec_u[o] = ru[e];
-    a.rec_v[o] = rv[e];
+  for (int e = T.tid; e < 16; e += T.nt) {
+    const int oc = (y0 / 2 + (e >> 2)) * (a.w / 2) + x0 / 2 + (e & 3);
+    a.rec_u[oc] = ru[e];
+    a.rec_v[oc] = rv[e];
     a.levs[b * 96 + 64 + e] = lu[e];
     a.levs[b * 96 + 80 + e] = lv[e];
   }
-  if (L.tid == 0) {
-    const int gw4 = a.w / 4;
+  if (T.tid == 0) {
     for (int j = 0; j < 4; ++j)
-      a.imode4[4 * b + j] =
-          use_n ? a.cand4[(2 * byi + (j >> 1)) * gw4 + 2 * bxi + (j & 1)]
-                : wmode;
+      a.imode4[4 * b + j] = use_n ? m4[j] : modes[ki];
     a.imode[b] = a.imode4[4 * b];
     a.part[b] = use_n;
     a.cusz[b] = 0;
-    a.cbfy[b] = use_n ? nx.nz : t.nz;
-    a.tsf[b] = use_n ? nx.tsf : (t.ts_u << 4) | (t.ts_v << 5);
+    a.cbfy[b] = use_n ? (pr[0].nz | pr[1].nz | pr[2].nz | pr[3].nz) : nz[ki];
+    a.tsf[b] = use_n ? pr[0].ts | (pr[1].ts << 1) | (pr[2].ts << 2) |
+                           (pr[3].ts << 3) | (rc[0].ts << 4) | (rc[1].ts << 5)
+                     : (tsu[ki] << 4) | (tsv[ki] << 5);
   }
-  HM_SYNC();
-  return use_n ? nx.cost : t.cost;
+  HM_GSYNC(T.nt);
+  HM_PH_STOP(ph(PH_COMMIT, 3), t_cm);
+  return use_n ? cost_n : cost[ki];
 }
 
-// the larger CU trial of region16 / step32: n x n at (x0, y0), corner cell
-// `corner`, gather rows `row`; commits to `ncell` cells in `cells` order
-// where strictly cheaper than `cost_sub`; returns the kept cost
-HM_BIG float large_cu(Lane& L, int row, int n, int log2, int x0, int y0,
-                      const int* gls, const int* gln, const int* gcs,
-                      const int* gcn, const int* cand, const int* cells,
-                      int ncell, int cusz, float cost_sub) {
-  const Args& a = *L.ap;
-  int* s = L.s;
-  const int bw = a.w / 8, bxi = x0 / 8, byi = y0 / 8;
-  const int corner = byi * bw + bxi;
-  const int modes[K] = {cand[K * row], cand[K * row + 1]};
-  int lm, am;
-  neighbours(L, corner, bxi, byi, y0, &lm, &am);
-  float mb[K];
-  for (int k = 0; k < K; ++k)   // mpm + chroma DM
-    mb[k] = HM_FADD(mpm_bits(a.cb, a.ctx[C_IPM], modes[k], lm, am),
-                    a.cb[2 * a.ctx[C_CHROMA_DM]]);
-  const TryRes t =
-      try_modes(L, row, gls, gln, gcs, gcn, n, log2, x0, y0, modes, mb);
+// ---------------------------------------------------------------------------
+// the larger CU trials
+
+// a larger trial's geometry: n x n at (x0, y0), its RMD row, gathers,
+// candidates, the cells it commits to
+struct Big {
+  int n, log2, row, x0, y0, ncell, cusz;
+  const int *gls, *gln, *gcs, *gcn, *cand, *cells;
+};
+
+HM_FN Big big16(const Args& a, int g) {
+  const int gw = a.w / 16;
+  return Big{16, 4, g, (g % gw) * 16, (g / gw) * 16, 4, 1, a.g16s, a.g16n,
+             a.g8cs, a.g8cn, a.cand16, a.cells16 + 4 * g};
+}
+HM_FN Big big32(const Args& a, int g) {
+  const int qw = a.w / 32;
+  return Big{32, 5, g, (g % qw) * 32, (g / qw) * 32, 16, 2, a.g32s, a.g32n,
+             a.g16cs, a.g16cn, a.cand32, a.c8_32 + 16 * g};
+}
+
+// try_modes of a larger CU on its team (T, ng coding groups): the lines,
+// sources and predictions, then the candidates' codings (a luma task and
+// two chroma tasks each) as one round; the pick, its cost and cbf into
+// m.res (the team's thread 0)
+HM_BIG void trial(const Walk& W, const Team& T, const TrialMem& m, int ng,
+                  const Big& c) {
+  const Args& a = *W.ap;
+  const Slots sl = slots_of(m);
+  const int n = c.n, nc = n / 2, ll = 4 * n + 1, lc = 2 * n + 1;
+  const int nn = n * n, ncc = nc * nc;
+  const int modes[K] = {c.cand[K * c.row], c.cand[K * c.row + 1]};
+  const wk::Lane B = plain_of(a, T);
+  HM_PH_START(t_src);
+  gather_line(B, a.rec_y, c.gls + c.row * ll, c.gln[c.row], ll, m.iref);
+  gather_line(B, a.rec_u, c.gcs + c.row * lc, c.gcn[c.row], lc, m.irefu);
+  gather_line(B, a.rec_v, c.gcs + c.row * lc, c.gcn[c.row], lc, m.irefv);
+  for (int k = T.tid; k < ll; k += T.nt)
+    m.ireff[k] = filter_sample(m.iref, k, n, a.bd, a.sis);
+  copy_block(B, a.org_y, a.w, c.x0, c.y0, n, m.oy);
+  copy_block(B, a.org_u, a.w / 2, c.x0 / 2, c.y0 / 2, nc, m.ou);
+  copy_block(B, a.org_v, a.w / 2, c.x0 / 2, c.y0 / 2, nc, m.ov);
+  if (T.tid == 0) {
+    int w[3 * K];   // luma 4, chroma 1
+    for (int t = 0; t < 3 * K; ++t) w[t] = t < K ? 4 : 1;
+    deal(w, 3 * K, ng, m.ord);
+  }
+  HM_PH_STOP_IF(ph(PH_SRC, c.log2), t_src, T.tid == 0);
+  HM_PH_START(t_pred);
+  for (int k = 0; k < K; ++k) {
+    predict(B, m.iref, m.ireff, modes[k], n, 1, m.py + nn * k);
+    predict(B, m.irefu, m.irefu, modes[k], nc, 0, m.pu + ncc * k);
+    predict(B, m.irefv, m.irefv, modes[k], nc, 0, m.pv + ncc * k);
+  }
+  HM_PH_STOP_IF(ph(PH_PRED, c.log2), t_pred, T.tid == 0);
+  HM_PH_START(t_code);
+  const Grp G = group_of(T.tid, T.nt, ng);
+  GrpMem gm{};
+  grp_place(n, m.grp + G.g * grp_place(n), &gm);
+  wk::Lane L = coder_of(a, gm, G.tid, G.nt, n);
+  const int np = (3 * K + G.ng - 1) / G.ng * G.ng;
+  for (int k = G.g; k < np; k += G.ng) {
+    const int t = m.ord[task_of(k, np)];
+    if (t < 0) continue;
+    TbRes r;
+    if (t < K) {
+      r = code_tb(L, c.log2, true, false, false, -1, a.lam, false, 0.f, m.oy,
+                  m.py + nn * t, m.ly + nn * t, m.ry + nn * t);
+    } else {
+      const int kk = (t - K) >> 1, v = (t - K) & 1;
+      r = code_tb(L, c.log2 - 1, false, false, false, -1, a.lam_c, true,
+                  a.wchroma, v ? m.ov : m.ou, (v ? m.pv : m.pu) + ncc * kk,
+                  (v ? m.lv : m.lu) + ncc * kk, (v ? m.rv : m.ru) + ncc * kk);
+    }
+    put_res(sl, L, t, r);
+  }
+  HM_GSYNC(T.nt);
+  HM_PH_STOP_IF(ph(PH_CODE, c.log2), t_code, T.tid == 0);
+  if (T.tid == 0) {
+    const int bw = a.w / 8, bxi = c.x0 / 8, byi = c.y0 / 8;
+    int lm, am;
+    neighbours(a, byi * bw + bxi, bxi, byi, c.y0, &lm, &am);
+    float cost[K];
+    for (int k = 0; k < K; ++k) {
+      // mpm + chroma DM
+      const float mb = HM_FADD(mpm_bits(a.cb, a.ctx[C_IPM], modes[k], lm, am),
+                               a.cb[2 * a.ctx[C_CHROMA_DM]]);
+      const TbRes ry = get_res(sl, k), ru = get_res(sl, K + 2 * k),
+                  rv = get_res(sl, K + 2 * k + 1);
+      const float b_cbf =
+          HM_FADD(HM_FADD(cbf_bits(a, a.ctx[C_CBF_CHROMA], ru.nz),
+                          cbf_bits(a, a.ctx[C_CBF_CHROMA], rv.nz)),
+                  cbf_bits(a, a.ctx[C_CBF_LUMA] + 1, ry.nz));
+      const float bsum = HM_FADD(
+          HM_FADD(HM_FADD(HM_FADD(ry.bits, ru.bits), rv.bits), b_cbf), mb);
+      cost[k] = HM_FADD(HM_FADD(HM_FADD(ry.sse, ru.sse), rv.sse),
+                        HM_FMUL(a.lam, bsum));
+    }
+    int ki = 0;
+    for (int k = 1; k < K; ++k)
+      if (cost[k] < cost[ki]) ki = k;
+    m.res[0] = ki;
+    m.res[1] = get_res(sl, ki).nz;
+    ((float*)m.res)[2] = cost[ki];
+  }
+}
+
+// after the trial and the cells (cost_sub): the split-flag terms and
+// the compare; where strictly cheaper, the commit by team T to the
+// trial's cells in `cells` order; returns the kept cost
+HM_BIG float trial_commit(const Walk& W, const Team& T, const TrialMem& m,
+                          const Big& c, float cost_sub) {
+  const Args& a = *W.ap;
+  const int ki = m.res[0], nzy = m.res[1];
   // neighbour-depth approximation of the split ctxInc: ctx 1 both ways
   const int sp = 2 * (a.ctx[C_SPLIT] + 1);
-  const float cost = HM_FADD(t.cost, HM_FMUL(a.lam, a.cb[sp]));
+  const float cost =
+      HM_FADD(((const float*)m.res)[2], HM_FMUL(a.lam, a.cb[sp]));
   cost_sub = HM_FADD(cost_sub, HM_FMUL(a.lam, a.cb[sp + 1]));
-  if (!(cost < cost_sub)) return cost_sub;
-  const int ki = t.ki, nc = n / 2, nn = n * n, ncc = nc * nc;
-  const int* ry = s + S_RECY + ki * 1024;
-  const int* ru = s + S_RECU + ki * 256;
-  const int* rv = s + S_RECV + ki * 256;
-  const int* ly = s + S_LEVY + ki * 1024;
-  const int* lu = s + S_LEVU + ki * 256;
-  const int* lv = s + S_LEVV + ki * 256;
-  for (int e = L.tid; e < nn; e += L.nt)
-    a.rec_y[(y0 + e / n) * a.w + x0 + e % n] = ry[e];
-  for (int e = L.tid; e < ncc; e += L.nt) {
-    const int o = (y0 / 2 + e / nc) * (a.w / 2) + x0 / 2 + e % nc;
+  if (!(cost < cost_sub)) {
+    HM_GSYNC(T.nt);   // the arena is the next trial's
+    return cost_sub;
+  }
+  HM_PH_START(t_cm);
+  const int n = c.n, nc = n / 2, nn = n * n, ncc = nc * nc;
+  const int* ry = m.ry + ki * nn;
+  const int* ru = m.ru + ki * ncc;
+  const int* rv = m.rv + ki * ncc;
+  const int* ly = m.ly + ki * nn;
+  const int* lu = m.lu + ki * ncc;
+  const int* lv = m.lv + ki * ncc;
+  for (int e = T.tid; e < nn; e += T.nt)
+    a.rec_y[(c.y0 + e / n) * a.w + c.x0 + e % n] = ry[e];
+  for (int e = T.tid; e < ncc; e += T.nt) {
+    const int o = (c.y0 / 2 + e / nc) * (a.w / 2) + c.x0 / 2 + e % nc;
     a.rec_u[o] = ru[e];
     a.rec_v[o] = rv[e];
   }
   // levs: the flat [Y | U | V] cut into 96-value slabs, one per cell in
   // `cells` order
-  for (int e = L.tid; e < nn + 2 * ncc; e += L.nt) {
+  const int* cells = c.cells;
+  for (int e = T.tid; e < nn + 2 * ncc; e += T.nt) {
     const int v = e < nn ? ly[e] : e < nn + ncc ? lu[e - nn]
                                                 : lv[e - nn - ncc];
     a.levs[cells[e / 96] * 96 + e % 96] = v;
   }
-  if (L.tid == 0) {
-    const int wmode = modes[ki];
-    for (int c = 0; c < ncell; ++c) {
-      const int cell = cells[c];
+  if (T.tid == 0) {
+    const int wmode = c.cand[K * c.row + ki];
+    for (int k = 0; k < c.ncell; ++k) {
+      const int cell = c.cells[k];
       a.imode[cell] = wmode;
       for (int j = 0; j < 4; ++j) a.imode4[4 * cell + j] = wmode;
       a.part[cell] = 0;
-      a.cusz[cell] = cusz;
-      a.cbfy[cell] = t.nz;
+      a.cusz[cell] = c.cusz;
+      a.cbfy[cell] = nzy;
       a.tsf[cell] = 0;
     }
   }
-  HM_SYNC();
+  HM_GSYNC(T.nt);
+  HM_PH_STOP_IF(ph(PH_COMMIT, c.log2), t_cm, T.tid == 0);
   return cost;
 }
 
-// four cell steps in z-order, then the 16x16 CU trial
-HM_BIG float region16(Lane& L, int g) {
-  const Args& a = *L.ap;
-  const int* c4 = a.cells16 + 4 * g;
+// four cell steps in z-order beside the 16x16 CU trial, then its compare
+// and commit: the cells' team, the trial's team, the two joined (all the
+// block's threads at geometry 16, warps 0-6 at 32)
+HM_BIG float region16(const Walk& W, const TrialMem& m16, int g) {
+  const Args& a = *W.ap;
+  const int geom = a.geom;
+  const Team TC = team_of(W, 0, CELL_WARPS);
+  const Team TT = team_of(W, CELL_WARPS, t16_warps(geom));
+  const Big c = big16(a, g);
   float cost8 = 0.f;
-  for (int j = 0; j < 4; ++j) cost8 = HM_FADD(cost8, cell_step(L, c4[j]));
-  const int gw = a.w / 16;
-  return large_cu(L, g, 16, 4, (g % gw) * 16, (g / gw) * 16, a.g16s, a.g16n,
-                  a.g8cs, a.g8cn, a.cand16, c4, 4, 1, cost8);
+  HM_PH_START(t16);
+  for (int k = 0; k < 2; ++k) {
+    // the host: the cells first, or the trial first when tasks run last
+    // first
+    const int part = W.host() ? task_of(k, 2) : (TC.in ? 0 : 1);
+    if (part == 0 && TC.in) {
+      for (int j = 0; j < 4; ++j)
+        cost8 = HM_FADD(cost8, cell_step(W, TC, c.cells[j]));
+    } else if (part == 1 && TT.in) {
+      trial(W, TT, m16, t16_warps(geom), c);
+    }
+    if (!W.host()) break;
+  }
+  // the join: the cells' cost8 reaches the trial's team, the trial's
+  // result the cells'
+  if (TC.in && TC.tid == 0) ((float*)m16.res)[3] = cost8;
+  HM_PH_START(t_join);
+  const Team TJ = team_of(W, 0, join16_threads(geom) / 32);
+  HM_GSYNC(TJ.nt);
+  HM_PH_STOP(ph(PH_JOIN, 4), t_join);
+  const float r = trial_commit(W, TJ, m16, c, ((const float*)m16.res)[3]);
+  HM_PH_STOP(PH_T16, t16);
+  return r;
 }
 
-// four region16 steps, then the 32x32 CU trial
-HM_BIG float step32(Lane& L, int g) {
-  const Args& a = *L.ap;
+// four region16 steps beside the 32x32 CU trial, then its compare and
+// commit (the block)
+HM_BIG void step32(const Walk& W, const TrialMem& m16, const TrialMem& m32,
+                   int g) {
+  const Args& a = *W.ap;
+  const Team T32 = team_of(W, CELL_WARPS + 1, 1);
+  const Team TJ = team_of(W, 0, join16_threads(32) / 32);
   const int* c16 = a.c16_32 + 4 * g;
+  const Big c = big32(a, g);
   float cost_sub = 0.f;
-  for (int j = 0; j < 4; ++j)
-    cost_sub = HM_FADD(cost_sub, c16[j] >= 0 ? region16(L, c16[j]) : 0.f);
-  const int qw = a.w / 32;
-  return large_cu(L, g, 32, 5, (g % qw) * 32, (g / qw) * 32, a.g32s, a.g32n,
-                  a.g16cs, a.g16cn, a.cand32, a.c8_32 + 16 * g, 16, 2,
-                  cost_sub);
+  HM_PH_START(t32);
+  for (int k = 0; k < 2; ++k) {
+    const int part = W.host() ? task_of(k, 2) : (TJ.in ? 0 : 1);
+    if (part == 0 && TJ.in) {
+      for (int j = 0; j < 4; ++j)
+        cost_sub = HM_FADD(cost_sub,
+                           c16[j] >= 0 ? region16(W, m16, c16[j]) : 0.f);
+    } else if (part == 1 && T32.in) {
+      trial(W, T32, m32, 1, c);
+    }
+    if (!W.host()) break;
+  }
+  if (TJ.in && TJ.tid == 0) ((float*)m32.res)[3] = cost_sub;
+  const Team TB = team_of(W, 0, THREADS / 32);
+  HM_GSYNC(TB.nt);
+  trial_commit(W, TB, m32, c, ((const float*)m32.res)[3]);
+  HM_PH_STOP(PH_T32, t32);
 }
 
-// lane `lane` of level `level`: smem is K10's working set (8-byte
-// aligned, rdoq_smem_bytes of the geometry's largest TB)
+// lane `lane` of level `level`, the block's tid of nt threads; smem is
+// the arena (smem_bytes(geometry), 16-byte aligned)
 HM_BIG void walk_lane(const Args& a, int level, int lane, int tid, int nt,
                       void* smem) {
   const int blk = a.lv[level * a.bmax + lane];
   if (blk < 0) return;   // a padding lane does nothing
-  Lane L;
-  L.ap = &a;
-  L.cd = &a.cd;
-  L.tid = tid;
-  L.nt = nt;
-  L.S = rdoq_smem(smem, 1 << (2 * (a.geom == 8 ? 3 : a.geom == 16 ? 4 : 5)));
-  L.s = a.scratch + (size_t)lane * SCRATCH;
-  L.work = L.s + S_W;
+  Walk W;
+  W.ap = &a;
+  W.tid = tid;
+  W.nt = nt;
+  W.smem = (int*)smem;
+  const int c_ints = place_cells();
+  TrialMem m16{}, m32{};
+  if (a.geom >= 16)
+    place_trial(16, t16_warps(a.geom), W.smem + c_ints, &m16);
+  if (a.geom == 32)
+    place_trial(32, 1, W.smem + c_ints + place_trial(16, t16_warps(32)),
+                &m32);
+  HM_PH_START(t_lane);
   if (a.geom == 8)
-    cell_step(L, blk);
+    cell_step(W, team_of(W, 0, CELL_WARPS), blk);
   else if (a.geom == 16)
-    region16(L, blk);
+    region16(W, m16, blk);
   else
-    step32(L, blk);
+    step32(W, m16, m32, blk);
+  HM_PH_STOP(PH_LANE, t_lane);
 }
 
 }  // namespace iw

@@ -1,11 +1,11 @@
-// K5 me_sad and K13 me_sad1 (the single-level form, further below; it
-// shares K5's window staging and its (cost, index) tie merge).
+// K5 me_sad and K13 me_sad1 (the single-level form, further below, with
+// its own window staging).
 //
 // K5 me_sad: full-window integer motion estimation for the 8x8, 16x16
 // and 32x32 CU levels of one reference, bit-exact with
 // hmtpu/search/me.py:120 integer_me_levels (the 8x8 SAD volume of
 // integer_me_sad_volume :29, its 16/32 sums :138-140, and the argmin +
-// stencil of _volume_best :72).
+// stencil of _volume_best :72).  Its arithmetic is me_sad.cuh's.
 //
 // What bounds it on the H100: the work.  Every 8x8 block is compared
 // at all (2R+1)^2 displacements: at 416x240 and R = 64, 99,840 samples
@@ -15,53 +15,162 @@
 // reference (16641 x 1560 x 4 B) and read it back three times; this
 // kernel never writes it.
 //
-// Design: one thread block per 32x32 region of the padded 32-grid.  The
-// region's (32 + 2R)^2 window of edge-replicated reference samples is
-// staged in shared memory once (clamped coordinates are HM's margin
-// replication).  Thread t owns 8x8 cell t % 16 (its 64 source samples in
-// registers) and displacement lane t / 16: per step, 16 displacements
-// run at once, each thread sums its cell's SAD, and warp shuffles sum
-// the four cells of each 16x16 block and the sixteen of the region (the
-// 16 threads of one displacement are one half-warp).  Cells outside the
-// picture add zero, as the reference's zero-padded 32-grid strip does.
-// Each thread keeps a running (cost, index) minimum per level over its
-// displacements in increasing index order, updating only on a strictly
-// smaller cost; the 16 partial minima per lane are then merged comparing
-// (cost, index) pairs, so ties go to the first index in row-major
-// (dy, dx) order, as jnp.argmin.  The cost is float32(SAD) +
-// float32(bits) * lambda_sqrt with two separately rounded operations
-// (__fmul_rn, __fadd_rn: no FMA contraction), as the reference computes
-// it.  The nine stencil SADs around each winner (clamped to the window)
-// are recomputed from the staged window afterwards.
+// Design: a block per (32x32 region of the padded 32-grid, chunk of its
+// dy range): me::NCH chunks, so 8 x 104 blocks at 416x240 fill the card
+// several deep where one block a region (the earlier design) left 28 of
+// 132 SMs idle.  A block stages its chunk's window rows packed (bytes at
+// 8 bits, halfwords at 10: me_sad.cuh) with a row stride padded off the
+// banks' period (the earlier int32 window, 160 words a row, put a
+// warp's four cell rows on one bank: four-way conflicts on every load).
+// Each warp takes units of two adjacent dy (its half-warps) by eight dx:
+// a lane owns one of the region's 16 cells, loads each window word once
+// for the eight displacements, and takes four samples' absolute
+// differences and their sum in one __vsadu4 (VABSDIFF4 in the SASS) at
+// 8 bits, two samples' as the halfwords' max - min at 10 bits (__vsadu2
+// has no instruction of its own on the H100: its emulation, mostly PRMT
+// and IABS, made the 10-bit kernel 4.5 times as slow as the 8-bit one);
+// shuffles sum the cells to their 16x16 blocks and the region.  Each
+// thread keeps its running (cost, index) keys, the block merges them and
+// one atomicMin a lane and block merges the chunks.  A second kernel, a
+// block a region, reads the winners and takes the nine stencil SADs
+// around each from the planes.
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
 
+#include "me_sad.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kGroups = kThreads / 16;   // displacements in flight
+constexpr int kGroups = kThreads / 16;   // K13: displacements in flight
+static_assert(kThreads == me::THREADS, "K5 and K13 blocks");
+
+// K5's first kernel: block (region, chunk) of the search, its minima
+// into keys (NLANE a region, NO_KEY before the launch)
+template <int P>
+__global__ void __launch_bounds__(me::THREADS)
+    me_kernel(const int* __restrict__ ref, const int* __restrict__ org,
+              unsigned long long* __restrict__ keys, int H, int W, int R,
+              float lam) {
+  extern __shared__ unsigned smw[];
+  __shared__ unsigned long long wk[me::THREADS / 32][me::NLANE];
+  const int side = 2 * R + 1, nq = me::nq_of(R);
+  const int stride = me::row_words(R, P);
+  const int bh = H / 8, bw = W / 8, gw = bw / 2, qw = (gw + 1) / 2;
+  const int g = blockIdx.x, qy = g / qw, qx = g - qy * qw;
+  const int y0 = qy * 32, x0 = qx * 32;
+  const int dlo = me::chunk_lo(blockIdx.y, side);
+  const int nd = me::chunk_lo(blockIdx.y + 1, side) - dlo;
+  unsigned* win = smw;
+  unsigned* sorg = smw + (me::chunk_rows(R) + 31) * stride;
+  me::stage<P>(ref, org, H, W, R, y0, x0, dlo, nd + 31, win, sorg,
+               threadIdx.x, blockDim.x);
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = lane & 15, half = lane >> 4, cy = c >> 2, cx = c & 3;
+  const bool in8 = me::cell_in(c, qy, qx, bh, bw);
+  unsigned o[8 * (8 / P)];
+  me::cell_source<P>(sorg, cy, cx, o);
+  unsigned long long k8 = me::NO_KEY, k16 = me::NO_KEY, k32 = me::NO_KEY;
+  const int nu = (nd + 1) / 2 * nq;
+  for (int u = warp; u < nu; u += me::THREADS / 32) {
+    const int pr = u / nq, q = u - pr * nq, dyl = 2 * pr + half;
+    const bool row_ok = dyl < nd;
+    int s[8];
+    if (in8 && row_ok)
+      me::unit_sads<P>(win, stride, o, cy, cx, dyl, q, s);
+    else
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[j] = 0;
+    const int dyi = dlo + dyl;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      // the cell's 16x16 block: cells c ^ 1 and c ^ 4; the region: ^ 2, ^ 8
+      int s16 = s[j] + __shfl_xor_sync(0xffffffffu, s[j], 1);
+      s16 += __shfl_xor_sync(0xffffffffu, s16, 4);
+      int s32 = s16 + __shfl_xor_sync(0xffffffffu, s16, 2);
+      s32 += __shfl_xor_sync(0xffffffffu, s32, 8);
+      const int dxi = 8 * q + j;
+      if (row_ok && dxi < side) {
+        const int d = dyi * side + dxi;
+        const float mv = me::mv_cost(dxi, dyi, R, lam);
+        k8 = me::key_min(k8, me::key_of(__fadd_rn((float)s[j], mv), d));
+        k16 = me::key_min(k16, me::key_of(__fadd_rn((float)s16, mv), d));
+        k32 = me::key_min(k32, me::key_of(__fadd_rn((float)s32, mv), d));
+      }
+    }
+  }
+  // the two half-warps' keys, then the warps', then the chunks'
+  k8 = me::key_min(k8, __shfl_xor_sync(0xffffffffu, k8, 16));
+  k16 = me::key_min(k16, __shfl_xor_sync(0xffffffffu, k16, 16));
+  k32 = me::key_min(k32, __shfl_xor_sync(0xffffffffu, k32, 16));
+  if (lane < 16) wk[warp][lane] = k8;
+  if (lane < 16 && (cx & 1) == 0 && (cy & 1) == 0)
+    wk[warp][16 + (cy >> 1) * 2 + (cx >> 1)] = k16;
+  if (lane == 0) wk[warp][20] = k32;
+  __syncthreads();
+  if (threadIdx.x < me::NLANE) {
+    unsigned long long k = wk[0][threadIdx.x];
+    for (int w = 1; w < me::THREADS / 32; ++w)
+      k = me::key_min(k, wk[w][threadIdx.x]);
+    atomicMin(keys + (size_t)g * me::NLANE + threadIdx.x, k);
+  }
+}
+
+// K5's second kernel: block g reads region g's winners and writes each
+// lane's (mvx, mvy, best SAD, 3x3 stencil)
+__global__ void __launch_bounds__(me::THREADS)
+    me_out_kernel(const int* __restrict__ ref, const int* __restrict__ org,
+                  const unsigned long long* __restrict__ keys,
+                  int* __restrict__ out8, int* __restrict__ out16,
+                  int* __restrict__ out32, int H, int W, int R) {
+  __shared__ int best[me::NLANE];
+  __shared__ int sten[me::NLANE * 9];
+  const int side = 2 * R + 1, bh = H / 8, bw = W / 8, gw = bw / 2;
+  const int qw = (gw + 1) / 2, g = blockIdx.x, qy = g / qw, qx = g - qy * qw;
+  const int t = threadIdx.x;
+  if (t < me::NLANE)
+    best[t] = (int)(keys[(size_t)g * me::NLANE + t] & 0xffffffffu);
+  for (int k = t; k < me::NLANE * 9; k += blockDim.x) sten[k] = 0;
+  __syncthreads();
+  // 16 + 4 * 4 + 16 cells of the lanes, 9 points each
+  for (int k = t; k < 48 * 9; k += blockDim.x) {
+    const int e = k / 9, p = k - e * 9;
+    const int lane = e < 16 ? e : e < 32 ? 16 + ((e - 16) >> 2) : 20;
+    const int c = me::lane_cell(lane, e < 16 ? 0 : e < 32 ? (e - 16) & 3
+                                                          : e - 32);
+    if (!me::cell_in(c, qy, qx, bh, bw)) continue;
+    int oy, ox;
+    me::sten_at(best[lane], p, side, &oy, &ox);
+    atomicAdd(&sten[lane * 9 + p],
+              me::cell_sad(ref, org, H, W, R, qy * 32, qx * 32, c, oy, ox));
+  }
+  __syncthreads();
+  if (t < me::NLANE) {
+    int* o = me::out_row(out8, out16, out32, t, g, qy, qx, bh, bw);
+    if (o != nullptr) {
+      const int d = best[t];
+      o[0] = d % side - R;
+      o[1] = d / side - R;
+      o[2] = sten[t * 9 + 4];
+      for (int p = 0; p < 9; ++p) o[3 + p] = sten[t * 9 + p];
+    }
+  }
+}
 
 __device__ __forceinline__ int bits_of(int v) {
   const unsigned code = v <= 0 ? ((unsigned)(-v) << 1) + 1u : (unsigned)v << 1;
   return 2 * (31 - __clz((int)code)) + 1;
 }
 
-// cell (cy, cx) of the region, 0..3 each, from the thread's cell slot:
-// slot = 4 * q16 + sub, q16 and sub in (row, col) order (0,0),(0,1),(1,0),(1,1)
-__device__ __forceinline__ int cell_row(int c) {
-  return ((c >> 2) >> 1) * 2 + ((c & 3) >> 1);
-}
-__device__ __forceinline__ int cell_col(int c) {
-  return ((c >> 2) & 1) * 2 + ((c & 3) & 1);
-}
-
 __device__ __forceinline__ bool better(float c, int i, float bc, int bi) {
   return c < bc || (c == bc && i < bi);
 }
 
-// Stage one 32x32 region: its (32 + 2R)^2 window of reference samples
-// around (y0, x0), edge-replicated by clamped reads (HM's margin
+// K13: stage one 32x32 region: its (32 + 2R)^2 window of reference
+// samples around (y0, x0), edge-replicated by clamped reads (HM's margin
 // padding), and its source samples (zero outside the picture).
 __device__ void stage_region(int* win, int* sorg, const int* __restrict__ ref,
                              const int* __restrict__ org, int H, int W, int R,
@@ -79,7 +188,7 @@ __device__ void stage_region(int* win, int* sorg, const int* __restrict__ ref,
   }
 }
 
-// SAD of region cell (cy, cx) at window offset (dyi, dxi)
+// K13: SAD of region cell (cy, cx) at window offset (dyi, dxi)
 __device__ int cell_sad(const int* win, int S, const int* org, int cy, int cx,
                         int dyi, int dxi) {
   int s = 0;
@@ -88,133 +197,6 @@ __device__ int cell_sad(const int* win, int S, const int* org, int cy, int cx,
   for (int i = 0; i < 8; ++i)
     for (int j = 0; j < 8; ++j) s += abs(o0[i * 32 + j] - w0[i * S + j]);
   return s;
-}
-
-__global__ void __launch_bounds__(kThreads)
-    me_kernel(const int* __restrict__ ref, const int* __restrict__ org,
-              int* __restrict__ out8, int* __restrict__ out16,
-              int* __restrict__ out32, int H, int W, int R, float lam) {
-  extern __shared__ int sm[];
-  const int side = 2 * R + 1;
-  const int D = side * side;
-  const int S = 32 + 2 * R;
-  const int bh = H / 8, bw = W / 8, gh = bh / 2, gw = bw / 2;
-  const int qw = (gw + 1) / 2;
-  const int qy = blockIdx.x / qw, qx = blockIdx.x - (blockIdx.x / qw) * qw;
-  const int y0 = qy * 32, x0 = qx * 32;
-
-  int* win = sm;                                  // S * S
-  int* sorg = win + S * S;                        // 32 * 32
-  float* rc = (float*)(sorg + 32 * 32);           // 3 levels x kThreads
-  int* ri = (int*)(rc + 3 * kThreads);            // 3 levels x kThreads
-  int* best = ri + 3 * kThreads;                  // 16 + 4 + 1 winners
-  int* sten = best + 21;                          // 21 x 9 stencil sums
-
-  const int t = threadIdx.x;
-  stage_region(win, sorg, ref, org, H, W, R, y0, x0);
-  for (int k = t; k < 21 * 9; k += kThreads) sten[k] = 0;
-  __syncthreads();
-
-  const int c = t & 15, g = t >> 4;
-  const int cy = cell_row(c), cx = cell_col(c);
-  const bool in8 = (qy * 4 + cy) < bh && (qx * 4 + cx) < bw;
-  int o[64];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) o[i * 8 + j] = sorg[(cy * 8 + i) * 32 + cx * 8 + j];
-
-  float b8 = FLT_MAX, b16 = FLT_MAX, b32 = FLT_MAX;
-  int i8 = 0x7fffffff, i16 = 0x7fffffff, i32 = 0x7fffffff;
-  for (int base = 0; base < D; base += kGroups) {
-    const int d = base + g;
-    const bool ok = d < D;
-    const int dyi = ok ? d / side : 0;
-    const int dxi = ok ? d - dyi * side : 0;
-    int s = 0;
-    if (in8) {
-      const int* w0 = win + (cy * 8 + dyi) * S + cx * 8 + dxi;
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s += abs(o[i * 8 + j] - w0[i * S + j]);
-    }
-    int s16 = s + __shfl_xor_sync(0xffffffffu, s, 1);
-    s16 += __shfl_xor_sync(0xffffffffu, s16, 2);
-    int s32 = s16 + __shfl_xor_sync(0xffffffffu, s16, 4);
-    s32 += __shfl_xor_sync(0xffffffffu, s32, 8);
-    if (ok) {
-      const float mv = __fmul_rn((float)(bits_of((dxi - R) * 4)
-                                         + bits_of((dyi - R) * 4)), lam);
-      const float c8 = __fadd_rn((float)s, mv);
-      const float c16 = __fadd_rn((float)s16, mv);
-      const float c32 = __fadd_rn((float)s32, mv);
-      if (c8 < b8) { b8 = c8; i8 = d; }
-      if (c16 < b16) { b16 = c16; i16 = d; }
-      if (c32 < b32) { b32 = c32; i32 = d; }
-    }
-  }
-  rc[t] = b8; ri[t] = i8;
-  rc[kThreads + t] = b16; ri[kThreads + t] = i16;
-  rc[2 * kThreads + t] = b32; ri[2 * kThreads + t] = i32;
-  __syncthreads();
-
-  // merge the kGroups partial minima of each lane: 16 cells, the 4
-  // 16x16 blocks (cell slots 0, 4, 8, 12), the region (slot 0)
-  if (t < 21) {
-    const int lvl = t < 16 ? 0 : (t < 20 ? 1 : 2);
-    const int slot = t < 16 ? t : (t < 20 ? (t - 16) * 4 : 0);
-    float bc = FLT_MAX;
-    int bi = 0x7fffffff;
-    for (int k = 0; k < kGroups; ++k) {
-      const float cc = rc[lvl * kThreads + k * 16 + slot];
-      const int ii = ri[lvl * kThreads + k * 16 + slot];
-      if (better(cc, ii, bc, bi)) { bc = cc; bi = ii; }
-    }
-    best[t] = bi;
-  }
-  __syncthreads();
-
-  // stencils: 21 lanes x 9 points, each a sum of 1, 4 or 16 cell SADs
-  for (int k = t; k < 3 * 144; k += kThreads) {
-    const int lvl = k / 144, r = k - lvl * 144;
-    int lane, p, cell;
-    if (lvl == 0) { lane = r / 9; p = r - lane * 9; cell = lane; }
-    else if (lvl == 1) {
-      const int q = r / 36;
-      lane = 16 + q; p = (r - q * 36) / 4; cell = q * 4 + (r & 3);
-    } else { lane = 20; p = r / 16; cell = r & 15; }
-    const int ccy = cell_row(cell), ccx = cell_col(cell);
-    if ((qy * 4 + ccy) >= bh || (qx * 4 + ccx) >= bw) continue;
-    const int bi = best[lane];
-    const int bdy = bi / side, bdx = bi - bdy * side;
-    const int oy = min(max(bdy + p / 3 - 1, 0), side - 1);
-    const int ox = min(max(bdx + p % 3 - 1, 0), side - 1);
-    atomicAdd(&sten[lane * 9 + p], cell_sad(win, S, sorg, ccy, ccx, oy, ox));
-  }
-  __syncthreads();
-
-  if (t < 21) {
-    int* o_ = nullptr;
-    if (t < 16) {
-      const int by = qy * 4 + cell_row(t), bx = qx * 4 + cell_col(t);
-      if (by < bh && bx < bw) o_ = out8 + ((size_t)by * bw + bx) * 12;
-    } else if (t < 20) {
-      const int q = t - 16;
-      const int gy = qy * 2 + (q >> 1), gx = qx * 2 + (q & 1);
-      if (gy < gh && gx < gw) o_ = out16 + ((size_t)gy * gw + gx) * 12;
-    } else {
-      o_ = out32 + (size_t)blockIdx.x * 12;
-    }
-    if (o_ != nullptr) {
-      const int bi = best[t];
-      const int bdy = bi / side;
-      o_[0] = bi - bdy * side - R;
-      o_[1] = bdy - R;
-      o_[2] = sten[t * 9 + 4];
-      for (int p = 0; p < 9; ++p) o_[3 + p] = sten[t * 9 + p];
-    }
-  }
 }
 
 
@@ -323,22 +305,36 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
+// keys: (regions, me::NLANE) uint64 scratch on the card; bd 8 or 10 (the
+// samples' bits: bytes or halfwords staged)
 extern "C" int hm_me_sad_levels(const void* ref, const void* org, void* out8,
-                                void* out16, void* out32, int H, int W, int R,
-                                float lam, void* stream) {
-  if (H % 16 || W % 16 || R < 0 || R > 64) return cudaErrorInvalidValue;
-  const int S = 32 + 2 * R;
-  const size_t smem = (size_t)(S * S + 32 * 32) * sizeof(int)
-                      + (size_t)3 * kThreads * (sizeof(float) + sizeof(int))
-                      + (size_t)(21 + 21 * 9) * sizeof(int);
-  cudaError_t e = cudaFuncSetAttribute(
-      me_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
+                                void* out16, void* out32, void* keys, int H,
+                                int W, int R, int bd, float lam,
+                                void* stream) {
+  if (H <= 0 || W <= 0 || H % 16 || W % 16 || R < 0 || R > me::MAX_R ||
+      (bd != 8 && bd != 10))
+    return cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
   const int gh = H / 16, gw = W / 16;
-  const int blocks = ((gh + 1) / 2) * ((gw + 1) / 2);
-  me_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int*)ref, (const int*)org, (int*)out8, (int*)out16, (int*)out32,
-      H, W, R, lam);
+  const int regions = ((gh + 1) / 2) * ((gw + 1) / 2);
+  cudaError_t e = cudaMemsetAsync(
+      keys, 0xff, (size_t)regions * me::NLANE * sizeof(unsigned long long),
+      st);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(regions, me::NCH);
+  if (bd == 8)
+    me_kernel<4><<<grid, me::THREADS, me::stage_words(R, 4) * 4, st>>>(
+        (const int*)ref, (const int*)org, (unsigned long long*)keys, H, W, R,
+        lam);
+  else
+    me_kernel<2><<<grid, me::THREADS, me::stage_words(R, 2) * 4, st>>>(
+        (const int*)ref, (const int*)org, (unsigned long long*)keys, H, W, R,
+        lam);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  me_out_kernel<<<regions, me::THREADS, 0, st>>>(
+      (const int*)ref, (const int*)org, (const unsigned long long*)keys,
+      (int*)out8, (int*)out16, (int*)out32, H, W, R);
   return (int)cudaGetLastError();
 }
 

@@ -51,6 +51,7 @@
 // device-scratch layout.
 #pragma once
 
+#include "groups.cuh"
 #include "hm_port.cuh"
 #include "mc_dctif.cuh"
 #include "mode_bits.cuh"
@@ -378,38 +379,17 @@ HM_HD constexpr int ng_of(int n) {
 HM_HD constexpr bool spec_of(int n) { return n == 8; }
 // its recode buffers: every finalist's, or the winner's
 HM_HD constexpr int nfb_of(int n) { return spec_of(n) ? F : 1; }
-constexpr int NTASK = 24;     // the most tasks of a round (a cell's R2: 21)
-
+// the group pieces (groups.cuh)
+using gp::deal;
+using gp::group_of;
+using gp::Grp;
+using gp::imax_c;
+using gp::NTASK;  // the most tasks of a round (a cell's R2: 21)
+using gp::r4;
+using gp::task_of;
 #if !defined(__CUDACC__)
-inline int task_reverse = 0;  // host build: task loops last task first
+using gp::task_reverse;
 #endif
-
-// the task a loop's k-th iteration runs, of n
-HM_FN int task_of(int k, int n) {
-#if defined(__CUDACC__)
-  (void)n;
-  return k;
-#else
-  return task_reverse ? n - 1 - k : k;
-#endif
-}
-
-struct Grp {  // this thread's group: index, count, thread and size in it
-  int g, ng, tid, nt;
-};
-
-// the block's nt threads cut into `want` groups (one on the host)
-HM_FN Grp group_of(int tid, int nt, int want) {
-  Grp G;
-  G.ng = nt >= 32 * want ? want : 1;
-  G.nt = nt / G.ng;
-  G.g = tid / G.nt;
-  G.tid = tid - G.g * G.nt;
-  return G;
-}
-
-HM_HD constexpr int r4(int ints) { return (ints + 3) & ~3; }
-HM_HD constexpr int imax_c(int a, int b) { return a > b ? a : b; }
 
 // a group's area: its coding work area and K10 working set, its MC patch
 // (R1) and in the same place the deadzone codings' levels and
@@ -570,42 +550,16 @@ HM_FN wk::Lane block_of(const Walk& W) {
   return L;
 }
 
-// a task's coding result into slot t, from the group's thread 0
+// a round's result slots
+HM_FN gp::Slots res_of(const CuMem& m) {
+  return gp::Slots{m.rsse, m.rbits, m.rnz, nullptr};
+}
 HM_FN void put_res(const CuMem& m, const wk::Lane& L, int t,
                    const TbRes& r) {
-  if (L.tid == 0) {
-    m.rsse[t] = r.sse;
-    m.rbits[t] = r.bits;
-    m.rnz[t] = r.nz;
-  }
+  gp::put_res(res_of(m), L, t, r);
 }
-
 HM_FN TbRes get_res(const CuMem& m, int t) {
-  TbRes r;
-  r.sse = m.rsse[t];
-  r.bits = m.rbits[t];
-  r.nz = m.rnz[t];
-  r.ts = 0;
-  return r;
-}
-
-// positions 0 .. npos - 1 of a round of n tasks of weights w for ng
-// groups (group g takes positions g, g + ng, ...; npos = n rounded up to
-// ng): the tasks heaviest first (ties in index order), dealt in a snake
-// (odd waves run backwards), -1 where a position has none
-HM_FN void deal(const int* w, int n, int ng, int* ord) {
-  int srt[NTASK];
-  for (int i = 0; i < n; ++i) {
-    int j = i;
-    for (; j > 0 && w[srt[j - 1]] < w[i]; --j) srt[j] = srt[j - 1];
-    srt[j] = i;
-  }
-  const int npos = (n + ng - 1) / ng * ng;
-  for (int p = 0; p < npos; ++p) {
-    const int wave = p / ng, lane = p - wave * ng;
-    const int e = wave * ng + ((wave & 1) ? ng - 1 - lane : lane);
-    ord[p] = e < n ? srt[e] : -1;
-  }
+  return gp::get_res(res_of(m), t);
 }
 
 // ---------------------------------------------------------------------------

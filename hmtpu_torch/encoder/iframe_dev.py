@@ -587,7 +587,7 @@ def iframe_pass(org_y, org_u, org_v, qp: int, qpc: int, cbflat,
 # K21: the walker's arguments (csrc/iwalk.cuh `Args`, in `args_from`'s
 # order) and its launches
 
-IW_SCRATCH = 14676       # ints of a lane's scratch, iw::SCRATCH (checked)
+IW_SCRATCH = 0  # ints of a lane's device scratch, iw::SCRATCH (checked)
 _IW_CTX = ("QT_CBF_LUMA", "QT_CBF_CHROMA", "PART_SIZE", "CHROMA_PRED_MODE",
            "SPLIT_FLAG", "INTRA_PRED_MODE", "TRANSFORMSKIP_FLAG")
 _IW_TB_SETS = ((2, True), (2, False), (3, True), (3, False), (4, True),

@@ -1479,7 +1479,7 @@ def full_pframe_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v, nn,
         acc = {8: [], 16: [], 32: []}
         for lx, r, u in ref_lists:
             lev = integer_me_levels(refs_y[u], org_y, srange, lam_sqrt_,
-                                    qh0, qw0)
+                                    qh0, qw0, bd)
             for n, (mv, sten, sad) in lev.items():
                 acc[n].append((mv, sten, ref_cost(sad, lx, r)))
         me_out = {n: pick_best_ref(e) for n, e in acc.items()}

@@ -61,7 +61,7 @@ SOURCES = {
         "hm_sao_apply": "pppiiiip",
     },
     "me_sad": {
-        "hm_me_sad_levels": "pppppiiifp",
+        "hm_me_sad_levels": "ppppppiiiifp",
         "hm_me_sad1": "pppppiiifp",
     },
     "nnfme": {

@@ -7,10 +7,10 @@ coherence pass: the port of hmtpu/search/me.py (`integer_me_sad_volume`
 
 Four hand-written kernels live behind these functions:
 
-  K5 me_sad (csrc/me_sad.cu)   `integer_me_levels` on a CUDA tensor:
-      the full +-srange window of every 8x8 block, summed to 16x16 and
-      32x32 in the same pass, the motion cost added and the argmin and
-      3x3 SAD stencil taken without writing the SAD volume;
+  K5 me_sad (csrc/me_sad.cu, over me_sad.cuh)   `integer_me_levels` on
+      a CUDA tensor: the full +-srange window of every 8x8 block, summed
+      to 16x16 and 32x32 in the same pass, the motion cost added and the
+      argmin and 3x3 SAD stencil taken without writing the SAD volume;
   K13 me_sad1 (csrc/me_sad.cu)  `integer_me` on a CUDA tensor: the same
       search at one level (8x8 blocks, any sides that are multiples of
       8) with a quarter-pel predictor per block in the motion cost;
@@ -170,12 +170,16 @@ def integer_me_levels_plain(ref, org, srange: int, lambda_sqrt,
     }
 
 
-def integer_me_levels(ref, org, srange: int, lambda_sqrt, qh: int, qw: int):
+def integer_me_levels(ref, org, srange: int, lambda_sqrt, qh: int, qw: int,
+                      bd: int = 8):
     """K5 on CUDA planes, its plain version on CPU ones.  ref, org:
-    (H, W) int32, H and W multiples of 16; lambda_sqrt a float32 number.
+    (H, W) int32 samples of bd bits (8 or 10: K5 stages them as bytes or
+    halfwords), H and W multiples of 16; lambda_sqrt a float32 number.
     Same return value as `integer_me_levels_plain`."""
     if not ref.is_cuda:
         return integer_me_levels_plain(ref, org, srange, lambda_sqrt, qh, qw)
+    if bd not in (8, 10):
+        raise ValueError(f"me_sad: 8- or 10-bit samples, got bd {bd}")
     h, w = org.shape
     if h % 16 or w % 16 or ref.shape != org.shape:
         raise ValueError(f"me_sad: planes must match and be multiples of "
@@ -193,8 +197,10 @@ def integer_me_levels(ref, org, srange: int, lambda_sqrt, qh: int, qw: int):
     o8 = torch.empty((bh * bw, 12), dtype=torch.int32, device=dev)
     o16 = torch.empty((gh * gw, 12), dtype=torch.int32, device=dev)
     o32 = torch.empty((qh * qw, 12), dtype=torch.int32, device=dev)
+    # the chunks' merged (cost, index) keys: 21 uint64 a region
+    keys = torch.empty((qh * qw, 42), dtype=torch.int32, device=dev)
     kernels.launch("me_sad", "hm_me_sad_levels", i32(ref), i32(org), o8, o16,
-                   o32, h, w, srange, float(lambda_sqrt))
+                   o32, keys, h, w, srange, bd, float(lambda_sqrt))
 
     def unpack(o, a, b):
         return ((o[:, 0].reshape(a, b), o[:, 1].reshape(a, b)),

@@ -9,9 +9,12 @@ two trees of the port on one card in one run:
         skip, search range 64: I + P, REPEAT times;
   ra10  random access at Main10, QP 32, DCT-IF, search range 64, on the
         first 3 frames (the IDR and two B pictures);
-  ai    all-intra QP 32 with transform skip on the first frame;
+  ai    all-intra QP 32 with transform skip on the first frame, twice;
   calls the milliseconds per call (CUDA events around 200 calls, after
-        2) of kernel wrappers whose call is its host time: K1's forward
+        2) of K5's integer ME on one 416x240 reference at search range 64
+        (a device-bound call: the clip's second frame against its first;
+        at 8 bits and as 10-bit samples)
+        and of kernel wrappers whose call is its host time: K1's forward
         transform at (14, 8, 8) and its transform-skip mode at (3120, 4,
         4), K14's loss forward and K16's Adam step at the trainer's batch
         of 1024 (the clip's first frame pair at search range 16, the
@@ -36,6 +39,7 @@ trees of the port too.  Needs a CUDA card; imports nothing of JAX.
 """
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import sys
@@ -132,6 +136,7 @@ def _calls(clip, sao_call):
     from hmtpu_torch.io.yuv import Frame
     from hmtpu_torch.models import dataset, nnfme, train
     from hmtpu_torch.ops import sao, transform
+    from hmtpu_torch.search import me
 
     dev = torch.device("cuda", 0)
     rng = np.random.RandomState(5)
@@ -155,7 +160,18 @@ def _calls(clip, sao_call):
                     for _ in range(4))
     nu.abs_()
     sa, sk = sao_call
+    org, ref = (t32(f[0]) for f in (clip[1], clip[0]))
+    lam = np.float32(7.1)
+    # 10-bit samples: the clip << 2 (K5 takes their bit depth; trees whose
+    # K5 takes none stage int32 samples of any depth)
+    bd10 = {"bd": 10} if "bd" in inspect.signature(
+        me.integer_me_levels).parameters else {}
     calls = {
+        "K5 integer_me_levels (416x240, SR 64, one reference)":
+            lambda: me.integer_me_levels(ref, org, 64, lam, 8, 13),
+        "K5 integer_me_levels (the same, 10 bits)":
+            lambda: me.integer_me_levels(ref << 2, org << 2, 64, lam * 4, 8,
+                                         13, **bd10),
         "K1 forward_transform (14, 8, 8)":
             lambda: transform.forward_transform(res, 8),
         "K1-TS transform_skip_fwd (3120, 4, 4)":
@@ -191,9 +207,9 @@ def main() -> int:
                                             transform_skip=True,
                                             search_range=64))] * REPEAT
             + [("ra10", clip, dict(qp=32, gop="ra", subpel="dctif",
-                                   search_range=64, bit_depth=10)),
-               ("ai", clip[:1], dict(qp=32, gop="ai", subpel="none",
-                                     transform_skip=True))])
+                                   search_range=64, bit_depth=10))]
+            + [("ai", clip[:1], dict(qp=32, gop="ai", subpel="none",
+                                     transform_skip=True))] * 2)
     sao_call = []
     restore = _keep_first(sao, "choose_params", sao_call)
     try:

@@ -41,10 +41,16 @@ CODE_PHASES = ("residual + transform", "K10 set-up", "trellis stage 1",
                "inverse + SSE")
 
 
-def build_phase_lib():
-    """nvcc of csrc/pwalk.cu with HM_PHASE_CLOCK into the build directory;
-    (library, nvcc's output: ptxas' registers, stack and spills, kept
-    beside the library)."""
+# a walker's source -> its launch function (its phase read-out adds
+# "_phases")
+WALK_FNS = {"pwalk": "hm_p_walk", "iwalk": "hm_i_walk"}
+
+
+def build_phase_lib(src: str = "pwalk"):
+    """nvcc of csrc/<src>.cu (a walker of WALK_FNS) with HM_PHASE_CLOCK
+    into the build directory; (library, nvcc's output: ptxas' registers,
+    stack and spills, kept beside the library).  The library's `walk` and
+    `phases` are the walker's launch and its phase read-out."""
     from hmtpu_torch import kernels
 
     h = hashlib.sha256(b"-DHM_PHASE_CLOCK")
@@ -53,14 +59,14 @@ def build_phase_lib():
             with open(os.path.join(kernels.CSRC, f), "rb") as fh:
                 h.update(fh.read())
     so = os.path.join(kernels.BUILD_DIR,
-                      f"hmtpu_torch_pwalk_phases_{h.hexdigest()[:16]}.so")
+                      f"hmtpu_torch_{src}_phases_{h.hexdigest()[:16]}.so")
     log_path = kernels.build_log_path(so)
     if not os.path.exists(so):
         os.makedirs(kernels.BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
         p = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS,
                             "-DHM_PHASE_CLOCK", "-o", tmp,
-                            kernels.source_path("pwalk")],
+                            kernels.source_path(src)],
                            capture_output=True, text=True)
         log = p.stdout + p.stderr
         if p.returncode != 0:
@@ -73,11 +79,13 @@ def build_phase_lib():
         with open(log_path) as f:
             log = f.read()
     lib = ctypes.CDLL(so)
-    lib.hm_p_walk.restype = ctypes.c_int
-    lib.hm_p_walk.argtypes = [ctypes.c_void_p] + [
+    lib.walk = getattr(lib, WALK_FNS[src])
+    lib.walk.restype = ctypes.c_int
+    lib.walk.argtypes = [ctypes.c_void_p] + [
         ctypes.c_void_p, ctypes.c_int] * 3 + [ctypes.c_int, ctypes.c_void_p]
-    lib.hm_p_walk_phases.restype = ctypes.c_int
-    lib.hm_p_walk_phases.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.phases = getattr(lib, WALK_FNS[src] + "_phases")
+    lib.phases.restype = ctypes.c_int
+    lib.phases.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     return lib, log
 
 
@@ -112,16 +120,16 @@ def capture_ldp_p(w=416, h=240):
     return seen[0]
 
 
-def runner(lib):
-    """pframe_walk's run_level through a library built here."""
+def runner(lib, src="pwalk"):
+    """The walker's run_level through a library built here."""
     def run_level(scratch, ptrs, ints, flts, level):
-        err = lib.hm_p_walk(
+        err = lib.walk(
             scratch.data_ptr(),
             *(x for arr in (ptrs, ints, flts)
               for x in (ctypes.addressof(arr), len(arr))), level,
             torch.cuda.current_stream().cuda_stream)
         if err:
-            raise RuntimeError(f"build of pwalk.cu: launch failed with {err}")
+            raise RuntimeError(f"build of {src}.cu: launch failed with {err}")
     return run_level
 
 
@@ -141,14 +149,14 @@ def profile(lib, args, kwargs):
     pframe_dev.pframe_walk(*args, **kwargs)
     torch.cuda.synchronize()
     plain_wall = time.time() - t0
-    if lib.hm_p_walk_phases(cyc, cnt):   # zero the sums
+    if lib.phases(cyc, cnt):   # zero the sums
         raise RuntimeError("phase build: reading the clocks failed")
     torch.cuda.synchronize()
     t0 = time.time()
     got = pframe_dev.pframe_walk(*args, run_level=run_level, **kwargs)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    if lib.hm_p_walk_phases(cyc, cnt):
+    if lib.phases(cyc, cnt):
         raise RuntimeError("phase build: reading the clocks failed")
     bad = [k for k in want if not torch.equal(got[k], want[k])]
     if bad:

@@ -175,25 +175,36 @@ def _textured(rng, h, w):
 @pytest.mark.parametrize("h,w,srange", [(64, 64, 8), (48, 80, 8),
                                         (240, 416, 64), (48, 80, 64)])
 def test_me_sad_kernel(dev, h, w, srange):
+    """K5 against its plain version at 8 and 10 bits (the 10-bit planes
+    the 8-bit ones << 2 with noise in the low bits), and on a flat plane
+    where every displacement ties (the first index wins)."""
     from hmtpu_torch.search import me
 
     rng = np.random.RandomState(h + srange)
-    org, ref = (_i32(a, dev) for a in _textured(rng, h, w))
+    org8, ref8 = _textured(rng, h, w)
     qh, qw = (h // 16 + 1) // 2, (w // 16 + 1) // 2
-    for lam in (np.float32(0.0), np.float32(7.3)):
+
+    def check(ref, org, lam, bd):
         got = _launched("me_sad", lambda: me.integer_me_levels(
-            ref, org, srange, lam, qh, qw))
+            ref, org, srange, lam, qh, qw, bd))
         want = me.integer_me_levels_plain(ref, org, srange, lam, qh, qw)
         for n in (8, 16, 32):
             (gx, gy), gst, gsad = got[n]
             (wx, wy), wst, wsad = want[n]
             for g, wnt in ((gx, wx), (gy, wy), (gst, wst), (gsad, wsad)):
-                assert torch.equal(g, wnt), n
-    # a flat picture: every displacement ties, the first index wins
-    flat = torch.full((h, w), 90, dtype=torch.int32, device=dev)
-    got = _launched("me_sad", lambda: me.integer_me_levels(
-        flat, flat, srange, np.float32(0.0), qh, qw))
-    assert bool((got[32][0][0] == -srange).all())
+                assert torch.equal(g, wnt), (n, bd)
+        return got
+
+    for bd in (8, 10):
+        org = org8 * (1 << (bd - 8)) + rng.randint(0, 1 << (bd - 8), (h, w))
+        ref = ref8 * (1 << (bd - 8))
+        for lam in (np.float32(0.0), np.float32(7.3)):
+            check(_i32(ref, dev), _i32(org, dev), lam, bd)
+        # a flat picture: every displacement ties, the first index wins
+        flat = torch.full((h, w), 90 << (bd - 8), dtype=torch.int32,
+                          device=dev)
+        got = check(flat, flat, np.float32(0.0), bd)
+        assert bool((got[32][0][0] == -srange).all())
 
 
 @pytest.mark.parametrize("qp", [22, 37])

@@ -5,10 +5,12 @@ host C++ with g++ and driven on the CPU, against their plain versions
 held against hmtpu in tests/test_torch_encode.py and test_torch_ops.py.
 
 The walker runs through `iframe_walk`, the same wrapper that launches K21
-on the card, one call of the host build per z-scan level.  The headers
-are built with -ffp-contract=off, so every float32 operation rounds on
-its own as nvcc's __fadd_rn / __fmul_rn do.  Skips only where there is
-no g++.
+on the card, one call of the host build per z-scan level; its task loops
+run in order or (`iw_task_reverse`) last task first with the larger
+trials before their cells, which the card's groups and teams may do.
+The headers are built with -ffp-contract=off, so every float32
+operation rounds on its own as nvcc's __fadd_rn / __fmul_rn do.  Skips
+only where there is no g++.
 """
 import ctypes
 import shutil
@@ -40,11 +42,14 @@ extern "C" int iw_level(const void* scratch, const void* p, int np,
   iw::Args a = iw::args_from((const long long*)p, (const int*)v,
                              (const float*)f);
   if (a.scratch != scratch || a.scratch_ints != iw::SCRATCH) return 1;
-  std::vector<double> sm(hm::rdoq_smem_bytes(5) / sizeof(double) + 1);
+  std::vector<double> sm(iw::smem_bytes(a.geom) / sizeof(double) + 1);
   for (int lane = 0; lane < a.bmax; ++lane)
     iw::walk_lane(a, level, lane, 0, 1, sm.data());
   return 0;
 }
+// every task loop of the walk last task first, the larger trials before
+// their cells (1), or in order (0)
+extern "C" void iw_task_reverse(int r) { iw::task_reverse = r; }
 // K22 over nb blocks
 extern "C" void rmd_host(const int* plane, const int* sub, const int* none,
                          int* out, int nb, int w, int n, int bd, int strong,
@@ -68,6 +73,7 @@ def _build(d, csrc):
     lib = ctypes.CDLL(str(so))
     lib.iw_level.argtypes = [ctypes.c_void_p] \
         + [ctypes.c_void_p, ctypes.c_int] * 3 + [ctypes.c_int]
+    lib.iw_task_reverse.argtypes = [ctypes.c_int]
     lib.rmd_host.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
         + [ctypes.c_float]
     return lib
@@ -177,6 +183,63 @@ def test_walker_mutation_is_caught(tmp_path):
     got = iframe_dev.iframe_walk(*args, run_level=_runner(lib), **kw)
     assert not torch.equal(got["levs"], want["levs"])
     assert all(torch.equal(got[k], want[k]) for k in want if k != "levs")
+
+
+def _walk_order(lib, name, reverse):
+    """Every state array of the case's pass through the host build with
+    its task loops in order, or last task first with the 16x16 and 32x32
+    trials before their cells: (got, want)."""
+    args, kw = _pass_inputs(name)
+    want = iframe_dev.iframe_pass_plain(*args, **kw)
+    lib.iw_task_reverse(int(reverse))
+    try:
+        got = iframe_dev.iframe_walk(*args, run_level=_runner(lib), **kw)
+    finally:
+        lib.iw_task_reverse(0)
+    return got, want
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_walker_tasks_in_reverse_order(lanes, name):
+    """K21 runs a cell's codings side by side (the candidates', their TS
+    alternatives, the NxN chroma pair's, the NxN chain's two halves) and
+    the 16x16 and 32x32 trials beside their cells: with every round's
+    tasks run last task first and each trial before its cells, the host
+    build must still give the plain pass's state, bit for bit, so no task
+    reads what another task of its round, or a trial what its cells,
+    write."""
+    got, want = _walk_order(lanes, name, True)
+    assert set(got) == set(want)
+    for key in sorted(want):
+        np.testing.assert_array_equal(got[key].numpy(), want[key].numpy(),
+                                      err_msg=key)
+
+
+def test_walker_cross_task_read_is_caught(tmp_path):
+    """A copy of the headers in which a candidate's chroma U task codes
+    from a copy of its prediction that the candidate's luma task makes:
+    right when the tasks run in order (heaviest first, as one thread runs
+    them), a race between groups on the card.  The reversed order must
+    disagree with the plain pass."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(CSRC, csrc)
+    p = csrc / "iwalk.cuh"
+    text = p.read_text()
+    edits = (("m.ly + 64 * t, m.ry + 64 * t);",
+              "m.ly + 64 * t, m.ry + 64 * t);\n"
+              "    for (int e = L.tid; e < 16; e += L.nt)\n"
+              "      (t ? m.r4t : m.l4t)[e] = m.pu[16 * t + e];"),
+             ("(v ? m.pv : m.pu) + o, lev + o,",
+              "v ? m.pv + o : (k ? m.r4t : m.l4t), lev + o,"))
+    for good, bad in edits:
+        assert text.count(good) == 1
+        text = text.replace(good, bad)
+    p.write_text(text)
+    lib = _build(tmp_path, csrc)
+    got, want = _walk_order(lib, "64x56-8only", False)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    got, want = _walk_order(lib, "64x56-8only", True)
+    assert any(not torch.equal(got[k], want[k]) for k in want)
 
 
 def _rmd_plane(content, bd, rng, w=64, h=64):
