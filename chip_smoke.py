@@ -11,8 +11,9 @@ when every phase passed):
                process per source, all started together, and beside them
                K23's and K21's phase-clock builds
                (scripts/pwalk_phases.py, iwalk_phases.py); the registers,
-               stack frame and spills ptxas gives the walkers K21, K23
-               and K26 and K5's kernels;
+               stack frame and spills ptxas gives K10, K22, the walkers
+               K21, K23 and K26 and K5's kernels (with the spills of every
+               function of the source);
   3. kernels   each kernel (K1, K3-K16 and K1's transform-skip mode)
                against its plain PyTorch version on seeded inputs at the
                shapes the main paths give it, and K2 and K17-K26 (after
@@ -47,7 +48,14 @@ when every phase passed):
                then its phase build on the ai frame, its state equal to
                K21's: one line a phase of a lane; K22 (the fused RMD) at
                n = 8 (timed, its row), 4, 16 and 32 and in the P pass's form
-               (n = 8, k = 1) beside rmd_plain.  They must be equal (the
+               (n = 8, k = 1) beside rmd_plain, then on a flat plane and
+               16x16 steps (ties among the modes) at each form; K10 at
+               every form of the coding step that the encodes capture
+               (`_code`'s TB sizes, components, bit depths, trellis and
+               SDH) and on contents built to reach the coder's edges
+               (tests/test_torch_rdoq_lanes.py: an all-zero TB, DC only,
+               C1FLAG, Rice 4, stage 2, the all-zero TB winning stage 3,
+               SDH parity fixes) at 8 and 10 bits.  They must be equal (the
                float32 outputs of K6, K10, K14-K16, K18 and K20 bit for
                bit: kernel and plain version round in the same order, K14
                with the exp and log they share; K15 twice, the same
@@ -692,12 +700,13 @@ def frac_work(refs, ridx, xs, ys, org, mvx, mvy, n):
 
 def rdoq_work(c, lev, qp, log2):
     """Arithmetic operations K10 does on these TBs with the trellis and
-    SDH (the timed case), stage by stage as csrc/rdoq.cu runs them, the
-    data-dependent terms counted on this data (table reads, compares and
-    the SDH stage's repairs left out, so it is a lower bound):
+    SDH (the timed case), stage by stage as csrc/rdoq.cuh runs them, the
+    data-dependent terms counted on this data (table reads, compares,
+    votes and the SDH stage's repairs left out, so it is a lower bound):
       load        |x|, two quantiser roundings (4 each), d0 (2): 11 per
                   position;
-      last bits   per coordinate 2 x 30 multiply-adds and 2 adds;
+      last bits   the table of the call's size: per coordinate 2 x 30
+                  multiply-adds;
       stage 1     the zero level's cost (2) per position; one RD cost
                   (11) and 2 minimums per rounded level > 0, a second RD
                   cost per rounded level >= 2;
@@ -705,7 +714,7 @@ def rdoq_work(c, lev, qp, log2):
       stage 3     11 per position;
       guard       d + lambda * bits of two level sets: 5 per position
                   each;
-      tb_bits     3 calls of 122 (last position) + 6 per CG, and 2 (sig
+      tb_bits     3 calls of 10 (the rate's adds) + 6 per CG, and 2 (sig
                   and greater-1 bins) per non-zero level of the deadzone
                   and of the final levels;
       dequant     6 per position."""
@@ -717,10 +726,11 @@ def rdoq_work(c, lev, qp, log2):
     fb = torch.clamp((a * scale + (85 << (qbits - 9))) >> qbits, max=32767)
     nb, npos = c.shape[0], 1 << (2 * log2)
     ncg = npos // 16
-    per_tb = (11 + 2 + 2 + 11 + 10 + 6) * npos + 122 * (1 << log2) \
-        + 4 * ncg + 3 * (122 + 6 * ncg)
-    return int(nb * per_tb + 13 * (m > 0).sum() + 11 * (m >= 2).sum()
-               + 2 * (fb > 0).sum() + 2 * (lev != 0).sum())
+    per_tb = (11 + 2 + 2 + 11 + 10 + 6) * npos + 4 * ncg \
+        + 3 * (10 + 6 * ncg)
+    return int(nb * per_tb + 120 * (1 << log2) + 13 * (m > 0).sum()
+               + 11 * (m >= 2).sum() + 2 * (fb > 0).sum()
+               + 2 * (lev != 0).sum())
 
 
 def slice3_kernel_cases(dev, rng):
@@ -1122,7 +1132,14 @@ CAPTURED = (
                        if k.get("col") is not None else 0)),
     # K25: the SAO choice of a frame's three planes
     ("sao_choose", lambda a, k: f"{a[6]}x{a[5]} CTUs",
-     "hmtpu_torch.ops.sao", "choose_params", lambda a, k: 1))
+     "hmtpu_torch.ops.sao", "choose_params", lambda a, k: 1),
+    # K10: the P / B pass's coding step (`_code`), one form per TB size,
+    # component, bit depth, trellis and SDH
+    ("rdoq", lambda a, k: f"n{1 << a[2]} {'luma' if a[6] else 'chroma'} "
+     f"bd{a[3]}" + (" trellis" if k.get("trellis", True) else " deadzone")
+     + (" SDH" if k.get("sdh") else ""),
+     "hmtpu_torch.encoder.pframe_dev", "rdoq_code",
+     lambda a, k: a[0].numel() >> (2 * a[2])))
 
 
 def _clone(x):
@@ -1408,6 +1425,108 @@ def walk_cases(got):
 P_FORMS = (f"{W}x{H}", f"{W}x{H} TS", "64x56", "64x64")
 
 
+def rdoq_forms(got) -> None:
+    """K10 against its plain version at every form of the coding step
+    that the encodes captured (the widest call of each): levels,
+    dequantised values and TB rates, bit for bit."""
+    from hmtpu_torch.ops import quant, ratebits, rdoq
+
+    forms = sorted(f for k, f in got if k == "rdoq")
+    if not forms:
+        fail("capture: no call of K10's coding step in the untimed encodes")
+    for f in forms:
+        nb, a, k = got[("rdoq", f)]
+        coef, qp, log2, bd, lam, cb, luma = a[:7]
+        sdh = k.get("sdh", False)
+        out = rdoq.rdoq_code(*a, **k)
+        lev = rdoq.rdoq_tb_plain(coef, qp, log2, bd, lam, cb, luma, 0, sdh,
+                                 k.get("scan_sel"), k.get("trellis", True))
+        want = (lev, quant.dequantize_t_plain(lev, qp, log2, bd),
+                ratebits.tb_bits_plain(lev, cb, log2, luma, 0, sdh))
+        torch.cuda.synchronize()
+        if not same(out, want):
+            fail(f"rdoq ({f}): kernel disagrees with its plain version "
+                 f"(max abs err {max_err(out, want)})")
+        print(f"kernel rdoq (captured {f}, {nb} TBs): equal to plain",
+              flush=True)
+
+
+def edge_checks(dev) -> None:
+    """K10 on the contents that reach the coder's edges
+    (tests/test_torch_rdoq_lanes.py `contents`) at every TB size, both
+    components, trellis or deadzone, SDH on and off, 8 and 10 bits; K22 at
+    each of its forms on a flat plane (every mode ties) and on 16x16
+    steps (ties among some modes), 416x240 at 8 and 10 bits; each equal
+    to its plain version."""
+    from tests.test_torch_rdoq_lanes import QP, _batch, _lam
+
+    from hmtpu_torch.common.constants import SliceType
+    from hmtpu_torch.encoder import iframe_dev as idv
+    from hmtpu_torch.encoder.intra_rdo import rmd, rmd_plain
+    from hmtpu_torch.entropy.contexts import make_contexts
+    from hmtpu_torch.entropy.fracbits import ctx_bits_table
+    from hmtpu_torch.ops import quant, ratebits, rdoq
+
+    cb = torch.as_tensor(ctx_bits_table(make_contexts(SliceType.P, QP))
+                         .reshape(-1)).to(dev)
+    rng = np.random.RandomState(12)
+    n_cases = 0
+    for log2 in (2, 3, 4, 5):
+        for bd in (8, 10):
+            coef, _ = _batch(log2, bd, 17 * log2 + bd)
+            coef = coef.to(dev)
+            sel = torch.as_tensor(rng.randint(0, 3, coef.shape[0])
+                                  .astype(np.int32)).to(dev) \
+                if log2 <= 3 else None
+            for luma in (True, False):
+                lam = torch.tensor(_lam(luma), device=dev)
+                for trellis in (True, False):
+                    for sdh in (True, False):
+                        out = rdoq.rdoq_code(coef, QP, log2, bd, lam, cb,
+                                             luma, sdh=sdh, scan_sel=sel,
+                                             trellis=trellis)
+                        lev = rdoq.rdoq_tb_plain(coef, QP, log2, bd, lam,
+                                                 cb, luma, 0, sdh, sel,
+                                                 trellis)
+                        want = (lev, quant.dequantize_t_plain(
+                            lev, QP, log2, bd), ratebits.tb_bits_plain(
+                            lev, cb, log2, luma, 0, sdh))
+                        torch.cuda.synchronize()
+                        if not same(out, want):
+                            fail(f"rdoq: kernel disagrees with its plain "
+                                 f"version on the edge contents (n "
+                                 f"{1 << log2}, {bd} bits, luma {luma}, "
+                                 f"trellis {trellis}, SDH {sdh})")
+                        n_cases += 1
+    print(f"kernel rdoq: equal to plain on the edge contents ({n_cases} "
+          f"forms)", flush=True)
+    n_cases = 0
+    for bd in (8, 10):
+        flat = torch.full((H, W), 1 << (bd - 1), dtype=torch.int32)
+        steps = torch.as_tensor((np.kron(rng.randint(0, 4, (H // 16, W // 16)),
+                                         np.ones((16, 16), int))
+                                 * (40 << (bd - 8))).astype(np.int32))
+        for plane in (flat.to(dev), steps.to(dev)):
+            # 416x240 (n = 8, 4, 16, the P pass's n = 8), 64x64 (n = 32)
+            for n, k, sis in ((8, 2, True), (4, 1, True), (16, 2, True),
+                              (32, 2, True), (8, 1, False)):
+                p = plane[:64, :64].contiguous() if n == 32 else plane
+                hh, ww = p.shape
+                g = idv._dev_static(ww, hh, 6, dev)[
+                    "g4l" if n == 4 else f"g{n}"]
+                kw = dict(bd=bd, lam_sqrt=np.float32(5.7), sis=sis)
+                out = rmd(p, g, n, k, **kw)
+                want = rmd_plain(p, g, n, k, **kw)
+                torch.cuda.synchronize()
+                if not same(out, want):
+                    fail(f"i_rmd: kernel disagrees with its plain version "
+                         f"on a flat or stepped plane (n {n}, k {k}, {bd} "
+                         f"bits)")
+                n_cases += 1
+    print(f"kernel i_rmd: equal to plain on flat and stepped planes "
+          f"({n_cases} forms)", flush=True)
+
+
 def pwalk_work(a, k, st):
     """Bytes and operations of one K23 or K26 pass (all its levels), from
     its arguments and its state: the source planes, the reference stack,
@@ -1599,8 +1718,10 @@ def check_walk(cases, rows, time_all=True) -> None:
 
 
 # the kernels whose ptxas figures the build prints: (kernel, source,
-# kernel function): the walkers and K5
-PTXAS = (("K21 i_walk", "iwalk", "iwalk_kernel"),
+# kernel function): K10, K22, the walkers and K5
+PTXAS = (("K10 rdoq", "rdoq", "rdoq_kernel"),
+         ("K22 i_rmd", "i_rmd", "rmd_kernel"),
+         ("K21 i_walk", "iwalk", "iwalk_kernel"),
          ("K23 p_walk", "pwalk", "pwalk_kernel"),
          ("K26 b_walk", "bwalk", "bwalk_kernel"),
          ("K5 me_sad, 8 bits", "me_sad", "me_kernelILi4"),
@@ -1610,7 +1731,10 @@ PTXAS = (("K21 i_walk", "iwalk", "iwalk_kernel"),
 
 def ptxas_figures(log: str, fn: str) -> str:
     """Registers, stack frame and spills of kernel function `fn` from
-    nvcc's -Xptxas -v output (its entry function's lines)."""
+    nvcc's -Xptxas -v output (its entry function's lines), and the spill
+    bytes of every function of the source (the called functions' too)."""
+    import re
+
     lines = log.splitlines()
     at = [i for i, ln in enumerate(lines)
           if "Compiling entry function" in ln and fn in ln]
@@ -1622,7 +1746,10 @@ def ptxas_figures(log: str, fn: str) -> str:
             frame = ln.strip()
         if "Used" in ln and "registers" in ln and not used:
             used = ln.split(":", 1)[-1].strip()
-    return f"{used}; {frame}"
+    st = sum(int(v) for v in re.findall(r"(\d+) bytes spill stores", log))
+    ld = sum(int(v) for v in re.findall(r"(\d+) bytes spill loads", log))
+    return (f"{used}; {frame}; every function of the source: {st} bytes "
+            f"spill stores, {ld} bytes spill loads")
 
 
 def load_script(name: str):
@@ -1894,6 +2021,7 @@ def main() -> None:
     # ---- 3. kernels against their plain versions
     rows = {}
     check_kernels(kernel_cases(dev), rows)
+    edge_checks(dev)
 
     clip = synth_clip(W, H, LDP_FRAMES, seed=42)
     small = synth_clip(64, 64, 4, seed=3)
@@ -2302,6 +2430,8 @@ def main() -> None:
         print("kernels K2, K17-K20 launches: " + "; ".join(
             f"{name} ldp {counts[name]}, ldp_dctif {d_counts[name]}, ra10 "
             f"{r_counts[name]}" for name, *_ in captured), flush=True)
+        # K10 at every captured form of the P / B passes' coding step
+        rdoq_forms(cap.got)
         # K21 and K22 against iframe_pass_plain and rmd_plain on the card
         check_walk(walk_cases(cap.got), rows)
         # where K21's time goes on the ai frame: the phase-clock build (its

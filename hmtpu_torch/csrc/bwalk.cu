@@ -31,7 +31,7 @@ namespace {
 constexpr int THREADS = 128;
 static_assert(THREADS <= bw::RED_THREADS, "the SSE reduction's width");
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
     bwalk_kernel(const __grid_constant__ bw::Args a, int level) {
   extern __shared__ double smem[];
   bw::walk_lane(a, level, blockIdx.x, threadIdx.x, blockDim.x, smem);
@@ -60,12 +60,21 @@ extern "C" int hm_b_walk(void* scratch, const void* ptrs, int n_ptrs,
       !b.l0map || !b.l1map || !b.ref_pocs_l1 || !b.lx8 ||
       (a.geom == 32 && (!b.lx16 || !b.lx32)))
     return cudaErrorInvalidValue;
-  const size_t smem = hm::rdoq_smem_bytes(a.geom == 8 ? 3 : 5);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        bwalk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // the working set's limit, raised once per device to the larger one (the
+  // coder's tables in static shared memory come on top of it)
+  static bool raised[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    e = cudaFuncSetAttribute(bwalk_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)hm::rdoq_smem_bytes(5));
     if (e != cudaSuccess) return (int)e;
+    raised[dev] = true;
   }
+  const size_t smem = hm::rdoq_smem_bytes(a.geom == 8 ? 3 : 5);
   bwalk_kernel<<<a.bmax, THREADS, smem, (cudaStream_t)stream>>>(b, level);
   return (int)cudaGetLastError();
 }

@@ -663,6 +663,8 @@ HM_BIG void walk_lane(const Args& b, int level, int lane, int tid, int nt,
   const pw::Args& a = b.p;
   const int blk = a.lv[level * a.bmax + lane];
   if (blk < 0) return;  // a padding lane does nothing
+  wk::build_last_bits(a.cd, tid, nt);
+  HM_SYNC();
   Lane L;
   L.ap = &a;
   L.bp = &b;

@@ -14,17 +14,22 @@
 // prediction tensor in device memory (1560 x 35 x 64 int32 = 14 MB at
 // 416x240, n = 8).
 //
-// Design: one thread block of 128 threads per picture block; the block's
-// line and its filtered form in shared memory; one thread per (mode, 8x8
-// tile) item predicts its 64 samples into registers, subtracts the source
-// and runs the 2D butterflies; per-mode sums and the top-k after barriers.
+// Design: one thread block of 7 warps per picture block; its line, the
+// filtered line and its source samples in shared memory.  Each warp (a
+// quarter-warp at n = 4) takes a mode in turn, predicts two samples a
+// lane of each 8x8 (4x4) tile into registers, subtracts the source and
+// runs the 2D butterflies as register and shuffle stages, reducing
+// sum |.| over its lanes (i_rmd.cuh); the per-mode SATDs meet in shared
+// memory, and one warp takes the top k by warp argmins.  At n = 8 the
+// 35 modes are 5 a warp, and the 1,560 blocks of a 416x240 picture fill
+// the card's 132 SMs.
 #include <cuda_runtime.h>
 
 #include "i_rmd.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
+constexpr int THREADS = 7 * 32;
 
 __global__ void __launch_bounds__(THREADS) rmd_kernel(rmd::Args a) {
   __shared__ int sm[rmd::R_INTS];

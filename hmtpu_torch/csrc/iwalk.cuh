@@ -368,7 +368,7 @@ HM_HD constexpr int smem_ints(int geom) {
          (geom == 32 ? place_trial(32, 1) : 0);
 }
 HM_HD constexpr int smem_bytes(int geom) { return 4 * smem_ints(geom); }
-static_assert(smem_bytes(32) <= 232448,
+static_assert(smem_bytes(32) + 4 * wk::LP_FLOATS <= 232448,
               "K21's shared memory: 227 KB a block on the H100");
 
 struct Walk {  // K21's lane: its Args, its block's threads and arena
@@ -984,6 +984,8 @@ HM_BIG void walk_lane(const Args& a, int level, int lane, int tid, int nt,
                       void* smem) {
   const int blk = a.lv[level * a.bmax + lane];
   if (blk < 0) return;   // a padding lane does nothing
+  wk::build_last_bits(a.cd, tid, nt);
+  HM_SYNC();
   Walk W;
   W.ap = &a;
   W.tid = tid;

@@ -502,7 +502,7 @@ constexpr int SMEM8_BYTES = 4 * cu_place(8, NG_8);
 constexpr int SMEM_BYTES =
     4 * imax_c(cu_place(8, NG_8),
                imax_c(cu_place(16, NG_16), cu_place(32, NG_32)));
-static_assert(SMEM_BYTES <= 232448,
+static_assert(SMEM_BYTES + 4 * wk::LP_FLOATS <= 232448,
               "K23's shared memory: 227 KB a block on the H100");
 
 struct Walk {  // K23's lane: its Args, its block's threads and arena
@@ -1175,6 +1175,8 @@ HM_BIG void walk_lane(const Args& a, int level, int lane, int tid, int nt,
                       void* smem) {
   const int blk = a.lv[level * a.bmax + lane];
   if (blk < 0) return;   // a padding lane does nothing
+  wk::build_last_bits(a.cd, tid, nt);
+  HM_SYNC();
   Walk W;
   W.ap = &a;
   W.tid = tid;

@@ -1,30 +1,46 @@
-// K10's arithmetic, shared by its entry point (rdoq.cu) and the I z-scan
-// walker K21 (iwalk.cuh): per TB the levels (the RDOQ trellis, or deadzone
-// quantisation, then the sign-data-hiding parity stage), the fractional
-// bit price of residual_coding() for them (tb_bits) and their
-// dequantisation, bit-exact with the port's plain versions of
-// hmtpu/ops/rdoq.py:43 rdoq_tb, hmtpu/ops/ratebits.py:161 tb_bits and
-// hmtpu/ops/quant.py:78,91.
+// K10's arithmetic, shared by its entry point (rdoq.cu) and the three
+// z-scan walkers K21, K23 and K26 (walk.cuh code_tb): per TB the levels
+// (the RDOQ trellis, or deadzone quantisation, then the sign-data-hiding
+// parity stage), the fractional bit price of residual_coding() for them
+// (tb_bits) and their dequantisation, bit-exact with the port's plain
+// versions of hmtpu/ops/rdoq.py:43 rdoq_tb, hmtpu/ops/ratebits.py:161
+// tb_bits and hmtpu/ops/quant.py:78,91.
 //
-// Block-cooperative (hm_port.cuh): one TB per call, the block's threads
-// take the 4x4 coefficient groups (CGs) tid, tid + nt, ...; a CG's thread
-// walks its 16 positions in reverse scan order, which is the coder's
-// order, carrying the context state (rank, greater-1 count, Rice
-// parameter).  The few TB-wide scans (last position, the prefix and
-// suffix sums of stage 3, the order-fixed float64 sums) run on thread 0,
-// each over values the group computed beforehand side by side (the
-// per-position costs of stage 3, the guard's distortions), and the
-// argmin of stage 3 is a group reduction.
-// Coefficients, levels and per-position costs sit in `RdoqSmem` (shared
-// memory on the card) in the coding scan order.
+// One lane per coefficient position (hm_port.cuh's Lanes): a 4x4
+// coefficient group (CG) sits on the 16 lanes of a half-warp, its
+// position j on lane j, so the coder's order (j from 15 down to 0) runs
+// from the top lane.  A group of nt threads (a half-warp, one warp or
+// several; the host's one thread) takes nt / 16 CGs a round.  A
+// position's context state comes from votes over its CG's lanes, not
+// from a walk: its rank (the significant positions after it in the
+// coder's order) with the C1FLAG cap, the greater-1 and >= 2 states seen
+// before it, the trellis' rank of the first level >= 2, each a popcount
+// of a ballot above the lane.  The Rice parameter, the one real chain
+// (0..4, monotone), steps over the set bits of the lanes that may raise
+// it (rice_before).  A CG's context set reads the nearest higher coded
+// CG's greater-1 flag from words of the TB's CG flags (flag_bits: at
+// most 64 CGs, so one 64-bit word).  The last position's prefix bits per
+// coordinate come from a table built once per launch (rdoq_last_bits).
+// The exact-rate guard prices the deadzone and the trellis levels side
+// by side on the group's two halves; with SDH off the TB rate of the
+// kept levels is the guard's.  Shared memory holds the positions' values
+// in scan order (`RdoqSmem`) and each CG's flags.
+//
+// Every function ends with the group's barrier, and the barriers a call
+// meets depend on nt, the TB size and the flags alone, never on the
+// data: so the guard's halves may share the block's barrier where the
+// build has no groups (K26).
 //
 // Parity with the plain version, which runs the same arithmetic:
 //   - every cost is float32 in the plain version's order of operations,
 //     each operation rounded on its own (HM_FMUL / HM_FADD / HM_FSUB), so
 //     nothing is contracted into an FMA;
 //   - sums are taken in float64 and rounded once to float32, as
-//     ratebits.fsum does (the TB-rate sums are multiples of 2^-15 below
-//     2^20, exact in any order);
+//     ratebits.fsum does.  The TB-rate sums are multiples of 2^-15 below
+//     2^20, exact in any order, so they reduce over the lanes; the sums
+//     whose order is fixed keep it on one lane (stage 2's CG sums, stage
+//     3's two running sums, the guard's distortion sums, the 30-term
+//     last-position sums);
 //   - the quantiser step 2^qbits / scale and the lambdas come from the
 //     caller's tables; nothing here computes exp2;
 //   - every argmin keeps the first index of least value; right shifts of
@@ -50,6 +66,7 @@ struct RdoqCfg {
   const float* cb;      // (NUM_CTX*2,) fractional bits per (ctx, bin)
   const int* tabs_i;    // packed int tables (see Tabs)
   const float* tabs_f;  // packed float tables (see Tabs)
+  const float* lpb;     // (2 size,) rdoq_last_bits of this size, component
   int log2, flags, scale, qbits, add, iscale, dq_shift;
   int ctx_x, ctx_y, sig_cg_base, one_base, abs_base;
   float inv, cscale;
@@ -75,31 +92,56 @@ HM_FN Tabs rdoq_tabs(const RdoqCfg& P, int npos, int ncg) {
   return t;
 }
 
+// The last position's prefix and suffix bits of each x coordinate of a TB
+// of `size`, then of each y, before its EP bins: the 30-term float64 sums
+// in k order, rounded once, that tb_bits and the trellis price (out: 2
+// size floats).  The group's items tid, tid + nt, ...; the caller's
+// barrier follows.  Built once per launch: by each block of K10, and by
+// each walker block for every table set (walk.cuh).
+HM_FN void rdoq_last_bits(const float* cb, const float* w_cnt, int ctx_x,
+                          int ctx_y, int size, float* out, int tid, int nt) {
+  for (int c = tid; c < 2 * size; c += nt) {
+    const bool y = c >= size;
+    const float* w = w_cnt + (c - (y ? size : 0)) * 30;
+    const float* b = cb + 2 * (y ? ctx_y : ctx_x);
+    double s = 0.0;
+    for (int k = 0; k < 30; ++k) s += (double)HM_FMUL(w[k], b[k]);
+    out[c] = (float)s;
+  }
+}
+
+// the context bits K10 reads, from 0: the contexts below the last set of
+// greater-2 contexts' end (abs_base + 4; the significance, greater-1 and
+// last-position contexts lie below it), two floats each
+HM_HD constexpr int rdoq_cb_floats(int abs_base) { return 2 * (abs_base + 4); }
+
+// one pricing's CG state (tb_bits)
+struct TbScr {
+  unsigned short cgm[MAX_NCG];  // a CG's significant positions, bit j
+  unsigned char g1[MAX_NCG];    // a level > 1 among its first C1FLAG
+  double red[6 * 8];            // the group's sums (8 warps at most)
+};
+
 struct RdoqFixed {
-  int cg_sig[MAX_NCG];  // rounded-level significance per CG (trellis)
-  int g1any[MAX_NCG];
-  int cg_last[MAX_NCG];
-  int cg_pc[MAX_NCG];   // stage 1: a CG's sig pattern | ctx set << 2
-  int t_sig[MAX_NCG];   // tb_bits: the priced levels' CG state
-  int t_g1any[MAX_NCG];
-  int t_last[MAX_NCG];
-  int t_signs[MAX_NCG];
-  double csbf_b[MAX_NCG], g2_b[MAX_NCG];  // tb_bits: a CG's csbf, greater-2
-  float lxb[MAX_SIZE], lyb[MAX_SIZE];
-  long long red[32];     // the group's reductions (hm_port.cuh)
-  int last_pos, t_last_pos, use_fb;
-  float bits, all_zero;
+  TbScr tb[2];                   // the guard's two pricings
+  unsigned short mcgm[MAX_NCG];  // the rounded levels' significance
+  unsigned short lcgm[MAX_NCG];  // stage 1's levels' significance
+  unsigned char mg1[MAX_NCG];    // the rounded levels' greater-1 flag
+  unsigned char zf[MAX_NCG];     // stage 2: the CG's zero cost wins
+  long long red[32];             // group_argmin
+  float rd[2], b[2];             // the guard's RD costs and rates
+  float all_zero;
 };
 
 struct RdoqSmem {
   RdoqFixed* f;
-  int *sc, *a, *maxabs, *fb, *lev, *ctx;    // scan order
+  int *sc, *a, *maxabs, *fb, *lev;       // scan order
   float *d0, *cost, *sigb1, *tmp, *pre;
 };
 
 // bytes of the working set for TBs up to 2^log2 on a side
 HM_HD constexpr size_t rdoq_smem_bytes(int log2) {
-  return sizeof(RdoqFixed) + (size_t)11 * (1 << (2 * log2)) * sizeof(int);
+  return sizeof(RdoqFixed) + (size_t)10 * (1 << (2 * log2)) * sizeof(int);
 }
 
 // the working set laid out from `base` (8-byte aligned) for npos positions
@@ -112,8 +154,7 @@ HM_FN RdoqSmem rdoq_smem(void* base, int npos) {
   S.maxabs = ip + 2 * npos;
   S.fb = ip + 3 * npos;
   S.lev = ip + 4 * npos;
-  S.ctx = ip + 5 * npos;
-  float* fp = reinterpret_cast<float*>(ip + 6 * npos);
+  float* fp = reinterpret_cast<float*>(ip + 5 * npos);
   S.d0 = fp;
   S.cost = fp + npos;
   S.sigb1 = fp + 2 * npos;
@@ -139,348 +180,350 @@ HM_FN float rem_bits(int sym, int rice) {
   return (float)(4 + 2 * (31 - HM_CLZ(x)) - rice);
 }
 
-HM_FN int cg_flag(const int* flags, int idx, int ncg) {
-  return idx < ncg ? flags[idx] : 0;
+HM_FN int hibit(unsigned m) { return m ? 31 - HM_CLZ(m) : -1; }
+HM_FN int hibit64(unsigned long long w) {
+  return w ? 63 - HM_CLZ64(w) : -1;
 }
 
-// ---------------------------------------------------------------------------
-// tb_bits on the |levels| A (scan order) of this block's TB; every thread
-// calls it, thread 0's float32 result is returned to all
+// bit c where f[c] != 0 (c < n <= 64), to every thread of the group
+template <class T>
+HM_FN unsigned long long flag_bits(const T* f, int n) {
+  unsigned long long w = 0;
+  for (int q = 0; q < n; q += 16) {
+    Lanes<bool, 16> b;
+    HM_LANES(j, 16) b[j] = q + j < n && f[q + j] != 0;
+    w |= (unsigned long long)ballot(b) << q;
+  }
+  return w;
+}
 
-HM_BIG float tb_bits(const RdoqCfg& P, const Tabs& T, RdoqSmem& S,
+// CG c's bit of w (c = ncg: no neighbour)
+HM_FN int cg_bit(unsigned long long w, int c, int ncg) {
+  return c < ncg ? (int)((w >> c) & 1) : 0;
+}
+
+// the flag in g of the nearest CG above ci whose bit in sig is set (0 if
+// none): the coder's previously processed coded CG
+HM_FN int next_flag(unsigned long long sig, unsigned long long g, int ci) {
+  const unsigned long long up = ci < 63 ? sig & (~0ull << (ci + 1)) : 0ull;
+  return up ? (int)((g >> HM_CTZ64(up)) & 1) : 0;
+}
+
+// the steps of a level a that may raise the Rice parameter: the r in
+// 0..3 with a > 3 << r (the coder's cRiceParam update, capped at 4)
+HM_FN int rice_steps(int a) {
+  return (a > 3) + (a > 6) + (a > 12) + (a > 24);
+}
+
+// The Rice parameter before each lane's position in the coder's order
+// (lane 15 first, from 0): lane j moves it from r to r + 1 where r < t[j]
+// (0 <= t[j] <= 4: rice_steps where the lane codes a remainder, else 0).
+// On the card each lane steps over the set bits of the lanes above it,
+// from three ballots of t's bits.
+HM_FN Lanes<int, 16> rice_before(const Lanes<int, 16>& t) {
+  Lanes<int, 16> r;
+#if defined(__CUDACC__)
+  const unsigned m0 = ballot(Lanes<bool, 16>{(t.v & 1) != 0});
+  const unsigned m1 = ballot(Lanes<bool, 16>{(t.v & 2) != 0});
+  const unsigned m2 = ballot(Lanes<bool, 16>{(t.v & 4) != 0});
+  const int j = (int)(threadIdx.x & 15);
+  unsigned m = (m0 | m1 | m2) & ~((2u << j) - 1);
+  int s = 0;
+  while (m) {
+    const int b = 31 - __clz(m);
+    m ^= 1u << b;
+    const int tb = ((m0 >> b) & 1) | (((m1 >> b) & 1) << 1) |
+                   (((m2 >> b) & 1) << 2);
+    s += s < tb;
+  }
+  r.v = s;
+#else
+  int s = 0;
+  for (int j = 15; j >= 0; --j) {
+    r[j] = s;
+    s += s < t[j];
+  }
+#endif
+  return r;
+}
+
+// the float64 sum of a CG's 16 values in lane order 0..15, to every lane
+HM_FN double lane_sum_ordered(const Lanes<float, 16>& v) {
+  double s = 0.0;
+  for (int k = 0; k < 16; ++k) s += (double)lane_get(v, k);
+  return s;
+}
+
+// The CG rounds of a group: each half-warp takes one CG a round (the
+// host's one thread every CG in turn); `ci` its CG, `on` whether it has
+// one.  Lane 0 of the CG does the CG's own writes and sums (`lead`).
+#define RDOQ_CG_ROUNDS(ci, on, ncg, tid, nt)                \
+  for (int ci##_0 = 0, ci##_n = (nt) >= 16 ? (nt) >> 4 : 1; \
+       ci##_0 < (ncg); ci##_0 += ci##_n)                    \
+    if (const int ci = ci##_0 + ((tid) >> 4); true)         \
+      if (const bool on = ci < (ncg); true)
+HM_FN bool lead(int tid) { return (tid & 15) == 0; }
+
+// ---------------------------------------------------------------------------
+// tb_bits on the |levels| A (scan order) of this group's TB, with the
+// scratch X; the float32 rate reaches every thread
+
+HM_BIG float tb_bits(const RdoqCfg& P, const Tabs& T, TbScr& X,
                      const int* A, bool sdh, int npos, int ncg, int tid,
                      int nt) {
-  RdoqFixed& F = *S.f;
-  for (int ci = tid; ci < ncg; ci += nt) {
-    const int base = ci * 16;
-    int sig = 0, last = -1, cnt = 0, g1 = 0;
-    for (int j = 15; j >= 0; --j) {
-      const int a = A[base + j];
-      if (a > 0) {
-        if (last < 0) last = base + j;
-        if (cnt < C1FLAG && a > 1) g1 = 1;
-        sig = 1;
-        ++cnt;
-      }
+  HM_PH_START(t_fl);
+  // each CG's significance and greater-1 flag
+  RDOQ_CG_ROUNDS(ci, on, ncg, tid, nt) {
+    Lanes<int, 16> a;
+    Lanes<bool, 16> s, g;
+    HM_LANES(j, 16) {
+      a[j] = on ? A[ci * 16 + j] : 0;
+      s[j] = a[j] > 0;
     }
-    F.t_sig[ci] = sig;
-    F.t_last[ci] = last;
-    F.t_g1any[ci] = g1;
+    const unsigned sm = ballot(s);
+    HM_LANES(j, 16) {
+      g[j] = s[j] && a[j] > 1 && HM_POPC(sm >> (j + 1)) < C1FLAG;
+    }
+    const unsigned gm = ballot(g);
+    if (on && lead(tid)) {
+      X.cgm[ci] = (unsigned short)sm;
+      X.g1[ci] = gm != 0;
+    }
   }
   HM_GSYNC(nt);
-  if (tid == 0) {
-    int lp = -1;
-    for (int ci = 0; ci < ncg; ++ci) lp = imax(lp, F.t_last[ci]);
-    F.t_last_pos = lp;
-  }
-  HM_GSYNC(nt);
-  const int last_pos = F.t_last_pos;
-  const int last_cg = last_pos >> 4;
-  // a CG's thread: its flags and the coder's walk, last to first
-  // position, for each position's greater-1 context, escape base and Rice
-  // parameter (S.ctx); the coded_sub_block_flag and greater-2 bits, the
-  // sign count
-  for (int ci = tid; ci < ncg; ci += nt) {
-    const int base = ci * 16;
-    const int rs = cg_flag(F.t_sig, T.right[ci], ncg);
-    const int bs = cg_flag(F.t_sig, T.below[ci], ncg);
-    const int cg_sig = F.t_sig[ci];
-    // coded_sub_block_flag, CGs strictly between 0 and the last
-    F.csbf_b[ci] = ci > 0 && ci < last_cg
-                        ? cbits(P, P.sig_cg_base + (rs | bs), cg_sig)
-                        : 0.0;
-    // sig_coeff_flag; the DC bin is inferred when an explicitly coded
-    // CG's only significance is at position 0
-    const bool cg_coded = cg_sig || ci == 0;
-    bool rest_zero = true;
-    for (int j = 1; j < 16; ++j) rest_zero = rest_zero && A[base + j] == 0;
-    const bool dc_skip = ci > 0 && ci < last_cg && cg_sig && rest_zero;
+  const unsigned long long sw = flag_bits(X.cgm, ncg);
+  const unsigned long long gw = flag_bits(X.g1, ncg);
+  const int last_cg = hibit64(sw);
+  const int last_pos =
+      last_cg < 0 ? -1 : last_cg * 16 + hibit(X.cgm[last_cg]);
+  HM_PH_STOP(HM_PH_CODE + PHC_TB_FLAGS, t_fl);
+
+  // every position's sig_coeff_flag, greater-1 and remainder bits; each
+  // CG's coded_sub_block_flag, greater-2 bin and sign count
+  HM_PH_START(t_pp);
+  double s[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};  // csbf, sig, gt1, gt2,
+                                                 // signs, remainders
+  RDOQ_CG_ROUNDS(ci, on, ncg, tid, nt) {
+    const unsigned sm = on ? X.cgm[ci] : 0u;
+    Lanes<int, 16> a, rk, bse, t;
+    Lanes<bool, 16> sv, grp, b1, b2, b3, rem;
+    HM_LANES(j, 16) {
+      a[j] = on ? A[ci * 16 + j] : 0;
+      sv[j] = a[j] > 0;
+      rk[j] = HM_POPC(sm >> (j + 1));
+      grp[j] = sv[j] && rk[j] < C1FLAG;
+      b1[j] = grp[j] && a[j] > 1;
+      b2[j] = sv[j] && a[j] >= 2;
+      b3[j] = a[j] > 2;
+    }
+    const unsigned g1m = ballot(b1), ge2m = ballot(b2), g2m = ballot(b3);
+    HM_LANES(j, 16) {
+      bse[j] = rk[j] < C1FLAG ? ((ge2m >> (j + 1)) ? 2 : 3) : 1;
+      rem[j] = sv[j] && a[j] >= bse[j];
+      t[j] = rem[j] ? rice_steps(a[j]) : 0;
+    }
+    const Lanes<int, 16> rice = rice_before(t);
+    const int rs = on ? cg_bit(sw, T.right[ci], ncg) : 0;
+    const int bs = on ? cg_bit(sw, T.below[ci], ncg) : 0;
     // ctx_set: +1 when the previously processed coded CG (the nearest
     // higher index) had a greater-1; +2 for a luma CG other than 0
-    int cs = 0;
-    for (int j = ci + 1; j < ncg; ++j)
-      if (F.t_sig[j] && j <= last_cg) {
-        cs = F.t_g1any[j];
-        break;
-      }
-    if ((P.flags & F_LUMA) && ci > 0) cs += 2;
-    F.cg_pc[ci] = (rs + 2 * bs) | (cs << 2) | (cg_coded << 4) |
-                  (dc_skip << 5);
-    int rank = 0, g1cnt = 0, ge2cnt = 0, rice = 0, n_sig = 0;
-    int g2val = -1, maxp = -1, minp = 99;
-    for (int j = 15; j >= 0; --j) {
-      const int a = A[base + j];
-      const bool s = a > 0;
-      const bool grp = s && rank < C1FLAG;
-      const int c1 = g1cnt > 0 ? 0 : imin(1 + rank, 3);
-      const int bse = rank < C1FLAG ? (ge2cnt > 0 ? 2 : 3) : 1;
-      const bool rem = s && a >= bse;
-      // grp: 1 bit, c1: 2, rem: 1, bse: 2, rice <= 4: 3
-      S.ctx[base + j] = grp | (c1 << 1) | (rem << 3) | (bse << 4) |
-                        (rice << 6);
-      if (grp && a > 1) {
-        if (g2val < 0) g2val = a > 2;
-        ++g1cnt;
-      }
-      if (rem && a > (3 << rice)) rice = imin(rice + 1, 4);
-      if (s) {
-        if (a >= 2) ++ge2cnt;
-        maxp = imax(maxp, j);
-        minp = imin(minp, j);
-        ++n_sig;
-        ++rank;
-      }
+    const int cs = next_flag(sw, gw, ci) +
+                   (((P.flags & F_LUMA) && ci > 0) ? 2 : 0);
+    // the DC bin is inferred when an explicitly coded CG's only
+    // significance is at position 0
+    const bool coded = sm != 0u || ci == 0;
+    const bool dc_skip = ci > 0 && ci < last_cg && sm == 1u;
+    const int* sig_tab = T.sig_tab + (rs + 2 * bs) * npos + ci * 16;
+    HM_LANES(j, 16) {
+      if (on && ci * 16 + j < last_pos && coded && !(j == 0 && dc_skip))
+        s[1] += cbits(P, sig_tab[j], sv[j]);
+      if (grp[j])
+        s[2] += cbits(P,
+                      P.one_base + cs * 4 +
+                          ((g1m >> (j + 1)) ? 0 : imin(1 + rk[j], 3)),
+                      a[j] > 1);
+      if (rem[j]) s[5] += rem_bits(imax(a[j] - bse[j], 0), rice[j]);
     }
-    F.g2_b[ci] = g1cnt > 0 ? cbits(P, P.abs_base + cs, g2val) : 0.0;
-    const int hide = sdh && (maxp - minp) > 3;
-    F.t_signs[ci] = n_sig > 0 ? n_sig - hide : 0;
+    if (on && lead(tid)) {
+      if (ci > 0 && ci < last_cg)
+        s[0] += cbits(P, P.sig_cg_base + (rs | bs), sm != 0u);
+      if (g1m) s[3] += cbits(P, P.abs_base + cs, (g2m >> hibit(g1m)) & 1);
+      if (sm)
+        s[4] += HM_POPC(sm) -
+                (sdh && hibit(sm) - (int)HM_CTZ64(sm) > 3 ? 1 : 0);
+    }
+  }
+  HM_PH_STOP(HM_PH_CODE + PHC_TB_POS, t_pp);
+  HM_PH_START(t_su);
+  group_sums_d<6>(s, tid, nt, X.red);
+  HM_PH_STOP(HM_PH_CODE + PHC_TB_SUMS, t_su);
+  HM_PH_START(t_tl);
+  float bits = 0.f;
+  if (last_pos >= 0) {
+    const int size = 1 << P.log2;
+    const int lx = T.last_x[last_pos], ly = T.last_y[last_pos];
+    bits = HM_FADD(HM_FADD(HM_FADD(P.lpb[lx], P.lpb[size + ly]),
+                           T.ep_cnt[lx]),
+                   T.ep_cnt[ly]);
+    // the plain version's order: the five parts, the sign count before
+    // the remainders
+    for (int k = 0; k < 6; ++k) bits = HM_FADD(bits, (float)s[k]);
   }
   HM_GSYNC(nt);
-  // every position: its sig_coeff_flag, greater-1 and remainder bits,
-  // summed over the group (exact: the sums are multiples of 2^-15)
-  double s1 = 0.0, s2 = 0.0, s4 = 0.0;
-  for (int p = tid; p < npos; p += nt) {
-    const int pc = F.cg_pc[p >> 4], cx = S.ctx[p], a = A[p];
-    const bool cg_coded = (pc >> 4) & 1, dc_skip = (pc >> 5) & 1;
-    if (p < last_pos && cg_coded && !((p & 15) == 0 && dc_skip))
-      s1 += cbits(P, T.sig_tab[(pc & 3) * npos + p], a > 0);
-    if (cx & 1)
-      s2 += cbits(P, P.one_base + (pc >> 2 & 3) * 4 + ((cx >> 1) & 3),
-                  a > 1);
-    if ((cx >> 3) & 1)
-      s4 += rem_bits(imax(a - ((cx >> 4) & 3), 0), (cx >> 6) & 7);
-  }
-  double* red = (double*)F.red;
-  s1 = group_sum_d(s1, tid, nt, red);
-  s2 = group_sum_d(s2, tid, nt, red);
-  s4 = group_sum_d(s4, tid, nt, red);
-  if (tid == 0) {
-    float bits = 0.f;
-    if (last_pos >= 0) {
-      const int lx = T.last_x[last_pos], ly = T.last_y[last_pos];
-      double sx = 0.0, sy = 0.0;
-      for (int k = 0; k < 30; ++k) {
-        sx += (double)HM_FMUL(T.w_cnt[lx * 30 + k], cbits(P, P.ctx_x, k));
-        sy += (double)HM_FMUL(T.w_cnt[ly * 30 + k], cbits(P, P.ctx_y, k));
-      }
-      bits = HM_FADD(HM_FADD(HM_FADD((float)sx, (float)sy), T.ep_cnt[lx]),
-                     T.ep_cnt[ly]);
-      int signs = 0;
-      double s0 = 0.0, s3 = 0.0;
-      for (int ci = 0; ci < ncg; ++ci) {
-        signs += F.t_signs[ci];
-        s0 += F.csbf_b[ci];
-        s3 += F.g2_b[ci];
-      }
-      // the plain version's order: the five parts, the sign count before
-      // the remainders
-      bits = HM_FADD(bits, (float)s0);
-      bits = HM_FADD(bits, (float)s1);
-      bits = HM_FADD(bits, (float)s2);
-      bits = HM_FADD(bits, (float)s3);
-      bits = HM_FADD(bits, (float)signs);
-      bits = HM_FADD(bits, (float)s4);
-    }
-    F.bits = bits;
-  }
-  HM_GSYNC(nt);
-  return F.bits;
+  HM_PH_STOP(HM_PH_CODE + PHC_TB_TAIL, t_tl);
+  return bits;
 }
 
 // ---------------------------------------------------------------------------
-// the RDOQ trellis on S.maxabs -> S.lev (stages 1-3 of rdoq_tb)
+// the RDOQ trellis on S.maxabs -> S.lev (stages 1-3 of rdoq_tb); the
+// rounded levels' CG flags (F.mcgm, F.mg1) come from the set-up
 
 HM_BIG void rdoq_trellis(const RdoqCfg& P, const Tabs& T, RdoqSmem& S,
                          float lam, int npos, int ncg, int tid, int nt) {
   RdoqFixed& F = *S.f;
-  const int size = 1 << P.log2;
   HM_PH_START(t_s1);
-  for (int ci = tid; ci < ncg; ci += nt) {
-    // the rounded levels' significance and greater-1 flags per CG
-    const int base = ci * 16;
-    int sig = 0, cnt = 0, g1 = 0;
-    for (int j = 15; j >= 0; --j) {
-      const int m = S.maxabs[base + j];
-      if (m > 0) {
-        if (cnt < C1FLAG && m > 1) g1 = 1;
-        sig = 1;
-        ++cnt;
-      }
-    }
-    F.cg_sig[ci] = sig;
-    F.g1any[ci] = g1;
-  }
-  for (int c = tid; c < size; c += nt) {
-    // the last-position prefix + suffix bits of each coordinate
-    double sx = 0.0, sy = 0.0;
-    for (int k = 0; k < 30; ++k) {
-      sx += (double)HM_FMUL(T.w_cnt[c * 30 + k], cbits(P, P.ctx_x, k));
-      sy += (double)HM_FMUL(T.w_cnt[c * 30 + k], cbits(P, P.ctx_y, k));
-    }
-    F.lxb[c] = HM_FADD((float)sx, T.ep_cnt[c]);
-    F.lyb[c] = HM_FADD((float)sy, T.ep_cnt[c]);
-  }
-  HM_GSYNC(nt);
+  HM_PH_START(t_pre);
+  const unsigned long long sw = flag_bits(F.mcgm, ncg);
+  const unsigned long long gw = flag_bits(F.mg1, ncg);
+  HM_PH_STOP(HM_PH_CODE + PHC_T_PRE, t_pre);
 
-  // ---- stage 1: level choice per position among maxAbs, maxAbs-1, 0.
-  // A CG's thread walks the coder's order, last to first, for each
-  // position's contexts (rank, greater-1 state, Rice parameter) as the
-  // rounded levels leave them; then the positions are priced side by side.
-  for (int ci = tid; ci < ncg; ci += nt) {
-    const int base = ci * 16;
-    const int rs = cg_flag(F.cg_sig, T.right[ci], ncg);
-    const int bs = cg_flag(F.cg_sig, T.below[ci], ncg);
-    int cs = 0;
-    for (int j = ci + 1; j < ncg; ++j)
-      if (F.cg_sig[j]) {
-        cs = F.g1any[j];
-        break;
-      }
-    if ((P.flags & F_LUMA) && ci > 0) cs += 2;
-    F.cg_pc[ci] = (rs + 2 * bs) | (cs << 2);
+  // ---- stage 1: level choice per position among maxAbs, maxAbs-1, 0,
+  // each position's contexts (rank, greater-1 state, Rice parameter) as
+  // the rounded levels leave them; then each CG's stage-2 verdict: its
+  // coded cost (the positions' costs summed in order) against its
+  // all-zero cost
+  HM_PH_START(t_s1p);
+  RDOQ_CG_ROUNDS(ci, on, ncg, tid, nt) {
+    const unsigned sm = on ? F.mcgm[ci] : 0u;
+    Lanes<int, 16> m, a, rk, bse, t, lv;
+    Lanes<float, 16> d0, cst;
+    Lanes<bool, 16> b1, b2, nz;
+    HM_LANES(j, 16) {
+      const int p = ci * 16 + j;
+      m[j] = on ? S.maxabs[p] : 0;
+      a[j] = on ? S.a[p] : 0;
+      d0[j] = on ? S.d0[p] : 0.f;
+      rk[j] = HM_POPC(sm >> (j + 1));
+      b1[j] = m[j] > 1 && rk[j] < C1FLAG;
+      b2[j] = m[j] >= 2;
+    }
+    const unsigned g1m = ballot(b1), g2m = ballot(b2);
     // the rank of the first level >= 2 (the greater-2 flag's position)
-    int cnt = 0, minr = 99;
-    for (int j = 15; j >= 0; --j) {
-      const int m = S.maxabs[base + j];
-      if (m >= 2) minr = imin(minr, cnt);
-      if (m > 0) ++cnt;
+    const int minr = g2m ? HM_POPC(sm >> (hibit(g2m) + 1)) : 99;
+    HM_LANES(j, 16) {
+      bse[j] = rk[j] < C1FLAG ? (rk[j] == minr ? 3 : 2) : 1;
+      t[j] = (m[j] > 0 && m[j] >= bse[j]) ? rice_steps(m[j]) : 0;
     }
-    cnt = 0;
-    int g1cnt = 0, rice = 0;
-    for (int j = 15; j >= 0; --j) {
-      const int m = S.maxabs[base + j];
-      const bool low = cnt < C1FLAG, has_g2 = cnt == minr;
-      const int bse = low ? (has_g2 ? 3 : 2) : 1;
-      const int c1 = g1cnt > 0 ? 0 : imin(1 + cnt, 3);
-      // c1: 2 bits, rice <= 4: 3, bse: 2, then low, has_g2
-      S.ctx[base + j] = c1 | (rice << 2) | (bse << 5) | (low << 7) |
-                        (has_g2 << 8);
-      if (m > 1 && cnt < C1FLAG) ++g1cnt;
-      if (m > 0) ++cnt;
-      if (m > 0 && m >= bse && m > (3 << rice)) rice = imin(rice + 1, 4);
+    const Lanes<int, 16> rice = rice_before(t);
+    const int rs = on ? cg_bit(sw, T.right[ci], ncg) : 0;
+    const int bs = on ? cg_bit(sw, T.below[ci], ncg) : 0;
+    const int cs = next_flag(sw, gw, ci) +
+                   (((P.flags & F_LUMA) && ci > 0) ? 2 : 0);
+    const int* sig_tab = T.sig_tab + (rs + 2 * bs) * npos + ci * 16;
+    const int one_ctx = P.one_base + cs * 4, abs_ctx = P.abs_base + cs;
+    HM_LANES(j, 16) {
+      const int p = ci * 16 + j;
+      const bool low = rk[j] < C1FLAG, has_g2 = rk[j] == minr;
+      const int c1 = (g1m >> (j + 1)) ? 0 : imin(1 + rk[j], 3);
+      const int b = bse[j], rj = rice[j], aj = a[j], mj = m[j];
+      const int sctx = on ? sig_tab[j] : 0;
+      const float sb0 = cbits(P, sctx, 0), sb1 = cbits(P, sctx, 1);
+      // bits of |level| l > 0 without the sig flag, then the RD cost
+      auto cost_nz = [&](int l) {
+        const bool g1 = l > 1;
+        float r = low ? cbits(P, one_ctx + c1, g1) : 0.f;
+        r = HM_FADD(r, (has_g2 && g1 && low) ? cbits(P, abs_ctx, l > 2)
+                                             : 0.f);
+        r = HM_FADD(r, l >= b ? rem_bits(imax(l - b, 0), rj) : 0.f);
+        r = HM_FADD(r, 1.f);
+        return HM_FADD(rdoq_dist(P, aj, l), HM_FMUL(lam, HM_FADD(r, sb1)));
+      };
+      const bool scg = mj > 0;
+      const float c_max = cost_nz(mj);
+      const int cand2 = imax(mj - 1, 0);
+      const float c_dec = cand2 > 0 ? cost_nz(cand2) : INFINITY;
+      const float c_zero = HM_FADD(d0[j], HM_FMUL(lam, sb0));
+      lv[j] = (scg && c_dec < c_max && c_dec < c_zero)
+                  ? cand2
+                  : ((scg && c_zero <= c_max) ? 0 : mj);
+      cst[j] = scg ? fminf(c_max, fminf(c_dec, c_zero)) : d0[j];
+      nz[j] = lv[j] > 0;
+      if (on) {
+        S.lev[p] = lv[j];
+        S.cost[p] = cst[j];
+        S.sigb1[p] = sb1;
+      }
+    }
+    const unsigned lm = ballot(nz);
+    const double sc = lane_sum_ordered(cst), sd = lane_sum_ordered(d0);
+    if (on && lead(tid)) {
+      const int csbf = P.sig_cg_base + (rs | bs);
+      const float coded =
+          HM_FADD((float)sc, HM_FMUL(lam, cbits(P, csbf, 1)));
+      const float zero = HM_FADD((float)sd, HM_FMUL(lam, cbits(P, csbf, 0)));
+      F.lcgm[ci] = (unsigned short)lm;
+      F.zf[ci] = zero < coded;
     }
   }
   HM_GSYNC(nt);
-  for (int p = tid; p < npos; p += nt) {
-    const int pc = F.cg_pc[p >> 4], cx = S.ctx[p];
-    const int patt = pc & 3, cs = pc >> 2;
-    const int c1 = cx & 3, rj = (cx >> 2) & 7, bse = (cx >> 5) & 3;
-    const bool low = (cx >> 7) & 1, has_g2 = (cx >> 8) & 1;
-    const int a = S.a[p], m = S.maxabs[p];
-    const bool scg = m > 0;
-    const int sctx = T.sig_tab[patt * npos + p];
-    const float sb0 = cbits(P, sctx, 0), sb1 = cbits(P, sctx, 1);
-    S.sigb1[p] = sb1;
-    const int one_ctx = P.one_base + cs * 4 + c1;
-    const int abs_ctx = P.abs_base + cs;
-    // bits of |level| lv > 0 without the sig flag, then the RD cost
-    auto cost_nz = [&](int lv) {
-      const bool g1 = lv > 1;
-      float r = low ? cbits(P, one_ctx, g1) : 0.f;
-      r = HM_FADD(r, (has_g2 && g1 && low) ? cbits(P, abs_ctx, lv > 2)
-                                           : 0.f);
-      r = HM_FADD(r, lv >= bse ? rem_bits(imax(lv - bse, 0), rj) : 0.f);
-      r = HM_FADD(r, 1.f);
-      return HM_FADD(rdoq_dist(P, a, lv), HM_FMUL(lam, HM_FADD(r, sb1)));
-    };
-    const float c_max = cost_nz(m);
-    const int cand2 = imax(m - 1, 0);
-    const float c_dec = cand2 > 0 ? cost_nz(cand2) : INFINITY;
-    const float c_zero = HM_FADD(S.d0[p], HM_FMUL(lam, sb0));
-    S.lev[p] = (scg && c_dec < c_max && c_dec < c_zero)
-                   ? cand2
-                   : ((scg && c_zero <= c_max) ? 0 : m);
-    S.cost[p] = scg ? fminf(c_max, fminf(c_dec, c_zero)) : S.d0[p];
-  }
-  HM_GSYNC(nt);
-  for (int ci = tid; ci < ncg; ci += nt) {
-    const int base = ci * 16;
-    int last = -1;
-    for (int j = 15; j >= 0 && last < 0; --j)
-      if (S.lev[base + j] > 0) last = base + j;
-    F.cg_last[ci] = last;
-  }
-  HM_GSYNC(nt);
-  if (tid == 0) {
-    int lp = -1;
-    for (int ci = 0; ci < ncg; ++ci) lp = imax(lp, F.cg_last[ci]);
-    F.last_pos = lp;
-  }
-  HM_GSYNC(nt);
+  HM_PH_STOP(HM_PH_CODE + PHC_T_S1P, t_s1p);
   HM_PH_STOP(HM_PH_CODE + PHC_S1, t_s1);
 
-  // ---- stage 2: zero a CG whose coded cost loses to its all-zero cost
+  // ---- stage 2: zero each CG strictly between the first and the last
+  // coded one (stage 1's levels) whose all-zero cost wins (zw: its bit)
   HM_PH_START(t_s2);
-  for (int ci = tid; ci < ncg; ci += nt) {
-    const int base = ci * 16;
-    const int rs = cg_flag(F.cg_sig, T.right[ci], ncg);
-    const int bs = cg_flag(F.cg_sig, T.below[ci], ncg);
-    const int csbf = P.sig_cg_base + (rs | bs);
-    double sc = 0.0, sd = 0.0;
-    for (int j = 0; j < 16; ++j) {
-      sc += (double)S.cost[base + j];
-      sd += (double)S.d0[base + j];
-    }
-    const float coded = HM_FADD((float)sc, HM_FMUL(lam, cbits(P, csbf, 1)));
-    const float zero = HM_FADD((float)sd, HM_FMUL(lam, cbits(P, csbf, 0)));
-    if (ci > 0 && ci < (F.last_pos >> 4) && zero < coded)
-      for (int j = 0; j < 16; ++j) {
-        S.lev[base + j] = 0;
-        S.cost[base + j] = S.d0[base + j];
-      }
-  }
-  HM_GSYNC(nt);
+  const int last_cg = hibit64(flag_bits(F.lcgm, ncg));
+  const unsigned long long zw =
+      last_cg > 1 ? flag_bits(F.zf, ncg) & (((1ull << last_cg) - 1) & ~1ull)
+                  : 0ull;
   HM_PH_STOP(HM_PH_CODE + PHC_S2, t_s2);
 
   // ---- stage 3: the best last position (its sig flag refunded, the
   // last-position bits paid, the rest zeroed) against the all-zero TB.
-  // Thread 0 keeps the two float64 running sums in their order (the
-  // suffix of d0, the prefix of cost; each position's rounded to float32),
-  // the group prices every position and takes the first of least cost.
+  // The two float64 running sums keep their order, side by side on the
+  // group's threads 0 and 1 (one after the other on the host): the suffix
+  // sums of d0 (S.tmp; the whole is the all-zero cost) and the prefix
+  // sums of the costs after stage 2 (S.pre), each position's rounded to
+  // float32; eight values a step in registers (npos: a multiple of 16)
   HM_PH_START(t_s3);
-  // (eight values a step into registers, so the loads and stores do not
-  // wait on the sum: npos is a multiple of 16)
-  if (tid == 0) {
+  for (int k = tid; k < 2; k += nt) {
+    const bool suf = k == 0;
+    float* out = suf ? S.tmp : S.pre;
     double acc = 0.0;
-    for (int p0 = npos - 8; p0 >= 0; p0 -= 8) {
+    for (int i = 0; i < npos; i += 8) {
       float v[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) v[k] = S.d0[p0 + k];
-#pragma unroll
-      for (int k = 7; k >= 0; --k) {
-        acc += (double)v[k];
-        v[k] = (float)acc;
+      HM_UNROLL
+      for (int q = 0; q < 8; ++q) {
+        const int p = suf ? npos - 1 - (i + q) : i + q;
+        v[q] = (suf || ((zw >> (p >> 4)) & 1)) ? S.d0[p] : S.cost[p];
       }
-#pragma unroll
-      for (int k = 0; k < 8; ++k) S.tmp[p0 + k] = v[k];
-    }
-    F.all_zero = (float)acc;
-    double pre = 0.0;
-    for (int p0 = 0; p0 < npos; p0 += 8) {
-      float v[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) v[k] = S.cost[p0 + k];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        pre += (double)v[k];
-        v[k] = (float)pre;
+      HM_UNROLL
+      for (int q = 0; q < 8; ++q) {
+        acc += (double)v[q];
+        v[q] = (float)acc;
       }
-#pragma unroll
-      for (int k = 0; k < 8; ++k) S.pre[p0 + k] = v[k];
+      HM_UNROLL
+      for (int q = 0; q < 8; ++q) out[suf ? npos - 1 - (i + q) : i + q] = v[q];
     }
+    if (suf) F.all_zero = (float)acc;
   }
   HM_GSYNC(nt);
+  const int size = 1 << P.log2;
   float best = INFINITY;
   int bi = npos;   // none: loses to every position
   for (int p = tid; p < npos; p += nt) {
-    const float c = S.cost[p];
+    const bool zc = (zw >> (p >> 4)) & 1;
+    const float c = zc ? S.d0[p] : S.cost[p];
+    const int lv = zc ? 0 : S.lev[p];
     const float prefix = HM_FSUB(S.pre[p], c);
-    const float lb = HM_FADD(F.lxb[T.last_x[p]], F.lyb[T.last_y[p]]);
+    const int lx = T.last_x[p], ly = T.last_y[p];
+    const float lb = HM_FADD(HM_FADD(P.lpb[lx], T.ep_cnt[lx]),
+                             HM_FADD(P.lpb[size + ly], T.ep_cnt[ly]));
     float v = HM_FADD(
         HM_FADD(HM_FADD(prefix, HM_FSUB(c, HM_FMUL(lam, S.sigb1[p]))),
                 HM_FSUB(S.tmp[p], S.d0[p])),
         HM_FMUL(lam, lb));
-    if (!(S.lev[p] > 0)) v = INFINITY;
+    if (!(lv > 0)) v = INFINITY;
     if (bi == npos || v < best) {
       best = v;
       bi = p;
@@ -489,83 +532,90 @@ HM_BIG void rdoq_trellis(const RdoqCfg& P, const Tabs& T, RdoqSmem& S,
   group_argmin(best, bi, tid, nt, F.red);
   const bool use_zero = F.all_zero <= best;
   for (int p = tid; p < npos; p += nt)
-    if (use_zero || p > bi) S.lev[p] = 0;
+    if (use_zero || p > bi || ((zw >> (p >> 4)) & 1)) S.lev[p] = 0;
   HM_GSYNC(nt);
   HM_PH_STOP(HM_PH_CODE + PHC_S3, t_s3);
 }
 
 // d(levels) + lambda * (bits + cbf) of the exact-rate guard: the
-// positions' distortions side by side (into S.tmp), their float64 sum in
-// order on thread 0, which alone returns it; every thread calls it
-HM_FN float rdoq_exact_rd(const RdoqCfg& P, RdoqSmem& S, const int* L,
-                          float bits, float lam, int npos, int tid, int nt) {
-  for (int p = tid; p < npos; p += nt) S.tmp[p] = rdoq_dist(P, S.a[p], L[p]);
-  HM_GSYNC(nt);
-  float r = 0.f;
-  if (tid == 0) {
-    double d = 0.0;
-    int nz = 0;
-    for (int p0 = 0; p0 < npos; p0 += 8) {   // npos: a multiple of 16
-      float v[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        v[k] = S.tmp[p0 + k];
-        nz |= L[p0 + k];
-      }
-#pragma unroll
-      for (int k = 0; k < 8; ++k) d += (double)v[k];
+// positions' distortions summed in position order in float64 by the
+// group's thread 0, which alone returns it
+HM_FN float rdoq_exact_rd(const RdoqCfg& P, const RdoqSmem& S, const int* L,
+                          float bits, float lam, int npos, int tid) {
+  if (tid != 0) return 0.f;
+  double d = 0.0;
+  int nz = 0;
+  for (int p0 = 0; p0 < npos; p0 += 8) {   // npos: a multiple of 16
+    float v[8];
+    HM_UNROLL
+    for (int k = 0; k < 8; ++k) {
+      v[k] = rdoq_dist(P, S.a[p0 + k], L[p0 + k]);
+      nz |= L[p0 + k];
     }
-    r = HM_FADD((float)d, HM_FMUL(lam, HM_FADD(bits, nz ? 1.f : 0.f)));
+    HM_UNROLL
+    for (int k = 0; k < 8; ++k) d += (double)v[k];
   }
-  HM_GSYNC(nt);
-  return r;
+  return HM_FADD((float)d, HM_FMUL(lam, HM_FADD(bits, nz ? 1.f : 0.f)));
+}
+
+// the guard's pricing h (0: the deadzone levels, 1: the trellis's) on a
+// group of nt threads: its rate and RD cost into F.b[h], F.rd[h]
+HM_FN void rdoq_price(const RdoqCfg& P, const Tabs& T, RdoqSmem& S, int h,
+                      float lam, int npos, int ncg, int tid, int nt) {
+  const int* L = h ? S.lev : S.fb;
+  const float b = tb_bits(P, T, S.f->tb[h], L, false, npos, ncg, tid, nt);
+  HM_PH_START(t_x);
+  const float r = rdoq_exact_rd(P, S, L, b, lam, npos, tid);
+  if (tid == 0) {
+    S.f->b[h] = b;
+    S.f->rd[h] = r;
+  }
+  HM_PH_STOP(HM_PH_CODE + PHC_XRD, t_x);
 }
 
 // sign data hiding parity (xQuant SDH branch) on S.lev, per CG; sel is
 // the TB's coding scan (0 diag, 1 hor, 2 ver) or -1 for the static one
 HM_BIG void rdoq_sdh(const RdoqCfg& P, const Tabs& T, RdoqSmem& S, int sel,
                      int ncg, int tid, int nt) {
-  for (int ci = tid; ci < ncg; ci += nt) {
-    const int base = ci * 16;
-    // a position's rank in the TB's coding scan
-    const int* rt = T.rank_tab + (sel < 0 ? 0 : sel * 16);
-    auto rk = [&](int j) { return sel < 0 ? j : rt[j]; };
-    int maxp = -1, minp = 99, asum = 0;
-    for (int j = 0; j < 16; ++j) {
-      const int l = S.lev[base + j];
-      if (l != 0) {
-        maxp = imax(maxp, rk(j));
-        minp = imin(minp, rk(j));
-      }
-      asum += l;
+  const int* rt = T.rank_tab + (sel < 0 ? 0 : sel * 16);
+  RDOQ_CG_ROUNDS(ci, on, ncg, tid, nt) {
+    Lanes<int, 16> l, a, rk;
+    Lanes<unsigned, 16> rb;
+    Lanes<bool, 16> neg;
+    HM_LANES(j, 16) {
+      l[j] = on ? S.lev[ci * 16 + j] : 0;
+      a[j] = on ? S.a[ci * 16 + j] : 0;
+      // a position's rank in the TB's coding scan
+      rk[j] = sel < 0 ? j : rt[j];
+      rb[j] = l[j] != 0 ? 1u << rk[j] : 0u;
     }
-    int first_neg = 0;
-    for (int j = 0; j < 16; ++j)
-      if (S.lev[base + j] != 0 && rk(j) == minp && S.sc[base + j] < 0)
-        ++first_neg;
-    const bool bad = (maxp - minp) > 3 && (asum & 1) != first_neg;
-    if (!bad) continue;
-    float best = INFINITY, best_inc = INFINITY, best_dec = INFINITY;
-    int pick = 0;
-    for (int j = 0; j < 16; ++j) {
-      const int l = S.lev[base + j], a = S.a[base + j];
-      const float now = rdoq_dist(P, a, l);
-      const bool span = rk(j) >= minp && rk(j) <= maxp;
-      const float inc = (span && l < COEFF_MAX)
-                            ? HM_FSUB(rdoq_dist(P, a, l + 1), now)
-                            : INFINITY;
-      const float dec = (span && l > 1)
-                            ? HM_FSUB(rdoq_dist(P, a, l - 1), now)
-                            : INFINITY;
-      const float m = fminf(inc, dec);
-      if (j == 0 || m < best) {
-        best = m;
-        pick = j;
-        best_inc = inc;
-        best_dec = dec;
-      }
+    const unsigned rm = lane_or(rb);   // the ranks of the nonzero levels
+    const int maxp = hibit(rm), minp = rm ? (int)HM_CTZ64(rm) : 99;
+    HM_LANES(j, 16) {
+      neg[j] = rb[j] != 0u && rk[j] == minp && S.sc[ci * 16 + j] < 0;
     }
-    S.lev[base + pick] += best_inc <= best_dec ? 1 : -1;
+    const int first_neg = HM_POPC(ballot(neg));
+    const int asum = lane_sum(l);
+    if (!((maxp - minp) > 3 && (asum & 1) != first_neg)) continue;
+    Lanes<float, 16> m, inc, dec;
+    Lanes<int, 16> key;
+    HM_LANES(j, 16) {
+      key[j] = j;
+      const float now = rdoq_dist(P, a[j], l[j]);
+      const bool span = rk[j] >= minp && rk[j] <= maxp;
+      inc[j] = (span && l[j] < COEFF_MAX)
+                   ? HM_FSUB(rdoq_dist(P, a[j], l[j] + 1), now)
+                   : INFINITY;
+      dec[j] = (span && l[j] > 1) ? HM_FSUB(rdoq_dist(P, a[j], l[j] - 1), now)
+                                  : INFINITY;
+      m[j] = fminf(inc[j], dec[j]);
+    }
+    float best;
+    int pick;
+    lane_argmin(m, key, best, pick);
+    HM_LANES(j, 16) {
+      if (j == pick) S.lev[ci * 16 + j] = l[j] + (inc[j] <= dec[j] ? 1 : -1);
+    }
   }
 }
 
@@ -580,59 +630,89 @@ HM_BIG float rdoq_tb(const RdoqCfg& P, float lam, int sel, const int* x,
   const Tabs T = rdoq_tabs(P, npos, ncg);
   RdoqFixed& F = *S.f;
   const bool lev_in = P.flags & F_LEV_IN;
+  const bool trellis = !lev_in && (P.flags & F_TRELLIS);
   const bool sdh = P.flags & F_SDH;
+  ph_code(true);
 
   HM_PH_START(t_init);
-  for (int p = tid; p < npos; p += nt) {
-    const int v = x[T.scans[p]];
-    const int a = iabs(v);
-    S.sc[p] = v;
-    S.a[p] = a;
-    if (lev_in) {
-      S.lev[p] = a;
-    } else {
-      // int32 is enough: a <= 2^15, scale < 2^15, the offsets < 2^27
-      S.maxabs[p] = imin((a * P.scale + (1 << (P.qbits - 1))) >> P.qbits,
-                         COEFF_MAX);
-      S.fb[p] = imin((a * P.scale + P.add) >> P.qbits, COEFF_MAX);
-      const float af = (float)a;
-      S.d0[p] = HM_FMUL(HM_FMUL(af, af), P.cscale);
-      S.lev[p] = S.fb[p];
+  RDOQ_CG_ROUNDS(ci, on, ncg, tid, nt) {
+    Lanes<int, 16> m;
+    Lanes<bool, 16> s, g;
+    HM_LANES(j, 16) {
+      const int p = ci * 16 + j;
+      m[j] = 0;
+      if (on) {
+        const int v = x[T.scans[p]];
+        const int a = iabs(v);
+        S.sc[p] = v;
+        S.a[p] = a;
+        if (lev_in) {
+          S.lev[p] = a;
+        } else {
+          // int32 is enough: a <= 2^15, scale < 2^15, the offsets < 2^27
+          m[j] = imin((a * P.scale + (1 << (P.qbits - 1))) >> P.qbits,
+                      COEFF_MAX);
+          S.maxabs[p] = m[j];
+          S.fb[p] = imin((a * P.scale + P.add) >> P.qbits, COEFF_MAX);
+          const float af = (float)a;
+          S.d0[p] = HM_FMUL(HM_FMUL(af, af), P.cscale);
+          S.lev[p] = S.fb[p];
+        }
+      }
+      s[j] = m[j] > 0;
+    }
+    if (trellis) {
+      // the rounded levels' significance and greater-1 flag per CG
+      const unsigned sm = ballot(s);
+      HM_LANES(j, 16) {
+        g[j] = m[j] > 1 && HM_POPC(sm >> (j + 1)) < C1FLAG;
+      }
+      const unsigned gm = ballot(g);
+      if (on && lead(tid)) {
+        F.mcgm[ci] = (unsigned short)sm;
+        F.mg1[ci] = gm != 0;
+      }
     }
   }
   HM_GSYNC(nt);
   HM_PH_STOP(HM_PH_CODE + PHC_INIT, t_init);
 
-  if (!lev_in) {
-    if (P.flags & F_TRELLIS) {
-      rdoq_trellis(P, T, S, lam, npos, ncg, tid, nt);
-      // exact-rate guard: re-price the trellis result and the deadzone
-      // levels with tb_bits and keep the cheaper
-      HM_PH_START(t_guard);
-      const float b_fb = tb_bits(P, T, S, S.fb, false, npos, ncg, tid, nt);
-      const float rd_fb =
-          rdoq_exact_rd(P, S, S.fb, b_fb, lam, npos, tid, nt);
-      const float b_lev = tb_bits(P, T, S, S.lev, false, npos, ncg, tid, nt);
-      const float rd_lev =
-          rdoq_exact_rd(P, S, S.lev, b_lev, lam, npos, tid, nt);
-      if (tid == 0) F.use_fb = rd_fb < rd_lev;
-      HM_GSYNC(nt);
-      if (F.use_fb)
-        for (int p = tid; p < npos; p += nt) S.lev[p] = S.fb[p];
-      HM_GSYNC(nt);
-      HM_PH_STOP(HM_PH_CODE + PHC_GUARD, t_guard);
+  bool use_fb = false;
+  if (trellis) {
+    rdoq_trellis(P, T, S, lam, npos, ncg, tid, nt);
+    // exact-rate guard: the deadzone levels and the trellis result priced
+    // with tb_bits, side by side on the group's halves (one after the
+    // other on a half-warp or the host's thread), the cheaper kept
+    HM_PH_START(t_guard);
+    if (nt >= 32) {
+      const int hn = nt >> 1, h = tid >= hn;
+      rdoq_price(P, T, S, h, lam, npos, ncg, tid - h * hn, hn);
+    } else {
+      for (int h = 0; h < 2; ++h)
+        rdoq_price(P, T, S, h, lam, npos, ncg, tid, nt);
     }
-    if (sdh) {
-      HM_PH_START(t_sdh);
-      rdoq_sdh(P, T, S, sel, ncg, tid, nt);
-      HM_GSYNC(nt);
-      HM_PH_STOP(HM_PH_CODE + PHC_SDH, t_sdh);
-    }
+    HM_GSYNC(nt);
+    use_fb = F.rd[0] < F.rd[1];
+    if (use_fb)
+      for (int p = tid; p < npos; p += nt) S.lev[p] = S.fb[p];
+    HM_GSYNC(nt);
+    HM_PH_STOP(HM_PH_CODE + PHC_GUARD, t_guard);
+  }
+  if (sdh && !lev_in) {
+    HM_PH_START(t_sdh);
+    rdoq_sdh(P, T, S, sel, ncg, tid, nt);
+    HM_GSYNC(nt);
+    HM_PH_STOP(HM_PH_CODE + PHC_SDH, t_sdh);
   }
 
+  // the TB rate; with the trellis and SDH off, the guard's price of the
+  // levels it kept (the same function on the same levels)
   HM_PH_START(t_bits);
-  const float bits =
-      want_bits ? tb_bits(P, T, S, S.lev, sdh, npos, ncg, tid, nt) : 0.f;
+  float bits = 0.f;
+  if (want_bits)
+    bits = (trellis && !sdh)
+               ? (use_fb ? F.b[0] : F.b[1])
+               : tb_bits(P, T, F.tb[0], S.lev, sdh, npos, ncg, tid, nt);
   HM_PH_STOP(HM_PH_CODE + PHC_BITS, t_bits);
   HM_PH_START(t_out);
   for (int p = tid; p < npos; p += nt) {
@@ -649,6 +729,7 @@ HM_BIG float rdoq_tb(const RdoqCfg& P, float lam, int sel, const int* x,
   }
   HM_GSYNC(nt);
   HM_PH_STOP(HM_PH_CODE + PHC_OUT, t_out);
+  ph_code(false);
   return bits;
 }
 

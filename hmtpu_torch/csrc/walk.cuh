@@ -47,6 +47,38 @@ struct Coder {
   float tbf[NTB][2];     // per set: inv, cscale
 };
 
+// K10's last-position tables of the NTB sets (hm::rdoq_last_bits): set s
+// at lp_off(s) of lp_tables(), which every walker block builds once
+// (build_last_bits) before its first coding.  (The context bits and the
+// small sets' packed tables stay in device memory: staged beside these,
+// they left the coding no faster and gave K23 and K26 spills.)
+HM_HD constexpr int lp_size(int s) { return 4 << (s >> 1); }
+HM_HD constexpr int lp_off(int s) {
+  return s == 0 ? 0 : lp_off(s - 1) + 2 * lp_size(s - 1);
+}
+constexpr int LP_FLOATS = lp_off(NTB);
+
+#if defined(__CUDACC__)
+__device__ __forceinline__ float* lp_tables() {
+  __shared__ float t[LP_FLOATS];
+  return t;
+}
+#else
+inline float* lp_tables() {
+  static float t[LP_FLOATS];
+  return t;
+}
+#endif
+
+// every set's table into lp_tables(), the block's tid of nt threads; the
+// caller's block barrier follows
+HM_FN void build_last_bits(const Coder& c, int tid, int nt) {
+  float* t = lp_tables();
+  for (int s = 0; s < NTB; ++s)
+    rdoq_last_bits(c.cb, c.tabs_f + c.tb[s][1], c.tb[s][2], c.tb[s][3],
+                   lp_size(s), t + lp_off(s), tid, nt);
+}
+
 // ints of a coding work area for TBs of up to `stride` samples: three
 // work TBs, the TS alternative's 4x4 levels and reconstruction, the
 // group's reduction scratch (32 int64)
@@ -143,6 +175,7 @@ HM_BIG TbRes code_tb(Lane& L, int log2, bool luma, bool dst, bool ts,
   c.cb = a.cb;
   c.tabs_i = a.tabs_i + a.tb[s][0];
   c.tabs_f = a.tabs_f + a.tb[s][1];
+  c.lpb = lp_tables() + lp_off(s);
   c.log2 = log2;
   c.flags = (trellis ? F_TRELLIS : 0) | (a.sdh ? F_SDH : 0) |
             (luma ? F_LUMA : 0);

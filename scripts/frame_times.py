@@ -19,7 +19,13 @@ two trees of the port on one card in one run:
         4), K14's loss forward and K16's Adam step at the trainer's batch
         of 1024 (the clip's first frame pair at search range 16, the
         port's init from seed 0), K25's SAO choice on the ldp I frame's
-        statistics (kept from the first ldp encode);
+        statistics (kept from the first ldp encode); and of two
+        device-bound calls, with their device milliseconds beside them
+        (torch.profiler over 50 calls): K10's coding step as the P pass
+        calls it at (1560, 8, 8) (the clip's frame 1 less frame 0,
+        forward transformed; luma, QP 25, the trellis and SDH) and K22's
+        rough mode decision as the I pass calls it (the first frame, n =
+        8, k = 2);
   nnfme_train  `train_nnfme.main` at its defaults (416x240, 24 frames,
         QPs 22/27/32/37, 60 epochs, search range 16) into a temporary
         directory: seconds.
@@ -131,8 +137,61 @@ def _time_call(fn, iters=200, warm=2) -> float:
     return a.elapsed_time(b) / iters
 
 
+def _device_ms(fn, name, iters=50):
+    """Device milliseconds per call of fn in CUDA functions whose name
+    holds `name` (torch.profiler), or None where the profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [getattr(e, "self_device_time_total",
+                  getattr(e, "self_cuda_time_total", 0.0))
+          for e in prof.key_averages() if name in e.key]
+    return sum(us) / 1e3 / iters if us else None
+
+
+def _coding_calls(clip, dev):
+    """{label: (call, CUDA function name)} of K10 and K22 at the main
+    path's shapes."""
+    from hmtpu_torch.common.constants import SliceType
+    from hmtpu_torch.common.lambdas import frame_lambdas
+    from hmtpu_torch.encoder import iframe_dev
+    from hmtpu_torch.encoder.intra_rdo import rmd
+    from hmtpu_torch.entropy.contexts import make_contexts
+    from hmtpu_torch.entropy.fracbits import ctx_bits_table
+    from hmtpu_torch.ops import rdoq, transform
+
+    rng = np.random.RandomState(10)
+    y1, y0 = (torch.as_tensor(np.asarray(f[0], np.int32)).to(dev)
+              for f in (clip[1], clip[0]))
+    res = (y1 - y0).reshape(30, 8, 52, 8).transpose(1, 2).reshape(-1, 8, 8)
+    coef = transform.forward_transform(res.contiguous(), 8)
+    cb = torch.as_tensor(ctx_bits_table(make_contexts(SliceType.P, 22))
+                         .reshape(-1)).to(dev)
+    lam = torch.tensor(frame_lambdas(25, 25, 0.4624)[0],
+                       dtype=torch.float32, device=dev)
+    sel = torch.as_tensor(rng.randint(0, 3, coef.shape[0])
+                          .astype(np.int32)).to(dev)
+    g8 = iframe_dev._dev_static(416, 240, 6, dev)["g8"]
+    lam_sqrt = frame_lambdas(32, 32, 0.57)[1]
+    return {
+        "K10 rdoq_code ((1560, 8, 8) luma, trellis + SDH)": (
+            lambda: rdoq.rdoq_code(coef, 25, 3, 8, lam, cb, True, sdh=True,
+                                   scan_sel=sel, trellis=True),
+            "rdoq_kernel"),
+        "K22 rmd (416x240, n = 8, k = 2)": (
+            lambda: rmd(y0, g8, 8, 2, bd=8, lam_sqrt=lam_sqrt, sis=True),
+            "rmd_kernel"),
+    }
+
+
 def _calls(clip, sao_call):
-    """The `calls` line's milliseconds per call, by wrapper."""
+    """The `calls` line's milliseconds per call, by wrapper, and the
+    device milliseconds of the device-bound ones."""
     from hmtpu_torch.io.yuv import Frame
     from hmtpu_torch.models import dataset, nnfme, train
     from hmtpu_torch.ops import sao, transform
@@ -183,7 +242,10 @@ def _calls(clip, sao_call):
         "K25 choose_params (ldp I frame)":
             lambda: sao.choose_params(*sa, **sk),
     }
-    return {k: _time_call(f) for k, f in calls.items()}
+    coding = _coding_calls(clip, dev)
+    calls.update({k: f for k, (f, _) in coding.items()})
+    return ({k: _time_call(f) for k, f in calls.items()},
+            {k: _device_ms(f, fn) for k, (f, fn) in coding.items()})
 
 
 def main() -> int:
@@ -229,8 +291,9 @@ def main() -> int:
                 flush=True)
     finally:
         restore()
-    print(json.dumps({"config": "calls", "kernels": nk,
-                      "ms_per_call": _calls(clip, sao_call)}), flush=True)
+    ms, dms = _calls(clip, sao_call)
+    print(json.dumps({"config": "calls", "kernels": nk, "ms_per_call": ms,
+                      "device_ms_per_call": dms}), flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.time()
         train_nnfme.main(["--out", os.path.join(tmp, "w")])

@@ -31,14 +31,21 @@ import torch
 PHASES = ("sources, list", "MC and SSEs (and intra prediction)",
           "screening", "codings (deadzone, recodes, intra)",
           "winner's results", "AMVP", "intra cost", "commit")
-N_SLOTS = 40
+N_SLOTS = 48
 SLOT_LANE, SLOT_T16, SLOT_T32, SLOT_BAR = 24, 25, 26, N_SLOTS - 1
 # hm_port.cuh's coding-step slots (group 0's codings, every size)
 SLOT_CODE = 27
 CODE_PHASES = ("residual + transform", "K10 set-up", "trellis stage 1",
                "trellis stage 2", "trellis stage 3", "exact-rate guard",
                "sign hiding", "TB rate", "levels + dequantisation",
-               "inverse + SSE")
+               "inverse + SSE",
+               # rdoq.cuh's sub-steps: every tb_bits call (the guard's and
+               # the TB rate's), the trellis' stage 1, the guard's sums,
+               # and the stamping thread's barrier wait inside rdoq_tb
+               "tb_bits: CG flags and last position",
+               "tb_bits: position pass", "tb_bits: sums", "tb_bits: tail",
+               "trellis: prelude", "trellis: stage 1 position pass",
+               "guard: distortion sums", "barrier wait inside rdoq_tb")
 
 
 # a walker's source -> its launch function (its phase read-out adds

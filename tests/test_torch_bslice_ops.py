@@ -28,6 +28,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests.hmtpu_xla import release_programs  # noqa: F401 (autouse)
+
 
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():

@@ -26,6 +26,7 @@ from hmtpu_torch.encoder.top import Encoder, EncoderConfig
 from hmtpu_torch.io.yuv import Frame
 from hmtpu_torch.kernels import CSRC
 from hmtpu_torch.ops import interp
+from tests.hmtpu_xla import release_programs  # noqa: F401 (autouse)
 from tools.gen_test_yuv import synth_clip
 
 _LANES_CPP = r"""

@@ -24,6 +24,7 @@ from hmtpu.apps import encoder_app as j_app
 from hmtpu.decoder.core import Decoder
 from hmtpu_torch.apps import encoder_app as p_app
 from hmtpu_torch.encoder import iframe_dev as p_iframe_dev
+from tests.hmtpu_xla import release_programs  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 AI_CFG = os.path.join(ROOT, "cfg", "encoder_intra_main.cfg")

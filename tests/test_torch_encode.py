@@ -6,9 +6,8 @@ at 416x240, the 8 and 16 levels only, with partial CTUs.
 Each case is one test that checks, in order: the `iframe_full_pass`
 state of the first picture (every array, dtype and value), the Annex-B
 stream byte for byte, and hmtpu's own decoder on the port's stream with
-every picture hash matching.  One test per case keeps hmtpu's XLA
-compile of the pass to one per size and test worker (QP is traced, so
-the QPs of one size share it).
+every picture hash matching.  hmtpu's encoder runs in a child process
+for each case (tests/hmtpu_xla.py).
 """
 import numpy as np
 import pytest
@@ -16,14 +15,13 @@ import torch
 
 from hmtpu.decoder.core import Decoder
 from hmtpu.encoder import iframe_dev as j_iframe_dev
-from hmtpu.encoder.top import Encoder as JEncoder
-from hmtpu.encoder.top import EncoderConfig as JConfig
-from hmtpu.io.yuv import Frame as JFrame
 from hmtpu_torch.convert import state_from_numpy, state_to_numpy
 from hmtpu_torch.encoder import iframe_dev as p_iframe_dev
 from hmtpu_torch.encoder.top import Encoder as PEncoder
 from hmtpu_torch.encoder.top import EncoderConfig as PConfig
 from hmtpu_torch.io.yuv import Frame as PFrame
+from tests import hmtpu_xla
+from tests.hmtpu_xla import release_programs  # noqa: F401 (autouse)
 from tools.gen_test_yuv import synth_clip
 
 @pytest.fixture(autouse=True, scope="module")
@@ -50,30 +48,30 @@ def clip(w, h, frames, seed):
     return out
 
 
-def _encode(mod, encoder, config, frame_t, frames, qp, opts, **kw):
-    """Encode `frames`; return (stream, first picture's pass state as
-    numpy, results).  The state is read by wrapping the module's
+def _encode_port(frames, qp, opts):
+    """Encode `frames` with the port; return (stream, first picture's
+    pass state as numpy, results).  The state is read by wrapping
     iframe_full_pass, which the frame encoder looks up at call time."""
     seen = []
-    inner = mod.iframe_full_pass
+    inner = p_iframe_dev.iframe_full_pass
 
     def record(*a, **k):
         st = inner(*a, **k)
         seen.append(st)
         return st
 
-    mod.iframe_full_pass = record
+    p_iframe_dev.iframe_full_pass = record
     try:
-        h, w = frames[0][0].shape
-        enc = encoder(config(width=w, height=h, qp=qp, gop="ai",
-                             subpel="none", **opts), **kw)
-        bs = enc.encode_sequence([frame_t(*f, 8) for f in frames])
+        enc = PEncoder(PConfig(**_cfg(frames, qp, opts)), device="cpu")
+        bs = enc.encode_sequence([PFrame(*f, 8) for f in frames])
     finally:
-        mod.iframe_full_pass = inner
-    st0 = seen[0]
-    st0 = state_to_numpy(st0) if kw else {k: np.asarray(v)
-                                          for k, v in st0.items()}
-    return bs, st0, enc.results
+        p_iframe_dev.iframe_full_pass = inner
+    return bs, state_to_numpy(seen[0]), enc.results
+
+
+def _cfg(frames, qp, opts):
+    h, w = frames[0][0].shape
+    return dict(width=w, height=h, qp=qp, gop="ai", subpel="none", **opts)
 
 
 # 64x64 QP 37 also turns on the prefix SEI messages, HRD signalling and
@@ -86,10 +84,10 @@ def _encode(mod, encoder, config, frame_t, frames, qp, opts, **kw):
     (80, 48, 1, 27, {}, {0, 1})])
 def test_ai_slice_matches_hmtpu(w, h, frames, qp, opts, sizes):
     clip_ = clip(w, h, frames, qp)
-    j_bs, j_st, _ = _encode(j_iframe_dev, JEncoder, JConfig, JFrame,
-                            clip_, qp, opts)
-    p_bs, p_st, p_res = _encode(p_iframe_dev, PEncoder, PConfig, PFrame,
-                                clip_, qp, opts, device="cpu")
+    j_bs, j_sts, _ = hmtpu_xla.encode(_cfg(clip_, qp, opts), clip_,
+                                        record="iframe_dev.iframe_full_pass")
+    j_st = j_sts[0]
+    p_bs, p_st, p_res = _encode_port(clip_, qp, opts)
 
     # the pass state: 8x8 CUs with NxN parts and the larger CU sizes
     # (cusz 1: 16x16, 2: 32x32) occur, and every array agrees

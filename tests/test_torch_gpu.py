@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from hmtpu_torch import kernels
+from tests.hmtpu_xla import release_programs  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.gpu
 
@@ -378,6 +379,32 @@ def test_rdoq_kernel(dev, log2):
             assert torch.equal(
                 _launched("rdoq", lambda: quant.quantize_t(coef, 22, log2)),
                 quant.quantize_t_plain(coef, 22, log2))
+    # the contents that reach the coder's edges (tests/test_torch_rdoq_lanes
+    # .py: all-zero, DC only, C1FLAG, Rice 4, stage 2, the all-zero TB
+    # winning stage 3, SDH parity fixes), at 8 and 10 bits, QP 27
+    from tests.test_torch_rdoq_lanes import QP, _batch, _lam
+    cb27 = torch.as_tensor(ctx_bits_table(make_contexts(
+        SliceType.P, QP)).reshape(-1)).to(dev)
+    for bd in (8, 10):
+        coef, _ = _batch(log2, bd, 17 * log2 + bd)
+        coef = coef.to(dev)
+        sel = _i32(rng.randint(0, 3, coef.shape[0]), dev) if n <= 8 else None
+        for luma in (True, False):
+            lam = torch.tensor(_lam(luma), device=dev)
+            for trellis in (True, False):
+                for sdh in (True, False):
+                    got = _launched("rdoq", lambda: rdoq.rdoq_code(
+                        coef, QP, log2, bd, lam, cb27, luma, sdh=sdh,
+                        scan_sel=sel, trellis=trellis))
+                    lev = rdoq.rdoq_tb_plain(coef, QP, log2, bd, lam, cb27,
+                                             luma, 0, sdh, sel, trellis)
+                    assert torch.equal(got[0], lev)
+                    assert torch.equal(got[1], quant.dequantize_t_plain(
+                        lev, QP, log2, bd))
+                    bits = ratebits.tb_bits_plain(lev, cb27, log2, luma, 0,
+                                                  sdh)
+                    assert torch.equal(got[2].view(torch.int32),
+                                       bits.view(torch.int32))
 
 
 @pytest.mark.parametrize("subpel,ts", [("nn", False), ("dctif", True)])
@@ -771,6 +798,9 @@ def test_i_rmd_kernel(dev, n, k):
     for bd in (8, 10):
         plane = rng.randint(0, 1 << bd, (64, 96))
         plane[:32] = 1 << (bd - 1)               # flat: every mode ties
+        # 16x16 steps: ties among some modes (test_torch_iwalk.py's)
+        plane[32:48] = np.kron(rng.randint(0, 4, (1, 6)),
+                               np.ones((16, 16), int)) * (40 << (bd - 8))
         sub, none = static_ref_gather(96, 64, 6, n)
         for sis in (False, True):
             kw = dict(bd=bd, lam_sqrt=np.float32(6.5), sis=sis)

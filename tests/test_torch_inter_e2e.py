@@ -18,21 +18,22 @@ one those tests make (and its persistent cache entry can serve it):
     height is not a multiple of 16: the P pass takes the single-level
     integer ME (K13's plain version here); the stream byte for byte and
     the hashes.  hmtpu compiles this geometry once.
+
+hmtpu's encoder runs in a child process for each test
+(tests/hmtpu_xla.py).
 """
 import numpy as np
 import pytest
 import torch
 
 from hmtpu.decoder.core import Decoder
-from hmtpu.encoder import pframe_dev as j_pframe_dev
-from hmtpu.encoder.top import Encoder as JEncoder
-from hmtpu.encoder.top import EncoderConfig as JConfig
-from hmtpu.io.yuv import Frame as JFrame
 from hmtpu_torch.convert import state_to_numpy
 from hmtpu_torch.encoder import pframe_dev as p_pframe_dev
 from hmtpu_torch.encoder.top import Encoder as PEncoder
 from hmtpu_torch.encoder.top import EncoderConfig as PConfig
 from hmtpu_torch.io.yuv import Frame as PFrame
+from tests import hmtpu_xla
+from tests.hmtpu_xla import release_programs  # noqa: F401 (autouse)
 from tools.gen_test_yuv import synth_clip
 
 W, H, FRAMES, QP = 64, 64, 3, 32
@@ -48,38 +49,36 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _encode(mod, encoder, config, frame_t, to_numpy, subpel, **kw):
-    """Encode the clip; return (stream, the P passes' states as numpy,
-    results).  The states are read by wrapping the module's
+def _encode_port(cfg, planes):
+    """Encode `planes` with the port; return (stream, the P passes'
+    states as numpy, results).  The states are read by wrapping
     full_pframe_pass, which the P-frame encoder looks up at call time."""
     seen = []
-    inner = mod.full_pframe_pass
+    inner = p_pframe_dev.full_pframe_pass
 
     def record(*a, **k):
         out = inner(*a, **k)
-        seen.append(to_numpy(out[0]))
+        seen.append(state_to_numpy(out[0]))
         return out
 
-    mod.full_pframe_pass = record
+    p_pframe_dev.full_pframe_pass = record
     try:
-        frames = [frame_t(y.astype(np.int32), u.astype(np.int32),
-                          v.astype(np.int32))
-                  for y, u, v in synth_clip(W, H, FRAMES)]
-        enc = encoder(config(width=W, height=H, qp=QP, gop="ldp",
-                             subpel=subpel, search_range=8), **kw)
-        bs = enc.encode_sequence(frames)
+        enc = PEncoder(PConfig(**cfg), device="cpu")
+        bs = enc.encode_sequence([PFrame(*p) for p in planes])
     finally:
-        mod.full_pframe_pass = inner
+        p_pframe_dev.full_pframe_pass = inner
     return bs, seen, enc.results
 
 
 @pytest.mark.parametrize("subpel", ["nn", "dctif"])
 def test_ldp_nn_slice_matches_hmtpu(subpel):
-    j_bs, j_st, _ = _encode(j_pframe_dev, JEncoder, JConfig, JFrame,
-                            lambda st: {k: np.asarray(v)
-                                        for k, v in st.items()}, subpel)
-    p_bs, p_st, p_res = _encode(p_pframe_dev, PEncoder, PConfig, PFrame,
-                                state_to_numpy, subpel, device="cpu")
+    planes = [tuple(p.astype(np.int32) for p in f)
+              for f in synth_clip(W, H, FRAMES)]
+    cfg = dict(width=W, height=H, qp=QP, gop="ldp", subpel=subpel,
+               search_range=8)
+    j_bs, j_st, _ = hmtpu_xla.encode(
+        cfg, planes, record="pframe_dev.full_pframe_pass")
+    p_bs, p_st, p_res = _encode_port(cfg, planes)
 
     # frame 1's pass state: every array, dtype and value
     assert len(p_st) == len(j_st) == FRAMES - 1
@@ -124,8 +123,7 @@ def test_ldp_transform_skip_matches_hmtpu():
     planes = _screenish_chroma(96, 64, 4)
     cfg = dict(width=96, height=64, qp=27, gop="ldp", subpel="none",
                transform_skip=True)
-    j_enc = JEncoder(JConfig(**cfg))
-    j_bs = j_enc.encode_sequence([JFrame(*p) for p in planes])
+    j_bs, _, _ = hmtpu_xla.encode(cfg, planes)
     p_pframe_dev.DBG_COUNTERS["ldp_ts_tbs"] = 0
     p_enc = PEncoder(PConfig(**cfg), device="cpu")
     assert p_enc.pps.transform_skip_enabled
@@ -143,8 +141,7 @@ def test_ldp_single_level_me_matches_hmtpu():
               for f in synth_clip(64, 56, 2)]
     cfg = dict(width=64, height=56, qp=QP, gop="ldp", subpel="nn",
                search_range=8)
-    j_bs = JEncoder(JConfig(**cfg)).encode_sequence(
-        [JFrame(*p) for p in planes])
+    j_bs, _, _ = hmtpu_xla.encode(cfg, planes)
     p_enc = PEncoder(PConfig(**cfg), device="cpu")
     p_bs = p_enc.encode_sequence([PFrame(*p) for p in planes])
     assert [r.slice_type for r in p_enc.results] == ["I", "P"]

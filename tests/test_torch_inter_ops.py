@@ -20,6 +20,7 @@ from hmtpu.common.constants import SliceType
 from hmtpu.entropy.contexts import make_contexts
 from hmtpu.entropy.fracbits import ctx_bits_table
 from hmtpu_torch.common import lambdas
+from tests.hmtpu_xla import release_programs  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True, scope="module")

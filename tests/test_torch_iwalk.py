@@ -28,6 +28,7 @@ from hmtpu_torch.entropy.contexts import make_contexts
 from hmtpu_torch.entropy.fracbits import ctx_bits_table
 from hmtpu_torch.kernels import CSRC
 from hmtpu_torch.search.wavefront import static_ref_gather
+from tests.hmtpu_xla import release_programs  # noqa: F401 (autouse)
 from tools.gen_test_yuv import synth_clip
 
 _LANES_CPP = r"""

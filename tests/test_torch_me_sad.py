@@ -27,6 +27,7 @@ from hmtpu.search import me as jme
 from hmtpu_torch.common import lambdas
 from hmtpu_torch.kernels import CSRC
 from hmtpu_torch.search import me as pme
+from tests.hmtpu_xla import release_programs  # noqa: F401 (autouse)
 
 _LANES_CPP = r"""
 #include "me_sad.cuh"

@@ -33,6 +33,7 @@ import torch
 from hmtpu.common.constants import SliceType
 from hmtpu.entropy.contexts import make_contexts
 from hmtpu.entropy.fracbits import ctx_bits_table
+from tests.hmtpu_xla import release_programs  # noqa: F401 (autouse)
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "hmtpu_torch", "csrc")

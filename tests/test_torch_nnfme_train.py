@@ -33,6 +33,7 @@ from hmtpu_torch.io.yuv import Frame as PFrame
 from hmtpu_torch.models import dataset as p_dataset
 from hmtpu_torch.models import nnfme as p_nnfme
 from hmtpu_torch.models import train as p_train
+from tests.hmtpu_xla import release_programs  # noqa: F401 (autouse)
 from tools.gen_test_yuv import synth_clip
 
 

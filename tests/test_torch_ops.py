@@ -21,6 +21,7 @@ from hmtpu_torch.common import lambdas
 from hmtpu_torch.common.constants import SliceType as TSliceType
 from hmtpu_torch.entropy.contexts import make_contexts as t_make_contexts
 from hmtpu_torch.entropy.fracbits import ctx_bits_table as t_ctx_bits_table
+from tests.hmtpu_xla import release_programs  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests.hmtpu_xla import release_programs  # noqa: F401 (autouse)
+
 
 def _ulps(got, ref):
     """|got - ref| in float32 spacings of ref (float64 reference)."""

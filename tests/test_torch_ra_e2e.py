@@ -14,20 +14,20 @@ tests make (and the persistent compile cache can serve them):
     frames, QP 30, DCT-IF), marked slow: tier-1 leaves it out.
 
 One test per config: two RA configs compiled in one process trip
-XLA:CPU's multi-compile abort (tests/test_bframes.py:79-83).
+XLA:CPU's multi-compile abort (tests/test_bframes.py:79-83), and hmtpu's
+encoder runs in a child process of its own (tests/hmtpu_xla.py).
 """
 import numpy as np
 import pytest
 import torch
 
 from hmtpu.decoder.core import Decoder
-from hmtpu.encoder.top import Encoder as JEncoder
-from hmtpu.encoder.top import EncoderConfig as JConfig
-from hmtpu.io.yuv import Frame as JFrame
 from hmtpu_torch.encoder import pframe_dev as p_pframe_dev
 from hmtpu_torch.encoder.top import Encoder as PEncoder
 from hmtpu_torch.encoder.top import EncoderConfig as PConfig
 from hmtpu_torch.io.yuv import Frame as PFrame
+from tests import hmtpu_xla
+from tests.hmtpu_xla import release_programs  # noqa: F401 (autouse)
 from tools.gen_test_yuv import synth_clip
 
 
@@ -50,22 +50,24 @@ def _planes(w, h, n, seed, bd):
 
 
 def _both(cfg, planes, bd):
-    j_enc = JEncoder(JConfig(**cfg))
-    j_bs = j_enc.encode_sequence([JFrame(*p, bd) for p in planes])
+    """(hmtpu's stream, the port's stream, hmtpu's slice types, the
+    port's encoder)."""
+    j_bs, _, j_types = hmtpu_xla.encode(cfg, planes, bd)
     p_pframe_dev.DBG_COUNTERS["ra_bi_cus"] = 0
     p_enc = PEncoder(PConfig(**cfg), device="cpu")
     p_bs = p_enc.encode_sequence([PFrame(*p, bd) for p in planes])
-    return j_bs, p_bs, j_enc, p_enc
+    return j_bs, p_bs, j_types, p_enc
 
 
 def _check_ra(cfg, n, seed, bd):
-    j_bs, p_bs, j_enc, p_enc = _both(cfg, _planes(96, 96, n, seed, bd), bd)
+    j_bs, p_bs, j_types, p_enc = _both(cfg, _planes(96, 96, n, seed, bd),
+                                       bd)
     assert p_bs == j_bs
     pics = Decoder().decode_annexb(p_bs)
     assert sorted(p.poc for p in pics) == list(range(n))
     assert all(p.hash_ok is True for p in pics)
     types = [r.slice_type for r in p_enc.results]
-    assert types == [r.slice_type for r in j_enc.results]
+    assert types == j_types
     assert types[0] == "I" and types[1:] == ["B"] * (n - 1)
     assert p_pframe_dev.DBG_COUNTERS["ra_bi_cus"] > 0
     assert p_enc.sps.max_num_reorder_pics == 4

@@ -20,6 +20,7 @@ from hmtpu.io.bitstream import BitReader, strip_emulation_prevention
 from hmtpu.io.nal import split_annexb
 from hmtpu_torch.apps import encoder_app as p_app
 from hmtpu_torch.encoder import iframe_dev as p_iframe_dev
+from tests.hmtpu_xla import release_programs  # noqa: F401 (autouse)
 from tools.gen_test_yuv import synth_clip
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

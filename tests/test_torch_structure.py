@@ -14,6 +14,7 @@ import torch
 
 from hmtpu_torch.device import resolve
 from hmtpu_torch.encoder.top import Encoder, EncoderConfig
+from tests.hmtpu_xla import release_programs  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
