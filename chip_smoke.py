@@ -12,8 +12,8 @@ when every phase passed):
                K23's and K21's phase-clock builds
                (scripts/pwalk_phases.py, iwalk_phases.py); the registers,
                stack frame and spills ptxas gives K10, K22, the walkers
-               K21, K23 and K26 and K5's kernels (with the spills of every
-               function of the source);
+               K21, K23 and K26 and K5's and K13's kernels (with the
+               spills of every function of the source);
   3. kernels   each kernel (K1, K3-K16 and K1's transform-skip mode)
                against its plain PyTorch version on seeded inputs at the
                shapes the main paths give it, and K2 and K17-K26 (after
@@ -62,7 +62,9 @@ when every phase passed):
                bits).  K5 is checked besides on ra10's 10-bit planes and
                on a flat plane, where every displacement ties.  K13 is
                timed at 1920x1080, search range 64, and checked at
-               416x240 and 64x56 with non-zero predictors; K14-K16 at
+               416x240 and 64x56 with non-zero predictors, at 64x56 also
+               on 10-bit samples (staged as halfwords), and on flat 8-
+               and 10-bit planes, where every displacement ties; K14-K16 at
                batch 1024 of the trainer's QP-22 records.  Each is timed
                with CUDA events, beside its plain version, the bound for
                its bytes and operations, and a library yardstick where one
@@ -382,7 +384,7 @@ DEVICE_FN = {
     "satd8": "satd_kernel", "transform_skip": "transform_skip_kernel",
     "frac_refine": "frac_kernel", "rdoq": "rdoq_kernel",
     "mc_dctif_i": "mc_kernel", "bi_pred": "bi_pred_kernel",
-    "me_sad1": "me1_kernel", "adam": "adam_kernel",
+    "me_sad1": ("me1_kernel", "me1_out_kernel"), "adam": "adam_kernel",
     # the forward and backward and the second pass of their reductions
     "nnfme_fwd": ("fwd_kernel", "colsum_kernel"),
     "nnfme_bwd": ("bwd_kernel", "colsum_kernel"),
@@ -914,7 +916,9 @@ def mlp_work(nb):
 
 def slice5_kernel_cases(dev, rng):
     """K13 at 1920x1080, search range 64, one reference (checked at
-    416x240 and 64x56, search ranges 16 and 64, non-zero predictors), and
+    416x240 and 64x56, search ranges 16 and 64, non-zero predictors, at
+    64x56 also on 10-bit samples, and on a flat plane where every
+    displacement ties), and
     K14-K16 at batch 1024 of the trainer's QP-22 records (the clip's
     first frame pair at search range 16), from the port's init (seed 0)
     with the rows' fitted mean and std."""
@@ -925,18 +929,22 @@ def slice5_kernel_cases(dev, rng):
     lam = np.float32(np.sqrt(0.57 * 2.0 ** ((QP_LDP - 12) / 3.0)))
     cases = []
 
-    def me1_case(clip, sr):
+    def me1_case(clip, sr, bd=8, lam=lam, span=64):
         h, w = clip[0][0].shape
-        org, ref = t32(clip[1][0]), t32(clip[0][0])
-        px, py = (t32(rng.randint(-64, 65, (h // 8, w // 8)))
+        org, ref = (t32(np.asarray(clip[i][0], np.int64) << (bd - 8))
+                    for i in (1, 0))
+        px, py = (t32(rng.randint(-span, span + 1, (h // 8, w // 8)))
                   for _ in range(2))
-        return (lambda: me.integer_me(ref, org, 8, sr, lam, px, py),
+        return (lambda: me.integer_me(ref, org, 8, sr, lam, px, py, bd),
                 lambda: me.integer_me_plain(ref, org, 8, sr, lam, px, py))
 
     kfn, pfn = me1_case(hd_clip()[:2], HD_SR)
-    more = [me1_case(c, sr) for c in (synth_clip(W, H, 2, seed=42),
-                                      synth_clip(64, 56, 2, seed=3))
-            for sr in (16, 64)]
+    small = synth_clip(64, 56, 2, seed=3)
+    flat = [(np.full((56, 64), 90),)] * 2
+    more = [me1_case(c, sr) for c in (synth_clip(W, H, 2, seed=42), small)
+            for sr in (16, 64)] + [
+        me1_case(small, sr, 10) for sr in (16, 64)] + [
+        me1_case(flat, 16, bd, np.float32(0.0), 0) for bd in (8, 10)]
     nblk = (HD_H // 8) * (HD_W // 8)
     # two planes and two predictor fields in, 12 int32 per block out; per
     # displacement and sample a subtract, an absolute value and an add
@@ -1718,7 +1726,7 @@ def check_walk(cases, rows, time_all=True) -> None:
 
 
 # the kernels whose ptxas figures the build prints: (kernel, source,
-# kernel function): K10, K22, the walkers and K5
+# kernel function): K10, K22, the walkers, K5 and K13
 PTXAS = (("K10 rdoq", "rdoq", "rdoq_kernel"),
          ("K22 i_rmd", "i_rmd", "rmd_kernel"),
          ("K21 i_walk", "iwalk", "iwalk_kernel"),
@@ -1726,7 +1734,10 @@ PTXAS = (("K10 rdoq", "rdoq", "rdoq_kernel"),
          ("K26 b_walk", "bwalk", "bwalk_kernel"),
          ("K5 me_sad, 8 bits", "me_sad", "me_kernelILi4"),
          ("K5 me_sad, 10 bits", "me_sad", "me_kernelILi2"),
-         ("K5 me_sad, stencils", "me_sad", "me_out_kernel"))
+         ("K5 me_sad, stencils", "me_sad", "me_out_kernel"),
+         ("K13 me_sad1, 8 bits", "me_sad", "me1_kernelILi4"),
+         ("K13 me_sad1, 10 bits", "me_sad", "me1_kernelILi2"),
+         ("K13 me_sad1, stencils", "me_sad", "me1_out_kernel"))
 
 
 def ptxas_figures(log: str, fn: str) -> str:

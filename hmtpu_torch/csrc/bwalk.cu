@@ -15,35 +15,42 @@
 // another.  The plain version issues that chain as tens of thousands of
 // torch operations a level from the host; here a level is one launch.
 //
-// Design: K23's (one thread block of THREADS threads per lane, the steps
-// in sequence, per-sample work split over the threads, K10's working set
-// in shared memory, the hypotheses and coded CUs in the lane's device
-// scratch), as its own kernel so K23's code is untouched.  The AMVP
+// Design: K21's (iwalk.cu) and K23's (pwalk.cu): one thread block of
+// bw::THREADS (8 warps) a lane, in teams (bwalk.cuh, "K26's lane"): the
+// cells on warps 0-5 (the block at geometry 8), each cell's codings as two
+// rounds of tasks side by side on one-warp groups (the merge candidates'
+// hypotheses and screening with the intra arm's predictions; the merge
+// winner's three planes predicted and coded with the intra arm's
+// codings); each 16x16 trial on warp 6 beside its region's cells, the
+// 32x32 trial on warp 7 beside its four regions, joined by a named
+// barrier before the compare and the commit; the SSEs exact group sums;
+// the lane's whole working set in shared memory (bw::smem_bytes), no
+// device scratch.  The earlier design (128 threads on every step in turn,
+// the lane in 146 KB of device scratch, the SSEs summed on thread 0) took
+// 144.9 ms a B pass at 416x240 on an H100 80GB HBM3 at 700 W (PERF.md).  The AMVP
 // hypotheses (K7 + K10 over the whole frame, each block's list through
-// the union stack) and the open-loop intra modes (K22) are computed
-// before the walk and read here.  Padding lanes (-1) return at once.
+// the union stack) and the open-loop intra modes (K22) are computed before
+// the walk and read here.  Padding lanes (-1) return at once.
 #include <cuda_runtime.h>
 
+#define HM_GROUPS  // groups of the block with their own barriers (hm_port.cuh)
 #include "bwalk.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
-static_assert(THREADS <= bw::RED_THREADS, "the SSE reduction's width");
-
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(bw::THREADS, 1)
     bwalk_kernel(const __grid_constant__ bw::Args a, int level) {
-  extern __shared__ double smem[];
+  extern __shared__ __align__(16) int smem[];
   bw::walk_lane(a, level, blockIdx.x, threadIdx.x, blockDim.x, smem);
 }
 
 }  // namespace
 
-// scratch: (bmax, bw::SCRATCH) int32 on the card; ptrs / ints / flts: host
-// arrays of n_ptrs pointers, n_ints ints and n_flts floats, which must be
-// bw::N_PTRS, N_INTS and N_FLTS (bw::args_from's order; the scratch
-// pointer among them is this one).  A B slice has no transform skip and
-// no temporal grids.
+// scratch: (bmax, 0) int32 on the card (K26 keeps its lane in shared
+// memory); ptrs / ints / flts: host arrays of n_ptrs pointers, n_ints ints
+// and n_flts floats, which must be bw::N_PTRS, N_INTS and N_FLTS
+// (bw::args_from's order; the scratch pointer among them is this one).  A
+// B slice has no transform skip and no temporal grids.
 extern "C" int hm_b_walk(void* scratch, const void* ptrs, int n_ptrs,
                          const void* ints, int n_ints, const void* flts,
                          int n_flts, int level, void* stream) {
@@ -60,8 +67,7 @@ extern "C" int hm_b_walk(void* scratch, const void* ptrs, int n_ptrs,
       !b.l0map || !b.l1map || !b.ref_pocs_l1 || !b.lx8 ||
       (a.geom == 32 && (!b.lx16 || !b.lx32)))
     return cudaErrorInvalidValue;
-  // the working set's limit, raised once per device to the larger one (the
-  // coder's tables in static shared memory come on top of it)
+  // the arena's limit, raised once per device to the larger layout
   static bool raised[64];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -70,11 +76,11 @@ extern "C" int hm_b_walk(void* scratch, const void* ptrs, int n_ptrs,
   if (!raised[dev]) {
     e = cudaFuncSetAttribute(bwalk_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)hm::rdoq_smem_bytes(5));
+                             bw::smem_bytes(32));
     if (e != cudaSuccess) return (int)e;
     raised[dev] = true;
   }
-  const size_t smem = hm::rdoq_smem_bytes(a.geom == 8 ? 3 : 5);
-  bwalk_kernel<<<a.bmax, THREADS, smem, (cudaStream_t)stream>>>(b, level);
+  bwalk_kernel<<<a.bmax, bw::THREADS, bw::smem_bytes(a.geom),
+                 (cudaStream_t)stream>>>(b, level);
   return (int)cudaGetLastError();
 }

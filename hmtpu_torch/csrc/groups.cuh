@@ -1,8 +1,8 @@
 // The pieces of a walker's lane that runs a CU trial as rounds of
 // independent tasks side by side in groups of its block (K21 i_walk,
-// iwalk.cuh; K23 p_walk, pwalk.cuh): the groups, the deal of a round's
-// tasks over them, the task order (reversible in the host build) and the
-// tasks' result slots.
+// iwalk.cuh; K23 p_walk, pwalk.cuh; K26 b_walk, bwalk.cuh): the teams of
+// warps and the groups, the deal of a round's tasks over them, the task
+// order (reversible in the host build) and the tasks' result slots.
 //
 // A task writes only its own outputs and its result slot; between
 // rounds every thread derives the same scalars from the slots in the
@@ -46,6 +46,26 @@ HM_FN Grp group_of(int tid, int nt, int want) {
   G.g = tid / G.nt;
   G.tid = tid - G.g * G.nt;
   return G;
+}
+
+// a team of nw warps from warp w0 of a block of nt threads: the thread
+// tid's place in it (the host's one thread, nt = 1, is in every team)
+struct Team {
+  int tid, nt;
+  bool in;
+};
+HM_FN Team team_of(int tid, int nt, int w0, int nw) {
+  Team T;
+  if (nt < 32) {
+    T.tid = 0;
+    T.nt = 1;
+    T.in = true;
+  } else {
+    T.tid = tid - 32 * w0;
+    T.nt = 32 * nw;
+    T.in = T.tid >= 0 && T.tid < T.nt;
+  }
+  return T;
 }
 
 HM_HD constexpr int r4(int ints) { return (ints + 3) & ~3; }

@@ -378,50 +378,21 @@ struct Walk {  // K21's lane: its Args, its block's threads and arena
   HM_FN bool host() const { return nt < 32; }
 };
 
-// a team of nw warps from warp w0: this thread's place in it (the host's
-// one thread is in every team)
-struct Team {
-  int tid, nt;
-  bool in;
-};
+// a team of nw warps from warp w0 (groups.cuh)
+using gp::Team;
 HM_FN Team team_of(const Walk& W, int w0, int nw) {
-  Team T;
-  if (W.host()) {
-    T.tid = 0;
-    T.nt = 1;
-    T.in = true;
-  } else {
-    T.tid = W.tid - 32 * w0;
-    T.nt = 32 * nw;
-    T.in = T.tid >= 0 && T.tid < T.nt;
-  }
-  return T;
+  return gp::team_of(W.tid, W.nt, w0, nw);
 }
 
 // a coding lane over a group's area (n x n TBs at most)
 HM_FN wk::Lane coder_of(const Args& a, const GrpMem& gm, int tid, int nt,
                         int n) {
-  wk::Lane L;
-  L.cd = &a.cd;
-  L.tid = tid;
-  L.nt = nt;
-  L.S = rdoq_smem(gm.k10, n * n);
-  L.s = nullptr;
-  L.work = gm.work;
-  L.wstride = n * n;
-  return L;
+  return wk::coder_lane(a.cd, gm.work, gm.k10, tid, nt, n);
 }
 
 // a team as a lane without a coding area (gathers, copies, predictions)
 HM_FN wk::Lane plain_of(const Args& a, const Team& T) {
-  wk::Lane L;
-  L.cd = &a.cd;
-  L.tid = T.tid;
-  L.nt = T.nt;
-  L.S = RdoqSmem{};
-  L.s = nullptr;
-  L.work = nullptr;
-  return L;
+  return wk::plain_lane(a.cd, T.tid, T.nt);
 }
 
 HM_FN Slots slots_of(const CellMem& m) {

@@ -1,5 +1,5 @@
-// K5 me_sad and K13 me_sad1 (the single-level form, further below, with
-// its own window staging).
+// K5 me_sad and K13 me_sad1 (the single-level form, further below), both
+// over me_sad.cuh's packed window and units.
 //
 // K5 me_sad: full-window integer motion estimation for the 8x8, 16x16
 // and 32x32 CU levels of one reference, bit-exact with
@@ -34,6 +34,24 @@
 // one atomicMin a lane and block merges the chunks.  A second kernel, a
 // block a region, reads the winners and takes the nine stencil SADs
 // around each from the planes.
+//
+// K13 me_sad1: hmtpu/search/me.py:107 integer_me for 8x8 blocks (the SAD
+// volume of integer_me_sad_volume :29, the argmin + stencil of
+// _volume_best :72) with a quarter-pel MV predictor per block in the
+// motion cost, for any picture whose sides are multiples of 8 (the P
+// pass takes it where a side is not a multiple of 16; dataset extraction
+// always).  Its work and bound are K5's at one level (at 1080x1920 and R
+// = 64, 2.07 M samples x 16,641 displacements).  Its design is K5's: a
+// block per (32x32 region of the picture, dy chunk), the window staged
+// packed, units of two dy by eight dx a warp, a (cost, index) key per
+// cell merged over the chunks with one atomicMin; there is no 16x16 or
+// region sum, and each cell's cost prices its own predictor
+// (me::unit_key1), so nothing of the cost is shared across the region.
+// Cells of the last row or column of regions that fall outside the
+// picture are masked.  A second kernel takes the nine stencil SADs.  (The
+// earlier K13, a block a region with an int32 window and one
+// displacement at a time a thread, ran at 9 % of its bound on an H100
+// 80GB HBM3 at 700 W: PERF.md.)
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
@@ -41,10 +59,6 @@
 #include "me_sad.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kGroups = kThreads / 16;   // K13: displacements in flight
-static_assert(kThreads == me::THREADS, "K5 and K13 blocks");
 
 // K5's first kernel: block (region, chunk) of the search, its minima
 // into keys (NLANE a region, NO_KEY before the launch)
@@ -160,147 +174,71 @@ __global__ void __launch_bounds__(me::THREADS)
   }
 }
 
-__device__ __forceinline__ int bits_of(int v) {
-  const unsigned code = v <= 0 ? ((unsigned)(-v) << 1) + 1u : (unsigned)v << 1;
-  return 2 * (31 - __clz((int)code)) + 1;
-}
-
-__device__ __forceinline__ bool better(float c, int i, float bc, int bi) {
-  return c < bc || (c == bc && i < bi);
-}
-
-// K13: stage one 32x32 region: its (32 + 2R)^2 window of reference
-// samples around (y0, x0), edge-replicated by clamped reads (HM's margin
-// padding), and its source samples (zero outside the picture).
-__device__ void stage_region(int* win, int* sorg, const int* __restrict__ ref,
-                             const int* __restrict__ org, int H, int W, int R,
-                             int y0, int x0) {
-  const int S = 32 + 2 * R;
-  for (int k = threadIdx.x; k < S * S; k += blockDim.x) {
-    const int wy = k / S, wx = k - (k / S) * S;
-    const int yy = min(max(y0 - R + wy, 0), H - 1);
-    const int xx = min(max(x0 - R + wx, 0), W - 1);
-    win[k] = ref[(size_t)yy * W + xx];
-  }
-  for (int k = threadIdx.x; k < 32 * 32; k += blockDim.x) {
-    const int yy = y0 + (k >> 5), xx = x0 + (k & 31);
-    sorg[k] = (yy < H && xx < W) ? org[(size_t)yy * W + xx] : 0;
-  }
-}
-
-// K13: SAD of region cell (cy, cx) at window offset (dyi, dxi)
-__device__ int cell_sad(const int* win, int S, const int* org, int cy, int cx,
-                        int dyi, int dxi) {
-  int s = 0;
-  const int* w0 = win + (cy * 8 + dyi) * S + cx * 8 + dxi;
-  const int* o0 = org + cy * 8 * 32 + cx * 8;
-  for (int i = 0; i < 8; ++i)
-    for (int j = 0; j < 8; ++j) s += abs(o0[i * 32 + j] - w0[i * S + j]);
-  return s;
-}
-
-
-// K13 me_sad1: the single-level form, bit-exact with
-// hmtpu/search/me.py:107 integer_me for 8x8 blocks (the SAD volume of
-// integer_me_sad_volume :29 and the argmin + stencil of _volume_best :72)
-// with a quarter-pel MV predictor per block in the motion cost, for any
-// picture whose sides are multiples of 8 (the P pass takes it where a
-// side is not a multiple of 16; dataset extraction always).  The work and
-// its bound are K5's; there is no 16/32 sum.  One thread block per 32x32
-// region of the picture, staged as K5 stages it; cells of the last row or
-// column of regions that lie outside the picture are masked.  Thread t
-// owns cell t % 16 (row-major in the region) and displacement lane t / 16,
-// keeps a running (cost, index) minimum over its displacements in
-// increasing index order (strictly smaller cost only), and the 16 partial
-// minima of a cell are merged on (cost, index): ties go to the first
-// index in row-major (dy, dx) order.  The cost is K5's, float32(SAD) +
-// float32(bits(4 dx - px) + bits(4 dy - py)) * lambda_sqrt with separately
-// rounded operations.  The nine stencil SADs (clamped to the window) are
-// then recomputed from the staged window, one (cell, point) per thread.
-__global__ void __launch_bounds__(kThreads)
+// K13's first kernel: block (region, chunk) of the search as K5's, at
+// one level: each lane's cell keeps its own running key, priced against
+// the cell's own predictor; the two half-warps' keys, the warps', then
+// one atomicMin a cell and block merges the chunks (keys: 16 a region,
+// NO_KEY before the launch)
+template <int P>
+__global__ void __launch_bounds__(me::THREADS)
     me1_kernel(const int* __restrict__ ref, const int* __restrict__ org,
                const int* __restrict__ pmx, const int* __restrict__ pmy,
-               int* __restrict__ out, int H, int W, int R, float lam) {
-  extern __shared__ int sm[];
-  const int side = 2 * R + 1;
-  const int D = side * side;
-  const int S = 32 + 2 * R;
-  const int bh = H / 8, bw = W / 8;
-  const int rw = (W + 31) / 32;
-  const int qy = blockIdx.x / rw, qx = blockIdx.x - (blockIdx.x / rw) * rw;
-  const int y0 = qy * 32, x0 = qx * 32;
-
-  int* win = sm;                                  // S * S
-  int* sorg = win + S * S;                        // 32 * 32
-  float* rc = (float*)(sorg + 32 * 32);           // kThreads
-  int* ri = (int*)(rc + kThreads);                // kThreads
-  int* best = ri + kThreads;                      // 16 winners
-
-  const int t = threadIdx.x;
-  stage_region(win, sorg, ref, org, H, W, R, y0, x0);
+               unsigned long long* __restrict__ keys, int H, int W, int R,
+               float lam) {
+  extern __shared__ unsigned smw[];
+  __shared__ unsigned long long wk[me::THREADS / 32][16];
+  const int side = 2 * R + 1, nq = me::nq_of(R);
+  const int stride = me::row_words(R, P);
+  const int bh = H / 8, bw = W / 8, qw = (bw + 3) / 4;
+  const int g = blockIdx.x, qy = g / qw, qx = g - qy * qw;
+  const int dlo = me::chunk_lo(blockIdx.y, side);
+  const int nd = me::chunk_lo(blockIdx.y + 1, side) - dlo;
+  unsigned* win = smw;
+  unsigned* sorg = smw + (me::chunk_rows(R) + 31) * stride;
+  me::stage<P>(ref, org, H, W, R, qy * 32, qx * 32, dlo, nd + 31, win, sorg,
+               threadIdx.x, blockDim.x);
   __syncthreads();
 
-  const int c = t & 15, g = t >> 4;
-  const int cy = c >> 2, cx = c & 3;
-  const int by = qy * 4 + cy, bx = qx * 4 + cx;
-  float bc = FLT_MAX;
-  int bi = 0x7fffffff;
-  if (by < bh && bx < bw) {
-    int o[64];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) o[i * 8 + j] = sorg[(cy * 8 + i) * 32 + cx * 8 + j];
-    const int px = pmx[(size_t)by * bw + bx], py = pmy[(size_t)by * bw + bx];
-    for (int d = g; d < D; d += kGroups) {
-      const int dyi = d / side, dxi = d - (d / side) * side;
-      const int* w0 = win + (cy * 8 + dyi) * S + cx * 8 + dxi;
-      int s = 0;
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s += abs(o[i * 8 + j] - w0[i * S + j]);
-      const float mv = __fmul_rn((float)(bits_of((dxi - R) * 4 - px)
-                                         + bits_of((dyi - R) * 4 - py)), lam);
-      const float cc = __fadd_rn((float)s, mv);
-      if (cc < bc) { bc = cc; bi = d; }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = lane & 15, half = lane >> 4, cy = c >> 2, cx = c & 3;
+  unsigned long long k = me::NO_KEY;
+  if (me::cell_in(c, qy, qx, bh, bw)) {
+    const size_t b = (size_t)(qy * 4 + cy) * bw + qx * 4 + cx;
+    const int px = pmx[b], py = pmy[b];
+    unsigned o[8 * (8 / P)];
+    me::cell_source<P>(sorg, cy, cx, o);
+    const int nu = (nd + 1) / 2 * nq;
+    for (int u = warp; u < nu; u += me::THREADS / 32) {
+      const int pr = u / nq, q = u - pr * nq, dyl = 2 * pr + half;
+      if (dyl >= nd) continue;
+      int s[8];
+      me::unit_sads<P>(win, stride, o, cy, cx, dyl, q, s);
+      k = me::unit_key1(s, dlo + dyl, q, side, R, px, py, lam, k);
     }
   }
-  rc[t] = bc;
-  ri[t] = bi;
+  k = me::key_min(k, __shfl_xor_sync(0xffffffffu, k, 16));
+  if (lane < 16) wk[warp][lane] = k;
   __syncthreads();
-
-  if (t < 16) {
-    float mc = FLT_MAX;
-    int mi = 0x7fffffff;
-    for (int k = 0; k < kGroups; ++k)
-      if (better(rc[k * 16 + t], ri[k * 16 + t], mc, mi)) {
-        mc = rc[k * 16 + t];
-        mi = ri[k * 16 + t];
-      }
-    best[t] = mi;
+  if (threadIdx.x < 16) {
+    k = wk[0][threadIdx.x];
+    for (int w = 1; w < me::THREADS / 32; ++w)
+      k = me::key_min(k, wk[w][threadIdx.x]);
+    atomicMin(keys + (size_t)g * 16 + threadIdx.x, k);
   }
-  __syncthreads();
+}
 
-  // per block: mvx, mvy, best SAD, the 3x3 stencil
-  for (int k = t; k < 16 * 9; k += kThreads) {
-    const int cell = k / 9, p = k - (k / 9) * 9;
-    const int ccy = cell >> 2, ccx = cell & 3;
-    const int bby = qy * 4 + ccy, bbx = qx * 4 + ccx;
-    if (bby >= bh || bbx >= bw) continue;
-    const int b = best[cell];
-    const int bdy = b / side, bdx = b - (b / side) * side;
-    const int oy = min(max(bdy + p / 3 - 1, 0), side - 1);
-    const int ox = min(max(bdx + p % 3 - 1, 0), side - 1);
-    const int sad = cell_sad(win, S, sorg, ccy, ccx, oy, ox);
-    int* o_ = out + ((size_t)bby * bw + bbx) * 12;
-    o_[3 + p] = sad;
-    if (p == 4) {
-      o_[0] = bdx - R;
-      o_[1] = bdy - R;
-      o_[2] = sad;
-    }
-  }
+// K13's second kernel: block g reads region g's winners and writes each
+// cell's (mvx, mvy, best SAD, 3x3 stencil), a (cell, point) a thread
+__global__ void __launch_bounds__(me::THREADS)
+    me1_out_kernel(const int* __restrict__ ref, const int* __restrict__ org,
+                   const unsigned long long* __restrict__ keys,
+                   int* __restrict__ out, int H, int W, int R) {
+  const int bh = H / 8, bw = W / 8, qw = (bw + 3) / 4;
+  const int g = blockIdx.x, qy = g / qw, qx = g - qy * qw;
+  const int e = threadIdx.x;
+  if (e < 16 * 9 && me::cell_in(e / 9, qy, qx, bh, bw))
+    me::out1_item(ref, org, out, H, W, R, qy, qx, e,
+                  (int)(keys[(size_t)g * 16 + e / 9] & 0xffffffffu));
 }
 
 }  // namespace
@@ -338,21 +276,32 @@ extern "C" int hm_me_sad_levels(const void* ref, const void* org, void* out8,
   return (int)cudaGetLastError();
 }
 
+// keys: (regions, 16) uint64 scratch on the card (regions of 32x32 over
+// the picture); bd 8 or 10 (the samples' bits: bytes or halfwords staged)
 extern "C" int hm_me_sad1(const void* ref, const void* org, const void* pmx,
-                          const void* pmy, void* out, int H, int W, int R,
-                          float lam, void* stream) {
-  if (H <= 0 || W <= 0 || H % 8 || W % 8 || R < 0 || R > 64)
+                          const void* pmy, void* out, void* keys, int H,
+                          int W, int R, int bd, float lam, void* stream) {
+  if (H <= 0 || W <= 0 || H % 8 || W % 8 || R < 0 || R > me::MAX_R ||
+      (bd != 8 && bd != 10))
     return cudaErrorInvalidValue;
-  const int S = 32 + 2 * R;
-  const size_t smem = (size_t)(S * S + 32 * 32) * sizeof(int)
-                      + (size_t)kThreads * (sizeof(float) + sizeof(int))
-                      + (size_t)16 * sizeof(int);
-  cudaError_t e = cudaFuncSetAttribute(
-      me1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int regions = ((H / 8 + 3) / 4) * ((W / 8 + 3) / 4);
+  cudaError_t e = cudaMemsetAsync(
+      keys, 0xff, (size_t)regions * 16 * sizeof(unsigned long long), st);
   if (e != cudaSuccess) return (int)e;
-  const int blocks = ((H + 31) / 32) * ((W + 31) / 32);
-  me1_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int*)ref, (const int*)org, (const int*)pmx, (const int*)pmy,
-      (int*)out, H, W, R, lam);
+  const dim3 grid(regions, me::NCH);
+  if (bd == 8)
+    me1_kernel<4><<<grid, me::THREADS, me::stage_words(R, 4) * 4, st>>>(
+        (const int*)ref, (const int*)org, (const int*)pmx, (const int*)pmy,
+        (unsigned long long*)keys, H, W, R, lam);
+  else
+    me1_kernel<2><<<grid, me::THREADS, me::stage_words(R, 2) * 4, st>>>(
+        (const int*)ref, (const int*)org, (const int*)pmx, (const int*)pmy,
+        (unsigned long long*)keys, H, W, R, lam);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  me1_out_kernel<<<regions, me::THREADS, 0, st>>>(
+      (const int*)ref, (const int*)org, (const unsigned long long*)keys,
+      (int*)out, H, W, R);
   return (int)cudaGetLastError();
 }

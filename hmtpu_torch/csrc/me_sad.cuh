@@ -24,9 +24,17 @@
 // the units and chunks run in.  The nine stencil SADs around each winner
 // (clamped to the window) are taken after the merge from the planes.
 //
+// K13 me_sad1 (hmtpu/search/me.py:107 integer_me for 8x8 blocks, as
+// `integer_me_plain` computes it) runs the same staging and units at one
+// level: no 16x16 or region sums, each cell keeps its own key, and its
+// cost prices the bits against the cell's own quarter-pel predictor
+// (unit_key1); the regions tile pictures whose sides are multiples of 8,
+// cells outside the picture masked.
+//
 // Compiles as host C++ too (hm_port.cuh's shim: the packed sums and
-// differences and the funnel shift); `levels_host` runs the same units,
-// chunk by chunk, on one thread, which the CPU tests drive.
+// differences and the funnel shift); `levels_host` and `level1_host` run
+// the same units, chunk by chunk, on one thread, which the CPU tests
+// drive.
 #pragma once
 
 #include <float.h>
@@ -70,10 +78,19 @@ HM_FN int bits_of(int v) {
   return 2 * (31 - HM_CLZ((int)code)) + 1;
 }
 
-// the motion cost of window offset (dyi, dxi): float32(bits) * lambda
+// the bits of one MV component at window offset di against a
+// quarter-pel predictor component p
+HM_FN int mv_bits(int di, int R, int p) { return bits_of((di - R) * 4 - p); }
+
+// the motion cost of a displacement from its components' bits:
+// float32(bits) * lambda
+HM_FN float mv_cost_of(int bx, int by, float lam) {
+  return HM_FMUL((float)(bx + by), lam);
+}
+
+// the motion cost of window offset (dyi, dxi), zero predictor (K5)
 HM_FN float mv_cost(int dxi, int dyi, int R, float lam) {
-  return HM_FMUL((float)(bits_of((dxi - R) * 4) + bits_of((dyi - R) * 4)),
-                 lam);
+  return mv_cost_of(mv_bits(dxi, R, 0), mv_bits(dyi, R, 0), lam);
 }
 
 // a (cost, index) minimum as one word: the least key wins, ties to the
@@ -245,6 +262,45 @@ HM_FN void sten_at(int d, int p, int side, int* oy, int* ox) {
   *ox = iclamp(dx + p % 3 - 1, 0, side - 1);
 }
 
+// K13 (the single level): a unit's eight SADs s (window row dyi,
+// columns 8q .. 8q + 7) into a cell's running key k; the cost is
+// float32(SAD) + float32(bits(4 dx - px) + bits(4 dy - py)) * lambda,
+// the cell's own quarter-pel predictor (px, py) in the bits
+HM_FN unsigned long long unit_key1(const int* s, int dyi, int q, int side,
+                                   int R, int px, int py, float lam,
+                                   unsigned long long k) {
+  const int by = mv_bits(dyi, R, py);
+  HM_UNROLL
+  for (int j = 0; j < 8; ++j) {
+    const int dxi = 8 * q + j;
+    if (dxi < side)
+      k = key_min(k, key_of(HM_FADD((float)s[j],
+                                    mv_cost_of(mv_bits(dxi, R, px), by, lam)),
+                            dyi * side + dxi));
+  }
+  return k;
+}
+
+// K13's output item e (0 .. 143: cell e / 9, stencil point e % 9) of
+// region (qy, qx) from the cell's winner d, into the cell's row of out
+// (mvx, mvy, the best SAD, the 3x3 stencil): the point's SAD, and with
+// the centre point the MV and the best SAD
+HM_FN void out1_item(const int* ref, const int* org, int* out, int H, int W,
+                     int R, int qy, int qx, int e, int d) {
+  const int c = e / 9, p = e - c * 9, side = 2 * R + 1;
+  int oy, ox;
+  sten_at(d, p, side, &oy, &ox);
+  const int sad = cell_sad(ref, org, H, W, R, qy * 32, qx * 32, c, oy, ox);
+  int* o =
+      out + ((size_t)(qy * 4 + (c >> 2)) * (W / 8) + qx * 4 + (c & 3)) * 12;
+  o[3 + p] = sad;
+  if (p == 4) {
+    o[0] = d % side - R;
+    o[1] = d / side - R;
+    o[2] = sad;
+  }
+}
+
 #if !defined(__CUDACC__)
 // K5 on one host thread: every (region, chunk) block's units in turn, the
 // cells' SADs summed to the 16x16 blocks and the region as the kernel's
@@ -315,6 +371,47 @@ inline void levels_host(const int* ref, const int* org, int* out8,
     }
   }
   delete[] keys;
+  delete[] win;
+}
+
+// K13 on one host thread: every (region, chunk) block's units in turn,
+// each cell's minimum kept as a key, then the outputs
+template <int P>
+inline void level1_host(const int* ref, const int* org, const int* pmx,
+                        const int* pmy, int* out, int H, int W, int R,
+                        float lam) {
+  const int side = 2 * R + 1, bh = H / 8, bw = W / 8, qh = (bh + 3) / 4,
+            qw = (bw + 3) / 4;
+  const int stride = row_words(R, P), nq = nq_of(R);
+  unsigned* win = new unsigned[stage_words(R, P)];
+  unsigned* sorg = win + (chunk_rows(R) + 31) * stride;
+  for (int g = 0; g < qh * qw; ++g) {
+    const int qy = g / qw, qx = g % qw;
+    unsigned long long kg[16];
+    for (int c = 0; c < 16; ++c) kg[c] = NO_KEY;
+    for (int ch = 0; ch < NCH; ++ch) {
+      const int dlo = chunk_lo(ch, side), nd = chunk_lo(ch + 1, side) - dlo;
+      stage<P>(ref, org, H, W, R, qy * 32, qx * 32, dlo, nd + 31, win, sorg,
+               0, 1);
+      for (int c = 0; c < 16; ++c) {
+        if (!cell_in(c, qy, qx, bh, bw)) continue;
+        const size_t b = (size_t)(qy * 4 + (c >> 2)) * bw + qx * 4 + (c & 3);
+        unsigned o[8 * (8 / P)];
+        cell_source<P>(sorg, c >> 2, c & 3, o);
+        for (int dyl = 0; dyl < nd; ++dyl)
+          for (int q = 0; q < nq; ++q) {
+            int s[8];
+            unit_sads<P>(win, stride, o, c >> 2, c & 3, dyl, q, s);
+            kg[c] = unit_key1(s, dlo + dyl, q, side, R, pmx[b], pmy[b], lam,
+                              kg[c]);
+          }
+      }
+    }
+    for (int e = 0; e < 16 * 9; ++e)
+      if (cell_in(e / 9, qy, qx, bh, bw))
+        out1_item(ref, org, out, H, W, R, qy, qx, e,
+                  (int)(kg[e / 9] & 0xffffffffu));
+  }
   delete[] win;
 }
 #endif

@@ -46,9 +46,9 @@
 // The file also compiles as host C++ (one thread, one group), which the
 // CPU tests drive level by level.
 //
-// K26 (bwalk.cuh) walks the whole block over this file's helpers (the
-// arguments, the flag prices, motion and the step's rows) in its own
-// device-scratch layout.
+// K26 (bwalk.cuh) runs its own lane, in K21's teams, over this file's
+// helpers (the arguments, the flag prices, motion, the intra arm's tasks
+// and the result slots).
 #pragma once
 
 #include "groups.cuh"
@@ -527,27 +527,12 @@ HM_FN GrpMem grp_mem(const CuMem& m, int n, int g) {
 // whole block)
 HM_FN wk::Lane coder_of(const Walk& W, const GrpMem& gm, int tid, int nt,
                         int n) {
-  wk::Lane L;
-  L.cd = &W.ap->cd;
-  L.tid = tid;
-  L.nt = nt;
-  L.S = rdoq_smem(gm.k10, n * n);
-  L.s = nullptr;
-  L.work = gm.work;
-  L.wstride = n * n;
-  return L;
+  return wk::coder_lane(W.ap->cd, gm.work, gm.k10, tid, nt, n);
 }
 
 // the block as one lane (copies of the source, commits)
 HM_FN wk::Lane block_of(const Walk& W) {
-  wk::Lane L;
-  L.cd = &W.ap->cd;
-  L.tid = W.tid;
-  L.nt = W.nt;
-  L.S = RdoqSmem{};
-  L.s = nullptr;
-  L.work = nullptr;
-  return L;
+  return wk::plain_lane(W.ap->cd, W.tid, W.nt);
 }
 
 // a round's result slots

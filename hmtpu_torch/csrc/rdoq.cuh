@@ -28,8 +28,8 @@
 //
 // Every function ends with the group's barrier, and the barriers a call
 // meets depend on nt, the TB size and the flags alone, never on the
-// data: so the guard's halves may share the block's barrier where the
-// build has no groups (K26).
+// data: so the guard's halves may share the block's barrier in a build
+// without groups (hm_port.cuh: there every group syncs on the block's).
 //
 // Parity with the plain version, which runs the same arithmetic:
 //   - every cost is float32 in the plain version's order of operations,

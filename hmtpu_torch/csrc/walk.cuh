@@ -12,7 +12,7 @@
 //                one intra mode's prediction (K2's arithmetic,
 //                intra_pred.cuh).
 // Group-cooperative as hm_port.cuh says: a lane's threads (L.tid of L.nt)
-// are the whole block in K21 and K26, one group of the block in K23;
+// are one group of the block (or of a team of it) in K21, K23 and K26;
 // every function ends with the group's barrier.  Compiles as host C++ too.
 #pragma once
 
@@ -83,20 +83,42 @@ HM_FN void build_last_bits(const Coder& c, int tid, int nt) {
 // work TBs, the TS alternative's 4x4 levels and reconstruction, the
 // group's reduction scratch (32 int64)
 HM_HD constexpr int work_ints(int stride) { return 3 * stride + 32 + 64; }
-constexpr int WORK_INTS = work_ints(1024);
 
 // one lane's thread (tid of the nt of its block or group), K10's working
 // set (shared memory on the card) and its coding work area (work_ints(
-// wstride) ints: the lane's scratch in K21 and K26, the group's shared
-// memory in K23)
+// wstride) ints of the group's shared memory)
 struct Lane {
   const Coder* cd;
   int tid, nt;
   RdoqSmem S;
-  int* s;     // the lane's scratch
   int* work;  // its coding work area
   int wstride = 1024;
 };
+
+// a coding lane: thread tid of nt, K10's working set at k10 for TBs up to
+// n x n, and the coding work area `work` (work_ints(n * n) ints)
+HM_FN Lane coder_lane(const Coder& cd, int* work, void* k10, int tid,
+                      int nt, int n) {
+  Lane L;
+  L.cd = &cd;
+  L.tid = tid;
+  L.nt = nt;
+  L.S = rdoq_smem(k10, n * n);
+  L.work = work;
+  L.wstride = n * n;
+  return L;
+}
+
+// a lane without a coding area (copies, gathers, predictions, commits)
+HM_FN Lane plain_lane(const Coder& cd, int tid, int nt) {
+  Lane L;
+  L.cd = &cd;
+  L.tid = tid;
+  L.nt = nt;
+  L.S = RdoqSmem{};
+  L.work = nullptr;
+  return L;
+}
 
 // the lane's int64 reduction scratch (hm_port.cuh group_sum)
 HM_FN long long* red_of(const Lane& L) {

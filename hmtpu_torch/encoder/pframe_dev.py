@@ -1182,8 +1182,6 @@ def wavefront_pass_plain(org_y, org_u, org_v, refs_y, refs_u, refs_v,
 # `args_from`'s order; K26's csrc/bwalk.cuh `Args` appends the B slice's)
 # and their launches
 
-BW_SCRATCH = 36548       # bw::SCRATCH (checked); K23 takes none (its
-                         # lane lies in shared memory)
 _PW_CTX = ("SKIP_FLAG", "MERGE_FLAG", "MERGE_IDX", "PRED_MODE", "PART_SIZE",
            "QT_CBF_LUMA", "QT_CBF_CHROMA", "QT_ROOT_CBF", "MVP_IDX", "MVD",
            "REF_PIC", "SPLIT_FLAG", "CHROMA_PRED_MODE", "INTRA_PRED_MODE",
@@ -1343,8 +1341,8 @@ def pframe_walk(org_y, org_u, org_v, refs_y, refs_u, refs_v, mv_x, mv_y,
     )
     geom = 32 if levels == 3 else 8
     lv = sd["lv32" if geom == 32 else "lv_blk"]
-    nscr = BW_SCRATCH if is_b else 0
-    scratch = torch.zeros((lv.shape[1], nscr), **i32)
+    # K23 and K26 keep their lanes in shared memory: no device scratch
+    scratch = torch.zeros((lv.shape[1], 0), **i32)
     opt = lambda a: None if a is None else ic(a)
     cbflat = cbflat.to(torch.float32).contiguous()
     tensors = [
@@ -1364,7 +1362,7 @@ def pframe_walk(org_y, org_u, org_v, refs_y, refs_u, refs_v, mv_x, mv_y,
     ints = [w, h, bd, log2_ctu, geom, lv.shape[1], int(sdh), int(ts),
             int(rdoq), refs[0].shape[0], num_ref, max_merge,
             num_ref if n_active is None else n_active, cmax0, int(cur_poc),
-            nscr] + [OFF[c] for c in _PW_CTX]
+            0] + [OFF[c] for c in _PW_CTX]
     if is_b:
         # K26's pointers after K23's: the list maps, the list-1 POCs, each
         # grid's lists
@@ -1489,7 +1487,7 @@ def full_pframe_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v, nn,
         entries = []
         for lx, r, u in ref_lists:
             mv, sten, sad = integer_me(refs_y[u], org_y, 8, srange,
-                                       lam_sqrt_, z, z)
+                                       lam_sqrt_, z, z, bd)
             entries.append((mv, sten, ref_cost(sad, lx, r)))
         mvx, mvy, rsel, lxsel, stencil = pick_best_ref(entries)
 

@@ -62,7 +62,7 @@ SOURCES = {
     },
     "me_sad": {
         "hm_me_sad_levels": "ppppppiiiifp",
-        "hm_me_sad1": "pppppiiifp",
+        "hm_me_sad1": "ppppppiiiifp",
     },
     "nnfme": {
         "hm_nnfme": "pppppppip",

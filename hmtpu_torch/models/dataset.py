@@ -37,7 +37,7 @@ def extract_frame_records(frame: Frame, ref: Frame, qp: int,
     refy = torch.as_tensor(np.asarray(ref.y, np.int32)).to(dev)
     zeros = torch.zeros((by, bx), dtype=torch.int32, device=dev)
     (mvx, mvy), stencil, _ = integer_me(refy, org, 8, search_range,
-                                        lam_sqrt, zeros, zeros)
+                                        lam_sqrt, zeros, zeros, bd)
 
     q = torch.arange(by * bx, dtype=torch.int32, device=dev)
     xs, ys = (q % bx) * 8, (q // bx) * 8

@@ -11,9 +11,10 @@ Four hand-written kernels live behind these functions:
       a CUDA tensor: the full +-srange window of every 8x8 block, summed
       to 16x16 and 32x32 in the same pass, the motion cost added and the
       argmin and 3x3 SAD stencil taken without writing the SAD volume;
-  K13 me_sad1 (csrc/me_sad.cu)  `integer_me` on a CUDA tensor: the same
-      search at one level (8x8 blocks, any sides that are multiples of
-      8) with a quarter-pel predictor per block in the motion cost;
+  K13 me_sad1 (csrc/me_sad.cu, over me_sad.cuh)  `integer_me` on a
+      CUDA tensor: the same search at one level (8x8 blocks, any sides
+      that are multiples of 8, 8- or 10-bit samples) with a quarter-pel
+      predictor per block in the motion cost;
   K8 satd8 (csrc/satd.cu)      `satd_batch` on a CUDA tensor;
   K9 frac_refine (csrc/frac_refine.cu)  `frac_refine_batch` on a CUDA
       stack: HM's two-stage DCT-IF sub-pel search, both stages and all
@@ -104,7 +105,7 @@ def _volume_best(vol, srange: int, lambda_sqrt, pred_mv_x, pred_mv_y):
             stencil, best_sad)
 
 
-# the ME window is staged in shared memory: (32 + 2 * srange)^2 samples
+# me_sad.cuh's MAX_R: the staged rows of a (region, dy chunk)
 ME_MAX_SRANGE = 64
 
 
@@ -116,16 +117,19 @@ def integer_me_plain(ref, org, bsize: int, srange: int, lambda_sqrt,
 
 
 def integer_me(ref, org, bsize: int, srange: int, lambda_sqrt,
-               pred_mv_x, pred_mv_y):
+               pred_mv_x, pred_mv_y, bd: int = 8):
     """Full-window integer ME for every aligned block of one size, with
     a quarter-pel MV predictor per block (By, Bx) in the motion cost
     (the one-level form: pictures whose sides are not multiples of 16,
-    and dataset extraction).  K13 on CUDA planes (8x8 blocks, sides
+    and dataset extraction).  K13 on CUDA planes of bd-bit samples (8 or
+    10: K13 stages them as bytes or halfwords; 8x8 blocks, sides
     multiples of 8), the plain version on CPU ones.  Returns ((mvx, mvy)
     full-pel, (By, Bx, 3, 3) SAD stencil, best SAD), int32."""
     if not ref.is_cuda:
         return integer_me_plain(ref, org, bsize, srange, lambda_sqrt,
                                 pred_mv_x, pred_mv_y)
+    if bd not in (8, 10):
+        raise ValueError(f"me_sad1: 8- or 10-bit samples, got bd {bd}")
     h, w = org.shape
     if bsize != 8 or h % 8 or w % 8 or ref.shape != org.shape:
         raise ValueError(f"me_sad1: 8x8 blocks of planes that match and "
@@ -141,9 +145,12 @@ def integer_me(ref, org, bsize: int, srange: int, lambda_sqrt,
     i32 = lambda a: a.to(torch.int32).contiguous()
     # per block: mvx, mvy, best SAD, the 3x3 stencil
     o = torch.empty((bh * bw, 12), dtype=torch.int32, device=ref.device)
+    # the chunks' merged (cost, index) keys: 16 uint64 a 32x32 region
+    keys = torch.empty((((bh + 3) // 4) * ((bw + 3) // 4), 32),
+                       dtype=torch.int32, device=ref.device)
     kernels.launch("me_sad1", "hm_me_sad1", i32(ref), i32(org),
-                   i32(pred_mv_x), i32(pred_mv_y), o, h, w, srange,
-                   float(lambda_sqrt))
+                   i32(pred_mv_x), i32(pred_mv_y), o, keys, h, w, srange,
+                   bd, float(lambda_sqrt))
     return ((o[:, 0].reshape(bh, bw), o[:, 1].reshape(bh, bw)),
             o[:, 3:].reshape(bh, bw, 3, 3), o[:, 2].reshape(bh, bw))
 

@@ -19,13 +19,14 @@ two trees of the port on one card in one run:
         4), K14's loss forward and K16's Adam step at the trainer's batch
         of 1024 (the clip's first frame pair at search range 16, the
         port's init from seed 0), K25's SAO choice on the ldp I frame's
-        statistics (kept from the first ldp encode); and of two
+        statistics (kept from the first ldp encode); and of three
         device-bound calls, with their device milliseconds beside them
         (torch.profiler over 50 calls): K10's coding step as the P pass
         calls it at (1560, 8, 8) (the clip's frame 1 less frame 0,
-        forward transformed; luma, QP 25, the trellis and SDH) and K22's
+        forward transformed; luma, QP 25, the trellis and SDH), K22's
         rough mode decision as the I pass calls it (the first frame, n =
-        8, k = 2);
+        8, k = 2) and K13's single-level integer ME at 1920x1080, search
+        range 64, with seeded predictors (both of its kernels);
   nnfme_train  `train_nnfme.main` at its defaults (416x240, 24 frames,
         QPs 22/27/32/37, 60 epochs, search range 16) into a temporary
         directory: seconds.
@@ -189,6 +190,26 @@ def _coding_calls(clip, dev):
     }
 
 
+def _me1_call(dev):
+    """{label: (call, CUDA function name)} of K13 at the size the 1080p
+    extraction gives it: the generator's 1920x1080 clip, its second frame
+    against its first, search range 64, seeded quarter-pel predictors,
+    8 bits."""
+    from hmtpu_torch.search import me
+    from hmtpu_torch.utils.gen_test_yuv import synth_clip
+
+    rng = np.random.RandomState(13)
+    hd = list(synth_clip(1920, 1080, 2, seed=42))
+    t32 = lambda a: torch.as_tensor(np.asarray(a, np.int32)).to(dev)
+    org, ref = t32(hd[1][0]), t32(hd[0][0])
+    px, py = (t32(rng.randint(-64, 65, (135, 240))) for _ in range(2))
+    lam = np.float32(np.sqrt(0.57 * 2.0 ** ((22 - 12) / 3.0)))
+    # trees whose K13 takes no bit depth stage int32 samples
+    bd = (8,) if "bd" in inspect.signature(me.integer_me).parameters else ()
+    return {"K13 integer_me (1080x1920, SR 64, predictors)": (
+        lambda: me.integer_me(ref, org, 8, 64, lam, px, py, *bd), "me1_")}
+
+
 def _calls(clip, sao_call):
     """The `calls` line's milliseconds per call, by wrapper, and the
     device milliseconds of the device-bound ones."""
@@ -243,6 +264,7 @@ def _calls(clip, sao_call):
             lambda: sao.choose_params(*sa, **sk),
     }
     coding = _coding_calls(clip, dev)
+    coding.update(_me1_call(dev))
     calls.update({k: f for k, (f, _) in coding.items()})
     return ({k: _time_call(f) for k, f in calls.items()},
             {k: _device_ms(f, fn) for k, (f, fn) in coding.items()})

@@ -7,8 +7,12 @@ The walker runs through `pframe_walk`, the same wrapper that launches K26
 on the card, one call of the host build per z-scan level, on the
 arguments the port's own CPU random-access encodes give `wavefront_pass`
 (whose plain B pass is held against hmtpu in tests/test_torch_ra_e2e.py),
-and must reproduce every state array the plain pass returned there.  No
-hmtpu pass runs here.  The headers are built with -ffp-contract=off, so
+and must reproduce every state array the plain pass returned there, also
+with every round's tasks run last task first and each 16x16 / 32x32
+trial before its cells (`bw::task_reverse`), which shows that no task
+reads another's outputs; mutated copies of the headers show that the
+comparisons see the B winner's prediction and a task reading another's
+slot.  No hmtpu pass runs here.  The headers are built with -ffp-contract=off, so
 every float32 operation rounds on its own as nvcc's __fadd_rn / __fmul_rn
 do.  Skips only where there is no g++.
 """
@@ -41,11 +45,14 @@ extern "C" int bw_level(const void* scratch, const void* p, int np,
   const bw::Args b = bw::args_from((const long long*)p, (const int*)v,
                                    (const float*)f);
   if (b.p.scratch != scratch || b.p.scratch_ints != bw::SCRATCH) return 1;
-  std::vector<double> sm(hm::rdoq_smem_bytes(5) / sizeof(double) + 1);
+  std::vector<double> sm(bw::smem_bytes(32) / sizeof(double) + 1);
   for (int lane = 0; lane < b.p.bmax; ++lane)
     bw::walk_lane(b, level, lane, 0, 1, sm.data());
   return 0;
 }
+// every task loop of the walk last task first, and each 16x16 / 32x32
+// trial before its cells (1), or in order (0)
+extern "C" void bw_task_reverse(int r) { bw::task_reverse = r; }
 // K12 over n pairs of S samples
 extern "C" void bi_pred_host(const int* i0, const int* i1, const int* cdir,
                              int* out, int n, int S, int bd) {
@@ -68,6 +75,7 @@ def _build(d, csrc):
     lib.bw_level.argtypes = [ctypes.c_void_p] \
         + [ctypes.c_void_p, ctypes.c_int] * 3 + [ctypes.c_int]
     lib.bi_pred_host.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    lib.bw_task_reverse.argtypes = [ctypes.c_int]
     return lib
 
 
@@ -191,11 +199,11 @@ def test_walker_mutation_is_caught(tmp_path):
     shutil.copytree(CSRC, csrc)
     p = csrc / "bwalk.cuh"
     text = p.read_text()
-    good = "bi_pred_sample(s[S_CI + e], s[S_CI + 256 + e], 3, a.bd)"
+    good = "pred[e] = bi_pred_sample(gm.h0[e], gm.h1[e], 3, a.bd);"
     assert text.count(good) == 1
     p.write_text(text.replace(
-        good, "bi_pred_sample(s[S_CI + 256 + e], s[S_CI + 256 + e], 3, "
-              "a.bd)"))
+        good, "pred[e] = bi_pred_sample(p ? gm.h1[e] : gm.h0[e], gm.h1[e], "
+              "3, a.bd);"))
     lib = _build(tmp_path, csrc)
     differs = []
     for a, k, want in _captured("64x56-8bit"):
@@ -203,6 +211,57 @@ def test_walker_mutation_is_caught(tmp_path):
         differs.append(any(not torch.equal(got[x], want[x])
                            for x in ("rec_u", "rec_v")))
     assert any(differs)
+
+
+def _walk_order(lib, name, reverse):
+    """Every state array of the case's passes through the host build with
+    its task loops in order or last task first (and each larger trial
+    before its cells): (got, want) pairs."""
+    lib.bw_task_reverse(int(reverse))
+    try:
+        return [(_walk(lib, a, k), want) for a, k, want in _captured(name)]
+    finally:
+        lib.bw_task_reverse(0)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_walker_tasks_in_reverse_order(lanes, name):
+    """K26 runs a CU trial's independent items side by side (the merge
+    candidates' hypotheses and screening with the intra arm's
+    predictions; the winner's planes with the intra arm's codings) and
+    each 16x16 / 32x32 trial beside its cells: with every round's tasks
+    run last task first and each trial before its cells, the host build
+    must still give the plain pass's state, bit for bit, so no task reads
+    what another task of its round writes, nor a trial what its cells
+    commit."""
+    for got, want in _walk_order(lanes, name, True):
+        for key in sorted(want):
+            np.testing.assert_array_equal(got[key].numpy(),
+                                          want[key].numpy(), err_msg=key)
+
+
+def test_walker_cross_task_read_is_caught(tmp_path):
+    """A copy of the headers in which the merge winner's chroma tasks read
+    the winner's index from a slot its luma task writes: right when the
+    tasks run in order (heaviest first, as one thread runs them), a race
+    between groups on the card.  The reversed order must disagree with
+    the plain pass."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(CSRC, csrc)
+    p = csrc / "bwalk.cuh"
+    text = p.read_text()
+    good = "const int c = mg.mi, dir = mg.c[0][c], k = p ? n / 2 : n;"
+    assert text.count(good) == 1
+    p.write_text(text.replace(
+        good, "const int c = p ? iclamp(m.p.rnz[NTASK - 1], 0, MAXM - 1) "
+              ": mg.mi, dir = mg.c[0][c], k = p ? n / 2 : n;\n"
+              "  if (L.tid == 0 && p == 0) m.p.rnz[NTASK - 1] = c;"))
+    lib = _build(tmp_path, csrc)
+    name = "64x64-10bit"
+    for got, want in _walk_order(lib, name, False):
+        assert all(torch.equal(got[x], want[x]) for x in want)
+    assert any(not torch.equal(got[x], want[x])
+               for got, want in _walk_order(lib, name, True) for x in want)
 
 
 @pytest.mark.parametrize("bd", [8, 10])

@@ -510,33 +510,39 @@ def test_ra_main10_card_equals_cpu(dev, qp):
     assert bi[0] == bi[1]
 
 
-@pytest.mark.parametrize("h,w,srange", [(56, 64, 8), (40, 72, 64),
-                                        (240, 416, 16), (240, 416, 64)])
-def test_me_sad1_kernel(dev, h, w, srange):
+@pytest.mark.parametrize("h,w,srange,bd", [
+    (56, 64, 8, 8), (40, 72, 64, 8), (240, 416, 16, 8), (240, 416, 64, 8),
+    (56, 64, 16, 10), (1080, 1920, 64, 8)])
+def test_me_sad1_kernel(dev, h, w, srange, bd):
     """K13, the single-level integer ME, against its plain version with
     non-zero quarter-pel predictors, at sides that are not multiples of
     16 or 32 (the regions of the last row and column are partly outside
-    the picture)."""
+    the picture), on 8-bit samples (staged as bytes) and 10-bit ones
+    (halfwords), and at 1080p SR 64 (the trainer's extraction)."""
     from hmtpu_torch.search import me
 
     rng = np.random.RandomState(h * w + srange)
-    org, ref = (_i32(a, dev) for a in _textured(rng, h, w))
+    org, ref = (_i32(a.astype(np.int64) << (bd - 8), dev)
+                for a in _textured(rng, h, w))
     for lam, span in ((np.float32(0.0), 0), (np.float32(7.3), 64)):
         px, py = (_i32(rng.randint(-span, span + 1, (h // 8, w // 8)), dev)
                   for _ in range(2))
         got = _launched("me_sad1", lambda: me.integer_me(
-            ref, org, 8, srange, lam, px, py))
+            ref, org, 8, srange, lam, px, py, bd))
         want = me.integer_me_plain(ref, org, 8, srange, lam, px, py)
         (gx, gy), gst, gsad = got
         (wx, wy), wst, wsad = want
         for g, wnt in ((gx, wx), (gy, wy), (gst, wst), (gsad, wsad)):
             assert g.shape == wnt.shape and torch.equal(g, wnt)
     # a flat picture: every displacement ties, the first index wins
-    flat = torch.full((h, w), 90, dtype=torch.int32, device=dev)
+    flat = torch.full((h, w), 90 << (bd - 8), dtype=torch.int32, device=dev)
     z = torch.zeros((h // 8, w // 8), dtype=torch.int32, device=dev)
     (mx, my), _, _ = _launched("me_sad1", lambda: me.integer_me(
-        flat, flat, 8, srange, np.float32(0.0), z, z))
+        flat, flat, 8, srange, np.float32(0.0), z, z, bd))
     assert bool((mx == -srange).all()) and bool((my == -srange).all())
+    # no other depth, and no fallback
+    with pytest.raises(ValueError):
+        me.integer_me(ref, org, 8, srange, np.float32(0.0), z, z, 12)
 
 
 def _train_batch(dev, nb, seed):
