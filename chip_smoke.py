@@ -65,7 +65,9 @@ when every phase passed):
                416x240 and 64x56 with non-zero predictors, at 64x56 also
                on 10-bit samples (staged as halfwords), and on flat 8-
                and 10-bit planes, where every displacement ties; K14-K16 at
-               batch 1024 of the trainer's QP-22 records.  Each is timed
+               batch 1024 of the trainer's QP-22 records, K14 and K15 also
+               at 1, 32 and 100 rows and K14 at the validation set's 7176
+               without the backward's tensors.  Each is timed
                with CUDA events, beside its plain version, the bound for
                its bytes and operations, and a library yardstick where one
                PyTorch call computes the same function (a float64
@@ -385,9 +387,7 @@ DEVICE_FN = {
     "frac_refine": "frac_kernel", "rdoq": "rdoq_kernel",
     "mc_dctif_i": "mc_kernel", "bi_pred": "bi_pred_kernel",
     "me_sad1": ("me1_kernel", "me1_out_kernel"), "adam": "adam_kernel",
-    # the forward and backward and the second pass of their reductions
-    "nnfme_fwd": ("fwd_kernel", "colsum_kernel"),
-    "nnfme_bwd": ("bwd_kernel", "colsum_kernel"),
+    "nnfme_fwd": "nnfme_fwd_kernel", "nnfme_bwd": "nnfme_bwd_kernel",
     "merge_cands": "merge_kernel", "amvp_rd": "amvp_kernel",
     "mv_regularize": "reg_kernel", "mpm_bits": "mpm_kernel",
     "i_walk": "iwalk_kernel", "i_rmd": "rmd_kernel",
@@ -921,7 +921,11 @@ def slice5_kernel_cases(dev, rng):
     displacement ties), and
     K14-K16 at batch 1024 of the trainer's QP-22 records (the clip's
     first frame pair at search range 16), from the port's init (seed 0)
-    with the rows' fitted mean and std."""
+    with the rows' fitted mean and std; K14 and K15 checked besides on
+    the batch's first 1, 32 and 100 rows (the shapes of a last batch and
+    the gpu tests) and K14 without the backward's tensors on 7176 rows
+    (the validation set's size at the defaults: the records tiled, their
+    costs moved by seeded noise)."""
     from hmtpu_torch.models import dataset, nnfme, train
     from hmtpu_torch.search import me
 
@@ -960,8 +964,14 @@ def slice5_kernel_cases(dev, rng):
     fields = {k: getattr(init, k).cpu().numpy() for k in nnfme.PACK_ORDER}
     fields.update(mean=mean, std=std)
     pk = nnfme.params_from_arrays(fields, dev).packed
+    nv = 7176
+    tile = lambda a: np.concatenate([a] * -(-nv // len(a)))[:nv]
+    vset = (torch.as_tensor((tile(c9) + rng.randint(0, 64, (nv, 9)))
+                            .astype(np.float32)).to(dev),
+            *(torch.as_tensor(tile(a)).to(dev) for a in (hh, ww, ll)))
     c9, hh, ww, ll = (torch.as_tensor(a[:nb]).to(dev) for a in (c9, hh, ww,
                                                                  ll))
+    rows = lambda n: (c9[:n], hh[:n], ww[:n], ll[:n])
     # K14: per row the MLP (a multiply and an add per term, the biases,
     # ReLU and affine of 42 units, the standardisation), the max and
     # argmax, 49 subtractions, exponentials and sums, the log and loss,
@@ -971,10 +981,22 @@ def slice5_kernel_cases(dev, rng):
                   lambda: train.loss_fwd_plain(pk, c9, hh, ww, ll),
                   (nb * 12 + nnfme.PACK_SIZE + nb * 91 + 2) * 4,
                   2 * mlp_work(nb) + nb * (3 * 42 + 3 * 9 + 2 * 49
-                                           + 5 * 49 + 4), None))
+                                           + 5 * 49 + 4), None,
+                  [(lambda n=n: train.loss_fwd(pk, *rows(n)),
+                    lambda n=n: train.loss_fwd_plain(pk, *rows(n)))
+                   for n in (1, 32, 100)]
+                  + [(lambda: train.loss_fwd(pk, *vset, want_grad=False)[0],
+                      lambda: train.loss_fwd_plain(pk, *vset,
+                                                   want_grad=False)[0])]))
     _, saved = train.loss_fwd(pk, c9, hh, ww, ll)
     one = torch.ones(1, dtype=torch.float32, device=dev)
     bwd = lambda: train.loss_bwd(pk, c9, hh, ww, *saved, one)
+
+    def bwd_case(n):
+        sv = tuple(s[:n] for s in saved)
+        return (lambda: train.loss_bwd(pk, *rows(n)[:3], *sv, one),
+                lambda: train.loss_bwd_plain(pk, *rows(n)[:3], *sv, one))
+
     # K15: per row the three layers back (a multiply and an add per
     # term), the features and activations again, and each parameter's
     # product and sum; then the blocks' partials summed
@@ -986,7 +1008,7 @@ def slice5_kernel_cases(dev, rng):
                   + 2 * nb * nnfme.PACK_SIZE
                   + -(-nb // train.KROWS) * nnfme.PACK_SIZE, None,
                   # run to run: the same bits
-                  [(bwd, bwd)]))
+                  [(bwd, bwd)] + [bwd_case(n) for n in (1, 32, 100)]))
     grad = bwd()
     n = nnfme.PACK_SIZE
     base = (pk.clone(), torch.as_tensor(rng.randn(n) * 1e-3, dtype=torch
@@ -1726,7 +1748,7 @@ def check_walk(cases, rows, time_all=True) -> None:
 
 
 # the kernels whose ptxas figures the build prints: (kernel, source,
-# kernel function): K10, K22, the walkers, K5 and K13
+# kernel function): K10, K22, the walkers, K5, K13, K14 and K15
 PTXAS = (("K10 rdoq", "rdoq", "rdoq_kernel"),
          ("K22 i_rmd", "i_rmd", "rmd_kernel"),
          ("K21 i_walk", "iwalk", "iwalk_kernel"),
@@ -1737,7 +1759,9 @@ PTXAS = (("K10 rdoq", "rdoq", "rdoq_kernel"),
          ("K5 me_sad, stencils", "me_sad", "me_out_kernel"),
          ("K13 me_sad1, 8 bits", "me_sad", "me1_kernelILi4"),
          ("K13 me_sad1, 10 bits", "me_sad", "me1_kernelILi2"),
-         ("K13 me_sad1, stencils", "me_sad", "me1_out_kernel"))
+         ("K13 me_sad1, stencils", "me_sad", "me1_out_kernel"),
+         ("K14 nnfme_fwd", "nnfme_train", "nnfme_fwd_kernel"),
+         ("K15 nnfme_bwd", "nnfme_train", "nnfme_bwd_kernel"))
 
 
 def ptxas_figures(log: str, fn: str) -> str:

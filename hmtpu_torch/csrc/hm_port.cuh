@@ -67,6 +67,7 @@
 #define HM_FMUL(a, b) __fmul_rn((a), (b))
 #define HM_FADD(a, b) __fadd_rn((a), (b))
 #define HM_FSUB(a, b) __fsub_rn((a), (b))
+#define HM_FDIV(a, b) __fdiv_rn((a), (b))
 #define HM_CLZ(x) __clz(x)
 #define HM_POPC(x) __popc(x)
 #define HM_CLZ64(x) __clzll((long long)(x))
@@ -89,6 +90,7 @@
 #define HM_FMUL(a, b) ((float)(a) * (float)(b))
 #define HM_FADD(a, b) ((float)(a) + (float)(b))
 #define HM_FSUB(a, b) ((float)(a) - (float)(b))
+#define HM_FDIV(a, b) ((float)(a) / (float)(b))
 #define HM_CLZ(x) __builtin_clz(x)
 #define HM_POPC(x) __builtin_popcount(x)
 #define HM_CLZ64(x) __builtin_clzll(x)

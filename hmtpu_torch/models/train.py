@@ -19,6 +19,13 @@ Three hand-written kernels carry one step on the card (csrc/nnfme_train.cu):
 The parameters, Adam's moments and the data live on the device; a step
 gathers its batch with a device index tensor and never waits for the
 card.  The parameters and moments are updated in place.
+
+The batch sums' order: K14's loss and hit and K15's gradient are summed
+over blocks of KROWS = 8 rows, each in ascending row order from 0
+(`_block_sums`), then over the blocks in ascending order from 0
+(`_col_sum`), on the card and in the plain versions alike (64-row
+blocks before K14 and K15 put a row on a warp and 128 blocks on the
+card at batch 1024).
 """
 from __future__ import annotations
 
@@ -33,9 +40,10 @@ from hmtpu_torch.models.nnfme import (PACK_ORDER, PACK_SIZE, NnFme,
                                       NnFmeParams, forward_parts,
                                       init_random, params_from_packed)
 
-# batch rows per thread block of K14 and K15; the plain versions sum a
-# block's rows, then the blocks, in the same order
-KROWS = 64
+# batch rows per thread block of K14 and K15 (csrc/nnfme_train.cuh
+# KROWS, a row a warp); the plain versions sum a block's rows, then the
+# blocks, in the same order
+KROWS = 8
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
 
@@ -129,9 +137,22 @@ def _inv(B: int) -> float:
     return float(np.float32(1.0) / np.float32(B))
 
 
+# K14's and K15's partials: one float32 scratch tensor a device, kept
+# between calls and grown when a call needs more (the kernels run on one
+# stream, so a call has used its partials before the next call writes)
+_SCRATCH: dict = {}
+
+
+def _scratch(dev, n: int):
+    t = _SCRATCH.get(dev)
+    if t is None or t.numel() < n:
+        t = _SCRATCH[dev] = torch.empty(n, dtype=torch.float32, device=dev)
+    return t
+
+
 # ---------------------------------------------------------------------------
 # the exp and log of K14 and its plain version: Cephes' expf / logf with
-# every operation rounded on its own (csrc/nnfme_train.cu hm_expf /
+# every operation rounded on its own (csrc/nnfme_train.cuh hm_expf /
 # hm_logf do the same operations), so that the card and the CPU agree bit
 # for bit, where torch's exp / log on the CPU and on the card differ in
 # the last bit
@@ -231,12 +252,12 @@ def loss_fwd(packed, costs9, heights, widths, labels,
     dev = costs9.device
     e = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
     i32 = lambda a: a.to(torch.int32).contiguous()
-    out, part = e(2), e(-(-B // KROWS), 2)
+    out = e(2)
     saved = (e(B, 22), e(B, 20), e(B, 49)) if want_grad else None
     kernels.launch("nnfme_fwd", "hm_nnfme_fwd", packed.detach(),
                    costs9.to(torch.float32).contiguous(), i32(heights),
-                   i32(widths), i32(labels), *(saved or (None,) * 3), part,
-                   out, B, _inv(B))
+                   i32(widths), i32(labels), *(saved or (None,) * 3),
+                   _scratch(dev, 2 * -(-B // KROWS)), out, B, _inv(B))
     return out, saved
 
 
@@ -303,13 +324,12 @@ def loss_bwd(packed, costs9, heights, widths, z1, z2, dl, gscale):
                          f" {tuple(dl.shape)}")
     dev = costs9.device
     grad = torch.empty(PACK_SIZE, dtype=torch.float32, device=dev)
-    part = torch.empty((-(-B // KROWS), PACK_SIZE), dtype=torch.float32,
-                       device=dev)
     i32 = lambda a: a.to(torch.int32).contiguous()
     kernels.launch("nnfme_bwd", "hm_nnfme_bwd", packed.detach(),
                    costs9.to(torch.float32).contiguous(), i32(heights),
                    i32(widths), z1, z2, dl,
-                   gscale.to(torch.float32).contiguous(), part, grad, B)
+                   gscale.to(torch.float32).contiguous(),
+                   _scratch(dev, -(-B // KROWS) * PACK_SIZE), grad, B)
     return grad
 
 
@@ -374,6 +394,18 @@ def adam_update(p, g, mu, nu, count: int, lr: float) -> None:
 # ---------------------------------------------------------------------------
 # the loop
 
+# the cotangent of (mean loss, accuracy): the loss's gradient alone, made
+# once a device (a copy from the host would sync a step)
+_SEED: dict = {}
+
+
+def _loss_cotangent(dev):
+    t = _SEED.get(dev)
+    if t is None:
+        t = _SEED[dev] = torch.tensor([1.0, 0.0], dtype=torch.float32,
+                                      device=dev)
+    return t
+
 
 def train_step(state: TrainState, costs9, heights, widths, labels,
                lr: float = 3e-3):
@@ -382,11 +414,8 @@ def train_step(state: TrainState, costs9, heights, widths, labels,
     scalars."""
     packed = state.model.packed
     out = NnFmeLoss.apply(packed, costs9, heights, widths, labels)
-    # the cotangent of (mean loss, accuracy): the loss's gradient alone,
-    # made on the device (a copy from the host would sync it every step)
-    seed = torch.zeros(2, dtype=torch.float32, device=out.device)
-    seed[0] = 1.0
-    grad, = torch.autograd.grad(out, packed, grad_outputs=seed)
+    grad, = torch.autograd.grad(out, packed,
+                                grad_outputs=_loss_cotangent(out.device))
     opt = state.opt_state
     with torch.no_grad():
         adam_update(packed, grad, opt.mu, opt.nu, opt.count + 1, lr)

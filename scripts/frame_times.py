@@ -27,9 +27,21 @@ two trees of the port on one card in one run:
         rough mode decision as the I pass calls it (the first frame, n =
         8, k = 2) and K13's single-level integer ME at 1920x1080, search
         range 64, with seeded predictors (both of its kernels);
+  k1ts_vs_shift  K1's transform-skip call at (3120, 4, 4) and the one
+        torch shift that computes the same (chip_smoke.py's library
+        call), in turns, five rounds of 200 calls each: ms per call;
+  train_step  200 `train_step`s at batch 1024 on the trainer's QP-22
+        records (the generator's clip at its defaults: 24 frames, search
+        range 16; the port's init from seed 0 with the records' mean and
+        std; seeded full batches): steps/s from CUDA events, then the
+        same steps again under torch.profiler: device microseconds and
+        device operations a step, and each kernel's microseconds a step
+        (the gap between the step's time and its device time is the
+        host's);
   nnfme_train  `train_nnfme.main` at its defaults (416x240, 24 frames,
         QPs 22/27/32/37, 60 epochs, search range 16) into a temporary
-        directory: seconds.
+        directory: seconds, and the extraction's and the steps' seconds
+        and the steps per QP as the tool prints them.
 
     PYTHONPATH=<checkout of the port> python scripts/frame_times.py
 
@@ -39,16 +51,19 @@ them, the milliseconds of each frame's z-scan pass (`iframe_pass`: K21 on
 the card; `wavefront_pass`: K23 in P slices, K26 in B slices), timed with
 CUDA events around the call (a device sync before and after it, which
 the frames' seconds then include); prints one JSON object per encode,
-then one for the calls and one for the trainer, each with the number of
-hand kernels the tree has.
+then one each for the calls, K1-TS against the shift, the training step
+and the trainer, each with the number of hand kernels the tree has.
 Uses only the port's public entry points, so it runs against earlier
 trees of the port too.  Needs a CUDA card; imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import inspect
+import io
 import json
 import os
+import re
 import sys
 import tempfile
 import time
@@ -270,6 +285,84 @@ def _calls(clip, sao_call):
             {k: _device_ms(f, fn) for k, (f, fn) in coding.items()})
 
 
+def _k1ts_vs_shift(rounds=5):
+    """K1-TS and the torch shift, in turns: ms per call, a list each."""
+    from hmtpu_torch.ops import transform
+
+    rng = np.random.RandomState(7)
+    ts = torch.as_tensor(rng.randint(-255, 256, (3120, 4, 4)).astype(
+        np.int32)).to(torch.device("cuda", 0))
+    sh = transform.ts_shift(4, 8)
+    got = {"k1ts_ms": [], "shift_ms": []}
+    for _ in range(rounds):
+        got["k1ts_ms"].append(_time_call(
+            lambda: transform.transform_skip_fwd(ts, 4)))
+        got["shift_ms"].append(_time_call(lambda: ts << sh))
+    return got
+
+
+def _train_step_times(steps=200, warm=5):
+    """The trainer's step on its QP-22 records: steps/s (CUDA events),
+    device us and operations a step and each kernel's us a step
+    (torch.profiler, over the same number of steps run again)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hmtpu_torch.io.yuv import Frame
+    from hmtpu_torch.models import dataset, nnfme, train
+    from hmtpu_torch.utils.gen_test_yuv import synth_clip
+
+    dev = torch.device("cuda", 0)
+    frames = [Frame(*(np.asarray(p, np.int32) for p in f))
+              for f in synth_clip(416, 240, 24)]
+    c9, hh, ww, ll = dataset.extract_clip(frames, 22, 16, device=dev)
+    mean, std = train.standardize_fit(c9)
+    init = nnfme.init_random(torch.Generator().manual_seed(0), dev)
+    fields = {k: getattr(init, k).cpu().numpy() for k in nnfme.PACK_ORDER}
+    fields.update(mean=mean, std=std)
+    state = [train.init_train_state(nnfme.params_from_arrays(fields, dev))]
+    rng = np.random.RandomState(0)
+    idx = torch.as_tensor(np.stack([rng.permutation(len(ll))[:1024]
+                                    for _ in range(steps)])).to(dev)
+    data = [torch.as_tensor(a).to(dev) for a in (c9, hh, ww, ll)]
+
+    def run(n):
+        for k in range(n):
+            b = idx[k % steps]
+            state[0] = train.train_step(state[0], *(a[b] for a in data))[0]
+
+    run(warm)
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    run(steps)
+    b.record()
+    torch.cuda.synchronize()
+    ms = a.elapsed_time(b)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(steps)
+        torch.cuda.synchronize()
+    on_dev = [e for e in prof.key_averages()
+              if getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0)) > 0]
+    us = {e.key: getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0)) / steps
+          for e in on_dev}
+    return {"rows": len(ll), "batch": 1024, "steps": steps,
+            "steps_per_s": steps / (ms / 1e3), "ms_per_step": ms / steps,
+            "device_us_per_step": sum(us.values()),
+            "device_ops_per_step": sum(e.count for e in on_dev) / steps,
+            "device_us_by_kernel": us}
+
+
+def _trainer_split(out: str):
+    """Per QP (extraction s, steps, steps' s) from train_nnfme's lines."""
+    return {qp: {"extraction_s": float(e), "steps": int(n),
+                 "steps_s": float(t)}
+            for qp, e, n, t in re.findall(
+                r"QP(\d+): extraction ([\d.]+) s .*?, (\d+) steps in "
+                r"([\d.]+) s", out)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("frame_times: no CUDA device", file=sys.stderr)
@@ -316,13 +409,25 @@ def main() -> int:
     ms, dms = _calls(clip, sao_call)
     print(json.dumps({"config": "calls", "kernels": nk, "ms_per_call": ms,
                       "device_ms_per_call": dms}), flush=True)
+    print(json.dumps({"config": "k1ts_vs_shift", "kernels": nk,
+                      **_k1ts_vs_shift()}), flush=True)
+    print(json.dumps({"config": "train_step", "kernels": nk,
+                      **_train_step_times()}), flush=True)
     with tempfile.TemporaryDirectory() as tmp:
+        buf = io.StringIO()
         t0 = time.time()
-        train_nnfme.main(["--out", os.path.join(tmp, "w")])
+        with contextlib.redirect_stdout(buf):
+            train_nnfme.main(["--out", os.path.join(tmp, "w")])
         torch.cuda.synchronize()
         dt = time.time() - t0
+    split = _trainer_split(buf.getvalue())
     print(json.dumps({"config": "nnfme_train", "kernels": nk,
-                      "seconds": dt}), flush=True)
+                      "seconds": dt, "per_qp": split,
+                      "extraction_s": sum(v["extraction_s"]
+                                          for v in split.values()),
+                      "steps_s": sum(v["steps_s"] for v in split.values()),
+                      "steps": sum(v["steps"] for v in split.values())}),
+          flush=True)
     return 0
 
 

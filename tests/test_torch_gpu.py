@@ -562,7 +562,7 @@ def _train_batch(dev, nb, seed):
             t(rng.randint(0, 49, nb).astype(np.int32)))
 
 
-@pytest.mark.parametrize("nb", [1, 100, 1024])
+@pytest.mark.parametrize("nb", [1, 32, 100, 1024])
 def test_nnfme_train_kernels(dev, nb):
     """K14, K15 and K16 against their plain versions on the card: equal
     (K14's pre-activations are K6's operations, its exp and log the plain

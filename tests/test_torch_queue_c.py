@@ -4,7 +4,7 @@ The trainer's card and CPU runs parted where torch's CPU and CUDA
 functions round differently: exp and log (K14) and sqrt (K16's Adam;
 torch's CPU sqrt is not correctly rounded).  K14's exp and log are now
 the port's own (`models/train.py` exp_f32 / log_f32, the same operations
-as `csrc/nnfme_train.cu` hm_expf / hm_logf): within one float32 ulp of
+as `csrc/nnfme_train.cuh` hm_expf / hm_logf): within one float32 ulp of
 the exact values over the ranges the loss meets, and exact at the points
 that matter (e^0 = 1, log 1 = 0).  The plain Adam's sqrt (`_sqrt`) is
 correctly rounded, as K16's `__fsqrt_rn`.
