@@ -67,7 +67,14 @@ when every phase passed):
                and 10-bit planes, where every displacement ties; K14-K16 at
                batch 1024 of the trainer's QP-22 records, K14 and K15 also
                at 1, 32 and 100 rows and K14 at the validation set's 7176
-               without the backward's tensors.  Each is timed
+               without the backward's tensors.  K4 also in its frame
+               forms (a 416x240 picture's three planes in one statistics
+               and one apply launch, and the same at 1920x1080), K7 in
+               its one-launch forms at each level of the P pass (the
+               AMVP hypotheses' three planes; the NN gate's two MV sets)
+               and the hypotheses' 8 level at 1920x1080, each a row of its
+               own (`kernel:form`), K11's forms checked at 10 bits.  Each
+               is timed
                with CUDA events, beside its plain version, the bound for
                its bytes and operations, and a library yardstick where one
                PyTorch call computes the same function (a float64
@@ -81,8 +88,10 @@ when every phase passed):
                kernel count reset before and read after: each of K1,
                K3-K8, K10, K19 and K21-K25 must be > 0 (the P pass's
                coding, candidates, intra prediction and mode bits run
-               inside K23, and no encode launches them).  Seconds per
-               frame, and for the P
+               inside K23, and no encode launches them); the SAO
+               launches a frame (K4, K25, K4: 3) and K7's a P pass (at
+               most 6: a level's hypotheses and its gate, one launch
+               each) from the counters.  Seconds per frame, and for the P
                frame the device pass apart from the host's finish +
                CABAC; nvidia-smi samples the card's utilization meanwhile;
   5. ldp_dctif the repo's anchor cfg (cfg/encoder_lowdelay_P_main.cfg,
@@ -517,9 +526,87 @@ def kernel_cases(dev):
                   lambda: sao.apply_sao_dev(y, params, 64, 8),
                   lambda: sao.apply_sao_plain(y, params, 64, 8),
                   (2 * H * W + nctu * 7) * 4, 12 * H * W, None))
+    # K4's frame forms, the main path's: the three planes of a 416x240
+    # picture (luma at CTU 64, the chroma pair at 32) in one launch each;
+    # then at 1920x1080
+    cases += sao_frame_cases(dev, rng, H, W, "frame")
+    cases += sao_frame_cases(dev, rng, 1080, 1920, "frame_1080p")
     return cases + inter_kernel_cases(dev, rng) \
         + slice3_kernel_cases(dev, rng) + slice4_kernel_cases(dev, rng) \
         + slice5_kernel_cases(dev, rng)
+
+
+def sao_frame_cases(dev, rng, h, w, tag):
+    """K4's three-plane statistics and apply of an h x w picture (CTU 64,
+    8 bits; seeded planes, a reconstruction a few steps off, random
+    parameters of every type) as rows `sao_stats:<tag>`, `sao_apply:<tag>`:
+    bytes the planes in (and out) and the rows or parameters, 30 and 12
+    operations a sample as the one-plane rows count."""
+    from hmtpu_torch.ops import sao
+
+    t32 = lambda a: torch.as_tensor(np.asarray(a, np.int32)).to(dev)
+    org, rec = [], []
+    for hh, ww in ((h, w), (h // 2, w // 2), (h // 2, w // 2)):
+        o = rng.randint(40, 216, (hh, ww))
+        org.append(t32(o))
+        rec.append(t32(np.clip(o + rng.randint(-6, 7, (hh, ww)), 0, 255)))
+    planes = [a for pair in zip(org, rec) for a in pair]
+    ny, nx = -(-h // 64), -(-w // 64)
+    params = t32(np.concatenate(
+        [rng.randint(0, 3, (ny, nx, 3, 1)), rng.randint(0, 4, (ny, nx, 3, 1)),
+         rng.randint(0, 29, (ny, nx, 3, 1)),
+         rng.randint(-7, 8, (ny, nx, 3, 4))], -1))
+    npx = h * w * 3 // 2
+    return [(f"sao_stats:{tag}",
+             lambda: sao.sao_stats_frame(*planes, 64, 8),
+             lambda: sao.sao_stats_frame_plain(*planes, 64, 8),
+             (2 * npx + 3 * ny * nx * 96) * 4, 30 * npx, None),
+            (f"sao_apply:{tag}",
+             lambda: sao.apply_sao_frame(*rec, params, 64, 8),
+             lambda: sao.apply_sao_frame_plain(*rec, params, 64, 8),
+             (2 * npx + ny * nx * 3 * 7) * 4, 12 * npx, None)]
+
+
+def mc_form_case(dev, rng, form, n, h, w, bd=8, inter=False):
+    """One launch of K7 (K11 with inter) in `form` "yuv" (the three
+    planes of an h x w picture's n-grid, 4 references: the P pass's AMVP
+    hypotheses) or "luma2" (its luma blocks under two MV sets: the NN
+    gate), every phase, MVs past the edges: (kernel call, plain call,
+    bytes, operations).  Bytes: each form's distinct reference samples
+    (`mc_work`), the index and MV arrays and the outputs."""
+    from hmtpu_torch.ops import interp
+
+    t32 = lambda a: torch.as_tensor(np.asarray(a, np.int32)).to(dev)
+    ry = t32(rng.randint(0, 1 << bd, (4, h, w)))
+    ru, rv = (t32(rng.randint(0, 1 << bd, (4, h // 2, w // 2)))
+              for _ in range(2))
+    gw = w // n
+    nb = gw * (h // n)
+    span = 4 * (n + 24)
+    ridx = t32(rng.randint(0, 4, nb))
+    mvx, mvy = (t32(rng.randint(-span, span, (2, nb))) for _ in range(2))
+    q = torch.arange(nb, device=dev)
+    xs, ys = (q % gw) * n, (q // gw) * n
+    nc = n // 2
+    if form == "yuv":
+        work = [mc_work(ry, ridx, xs, ys, mvx[0], mvy[0], n, False)] + [
+            mc_work(r, ridx, xs // 2, ys // 2, mvx[0], mvy[0], nc, True)
+            for r in (ru, rv)]
+        outs, idx = nb * (n * n + 2 * nc * nc), 3 * nb
+        kfn = lambda: interp.mc_yuv(ry, ru, rv, ridx, gw, mvx[0], mvy[0], n,
+                                    bd, inter)
+        pfn = lambda: interp.mc_yuv_plain(ry, ru, rv, ridx, gw, mvx[0],
+                                          mvy[0], n, bd, inter)
+    else:
+        cat = lambda a: torch.cat([a, a])
+        work = [mc_work(ry, cat(ridx), cat(xs), cat(ys), mvx.reshape(-1),
+                        mvy.reshape(-1), n, False)]
+        outs, idx = 2 * nb * n * n, 5 * nb
+        kfn = lambda: interp.mc_luma2(ry, ridx, gw, mvx, mvy, n, bd, inter)
+        pfn = lambda: interp.mc_luma2_plain(ry, ridx, gw, mvx, mvy, n, bd,
+                                            inter)
+    samples = sum(wk[0] for wk in work)
+    return kfn, pfn, (samples + idx + outs) * 4, 2 * sum(wk[1] for wk in work)
 
 
 def first_p_lambda_sqrt() -> np.float32:
@@ -647,6 +734,15 @@ def inter_kernel_cases(dev, rng):
     # output; a multiply and an add per filter tap
     cases.append(("mc_dctif", k, pl, (samples + 5 * nb + nb * 64) * 4,
                   2 * macs, None, more))
+    # K7's forms, the main path's: a level's AMVP hypotheses (three planes)
+    # and its NN gate (two MV sets) in one launch each, at each level; the
+    # hypotheses' 8 level at 1920x1080
+    for n in (8, 16, 32):
+        for form in ("yuv", "luma2"):
+            k, pl, nbytes, ops = mc_form_case(dev, rng, form, n, H, W)
+            cases.append((f"mc_dctif:{form}{n}", k, pl, nbytes, ops, None))
+    k, pl, nbytes, ops = mc_form_case(dev, rng, "yuv", 8, 1080, 1920)
+    cases.append(("mc_dctif:yuv8_1080p", k, pl, nbytes, ops, None))
 
     # K8: the gate's org blocks against their predictions; 8x8 is timed
     def satd_case(n):
@@ -871,6 +967,9 @@ def slice4_kernel_cases(dev, rng):
     samples, macs = mc_work(refs, *args, 8, False)
     more = [mci_case(c, n)[2:] for c, n in ((False, 16), (False, 32),
                                           (True, 4), (True, 8), (True, 16))]
+    # and its forms (three planes; two MV sets) at each level, 10 bits
+    more += [mc_form_case(dev, rng, form, n, H, W, bd, True)[:2]
+             for n in (8, 16, 32) for form in ("yuv", "luma2")]
     cases.append(("mc_dctif_i", k, pl, (samples + 5 * nblk + nblk * 64) * 4,
                   2 * macs, None, more))
 
@@ -1748,7 +1847,8 @@ def check_walk(cases, rows, time_all=True) -> None:
 
 
 # the kernels whose ptxas figures the build prints: (kernel, source,
-# kernel function): K10, K22, the walkers, K5, K13, K14 and K15
+# kernel function): K10, K22, the walkers, K5, K13, K14, K15, K4, K7
+# and K11
 PTXAS = (("K10 rdoq", "rdoq", "rdoq_kernel"),
          ("K22 i_rmd", "i_rmd", "rmd_kernel"),
          ("K21 i_walk", "iwalk", "iwalk_kernel"),
@@ -1761,7 +1861,11 @@ PTXAS = (("K10 rdoq", "rdoq", "rdoq_kernel"),
          ("K13 me_sad1, 10 bits", "me_sad", "me1_kernelILi2"),
          ("K13 me_sad1, stencils", "me_sad", "me1_out_kernel"),
          ("K14 nnfme_fwd", "nnfme_train", "nnfme_fwd_kernel"),
-         ("K15 nnfme_bwd", "nnfme_train", "nnfme_bwd_kernel"))
+         ("K15 nnfme_bwd", "nnfme_train", "nnfme_bwd_kernel"),
+         ("K4 sao_stats", "sao", "stats_kernel"),
+         ("K4 sao_apply", "sao", "apply_kernel"),
+         ("K7 mc_dctif", "mc_dctif", "mc_kernelILb0"),
+         ("K11 mc_dctif_i", "mc_dctif", "mc_kernelILb1"))
 
 
 def ptxas_figures(log: str, fn: str) -> str:
@@ -1965,6 +2069,12 @@ def profile_encode(path, label, fn):
           f"operation", flush=True)
 
 
+def kernel_of(row: str) -> str:
+    """The kernel of a row: `name` or `name:form` (a kernel's other form
+    or size, timed in a row of its own)."""
+    return row.split(":")[0]
+
+
 def check_kernels(cases, rows) -> None:
     """Each case's kernel against its plain version (equal), timed beside
     its plain version, its bound and its library call; adds its row to
@@ -1989,9 +2099,9 @@ def check_kernels(cases, rows) -> None:
         ms = time_cuda(kfn, 200)
         pms = time_cuda(pfn, 5)
         lms = time_cuda(lib, 200) if lib is not None else None
-        dms = device_ms(kfn, DEVICE_FN[name])
+        dms = device_ms(kfn, DEVICE_FN[kernel_of(name)])
         bms, by = bound_ms(nbytes, ops)
-        src, repl = kernels.KERNELS[name]
+        src, repl = kernels.KERNELS[kernel_of(name)]
         rows[name] = dict(
             name=name, route="cuda", source=f"hmtpu_torch/csrc/{src}.cu",
             replaces=repl, launches=0, max_abs_err=err,
@@ -2071,8 +2181,19 @@ def main() -> None:
         "ldp", lambda: encode(clip, QP_LDP, dev, "ldp", SRANGE),
         ldp_names, kernels)
     for name in rows:
-        rows[name]["launches"] = counts[name]
+        rows[name]["launches"] = counts[kernel_of(name)]
     check_results(results, "ldp")
+    # K4 and K25 a frame, K7 a P pass, from the launch counters
+    n_p = LDP_FRAMES - 1
+    sao_n = [counts[k] for k in ("sao_stats", "sao_choose", "sao_apply")]
+    print(f"ldp: SAO launches a frame {sum(sao_n) / LDP_FRAMES:g} (K4 "
+          f"statistics {sao_n[0]}, K25 {sao_n[1]}, K4 apply {sao_n[2]} for "
+          f"{LDP_FRAMES} frames); K7 launches a P pass "
+          f"{counts['mc_dctif'] / n_p:g} ({counts['mc_dctif']} for {n_p})",
+          flush=True)
+    if sao_n != [LDP_FRAMES] * 3 or counts["mc_dctif"] > 6 * n_p:
+        fail(f"ldp: {sao_n} SAO launches (K4, K25, K4) for {LDP_FRAMES} "
+             f"frames, {counts['mc_dctif']} K7 launches for {n_p} P passes")
     if [r.slice_type for r in results] != ["I"] + ["P"] * (LDP_FRAMES - 1):
         fail(f"ldp: slice types {[r.slice_type for r in results]}")
     kbps = sum(r.bits for r in results) / LDP_FRAMES * 50 / 1000.0

@@ -56,9 +56,11 @@ SOURCES = {
     "deblock": {
         "hm_deblock_edges": "ppppppppp" "iiiiiiiii" "p",
     },
+    # one plane or a frame's three: the planes' pointers, then (planes,
+    # h, w, ctu, chroma h, w, ctu, bit depth)
     "sao": {
-        "hm_sao_stats": "pppiiiip",
-        "hm_sao_apply": "pppiiiip",
+        "hm_sao_stats": "ppppppp" "iiiiiiii" "p",
+        "hm_sao_apply": "ppppppp" "iiiiiiii" "p",
     },
     "me_sad": {
         "hm_me_sad_levels": "ppppppiiiifp",
@@ -70,6 +72,10 @@ SOURCES = {
     "mc_dctif": {
         "hm_mc_dctif": "ppppppp" "iiiiiiii" "p",
         "hm_mc_dctif_i": "ppppppp" "iiiiiiii" "p",
+        # up to three forms of one grid's blocks: references and outputs,
+        # ridx, the MV sets; (blocks, forms, R, grid width, bit depth,
+        # inter), then each form's (H, W, n, chroma, MV set)
+        "hm_mc_forms": "ppppppppp" "iiiiii" "iiiii" "iiiii" "iiiii" "p",
     },
     "bi_pred": {
         "hm_bi_pred": "pppp" "iii" "p",

@@ -7,10 +7,14 @@ intermediate-precision `_mc_batch_jax_i` :227 through
 `bi_average_t` :295).
 
 On a CUDA tensor the wrappers launch the hand-written kernels (K7 and
-K11 in csrc/mc_dctif.cu, K12 in csrc/bi_pred.cu); on a CPU tensor they
-run the plain PyTorch versions beside them (`mc_batch_plain`,
-`mc_batch_i_plain`, `bi_pred_plain`), the reference's gather + two
-separable FIR passes with the same rounding points.
+K11 in csrc/mc_dctif.cu, a warp a block; K12 in csrc/bi_pred.cu); on a
+CPU tensor they run the plain PyTorch versions beside them
+(`mc_batch_plain`, `mc_batch_i_plain`, `bi_pred_plain`), the reference's
+gather + two separable FIR passes with the same rounding points.
+`mc_batch` is one plane and one MV set with a position per block; the
+forms `mc_yuv` (three planes of the same blocks and MVs: the P pass's
+AMVP hypotheses) and `mc_luma2` (two MV sets of the same luma blocks: the
+NN gate) take the blocks of a level's grid in one launch.
 
 Precision model (H.265 8.5.4.2.2.1) for bit depth B, headroom 14 - B:
   hor pass (not last): t = (sum c_i*s_i - (8192 << (B-8))) >> (B-8)
@@ -184,6 +188,94 @@ def mc_batch(refs, ridx, xs0, ys0, mvx_q, mvy_q, n_w: int, n_h: int,
                        i32(ys0), i32(mvx_q), i32(mvy_q), out, B, r, h, w,
                        n_w, n_h, int(chroma), bd)
     return out
+
+
+def _grid(nb: int, gw: int, n: int, dev):
+    q = torch.arange(nb, device=dev)
+    return (q % gw) * n, (q // gw) * n
+
+
+def _mc_forms(forms, ridx, gw: int, mvx, mvy, bd: int, inter: bool):
+    """K7 (K11 with inter) over up to three forms of the same blocks of a
+    grid gw cells wide: forms are (refs (R, H, W), n, chroma, MV set);
+    mvx / mvy hold the MV sets one after another.  One launch; returns
+    each form's (B, n, n)."""
+    i32 = lambda a: a.to(torch.int32).contiguous()
+    name = "mc_dctif_i" if inter else "mc_dctif"
+    nb = int(ridx.shape[0])
+    dev = ridx.device
+    refs = [i32(f[0]) for f in forms]
+    sets = 1 + max(f[3] for f in forms)
+    if any(r.dim() != 3 or r.shape[0] != refs[0].shape[0] for r in refs) \
+            or any(f[1] > 64 for f in forms) \
+            or mvx.numel() != sets * nb or mvy.numel() != sets * nb:
+        raise ValueError(f"{name}: forms " + ", ".join(
+            f"{tuple(r.shape)} n {f[1]}" for r, f in zip(refs, forms))
+            + f" with {nb} blocks and MVs {tuple(mvx.shape)}")
+    buf = torch.empty(sum(nb * f[1] * f[1] for f in forms),
+                      dtype=torch.int32, device=dev)
+    outs = list(torch.split(buf, [nb * f[1] * f[1] for f in forms]))
+    if nb:
+        pad = [None] * (3 - len(forms))
+        ints = []
+        for r, (_, n, chroma, mvset) in zip(refs, forms):
+            ints += [r.shape[1], r.shape[2], n, int(chroma), mvset]
+        ints += [0] * (15 - len(ints))
+        kernels.launch(name, "hm_mc_forms", *refs, *pad, *outs, *pad,
+                       i32(ridx), i32(mvx), i32(mvy), nb, len(forms),
+                       refs[0].shape[0], gw, bd, int(inter), *ints)
+    return tuple(o.view(nb, f[1], f[1]) for o, f in zip(outs, forms))
+
+
+def mc_yuv_plain(refs_y, refs_u, refs_v, ridx, gw: int, mvx_q, mvy_q,
+                 n: int, bd: int = 8, inter: bool = False):
+    """`mc_yuv` through the plain version, plane by plane."""
+    plain = mc_batch_i_plain if inter else mc_batch_plain
+    nc = n // 2
+    xs, ys = _grid(int(ridx.shape[0]), gw, 1, ridx.device)
+    return (plain(refs_y, ridx, xs * n, ys * n, mvx_q, mvy_q, n, n, False,
+                  bd),
+            plain(refs_u, ridx, xs * nc, ys * nc, mvx_q, mvy_q, nc, nc,
+                  True, bd),
+            plain(refs_v, ridx, xs * nc, ys * nc, mvx_q, mvy_q, nc, nc,
+                  True, bd))
+
+
+def mc_yuv(refs_y, refs_u, refs_v, ridx, gw: int, mvx_q, mvy_q, n: int,
+           bd: int = 8, inter: bool = False):
+    """The three planes of the blocks of an n-grid gw cells wide (block i
+    at ((i % gw) n, (i // gw) n), the chroma pair's n/2 blocks at half
+    that), each from its reference ridx[i] of the stacks (R, H, W) moved
+    by the quarter-pel MV (mvx_q[i], mvy_q[i]), which chroma reads as
+    eighth-pel: (luma (B, n, n), Cb, Cr (B, n/2, n/2)).  K7 (K11 with
+    inter) on CUDA tensors in one launch, the plain version on CPU ones."""
+    if not refs_y.is_cuda:
+        return mc_yuv_plain(refs_y, refs_u, refs_v, ridx, gw, mvx_q, mvy_q,
+                            n, bd, inter)
+    return _mc_forms([(refs_y, n, False, 0), (refs_u, n // 2, True, 0),
+                      (refs_v, n // 2, True, 0)], ridx, gw, mvx_q, mvy_q,
+                     bd, inter)
+
+
+def mc_luma2_plain(refs, ridx, gw: int, mvx_q, mvy_q, n: int, bd: int = 8,
+                   inter: bool = False):
+    """`mc_luma2` through the plain version, MV set by MV set."""
+    plain = mc_batch_i_plain if inter else mc_batch_plain
+    xs, ys = _grid(int(ridx.shape[0]), gw, n, ridx.device)
+    return tuple(plain(refs, ridx, xs, ys, mvx_q[k], mvy_q[k], n, n, False,
+                       bd) for k in range(2))
+
+
+def mc_luma2(refs, ridx, gw: int, mvx_q, mvy_q, n: int, bd: int = 8,
+             inter: bool = False):
+    """The luma blocks of an n-grid gw cells wide (as `mc_yuv`'s) under
+    two MV sets, mvx_q / mvy_q (2, B): (first set's (B, n, n), second
+    set's).  K7 (K11 with inter) on CUDA tensors in one launch, the plain
+    version on CPU ones."""
+    if not refs.is_cuda:
+        return mc_luma2_plain(refs, ridx, gw, mvx_q, mvy_q, n, bd, inter)
+    return _mc_forms([(refs, n, False, 0), (refs, n, False, 1)], ridx, gw,
+                     mvx_q, mvy_q, bd, inter)
 
 
 def mc_luma_batch_refs(refs, ridx, xs0, ys0, mvx_q, mvy_q, n_w, n_h, bd=8):

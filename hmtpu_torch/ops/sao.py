@@ -5,9 +5,11 @@ plus the host types `CtuSaoParams`, `max_offset` and `grid_from_packed`
 that the entropy writer needs.
 
 On CUDA tensors the statistics and the apply step launch kernel K4
-(csrc/sao.cu: `sao_stats`, one block-level reduction per CTU, and
-`sao_apply`), and the per-CTU RD choice of type, class and offsets of
-all three planes K25 (csrc/sao_choose.cu, one launch per frame); on CPU
+(csrc/sao.cu: `sao_stats`, a cluster of blocks a CTU counting with warp
+sums, and `sao_apply`, a thread a quad of samples; each takes a frame's
+three planes in one launch, `sao_stats_frame` and `apply_sao_frame`, or
+one plane), and the per-CTU RD choice of type, class and offsets of all
+three planes K25 (csrc/sao_choose.cu, one launch per frame); on CPU
 tensors they run the plain PyTorch versions beside them.
 
 Component order per CTU params: 0 = luma, 1 = Cb, 2 = Cr.
@@ -149,19 +151,72 @@ def _sao_stats(org, rec, ctu: int, bd: int):
                        -(-w // ctu))
 
 
+def _i32(a):
+    return a.to(torch.int32).contiguous()
+
+
+def _check_ctu(*ctus: int):
+    if any(c < 4 or c > 64 or c % 4 for c in ctus):
+        raise ValueError(f"sao: CTU sides 4-64, multiples of 4; got {ctus}")
+
+
 def sao_stats_rows(org, rec, ctu: int, bd: int):
     """The statistics as K4 writes them: (CTUs, 96) int32 rows of edge
     sums and counts (class x category), band sums and counts.  K4 on CUDA
-    tensors, the plain version (rearranged) on CPU ones."""
+    tensors (one plane), the plain version (rearranged) on CPU ones."""
     if not rec.is_cuda:
         return stats_rows(*sao_stats_plain(org, rec, ctu, bd))
-    org, rec = org.to(torch.int32).contiguous(), \
-        rec.to(torch.int32).contiguous()
+    _check_ctu(ctu)
     h, w = rec.shape
-    ny, nx = -(-h // ctu), -(-w // ctu)
-    out = torch.empty((ny * nx, 96), dtype=torch.int32, device=rec.device)
-    kernels.launch("sao_stats", "hm_sao_stats", org, rec, out, h, w, ctu,
-                   bd)
+    out = torch.empty((-(-h // ctu) * -(-w // ctu), 96), dtype=torch.int32,
+                      device=rec.device)
+    kernels.launch("sao_stats", "hm_sao_stats", _i32(org), _i32(rec), None,
+                   None, None, None, out, 1, h, w, ctu, 0, 0, 0, bd)
+    return out
+
+
+def sao_stats_frame_plain(org_y, rec_y, org_u, rec_u, org_v, rec_v,
+                          ctu: int, bd: int):
+    """`sao_stats_frame` through `sao_stats_plain`, plane by plane."""
+    return torch.stack([
+        stats_rows(*sao_stats_plain(o, r, c, bd))
+        for o, r, c in ((org_y, rec_y, ctu), (org_u, rec_u, ctu // 2),
+                        (org_v, rec_v, ctu // 2))])
+
+
+def _frame_check(what, ctu, shapes, params=None):
+    """The three planes (luma at ctu, the chroma pair at ctu // 2) have one
+    CTU grid, and params (if given) is (Y, X, 3, 7) on it."""
+    _check_ctu(ctu, ctu // 2)
+    (h, w), (hc, wc), sv = shapes
+    grid = (-(-h // ctu), -(-w // ctu))
+    if sv != (hc, wc) or grid != (-(-hc // (ctu // 2)),
+                                  -(-wc // (ctu // 2))) \
+            or (params is not None and tuple(params.shape) != grid + (3, 7)):
+        raise ValueError(f"{what}: planes {shapes}"
+                         + (f", params {tuple(params.shape)}"
+                            if params is not None else "")
+                         + f" at CTU {ctu}")
+    return h, w, hc, wc, grid[0] * grid[1]
+
+
+def sao_stats_frame(org_y, rec_y, org_u, rec_u, org_v, rec_v, ctu: int,
+                    bd: int):
+    """A frame's statistics: (3, CTUs, 96) int32, the rows of luma at
+    `ctu` and of the chroma pair at ctu // 2 (`sao_stats_rows`' layout).
+    K4 on CUDA tensors (one launch), the plain version on CPU ones."""
+    if not rec_y.is_cuda:
+        return sao_stats_frame_plain(org_y, rec_y, org_u, rec_u, org_v,
+                                     rec_v, ctu, bd)
+    shapes = tuple(tuple(r.shape) for r in (rec_y, rec_u, rec_v))
+    if shapes != tuple(tuple(o.shape) for o in (org_y, org_u, org_v)):
+        raise ValueError("sao_stats_frame: originals and reconstructions "
+                         "differ in shape")
+    h, w, hc, wc, n = _frame_check("sao_stats_frame", ctu, shapes)
+    out = torch.empty((3, n, 96), dtype=torch.int32, device=rec_y.device)
+    kernels.launch("sao_stats", "hm_sao_stats", *(_i32(a) for a in (
+        org_y, rec_y, org_u, rec_u, org_v, rec_v)), out, 3, h, w, ctu, hc,
+        wc, ctu // 2, bd)
     return out
 
 
@@ -187,13 +242,36 @@ def apply_sao_dev(rec, params, ctu: int, bd: int):
     """SAO apply of one plane: params (Y, X, 7) int32 per CTU."""
     if not rec.is_cuda:
         return apply_sao_plain(rec, params, ctu, bd)
-    rec = rec.to(torch.int32).contiguous()
-    params = params.to(torch.int32).contiguous()
+    _check_ctu(ctu)
+    rec = _i32(rec)
     h, w = rec.shape
     out = torch.empty_like(rec)
-    kernels.launch("sao_apply", "hm_sao_apply", rec, params, out, h, w,
-                   ctu, bd)
+    kernels.launch("sao_apply", "hm_sao_apply", rec, None, None,
+                   _i32(params), out, None, None, 1, h, w, ctu, 0, 0, 0, bd)
     return out
+
+
+def apply_sao_frame_plain(rec_y, rec_u, rec_v, params, ctu: int, bd: int):
+    """`apply_sao_frame` through `apply_sao_plain`, plane by plane."""
+    return tuple(apply_sao_plain(r, params[:, :, k], c, bd)
+                 for k, (r, c) in enumerate(((rec_y, ctu), (rec_u, ctu // 2),
+                                             (rec_v, ctu // 2))))
+
+
+def apply_sao_frame(rec_y, rec_u, rec_v, params, ctu: int, bd: int):
+    """A frame's SAO apply: params (Y, X, 3, 7) int32 as `choose_params`
+    gives them (luma at `ctu`, the chroma pair at ctu // 2).  Returns
+    (new_y, new_u, new_v).  K4 on CUDA tensors (one launch, the
+    parameters read in place), the plain version on CPU ones."""
+    if not rec_y.is_cuda:
+        return apply_sao_frame_plain(rec_y, rec_u, rec_v, params, ctu, bd)
+    recs = [_i32(r) for r in (rec_y, rec_u, rec_v)]
+    h, w, hc, wc, _ = _frame_check(
+        "apply_sao_frame", ctu, tuple(tuple(r.shape) for r in recs), params)
+    outs = [torch.empty_like(r) for r in recs]
+    kernels.launch("sao_apply", "hm_sao_apply", *recs, _i32(params), *outs,
+                   3, h, w, ctu, hc, wc, ctu // 2, bd)
+    return tuple(outs)
 
 
 def _offsets_and_delta(e_sum, cnt, sign_constrained, max_off):
@@ -296,16 +374,10 @@ def sao_frame_dev(org_y, rec_y, org_u, rec_u, org_v, rec_v, ctu: int,
     """Estimate + apply SAO for a whole picture.  lam: float32 0-d
     tensor on the planes' device.  Returns (new_y, new_u, new_v,
     params (Y, X, 3, 7) int32) with the chroma type/class sharing rule
-    (Cr follows Cb).  On the card: K4's statistics, K25's choice, K4's
-    apply."""
+    (Cr follows Cb).  On the card three launches: K4's statistics of the
+    three planes, K25's choice, K4's apply of the three planes."""
     h, w = rec_y.shape
     params = choose_params(
-        sao_stats_rows(org_y, rec_y, ctu, bd),
-        sao_stats_rows(org_u, rec_u, ctu // 2, bd),
-        sao_stats_rows(org_v, rec_v, ctu // 2, bd), lam, bd, -(-h // ctu),
-        -(-w // ctu))
-    p_y, p_cb, p_cr = params.unbind(2)
-    new_y = apply_sao_dev(rec_y, p_y, ctu, bd)
-    new_u = apply_sao_dev(rec_u, p_cb, ctu // 2, bd)
-    new_v = apply_sao_dev(rec_v, p_cr, ctu // 2, bd)
-    return new_y, new_u, new_v, params
+        *sao_stats_frame(org_y, rec_y, org_u, rec_u, org_v, rec_v, ctu, bd),
+        lam, bd, -(-h // ctu), -(-w // ctu))
+    return apply_sao_frame(rec_y, rec_u, rec_v, params, ctu, bd) + (params,)

@@ -41,9 +41,27 @@ two trees of the port on one card in one run:
   nnfme_train  `train_nnfme.main` at its defaults (416x240, 24 frames,
         QPs 22/27/32/37, 60 epochs, search range 16) into a temporary
         directory: seconds, and the extraction's and the steps' seconds
-        and the steps per QP as the tool prints them.
+        and the steps per QP as the tool prints them;
+  kernel_times  one more ldp encode and one more ra10 encode with CUDA
+        events around each launch of K23, K26, K7, K4 and K25 (their
+        device milliseconds, summed a kernel, and their launches: the
+        events' own host cost stays out of the timed encodes above);
+  sao_frame  `sao_frame_dev` of a 416x240 frame (the clip's first frame
+        as the original, a reconstruction a few steps off, CTU 64, QP
+        22's lambda): ms per call (CUDA events around 200 calls), and
+        under torch.profiler (50 calls) the device milliseconds and the
+        device operations a call, kernels and copies alike;
+  k4_k7  the one-plane and one-form calls of K4 and K7 at chip_smoke.py's
+        shapes of their rows: K4's statistics and apply of a 416x240 luma
+        plane at CTU 64 (seeded samples 60-199, the original a few steps
+        off; and the statistics of the clip's first frame, a few steps
+        off), K7 on the 1560 8x8 luma blocks of a 416x240 picture from 4
+        seeded references, MVs of every phase reaching past the edges:
+        ms per call and device ms (torch.profiler, the kernel's own).
 
     PYTHONPATH=<checkout of the port> python scripts/frame_times.py
+    PYTHONPATH=<checkout> python scripts/frame_times.py --no-train
+        # the encodes, kernel_times, sao_frame and the calls only
 
 Each frame's seconds come from `Encoder.results` (the device pass of a P
 or B frame beside them), after a warm-up encode of a 64x64 clip; beside
@@ -104,6 +122,120 @@ class _PassTimes:
     def __exit__(self, *exc):
         for mod, fn, inner in self._saved:
             setattr(mod, fn, inner)
+
+
+class _KernelTimes:
+    """CUDA events around every launch of the kernels named while in use
+    (through `kernels.launch_checked`, which every wrapper's launch
+    reaches): `ms` holds each kernel's summed milliseconds, `n` its
+    launches, once `read` has synced."""
+
+    def __init__(self, names):
+        self.names = names
+
+    def __enter__(self):
+        from hmtpu_torch import kernels
+
+        self._k, self._inner = kernels, kernels.launch_checked
+        self.ev = []
+
+        def timed(kernel, *a):
+            if kernel not in self.names:
+                return self._inner(kernel, *a)
+            b, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            b.record()
+            self._inner(kernel, *a)
+            e.record()
+            self.ev.append((kernel, b, e))
+
+        kernels.launch_checked = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._k.launch_checked = self._inner
+
+    def read(self):
+        torch.cuda.synchronize()
+        ms, n = {}, {}
+        for k, b, e in self.ev:
+            ms[k] = ms.get(k, 0.0) + b.elapsed_time(e)
+            n[k] = n.get(k, 0) + 1
+        return ms, n
+
+
+def _sao_frame(clip):
+    """`sao_frame_dev` of a 416x240 frame: ms per call, and device ms
+    and device operations per call (torch.profiler, every operation)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hmtpu_torch.common.lambdas import frame_lambdas
+    from hmtpu_torch.ops import sao
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(22)
+    planes = []
+    for p in clip[0]:
+        o = np.asarray(p, np.int32)
+        r = np.clip(o + rng.randint(-3, 4, o.shape), 0, 255)
+        planes += [torch.as_tensor(a.astype(np.int32)).to(dev)
+                   for a in (o, r)]
+    lam = torch.tensor(frame_lambdas(22, 22, 0.57)[0], dtype=torch.float32,
+                       device=dev)
+    call = lambda: sao.sao_frame_dev(*planes, 64, lam, 8)
+    ms = _time_call(call)
+    iters = 50
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if getattr(e, "self_device_time_total",
+                      getattr(e, "self_cuda_time_total", 0.0)) > 0]
+    dms = sum(getattr(e, "self_device_time_total",
+                      getattr(e, "self_cuda_time_total", 0.0))
+              for e in evs) / 1e3 / iters
+    return {"ms": ms, "device_ms": dms,
+            "device_ops": sum(e.count for e in evs) / iters,
+            "by_op": {e.key[:60]: e.count / iters for e in evs}}
+
+
+def _k4_k7(clip):
+    """{label: (ms per call, device ms)} of the one-plane and one-form
+    calls of K4 and K7 at chip_smoke.py's row shapes."""
+    from hmtpu_torch.ops import interp, sao
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(4)
+    t32 = lambda a: torch.as_tensor(np.asarray(a, np.int32)).to(dev)
+    h, w = 240, 416
+    y = rng.randint(60, 200, (h, w))
+    org, rec = t32(np.clip(y + rng.randint(-6, 7, (h, w)), 0, 255)), t32(y)
+    c = np.asarray(clip[0][0], np.int32)
+    corg = t32(c)
+    crec = t32(np.clip(c + rng.randint(-3, 4, c.shape), 0, 255))
+    params = t32(np.stack(
+        [rng.randint(0, 3, (4, 7)), rng.randint(0, 4, (4, 7)),
+         rng.randint(0, 29, (4, 7))]
+        + [rng.randint(-7, 8, (4, 7)) for _ in range(4)], -1))
+    refs = t32(rng.randint(0, 256, (4, h, w)))
+    q = np.arange((h // 8) * (w // 8))
+    span = 4 * (8 + 24)
+    args = [t32(a) for a in (rng.randint(0, 4, q.size), (q % (w // 8)) * 8,
+                             (q // (w // 8)) * 8,
+                             rng.randint(-span, span, q.size),
+                             rng.randint(-span, span, q.size))]
+    calls = {
+        "K4 sao_stats (240x416 luma, CTU 64, random samples)": (
+            lambda: sao._sao_stats(org, rec, 64, 8), "stats_kernel"),
+        "K4 sao_stats (the clip's luma, CTU 64)": (
+            lambda: sao._sao_stats(corg, crec, 64, 8), "stats_kernel"),
+        "K4 apply_sao_dev (240x416 luma, CTU 64)": (
+            lambda: sao.apply_sao_dev(rec, params, 64, 8), "apply_kernel"),
+        "K7 mc_batch (1560 luma 8x8, 4 references)": (
+            lambda: interp.mc_batch(refs, *args, 8, 8, False), "mc_kernel"),
+    }
+    return {k: (_time_call(f), _device_ms(f, fn))
+            for k, (f, fn) in calls.items()}
 
 
 def _encode(frames, device="cuda", **cfg):
@@ -364,6 +496,12 @@ def _trainer_split(out: str):
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--no-train", action="store_true",
+                    help="leave out train_step and nnfme_train")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("frame_times: no CUDA device", file=sys.stderr)
         return 2
@@ -406,11 +544,27 @@ def main() -> int:
                 flush=True)
     finally:
         restore()
+    kt_names = ("p_walk", "b_walk", "mc_dctif", "sao_stats", "sao_apply",
+                "sao_choose")
+    for name, frames, cfg in (runs[0], runs[2 * REPEAT]):
+        with _KernelTimes(kt_names) as kt:
+            bs, dt, res = _encode(frames, **cfg)
+        kms, kn = kt.read()
+        print(json.dumps({"config": "kernel_times", "of": name,
+                          "kernels": nk, "bytes": len(bs),
+                          "frames": [r.slice_type for r in res],
+                          "ms": kms, "launches": kn}), flush=True)
+    print(json.dumps({"config": "sao_frame", "kernels": nk,
+                      **_sao_frame(clip)}), flush=True)
+    print(json.dumps({"config": "k4_k7", "kernels": nk,
+                      "ms_device_ms": _k4_k7(clip)}), flush=True)
     ms, dms = _calls(clip, sao_call)
     print(json.dumps({"config": "calls", "kernels": nk, "ms_per_call": ms,
                       "device_ms_per_call": dms}), flush=True)
     print(json.dumps({"config": "k1ts_vs_shift", "kernels": nk,
                       **_k1ts_vs_shift()}), flush=True)
+    if args.no_train:
+        return 0
     print(json.dumps({"config": "train_step", "kernels": nk,
                       **_train_step_times()}), flush=True)
     with tempfile.TemporaryDirectory() as tmp:

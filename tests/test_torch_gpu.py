@@ -145,6 +145,42 @@ def test_sao_kernels(dev, h, w, ctu):
     assert torch.equal(got, sao.apply_sao_plain(rec, params, ctu, 8))
 
 
+@pytest.mark.parametrize("h,w,ctu,bd", [(64, 64, 32, 8), (48, 80, 64, 8),
+                                        (240, 416, 64, 8), (120, 208, 32, 8),
+                                        (240, 416, 64, 10)])
+def test_sao_frame_kernels(dev, h, w, ctu, bd):
+    """K4's three-plane statistics and apply (one launch each) against
+    the plain versions plane by plane."""
+    from hmtpu_torch.ops import sao
+
+    rng = np.random.RandomState(h + w + bd)
+    top = (1 << bd) - 1
+    org, rec = [], []
+    for hh, ww in ((h, w), (h // 2, w // 2), (h // 2, w // 2)):
+        o = rng.randint(0, top + 1, (hh, ww))
+        rec.append(_i32(np.clip(o + rng.randint(-6, 7, (hh, ww)), 0, top),
+                        dev))
+        org.append(_i32(o, dev))
+    planes = [a for pair in zip(org, rec) for a in pair]
+    n0 = kernels.COUNTS["sao_stats"]
+    got = _launched("sao_stats", lambda: sao.sao_stats_frame(*planes, ctu,
+                                                             bd))
+    assert kernels.COUNTS["sao_stats"] == n0 + 1
+    assert torch.equal(got, sao.sao_stats_frame_plain(*planes, ctu, bd))
+    ny, nx = -(-h // ctu), -(-w // ctu)
+    mo = sao.max_offset(bd)
+    params = _i32(np.concatenate(
+        [rng.randint(0, 3, (ny, nx, 3, 1)), rng.randint(0, 4, (ny, nx, 3, 1)),
+         rng.randint(0, 32, (ny, nx, 3, 1)),
+         rng.randint(-mo, mo + 1, (ny, nx, 3, 4))], -1), dev)
+    n0 = kernels.COUNTS["sao_apply"]
+    got = _launched("sao_apply", lambda: sao.apply_sao_frame(*rec, params,
+                                                             ctu, bd))
+    assert kernels.COUNTS["sao_apply"] == n0 + 1
+    for g, wnt in zip(got, sao.apply_sao_frame_plain(*rec, params, ctu, bd)):
+        assert torch.equal(g, wnt)
+
+
 def test_encode_card_equals_cpu(dev):
     """A 64x64 picture through the port on the card and on the CPU: the
     same bytes."""
@@ -271,6 +307,43 @@ def test_mc_dctif_i_kernel(dev, chroma, n, bd):
         refs, *args, n, n, chroma, bd, inter=True))
     assert torch.equal(got, interp.mc_batch_i_plain(refs, *args, n, n,
                                                     chroma, bd))
+
+
+@pytest.mark.parametrize("inter", [False, True])
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("n", [8, 16, 32])
+def test_mc_forms_kernel(dev, n, bd, inter):
+    """K7's (K11's with inter) forms in one launch each: the three planes
+    of an n-grid's blocks (the AMVP hypotheses) and the luma blocks under
+    two MV sets (the NN gate), at 416x240, every phase, MVs past the
+    edges."""
+    from hmtpu_torch.ops import interp
+
+    rng = np.random.RandomState(n + bd + 7 * inter)
+    name = "mc_dctif_i" if inter else "mc_dctif"
+    h, w = 240, 416
+    ry = _i32(rng.randint(0, 1 << bd, (4, h, w)), dev)
+    ru, rv = (_i32(rng.randint(0, 1 << bd, (4, h // 2, w // 2)), dev)
+              for _ in range(2))
+    gw = w // n
+    nb = gw * (h // n)
+    span = 4 * (n + 24)
+    mvx, mvy = rng.randint(-span, span, (2, 2, nb))
+    mvx[:, :64], mvy[:, :64] = np.arange(64) - 32, \
+        (np.arange(64) * 5) % 64 - 32
+    ridx, mvx, mvy = (_i32(a, dev) for a in (rng.randint(0, 4, nb), mvx,
+                                              mvy))
+    n0 = kernels.COUNTS[name]
+    got = _launched(name, lambda: interp.mc_yuv(ry, ru, rv, ridx, gw, mvx[0],
+                                                 mvy[0], n, bd, inter))
+    want = interp.mc_yuv_plain(ry, ru, rv, ridx, gw, mvx[0], mvy[0], n, bd,
+                               inter)
+    assert all(torch.equal(g, wnt) for g, wnt in zip(got, want))
+    got = _launched(name, lambda: interp.mc_luma2(ry, ridx, gw, mvx, mvy, n,
+                                                   bd, inter))
+    want = interp.mc_luma2_plain(ry, ridx, gw, mvx, mvy, n, bd, inter)
+    assert all(torch.equal(g, wnt) for g, wnt in zip(got, want))
+    assert kernels.COUNTS[name] == n0 + 2
 
 
 @pytest.mark.parametrize("bd", [8, 10])
