@@ -16,7 +16,13 @@ when every phase passed):
                spills of every function of the source);
   3. kernels   each kernel (K1, K3-K16 and K1's transform-skip mode)
                against its plain PyTorch version on seeded inputs at the
-               shapes the main paths give it, and K2 and K17-K26 (after
+               shapes the main paths give it (K1 in its level forms, a
+               level's three planes a launch, at the P pass's 8 level,
+               timed, and its 16 and 32 levels, each also on one plane,
+               the old one-plane forms at (14, 8, 8) checked; K6 in its
+               three-level form, 2,054 rows of the 416x240 search's
+               stencils, timed, its one-level forms and logits checked),
+               and K2 and K17-K26 (after
                phase 11's untimed encodes) on the inputs of the widest
                call of each form captured there: K23 (the P z-scan
                walker, one launch per level) on the ldp phase's P frame
@@ -89,9 +95,12 @@ when every phase passed):
                K3-K8, K10, K19 and K21-K25 must be > 0 (the P pass's
                coding, candidates, intra prediction and mode bits run
                inside K23, and no encode launches them); the SAO
-               launches a frame (K4, K25, K4: 3) and K7's a P pass (at
+               launches a frame (K4, K25, K4: 3), K7's a P pass (at
                most 6: a level's hypotheses and its gate, one launch
-               each) from the counters.  Seconds per frame, and for the P
+               each), K6's (1: the three levels' offsets) and K1's (at
+               most 3 a direction: a level's three planes a launch) from
+               the counters, and after phase 6 K6's and K1's launches in
+               ldp, ldp_dctif and ra10 (K1 at most 24 a direction).  Seconds per frame, and for the P
                frame the device pass apart from the host's finish +
                CABAC; nvidia-smi samples the card's utilization meanwhile;
   5. ldp_dctif the repo's anchor cfg (cfg/encoder_lowdelay_P_main.cfg,
@@ -384,8 +393,9 @@ def time_cuda(fn, iters: int, warm: int = 2) -> float:
 
 # the CUDA function each kernel runs, as the profiler names it
 DEVICE_FN = {
-    "int_transform_fwd": "transform_kernel<false>",
-    "int_transform_inv": "transform_kernel<true>",
+    # the one-plane forms, then the level forms
+    "int_transform_fwd": ("transform_kernel<false>", "fwd_level_kernel"),
+    "int_transform_inv": ("transform_kernel<true>", "inv_level_kernel"),
     "intra_filter": "filter_kernel", "intra_pred": "pred_kernel",
     "deblock": "deblock_kernel", "sao_stats": "stats_kernel",
     "sao_apply": "apply_kernel",
@@ -447,28 +457,23 @@ def kernel_cases(dev):
     t32 = lambda a: torch.as_tensor(np.asarray(a, np.int32)).to(dev)
     cases = []
 
-    # K1: one z-scan cell step's luma batch (K=2 candidates x 7 CUs of
-    # 8x8); residuals in, coefficients in
+    # K1: its level forms at the P pass's `_code` shapes, a level's three
+    # planes a launch (the 8 level's 1560 blocks timed, the 16 and 32
+    # levels rows of their own); the old one-plane forms checked beside
+    # the 8 level's row at a z-scan cell step's luma batch (14, 8, 8)
     nb, n = 14, 8
     res = t32(rng.randint(-255, 256, (nb, n, n)))
     coef = t32(rng.randint(-2000, 2001, (nb, n, n)))
-    mat = transform.matrix(n, False, dev).to(torch.float64)
-    io = 2 * nb * n * n * 4
-    ops = 4 * nb * n ** 3
-    cases.append(("int_transform_fwd",
-                  lambda: transform.forward_transform(res, n),
-                  lambda: transform.forward_transform_plain(res, n),
-                  io, ops,
-                  lambda: torch.matmul(mat, torch.matmul(
-                      mat, res.to(torch.float64).transpose(-1, -2))
-                      .transpose(-1, -2))))
-    cases.append(("int_transform_inv",
-                  lambda: transform.inverse_transform(coef, n),
-                  lambda: transform.inverse_transform_plain(coef, n),
-                  io, ops,
-                  lambda: torch.matmul(torch.matmul(
-                      mat.T, coef.to(torch.float64)), mat)))
-
+    old = {"fwd": [(lambda: transform.forward_transform(res, n),
+                    lambda: transform.forward_transform_plain(res, n))],
+           "inv": [(lambda: transform.inverse_transform(coef, n),
+                    lambda: transform.inverse_transform_plain(coef, n))]}
+    for lv, m in ((8, (W // 8) * (H // 8)), (16, (W // 16) * (H // 16)),
+                  (32, -(-W // 32) * -(-H // 32))):
+        tag = "" if lv == 8 else f":level{lv}"
+        for case in code_level_cases(dev, rng, lv, m, old if lv == 8
+                                     else None):
+            cases.append((case[0] + tag,) + case[1:])
     # K1, TS mode: the 4x4 chroma TBs of phase 1a (2 x 1560), residuals
     # in, coefficients out; a shift per sample (the inverse, checked too,
     # a shift, an add and a shift)
@@ -534,6 +539,60 @@ def kernel_cases(dev):
     return cases + inter_kernel_cases(dev, rng) \
         + slice3_kernel_cases(dev, rng) + slice4_kernel_cases(dev, rng) \
         + slice5_kernel_cases(dev, rng)
+
+
+def code_level_cases(dev, rng, n, m, old=None):
+    """K1's level forms at one level of the P pass (m blocks, luma n x n,
+    chroma n/2 x n/2, 8 bits; seeded originals, predictions a few steps
+    off, sparse levels with their dequantised values, K10-like rates, HM's
+    chroma weight at QP 25): `int_transform_fwd` (fwd_level: org and pred
+    in, the coefficients out, 12 B a sample) and `int_transform_inv`
+    (inv_level: deq, lev, pred and org in, rec out, 20 B a sample, and
+    each block's three rates in, its three SSEs, cbf, dist and bits out),
+    each also checked on one plane (`_code`'s call: luma, and chroma with
+    the weight); `old` adds the one-plane forms' checks by form."""
+    from hmtpu_torch.common.lambdas import frame_lambdas
+    from hmtpu_torch.ops import transform
+
+    t32 = lambda a: torch.as_tensor(np.asarray(a, np.int32)).to(dev)
+    orgs, preds, deqs, levs = [], [], [], []
+    for s in (n, n // 2, n // 2):
+        o = rng.randint(0, 256, (m, s, s))
+        orgs.append(t32(o))
+        preds.append(t32(np.clip(o + rng.randint(-20, 21, o.shape), 0,
+                                 255)))
+        lv = rng.randint(-20, 21, o.shape) * (rng.rand(*o.shape) < 0.1)
+        levs.append(t32(lv))
+        deqs.append(t32(lv * 300))
+    bits = [torch.as_tensor(rng.rand(m).astype(np.float32) * 200).to(dev)
+            for _ in range(3)]
+    dw = torch.tensor(frame_lambdas(25, 25, 0.4624)[2], dtype=torch.float32,
+                      device=dev)
+    samples = m * (n * n + 2 * (n // 2) ** 2)
+    # the butterflies' multiply-adds (about n a sample a stage) and the
+    # SSE's
+    ops = 2 * 2 * n * samples
+    fwd = lambda k=(0, 1, 2): transform.fwd_level(
+        [orgs[i] for i in k], [preds[i] for i in k], 8)
+    fwd_p = lambda k=(0, 1, 2): transform.fwd_level_plain(
+        [orgs[i] for i in k], [preds[i] for i in k], 8)
+
+    def inv(k=(0, 1, 2), plain=False):
+        f = transform.inv_level_plain if plain else transform.inv_level
+        pick = lambda a: [a[i] for i in k]
+        return f(pick(deqs), pick(levs), pick(preds), pick(orgs), 8,
+                 None if k == (0,) else dw,
+                 pick(bits) if len(k) == 3 else None)
+
+    one = ((0,), (1,))
+    old = old or {}
+    return [("int_transform_fwd", fwd, fwd_p, 12 * samples, ops, None,
+             [(lambda k=k: fwd(k), lambda k=k: fwd_p(k)) for k in one]
+             + old.get("fwd", [])),
+            ("int_transform_inv", inv, lambda: inv(plain=True),
+             20 * samples + 36 * m, ops + 3 * samples, None,
+             [(lambda k=k: inv(k), lambda k=k: inv(k, True)) for k in one]
+             + old.get("inv", []))]
 
 
 def sao_frame_cases(dev, rng, h, w, tag):
@@ -689,24 +748,32 @@ def inter_kernel_cases(dev, rng):
                     lambda: flat(me.integer_me_levels_plain(
                         flat_p, flat_p, SRANGE, np.float32(0.0), qh, qw)))]))
 
-    # K6: the 1560 8x8 stencils of that search, the QP 22 weights
-    sten = me.integer_me_levels_plain(ref, org, SRANGE, lam, qh, qw)[8][1]
-    st9 = sten.reshape(-1, 9).to(torch.float32).contiguous()
-    nb = st9.shape[0]
-    sizes = torch.full((nb,), 8, dtype=torch.int32, device=dev)
+    # K6: the three levels' stencils of that search (1560, 390 and 104
+    # PUs: 2,054 rows, one launch), the QP 22 weights; the one-level forms
+    # (classes and logits) checked on the 8 level's costs
+    stens = [d[1] for d in (me.integer_me_levels_plain(
+        ref, org, SRANGE, lam, qh, qw)[n] for n in (8, 16, 32))]
+    st9 = stens[0].reshape(-1, 9).to(torch.float32).contiguous()
+    nb = sum(st.numel() // 9 for st in stens)
+    sizes = torch.full((st9.shape[0],), 8, dtype=torch.int32, device=dev)
     params = nnfme.load_npz(os.path.join(nnfme.WEIGHTS_DIR, "qp22.npz"),
                             dev)
     macs = 17 * 22 + 22 * 20 + 20 * 49
     cases.append(("nnfme",
-                  lambda: nnfme.predict_offsets(params, st9, sizes, sizes),
-                  lambda: nnfme._classes(nnfme.forward_plain(
-                      params, st9, sizes, sizes)),
-                  (nb * 9 + nnfme.PACK_SIZE + 2 * nb + nb * 3) * 4,
+                  lambda: nnfme.predict_offsets_levels(params, stens,
+                                                       (8, 16, 32)),
+                  lambda: nnfme.predict_offsets_levels_plain(
+                      params, stens, (8, 16, 32)),
+                  # the stencils in, the weights, a class and offsets out
+                  (nb * 9 + nnfme.PACK_SIZE + nb * 3) * 4,
                   # the products and sums, the biases, ReLU and affine of
                   # the 42 hidden units, the standardisation, the argmax
                   nb * (2 * macs + 91 + 3 * 42 + 3 * 9 + 49), None,
-                  # the logits, bit for bit
-                  [(lambda: nnfme.forward(params, st9, sizes, sizes),
+                  # the one-level forms: classes, and the logits bit for bit
+                  [(lambda: nnfme.predict_offsets(params, st9, sizes, sizes),
+                    lambda: nnfme._classes(nnfme.forward_plain(
+                        params, st9, sizes, sizes))),
+                   (lambda: nnfme.forward(params, st9, sizes, sizes),
                     lambda: nnfme.forward_plain(params, st9, sizes,
                                                 sizes))]))
 
@@ -1143,6 +1210,10 @@ PLAIN_FUNCS = (
      "wavefront_pass_plain"),
     ("K24 plain", "hmtpu_torch.encoder.pframe_dev", "t_level_plain"),
     ("K25 plain", "hmtpu_torch.ops.sao", "_choose_params_plain"),
+    # and of K1's level forms and K6's level form
+    ("K1 plain", "hmtpu_torch.ops.transform", "fwd_level_plain"),
+    ("K1 plain", "hmtpu_torch.ops.transform", "inv_level_plain"),
+    ("K6 plain", "hmtpu_torch.models.nnfme", "predict_offsets_levels_plain"),
 ) + tuple(
     # B8's flag helpers (hmtpu/ops/ratebits.py:305-450), as the passes
     # import them (mvd, ref_idx, inter_dir and the MPM pricing are K18's
@@ -1847,9 +1918,12 @@ def check_walk(cases, rows, time_all=True) -> None:
 
 
 # the kernels whose ptxas figures the build prints: (kernel, source,
-# kernel function): K10, K22, the walkers, K5, K13, K14, K15, K4, K7
-# and K11
-PTXAS = (("K10 rdoq", "rdoq", "rdoq_kernel"),
+# kernel function): K1's level forms, K6, K10, K22, the walkers, K5,
+# K13, K14, K15, K4, K7 and K11
+PTXAS = (("K1 fwd_level", "transform", "fwd_level_kernel"),
+         ("K1 inv_level", "transform", "inv_level_kernel"),
+         ("K6 nnfme", "nnfme", "nnfme_kernel"),
+         ("K10 rdoq", "rdoq", "rdoq_kernel"),
          ("K22 i_rmd", "i_rmd", "rmd_kernel"),
          ("K21 i_walk", "iwalk", "iwalk_kernel"),
          ("K23 p_walk", "pwalk", "pwalk_kernel"),
@@ -1903,16 +1977,19 @@ def load_script(name: str):
 
 
 def same(a, b) -> bool:
-    """Equal shapes, dtypes and values (floats bit for bit)."""
+    """Equal shapes, dtypes and values (floats bit for bit; None only
+    where both are)."""
     if isinstance(a, (tuple, list)):
         return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+    if a is None or b is None:
+        return a is None and b is None
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
 
 
 def max_err(a, b) -> float:
     if isinstance(a, (tuple, list)):
         return max(max_err(x, y) for x, y in zip(a, b))
-    if a.numel() == 0:
+    if a is None or b is None or a.numel() == 0:
         return 0.0
     return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
 
@@ -2093,7 +2170,9 @@ def check_kernels(cases, rows) -> None:
             torch.cuda.synchronize()
             err = max(err, max_err(g2, w2))
             if not same(g2, w2):
-                w0 = w2[0] if isinstance(w2, (tuple, list)) else w2
+                w0 = w2
+                while isinstance(w0, (tuple, list)):
+                    w0 = w0[0]
                 fail(f"{name}: kernel disagrees with its plain version at "
                      f"shape {tuple(w0.shape)} (max abs err {err})")
         ms = time_cuda(kfn, 200)
@@ -2194,6 +2273,12 @@ def main() -> None:
     if sao_n != [LDP_FRAMES] * 3 or counts["mc_dctif"] > 6 * n_p:
         fail(f"ldp: {sao_n} SAO launches (K4, K25, K4) for {LDP_FRAMES} "
              f"frames, {counts['mc_dctif']} K7 launches for {n_p} P passes")
+    # K6 once a P pass (the three levels' offsets), K1's level forms
+    # once a level and direction (the hypotheses' coding step)
+    k1 = [counts[k] for k in ("int_transform_fwd", "int_transform_inv")]
+    if counts["nnfme"] != n_p or max(k1) > 3 * n_p:
+        fail(f"ldp: {counts['nnfme']} K6 and {k1} K1 launches (forward, "
+             f"inverse) for {n_p} P passes")
     if [r.slice_type for r in results] != ["I"] + ["P"] * (LDP_FRAMES - 1):
         fail(f"ldp: slice types {[r.slice_type for r in results]}")
     kbps = sum(r.bits for r in results) / LDP_FRAMES * 50 / 1000.0
@@ -2285,6 +2370,15 @@ def main() -> None:
     if r_counts["b_walk"] != 8 * n_levels:
         fail(f"ra10: {r_counts['b_walk']} K26 launches for 8 B frames of "
              f"{n_levels} z-scan levels")
+    k1 = lambda c: (f"K6 {c['nnfme']}, K1 forward "
+                    f"{c['int_transform_fwd']} and inverse "
+                    f"{c['int_transform_inv']}")
+    print(f"kernels K6, K1 launches: ldp {k1(counts)} ({n_p} P pass); "
+          f"ldp_dctif {k1(d_counts)}; ra10 {k1(r_counts)} (8 B frames)",
+          flush=True)
+    if max(r_counts[k] for k in ("int_transform_fwd",
+                                 "int_transform_inv")) > 24:
+        fail(f"ra10: {k1(r_counts)} launches for 8 B passes")
     b_secs = [r.seconds for r in r_res if r.slice_type == "B"]
     b_dev = [r.device_seconds for r in r_res if r.slice_type == "B"]
     print(f"ra10: K26 {r_counts['b_walk']} launches ({n_levels} a B frame); "
@@ -2509,11 +2603,14 @@ def main() -> None:
               flush=True)
         plain_calls = dict(tally.calls)
         bad = {k: v for k, v in plain_calls.items()
-               if k.startswith(("K23", "K24", "K25"))}
+               if k.startswith(("K23", "K24", "K25", "K1 ", "K6 "))}
         if bad:
-            fail(f"plain versions of K23-K25 ran on the ldp path: {bad}")
-        print("plain: no call of wavefront_pass_plain, t_level_plain or "
-              "_choose_params_plain in the untimed LDP encode", flush=True)
+            fail(f"plain versions of K1, K6 or K23-K25 ran on the ldp path: "
+                 f"{bad}")
+        print("plain: no call of wavefront_pass_plain, t_level_plain, "
+              "_choose_params_plain, fwd_level_plain, inv_level_plain or "
+              "predict_offsets_levels_plain in the untimed LDP encode",
+              flush=True)
         # and K23's inputs on ldp_dctif's P frame (TS), a 64x56 frame
         # (geometry 8) and a 64x64 one (its second P frame: TMVP from its
         # predecessor's motion)

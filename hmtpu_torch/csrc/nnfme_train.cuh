@@ -8,7 +8,7 @@
 // models/train.py's plain versions, lanes in order and reversed).
 //
 // The order of every sum is the plain versions': each output unit's dot
-// product in ascending k from 0 (nnfme.cuh `dense_unit`: K6's), the
+// product in ascending k from 0 (nnfme.cuh `forward_lanes`: K6's), the
 // softmax's 49 terms in ascending j from 0 on every lane, the d-vectors'
 // sums in ascending j from 0; a parameter's gradient summed over the
 // KROWS rows of a block in ascending row order from 0 (models/train.py
@@ -122,8 +122,6 @@ HM_FN float drelu(float z) {
   return z > 0.0f ? 1.0f : (z == 0.0f ? 0.5f : 0.0f);
 }
 
-using L32 = Lanes<float, 32>;
-
 // one row's inputs on a warp's lanes, loaded before the block's copy of
 // the parameters is complete: cost k - 8 on lane k in 8-16, the size
 // rows and the label; for K15 z1 (unit k on lane k), z2 and the
@@ -150,18 +148,6 @@ HM_FN void load_row(const float* costs, const int* heights,
   in.label = labels != nullptr ? labels[i] : 0;
 }
 
-// the 17 features on lanes 0-16, and u and v of cost k - 8 on lane k in
-// 8-16 (lanes 17-31 repeat feature 16)
-HM_FN void feature_lanes(const float* p, const RowIn& in, L32& f, L32& u,
-                         L32& v) {
-  HM_LANES(k, 32) {
-    float uk = 0.0f, vk = 0.0f;
-    f[k] = feature(p, in.c[k], in.rh, in.rw, imin(k, 16), uk, vk);
-    u[k] = uk;
-    v[k] = vk;
-  }
-}
-
 // s[k] = x[k] for k < n, kLdBatch loads in flight a thread; thread tid
 // of nt
 HM_FN void stage_in(const float* x, int n, float* s, int tid, int nt) {
@@ -178,60 +164,17 @@ HM_FN void stage_in(const float* x, int n, float* s, int tid, int nt) {
   }
 }
 
-// unit j of the layer on lane j (j < N; lanes above repeat unit N - 1):
-// K6's dense_unit over the K inputs held on lanes 0..K-1
-template <int K, int N>
-HM_FN void dense_lanes(const L32& in, const float* w, const float* b,
-                       L32& out) {
-  HM_LANES(j, 32) {
-    const int n = imin(j, N - 1);
-    out[j] = dense_unit<K>([&](int k) { return lane_get(in, k); },
-                           w + n * K, b[n]);
-  }
-}
-
-// h = max(z, 0) g + beta on lanes 0..N-1
-template <int N>
-HM_FN void relu_affine_lanes(const L32& z, const float* g, const float* beta,
-                             L32& h) {
-  HM_LANES(j, 32) {
-    const int n = imin(j, N - 1);
-    h[j] = relu_affine(z[j], g[n], beta[n]);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // K14: one row's forward, cross-entropy and hit on a warp; with dl, the
 // row's d(mean loss)/d logits (49), z1 (22) and z2 (20) stored
 
 HM_FN void fwd_row(const float* p, const RowIn& in, float inv_b, float* z1o,
                    float* z2o, float* dl, float& loss, float& hit) {
-  L32 f, u, v, z1, h1, z2, h2, lo, hi;
-  feature_lanes(p, in, f, u, v);
-  dense_lanes<17, 22>(f, p + oW1, p + oB1, z1);
-  relu_affine_lanes<22>(z1, p + oG1, p + oBeta1, h1);
-  dense_lanes<22, 20>(h1, p + oW2, p + oB2, z2);
-  relu_affine_lanes<20>(z2, p + oG2, p + oBeta2, h2);
-  // the logits: unit j on lane j (lo), unit 32 + j on lanes 0-16 (hi)
-  HM_LANES(j, 32) {
-    const auto x = [&](int k) { return lane_get(h2, k); };
-    lo[j] = dense_unit<20>(x, p + oW3 + j * 20, p[oB3 + j]);
-    const int n = 32 + imin(j, 16);
-    hi[j] = dense_unit<20>(x, p + oW3 + n * 20, p[oB3 + n]);
-  }
-  // the first index of the largest logit: each lane's lower index on a
-  // tie, then the least (-logit, index) over the lanes
-  Lanes<float, 32> neg;
-  Lanes<int, 32> idx;
-  HM_LANES(j, 32) {
-    const bool up = j < 17 && hi[j] > lo[j];
-    neg[j] = -(up ? hi[j] : lo[j]);
-    idx[j] = up ? 32 + j : j;
-  }
-  float nm;
+  L32 z1, z2, lo, hi;
+  nnfme::forward_lanes(p, in.c, in.rh, in.rw, z1, z2, lo, hi);
+  float m;
   int best;
-  hm::lane_argmin(neg, idx, nm, best);
-  const float m = -nm;
+  argmax_lanes(lo, hi, m, best);
   L32 elo, ehi;
   HM_LANES(j, 32) {
     elo[j] = hm_expf(HM_FSUB(lo[j], m));
@@ -288,7 +231,7 @@ HM_FN void bwd_row(const float* p, const RowIn& in, float gsc, float* q) {
   const L32 &zz1 = in.z1, &zz2 = in.z2;
   const int rh = in.rh, rw = in.rw;
   L32 f, u, v, dlo, dhi, dz2, dz1, df;
-  feature_lanes(p, in, f, u, v);
+  feature_lanes(p, in.c, in.rh, in.rw, f, u, v);
   // the post-activations again, the scaled d-logits
   HM_LANES(k, 32) {
     dlo[k] = HM_FMUL(in.dlo[k], gsc);

@@ -26,6 +26,25 @@
 // int32 contiguous input as it is).  Four samples a thread through one
 // 16-byte load and store, 256 threads to a block, a grid sized to the
 // work.
+//
+// Level forms (hm_fwd_level, hm_inv_level; transform.cuh "K1's level
+// forms"): the P and B passes' coding step around K10,
+// hmtpu/encoder/pframe_dev.py:188 `_code` with `hypothesis`'s combine,
+// for a CU level's three planes (or one plane) in one launch each: the
+// forward forms org - pred and transforms it; the inverse transforms
+// K10's dequantised coefficients and writes rec = clip(pred + r, 0,
+// 2^bd - 1), each TB's SSE (the integer sum of (org - rec)^2, one
+// float32 conversion, times dw on chroma) and, three planes, each
+// block's cbf, dist = (dy + du) + dv and bits = (by + bu) + bv.  Bound by
+// bytes (12 B a sample forward, 20 B inverse) and, at the P pass's
+// shapes (150k samples a level at 416x240, under a microsecond at 3.35
+// TB/s), by the chain of a TB's loads, two 1-D butterflies and its
+// stores.  A TB on n lanes of a warp, a row (or column) a lane in
+// registers, 16-byte loads of both planes' rows in one round, the two
+// stages through the warp's padded tile in shared memory; a thread
+// block of g = 32 / n blocks (one at n = 32) holds the level's three
+// planes of those blocks, two warps (one for one plane).  Replaces the
+// two launches a plane and the torch operations around them.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -103,6 +122,46 @@ __global__ void transform_skip_kernel(const int* __restrict__ x,
   if (k < (n & 3)) out[4 * nv + k] = ts_one(x[4 * nv + k], inverse, s1, s2);
 }
 
+template <bool INV>
+__device__ __forceinline__ void level_body(const hm::LevelArgs& a) {
+  __shared__ int sm[hm::kLevelWarps][hm::kLevelTile];
+  __shared__ hm::LevelSums s;
+  const int w = threadIdx.x >> 5;
+  hm::level_warp<INV>(a, blockIdx.x, w, sm[w], s);
+  if (INV) {
+    __syncthreads();
+    hm::level_combine(a, blockIdx.x, s, threadIdx.x, blockDim.x);
+  }
+}
+
+__global__ void __launch_bounds__(hm::kLevelWarps * 32)
+    fwd_level_kernel(hm::LevelArgs a) {
+  level_body<false>(a);
+}
+
+__global__ void __launch_bounds__(hm::kLevelWarps * 32)
+    inv_level_kernel(hm::LevelArgs a) {
+  level_body<true>(a);
+}
+
+int launch_level(bool inv, const hm::LevelArgs& a, void* stream) {
+  const int bd = a.mode & 255;
+  if ((a.planes != 1 && a.planes != 3) || a.m < 1 || bd < 8 || bd > 12 ||
+      (a.n0 != 4 && a.n0 != 8 && a.n0 != 16 && a.n0 != 32) ||
+      (a.planes == 3 && (a.n1 * 2 != a.n0 || a.n1 < 4)))
+    return cudaErrorInvalidValue;
+  const int threads = hm::level_threads(a.n0, a.n1, a.planes);
+  const int g = hm::level_g(a.n0);
+  if (threads > hm::kLevelWarps * 32 || threads % 32 != 0 || g > 8)
+    return cudaErrorInvalidValue;
+  const int blocks = (a.m + g - 1) / g;
+  if (inv)
+    inv_level_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
+  else
+    fwd_level_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // mode: inverse | s1 << 1 | s2 << 8 (one argument: at the encoder's
@@ -135,4 +194,52 @@ extern "C" int hm_int_transform_inv(const void* x, const void* t, void* out,
                                     int nb, int n, int shift1, int shift2,
                                     void* stream) {
   return launch<true>(x, t, out, nb, n, shift1, shift2, stream);
+}
+
+// a level's planes (1 or 3): org, pred, coef of each; (blocks, luma n,
+// chroma n, planes, bit depth | use_dst << 8)
+extern "C" int hm_fwd_level(const void* o0, const void* o1, const void* o2,
+                            const void* p0, const void* p1, const void* p2,
+                            void* c0, void* c1, void* c2, int m, int n0,
+                            int n1, int planes, int mode, void* stream) {
+  hm::LevelArgs a{};
+  a.org[0] = (const int*)o0, a.org[1] = (const int*)o1,
+  a.org[2] = (const int*)o2;
+  a.pred[0] = (const int*)p0, a.pred[1] = (const int*)p1,
+  a.pred[2] = (const int*)p2;
+  a.coef[0] = (int*)c0, a.coef[1] = (int*)c1, a.coef[2] = (int*)c2;
+  a.m = m, a.n0 = n0, a.n1 = n1, a.planes = planes, a.mode = mode;
+  return launch_level(false, a, stream);
+}
+
+// deq, lev, pred, org and K10's bits of each plane, dw (or null); rec and
+// sse of each, and cbf, dist and bitsum (three planes); as hm_fwd_level
+extern "C" int hm_inv_level(
+    const void* d0, const void* d1, const void* d2, const void* l0,
+    const void* l1, const void* l2, const void* p0, const void* p1,
+    const void* p2, const void* o0, const void* o1, const void* o2,
+    const void* b0, const void* b1, const void* b2, const void* dw,
+    void* r0, void* r1, void* r2, void* s0, void* s1, void* s2, void* cbf,
+    void* dist, void* bitsum, int m, int n0, int n1, int planes, int mode,
+    void* stream) {
+  hm::LevelArgs a{};
+  a.deq[0] = (const int*)d0, a.deq[1] = (const int*)d1,
+  a.deq[2] = (const int*)d2;
+  a.lev[0] = (const int*)l0, a.lev[1] = (const int*)l1,
+  a.lev[2] = (const int*)l2;
+  a.pred[0] = (const int*)p0, a.pred[1] = (const int*)p1,
+  a.pred[2] = (const int*)p2;
+  a.org[0] = (const int*)o0, a.org[1] = (const int*)o1,
+  a.org[2] = (const int*)o2;
+  a.bits[0] = (const float*)b0, a.bits[1] = (const float*)b1,
+  a.bits[2] = (const float*)b2;
+  a.dw = (const float*)dw;
+  a.rec[0] = (int*)r0, a.rec[1] = (int*)r1, a.rec[2] = (int*)r2;
+  a.sse[0] = (float*)s0, a.sse[1] = (float*)s1, a.sse[2] = (float*)s2;
+  a.cbf = (int*)cbf, a.dist = (float*)dist, a.bitsum = (float*)bitsum;
+  a.m = m, a.n0 = n0, a.n1 = n1, a.planes = planes, a.mode = mode;
+  if (planes == 3 && (b0 == nullptr || b1 == nullptr || b2 == nullptr ||
+                      cbf == nullptr || dist == nullptr || bitsum == nullptr))
+    return cudaErrorInvalidValue;
+  return launch_level(true, a, stream);
 }

@@ -113,8 +113,8 @@ from hmtpu_torch.ops.ratebits import (
 from hmtpu_torch.ops.rdoq import rdoq_code
 from hmtpu_torch.ops.sao import sao_frame_dev
 from hmtpu_torch.ops.transform import (
-    forward_transform,
-    inverse_transform,
+    fwd_level,
+    inv_level,
     transform_skip_fwd,
     transform_skip_inv,
 )
@@ -156,7 +156,9 @@ def _code(org, pred, qp: int, log2: int, bd: int, lam, cbflat,
           is_luma=True, dw=None, sdh: bool = False, scan_sel=None,
           use_dst: bool = False, rdoq: bool = True, ts: bool = False):
     """transform -> quant (RDOQ, or deadzone with rdoq=False) -> dequant
-    -> inverse -> clip; returns (lev, rec, sse, bits).
+    -> inverse -> clip; returns (lev, rec, sse, bits).  The DCT / DST
+    steps around K10 are K1's level forms for one plane (`fwd_level`,
+    `inv_level`: the residual, reconstruction and SSE inside).
 
     Bits are the CABAC-state-aware estimate of ops/ratebits.py; 0.0 for
     an all-zero TB (cbf priced at CU level).  dw is HM's chroma
@@ -164,13 +166,17 @@ def _code(org, pred, qp: int, log2: int, bd: int, lam, cbflat,
     lam = lambda/dw).  lam and dw are float32 0-d tensors.  ts=True
     codes the TB in transform-skip mode (4x4 only)."""
     n = 1 << log2
-    resi = org - pred
-    coef = transform_skip_fwd(resi, n, bd) if ts \
-        else forward_transform(resi, n, bd, use_dst=use_dst)
+    if ts:
+        coef = transform_skip_fwd(org - pred, n, bd)
+    else:
+        coef, = fwd_level([org], [pred], bd, use_dst)
     lev, deq, bits = rdoq_code(coef, qp, log2, bd, lam, cbflat, is_luma,
                                sdh=sdh, scan_sel=scan_sel, trellis=rdoq)
-    r = transform_skip_inv(deq, n, bd) if ts \
-        else inverse_transform(deq, n, bd, use_dst=use_dst)
+    if not ts:
+        (rec,), (sse,), *_ = inv_level([deq], [lev], [pred], [org], bd, dw,
+                                       use_dst=use_dst)
+        return lev, rec, sse, bits
+    r = transform_skip_inv(deq, n, bd)
     rec = torch.clamp(pred + r, 0, (1 << bd) - 1)
     sse = ((org - rec) ** 2).sum((-1, -2)).to(torch.float32)
     if dw is not None:
@@ -1276,23 +1282,29 @@ def pframe_walk(org_y, org_u, org_v, refs_y, refs_u, refs_v, mv_x, mv_y,
         uidx = _union_idx(rr, None if lx is None else lx.reshape(-1), maps)
         m, log2 = gw * gh, n.bit_length() - 1
         pa, pu, pv = mc_yuv(*refs, uidx, gw, mx, my, n, bd)
+        if not with_ts:
+            # K1's level forms around K10 (a K10 launch a plane)
+            preds = [pa, pu, pv]
+            coefs = fwd_level(orgs, preds, bd)
+            coded = [rdoq_code(c, q, log2 - (k > 0), bd, lm, cbflat, k == 0,
+                               sdh=sdh, trellis=rdoq)
+                     for k, (c, q, lm) in enumerate(zip(
+                         coefs, (qp, qpc, qpc), (lam, lam_c, lam_c)))]
+            levs, deqs, bits = (list(a) for a in zip(*coded))
+            (ry, ru, rv), _, cbf, dist, bsum = inv_level(
+                deqs, levs, preds, orgs, bd, wchroma, bits)
+            return dict(ref=rr, mvx=mx, mvy=my, cbf=cbf, rec_y=ry, rec_u=ru,
+                        rec_v=rv, lev=torch.cat([a.reshape(m, -1)
+                                                 for a in levs], 1),
+                        ts=None, dist=dist, bits=bsum)
         ly, ry, dy, by = _code(orgs[0], pa, qp, log2, bd, lam, cbflat, True,
                                sdh=sdh, rdoq=rdoq)
-        if with_ts:
-            lc, rc, dc, bc, tsc = _code_ts_sel(
-                torch.cat([orgs[1], orgs[2]]), torch.cat([pu, pv]), qpc, bd,
-                lam_c, cbflat, False, wchroma, sdh=sdh, rdoq=rdoq)
-            (lu, lv), (ru, rv) = lc.split(m), rc.split(m)
-            (du, dv), (bu, bv) = dc.split(m), bc.split(m)
-            tsf = tsc[:m].to(torch.int32) | (tsc[m:].to(torch.int32) << 1)
-        else:
-            lu, ru, du, bu = _code(orgs[1], pu, qpc, log2 - 1, bd, lam_c,
-                                   cbflat, False, wchroma, sdh=sdh,
-                                   rdoq=rdoq)
-            lv, rv, dv, bv = _code(orgs[2], pv, qpc, log2 - 1, bd, lam_c,
-                                   cbflat, False, wchroma, sdh=sdh,
-                                   rdoq=rdoq)
-            tsf = None
+        lc, rc, dc, bc, tsc = _code_ts_sel(
+            torch.cat([orgs[1], orgs[2]]), torch.cat([pu, pv]), qpc, bd,
+            lam_c, cbflat, False, wchroma, sdh=sdh, rdoq=rdoq)
+        (lu, lv), (ru, rv) = lc.split(m), rc.split(m)
+        (du, dv), (bu, bv) = dc.split(m), bc.split(m)
+        tsf = tsc[:m].to(torch.int32) | (tsc[m:].to(torch.int32) << 1)
         nz = lambda lev: (lev.reshape(m, -1) != 0).any(1).to(torch.int32)
         return dict(ref=rr, mvx=mx, mvy=my,
                     cbf=nz(ly) | (nz(lu) << 1) | (nz(lv) << 2),
@@ -1402,7 +1414,7 @@ def full_pframe_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v, nn,
     ref, MV) per block for the AMVP candidate (bi candidates enter
     through the merge list).  Returns (state dict, the int32
     reconstruction planes on the device for the DPB)."""
-    from hmtpu_torch.models.nnfme import predict_offsets
+    from hmtpu_torch.models.nnfme import predict_offsets_levels
     from hmtpu_torch.search.me import (
         frac_refine_batch,
         integer_me,
@@ -1495,9 +1507,17 @@ def full_pframe_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v, nn,
     maps = _list_maps(l0map, l1map, dev) if is_b else None
     union_idx = lambda rr, ll: _union_idx(rr, ll, maps)
 
-    def subpel_level(mx, my, rr, sten, n, org_plane):
-        """Quarter-pel MVs of one level's (gh, gw) integer field: the
-        NN-FME offsets behind their SATD gate, HM's DCT-IF search (K9;
+    # NN-FME: every level's offsets from its ME stencils in one K6 launch
+    nn_offs = None
+    if subpel == "nn":
+        stens = [stencil] + ([me_out[16][4], me_out[32][4]] if two_level
+                             else [])
+        nn_offs = [o for _, o in predict_offsets_levels(
+            nn, stens, (8, 16, 32)[:len(stens)])]
+
+    def subpel_level(mx, my, rr, k, n, org_plane):
+        """Quarter-pel MVs of level k's (gh, gw) integer field (n-grid):
+        the NN-FME offsets behind their SATD gate, HM's DCT-IF search (K9;
         the 32 level refines the edge-padded org against the unpadded
         references, whose clamped reads are the edge replication), or
         the integer MVs."""
@@ -1511,25 +1531,23 @@ def full_pframe_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v, nn,
                                        mx.reshape(-1), my.reshape(-1), n, bd,
                                        ridx=rr.reshape(-1))
             return gx.reshape(gh_, gw_), gy.reshape(gh_, gw_)
-        st9 = sten.reshape(-1, 9).to(torch.float32)
-        sizes = torch.full((gh_ * gw_,), n, dtype=torch.int32, device=dev)
-        _, offs = predict_offsets(nn, st9, sizes, sizes)
+        offs = nn_offs[k]
         gx, gy = nn_gate(rr.reshape(-1), gw_, _blockify(org_plane, n),
                          mx.reshape(-1), my.reshape(-1),
                          mx.reshape(-1) * 4 + offs[:, 0],
                          my.reshape(-1) * 4 + offs[:, 1], n)
         return gx.reshape(gh_, gw_), gy.reshape(gh_, gw_)
 
-    mvq_x, mvq_y = subpel_level(mvx, mvy, union_idx(rsel, lxsel), stencil,
-                                8, org_y)
+    mvq_x, mvq_y = subpel_level(mvx, mvy, union_idx(rsel, lxsel), 0, 8,
+                                org_y)
     mv16 = mv32 = None
     if two_level:
-        m16x, m16y, r16, lx16, s16 = me_out[16]
-        mv16 = subpel_level(m16x, m16y, union_idx(r16, lx16), s16, 16,
+        m16x, m16y, r16, lx16, _ = me_out[16]
+        mv16 = subpel_level(m16x, m16y, union_idx(r16, lx16), 1, 16,
                             org_y) + (r16,) + ((lx16,) if is_b else ())
-        m32x, m32y, r32, lx32, s32 = me_out[32]
+        m32x, m32y, r32, lx32, _ = me_out[32]
         orgp = _edge_pad(org_y, qh0 * 32, qw0 * 32)
-        mv32 = subpel_level(m32x, m32y, union_idx(r32, lx32), s32, 32,
+        mv32 = subpel_level(m32x, m32y, union_idx(r32, lx32), 2, 32,
                             orgp) + (r32,) + ((lx32,) if is_b else ())
 
     st = wavefront_pass(

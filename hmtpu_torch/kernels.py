@@ -48,6 +48,12 @@ SOURCES = {
         "hm_int_transform_fwd": "pppiiiip",
         "hm_int_transform_inv": "pppiiiip",
         "hm_transform_skip": "ppiip",
+        # a level's planes: org, pred, coef; (blocks, luma n, chroma n,
+        # planes, bit depth | use_dst << 8)
+        "hm_fwd_level": "ppppppppp" "iiiii" "p",
+        # deq, lev, pred, org, bits (three each), dw; rec, sse (three
+        # each), cbf, dist, bitsum; as hm_fwd_level
+        "hm_inv_level": "ppppppppppppppp" "p" "ppppppppp" "iiiii" "p",
     },
     "intra_pred": {
         "hm_intra_filter": "ppiiiip",
@@ -66,8 +72,11 @@ SOURCES = {
         "hm_me_sad_levels": "ppppppiiiifp",
         "hm_me_sad1": "ppppppiiiifp",
     },
+    # the weights, up to three levels' costs, per-row heights and widths
+    # (or null), the outputs; (rows, pel size) of each level, the levels,
+    # float32 costs
     "nnfme": {
-        "hm_nnfme": "pppppppip",
+        "hm_nnfme": "ppppppppp" "iiiiiiii" "p",
     },
     "mc_dctif": {
         "hm_mc_dctif": "ppppppp" "iiiiiiii" "p",
@@ -129,8 +138,10 @@ SOURCES = {
 
 # kernel name -> (source, file:line of the hmtpu function it replaces)
 KERNELS = {
-    "int_transform_fwd": ("transform", "hmtpu/ops/transform.py:38"),
-    "int_transform_inv": ("transform", "hmtpu/ops/transform.py:58"),
+    "int_transform_fwd": ("transform", "hmtpu/ops/transform.py:38,"
+                                       "hmtpu/encoder/pframe_dev.py:188"),
+    "int_transform_inv": ("transform", "hmtpu/ops/transform.py:58,"
+                                       "hmtpu/encoder/pframe_dev.py:188"),
     "transform_skip": ("transform", "hmtpu/ops/transform.py:84,89"),
     "intra_filter": ("intra_pred", "hmtpu/ops/intra_pred.py:230"),
     "intra_pred": ("intra_pred", "hmtpu/ops/intra_pred.py:69,149"),

@@ -13,9 +13,12 @@ Architecture (TEncSearch.cpp:85-131 of the reference):
   class -> quarter-pel offsets: qx = cls%7-3, qy = cls//7-3
 Cost stencil order: [TL, T, TR, L, C, R, BL, B, BR].
 
-On CUDA tensors `forward` / `predict_offsets` launch the hand-written
-kernel K6 (csrc/nnfme.cu); on CPU tensors they run the plain version
-`forward_plain`.  Both sum every dot product in ascending k order with
+On CUDA tensors `forward` / `predict_offsets` (one level's float32
+costs, per-row sizes) and `predict_offsets_levels` (the P pass's call:
+up to three levels' int32 stencils and pel sizes) launch the
+hand-written kernel K6 (csrc/nnfme.cu), once a call; on CPU tensors
+they run the plain version (`forward_plain`, `_classes`,
+`predict_offsets_levels_plain`).  Both sum every dot product in ascending k order with
 one rounded float32 multiply and one rounded add per term (no FMA), so
 the card and the CPU give the same bits.  hmtpu's XLA dot sums in
 another order: logits agree with it to about 1e-4 (absolute), and the
@@ -230,36 +233,92 @@ def _classes(logits):
     return cls, offs
 
 
-def _launch(params, costs9, heights, widths, want_logits):
-    """K6: (logits (B, 49) or None, classes (B,), offsets (B, 2)) on the
-    card; the kernel writes the logits only when they are wanted."""
-    B = int(costs9.shape[0])
-    dev = costs9.device
-    logits = torch.empty((B, 49), dtype=torch.float32, device=dev) \
-        if want_logits else None
-    cls = torch.empty((B,), dtype=torch.int32, device=dev)
-    offs = torch.empty((B, 2), dtype=torch.int32, device=dev)
+def _launch(params, costs, sizes, heights, widths, want_logits):
+    """K6 over the rows of up to three levels (costs: each level's (B_l,
+    9) float32 costs or its int32 stencils, (..., 3, 3)), each level's pel
+    size or, for one level, per-row heights and widths: (logits (B, 49)
+    or None, classes (B,), offsets (B, 2)) of the levels' rows in turn;
+    the kernel writes the logits only when they are wanted.  The P pass
+    calls it once a frame in a host-bound stretch, so the tensors are
+    checked here and go to kernels.launch_checked as pointers."""
+    dt = costs[0].dtype
+    if dt is not torch.float32 and dt is not torch.int32 or any(
+            c.dtype is not dt or c.numel() % 9 for c in costs):
+        raise ValueError(f"nnfme: costs must be float32 or int32 rows of "
+                         f"9, one type for all levels; got "
+                         f"{[(c.dtype, tuple(c.shape)) for c in costs]}")
+    cs = [c.contiguous() for c in costs]
+    hw = [heights.contiguous(), widths.contiguous()] \
+        if heights is not None else []
+    dev = cs[0].get_device()
+    if any(t.get_device() != dev for t in cs + hw + [params.packed]):
+        raise ValueError("nnfme: the weights, costs and sizes must lie on "
+                         "one CUDA device")
+    rows = [c.numel() // 9 for c in cs]
+    B = sum(rows)
+    out = lambda shape, t: torch.empty(shape, dtype=t, device=cs[0].device)
+    logits = out((B, 49), torch.float32) if want_logits else None
+    cls, offs = out((B,), torch.int32), out((B, 2), torch.int32)
     if B:
-        kernels.launch("nnfme", "hm_nnfme",
-                       params.packed,
-                       costs9.to(torch.float32).contiguous(),
-                       heights.to(torch.int32).contiguous(),
-                       widths.to(torch.int32).contiguous(),
-                       logits, cls, offs, B)
+        pad = 3 - len(cs)
+        kernels.launch_checked(
+            "nnfme", "hm_nnfme", dev, params.packed.data_ptr(),
+            *(c.data_ptr() for c in cs), *(None,) * pad,
+            *((t.data_ptr() for t in hw) if hw else (None, None)),
+            None if logits is None else logits.data_ptr(), cls.data_ptr(),
+            offs.data_ptr(), *rows, *(0,) * pad, *sizes, *(0,) * pad,
+            len(cs), int(dt is torch.float32))
     return logits, cls, offs
+
+
+def _launch1(params, costs9, heights, widths, want_logits):
+    """K6 on one level's float32 costs with per-row sizes."""
+    return _launch(params, [costs9.to(torch.float32)], [0],
+                   heights.to(torch.int32).contiguous(),
+                   widths.to(torch.int32).contiguous(), want_logits)
 
 
 def forward(params: NnFmeParams, costs9, heights, widths):
     """(B, 9) float32 costs [TL,T,TR,L,C,R,BL,B,BR], (B,) pel sizes ->
     (B, 49) logits: K6 on CUDA tensors, the plain version on CPU ones."""
     if costs9.is_cuda:
-        return _launch(params, costs9, heights, widths, True)[0]
+        return _launch1(params, costs9, heights, widths, True)[0]
     return forward_plain(params, costs9, heights, widths)
 
 
 def predict_offsets(params: NnFmeParams, costs9, heights, widths):
     """-> (classes (B,), quarter-pel offsets (B, 2) [x, y]) int32."""
     if costs9.is_cuda:
-        _, cls, offs = _launch(params, costs9, heights, widths, False)
+        _, cls, offs = _launch1(params, costs9, heights, widths, False)
         return cls, offs
     return _classes(forward_plain(params, costs9, heights, widths))
+
+
+def predict_offsets_levels_plain(params: NnFmeParams, stencils, sizes):
+    """Plain version of K6's level form: each level's stencils cast to
+    float32 rows of 9, its pel size for every row, then `forward_plain`
+    and `_classes`, a level at a time."""
+    out = []
+    for st, n in zip(stencils, sizes):
+        st9 = st.reshape(-1, 9).to(torch.float32)
+        sz = torch.full((st9.shape[0],), n, dtype=torch.int32,
+                        device=st9.device)
+        out.append(_classes(forward_plain(params, st9, sz, sz)))
+    return out
+
+
+def predict_offsets_levels(params: NnFmeParams, stencils, sizes):
+    """The sub-pel offsets of up to three CU levels in one call: each
+    level's int32 cost stencils as ME gives them ((..., 3, 3)) and its
+    pel size (square PUs) -> [(classes (B_l,), offsets (B_l, 2))] a
+    level.  One K6 launch on CUDA tensors, the plain version on CPU
+    ones."""
+    if not 1 <= len(stencils) == len(sizes) <= 3:
+        raise ValueError(f"nnfme: 1-3 levels with a size each, got "
+                         f"{len(stencils)} and {len(sizes)}")
+    if not stencils[0].is_cuda:
+        return predict_offsets_levels_plain(params, stencils, sizes)
+    _, cls, offs = _launch(params, list(stencils), [int(n) for n in sizes],
+                           None, None, False)
+    rows = [s.numel() // 9 for s in stencils]
+    return list(zip(cls.split(rows), offs.split(rows)))

@@ -8,7 +8,9 @@ inverses, bit-exact with the reference's partialButterfly* kernels
 they launch the hand-written kernel K1 (csrc/transform.cu; the skip pair
 its TS mode); on a CPU tensor they run the plain PyTorch version beside
 it (`*_plain`), which is the same two-stage integer matrix product (or
-shift) with the same rounding points.
+shift) with the same rounding points.  K1's level forms (`fwd_level`,
+`inv_level`) are the P and B passes' coding step around K10, a level's
+three planes (or one plane) a launch.
 
 All arithmetic is integer with arithmetic right shifts; intermediate
 clipping follows the spec's 16-bit dynamic range.  The sums fit in
@@ -120,6 +122,163 @@ def inverse_transform(coeff, size: int, bit_depth: int = 8,
         return _launch("int_transform_inv", "hm_int_transform_inv",
                        coeff, size, use_dst, *_shifts_inv(bit_depth))
     return inverse_transform_plain(coeff, size, bit_depth, use_dst)
+
+
+# ---------------------------------------------------------------------------
+# K1's level forms: the coding step of hmtpu/encoder/pframe_dev.py:188
+# `_code` around K10 (residual -> transform; dequantised coefficients ->
+# inverse -> reconstruction and SSE) for one plane, or for a CU level's
+# three planes (luma n x n, chroma n/2 x n/2, the same blocks) with the
+# combine of `hypothesis` (cbf, distortion, rate).  One launch each on
+# CUDA tensors; on CPU tensors the plain versions, which are that
+# composition of torch operations.  `use_dst` takes the 4x4 DST on the
+# first plane (a one-plane luma call at n = 4).
+
+def fwd_level_plain(orgs, preds, bit_depth: int = 8, use_dst: bool = False):
+    """[forward_transform_plain(org - pred)] a plane."""
+    return [forward_transform_plain(o - p, o.shape[-1], bit_depth,
+                                    use_dst and k == 0)
+            for k, (o, p) in enumerate(zip(orgs, preds))]
+
+
+def inv_level_plain(deqs, levs, preds, orgs, bit_depth: int = 8, dw=None,
+                    bits=None, use_dst: bool = False):
+    """Plain version of `inv_level`: (recs, sses, cbf, dist, bitsum)."""
+    recs, sses = [], []
+    for k, (d, p, o) in enumerate(zip(deqs, preds, orgs)):
+        r = inverse_transform_plain(d, d.shape[-1], bit_depth,
+                                    use_dst and k == 0)
+        rec = torch.clamp(p + r, 0, (1 << bit_depth) - 1)
+        sse = ((o - rec) ** 2).sum((-1, -2)).to(torch.float32)
+        if dw is not None and (len(deqs) == 1 or k > 0):
+            sse = sse * dw          # HM's chroma distortion weight
+        recs.append(rec)
+        sses.append(sse)
+    if len(deqs) != 3:
+        return recs, sses, None, None, None
+    m = sses[0].numel()
+    nz = lambda lev: (lev.reshape(m, -1) != 0).any(1).to(torch.int32)
+    cbf = nz(levs[0]) | (nz(levs[1]) << 1) | (nz(levs[2]) << 2)
+    return (recs, sses, cbf, sses[0] + sses[1] + sses[2],
+            bits[0] + bits[1] + bits[2])
+
+
+def _level_geometry(planes, what):
+    """(blocks m, n0, n1) of a level form's planes: 1, or 3 holding the
+    same m blocks with chroma (n1) half the luma size (n0)."""
+    if len(planes) not in (1, 3):
+        raise ValueError(f"{what}: 1 or 3 planes, got {len(planes)}")
+    n0 = planes[0].shape[-1]
+    n1 = planes[1].shape[-1] if len(planes) == 3 else 0
+    m = planes[0].numel() // (n0 * n0)
+    for k, t in enumerate(planes):
+        n = n1 if k else n0
+        if t.dim() < 2 or t.shape[-2] != n or t.shape[-1] != n \
+                or t.numel() != m * n * n or (k and 2 * n1 != n0):
+            raise ValueError(f"{what}: plane {k} of shape {tuple(t.shape)}; "
+                             f"the planes must hold the same blocks, chroma "
+                             f"half the luma size")
+    return m, n0, n1
+
+
+def _ready(t, dt=torch.int32):
+    """t as the level kernels read it: dtype dt, contiguous, its data
+    16-byte aligned (they load rows 16 bytes at a time)."""
+    if t.dtype is not dt or not t.is_contiguous():
+        t = t.to(dt).contiguous()
+    return t.clone() if t.data_ptr() & 15 else t
+
+
+def _ptrs(ts, dev: int):
+    """The data pointers of tensors on CUDA device dev, padded with nulls
+    to three planes (the level kernels' arguments)."""
+    for t in ts:
+        if t.get_device() != dev:
+            raise ValueError(f"level form: a tensor on {t.device}, the "
+                             f"first on cuda:{dev}")
+    return [t.data_ptr() for t in ts] + [None] * (3 - len(ts))
+
+
+def _mode(bit_depth: int, use_dst: bool) -> int:
+    return int(bit_depth) | int(bool(use_dst)) << 8
+
+
+# The level forms' calls run in the P pass's prelude, which the host
+# bounds: the wrappers check and ready their tensors here and pass the
+# pointers to kernels.launch_checked (K1-TS's way) without launch's
+# second look.
+
+def fwd_level(orgs, preds, bit_depth: int = 8, use_dst: bool = False):
+    """A level's (or one plane's) residuals transformed: orgs and preds
+    [(..., n, n)] a plane, int -> [coefficients (..., n, n) int32] a
+    plane.  K1's forward level form on CUDA tensors (one launch)."""
+    if not orgs[0].is_cuda:
+        return fwd_level_plain(orgs, preds, bit_depth, use_dst)
+    geo = _level_geometry(orgs, "fwd_level")
+    if len(preds) != len(orgs) or _level_geometry(preds, "fwd_level") != geo:
+        raise ValueError("fwd_level: orgs and preds hold other blocks")
+    dev = orgs[0].get_device()
+    o = [_ready(t) for t in orgs]
+    p = [_ready(t) for t in preds]
+    coefs = [torch.empty_like(t) for t in o]
+    if geo[0]:
+        kernels.launch_checked("int_transform_fwd", "hm_fwd_level", dev,
+                               *_ptrs(o, dev), *_ptrs(p, dev),
+                               *_ptrs(coefs, dev), *geo, len(o),
+                               _mode(bit_depth, use_dst))
+    return coefs
+
+
+def inv_level(deqs, levs, preds, orgs, bit_depth: int = 8, dw=None,
+              bits=None, use_dst: bool = False):
+    """The reconstruction of a level's (or one plane's) coded TBs: deqs
+    (K10's dequantised coefficients), levs (its levels), preds and orgs
+    [(..., n, n)] a plane -> (recs [clip(pred + r, 0, 2^bd - 1)] a plane,
+    sses [the float32 SSE of each TB, times dw (a float32 0-d tensor) on
+    the chroma planes, or on the one plane, where dw is given] a plane,
+    and, three planes, cbf (bit k: plane k has a nonzero level), dist =
+    (dy + du) + dv and bitsum = (by + bu) + bv of K10's bits [(...,)] a
+    plane; else None three times).  K1's inverse level form on CUDA
+    tensors (one launch)."""
+    if not deqs[0].is_cuda:
+        return inv_level_plain(deqs, levs, preds, orgs, bit_depth, dw, bits,
+                               use_dst)
+    geo = _level_geometry(deqs, "inv_level")
+    np_ = len(deqs)
+    for x in (levs, preds, orgs):
+        if len(x) != np_ or _level_geometry(x, "inv_level") != geo:
+            raise ValueError("inv_level: the planes hold other blocks")
+    three = np_ == 3
+    if three and (bits is None or len(bits) != 3):
+        raise ValueError("inv_level: three planes need K10's bits of each")
+    dev = deqs[0].get_device()
+    d, lv, p, o = ([_ready(t) for t in x] for x in (deqs, levs, preds, orgs))
+    recs = [torch.empty_like(t) for t in p]
+    lead = p[0].shape[:-2]
+    # each plane's SSE, then dist and bitsum (three planes)
+    fl = torch.empty((5,) + tuple(lead), dtype=torch.float32,
+                     device=p[0].device).unbind(0)
+    sses = [f if f.shape == t.shape[:-2] else f.view(t.shape[:-2])
+            for f, t in zip(fl, p)]
+    cbf = torch.empty(lead, dtype=torch.int32, device=p[0].device) \
+        if three else None
+    bt = [_ready(b, torch.float32) for b in bits] if three else []
+    if dw is not None and not (isinstance(dw, torch.Tensor)
+                               and dw.dtype is torch.float32
+                               and dw.get_device() == dev):
+        dw = torch.tensor(float(dw), dtype=torch.float32, device=p[0].device)
+    if geo[0]:
+        kernels.launch_checked(
+            "int_transform_inv", "hm_inv_level", dev, *_ptrs(d, dev),
+            *_ptrs(lv, dev), *_ptrs(p, dev), *_ptrs(o, dev),
+            *_ptrs(bt, dev), None if dw is None else dw.data_ptr(),
+            *_ptrs(recs, dev), *_ptrs(sses, dev),
+            *((cbf.data_ptr(), fl[3].data_ptr(), fl[4].data_ptr())
+              if three else (None,) * 3),
+            *geo, np_, _mode(bit_depth, use_dst))
+    if not three:
+        return recs, sses, None, None, None
+    return recs, sses, cbf, fl[3], fl[4]
 
 
 # ---------------------------------------------------------------------------

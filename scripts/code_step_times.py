@@ -1,0 +1,257 @@
+"""K1's and K6's calls at the shapes the 416x240 P pass gives them, and
+the device operations of one P pass's walk, on the card, for comparing
+two trees of the port in one run:
+
+  k1     K1's forward and inverse transform (`forward_transform`,
+         `inverse_transform`) at the nine shapes of the P pass's
+         `_code` calls: each level's luma and two chroma planes, (1560,
+         8, 8) with (1560, 4, 4) x 2, (390, 16, 16) with (390, 8, 8) x 2,
+         (104, 32, 32) with (104, 16, 16) x 2 (seeded residuals and
+         dequantised coefficients); where the tree has them, K1's level
+         forms (`transform.fwd_level`, `inv_level`: a level's three
+         planes in one launch, the residual, reconstruction, SSE, cbf,
+         distortion and rate combine inside) at the three levels;
+  k6     K6 (`nnfme.predict_offsets`) on each level's stencils of the
+         clip's second frame against its first (K5 at search range 64,
+         the QP-22 weights): 1560, 390 and 104 rows; where the tree has
+         it, the three levels in one launch
+         (`nnfme.predict_offsets_levels`);
+  walk   `wavefront_pass` of the ldp P frame (416x240, QP 22, NN-FME,
+         search range 64; its arguments kept from an encode) run again
+         under torch.profiler: the device milliseconds and operations of
+         the call, split into the hand kernels' and the rest (torch's
+         own: the glue), by CUDA function; and CUDA events from the
+         call's start to its first K23 launch (the prelude: the AMVP
+         hypotheses of the three levels, K22's RMD, K24's grids).
+
+Each call's "ms" is chip_smoke.py's `time_cuda` (CUDA events around 200
+calls after 2), its "device_ms" chip_smoke.py's `device_ms`
+(torch.profiler, the kernel's own time), its bound chip_smoke.py's
+`bound_ms` of the bytes the call must move: K1's forward transform 8 B a
+sample (the residual in, the coefficients out), its inverse 8 B; the
+level forms 12 B a sample forward (org and pred in, coefficients out)
+and 20 B inverse (the dequantised coefficients, levels, pred and org in,
+the reconstruction out) and the per-block rows.
+
+    PYTHONPATH=<checkout of the port> python scripts/code_step_times.py
+
+Prints one JSON object a part.  Uses only the port's entry points, so it
+runs against earlier trees too (the level forms only where they exist).
+Needs a CUDA card; imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import importlib.util
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+W, H = 416, 240
+# (luma n, blocks) of the P pass's three levels at 416x240
+LEVELS = ((8, 1560), (16, 390), (32, 104))
+
+
+def _smoke():
+    """chip_smoke.py beside this script, loaded by path (sys.path is left
+    as it is, so PYTHONPATH's tree is the one measured)."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_lib", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _row(cs, fn, fname, nbytes):
+    ms = cs.time_cuda(fn, 200)
+    dms = cs.device_ms(fn, fname)
+    bms, by = cs.bound_ms(nbytes, 0)
+    return {"ms": ms, "device_ms": dms, "bound_ms": bms, "bound_by": by}
+
+
+def k1_rows(cs, dev):
+    from hmtpu_torch.ops import transform
+
+    rng = np.random.RandomState(16)
+    t32 = lambda a: torch.as_tensor(np.asarray(a, np.int32)).to(dev)
+    out = {}
+    for n, m in LEVELS:
+        planes = []
+        for name, s in (("y", n), ("u", n // 2), ("v", n // 2)):
+            org = t32(rng.randint(0, 256, (m, s, s)))
+            pred = t32(np.clip(org.cpu().numpy()
+                               + rng.randint(-40, 41, (m, s, s)), 0, 255))
+            deq = t32(rng.randint(-2000, 2001, (m, s, s))
+                      * (rng.rand(m, s, s) < 0.2))
+            planes.append((org, pred, deq))
+            res = org - pred
+            ns = m * s * s
+            out[f"fwd {name} ({m}, {s}, {s})"] = _row(
+                cs, lambda: transform.forward_transform(res, s),
+                "transform_kernel<false>", 8 * ns)
+            out[f"inv {name} ({m}, {s}, {s})"] = _row(
+                cs, lambda: transform.inverse_transform(deq, s),
+                "transform_kernel<true>", 8 * ns)
+        if not hasattr(transform, "fwd_level"):
+            continue
+        orgs, preds, deqs = (list(a) for a in zip(*planes))
+        levs = [torch.where(d != 0, 1, 0).to(torch.int32) for d in deqs]
+        bits = [t32(rng.randint(0, 200, m)).to(torch.float32)
+                for _ in range(3)]
+        dw = torch.tensor(1.25, dtype=torch.float32, device=dev)
+        ns = m * (n * n + 2 * (n // 2) ** 2)
+        out[f"fwd_level {n}"] = _row(
+            cs, lambda: transform.fwd_level(orgs, preds, 8),
+            "fwd_level_kernel", 12 * ns)
+        out[f"inv_level {n}"] = _row(
+            cs, lambda: transform.inv_level(deqs, levs, preds, orgs, 8, dw,
+                                            bits),
+            "inv_level_kernel", 20 * ns + m * 4 * 3 + m * 4 * 6)
+    return out
+
+
+def _stencils(dev):
+    from hmtpu_torch.search import me
+    from hmtpu_torch.utils.gen_test_yuv import synth_clip
+
+    clip = list(synth_clip(W, H, 2, seed=42))
+    org, ref = (torch.as_tensor(np.asarray(f[0], np.int32)).to(dev)
+                for f in (clip[1], clip[0]))
+    lam = np.float32(np.sqrt(0.57 * 2.0 ** ((25 - 12) / 3.0)))
+    qh, qw = (H // 16 + 1) // 2, (W // 16 + 1) // 2
+    lev = me.integer_me_levels(ref, org, 64, lam, qh, qw)
+    return [lev[n][1] for n, _ in LEVELS]
+
+
+def k6_rows(cs, dev):
+    from hmtpu_torch.models import nnfme
+
+    params = nnfme.load_npz(os.path.join(nnfme.WEIGHTS_DIR, "qp22.npz"), dev)
+    stens = _stencils(dev)
+    out = {}
+    for (n, m), st in zip(LEVELS, stens):
+        st9 = st.reshape(-1, 9).to(torch.float32)
+        sz = torch.full((m,), n, dtype=torch.int32, device=dev)
+        out[f"predict_offsets {n} ({m} rows)"] = _row(
+            cs, lambda: nnfme.predict_offsets(params, st9, sz, sz),
+            "nnfme_kernel", m * (9 * 4 + 12))
+        # as the P pass called it: the stencils' cast and the sizes too
+        out[f"subpel call {n} ({m} rows, with the cast and sizes)"] = {
+            "ms": cs.time_cuda(lambda: nnfme.predict_offsets(
+                params, st.reshape(-1, 9).to(torch.float32),
+                *(torch.full((m,), n, dtype=torch.int32, device=dev),) * 2),
+                200)}
+    if hasattr(nnfme, "predict_offsets_levels"):
+        sizes = [n for n, _ in LEVELS]
+        rows = sum(m for _, m in LEVELS)
+        out[f"predict_offsets_levels ({rows} rows)"] = _row(
+            cs, lambda: nnfme.predict_offsets_levels(params, stens, sizes),
+            "nnfme_kernel", rows * (9 * 4 + 12))
+    return out
+
+
+HAND = ("transform_kernel", "fwd_level_kernel", "inv_level_kernel",
+        "rdoq_kernel", "mc_kernel", "rmd_kernel", "tmvp_kernel",
+        "pwalk_kernel", "transform_skip_kernel")
+
+
+def walk(cs, dev):
+    from torch.profiler import ProfilerActivity, profile
+
+    from hmtpu_torch import kernels
+    from hmtpu_torch.encoder import pframe_dev
+    from hmtpu_torch.encoder.top import Encoder, EncoderConfig
+    from hmtpu_torch.io.yuv import Frame
+    from hmtpu_torch.utils.gen_test_yuv import synth_clip
+
+    clip = list(synth_clip(W, H, 2, seed=42))
+    kept = []
+    inner = pframe_dev.wavefront_pass
+
+    def keep(*a, **k):
+        if not kept:
+            kept.append(tuple(x.clone() if isinstance(x, torch.Tensor)
+                              else x for x in a))
+            kept.append(dict(k))
+        return inner(*a, **k)
+
+    pframe_dev.wavefront_pass = keep
+    try:
+        enc = Encoder(EncoderConfig(width=W, height=H, qp=22, gop="ldp",
+                                    subpel="nn", search_range=64),
+                      device=dev)
+        enc.encode_sequence([Frame(*(np.asarray(p, np.int32) for p in f))
+                             for f in clip])
+    finally:
+        pframe_dev.wavefront_pass = inner
+    args, kw = kept
+    call = lambda: pframe_dev.wavefront_pass(*args, **kw)
+    call()
+    # the prelude: CUDA events from the call's start to its first K23
+    # launch
+    launch = kernels.launch_checked
+    marks = []
+
+    def mark(kernel, *a):
+        if kernel == "p_walk" and len(marks) == 1:
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            marks.append(e)
+        return launch(kernel, *a)
+
+    pre = []
+    kernels.launch_checked = mark
+    try:
+        for _ in range(10):
+            marks.clear()
+            torch.cuda.synchronize()
+            b = torch.cuda.Event(enable_timing=True)
+            b.record()
+            marks.append(b)
+            call()
+            torch.cuda.synchronize()
+            pre.append(marks[0].elapsed_time(marks[1]))
+    finally:
+        kernels.launch_checked = launch
+    iters = 5
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if cs.self_device_us(e) > 0]
+    by = {e.key[:70]: (cs.self_device_us(e) / 1e3 / iters, e.count / iters)
+          for e in evs}
+    hand = {k: v for k, v in by.items() if any(h in k for h in HAND)}
+    glue = {k: v for k, v in by.items() if k not in hand}
+    tot = lambda d: (sum(v[0] for v in d.values()),
+                     sum(v[1] for v in d.values()))
+    return {"prelude_ms": pre, "prelude_ms_median": float(np.median(pre)),
+            "device_ms_ops": tot(by), "hand_ms_ops": tot(hand),
+            "glue_ms_ops": tot(glue),
+            "by_function": dict(sorted(by.items(), key=lambda kv: -kv[1][0]))}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("code_step_times: no CUDA device", file=sys.stderr)
+        return 2
+    from hmtpu_torch import kernels
+
+    cs = _smoke()
+    kernels.build_all()
+    dev = torch.device("cuda", 0)
+    nk = len(kernels.KERNELS)
+    print(json.dumps({"part": "k1", "kernels": nk, **k1_rows(cs, dev)}),
+          flush=True)
+    print(json.dumps({"part": "k6", "kernels": nk, **k6_rows(cs, dev)}),
+          flush=True)
+    print(json.dumps({"part": "walk", "kernels": nk, **walk(cs, dev)}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -42,10 +42,15 @@ two trees of the port on one card in one run:
         QPs 22/27/32/37, 60 epochs, search range 16) into a temporary
         directory: seconds, and the extraction's and the steps' seconds
         and the steps per QP as the tool prints them;
-  kernel_times  one more ldp encode and one more ra10 encode with CUDA
-        events around each launch of K23, K26, K7, K4 and K25 (their
-        device milliseconds, summed a kernel, and their launches: the
-        events' own host cost stays out of the timed encodes above);
+  kernel_times  two more ldp encodes and one more ra10 encode with CUDA
+        events around each launch of K23, K26, K7, K4, K25, K6, K1 and
+        K10 (their device milliseconds, summed a kernel, and their
+        launches) and at the edges of each P and B pass's sub-pel stage
+        (from its last K5, K13 or K19 launch to `wavefront_pass`) and of
+        the walk's prelude (from `pframe_walk`'s start to its first K23
+        or K26 launch: the three levels' AMVP hypotheses with K22 and
+        K24), `stages` (the events' own host cost stays out of the timed
+        encodes above);
   sao_frame  `sao_frame_dev` of a 416x240 frame (the clip's first frame
         as the original, a reconstruction a few steps off, CTU 64, QP
         22's lambda): ms per call (CUDA events around 200 calls), and
@@ -161,6 +166,68 @@ class _KernelTimes:
             ms[k] = ms.get(k, 0.0) + b.elapsed_time(e)
             n[k] = n.get(k, 0) + 1
         return ms, n
+
+
+class _StageTimes:
+    """CUDA events at the edges of two stages of every P and B pass while
+    in use: the sub-pel stage (from the end of the pass's last ME or
+    coherence launch, K5, K13 or K19, to `wavefront_pass`'s start: K6
+    and the NN gate, or K9) and the walk's prelude (from `pframe_walk`'s
+    start to its first K23 or K26 launch: the three levels' AMVP
+    hypotheses, K22's RMD, K24's grids).  `read` syncs and gives each
+    pass's (sub-pel ms, prelude ms)."""
+
+    ME = ("me_sad", "me_sad1", "mv_regularize")
+
+    def __enter__(self):
+        from hmtpu_torch import kernels
+        from hmtpu_torch.encoder import pframe_dev
+
+        self._k, self._pd = kernels, pframe_dev
+        self._launch = kernels.launch_checked
+        self._wf, self._walk = pframe_dev.wavefront_pass, \
+            pframe_dev.pframe_walk
+        self.marks, self._me, self._open = [], None, None
+        ev = lambda: torch.cuda.Event(enable_timing=True)
+
+        def launch(kernel, *a):
+            self._launch(kernel, *a)
+            if kernel in self.ME:
+                self._me = ev()
+                self._me.record()
+            elif kernel in ("p_walk", "b_walk") and self._open is not None:
+                e = ev()
+                e.record()
+                self.marks[-1] += (self._open, e)
+                self._open = None
+
+        def wavefront(*a, **k):
+            e = ev()
+            e.record()
+            self.marks.append((self._me, e))
+            return self._wf(*a, **k)
+
+        def walk(*a, **k):
+            self._open = ev()
+            self._open.record()
+            return self._walk(*a, **k)
+
+        kernels.launch_checked = launch
+        pframe_dev.wavefront_pass = wavefront
+        pframe_dev.pframe_walk = walk
+        return self
+
+    def __exit__(self, *exc):
+        self._k.launch_checked = self._launch
+        self._pd.wavefront_pass = self._wf
+        self._pd.pframe_walk = self._walk
+
+    def read(self):
+        torch.cuda.synchronize()
+        ms = lambda a, b: a.elapsed_time(b) if a is not None else None
+        return [{"subpel_ms": ms(m[0], m[1]),
+                 "prelude_ms": ms(m[2], m[3]) if len(m) == 4 else None}
+                for m in self.marks]
 
 
 def _sao_frame(clip):
@@ -545,15 +612,17 @@ def main() -> int:
     finally:
         restore()
     kt_names = ("p_walk", "b_walk", "mc_dctif", "sao_stats", "sao_apply",
-                "sao_choose")
-    for name, frames, cfg in (runs[0], runs[2 * REPEAT]):
-        with _KernelTimes(kt_names) as kt:
+                "sao_choose", "nnfme", "int_transform_fwd",
+                "int_transform_inv", "rdoq")
+    for name, frames, cfg in (runs[0], runs[0], runs[2 * REPEAT]):
+        with _KernelTimes(kt_names) as kt, _StageTimes() as stg:
             bs, dt, res = _encode(frames, **cfg)
         kms, kn = kt.read()
         print(json.dumps({"config": "kernel_times", "of": name,
                           "kernels": nk, "bytes": len(bs),
                           "frames": [r.slice_type for r in res],
-                          "ms": kms, "launches": kn}), flush=True)
+                          "ms": kms, "launches": kn,
+                          "stages": stg.read()}), flush=True)
     print(json.dumps({"config": "sao_frame", "kernels": nk,
                       **_sao_frame(clip)}), flush=True)
     print(json.dumps({"config": "k4_k7", "kernels": nk,

@@ -61,6 +61,57 @@ def test_transform_kernel(dev, n, dst):
         assert torch.equal(got, want)
 
 
+# the nine `_code` shapes of a 416x240 P pass: each level's luma and two
+# chroma planes (and small counts)
+@pytest.mark.parametrize("n,m", [(8, 1560), (16, 390), (32, 104), (8, 3),
+                                 (32, 1)])
+@pytest.mark.parametrize("bd", [8, 10])
+def test_code_level_kernel(dev, n, m, bd):
+    """K1's level forms (`fwd_level`, `inv_level`) against their plain
+    versions, one launch each: the three planes of a level, and one
+    plane (`_code`'s call) with and without the chroma weight."""
+    from hmtpu_torch.ops import transform as t
+
+    rng = np.random.RandomState(n + m + bd)
+    vmax = (1 << bd) - 1
+    orgs, preds, deqs, levs = [], [], [], []
+    for s in (n, n // 2, n // 2):
+        o = rng.randint(0, vmax + 1, (m, s, s))
+        orgs.append(_i32(o, dev))
+        preds.append(_i32(np.clip(o + rng.randint(-99, 100, o.shape), 0,
+                                  vmax), dev))
+        lv = rng.randint(-30, 31, o.shape) * (rng.rand(*o.shape) < 0.2)
+        levs.append(_i32(lv, dev))
+        deqs.append(_i32(np.clip(lv * 700, -(1 << 15), (1 << 15) - 1), dev))
+    bits = [torch.as_tensor(rng.rand(m).astype(np.float32) * 300).to(dev)
+            for _ in range(3)]
+    dw = torch.tensor(1.2599, dtype=torch.float32, device=dev)
+
+    def same(got, want):
+        if isinstance(got, (list, tuple)):
+            return len(got) == len(want) and all(map(same, got, want))
+        if got is None or want is None:
+            return got is None and want is None
+        return got.dtype == want.dtype and torch.equal(got, want)
+
+    for k in ((0, 1, 2), (0,), (1,)):
+        pick = lambda a: [a[i] for i in k]
+        w = dw if k != (0,) else None
+        before = dict(kernels.COUNTS)
+        got = t.fwd_level(pick(orgs), pick(preds), bd)
+        got_i = t.inv_level(pick(deqs), pick(levs), pick(preds), pick(orgs),
+                            bd, w, pick(bits) if len(k) == 3 else None)
+        torch.cuda.synchronize()
+        assert kernels.COUNTS["int_transform_fwd"] \
+            == before["int_transform_fwd"] + 1
+        assert kernels.COUNTS["int_transform_inv"] \
+            == before["int_transform_inv"] + 1
+        assert same(got, t.fwd_level_plain(pick(orgs), pick(preds), bd))
+        assert same(got_i, t.inv_level_plain(
+            pick(deqs), pick(levs), pick(preds), pick(orgs), bd, w,
+            pick(bits) if len(k) == 3 else None))
+
+
 @pytest.mark.parametrize("n", [4, 8, 16, 32])
 def test_intra_kernel(dev, n):
     from hmtpu_torch.ops import intra_pred as ip
@@ -263,6 +314,19 @@ def test_nnfme_kernel(dev, qp):
             params, costs, sizes, sizes))
         wc, wo = nnfme._classes(want)
         assert torch.equal(cls, wc) and torch.equal(offs, wo)
+    # the P pass's form: three levels' int32 stencils (416x240's 1560,
+    # 390 and 104 PUs, and small levels), one launch
+    for rows in ((1560, 390, 104), (1, 31, 257), (7,)):
+        stens = [_i32(rng.randint(100, 9000, (r, 3, 3))
+                      * (4 ** k), dev) for k, r in enumerate(rows)]
+        sizes = (8, 16, 32)[:len(rows)]
+        before = kernels.COUNTS["nnfme"]
+        got = nnfme.predict_offsets_levels(params, stens, sizes)
+        torch.cuda.synchronize()
+        assert kernels.COUNTS["nnfme"] == before + 1
+        want = nnfme.predict_offsets_levels_plain(params, stens, sizes)
+        for (gc, go), (wc, wo) in zip(got, want):
+            assert torch.equal(gc, wc) and torch.equal(go, wo)
 
 
 @pytest.mark.parametrize("chroma,n", [(False, 8), (False, 16), (False, 32),
