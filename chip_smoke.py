@@ -79,7 +79,10 @@ when every phase passed):
                its one-launch forms at each level of the P pass (the
                AMVP hypotheses' three planes; the NN gate's two MV sets)
                and the hypotheses' 8 level at 1920x1080, each a row of its
-               own (`kernel:form`), K11's forms checked at 10 bits.  Each
+               own (`kernel:form`), K11's forms checked at 10 bits; K8's
+               gate form at the P pass's three levels in one launch over
+               the 416x240 original (`satd8:gate`), K25 also on seeded
+               rows of 1920x1080's 510 CTUs (`sao_choose:1080p`).  Each
                is timed
                with CUDA events, beside its plain version, the bound for
                its bytes and operations, and a library yardstick where one
@@ -97,7 +100,8 @@ when every phase passed):
                inside K23, and no encode launches them); the SAO
                launches a frame (K4, K25, K4: 3), K7's a P pass (at
                most 6: a level's hypotheses and its gate, one launch
-               each), K6's (1: the three levels' offsets) and K1's (at
+               each), K8's (1: the gate's three levels), K6's (1: the
+               three levels' offsets) and K1's (at
                most 3 a direction: a level's three planes a launch) from
                the counters, and after phase 6 K6's and K1's launches in
                ldp, ldp_dctif and ra10 (K1 at most 24 a direction).  Seconds per frame, and for the P
@@ -108,7 +112,7 @@ when every phase passed):
                (--SubPel=dctif; BASELINE config 2) through the port's CLI
                in process, QP 22, 2 frames of the same clip at 416x240,
                counts reset before and read after: K1, K3-K5, K7, K9,
-               K10, K19, K21-K25 and K1-TS must be > 0;
+               K10, K19, K21-K25 and K1-TS must be > 0, K8 0;
   6. ra10      the random-access Main10 cfg
                (cfg/encoder_randomaccess_main10.cfg as shipped: QP 32,
                10 bits, GOP 8 of B pictures, search range 64, DCT-IF,
@@ -116,7 +120,8 @@ when every phase passed):
                clip at 416x240 as 10-bit samples (the 8-bit clip << 2):
                the IDR and one whole GOP, coded as POC 0, 8, 4, 2, 1, 3,
                6, 5, 7.  Counts reset before and read after: K1, K3-K5,
-               K7, K9, K10, K21, K22, K25 and K26 must be > 0, K26 once per
+               K7, K9, K10, K21, K22, K25 and K26 must be > 0 (K8 0),
+               K26 once per
                z-scan level of each B frame (the B slices' z-scan, with
                K2, K11, K12, K17, K18 and K20's arithmetic inside it); 8 B
                slices, and bi-predicted CUs (DBG_COUNTERS["ra_bi_cus"])
@@ -138,7 +143,7 @@ when every phase passed):
                as shipped (QP 32, 10 bits, transform skip, SDH, the
                High-Throughput-RExt profile), through the CLI on the
                clip's first 2 frames as 10-bit samples: K21, K22, K3 and
-               K4 must be > 0; seconds per frame and the TBs that chose
+               K4 must be > 0, K8 0; seconds per frame and the TBs that chose
                transform skip;
   8. nnfme_train  the NN-FME trainer at tools/train_nnfme.py's defaults
                through `hmtpu_torch.apps.train_nnfme.main` in process
@@ -402,7 +407,9 @@ DEVICE_FN = {
     # the search, then the stencils and outputs
     "me_sad": ("me_kernel", "me_out_kernel"),
     "nnfme": "nnfme_kernel", "mc_dctif": "mc_kernel",
-    "satd8": "satd_kernel", "transform_skip": "transform_skip_kernel",
+    # the one-call form, then the NN-FME gate's levels
+    "satd8": ("satd_kernel", "satd_gate_kernel"),
+    "transform_skip": "transform_skip_kernel",
     "frac_refine": "frac_kernel", "rdoq": "rdoq_kernel",
     "mc_dctif_i": "mc_kernel", "bi_pred": "bi_pred_kernel",
     "me_sad1": ("me1_kernel", "me1_out_kernel"), "adam": "adam_kernel",
@@ -826,7 +833,39 @@ def inter_kernel_cases(dev, rng):
                   # operations, 64 absolute values and sums
                   nb * (64 + 2 * 8 * 24 + 128), None,
                   [satd_case(n)[1:] for n in (16, 32)]))
+    cases.append(satd_gate_case(dev, rng, org))
     return cases
+
+
+def satd_gate_case(dev, rng, org):
+    """K8's gate form at ldp's three levels (1560 8x8, 390 16x16 and 104
+    32x32 blocks, the 32 grid past the picture's edge) over the 416x240
+    original: two predictions near each block (equal on a fifth of them,
+    where the second MV set stays), seeded quarter-pel MV sets; the row
+    `satd8:gate`.  Bytes: the original read once a level, both
+    predictions, the MV sets in and the kept MVs out; operations: two
+    SATDs a tile (as the satd8 row counts them) and a compare a block."""
+    from hmtpu_torch.search import me
+
+    t32 = lambda a: torch.as_tensor(np.asarray(a, np.int32)).to(dev)
+    levels, tiles, nbs = [], 0, 0
+    for n, gh, gw in ((8, H // 8, W // 8), (16, H // 16, W // 16),
+                      (32, (H // 16 + 1) // 2, (W // 16 + 1) // 2)):
+        nb = gh * gw
+        base = me._grid_blocks(org, n, gw, nb).cpu().numpy()
+        p0 = np.clip(base + rng.randint(-20, 21, base.shape), 0, 255)
+        p1 = np.clip(base + rng.randint(-20, 21, base.shape), 0, 255)
+        same = rng.rand(nb) < 0.2
+        p1[same] = p0[same]
+        levels.append(((t32(p0), t32(p1)),
+                       t32(rng.randint(-300, 301, (2, nb))),
+                       t32(rng.randint(-300, 301, (2, nb))), n, gw))
+        tiles += nb * (n // 8) ** 2
+        nbs += nb
+    nbytes = (3 * H * W + 2 * tiles * 64 + 4 * nbs + 2 * nbs) * 4
+    return ("satd8:gate", lambda: me.satd_gate_levels(org, levels),
+            lambda: me.satd_gate_levels_plain(org, levels), nbytes,
+            2 * tiles * (64 + 2 * 8 * 24 + 128) + nbs, None)
 
 
 def frac_work(refs, ridx, xs, ys, org, mvx, mvy, n):
@@ -1214,6 +1253,9 @@ PLAIN_FUNCS = (
     ("K1 plain", "hmtpu_torch.ops.transform", "fwd_level_plain"),
     ("K1 plain", "hmtpu_torch.ops.transform", "inv_level_plain"),
     ("K6 plain", "hmtpu_torch.models.nnfme", "predict_offsets_levels_plain"),
+    # and of K8's gate form and one-call form
+    ("K8 plain", "hmtpu_torch.search.me", "satd_gate_levels_plain"),
+    ("K8 plain", "hmtpu_torch.search.me", "satd_batch_plain"),
 ) + tuple(
     # B8's flag helpers (hmtpu/ops/ratebits.py:305-450), as the passes
     # import them (mvd, ref_idx, inter_dir and the MPM pricing are K18's
@@ -1876,6 +1918,21 @@ def p_kernel_cases(got, dev):
     cases.append(("sao_choose", lambda: sao.choose_params(*sa, **sk),
                   lambda: sao.choose_params_plain(*sa, **sk),
                   4 * (3 * 96 + 21) * nctu + 4, 3 * 700 * nctu, None))
+    # and on seeded rows of a 1920x1080 frame's 510 CTUs (counts of 0, 1
+    # and many samples, sums of both signs), ldp's lambda
+    ny, nx = -(-1080 // 64), -(-1920 // 64)
+    rows = []
+    for _ in range(3):
+        cnt = rng.choice([0, 1, 5, 60, 900], (ny * nx, 48))
+        sm = (rng.randint(-12, 13, cnt.shape) * cnt) // 3
+        r = np.empty((ny * nx, 96), np.int32)
+        r[:, 0:16], r[:, 16:32] = sm[:, :16], cnt[:, :16]
+        r[:, 32:64], r[:, 64:96] = sm[:, 16:], cnt[:, 16:]
+        rows.append(torch.as_tensor(r).to(dev))
+    hd = (*rows, sa[3], sa[4], ny, nx)
+    cases.append(("sao_choose:1080p", lambda: sao.choose_params(*hd),
+                  lambda: sao.choose_params_plain(*hd),
+                  4 * (3 * 96 + 21) * ny * nx + 4, 3 * 700 * ny * nx, None))
     return cases
 
 
@@ -1939,7 +1996,10 @@ PTXAS = (("K1 fwd_level", "transform", "fwd_level_kernel"),
          ("K4 sao_stats", "sao", "stats_kernel"),
          ("K4 sao_apply", "sao", "apply_kernel"),
          ("K7 mc_dctif", "mc_dctif", "mc_kernelILb0"),
-         ("K11 mc_dctif_i", "mc_dctif", "mc_kernelILb1"))
+         ("K11 mc_dctif_i", "mc_dctif", "mc_kernelILb1"),
+         ("K8 satd8", "satd", "satd_kernel"),
+         ("K8 satd8, gate", "satd", "satd_gate_kernel"),
+         ("K25 sao_choose", "sao_choose", "sao_choose_kernel"))
 
 
 def ptxas_figures(log: str, fn: str) -> str:
@@ -2270,9 +2330,13 @@ def main() -> None:
           f"{LDP_FRAMES} frames); K7 launches a P pass "
           f"{counts['mc_dctif'] / n_p:g} ({counts['mc_dctif']} for {n_p})",
           flush=True)
-    if sao_n != [LDP_FRAMES] * 3 or counts["mc_dctif"] > 6 * n_p:
+    print(f"ldp: K8 launches a P pass {counts['satd8'] / n_p:g} (the "
+          f"NN-FME gate's three levels in one)", flush=True)
+    if sao_n != [LDP_FRAMES] * 3 or counts["mc_dctif"] > 6 * n_p \
+            or counts["satd8"] != n_p:
         fail(f"ldp: {sao_n} SAO launches (K4, K25, K4) for {LDP_FRAMES} "
-             f"frames, {counts['mc_dctif']} K7 launches for {n_p} P passes")
+             f"frames, {counts['mc_dctif']} K7 and {counts['satd8']} K8 "
+             f"launches for {n_p} P passes")
     # K6 once a P pass (the three levels' offsets), K1's level forms
     # once a level and direction (the hypotheses' coding step)
     k1 = [counts[k] for k in ("int_transform_fwd", "int_transform_inv")]
@@ -2309,6 +2373,9 @@ def main() -> None:
         dctif_names, kernels)
     for name in ("frac_refine", "transform_skip"):
         rows[name]["launches"] = d_counts[name]
+    if d_counts["satd8"]:
+        fail(f"ldp_dctif: {d_counts['satd8']} K8 launches (the DCT-IF "
+             f"search has no NN-FME gate)")
     d_res = d_enc.results
     check_results(d_res, "ldp_dctif")
     if d_enc.cfg.subpel != "dctif" or not d_enc.pps.transform_skip_enabled:
@@ -2341,6 +2408,9 @@ def main() -> None:
         ra_names, kernels)
     for name in ("mc_dctif_i", "bi_pred"):
         rows[name]["launches"] = r_counts[name]
+    if r_counts["satd8"]:
+        fail(f"ra10: {r_counts['satd8']} K8 launches (DCT-IF: no NN-FME "
+             f"gate)")
     r_res = r_enc.results
     check_results(r_res, "ra10")
     n_bi = pframe_dev.DBG_COUNTERS["ra_bi_cus"]
@@ -2424,6 +2494,8 @@ def main() -> None:
         "rext", lambda: cli_encode(rx_args, dev), rx_names, kernels)
     rx_res = rx_enc.results
     check_results(rx_res, "rext")
+    if rx_counts["satd8"]:
+        fail(f"rext: {rx_counts['satd8']} K8 launches in an all-intra run")
     if (rx_enc.cfg.bit_depth, rx_enc.cfg.gop, rx_enc.cfg.profile,
             rx_enc.pps.transform_skip_enabled) \
             != (10, "ai", "high-throughput-rext", True) \
@@ -2603,14 +2675,14 @@ def main() -> None:
               flush=True)
         plain_calls = dict(tally.calls)
         bad = {k: v for k, v in plain_calls.items()
-               if k.startswith(("K23", "K24", "K25", "K1 ", "K6 "))}
+               if k.startswith(("K23", "K24", "K25", "K1 ", "K6 ", "K8 "))}
         if bad:
-            fail(f"plain versions of K1, K6 or K23-K25 ran on the ldp path: "
-                 f"{bad}")
+            fail(f"plain versions of K1, K6, K8 or K23-K25 ran on the ldp "
+                 f"path: {bad}")
         print("plain: no call of wavefront_pass_plain, t_level_plain, "
-              "_choose_params_plain, fwd_level_plain, inv_level_plain or "
-              "predict_offsets_levels_plain in the untimed LDP encode",
-              flush=True)
+              "_choose_params_plain, fwd_level_plain, inv_level_plain, "
+              "predict_offsets_levels_plain, satd_gate_levels_plain or "
+              "satd_batch_plain in the untimed LDP encode", flush=True)
         # and K23's inputs on ldp_dctif's P frame (TS), a 64x56 frame
         # (geometry 8) and a 64x64 one (its second P frame: TMVP from its
         # predecessor's motion)
@@ -2663,8 +2735,9 @@ def main() -> None:
         _, a, k = cap.got[("p_walk", P_FORMS[0])]
         phases.print_rows(*phases.profile(ph_lib, a, k))
         check_kernels(p_kernel_cases(cap.got, dev), rows)
-        for name in ("p_walk", "tmvp_grid", "sao_choose"):
-            rows[name]["launches"] = counts[name]
+        for name in rows:
+            if kernel_of(name) in ("p_walk", "tmvp_grid", "sao_choose"):
+                rows[name]["launches"] = counts[kernel_of(name)]
         rows["b_walk"]["launches"] = r_counts["b_walk"]
         print("kernels K23-K26 launches: " + "; ".join(
             f"{name} ldp {counts[name]}, ldp_dctif {d_counts[name]}, ra10 "

@@ -91,6 +91,9 @@ SOURCES = {
     },
     "satd": {
         "hm_satd8": "pppiip",
+        # the original plane; each level's two predictions, MV sets and
+        # output; (h, w, levels), then each level's (n, grid width, blocks)
+        "hm_satd_gate": "p" "ppppp" "ppppp" "ppppp" "iii" "iiiiiiiii" "p",
     },
     "frac_refine": {
         "hm_frac_refine": "ppppppppp" "iiiiii" "p",
@@ -155,7 +158,8 @@ KERNELS = {
     "mc_dctif_i": ("mc_dctif", "hmtpu/ops/interp.py:227"),
     "bi_pred": ("bi_pred", "hmtpu/ops/interp.py:295,"
                            "hmtpu/encoder/pframe_dev.py:292,440"),
-    "satd8": ("satd", "hmtpu/search/me.py:159"),
+    "satd8": ("satd", "hmtpu/search/me.py:159,"
+                      "hmtpu/encoder/pframe_dev.py:1545-1560"),
     "frac_refine": ("frac_refine", "hmtpu/search/me.py:249"),
     "rdoq": ("rdoq", "hmtpu/ops/rdoq.py:43,hmtpu/ops/ratebits.py:161,"
                      "hmtpu/ops/quant.py:78,91"),
@@ -277,6 +281,15 @@ def _lib(src: str) -> ctypes.PyDLL:
         f.argtypes = [kinds[c] for c in sig]
     _LIBS[src] = lib
     return lib
+
+
+def ready(t: torch.Tensor, dt=torch.int32) -> torch.Tensor:
+    """t as a wrapper passes it to `launch_checked`: dtype dt, contiguous,
+    its data 16-byte aligned (K1's level forms and K8 load rows 16 bytes
+    at a time); a copy only where t is not so already."""
+    if t.dtype is not dt or not t.is_contiguous():
+        t = t.to(dt).contiguous()
+    return t.clone() if t.data_ptr() & 15 else t
 
 
 def launch(kernel: str, fn: str, *args) -> None:

@@ -356,16 +356,25 @@ def choose_params(rows_y, rows_u, rows_v, lam, bd: int, ny: int,
     """Every CTU's SAO parameters of the three planes from their
     statistic rows (`sao_stats_rows`), Cr under Cb's type and class: K25
     on CUDA tensors (one launch), the plain version on CPU ones.  lam: a
-    float32 0-d tensor.  Returns (Y, X, 3, 7) int32."""
+    float32 0-d tensor.  Returns (Y, X, 3, 7) int32.  On the card the
+    tensors are readied here (`kernels.ready`) and go to
+    kernels.launch_checked as pointers."""
     if not rows_y.is_cuda:
         return choose_params_plain(rows_y, rows_u, rows_v, lam, bd, ny, nx)
+    rows = [kernels.ready(r) for r in (rows_y, rows_u, rows_v)]
+    lam = kernels.ready(lam, torch.float32)
+    dev = rows[0].get_device()
+    if lam.numel() != 1 or any(r.numel() != ny * nx * 96 for r in rows) \
+            or any(t.get_device() != dev for t in rows[1:] + [lam]):
+        raise ValueError(f"sao_choose: three ({ny * nx}, 96) statistic "
+                         f"rows and lambda on one CUDA device, got "
+                         f"{[(tuple(r.shape), str(r.device)) for r in rows]}"
+                         f" and lambda on {lam.device}")
     out = torch.empty((ny, nx, 3, 7), dtype=torch.int32,
-                      device=rows_y.device)
-    kernels.launch("sao_choose", "hm_sao_choose",
-                   *(r.to(torch.int32).contiguous()
-                     for r in (rows_y, rows_u, rows_v)),
-                   lam.to(torch.float32).reshape(1).contiguous(), out,
-                   ny * nx, max_offset(bd))
+                      device=rows[0].device)
+    kernels.launch_checked("sao_choose", "hm_sao_choose", dev,
+                           *(r.data_ptr() for r in rows), lam.data_ptr(),
+                           out.data_ptr(), ny * nx, max_offset(bd))
     return out
 
 

@@ -181,14 +181,6 @@ def _level_geometry(planes, what):
     return m, n0, n1
 
 
-def _ready(t, dt=torch.int32):
-    """t as the level kernels read it: dtype dt, contiguous, its data
-    16-byte aligned (they load rows 16 bytes at a time)."""
-    if t.dtype is not dt or not t.is_contiguous():
-        t = t.to(dt).contiguous()
-    return t.clone() if t.data_ptr() & 15 else t
-
-
 def _ptrs(ts, dev: int):
     """The data pointers of tensors on CUDA device dev, padded with nulls
     to three planes (the level kernels' arguments)."""
@@ -218,8 +210,8 @@ def fwd_level(orgs, preds, bit_depth: int = 8, use_dst: bool = False):
     if len(preds) != len(orgs) or _level_geometry(preds, "fwd_level") != geo:
         raise ValueError("fwd_level: orgs and preds hold other blocks")
     dev = orgs[0].get_device()
-    o = [_ready(t) for t in orgs]
-    p = [_ready(t) for t in preds]
+    o = [kernels.ready(t) for t in orgs]
+    p = [kernels.ready(t) for t in preds]
     coefs = [torch.empty_like(t) for t in o]
     if geo[0]:
         kernels.launch_checked("int_transform_fwd", "hm_fwd_level", dev,
@@ -252,7 +244,8 @@ def inv_level(deqs, levs, preds, orgs, bit_depth: int = 8, dw=None,
     if three and (bits is None or len(bits) != 3):
         raise ValueError("inv_level: three planes need K10's bits of each")
     dev = deqs[0].get_device()
-    d, lv, p, o = ([_ready(t) for t in x] for x in (deqs, levs, preds, orgs))
+    d, lv, p, o = ([kernels.ready(t) for t in x]
+                   for x in (deqs, levs, preds, orgs))
     recs = [torch.empty_like(t) for t in p]
     lead = p[0].shape[:-2]
     # each plane's SSE, then dist and bitsum (three planes)
@@ -262,7 +255,7 @@ def inv_level(deqs, levs, preds, orgs, bit_depth: int = 8, dw=None,
             for f, t in zip(fl, p)]
     cbf = torch.empty(lead, dtype=torch.int32, device=p[0].device) \
         if three else None
-    bt = [_ready(b, torch.float32) for b in bits] if three else []
+    bt = [kernels.ready(b, torch.float32) for b in bits] if three else []
     if dw is not None and not (isinstance(dw, torch.Tensor)
                                and dw.dtype is torch.float32
                                and dw.get_device() == dev):

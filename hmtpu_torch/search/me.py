@@ -256,12 +256,89 @@ def satd_batch(a, b, bsize: int):
             or tuple(a.shape[1:]) != (bsize, bsize):
         raise ValueError(f"satd8: expected (B, {bsize}, {bsize}) pairs, got "
                          f"{tuple(a.shape)} / {tuple(b.shape)}")
-    i32 = lambda x: x.to(torch.int32).contiguous()
     B = int(a.shape[0])
     out = torch.empty((B,), dtype=torch.int32, device=a.device)
     if B:
-        kernels.launch("satd8", "hm_satd8", i32(a), i32(b), out, B, bsize)
+        kernels.launch("satd8", "hm_satd8", kernels.ready(a),
+                       kernels.ready(b), out, B, bsize)
     return out
+
+
+def _grid_blocks(plane, n: int, gw: int, nb: int):
+    """The nb blocks of an n-grid gw cells wide over plane (h, w), block
+    i at ((i % gw) n, (i // gw) n): (nb, n, n), the plane edge-padded
+    (last row and column replicated) where the grid reaches past it."""
+    h, w = plane.shape
+    gh = nb // gw
+    if (gh * n, gw * n) != (h, w):
+        dev = plane.device
+        rows = torch.clamp(torch.arange(gh * n, device=dev), max=h - 1)
+        cols = torch.clamp(torch.arange(gw * n, device=dev), max=w - 1)
+        plane = plane[rows][:, cols]
+    return plane.reshape(gh, n, gw, n).transpose(1, 2).reshape(-1, n, n)
+
+
+def satd_gate_levels_plain(org, levels):
+    """Plain version of K8's gate form: each level's original blocks
+    (`_grid_blocks`: the blockified plane, edge-padded where the grid
+    reaches past it), their SATD against both predictions
+    (`satd_batch_plain`) and the first MV set where it is strictly
+    lower, as the P pass's NN-FME gate composed them."""
+    out = []
+    for (p0, p1), mvx, mvy, n, gw in levels:
+        blocks = _grid_blocks(org, n, gw, int(mvx.shape[1]))
+        better = satd_batch_plain(blocks, p0, n) \
+            < satd_batch_plain(blocks, p1, n)
+        out.append((torch.where(better, mvx[0], mvx[1]),
+                    torch.where(better, mvy[0], mvy[1])))
+    return out
+
+
+def satd_gate_levels(org, levels):
+    """The NN-FME gate of up to three CU levels in one call: org the
+    (h, w) original plane; levels [((pred0, pred1), mvx, mvy, n, gw)],
+    each level's blocks of an n-grid gw cells wide (block i at ((i % gw)
+    n, (i // gw) n), read with rows and columns clamped to the plane),
+    their two predictions (B, n, n) (`mc_luma2`'s) under the quarter-pel
+    MV sets mvx / mvy (2, B).  Returns [(x, y) (B,) a level]: the first
+    set's MV where its SATD is strictly below the second's, else the
+    second's.  K8 on CUDA tensors (one launch), the plain version on CPU
+    ones; on the card the tensors are readied here and go to
+    kernels.launch_checked as pointers."""
+    if not org.is_cuda:
+        return satd_gate_levels_plain(org, levels)
+    h, w = org.shape
+    if not 1 <= len(levels) <= 3 or w % 8:
+        raise ValueError(f"satd8 gate: 1-3 levels over a plane a multiple "
+                         f"of 8 wide, got {len(levels)} levels, "
+                         f"{tuple(org.shape)}")
+    dev = org.get_device()
+    org = kernels.ready(org)
+    nbs = [int(lv[1].shape[1]) for lv in levels]
+    # the levels' (x, y) rows one after another
+    out = torch.empty((2 * sum(nbs),), dtype=torch.int32, device=org.device)
+    outs = out.split([2 * nb for nb in nbs])
+    ptrs, geo = [], []
+    for ((p0, p1), mvx, mvy, n, gw), nb, o in zip(levels, nbs, outs):
+        if n % 8 or n > 64 or nb % gw or any(
+                tuple(p.shape) != (nb, n, n) for p in (p0, p1)) \
+                or tuple(mvx.shape) != (2, nb) \
+                or tuple(mvy.shape) != (2, nb):
+            raise ValueError(f"satd8 gate: level n {n}, grid width {gw}: "
+                             f"predictions {tuple(p0.shape)}, "
+                             f"{tuple(p1.shape)}, MVs {tuple(mvx.shape)}, "
+                             f"{tuple(mvy.shape)}")
+        ts = [kernels.ready(t) for t in (p0, p1, mvx, mvy)]
+        if any(t.get_device() != dev for t in ts):
+            raise ValueError("satd8 gate: every tensor on the plane's "
+                             "CUDA device")
+        ptrs += [t.data_ptr() for t in ts] + [o.data_ptr()]
+        geo += [n, gw, nb]
+    pad = 3 - len(levels)
+    kernels.launch_checked("satd8", "hm_satd_gate", dev, org.data_ptr(),
+                           *ptrs, *(None,) * (5 * pad), h, w, len(levels),
+                           *geo, *(0,) * (3 * pad))
+    return [(o[:nb], o[nb:]) for o, nb in zip(outs, nbs)]
 
 
 # ---------------------------------------------------------------------------

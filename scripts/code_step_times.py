@@ -22,7 +22,20 @@ two trees of the port in one run:
          the call, split into the hand kernels' and the rest (torch's
          own: the glue), by CUDA function; and CUDA events from the
          call's start to its first K23 launch (the prelude: the AMVP
-         hypotheses of the three levels, K22's RMD, K24's grids).
+         hypotheses of the three levels, K22's RMD, K24's grids);
+  gate   the NN-FME gate of that P frame's pass (`full_pframe_pass`, its
+         arguments kept from the same encode): the host milliseconds
+         from K6's return to `wavefront_pass`'s entry (the three levels'
+         sub-pel stage) and CUDA events over the same stretch, over 10
+         passes; every call of the stretch (K7 `mc_luma2`, K8
+         `satd_batch`, `satd_gate_levels` where the tree has it,
+         `_blockify`, `_edge_pad`) replayed alone on its captured inputs,
+         level by level, with the gate's compare and `torch.where`s:
+         each one's ms, device ms and device operations a call; and the
+         hand kernels' launches a pass;
+  k25    K25 (`sao.choose_params`) on seeded statistic rows of 416x240
+         (28 CTUs) and 1920x1080 (510 CTUs) at CTU 64, 8 bits, QP 22's
+         lambda.
 
 Each call's "ms" is chip_smoke.py's `time_cuda` (CUDA events around 200
 calls after 2), its "device_ms" chip_smoke.py's `device_ms`
@@ -33,23 +46,28 @@ level forms 12 B a sample forward (org and pred in, coefficients out)
 and 20 B inverse (the dequantised coefficients, levels, pred and org in,
 the reconstruction out) and the per-block rows.
 
-    PYTHONPATH=<checkout of the port> python scripts/code_step_times.py
+    PYTHONPATH=<checkout of the port> python scripts/code_step_times.py \
+        [--parts k1,k6,walk,gate,k25]
 
-Prints one JSON object a part.  Uses only the port's entry points, so it
-runs against earlier trees too (the level forms only where they exist).
+Prints one JSON object a part (all parts unless --parts names some).
+Uses only the port's entry points, so it runs against earlier trees too
+(the level forms and the gate's one-launch form only where they exist).
 Needs a CUDA card; imports nothing of JAX.
 """
 from __future__ import annotations
 
+import argparse
 import importlib.util
 import json
 import os
 import sys
+import time
 
 import numpy as np
 import torch
 
 W, H = 416, 240
+SRANGE = 64
 # (luma n, blocks) of the P pass's three levels at 416x240
 LEVELS = ((8, 1560), (16, 390), (32, 104))
 
@@ -158,36 +176,53 @@ HAND = ("transform_kernel", "fwd_level_kernel", "inv_level_kernel",
         "pwalk_kernel", "transform_skip_kernel")
 
 
-def walk(cs, dev):
-    from torch.profiler import ProfilerActivity, profile
+_KEPT: dict = {}
 
-    from hmtpu_torch import kernels
+
+def _ldp_pass_args(dev):
+    """The arguments of the ldp P frame's `full_pframe_pass` and
+    `wavefront_pass` (416x240, QP 22, NN-FME, search range 64), kept from
+    one encode of the clip's two frames."""
+    if _KEPT:
+        return _KEPT
     from hmtpu_torch.encoder import pframe_dev
     from hmtpu_torch.encoder.top import Encoder, EncoderConfig
     from hmtpu_torch.io.yuv import Frame
     from hmtpu_torch.utils.gen_test_yuv import synth_clip
 
     clip = list(synth_clip(W, H, 2, seed=42))
-    kept = []
-    inner = pframe_dev.wavefront_pass
+    inner = {k: getattr(pframe_dev, k)
+             for k in ("full_pframe_pass", "wavefront_pass")}
 
-    def keep(*a, **k):
-        if not kept:
-            kept.append(tuple(x.clone() if isinstance(x, torch.Tensor)
-                              else x for x in a))
-            kept.append(dict(k))
-        return inner(*a, **k)
+    def keeper(name):
+        def keep(*a, **k):
+            if name not in _KEPT:
+                _KEPT[name] = (tuple(x.clone() if isinstance(x, torch.Tensor)
+                                     else x for x in a), dict(k))
+            return inner[name](*a, **k)
+        return keep
 
-    pframe_dev.wavefront_pass = keep
+    for k in inner:
+        setattr(pframe_dev, k, keeper(k))
     try:
         enc = Encoder(EncoderConfig(width=W, height=H, qp=22, gop="ldp",
-                                    subpel="nn", search_range=64),
+                                    subpel="nn", search_range=SRANGE),
                       device=dev)
         enc.encode_sequence([Frame(*(np.asarray(p, np.int32) for p in f))
                              for f in clip])
     finally:
-        pframe_dev.wavefront_pass = inner
-    args, kw = kept
+        for k, f in inner.items():
+            setattr(pframe_dev, k, f)
+    return _KEPT
+
+
+def walk(cs, dev):
+    from torch.profiler import ProfilerActivity, profile
+
+    from hmtpu_torch import kernels
+    from hmtpu_torch.encoder import pframe_dev
+
+    args, kw = _ldp_pass_args(dev)["wavefront_pass"]
     call = lambda: pframe_dev.wavefront_pass(*args, **kw)
     call()
     # the prelude: CUDA events from the call's start to its first K23
@@ -234,7 +269,170 @@ def walk(cs, dev):
             "by_function": dict(sorted(by.items(), key=lambda kv: -kv[1][0]))}
 
 
+def _device_all(cs, fn, iters: int = 20):
+    """(device ms, device operations) a call of fn: every CUDA function
+    it runs (torch.profiler, device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if cs.self_device_us(e) > 0]
+    return (sum(cs.self_device_us(e) for e in evs) / 1e3 / iters,
+            sum(e.count for e in evs) / iters)
+
+
+def gate(cs, dev):
+    """The NN-FME gate's stretch of the ldp P pass (see the top)."""
+    from hmtpu_torch import kernels
+    from hmtpu_torch.encoder import pframe_dev
+    from hmtpu_torch.models import nnfme
+    from hmtpu_torch.search import me
+
+    args, kw = _ldp_pass_args(dev)["full_pframe_pass"]
+    call = lambda: pframe_dev.full_pframe_pass(*args, **kw)
+    call()
+    torch.cuda.synchronize()
+    before = dict(kernels.COUNTS)
+    call()
+    launches = {k: v - before[k] for k, v in kernels.COUNTS.items()
+                if v != before[k]}
+
+    # the stretch: K6's return to wavefront_pass's entry; the calls made
+    # in it, with their inputs and outputs
+    state = {"on": False, "record": False, "stamps": [], "calls": []}
+    mods = {"pframe_dev": pframe_dev, "me": me, "nnfme": nnfme}
+    names = [("nnfme", "predict_offsets_levels"),
+             ("pframe_dev", "wavefront_pass"), ("pframe_dev", "mc_luma2"),
+             ("pframe_dev", "_blockify"), ("pframe_dev", "_edge_pad"),
+             ("me", "satd_batch"), ("me", "satd_gate_levels")]
+    inner = {n: getattr(mods[m], n) for m, n in names
+             if hasattr(mods[m], n)}
+
+    def stamp():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        state["stamps"].append((time.perf_counter(), e))
+
+    def wrap(name):
+        f = inner[name]
+
+        def g(*a, **k):
+            if name == "wavefront_pass" and state["on"]:
+                stamp()
+                state["on"] = False
+            out = f(*a, **k)
+            if name == "predict_offsets_levels":
+                stamp()
+                state["on"] = True
+            elif state["on"] and state["record"] \
+                    and name != "wavefront_pass":
+                state["calls"].append((name, a, k, out))
+            return out
+        return g
+
+    for m, n in names:
+        if n in inner:
+            setattr(mods[m], n, wrap(n))
+    host, span = [], []
+    try:
+        # the first pass records the calls, the next 10 are timed
+        for i in range(11):
+            state["stamps"].clear()
+            state["record"] = i == 0
+            call()
+            torch.cuda.synchronize()
+            if i:
+                (h0, e0), (h1, e1) = state["stamps"]
+                host.append((h1 - h0) * 1e3)
+                span.append(e0.elapsed_time(e1))
+    finally:
+        for m, n in names:
+            if n in inner:
+                setattr(mods[m], n, inner[n])
+    calls = state["calls"]
+
+    def level_of(name, a, k):
+        if name == "mc_luma2":
+            return int(a[5])
+        if name == "satd_batch":
+            return int(a[2])
+        if name == "_blockify":
+            return int(a[1])
+        if name == "_edge_pad":
+            return 32
+        return 0
+
+    pieces = {}
+    for i, (name, a, k, out) in enumerate(calls):
+        fn = (lambda f=inner[name], a=a, k=k: f(*a, **k))
+        dms, ops = _device_all(cs, fn)
+        pieces[f"{i:02d} {name} {level_of(name, a, k)}"] = {
+            "ms": cs.time_cuda(fn, 200), "device_ms": dms,
+            "device_ops": ops}
+    # the gate's compare and the two torch.where of each level (the
+    # tree that calls satd_batch twice a level)
+    sat = [(a, out) for name, a, k, out in calls if name == "satd_batch"]
+    mcs = [a for name, a, k, out in calls if name == "mc_luma2"]
+    for lv, (mc, (s_nn, s_int)) in enumerate(zip(mcs, zip(sat[0::2],
+                                                         sat[1::2]))):
+        def fn(a=s_nn[1], b=s_int[1], qx=mc[3], qy=mc[4]):
+            better = a < b
+            return (torch.where(better, qx[0], qx[1]),
+                    torch.where(better, qy[0], qy[1]))
+        dms, ops = _device_all(cs, fn)
+        pieces[f"compare and where {int(mc[5])}"] = {
+            "ms": cs.time_cuda(fn, 200), "device_ms": dms,
+            "device_ops": ops}
+    tot = lambda key: sum(v[key] for v in pieces.values())
+    return {"host_ms": host, "host_ms_median": float(np.median(host)),
+            "events_ms": span, "events_ms_median": float(np.median(span)),
+            "pieces": pieces, "pieces_device_ms": tot("device_ms"),
+            "pieces_device_ops": tot("device_ops"),
+            "launches_a_pass": launches}
+
+
+def k25(cs, dev):
+    """K25 on seeded statistic rows at 28 and 510 CTUs."""
+    from hmtpu_torch.common.lambdas import frame_lambdas
+    from hmtpu_torch.ops import sao
+
+    rng = np.random.RandomState(25)
+    lam = torch.tensor(frame_lambdas(22, 22, 0.57)[0], dtype=torch.float32,
+                       device=dev)
+    out = {}
+    for h, w in ((H, W), (1080, 1920)):
+        ny, nx = -(-h // 64), -(-w // 64)
+        rows = []
+        for _ in range(3):
+            cnt = rng.choice([0, 1, 5, 60, 900], (ny * nx, 48))
+            s = (rng.randint(-12, 13, cnt.shape) * cnt) // 3
+            r = np.empty((ny * nx, 96), np.int32)
+            r[:, 0:16], r[:, 16:32] = s[:, :16], cnt[:, :16]
+            r[:, 32:64], r[:, 64:96] = s[:, 16:], cnt[:, 16:]
+            rows.append(torch.as_tensor(r).to(dev))
+        nctu = ny * nx
+        fn = lambda: sao.choose_params(*rows, lam, 8, ny, nx)
+        row = _row(cs, fn, "sao_choose_kernel", 4 * (3 * 96 + 21) * nctu + 4)
+        row["plain_ms"] = cs.time_cuda(
+            lambda: sao.choose_params_plain(*rows, lam, 8, ny, nx), 5)
+        out[f"{w}x{h} ({nctu} CTUs)"] = row
+    return out
+
+
+PARTS = {"k1": k1_rows, "k6": k6_rows, "walk": walk, "gate": gate,
+         "k25": k25}
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help="comma-separated parts, of " + ", ".join(PARTS))
+    parts = ap.parse_args().parts.split(",")
+    if any(p not in PARTS for p in parts):
+        print(f"code_step_times: parts are {list(PARTS)}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("code_step_times: no CUDA device", file=sys.stderr)
         return 2
@@ -244,12 +442,9 @@ def main() -> int:
     kernels.build_all()
     dev = torch.device("cuda", 0)
     nk = len(kernels.KERNELS)
-    print(json.dumps({"part": "k1", "kernels": nk, **k1_rows(cs, dev)}),
-          flush=True)
-    print(json.dumps({"part": "k6", "kernels": nk, **k6_rows(cs, dev)}),
-          flush=True)
-    print(json.dumps({"part": "walk", "kernels": nk, **walk(cs, dev)}),
-          flush=True)
+    for p in parts:
+        print(json.dumps({"part": p, "kernels": nk, **PARTS[p](cs, dev)}),
+              flush=True)
     return 0
 
 

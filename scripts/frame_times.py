@@ -43,8 +43,8 @@ two trees of the port on one card in one run:
         directory: seconds, and the extraction's and the steps' seconds
         and the steps per QP as the tool prints them;
   kernel_times  two more ldp encodes and one more ra10 encode with CUDA
-        events around each launch of K23, K26, K7, K4, K25, K6, K1 and
-        K10 (their device milliseconds, summed a kernel, and their
+        events around each launch of K23, K26, K7, K8, K4, K25, K6, K1
+        and K10 (their device milliseconds, summed a kernel, and their
         launches) and at the edges of each P and B pass's sub-pel stage
         (from its last K5, K13 or K19 launch to `wavefront_pass`) and of
         the walk's prelude (from `pframe_walk`'s start to its first K23
@@ -611,8 +611,8 @@ def main() -> int:
                 flush=True)
     finally:
         restore()
-    kt_names = ("p_walk", "b_walk", "mc_dctif", "sao_stats", "sao_apply",
-                "sao_choose", "nnfme", "int_transform_fwd",
+    kt_names = ("p_walk", "b_walk", "mc_dctif", "satd8", "sao_stats",
+                "sao_apply", "sao_choose", "nnfme", "int_transform_fwd",
                 "int_transform_inv", "rdoq")
     for name, frames, cfg in (runs[0], runs[0], runs[2 * REPEAT]):
         with _KernelTimes(kt_names) as kt, _StageTimes() as stg:

@@ -443,6 +443,34 @@ def test_satd_kernel(dev, n):
         assert torch.equal(got, me.satd_batch_plain(a, b, n))
 
 
+@pytest.mark.parametrize("h,w", [(240, 416), (48, 80)])
+def test_satd_gate_kernel(dev, h, w):
+    """K8's gate form at the P pass's three levels of an h x w picture
+    (416x240: 1560, 390 and 104 blocks; 80x48's 32 grid reads past the
+    plane) in one launch, and at one level, against the plain version;
+    equal predictions keep the second MV set."""
+    from hmtpu_torch.search import me
+
+    rng = np.random.RandomState(h + w)
+    org = _i32(rng.randint(0, 256, (h, w)), dev)
+    levels = []
+    for n, gh, gw in ((8, h // 8, w // 8), (16, h // 16, w // 16),
+                      (32, -(-h // 32), -(-w // 32))):
+        nb = gh * gw
+        base = me._grid_blocks(org, n, gw, nb).cpu().numpy()
+        p0 = np.clip(base + rng.randint(-20, 21, base.shape), 0, 255)
+        p1 = np.clip(base + rng.randint(-20, 21, base.shape), 0, 255)
+        p1[::5] = p0[::5]
+        levels.append(((_i32(p0, dev), _i32(p1, dev)),
+                       _i32(rng.randint(-300, 301, (2, nb)), dev),
+                       _i32(rng.randint(-300, 301, (2, nb)), dev), n, gw))
+    for lv in (levels, levels[:1]):
+        got = _launched("satd8", lambda: me.satd_gate_levels(org, lv))
+        want = me.satd_gate_levels_plain(org, lv)
+        for (gx, gy), (wx, wy) in zip(got, want):
+            assert torch.equal(gx, wx) and torch.equal(gy, wy)
+
+
 def test_transform_skip_kernel(dev):
     from hmtpu_torch.ops import transform as t
 
@@ -1059,26 +1087,28 @@ def test_tmvp_grid_kernel(dev, w, h):
 @pytest.mark.parametrize("bd,qp", [(8, 22), (8, 37), (10, 32)])
 def test_sao_choose_kernel(dev, bd, qp):
     """K25 against its plain version on seeded statistics of 28 CTUs
-    (416x240 at CTU 64), Cr under Cb's type and class."""
+    (416x240 at CTU 64) and 510 (1920x1080), Cr under Cb's type and
+    class."""
     from hmtpu_torch.common.lambdas import frame_lambdas
     from hmtpu_torch.ops import sao
 
     rng = np.random.RandomState(bd + qp)
-    ny, nx = 4, 7
-    rows = []
-    for _ in range(3):
-        cnt = rng.choice([0, 1, 5, 60, 900], (ny * nx, 48))
-        s = (rng.randint(-12, 13, cnt.shape) * cnt << (bd - 8)) // 3
-        r = np.empty((ny * nx, 96), np.int32)
-        r[:, 0:16], r[:, 16:32] = s[:, :16], cnt[:, :16]
-        r[:, 32:64], r[:, 64:96] = s[:, 16:], cnt[:, 16:]
-        rows.append(r)
     lam = torch.tensor(frame_lambdas(qp, qp, 0.57)[0], dtype=torch.float32)
-    got = _launched("sao_choose", lambda: sao.choose_params(
-        *(_i32(r, dev) for r in rows), lam.to(dev), bd, ny, nx))
-    want = sao.choose_params(*(torch.as_tensor(r) for r in rows), lam, bd,
-                             ny, nx)
-    assert torch.equal(got.cpu(), want)
+    # and 1920x1080's 510 CTUs
+    for ny, nx in ((4, 7), (17, 30)):
+        rows = []
+        for _ in range(3):
+            cnt = rng.choice([0, 1, 5, 60, 900], (ny * nx, 48))
+            s = (rng.randint(-12, 13, cnt.shape) * cnt << (bd - 8)) // 3
+            r = np.empty((ny * nx, 96), np.int32)
+            r[:, 0:16], r[:, 16:32] = s[:, :16], cnt[:, :16]
+            r[:, 32:64], r[:, 64:96] = s[:, 16:], cnt[:, 16:]
+            rows.append(r)
+        got = _launched("sao_choose", lambda: sao.choose_params(
+            *(_i32(r, dev) for r in rows), lam.to(dev), bd, ny, nx))
+        want = sao.choose_params(*(torch.as_tensor(r) for r in rows), lam,
+                                 bd, ny, nx)
+        assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("w,h,qp,bd,frames,keep,cut", [

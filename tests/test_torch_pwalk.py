@@ -69,8 +69,7 @@ extern "C" void tmvp_host(const int* mvx, const int* mvy, const int* ok,
 // K25 over nctu CTUs
 extern "C" void sao_host(const int* st_y, const int* st_u, const int* st_v,
                          float lam, int mo, int* out, int nctu) {
-  for (int i = 0; i < 2 * nctu; ++i)
-    saoc::choose_lane(st_y, st_u, st_v, lam, mo, out, i);
+  saoc::choose_host(st_y, st_u, st_v, lam, mo, out, nctu);
 }
 """
 
