@@ -12,8 +12,9 @@ when every phase passed):
                K23's and K21's phase-clock builds
                (scripts/pwalk_phases.py, iwalk_phases.py); the registers,
                stack frame and spills ptxas gives K10, K22, the walkers
-               K21, K23 and K26 and K5's and K13's kernels (with the
-               spills of every function of the source);
+               K21, K23 and K26, K5's and K13's kernels, K3's two forms
+               and K19 (with the spills of every function of the source;
+               K3 and K19 must have no stack frame and no spills);
   3. kernels   each kernel (K1, K3-K16 and K1's transform-skip mode)
                against its plain PyTorch version on seeded inputs at the
                shapes the main paths give it (K1 in its level forms, a
@@ -82,7 +83,17 @@ when every phase passed):
                own (`kernel:form`), K11's forms checked at 10 bits; K8's
                gate form at the P pass's three levels in one launch over
                the 416x240 original (`satd8:gate`), K25 also on seeded
-               rows of 1920x1080's 510 CTUs (`sao_choose:1080p`).  Each
+               rows of 1920x1080's 510 CTUs (`sao_choose:1080p`); K3's
+               4x4-map form on a seeded 416x240 picture (its row) and its
+               state form on a seeded 1920x1080 P state
+               (`deblock:1080p`), and after phase 11 on the captured
+               calls of the passes (ldp's P picture timed,
+               `deblock:state`; ldp's I picture, every ra10 B picture with
+               its two lists, and the other encodes' pictures checked);
+               K19 (every round in one launch) on ldp's field (timed),
+               seeded 416x240, 56x64 and 8x16 fields (1 to 4 rounds)
+               checked, and a seeded 1920x1080 field
+               (`mv_regularize:1080p`).  Each
                is timed
                with CUDA events, beside its plain version, the bound for
                its bytes and operations, and a library yardstick where one
@@ -102,7 +113,9 @@ when every phase passed):
                most 6: a level's hypotheses and its gate, one launch
                each), K8's (1: the gate's three levels), K6's (1: the
                three levels' offsets) and K1's (at
-               most 3 a direction: a level's three planes a launch) from
+               most 3 a direction: a level's three planes a launch), K3's
+               (1 a picture: its state form) and K19's (1 a P pass: every
+               round in one launch) from
                the counters, and after phase 6 K6's and K1's launches in
                ldp, ldp_dctif and ra10 (K1 at most 24 a direction).  Seconds per frame, and for the P
                frame the device pass apart from the host's finish +
@@ -121,7 +134,7 @@ when every phase passed):
                the IDR and one whole GOP, coded as POC 0, 8, 4, 2, 1, 3,
                6, 5, 7.  Counts reset before and read after: K1, K3-K5,
                K7, K9, K10, K21, K22, K25 and K26 must be > 0 (K8 0),
-               K26 once per
+               K3 once a picture, K26 once per
                z-scan level of each B frame (the B slices' z-scan, with
                K2, K11, K12, K17, K18 and K20's arithmetic inside it); 8 B
                slices, and bi-predicted CUs (DBG_COUNTERS["ra_bi_cus"])
@@ -143,8 +156,8 @@ when every phase passed):
                as shipped (QP 32, 10 bits, transform skip, SDH, the
                High-Throughput-RExt profile), through the CLI on the
                clip's first 2 frames as 10-bit samples: K21, K22, K3 and
-               K4 must be > 0, K8 0; seconds per frame and the TBs that chose
-               transform skip;
+               K4 must be > 0, K8 0, K3 once a picture; seconds per frame
+               and the TBs that chose transform skip;
   8. nnfme_train  the NN-FME trainer at tools/train_nnfme.py's defaults
                through `hmtpu_torch.apps.train_nnfme.main` in process
                (416x240 synthetic clip, 24 frames, SR 16, QPs
@@ -192,8 +205,9 @@ when every phase passed):
                encode none of them and no B8 flag helper; the same
                two encodes, untimed ldp_dctif, 64x56 and 64x64 LDP and RA
                encodes, an AI encode of the ai phase's frame and a 64x64
-               AI frame capture the inputs of K2, K17-K21, K23, K25 and
-               K26 (Capture), which phase 3's last checks use; none of
+               AI frame capture the inputs of K2, K3's state form,
+               K17-K21, K23, K25 and K26 (Capture), which phase 3's last
+               checks use; none of
                them may call iframe_pass_plain or rmd_plain.
 
 Imports nothing from hmtpu or JAX.  The last line of the output is
@@ -432,11 +446,14 @@ def device_ms(fn, fname, iters: int = 20, tries: int = 3) -> float:
     like `fname` (or any name of a tuple; torch.profiler, device
     activity): the kernel's own time, without the host's launch cost that
     time_cuda sees at small shapes.  The profiler has been seen to miss
-    a short kernel's launches in a window, so a window without them is
-    profiled again, up to `tries` times."""
+    a short kernel's launches in a window (while the parity workers load
+    the host), so a window with fewer launches than calls is profiled
+    again, up to `tries` times; then the time a launch seen is the call's
+    (and a line says so)."""
     from torch.profiler import ProfilerActivity, profile
 
     names = fname if isinstance(fname, tuple) else (fname,)
+    seen = None
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -444,14 +461,102 @@ def device_ms(fn, fname, iters: int = 20, tries: int = 3) -> float:
             torch.cuda.synchronize()
         evs = [e for e in prof.key_averages()
                if any(n in e.key for n in names)]
-        if evs:
+        # every call launches at least once: a window with fewer launches
+        # than calls missed some
+        n = sum(e.count for e in evs)
+        if n >= iters:
             return sum(self_device_us(e) for e in evs) / 1e3 / iters
-    fail(f"profiler saw no {fname} launch in {tries} windows")
+        if evs and (seen is None or n > seen[0]):
+            seen = (n, sum(self_device_us(e) for e in evs) / 1e3)
+    if seen is None:
+        fail(f"profiler saw no {fname} launch in {tries} windows")
+    # the launches seen, each counted as one call
+    print(f"device_ms: the profiler saw {seen[0]} {fname} launches of "
+          f"{iters} calls in the best of {tries} windows", flush=True)
+    return seen[1] / seen[0]
 
 
 def bound_ms(nbytes: float, ops: float):
     tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS * 1e3
     return max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+def deblock_work(h, w, ncell):
+    """Bytes and operations of K3's state form on an h x w picture: the
+    three int32 planes in and out, nine int32 columns of the 8x8 state
+    (direction, both lists' MVs and references, luma cbf, CU size) and the
+    POC table read once; per 4-line luma segment about 60 decision and 4 x
+    6 x 8 filter operations, both directions."""
+    npx = h * w * 3 // 2
+    return (2 * npx * 4 + 9 * ncell * 4 + 34 * 4,
+            2 * (h // 4) * (w // 8) * (60 + 4 * 6 * 8))
+
+
+def deblock_state_case(name, y, u, v, blk, pocs, qp, bd, more=()):
+    """check_kernels' case of K3's state form on a P / B state (`blk`,
+    the lists' POCs: (ref_pocs, ref_pocs_l1))."""
+    from hmtpu_torch.ops import deblock
+
+    h, w = y.shape
+    kw = dict(h=h, w=w, ref_pocs=pocs[0], ref_pocs_l1=pocs[1])
+    nb, ops = deblock_work(h, w, (h // 8) * (w // 8))
+    return (name, lambda: deblock.deblock_state(y, u, v, blk, qp, bd, **kw),
+            lambda: deblock.deblock_state_plain(y, u, v, blk, qp, bd, **kw),
+            nb, ops, None, list(more))
+
+
+def seeded_p_state(dev, h, w, seed=18):
+    """A seeded P picture's planes and 8x8 state (`blk`'s 14 columns):
+    intra and inter cells, CU sizes 8 / 16 / 32, luma cbf, MVs a few
+    quarter samples apart, references 0-3 of 4; returns (y, u, v, blk,
+    (ref_pocs, ()))."""
+    rng = np.random.RandomState(seed)
+    n = (h // 8) * (w // 8)
+    blk = np.zeros((n, 14), np.int32)
+    blk[:, 5] = rng.choice([0, 1, 1, 1], n)
+    blk[:, 6] = rng.randint(-20, 21, n)
+    blk[:, 7] = rng.randint(-20, 21, n)
+    blk[:, 8] = rng.randint(0, 4, n)
+    blk[:, 9] = rng.randint(0, 3, n)
+    blk[:, 10] = rng.randint(0, 2, n)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.int32)).to(dev)
+
+    def plane(hh, ww):
+        base = 128 + rng.randint(-8, 9, (hh // 8 + 1, ww // 8 + 1))
+        return t(np.repeat(np.repeat(base, 8, 0), 8, 1)[:hh, :ww]
+                 + rng.randint(-3, 4, (hh, ww)))
+
+    return (plane(h, w), plane(h // 2, w // 2), plane(h // 2, w // 2),
+            t(blk), ([8, 7, 6, 5], ()))
+
+
+def seeded_field(dev, h, w, seed=19, r=4):
+    """A seeded K19 input at h x w: r references a few steps off the
+    original, a field of small MVs (neighbours often equal), references
+    0 to r-1, lam_sqrt of QP 25 (a float32 on the card)."""
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.int32)).to(dev)
+    org = rng.randint(0, 256, (h, w))
+    refs = np.clip(org[None] + rng.randint(-9, 10, (r, h, w)), 0, 255)
+    bh, bw = h // 8, w // 8
+    lam = torch.tensor(np.float32(np.sqrt(0.57 * 2.0 ** ((25 - 12) / 3.0))),
+                       device=dev)
+    return (t(refs), t(org), t(rng.choice([-3, 0, 2, 5], (bh, bw))),
+            t(rng.choice([-1, 0, 4], (bh, bw))), t(rng.randint(0, r,
+                                                              (bh, bw))),
+            lam)
+
+
+def reg_case(name, refs, org, mvx, mvy, ridx, lam, iters, more=()):
+    """check_kernels' case of K19 (all rounds in one launch) with
+    reg_work's bytes and operations."""
+    from hmtpu_torch.search import me
+
+    nb, ops = reg_work(refs, org, mvx, mvy, ridx, lam, iters)
+    args = (refs, org, mvx, mvy, ridx, lam, iters)
+    return (name, lambda: me.regularize_mv_field(*args),
+            lambda: me.regularize_mv_field_plain(*args), nb, ops, None,
+            list(more))
 
 
 def kernel_cases(dev):
@@ -496,7 +601,10 @@ def kernel_cases(dev):
                   [(lambda: transform.transform_skip_inv(dts, 4),
                     lambda: transform.transform_skip_inv_plain(dts, 4))]))
 
-    # K3: one 416x240 picture (intra, random cbf and CU sizes)
+    # K3's 4x4-map form: one 416x240 picture (intra, random cbf and CU
+    # sizes); its state form (the passes' call) is checked and timed on
+    # the encodes' captured states (`deblock_cases`) and here on a
+    # seeded 1920x1080 P state
     y = t32(rng.randint(60, 200, (H, W)))
     u = t32(rng.randint(60, 200, (H // 2, W // 2)))
     v = t32(rng.randint(60, 200, (H // 2, W // 2)))
@@ -521,6 +629,13 @@ def kernel_cases(dev):
                   # per 4-line luma segment: ~60 decision + 4 x 6 x 8
                   # filter operations, both directions
                   2 * (H // 4) * (W // 8) * (60 + 4 * 6 * 8), None))
+
+    cases.append(deblock_state_case(
+        "deblock:1080p", *seeded_p_state(dev, 1080, 1920), 27, 8))
+    # K19: a seeded 1920x1080 field of 135x240 cells, 4 references, 3
+    # rounds
+    cases.append(reg_case("mv_regularize:1080p",
+                          *seeded_field(dev, 1080, 1920), 3))
 
     # K4: the luma plane of one picture, CTU 64
     org = t32(np.clip(y.cpu().numpy() + rng.randint(-6, 7, (H, W)),
@@ -1355,6 +1470,12 @@ CAPTURED = (
      lambda a, k: a[2].shape[0]),
     ("mv_regularize", "P", "hmtpu_torch.search.me", "regularize_mv_field",
      lambda a, k: a[2].numel()),
+    # K3's state form as the P / B and I passes call it: one form per
+    # slice type, picture size, bit depth and (B) reference lists
+    ("deblock", lambda a, k: deblock_form(a, k),
+     "hmtpu_torch.encoder.pframe_dev", "deblock_state", lambda a, k: 1),
+    ("deblock", lambda a, k: deblock_form(a, k),
+     "hmtpu_torch.encoder.iframe_dev", "deblock_state", lambda a, k: 1),
     ("mpm_bits", "P", "hmtpu_torch.encoder.pframe_dev",
      "intra_mode_mpm_bits", lambda a, k: a[1].numel()),
     # K21 (and K22 inside it): one form per picture size, QP and TS
@@ -1382,6 +1503,16 @@ CAPTURED = (
      + (" SDH" if k.get("sdh") else ""),
      "hmtpu_torch.encoder.pframe_dev", "rdoq_code",
      lambda a, k: a[0].numel() >> (2 * a[2])))
+
+
+def deblock_form(a, k) -> str:
+    """The form of a `deblock_state` call: "I", "P" or "B" (with its
+    lists' POCs), the picture's size and bit depth."""
+    kind = "I" if a[3] is None else ("B" if k.get("num_ref_l1") else "P")
+    bd = a[5] if len(a) > 5 else k.get("bd", 8)
+    return f"{kind} {k['w']}x{k['h']} {bd} bits" + (
+        f" L0 {list(k['ref_pocs'])} L1 {list(k['ref_pocs_l1'])}"
+        if kind == "B" else "")
 
 
 def _clone(x):
@@ -1555,14 +1686,20 @@ def captured_cases(got):
         call(pf.amvp_rd_plain, ("amvp_rd", "P")), amvp_bytes, 400 * nl,
         None, [(call(pf.amvp_rd, ("amvp_rd", "B")),
                 call(pf.amvp_rd_plain, ("amvp_rd", "B")))]))
-    # K19: reg_work's bytes and operations of its rounds
+    # K19 (every round in one launch) on ldp's field: reg_work's bytes
+    # and operations of its rounds; seeded fields at 416x240, 56x64 and
+    # 8x16 (1 to 4 rounds) checked
     _, a, k = got[("mv_regularize", "P")]
     iters = k.get("iters", a[6] if len(a) > 6 else 3)
-    rb_, ro_ = reg_work(a[0], a[1], a[2], a[3], a[4], a[5], iters)
-    cases.append(("mv_regularize",
-                  call(me.regularize_mv_field, ("mv_regularize", "P")),
-                  call(me.regularize_mv_field_plain, ("mv_regularize", "P")),
-                  rb_, ro_, None))
+    dev = a[0].device
+    more = []
+    for (h_, w_), it in (((H, W), 3), ((56, 64), 1), ((56, 64), 2),
+                         ((8, 16), 4)):
+        sf = seeded_field(dev, h_, w_, seed=h_ + w_ + it, r=3)
+        more.append((lambda sf=sf, it=it: me.regularize_mv_field(*sf, it),
+                     lambda sf=sf, it=it: me.regularize_mv_field_plain(
+                         *sf, it)))
+    cases.append(reg_case("mv_regularize", *a[:6], iters, more))
     # K20: the modes and the neighbour pairs in, the bits out; about 20
     # steps a lane (the MPM list, three compares, one or two sums).  The P
     # pass's form is timed: the I pass prices its modes inside K21 now, so
@@ -1585,6 +1722,34 @@ def captured_cases(got):
                     lambda: rb.intra_mode_mpm_bits_nxn_plain(
                         cb, m4, lm[:, 0], am[:, 0]))]))
     return cases
+
+
+def deblock_cases(got):
+    """K3's state form on the captured calls: ldp's P picture (timed,
+    `deblock:state`), ldp's I picture, and every B picture of the ra10
+    encode (two lists, bi-prediction; 10 bits), checked: check_kernels'
+    cases."""
+    from hmtpu_torch.ops import deblock
+
+    forms = sorted(f for k_, f in got if k_ == "deblock")
+    p_form, i_form = f"P {W}x{H} 8 bits", f"I {W}x{H} 8 bits"
+    b_forms = [f for f in forms if f.startswith(f"B {W}x{H} 10 bits")]
+    if p_form not in forms or i_form not in forms or len(b_forms) < 4:
+        fail(f"capture: K3's state forms {forms}: no ldp P or I picture, "
+             f"or fewer than 4 ra10 B pictures")
+    print(f"capture: deblock state forms {forms}", flush=True)
+
+    def call(fn, form):
+        _, a, k = got[("deblock", form)]
+        return lambda: fn(*a, **k)
+
+    nb, ops = deblock_work(H, W, (H // 8) * (W // 8))
+    more = [(call(deblock.deblock_state, f),
+             call(deblock.deblock_state_plain, f))
+            for f in forms if f != p_form]
+    return [("deblock:state", call(deblock.deblock_state, p_form),
+             call(deblock.deblock_state_plain, p_form), nb, ops, None,
+             more)]
 
 
 def walk_work(w, h, ts):
@@ -1999,7 +2164,13 @@ PTXAS = (("K1 fwd_level", "transform", "fwd_level_kernel"),
          ("K11 mc_dctif_i", "mc_dctif", "mc_kernelILb1"),
          ("K8 satd8", "satd", "satd_kernel"),
          ("K8 satd8, gate", "satd", "satd_gate_kernel"),
-         ("K25 sao_choose", "sao_choose", "sao_choose_kernel"))
+         ("K25 sao_choose", "sao_choose", "sao_choose_kernel"),
+         ("K3 deblock, state form", "deblock", "deblock_kernelIN2db8StateSrc"),
+         ("K3 deblock, map form", "deblock", "deblock_kernelIN2db6MapSrc"),
+         ("K19 mv_regularize", "mv_regularize", "reg_kernel"))
+# of those, the kernels that must build with no stack frame and no spills
+PTXAS_CLEAN = ("K3 deblock, state form", "K3 deblock, map form",
+               "K19 mv_regularize")
 
 
 def ptxas_figures(log: str, fn: str) -> str:
@@ -2299,8 +2470,13 @@ def main() -> None:
         for ln in log.strip().splitlines():
             print(f"  nvcc {src}: {ln}", flush=True)
     for name, src, fn in PTXAS:
-        print(f"ptxas {name} ({fn}): {ptxas_figures(logs[src], fn)}",
-              flush=True)
+        fig = ptxas_figures(logs[src], fn)
+        print(f"ptxas {name} ({fn}): {fig}", flush=True)
+        if name in PTXAS_CLEAN and not (
+                "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+                "loads" in fig and "every function of the source: 0 bytes "
+                "spill stores, 0 bytes spill loads" in fig):
+            fail(f"ptxas {name}: a stack frame or spills ({fig})")
 
     # ---- 3. kernels against their plain versions
     rows = {}
@@ -2343,6 +2519,12 @@ def main() -> None:
     if counts["nnfme"] != n_p or max(k1) > 3 * n_p:
         fail(f"ldp: {counts['nnfme']} K6 and {k1} K1 launches (forward, "
              f"inverse) for {n_p} P passes")
+    # K3 once a picture (its state form), K19 once a P pass (every
+    # round in one launch)
+    if counts["deblock"] != LDP_FRAMES or counts["mv_regularize"] != n_p:
+        fail(f"ldp: {counts['deblock']} K3 launches for {LDP_FRAMES} "
+             f"pictures, {counts['mv_regularize']} K19 launches for {n_p} "
+             f"P passes")
     if [r.slice_type for r in results] != ["I"] + ["P"] * (LDP_FRAMES - 1):
         fail(f"ldp: slice types {[r.slice_type for r in results]}")
     kbps = sum(r.bits for r in results) / LDP_FRAMES * 50 / 1000.0
@@ -2440,6 +2622,9 @@ def main() -> None:
     if r_counts["b_walk"] != 8 * n_levels:
         fail(f"ra10: {r_counts['b_walk']} K26 launches for 8 B frames of "
              f"{n_levels} z-scan levels")
+    if r_counts["deblock"] != RA_FRAMES:
+        fail(f"ra10: {r_counts['deblock']} K3 launches for {RA_FRAMES} "
+             f"pictures")
     k1 = lambda c: (f"K6 {c['nnfme']}, K1 forward "
                     f"{c['int_transform_fwd']} and inverse "
                     f"{c['int_transform_inv']}")
@@ -2504,6 +2689,15 @@ def main() -> None:
              f"{rx_enc.cfg.gop}, profile {rx_enc.cfg.profile}, TS "
              f"{rx_enc.pps.transform_skip_enabled}, slices "
              f"{[r.slice_type for r in rx_res]}")
+    if rx_counts["deblock"] != RX_FRAMES:
+        fail(f"rext: {rx_counts['deblock']} K3 launches for {RX_FRAMES} "
+             f"pictures")
+    print(f"kernels K3, K19 launches: ldp {counts['deblock']}, "
+          f"{counts['mv_regularize']} ({LDP_FRAMES} pictures, {n_p} P pass); "
+          f"ldp_dctif {d_counts['deblock']}, {d_counts['mv_regularize']}; "
+          f"ra10 {r_counts['deblock']}, {r_counts['mv_regularize']} "
+          f"({RA_FRAMES} pictures); rext {rx_counts['deblock']}, "
+          f"{rx_counts['mv_regularize']} ({RX_FRAMES} pictures)", flush=True)
     print(f"rext: {os.path.basename(RX_CFG)} (QP{rx_enc.cfg.qp}, 10 bits, "
           f"TS, SDH {int(rx_enc.pps.sign_data_hiding)}), {W}x{H}, "
           f"{RX_FRAMES} frames, {len(rx_bs)} bytes, {rx_dt:.3f} s, "
@@ -2753,6 +2947,9 @@ def main() -> None:
         for name, *_ in captured:
             rows[name]["launches"] = counts[name] if name == "mv_regularize" \
                 else r_counts[name]
+        # K3's state form on ldp's I and P and ra10's B pictures
+        check_kernels(deblock_cases(cap.got), rows)
+        rows["deblock:state"]["launches"] = counts["deblock"]
         print("kernels K2, K17-K20 launches: " + "; ".join(
             f"{name} ldp {counts[name]}, ldp_dctif {d_counts[name]}, ra10 "
             f"{r_counts[name]}" for name, *_ in captured), flush=True)

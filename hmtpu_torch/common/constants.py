@@ -77,6 +77,12 @@ class ChromaFormat(IntEnum):
 # merge
 MRG_MAX_NUM_CANDS = 5
 
+# the P / B passes' per-8x8-cell state columns (`blk`): kind, merge index,
+# MVD, MVP index, inter direction (bit 0 list 0, bit 1 list 1; 0 intra),
+# list 0's MV and reference, CU size, luma cbf, list 1's MV and reference
+(K_KIND, K_MI, K_MVDX, K_MVDY, K_MVPI, K_DIR, K_MVX, K_MVY, K_REF, K_SZ,
+ K_CBFY, K_MVX1, K_MVY1, K_REF1) = range(14)
+
 # SEI payload types we emit (H.265 Annex D)
 SEI_ACTIVE_PARAMETER_SETS = 129
 SEI_DECODED_PICTURE_HASH = 132

@@ -22,7 +22,7 @@
 // argmins with group_argmin.
 //
 // Lanes (the coding step's CGs, K22's tiles): code written for a set of
-// W consecutive threads of a group (W = 8, 16 or 32; the set starts at a
+// W consecutive threads of a group (W = 4, 8, 16 or 32; the set starts at a
 // multiple of W), each holding one lane's value.  On the card a
 // `Lanes<T, W>` is the thread's own register, HM_LANES(j, W) runs its
 // body once as lane j, and `ballot`, `lane_get`, `lane_xor`, `lane_sum`,

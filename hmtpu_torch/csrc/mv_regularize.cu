@@ -1,114 +1,126 @@
-// K19 mv_regularize: one Jacobi round of the motion-field coherence pass,
-// bit-exact with hmtpu/search/me.py:194 regularize_mv_field (with
-// _block_sad_int :178 and mv_bits_dev_f :239).  The P pass calls it once
-// per frame (hmtpu/encoder/pframe_dev.py:1150 in the port) with 3 rounds;
-// a round reads the whole field the previous round wrote, so each round
-// is one launch (the launch boundary is the grid-wide barrier).
+// K19 mv_regularize: the motion-field coherence pass of the P pass (its
+// Jacobi rounds, 3 a P pass at hmtpu_torch/encoder/pframe_dev.py), all
+// rounds in one launch, bit-exact with hmtpu/search/me.py:194
+// regularize_mv_field; the lane code is in mv_regularize.cuh.
 //
-// Per 8x8 block the round re-picks (mv, ref) among [self, the block to
-// the left, to the right, above, below, zero] (the reference's roll by
-// (0, 1), (0, -1), (1, 0), (-1, 0): the neighbours wrap around the
-// picture edge), minimising SAD + lam_sqrt * bits, where a candidate
-// equal to one of the four neighbours costs 2 bits and any other its
-// full-pel MVD bits against the right-hand neighbour (roll (0, -1)) + 1.
-// SAD reads clamp to the picture (no padded reference).  The cost is
-// rounded as the reference rounds it: float32 product, then float32 sum
-// (no FMA), and the first of equal costs wins.
+// What bounds it on the H100: a round at 416x240 reads the original and
+// six candidate 8x8 blocks of reference samples per cell (1560 cells,
+// about 0.75 MB of int32 with each distinct sample counted once, 0.2 us at
+// 3.35 TB/s) and a few hundred operations a cell: the rounds' chain of
+// dependent loads, warp sums and the barriers between rounds, not bytes,
+// bound it.
 //
-// What bounds it on the H100: bytes, far below the launch cost.  A round
-// at 416x240 reads 6 x 64 reference samples and 64 original samples per
-// block (1560 blocks, about 2.8 MB of int32 with every read counted, 0.8
-// ms at 3.35 TB/s if none hit in cache; the picture's planes are 0.4 MB
-// each, so most reads hit L2).  Design: one 64-thread block per 8x8
-// block, one thread per sample; the six SADs are summed with warp
-// shuffles (integers: any order is exact), and one thread prices the
-// candidates and writes the block's choice.
+// Design: a cooperative launch (every block resident) of blocks of 16
+// warps (98 at 416x240: fewer blocks make a cheaper barrier); warp w takes
+// cells w, w + warps, ... of a round (a cell a warp at 416x240, about
+// eight at 1920x1080).  A round reads the field the round before wrote,
+// so the rounds meet at a grid-wide barrier (K15's pattern,
+// csrc/nnfme_train.cu, with one counter that only grows within a launch:
+// an arrival is one release add by the block's first thread, then
+// acquire loads until k x blocks have arrived) and the fields are
+// double-buffered (the returned field and a scratch one); the fields are
+// read through L2, as other blocks wrote them in this launch.  lam_sqrt
+// stays in device memory.
 #include <cuda_runtime.h>
+
+#include "mv_regularize.cuh"
 
 namespace {
 
-__device__ __forceinline__ int bit_len4(int v) {
-  const int a = abs(v * 4);
-  return a > 0 ? 32 - __clz(a) : 0;
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+
+// the grid barrier's counters: blocks arrived (it only grows within a
+// launch: barrier k waits for k x gridDim.x arrivals) and blocks done
+// (the last one resets both for the next launch)
+__device__ unsigned int g_reg_arrived = 0;
+__device__ unsigned int g_reg_done = 0;
+
+// every block of the (cooperative) grid waits here until all of them have
+// arrived at barrier k (1, 2, ...): the block's writes (ordered before
+// its first thread's arrival by the block's barrier) released with the
+// arrival, the others' acquired before the block goes on
+__device__ __forceinline__ void grid_sync(int k) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(
+                     &g_reg_arrived)
+                 : "memory");
+    const unsigned int target = (unsigned int)k * gridDim.x;
+    unsigned int seen;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                   : "=r"(seen)
+                   : "l"(&g_reg_arrived)
+                   : "memory");
+    } while (seen < target);
+  }
+  __syncthreads();
 }
 
-__global__ void reg_kernel(const int* __restrict__ refs,
-                           const int* __restrict__ org,
-                           const int* __restrict__ ix,
-                           const int* __restrict__ iy,
-                           const int* __restrict__ ir,
-                           const float* __restrict__ lam_sqrt,
-                           int* __restrict__ ox, int* __restrict__ oy,
-                           int* __restrict__ orr, int R, int H, int W,
-                           int bh, int bw) {
-  __shared__ int cand[6][3];
-  __shared__ int part[6][2];
-  const int b = blockIdx.x;
-  const int by = b / bw, bx = b - (b / bw) * bw;
-  const int t = threadIdx.x;
-  if (t < 6) {
-    // [self, (0, 1), (0, -1), (1, 0), (-1, 0), zero]: the roll by (dy, dx)
-    // reads the block at (by - dy, bx - dx), wrapped
-    const int dy[5] = {0, 0, 0, 1, -1}, dx[5] = {0, 1, -1, 0, 0};
-    if (t < 5) {
-      const int sy = (by - dy[t] + bh) % bh, sx = (bx - dx[t] + bw) % bw;
-      const int s = sy * bw + sx;
-      cand[t][0] = ix[s];
-      cand[t][1] = iy[s];
-      cand[t][2] = ir[s];
-    } else {
-      cand[5][0] = cand[5][1] = cand[5][2] = 0;
-    }
+__global__ void __launch_bounds__(kThreads) reg_kernel(mvr::Args a) {
+  const int warps = gridDim.x * kWarps;
+  const int wi = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int n = a.bh * a.bw;
+  for (int k = 0; k < a.iters; ++k) {
+    if (k) grid_sync(k);
+    for (int b = wi; b < n; b += warps) mvr::cell(a, k, b);
   }
-  __syncthreads();
-  const int py = by * 8 + (t >> 3), px = bx * 8 + (t & 7);
-  const int o = org[(size_t)py * W + px];
-  for (int c = 0; c < 6; ++c) {
-    const int r = min(max(cand[c][2], 0), R - 1);
-    const int yy = min(max(py + cand[c][1], 0), H - 1);
-    const int xx = min(max(px + cand[c][0], 0), W - 1);
-    int d = abs(o - refs[((size_t)r * H + yy) * W + xx]);
-#pragma unroll
-    for (int k = 16; k > 0; k >>= 1) d += __shfl_xor_sync(0xffffffffu, d, k);
-    if ((t & 31) == 0) part[c][t >> 5] = d;
+  // every block is past its last barrier once all have counted themselves
+  // done: the last resets the counters
+  if (threadIdx.x == 0 && atomicAdd(&g_reg_done, 1u) == gridDim.x - 1) {
+    g_reg_arrived = 0;
+    g_reg_done = 0;
+    __threadfence();
   }
-  __syncthreads();
-  if (t != 0) return;
-  const float lam = *lam_sqrt;
-  int best = 0;
-  float best_cost = 0.0f;
-  for (int c = 0; c < 6; ++c) {
-    const float sad = (float)(part[c][0] + part[c][1]);
-    bool eq = false;
-    for (int k = 1; k < 5; ++k)
-      eq = eq || (cand[c][0] == cand[k][0] && cand[c][1] == cand[k][1] &&
-                  cand[c][2] == cand[k][2]);
-    const float mvd = (float)(2 * bit_len4(cand[c][0] - cand[2][0]) +
-                              2 * bit_len4(cand[c][1] - cand[2][1]) + 2);
-    const float bits = eq ? 2.0f : __fadd_rn(mvd, 1.0f);
-    const float cost = __fadd_rn(sad, __fmul_rn(lam, bits));
-    if (c == 0 || cost < best_cost) {
-      best = c;
-      best_cost = cost;
-    }
+}
+
+// the most blocks resident at once on the current device
+int grid_cap() {
+  static int cap[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (cap[dev] == 0) {
+    int sms = 0, per = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, reg_kernel,
+                                                      kThreads, 0) !=
+            cudaSuccess)
+      return 0;
+    cap[dev] = sms * per;
   }
-  ox[b] = cand[best][0];
-  oy[b] = cand[best][1];
-  orr[b] = cand[best][2];
+  return cap[dev];
 }
 
 }  // namespace
 
+// refs (R, H, W), org (H, W), the input field (mvx, mvy, ridx), lam_sqrt
+// (one float32); the returned field and a scratch field (bh, bw) each;
+// (R, H, W, rounds)
 extern "C" int hm_mv_regularize(const void* refs, const void* org,
                                 const void* ix, const void* iy,
                                 const void* ir, const void* lam_sqrt,
-                                void* ox, void* oy, void* orr, int R, int H,
-                                int W, void* stream) {
-  if (R < 1 || H < 8 || W < 8 || H % 8 || W % 8) return cudaErrorInvalidValue;
-  const int bh = H / 8, bw = W / 8;
-  reg_kernel<<<bh * bw, 64, 0, (cudaStream_t)stream>>>(
-      (const int*)refs, (const int*)org, (const int*)ix, (const int*)iy,
-      (const int*)ir, (const float*)lam_sqrt, (int*)ox, (int*)oy, (int*)orr,
-      R, H, W, bh, bw);
+                                void* ox, void* oy, void* orr, void* tx,
+                                void* ty, void* tr, int R, int H, int W,
+                                int iters, void* stream) {
+  if (R < 1 || H < 8 || W < 8 || H % 8 || W % 8 || iters < 1)
+    return cudaErrorInvalidValue;
+  const int cap = grid_cap();
+  if (cap <= 0) return cudaErrorInvalidConfiguration;
+  mvr::Args a{(const int*)refs,
+              (const int*)org,
+              (const float*)lam_sqrt,
+              {(const int*)ix, (const int*)iy, (const int*)ir},
+              {(int*)ox, (int*)oy, (int*)orr},
+              {(int*)tx, (int*)ty, (int*)tr},
+              R, H, W, H / 8, W / 8, iters};
+  const int cells = a.bh * a.bw;
+  const int grid = min((cells + kWarps - 1) / kWarps, cap);
+  void* args[] = {(void*)&a};
+  cudaError_t e = cudaLaunchCooperativeKernel(
+      (const void*)reg_kernel, dim3(grid), dim3(kThreads), args, 0,
+      (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

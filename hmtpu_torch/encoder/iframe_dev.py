@@ -48,7 +48,7 @@ from hmtpu_torch.encoder.intra_rdo import (
 )
 from hmtpu_torch.encoder.pframe_dev import _code, _code_ts_sel, _intra_scan_sel
 from hmtpu_torch.entropy.contexts import OFF
-from hmtpu_torch.ops.deblock import deblock_frame_dev
+from hmtpu_torch.ops.deblock import deblock_state
 from hmtpu_torch.ops.intra_pred import (
     filter_reference_batched,
     predict_modes,
@@ -716,40 +716,27 @@ def iframe_full_pass(org_y, org_u, org_v, qp: int, qpc: int, cbflat,
     reference's full P pass).  Returns the state narrowed as the
     reference narrows it: rec_* uint8 (uint16 above 8 bits), levs
     int16, the flags and SAO params int8."""
+    dev = org_y.device
+    # SAO's lambda, on the device before the filters run
+    lam_sao = _scalar(frame_lambdas(qp, qp, qp_factor)[0], dev) \
+        if sao else None
     st = iframe_pass(org_y, org_u, org_v, qp, qpc, cbflat, w=w, h=h,
                      bd=bd, sis=sis, log2_ctu=log2_ctu,
                      qp_factor=qp_factor, sdh=sdh, ts=ts)
-    dev = org_y.device
-    bw, bh = w // 8, h // 8
     if deblock or sao:
-        rec_y = st["rec_y"].reshape(h, w)
-        rec_u = st["rec_u"].reshape(h // 2, w // 2)
-        rec_v = st["rec_v"].reshape(h // 2, w // 2)
         if deblock:
-            rep4 = lambda a: a.reshape(bh, bw).repeat_interleave(2, 0) \
-                .repeat_interleave(2, 1)
-            intra4 = torch.ones((h // 4, w // 4), dtype=torch.bool,
-                                device=dev)
-            cbf4 = rep4(st["cbfy"] > 0)
-            mv4 = torch.zeros((2, h // 4, w // 4), dtype=torch.int32,
-                              device=dev)
-            refpoc4 = torch.full((2, h // 4, w // 4), -1,
-                                 dtype=torch.int32, device=dev)
-            cusz8 = st["cusz"].reshape(bh, bw)
-            ev = torch.arange(bw - 1, device=dev)
-            int_v = ((cusz8[:, :-1] == 1) & ((ev % 2) == 0)[None, :]) \
-                | ((cusz8[:, :-1] == 2) & ((ev % 4) != 3)[None, :])
-            eh = torch.arange(bh - 1, device=dev)
-            int_h = ((cusz8[:-1, :] == 1) & ((eh % 2) == 0)[:, None]) \
-                | ((cusz8[:-1, :] == 2) & ((eh % 4) != 3)[:, None])
-            rec_y, rec_u, rec_v = deblock_frame_dev(
-                rec_y, rec_u, rec_v, intra4, cbf4, mv4, mv4, refpoc4,
-                qp, bd, cb_qp_off=cb_off, cr_qp_off=cr_off,
-                int_v=int_v, int_h=int_h)
+            # one K3 launch: the CU sizes read in place, every cell intra
+            rec_y, rec_u, rec_v = deblock_state(
+                st["rec_y"], st["rec_u"], st["rec_v"], None, qp, bd, h=h,
+                w=w, cusz=st["cusz"], cbfy=st["cbfy"], cb_qp_off=cb_off,
+                cr_qp_off=cr_off)
+        else:
+            rec_y = st["rec_y"].reshape(h, w)
+            rec_u = st["rec_u"].reshape(h // 2, w // 2)
+            rec_v = st["rec_v"].reshape(h // 2, w // 2)
         if sao:
-            lam = _scalar(frame_lambdas(qp, qp, qp_factor)[0], dev)
             rec_y, rec_u, rec_v, sao_params = sao_frame_dev(
-                org_y, rec_y, org_u, rec_u, org_v, rec_v, ctu, lam, bd)
+                org_y, rec_y, org_u, rec_u, org_v, rec_v, ctu, lam_sao, bd)
             st["sao"] = sao_params
         st["rec_y"] = rec_y.reshape(-1)
         st["rec_u"] = rec_u.reshape(-1)

@@ -62,7 +62,18 @@ import numpy as np
 import torch
 
 from hmtpu_torch import kernels
-from hmtpu_torch.common.constants import SliceType
+from hmtpu_torch.common.constants import (
+    K_DIR,
+    K_KIND,
+    K_MVX,
+    K_MVX1,
+    K_MVY,
+    K_MVY1,
+    K_REF,
+    K_REF1,
+    K_SZ,
+    SliceType,
+)
 from hmtpu_torch.common.lambdas import frame_lambdas
 from hmtpu_torch.common.motion import (
     MotionCtx,
@@ -77,7 +88,7 @@ from hmtpu_torch.entropy.contexts import OFF, make_contexts
 from hmtpu_torch.entropy.fracbits import ctx_bits_table
 from hmtpu_torch.entropy.headers import SliceHeader
 from hmtpu_torch.io.yuv import Frame
-from hmtpu_torch.ops.deblock import deblock_frame_dev
+from hmtpu_torch.ops.deblock import deblock_state
 from hmtpu_torch.ops.interp import (
     bi_average_t,
     bi_pred,
@@ -138,9 +149,6 @@ BIG = 3e38                 # float32 "never wins"
 DBG_COUNTERS = {"cu64_merge": 0, "cu64_amvp": 0, "ldp_ts_tbs": 0,
                 "intra_ts_tbs": 0, "ra_bi_cus": 0}
 
-# per-8x8-cell state columns
-(K_KIND, K_MI, K_MVDX, K_MVDY, K_MVPI, K_DIR, K_MVX, K_MVY, K_REF, K_SZ,
- K_CBFY, K_MVX1, K_MVY1, K_REF1) = range(14)
 
 
 def _intra_scan_sel(m):
@@ -1433,6 +1441,9 @@ def full_pframe_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v, nn,
         n_active = num_ref
     lam_sqrt_ = frame_lambdas(qp, qpc, qp_factor)[1]
     lam_sqrt = _scalar(lam_sqrt_, dev)
+    # SAO's lambda, on the device before the filters run
+    lam_sao = _scalar(frame_lambdas(qp, qp, qp_factor)[0], dev) \
+        if sao else None
     ar = lambda n: torch.arange(n, device=dev)
 
     # (list, ref within the list, union index) of every searched ref
@@ -1562,43 +1573,20 @@ def full_pframe_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v, nn,
 
     # ---- in-loop filters on the device (8.7.2 deblock, 8.7.3 SAO)
     if deblock or sao:
-        rec_y = st["rec_y"].reshape(h, w)
-        rec_u = st["rec_u"].reshape(h // 2, w // 2)
-        rec_v = st["rec_v"].reshape(h // 2, w // 2)
-        blk = st["blk"]
         if deblock:
-            rep4 = lambda a: a.reshape(bh, bw).repeat_interleave(2, 0) \
-                .repeat_interleave(2, 1)
-            dirf = blk[:, K_DIR]
-            u0f, u1f = (dirf & 1) > 0, (dirf & 2) > 0
-            # 8.7.2.4: the cbf condition counts luma coefficients only
-            pocs = lambda pl, col_, nr: torch.tensor(
-                list(pl), dtype=torch.int32, device=dev)[torch.clamp(
-                    blk[:, col_], 0, nr - 1).to(torch.int64)]
-            rp0 = torch.where(u0f, pocs(ref_pocs, K_REF, num_ref), -1)
-            rp1 = torch.where(u1f, pocs(ref_pocs_l1, K_REF1, num_ref_l1),
-                              -1) if is_b else torch.full_like(dirf, -1)
-            mv_x4 = torch.stack([rep4(torch.where(u0f, blk[:, K_MVX], 0)),
-                                 rep4(torch.where(u1f, blk[:, K_MVX1], 0))])
-            mv_y4 = torch.stack([rep4(torch.where(u0f, blk[:, K_MVY], 0)),
-                                 rep4(torch.where(u1f, blk[:, K_MVY1], 0))])
-            refpoc4 = torch.stack([rep4(rp0), rep4(rp1)])
-            # 8-pel edges interior to a 16x16 / 32x32 CU are no boundaries
-            cusz8 = blk[:, K_SZ].reshape(bh, bw)
-            ev = torch.arange(bw - 1, device=dev)
-            int_v = ((cusz8[:, :-1] == 1) & ((ev % 2) == 0)[None, :]) \
-                | ((cusz8[:, :-1] == 2) & ((ev % 4) != 3)[None, :])
-            eh = torch.arange(bh - 1, device=dev)
-            int_h = ((cusz8[:-1, :] == 1) & ((eh % 2) == 0)[:, None]) \
-                | ((cusz8[:-1, :] == 2) & ((eh % 4) != 3)[:, None])
-            rec_y, rec_u, rec_v = deblock_frame_dev(
-                rec_y, rec_u, rec_v, rep4(dirf == 0), rep4(blk[:, K_CBFY] > 0),
-                mv_x4, mv_y4, refpoc4, qp, bd, cb_qp_off=cb_off,
-                cr_qp_off=cr_off, int_v=int_v, int_h=int_h)
+            # one K3 launch: the 8x8 state read in place
+            rec_y, rec_u, rec_v = deblock_state(
+                st["rec_y"], st["rec_u"], st["rec_v"], st["blk"], qp, bd,
+                h=h, w=w, ref_pocs=ref_pocs,
+                ref_pocs_l1=ref_pocs_l1 if is_b else (), num_ref=num_ref,
+                num_ref_l1=num_ref_l1, cb_qp_off=cb_off, cr_qp_off=cr_off)
+        else:
+            rec_y = st["rec_y"].reshape(h, w)
+            rec_u = st["rec_u"].reshape(h // 2, w // 2)
+            rec_v = st["rec_v"].reshape(h // 2, w // 2)
         if sao:
-            lam = _scalar(frame_lambdas(qp, qp, qp_factor)[0], dev)
             rec_y, rec_u, rec_v, sao_params = sao_frame_dev(
-                org_y, rec_y, org_u, rec_u, org_v, rec_v, ctu, lam, bd)
+                org_y, rec_y, org_u, rec_u, org_v, rec_v, ctu, lam_sao, bd)
             st["sao"] = sao_params
         st["rec_y"] = rec_y.reshape(-1)
         st["rec_u"] = rec_u.reshape(-1)

@@ -59,8 +59,12 @@ SOURCES = {
         "hm_intra_filter": "ppiiiip",
         "hm_intra_pred": "ppppiiiiip",
     },
+    # planes in and out; the 4x4 maps and masks, or the state's columns,
+    # their stride and the POCs (a host array); (h, w, qp, bit depth,
+    # beta and tC offsets, the chroma tCs)
     "deblock": {
-        "hm_deblock_edges": "ppppppppp" "iiiiiiiii" "p",
+        "hm_deblock_map": "pppppp" "ppppppp" "iiiiiiii" "p",
+        "hm_deblock_state": "pppppp" "ppppppppp" "i" "p" "iiiiiiii" "p",
     },
     # one plane or a frame's three: the planes' pointers, then (planes,
     # h, w, ctu, chroma h, w, ctu, bit depth)
@@ -110,8 +114,10 @@ SOURCES = {
         "hm_merge_cands": "ppppp" "iiiiii" "p",
         "hm_amvp_rd": "pppppppppppp" "iiiiiiiiiiiiiiiiii" "p",
     },
+    # refs, org, the field in, lam_sqrt, the field out, the scratch field;
+    # (R, H, W, rounds)
     "mv_regularize": {
-        "hm_mv_regularize": "ppppppppp" "iii" "p",
+        "hm_mv_regularize": "pppppp" "pppppp" "iiii" "p",
     },
     "mode_bits": {
         "hm_mpm_bits": "ppppp" "iii" "p",
@@ -148,7 +154,8 @@ KERNELS = {
     "transform_skip": ("transform", "hmtpu/ops/transform.py:84,89"),
     "intra_filter": ("intra_pred", "hmtpu/ops/intra_pred.py:230"),
     "intra_pred": ("intra_pred", "hmtpu/ops/intra_pred.py:69,149"),
-    "deblock": ("deblock", "hmtpu/ops/deblock.py:471"),
+    "deblock": ("deblock", "hmtpu/ops/deblock.py:471,"
+                           "hmtpu/encoder/pframe_dev.py:1797-1832"),
     "sao_stats": ("sao", "hmtpu/ops/sao.py:282"),
     "sao_apply": ("sao", "hmtpu/ops/sao.py:358"),
     "me_sad": ("me_sad", "hmtpu/search/me.py:29,72,120"),

@@ -1,12 +1,20 @@
 """In-loop deblocking filter (H.265 8.7.2): the port of
 hmtpu/ops/deblock.py `deblock_frame_dev` :471 with `_bs_dev` :452,
-`_luma_edges_dev` :294 and `_chroma_edges_dev` :374.
+`_luma_edges_dev` :294 and `_chroma_edges_dev` :374, and of the P / B /
+I passes' inputs to it (hmtpu/encoder/pframe_dev.py:1797-1832).
 
-`deblock_frame_dev` keeps hmtpu's signature.  On CUDA tensors it
-launches kernel K3 (csrc/deblock.cu) twice: all vertical edges, then
-all horizontal edges, each launch deriving the boundary strengths and
-filtering luma and both chroma planes.  On CPU tensors it runs the
-plain PyTorch version beside it: dense boundary strengths, then
+Two forms, each a wrapper and a plain version:
+
+- `deblock_frame_dev` keeps hmtpu's signature (the 4x4 maps);
+- `deblock_state` takes a pass's 8x8 cell state as it is (P / B: `blk`
+  and the lists' POCs; I: the CU sizes) and derives the maps and the
+  CU-interior masks itself; its plain version is the passes' glue that
+  built the maps (`state_inputs`) followed by `deblock_frame_plain`.
+
+On CUDA tensors each launches kernel K3 (csrc/deblock.cu over
+deblock.cuh) once: a block a tile, vertical edges then horizontal ones
+behind the block's barrier, new output planes.  On CPU tensors it runs
+the plain PyTorch version: dense boundary strengths, then
 reshape-and-mask filtering of every edge patch, as in hmtpu.
 
 The picture is filtered on the 8x8 luma grid; chroma (4:2:0) on the
@@ -18,7 +26,20 @@ import numpy as np
 import torch
 
 from hmtpu_torch import kernels
+from hmtpu_torch.common.constants import (
+    K_CBFY,
+    K_DIR,
+    K_MVX,
+    K_MVX1,
+    K_MVY,
+    K_MVY1,
+    K_REF,
+    K_REF1,
+    K_SZ,
+)
 from hmtpu_torch.common.spec_tables import CHROMA_QP_TABLE
+
+MAX_REFS = 16     # POCs a list the state form passes by value
 
 # Table 8-12: beta' (Q 0..51) and tC' (Q 0..53)
 BETA_TABLE = np.array(
@@ -241,7 +262,96 @@ def deblock_frame_plain(rec_y, rec_u, rec_v, intra4, cbf4, mv_x, mv_y,
 
 
 # ---------------------------------------------------------------------------
-# wrapper: kernel K3 on the card, the plain version on the CPU
+# the state form's inputs: the passes' glue
+
+def interior_masks(cusz8):
+    """(int_v, int_h) of a (bh, bw) grid of CU sizes (0 8x8, 1 16x16, 2
+    32x32): 8-pel edges interior to a 16x16 / 32x32 CU are no boundaries
+    (CUs are size-aligned, so the left / upper cell's size and the edge's
+    parity tell them)."""
+    bh, bw = cusz8.shape
+    dev = cusz8.device
+    ev = torch.arange(bw - 1, device=dev)
+    int_v = ((cusz8[:, :-1] == 1) & ((ev % 2) == 0)[None, :]) \
+        | ((cusz8[:, :-1] == 2) & ((ev % 4) != 3)[None, :])
+    eh = torch.arange(bh - 1, device=dev)
+    int_h = ((cusz8[:-1, :] == 1) & ((eh % 2) == 0)[:, None]) \
+        | ((cusz8[:-1, :] == 2) & ((eh % 4) != 3)[:, None])
+    return int_v, int_h
+
+
+def state_inputs(h: int, w: int, blk=None, ref_pocs=(), ref_pocs_l1=(),
+                 num_ref=None, num_ref_l1=None, cusz=None, cbfy=None):
+    """`deblock_frame_dev`'s inputs from a pass's 8x8 cell state, as the
+    passes build them: (intra4, cbf4, mv_x4, mv_y4, refpoc4, int_v,
+    int_h).  P / B: `blk` (bh * bw, 14), the lists' POCs (a list's MV
+    counts where K_DIR has its bit; its POC is looked up at clamp(ref, 0,
+    n - 1), -1 where the list is unused; no list 1 in a P slice: num_ref_l1
+    0).  I (blk None): every cell intra, `cbfy` and `cusz` (bh * bw,)."""
+    bw, bh = w // 8, h // 8
+    rep4 = lambda a: a.reshape(bh, bw).repeat_interleave(2, 0) \
+        .repeat_interleave(2, 1)
+    if blk is None:
+        dev = cusz.device
+        intra4 = torch.ones((h // 4, w // 4), dtype=torch.bool, device=dev)
+        cbf4 = rep4(cbfy > 0)
+        mv4 = torch.zeros((2, h // 4, w // 4), dtype=torch.int32,
+                          device=dev)
+        refpoc4 = torch.full((2, h // 4, w // 4), -1, dtype=torch.int32,
+                             device=dev)
+        return (intra4, cbf4, mv4, mv4, refpoc4) \
+            + interior_masks(cusz.reshape(bh, bw))
+    dev = blk.device
+    num_ref = len(ref_pocs) if num_ref is None else num_ref
+    num_ref_l1 = len(ref_pocs_l1) if num_ref_l1 is None else num_ref_l1
+    dirf = blk[:, K_DIR]
+    u0f, u1f = (dirf & 1) > 0, (dirf & 2) > 0
+    # 8.7.2.4: the cbf condition counts luma coefficients only
+    pocs = lambda pl, col_, nr: torch.tensor(
+        list(pl), dtype=torch.int32, device=dev)[torch.clamp(
+            blk[:, col_], 0, nr - 1).to(torch.int64)]
+    rp0 = torch.where(u0f, pocs(ref_pocs, K_REF, num_ref), -1)
+    rp1 = torch.where(u1f, pocs(ref_pocs_l1, K_REF1, num_ref_l1), -1) \
+        if num_ref_l1 > 0 else torch.full_like(dirf, -1)
+    mv_x4 = torch.stack([rep4(torch.where(u0f, blk[:, K_MVX], 0)),
+                         rep4(torch.where(u1f, blk[:, K_MVX1], 0))])
+    mv_y4 = torch.stack([rep4(torch.where(u0f, blk[:, K_MVY], 0)),
+                         rep4(torch.where(u1f, blk[:, K_MVY1], 0))])
+    refpoc4 = torch.stack([rep4(rp0), rep4(rp1)])
+    return (rep4(dirf == 0), rep4(blk[:, K_CBFY] > 0), mv_x4, mv_y4,
+            refpoc4) + interior_masks(blk[:, K_SZ].reshape(bh, bw))
+
+
+def deblock_state_plain(rec_y, rec_u, rec_v, blk, qp: int, bd: int = 8, *,
+                        h: int, w: int, ref_pocs=(), ref_pocs_l1=(),
+                        num_ref=None, num_ref_l1=None, cusz=None,
+                        cbfy=None, beta_off: int = 0, tc_off: int = 0,
+                        cb_qp_off: int = 0, cr_qp_off: int = 0):
+    """Plain version of K3's state form: `state_inputs`, then
+    `deblock_frame_plain`.  Planes flat or (H, W) / (H/2, W/2); returns
+    the filtered (y, u, v) planes, (H, W) and (H/2, W/2)."""
+    intra4, cbf4, mx, my, rp, int_v, int_h = state_inputs(
+        h, w, blk, ref_pocs, ref_pocs_l1, num_ref, num_ref_l1, cusz, cbfy)
+    return deblock_frame_plain(
+        rec_y.reshape(h, w), rec_u.reshape(h // 2, w // 2),
+        rec_v.reshape(h // 2, w // 2), intra4, cbf4, mx, my, rp, qp, bd,
+        beta_off, tc_off, cb_qp_off, cr_qp_off, int_v, int_h)
+
+
+# ---------------------------------------------------------------------------
+# wrappers: kernel K3 on the card, the plain versions on the CPU
+
+def _check(h: int, w: int, bd: int):
+    if h < 8 or w < 8 or h % 8 or w % 8 or not 8 <= bd <= 12:
+        raise ValueError(f"deblock: picture sides multiples of 8 and a bit "
+                         f"depth of 8-12, got {h}x{w}, {bd} bits")
+
+
+def _outputs(h: int, w: int, dev):
+    return (torch.empty((h, w), dtype=torch.int32, device=dev),
+            torch.empty((h // 2, w // 2), dtype=torch.int32, device=dev),
+            torch.empty((h // 2, w // 2), dtype=torch.int32, device=dev))
+
 
 def deblock_frame_dev(rec_y, rec_u, rec_v, intra4, cbf4, mv_x, mv_y,
                       ref_poc, qp: int, bd: int = 8, beta_off: int = 0,
@@ -252,7 +362,7 @@ def deblock_frame_dev(rec_y, rec_u, rec_v, intra4, cbf4, mv_x, mv_y,
     list unused).  int_v/int_h (optional bool masks over the 8-cell
     grid) mark 8-pel edges interior to a larger CU/TU: int_v[cy, j] =
     the edge between cell columns j and j+1 is interior.  Returns the
-    filtered (y, u, v)."""
+    filtered (y, u, v), new planes."""
     qp = int(qp)
     if not rec_y.is_cuda:
         return deblock_frame_plain(rec_y, rec_u, rec_v, intra4, cbf4,
@@ -260,14 +370,80 @@ def deblock_frame_dev(rec_y, rec_u, rec_v, intra4, cbf4, mv_x, mv_y,
                                    tc_off, cb_qp_off, cr_qp_off, int_v,
                                    int_h)
     h, w = rec_y.shape
-    i32 = lambda a: a.to(torch.int32).contiguous()
-    y, u, v = (i32(p).clone() for p in (rec_y, rec_u, rec_v))
-    meta = [i32(a) for a in (intra4, cbf4, mv_x, mv_y, ref_poc)]
-    masks = [None if a is None else i32(a) for a in (int_v, int_h)]
-    tc_cb = _chroma_tc(qp, cb_qp_off, bd, tc_off)
-    tc_cr = _chroma_tc(qp, cr_qp_off, bd, tc_off)
-    for d in (0, 1):
-        kernels.launch("deblock", "hm_deblock_edges", y, u, v, *meta,
-                       masks[d], h, w, d, qp, tc_cb, tc_cr, bd, beta_off,
-                       tc_off)
-    return y, u, v
+    _check(h, w, bd)
+    dev = rec_y.get_device()
+    ts = [kernels.ready(t) for t in (rec_y, rec_u, rec_v, intra4, cbf4,
+                                     mv_x, mv_y, ref_poc)]
+    masks = [None if a is None else kernels.ready(a) for a in (int_v, int_h)]
+    outs = _outputs(h, w, rec_y.device)
+    kernels.launch_checked(
+        "deblock", "hm_deblock_map", dev,
+        *(t.data_ptr() for t in ts[:3]), *(o.data_ptr() for o in outs),
+        *(t.data_ptr() for t in ts[3:]),
+        *(None if a is None else a.data_ptr() for a in masks), h, w, qp, bd,
+        beta_off, tc_off, _chroma_tc(qp, cb_qp_off, bd, tc_off),
+        _chroma_tc(qp, cr_qp_off, bd, tc_off))
+    return outs
+
+
+def deblock_state(rec_y, rec_u, rec_v, blk, qp: int, bd: int = 8, *,
+                  h: int, w: int, ref_pocs=(), ref_pocs_l1=(), num_ref=None,
+                  num_ref_l1=None, cusz=None, cbfy=None, beta_off: int = 0,
+                  tc_off: int = 0, cb_qp_off: int = 0, cr_qp_off: int = 0):
+    """Deblock one picture from its pass's 8x8 cell state: a P / B pass's
+    `blk` (bh * bw, 14) with the lists' POCs (`num_ref` / `num_ref_l1`
+    entries of `ref_pocs` / `ref_pocs_l1`, at most 16 each; num_ref_l1 0
+    in a P slice), or an I pass's `cusz` and `cbfy` (bh * bw,) with `blk`
+    None.  Planes flat or (H, W) / (H/2, W/2).  Returns the filtered (y,
+    u, v), new (H, W) and (H/2, W/2) planes.  One K3 launch on CUDA
+    tensors (the state read in place, the POCs passed by value), the
+    plain version on CPU ones."""
+    qp = int(qp)
+    if not rec_y.is_cuda:
+        return deblock_state_plain(
+            rec_y, rec_u, rec_v, blk, qp, bd, h=h, w=w, ref_pocs=ref_pocs,
+            ref_pocs_l1=ref_pocs_l1, num_ref=num_ref, num_ref_l1=num_ref_l1,
+            cusz=cusz, cbfy=cbfy, beta_off=beta_off, tc_off=tc_off,
+            cb_qp_off=cb_qp_off, cr_qp_off=cr_qp_off)
+    _check(h, w, bd)
+    ncell = (h // 8) * (w // 8)
+    dev = rec_y.get_device()
+    planes = [kernels.ready(t) for t in (rec_y, rec_u, rec_v)]
+    if [p.numel() for p in planes] != [h * w, h * w // 4, h * w // 4]:
+        raise ValueError(f"deblock: planes of {h}x{w} samples, got "
+                         f"{[tuple(p.shape) for p in planes]}")
+    pocs = np.zeros(2 + 2 * MAX_REFS, np.int32)
+    if blk is None:
+        if cusz is None or cbfy is None or cusz.numel() != ncell \
+                or cbfy.numel() != ncell:
+            raise ValueError(f"deblock: an I state's cusz and cbfy of "
+                             f"{ncell} cells")
+        sz, cbf = kernels.ready(cusz), kernels.ready(cbfy)
+        cols = [None] * 7 + [cbf.data_ptr(), sz.data_ptr()]
+        stride = 1
+    else:
+        b = kernels.ready(blk)
+        nr = len(ref_pocs) if num_ref is None else int(num_ref)
+        nr1 = len(ref_pocs_l1) if num_ref_l1 is None else int(num_ref_l1)
+        if b.dim() != 2 or b.shape[0] != ncell or b.shape[1] <= K_REF1 \
+                or not 1 <= nr <= min(len(ref_pocs), MAX_REFS) \
+                or not 0 <= nr1 <= min(len(ref_pocs_l1), MAX_REFS):
+            raise ValueError(f"deblock: a state of {ncell} cells and 1-16 "
+                             f"list 0 and 0-16 list 1 POCs, got "
+                             f"{tuple(b.shape)}, {nr} and {nr1}")
+        stride = b.shape[1]
+        base = b.data_ptr()
+        cols = [base + 4 * c for c in (K_DIR, K_MVX, K_MVY, K_REF, K_MVX1,
+                                       K_MVY1, K_REF1, K_CBFY, K_SZ)]
+        pocs[:2] = nr, nr1
+        pocs[2:2 + nr] = [int(p) for p in list(ref_pocs)[:nr]]
+        pocs[2 + MAX_REFS:2 + MAX_REFS + nr1] = \
+            [int(p) for p in list(ref_pocs_l1)[:nr1]]
+    outs = _outputs(h, w, rec_y.device)
+    kernels.launch_checked(
+        "deblock", "hm_deblock_state", dev,
+        *(p.data_ptr() for p in planes), *(o.data_ptr() for o in outs),
+        *cols, stride, pocs.ctypes.data, h, w, qp, bd, beta_off, tc_off,
+        _chroma_tc(qp, cb_qp_off, bd, tc_off),
+        _chroma_tc(qp, cr_qp_off, bd, tc_off))
+    return outs

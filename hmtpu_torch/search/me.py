@@ -372,9 +372,13 @@ def mv_bits_dev_f(vx, vy):
 
 def regularize_mv_field(refs, org_y, mvx, mvy, ridx, lam_sqrt,
                         iters: int = 3):
-    """The motion-field coherence pass: K19 on CUDA tensors (one launch
-    per Jacobi round), the plain version on CPU ones; arguments and
-    results as `regularize_mv_field_plain`."""
+    """The motion-field coherence pass: K19 on CUDA tensors (every Jacobi
+    round in one launch, rounds meeting at a grid-wide barrier), the
+    plain version on CPU ones; arguments and results as
+    `regularize_mv_field_plain`.  On the card the result is a new field
+    of int32 tensors (the inputs as they are for iters 0), lam_sqrt read
+    from device memory (a float32 scalar tensor on the card is used in
+    place)."""
     if not refs.is_cuda:
         return regularize_mv_field_plain(refs, org_y, mvx, mvy, ridx,
                                          lam_sqrt, iters)
@@ -386,18 +390,26 @@ def regularize_mv_field(refs, org_y, mvx, mvy, ridx, lam_sqrt,
                          f"picture with sides multiples of 8 and (H/8, W/8) "
                          f"fields, got {tuple(refs.shape)}, "
                          f"{tuple(org_y.shape)}, {tuple(mvx.shape)}")
-    lam = torch.as_tensor(lam_sqrt, dtype=torch.float32,
-                          device=refs.device).reshape(())
-    i32 = lambda a: a.to(torch.int32).contiguous()
-    cur = (i32(mvx), i32(mvy), i32(ridx))
+    if iters <= 0:
+        return mvx, mvy, ridx
+    dev = refs.get_device()
+    lam = lam_sqrt if isinstance(lam_sqrt, torch.Tensor) \
+        and lam_sqrt.dtype is torch.float32 and lam_sqrt.numel() == 1 \
+        and lam_sqrt.is_cuda and lam_sqrt.get_device() == dev \
+        else torch.tensor(float(lam_sqrt), dtype=torch.float32,
+                          device=refs.device)
+    ts = [kernels.ready(t) for t in (refs, org_y, mvx, mvy, ridx)]
+    if any(t.get_device() != dev for t in ts[1:]):
+        raise ValueError("mv_regularize: every tensor on the references' "
+                         "CUDA device")
+    # the returned field, then the scratch one
     buf = torch.empty((2, 3, bh, bw), dtype=torch.int32, device=refs.device)
-    refs, org_y = i32(refs), i32(org_y)
-    for k in range(iters):
-        nxt = buf[k % 2]
-        kernels.launch("mv_regularize", "hm_mv_regularize", refs, org_y,
-                       *cur, lam, nxt[0], nxt[1], nxt[2], r, h, w)
-        cur = (nxt[0], nxt[1], nxt[2])
-    return cur
+    base, plane = buf.data_ptr(), 4 * bh * bw
+    kernels.launch_checked(
+        "mv_regularize", "hm_mv_regularize", dev,
+        *(t.data_ptr() for t in ts), lam.data_ptr(),
+        *(base + plane * i for i in range(6)), r, h, w, int(iters))
+    return buf[0].unbind(0)
 
 
 def regularize_mv_field_plain(refs, org_y, mvx, mvy, ridx, lam_sqrt,

@@ -35,7 +35,25 @@ two trees of the port in one run:
          hand kernels' launches a pass;
   k25    K25 (`sao.choose_params`) on seeded statistic rows of 416x240
          (28 CTUs) and 1920x1080 (510 CTUs) at CTU 64, 8 bits, QP 22's
-         lambda.
+         lambda;
+  dbk    the deblocking stretch of three pictures' passes, from the
+         z-scan pass's return (`iframe_pass`, `wavefront_pass`) to
+         `sao_frame_dev`'s entry: ldp's I and P frames (416x240, QP 22,
+         NN-FME, search range 64) and ra10's POC 8 B frame (416x240
+         Main10, QP 32, DCT-IF; its arguments kept from a 9-frame
+         encode): host ms and CUDA-event ms over 10 passes, then one
+         pass with torch.profiler running over the stretch alone: its
+         top-level torch operations, device operations and device ms,
+         K3's launches and device ms; and the same stretch on a seeded
+         1920x1080 P state (chip_smoke.py's `seeded_p_state`:
+         `deblock.deblock_state` where the tree has it, else the P
+         pass's glue, copied here, and `deblock_frame_dev`);
+  k19    K19 (`me.regularize_mv_field`, 3 rounds) on ldp's P-frame field
+         (kept from the same encode: 30x52 cells, 4 references) and on
+         a seeded 1920x1080 field (chip_smoke.py's `seeded_field`:
+         135x240 cells, 4 references): ms a
+         call (the host's, with its glue), its device operations and
+         ms, and K19's launches and device ms a launch.
 
 Each call's "ms" is chip_smoke.py's `time_cuda` (CUDA events around 200
 calls after 2), its "device_ms" chip_smoke.py's `device_ms`
@@ -47,7 +65,7 @@ and 20 B inverse (the dequantised coefficients, levels, pred and org in,
 the reconstruction out) and the per-block rows.
 
     PYTHONPATH=<checkout of the port> python scripts/code_step_times.py \
-        [--parts k1,k6,walk,gate,k25]
+        [--parts k1,k6,walk,gate,k25,dbk,k19]
 
 Prints one JSON object a part (all parts unless --parts names some).
 Uses only the port's entry points, so it runs against earlier trees too
@@ -179,41 +197,88 @@ HAND = ("transform_kernel", "fwd_level_kernel", "inv_level_kernel",
 _KEPT: dict = {}
 
 
+def _keep_args(kept, fns, encode, want=lambda name, a, k: True):
+    """Run encode() with each (module, function) of fns wrapped: the
+    first call of each for which want(name, args, kwargs) holds has its
+    arguments copied into kept[name] as (args, kwargs)."""
+    inner = {(m, n): getattr(m, n) for m, n in fns}
+
+    def keeper(m, name):
+        def keep(*a, **k):
+            if name not in kept and want(name, a, k):
+                kept[name] = (tuple(x.clone() if isinstance(x, torch.Tensor)
+                                    else x for x in a), dict(k))
+            return inner[(m, name)](*a, **k)
+        return keep
+
+    for m, n in inner:
+        setattr(m, n, keeper(m, n))
+    from hmtpu_torch import kernels
+
+    kernels.reset_counts()
+    try:
+        encode()
+    finally:
+        for (m, n), f in inner.items():
+            setattr(m, n, f)
+    kept["launches"] = {k: v for k, v in kernels.COUNTS.items()
+                        if k in ("deblock", "mv_regularize")}
+    return kept
+
+
 def _ldp_pass_args(dev):
-    """The arguments of the ldp P frame's `full_pframe_pass` and
-    `wavefront_pass` (416x240, QP 22, NN-FME, search range 64), kept from
-    one encode of the clip's two frames."""
+    """The arguments of the ldp frames' passes (416x240, QP 22, NN-FME,
+    search range 64), kept from one encode of the clip's two frames: the
+    P frame's `full_pframe_pass`, `wavefront_pass` and
+    `regularize_mv_field`, the I frame's `iframe_full_pass`."""
     if _KEPT:
         return _KEPT
-    from hmtpu_torch.encoder import pframe_dev
+    from hmtpu_torch.encoder import iframe_dev, pframe_dev
     from hmtpu_torch.encoder.top import Encoder, EncoderConfig
     from hmtpu_torch.io.yuv import Frame
+    from hmtpu_torch.search import me
     from hmtpu_torch.utils.gen_test_yuv import synth_clip
 
     clip = list(synth_clip(W, H, 2, seed=42))
-    inner = {k: getattr(pframe_dev, k)
-             for k in ("full_pframe_pass", "wavefront_pass")}
 
-    def keeper(name):
-        def keep(*a, **k):
-            if name not in _KEPT:
-                _KEPT[name] = (tuple(x.clone() if isinstance(x, torch.Tensor)
-                                     else x for x in a), dict(k))
-            return inner[name](*a, **k)
-        return keep
-
-    for k in inner:
-        setattr(pframe_dev, k, keeper(k))
-    try:
+    def encode():
         enc = Encoder(EncoderConfig(width=W, height=H, qp=22, gop="ldp",
                                     subpel="nn", search_range=SRANGE),
                       device=dev)
         enc.encode_sequence([Frame(*(np.asarray(p, np.int32) for p in f))
                              for f in clip])
-    finally:
-        for k, f in inner.items():
-            setattr(pframe_dev, k, f)
-    return _KEPT
+
+    return _keep_args(_KEPT, ((pframe_dev, "full_pframe_pass"),
+                              (pframe_dev, "wavefront_pass"),
+                              (iframe_dev, "iframe_full_pass"),
+                              (me, "regularize_mv_field")), encode)
+
+
+_KEPT_RA: dict = {}
+
+
+def _ra_pass_args(dev):
+    """The arguments of ra10's first B pass (`full_pframe_pass` of POC 8:
+    416x240 Main10, QP 32, DCT-IF, search range 64), kept from a 9-frame
+    encode of the clip as 10-bit samples."""
+    if _KEPT_RA:
+        return _KEPT_RA
+    from hmtpu_torch.encoder import pframe_dev
+    from hmtpu_torch.encoder.top import Encoder, EncoderConfig
+    from hmtpu_torch.io.yuv import Frame
+    from hmtpu_torch.utils.gen_test_yuv import synth_clip
+
+    clip = list(synth_clip(W, H, 9, seed=42))
+
+    def encode():
+        enc = Encoder(EncoderConfig(width=W, height=H, qp=32, gop="ra",
+                                    subpel="dctif", search_range=SRANGE,
+                                    bit_depth=10), device=dev)
+        enc.encode_sequence([Frame(*(np.asarray(p, np.int32) << 2
+                                     for p in f), 10) for f in clip])
+
+    return _keep_args(_KEPT_RA, ((pframe_dev, "full_pframe_pass"),), encode,
+                      lambda name, a, k: k.get("num_ref_l1", 0) > 0)
 
 
 def walk(cs, dev):
@@ -421,8 +486,242 @@ def k25(cs, dev):
     return out
 
 
+def _profile_stats(cs, prof, kernel_fn):
+    """From a stopped torch.profiler run: top-level torch operations (CPU
+    events with no parent named aten::), every top-level event by name
+    (the CUDA runtime's calls among them), device operations and device
+    ms, and the launches and device ms of CUDA functions named like
+    kernel_fn."""
+    from torch.autograd import DeviceType
+
+    top = [e for e in prof.events() if e.device_type == DeviceType.CPU
+           and getattr(e, "cpu_parent", None) is None]
+    names = {}
+    for e in top:
+        names[e.name] = names.get(e.name, 0) + 1
+    dev = [e for e in prof.key_averages() if cs.self_device_us(e) > 0]
+    kern = [e for e in dev if kernel_fn in e.key]
+    return {"torch_ops": sum(v for k, v in names.items()
+                             if k.startswith("aten::")),
+            "top_level_events": dict(sorted(names.items())),
+            "device_ops": sum(e.count for e in dev),
+            "device_ms": sum(cs.self_device_us(e) for e in dev) / 1e3,
+            "kernel_launches": sum(e.count for e in kern),
+            "kernel_device_ms": sum(cs.self_device_us(e) for e in kern)
+            / 1e3}
+
+
+def _stretch(cs, call, mod, pass_name, reps=10):
+    """The deblocking stretch of call(): from mod.<pass_name>'s return to
+    mod.sao_frame_dev's entry.  Host ms and CUDA-event ms over `reps`
+    calls (a device sync at the pass's return first: the stretch's own
+    host time, not the wait for the pass's queued kernels), and the host
+    ms of K3's wrapper as the pass calls it inside the stretch; then one
+    call with torch.profiler running over the stretch alone (a device
+    sync at both ends)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    inner_pass, inner_sao = getattr(mod, pass_name), mod.sao_frame_dev
+    # K3's wrapper as the pass calls it (the state form, or the 4x4-map
+    # form after the glue): its own host ms inside the stretch
+    k3_name = "deblock_state" if hasattr(mod, "deblock_state") \
+        else "deblock_frame_dev"
+    inner_k3 = getattr(mod, k3_name)
+    state = {"prof": None, "marks": [], "k3": []}
+
+    def k3_(*a, **k):
+        t = time.perf_counter()
+        out = inner_k3(*a, **k)
+        state["k3"].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def mark():
+        t = time.perf_counter()
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        state["marks"].append((t, e))
+
+    def pass_(*a, **k):
+        out = inner_pass(*a, **k)
+        torch.cuda.synchronize()
+        if state["prof"] is not None:
+            state["prof"].start()
+        else:
+            mark()
+        return out
+
+    def sao_(*a, **k):
+        if state["prof"] is not None:
+            torch.cuda.synchronize()
+            state["prof"].stop()
+        else:
+            mark()
+        return inner_sao(*a, **k)
+
+    setattr(mod, pass_name, pass_)
+    mod.sao_frame_dev = sao_
+    setattr(mod, k3_name, k3_)
+    host, span = [], []
+    try:
+        call()
+        state["k3"].clear()
+        for _ in range(reps):
+            state["marks"].clear()
+            call()
+            torch.cuda.synchronize()
+            (h0, e0), (h1, e1) = state["marks"]
+            host.append((h1 - h0) * 1e3)
+            span.append(e0.elapsed_time(e1))
+        state["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+        call()
+        torch.cuda.synchronize()
+    finally:
+        setattr(mod, pass_name, inner_pass)
+        mod.sao_frame_dev = inner_sao
+        setattr(mod, k3_name, inner_k3)
+    return {"host_ms": host, "host_ms_median": float(np.median(host)),
+            "events_ms": span, "events_ms_median": float(np.median(span)),
+            f"{k3_name}_host_ms_median": float(np.median(state["k3"][:reps])),
+            **_profile_stats(cs, state["prof"], "deblock_kernel")}
+
+
+def _p_glue(rec_y, rec_u, rec_v, blk, qp, bd, ref_pocs, num_ref, w, h):
+    """The P pass's deblocking inputs from its 8x8 state, as
+    hmtpu_torch/encoder/pframe_dev.py built them before
+    `deblock.deblock_state` (P slices), then `deblock_frame_dev`."""
+    from hmtpu_torch.ops.deblock import deblock_frame_dev
+
+    K_DIR, K_MVX, K_MVY, K_REF, K_SZ, K_CBFY = 5, 6, 7, 8, 9, 10
+    K_MVX1, K_MVY1 = 11, 12
+    dev = blk.device
+    bw, bh = w // 8, h // 8
+    rep4 = lambda a: a.reshape(bh, bw).repeat_interleave(2, 0) \
+        .repeat_interleave(2, 1)
+    dirf = blk[:, K_DIR]
+    u0f, u1f = (dirf & 1) > 0, (dirf & 2) > 0
+    pocs = lambda pl, col_, nr: torch.tensor(
+        list(pl), dtype=torch.int32, device=dev)[torch.clamp(
+            blk[:, col_], 0, nr - 1).to(torch.int64)]
+    rp0 = torch.where(u0f, pocs(ref_pocs, K_REF, num_ref), -1)
+    rp1 = torch.full_like(dirf, -1)
+    mv_x4 = torch.stack([rep4(torch.where(u0f, blk[:, K_MVX], 0)),
+                         rep4(torch.where(u1f, blk[:, K_MVX1], 0))])
+    mv_y4 = torch.stack([rep4(torch.where(u0f, blk[:, K_MVY], 0)),
+                         rep4(torch.where(u1f, blk[:, K_MVY1], 0))])
+    refpoc4 = torch.stack([rep4(rp0), rep4(rp1)])
+    cusz8 = blk[:, K_SZ].reshape(bh, bw)
+    ev = torch.arange(bw - 1, device=dev)
+    int_v = ((cusz8[:, :-1] == 1) & ((ev % 2) == 0)[None, :]) \
+        | ((cusz8[:, :-1] == 2) & ((ev % 4) != 3)[None, :])
+    eh = torch.arange(bh - 1, device=dev)
+    int_h = ((cusz8[:-1, :] == 1) & ((eh % 2) == 0)[:, None]) \
+        | ((cusz8[:-1, :] == 2) & ((eh % 4) != 3)[:, None])
+    return deblock_frame_dev(
+        rec_y, rec_u, rec_v, rep4(dirf == 0), rep4(blk[:, K_CBFY] > 0),
+        mv_x4, mv_y4, refpoc4, qp, bd, int_v=int_v, int_h=int_h)
+
+
+def dbk(cs, dev):
+    """Deblocking's stretch of ldp's I and P passes and ra10's POC 8 B
+    pass, and at a seeded 1920x1080 P state (see the top)."""
+    from hmtpu_torch.encoder import iframe_dev, pframe_dev
+    from hmtpu_torch.ops import deblock
+
+    from hmtpu_torch import kernels
+    from hmtpu_torch.encoder.top import Encoder, EncoderConfig
+    from hmtpu_torch.io.yuv import Frame
+    from hmtpu_torch.utils.gen_test_yuv import synth_clip
+
+    kept = _ldp_pass_args(dev)
+    ra = _ra_pass_args(dev)
+    # K3's and K19's launches an encode: ldp (I + P), ra10 (I + 8 B), and
+    # all-intra QP 32 with TS, one 8-bit frame and two 10-bit ones
+    launches = {"ldp I + P": kept["launches"],
+                "ra10 I + 8 B": ra["launches"]}
+    clip = list(synth_clip(W, H, 2, seed=42))
+    for label, n, bd in (("ai 1 frame", 1, 8), ("ai 2 frames 10 bits", 2,
+                                                 10)):
+        kernels.reset_counts()
+        Encoder(EncoderConfig(width=W, height=H, qp=32, gop="ai",
+                              subpel="none", transform_skip=True,
+                              bit_depth=bd), device=dev).encode_sequence(
+            [Frame(*(np.asarray(p, np.int32) << (bd - 8) for p in f), bd)
+             for f in clip[:n]])
+        launches[label] = {k: kernels.COUNTS[k]
+                           for k in ("deblock", "mv_regularize")}
+    out = {"launches": launches}
+    for label, key, src, mod, pname in (
+            ("ldp I", "iframe_full_pass", kept, iframe_dev, "iframe_pass"),
+            ("ldp P", "full_pframe_pass", kept, pframe_dev,
+             "wavefront_pass"),
+            ("ra10 POC 8 B", "full_pframe_pass", ra, pframe_dev,
+             "wavefront_pass")):
+        a, k = src[key]
+        fn = iframe_dev.iframe_full_pass if mod is iframe_dev \
+            else pframe_dev.full_pframe_pass
+        out[label] = _stretch(cs, lambda: fn(*a, **k), mod, pname)
+    h, w = 1080, 1920
+    y, u, v, blk, (pocs, _) = cs.seeded_p_state(dev, h, w)
+    if hasattr(deblock, "deblock_state"):
+        fn = lambda: deblock.deblock_state(y, u, v, blk, 27, 8, h=h, w=w,
+                                           ref_pocs=pocs)
+        form = "deblock_state"
+    else:
+        fn = lambda: _p_glue(y, u, v, blk, 27, 8, pocs, len(pocs), w, h)
+        form = "glue + deblock_frame_dev"
+    from torch.profiler import ProfilerActivity, profile
+
+    ms = cs.time_cuda(fn, 50)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out[f"{w}x{h} seeded P state ({form})"] = {
+        "ms": ms, "k3_device_ms_20_calls": cs.device_ms(fn,
+                                                        "deblock_kernel"),
+        **_profile_stats(cs, prof, "deblock_kernel")}
+    return out
+
+
+def k19(cs, dev):
+    """K19 at ldp's field and a seeded 1920x1080 one (see the top)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hmtpu_torch.search import me
+
+    a, k = _ldp_pass_args(dev)["regularize_mv_field"]
+    out = {}
+    for label, args, kw in (
+            (f"ldp field {tuple(a[2].shape)}, {a[0].shape[0]} references",
+             a, k),
+            ("1920x1080 seeded (135, 240), 4 references",
+             cs.seeded_field(dev, 1080, 1920), {"iters": 3})):
+        fn = lambda: me.regularize_mv_field(*args, **kw)
+        ms = cs.time_cuda(fn, 200)
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        st = _profile_stats(cs, prof, "reg_kernel")
+        n = max(st["kernel_launches"], 1)
+        out[label] = {"ms": ms, "device_ms_a_call": st["device_ms"] / 20,
+                      "device_ops_a_call": st["device_ops"] / 20,
+                      "torch_ops_a_call": st["torch_ops"] / 20,
+                      "k19_launches_a_call": st["kernel_launches"] / 20,
+                      "k19_device_ms_a_launch": st["kernel_device_ms"] / n,
+                      "top_level_events_20_calls":
+                          st["top_level_events"]}
+    return out
+
+
 PARTS = {"k1": k1_rows, "k6": k6_rows, "walk": walk, "gate": gate,
-         "k25": k25}
+         "k25": k25, "dbk": dbk, "k19": k19}
 
 
 def main() -> int:

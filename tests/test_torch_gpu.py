@@ -142,8 +142,11 @@ def test_intra_kernel(dev, n):
                                                        is_luma))
 
 
-@pytest.mark.parametrize("h,w", [(64, 64), (48, 80), (240, 416)])
+@pytest.mark.parametrize("h,w", [(64, 64), (48, 80), (240, 416),
+                                 (1080, 1920)])
 def test_deblock_kernel(dev, h, w):
+    """K3's 4x4-map form, one launch a picture; at 416x240 and 1920x1080
+    also its state form on seeded I, P and B states."""
     from hmtpu_torch.ops import deblock as db
 
     rng = np.random.RandomState(h + w)
@@ -165,12 +168,44 @@ def test_deblock_kernel(dev, h, w):
                  int_h=torch.as_tensor(rng.rand(h // 8 - 1, w // 8) < 0.3)
                  .to(dev))
     for qp in (22, 37):
+        before = kernels.COUNTS["deblock"]
         got = _launched("deblock", lambda: db.deblock_frame_dev(
             y, u, v, *meta, qp, **masks))
+        assert kernels.COUNTS["deblock"] == before + 1
         want = db.deblock_frame_plain(y, u, v, *meta, qp, **masks)
         for g, wnt in zip(got, want):
             assert torch.equal(g, wnt)
         assert not torch.equal(got[0], y)
+    if h < 240:
+        return
+    n = (h // 8) * (w // 8)
+    blk = np.zeros((n, 14), np.int32)
+    blk[:, db.K_DIR] = rng.choice([0, 1, 2, 3, 3], n)
+    for c in (db.K_MVX, db.K_MVY, db.K_MVX1, db.K_MVY1):
+        blk[:, c] = rng.choice([-5, -1, 0, 0, 0, 1, 2], n)
+    blk[:, db.K_REF] = rng.randint(0, 3, n)
+    blk[:, db.K_REF1] = rng.randint(0, 3, n)
+    blk[:, db.K_SZ] = rng.randint(0, 3, n)
+    blk[:, db.K_CBFY] = rng.choice([0, 0, 0, 1], n)
+    pblk = blk.copy()
+    pblk[:, db.K_DIR] = np.minimum(pblk[:, db.K_DIR], 1)
+    flat = [p.reshape(-1) for p in (y, u, v)]
+    states = (
+        (None, dict(cusz=_i32(blk[:, db.K_SZ], dev),
+                    cbfy=_i32(blk[:, db.K_CBFY], dev))),
+        (_i32(pblk, dev), dict(ref_pocs=[8, 6, 5, 4])),
+        (_i32(blk, dev), dict(ref_pocs=[8, 4], ref_pocs_l1=[4, 8],
+                              cb_qp_off=1, cr_qp_off=-1)))
+    for b, kw in states:
+        for bd in (8, 10):
+            planes = [p << (bd - 8) for p in flat]
+            before = kernels.COUNTS["deblock"]
+            got = _launched("deblock", lambda: db.deblock_state(
+                *planes, b, 32, bd, h=h, w=w, **kw))
+            assert kernels.COUNTS["deblock"] == before + 1
+            want = db.deblock_state_plain(*planes, b, 32, bd, h=h, w=w, **kw)
+            for g, wnt in zip(got, want):
+                assert torch.equal(g, wnt)
 
 
 @pytest.mark.parametrize("h,w,ctu", [(64, 64, 32), (48, 80, 64),
@@ -873,7 +908,8 @@ def test_amvp_rd_kernel(dev, B):
         _same(got[5], want[5])
 
 
-@pytest.mark.parametrize("h,w", [(240, 416), (56, 64), (8, 16)])
+@pytest.mark.parametrize("h,w", [(240, 416), (56, 64), (8, 16),
+                                 (1080, 1920)])
 def test_mv_regularize_kernel(dev, h, w):
     from hmtpu_torch.search import me
 
@@ -887,12 +923,15 @@ def test_mv_regularize_kernel(dev, h, w):
     mvy = _i32(rng.choice([-1, 0, 4], (bh, bw)), dev)
     ridx = _i32(rng.randint(0, 3, (bh, bw)), dev)
     lam = torch.tensor(6.25, device=dev)
-    before = kernels.COUNTS["mv_regularize"]
-    got = me.regularize_mv_field(refs, org, mvx, mvy, ridx, lam, iters=3)
-    torch.cuda.synchronize()
-    assert kernels.COUNTS["mv_regularize"] == before + 3
-    _same(got, me.regularize_mv_field_plain(refs, org, mvx, mvy, ridx, lam,
-                                            iters=3))
+    for iters in (1, 2, 3, 4):
+        before = kernels.COUNTS["mv_regularize"]
+        got = me.regularize_mv_field(refs, org, mvx, mvy, ridx, lam,
+                                     iters=iters)
+        torch.cuda.synchronize()
+        # every round in one launch
+        assert kernels.COUNTS["mv_regularize"] == before + 1
+        _same(got, me.regularize_mv_field_plain(refs, org, mvx, mvy, ridx,
+                                                lam, iters=iters))
 
 
 @pytest.mark.parametrize("B", [1, 3, 257, 1560])
