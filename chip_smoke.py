@@ -12,9 +12,10 @@ when every phase passed):
                K23's and K21's phase-clock builds
                (scripts/pwalk_phases.py, iwalk_phases.py); the registers,
                stack frame and spills ptxas gives K10, K22, the walkers
-               K21, K23 and K26, K5's and K13's kernels, K3's two forms
-               and K19 (with the spills of every function of the source;
-               K3 and K19 must have no stack frame and no spills);
+               K21, K23 and K26, K5's and K13's kernels, K3's two forms,
+               K19, K9's two kernels and K24 (with the spills of every
+               function of the source; K3, K19, K9 and K24 must have no
+               stack frame and no spills);
   3. kernels   each kernel (K1, K3-K16 and K1's transform-skip mode)
                against its plain PyTorch version on seeded inputs at the
                shapes the main paths give it (K1 in its level forms, a
@@ -93,7 +94,16 @@ when every phase passed):
                K19 (every round in one launch) on ldp's field (timed),
                seeded 416x240, 56x64 and 8x16 fields (1 to 4 rounds)
                checked, and a seeded 1920x1080 field
-               (`mv_regularize:1080p`).  Each
+               (`mv_regularize:1080p`); K9's one-call form at the P
+               pass's 8 level (timed), its 16 and 32 levels and 10 bits
+               checked, its levels form as the extraction calls it over a
+               seeded 1920x1080 plane (32,400 8x8 blocks, timed,
+               `frac_refine:1080p`; the one-call form on the same blocks
+               checked), and after phase 11 on the captured calls of the
+               DCT-IF passes (ldp_dctif's P pass, its three levels in one
+               launch, timed, `frac_refine:levels`; every ra10 B pass and
+               the small RA encodes' checked); K24's grids form on ldp's
+               P frame's three grids (timed, `tmvp_grid:levels`).  Each
                is timed
                with CUDA events, beside its plain version, the bound for
                its bytes and operations, and a library yardstick where one
@@ -112,7 +122,8 @@ when every phase passed):
                launches a frame (K4, K25, K4: 3), K7's a P pass (at
                most 6: a level's hypotheses and its gate, one launch
                each), K8's (1: the gate's three levels), K6's (1: the
-               three levels' offsets) and K1's (at
+               three levels' offsets), K24's (1: the three grids) and
+               K1's (at
                most 3 a direction: a level's three planes a launch), K3's
                (1 a picture: its state form) and K19's (1 a P pass: every
                round in one launch) from
@@ -125,7 +136,8 @@ when every phase passed):
                (--SubPel=dctif; BASELINE config 2) through the port's CLI
                in process, QP 22, 2 frames of the same clip at 416x240,
                counts reset before and read after: K1, K3-K5, K7, K9,
-               K10, K19, K21-K25 and K1-TS must be > 0, K8 0;
+               K10, K19, K21-K25 and K1-TS must be > 0, K8 0, K9 once a
+               P pass (the three levels in one launch);
   6. ra10      the random-access Main10 cfg
                (cfg/encoder_randomaccess_main10.cfg as shipped: QP 32,
                10 bits, GOP 8 of B pictures, search range 64, DCT-IF,
@@ -134,7 +146,7 @@ when every phase passed):
                the IDR and one whole GOP, coded as POC 0, 8, 4, 2, 1, 3,
                6, 5, 7.  Counts reset before and read after: K1, K3-K5,
                K7, K9, K10, K21, K22, K25 and K26 must be > 0 (K8 0),
-               K3 once a picture, K26 once per
+               K3 once a picture, K9 once a B pass, K26 once per
                z-scan level of each B frame (the B slices' z-scan, with
                K2, K11, K12, K17, K18 and K20's arithmetic inside it); 8 B
                slices, and bi-predicted CUs (DBG_COUNTERS["ra_bi_cus"])
@@ -205,8 +217,9 @@ when every phase passed):
                encode none of them and no B8 flag helper; the same
                two encodes, untimed ldp_dctif, 64x56 and 64x64 LDP and RA
                encodes, an AI encode of the ai phase's frame and a 64x64
-               AI frame capture the inputs of K2, K3's state form,
-               K17-K21, K23, K25 and K26 (Capture), which phase 3's last
+               AI frame capture the inputs of K2, K3's state form, K9's
+               levels form, K17-K21, K23, K25 and K26 (Capture), which
+               phase 3's last
                checks use; none of
                them may call iframe_pass_plain or rmd_plain.
 
@@ -424,14 +437,16 @@ DEVICE_FN = {
     # the one-call form, then the NN-FME gate's levels
     "satd8": ("satd_kernel", "satd_gate_kernel"),
     "transform_skip": "transform_skip_kernel",
-    "frac_refine": "frac_kernel", "rdoq": "rdoq_kernel",
+    # the one-call form, then the levels form
+    "frac_refine": ("frac_kernel", "frac_levels_kernel"),
+    "rdoq": "rdoq_kernel",
     "mc_dctif_i": "mc_kernel", "bi_pred": "bi_pred_kernel",
     "me_sad1": ("me1_kernel", "me1_out_kernel"), "adam": "adam_kernel",
     "nnfme_fwd": "nnfme_fwd_kernel", "nnfme_bwd": "nnfme_bwd_kernel",
     "merge_cands": "merge_kernel", "amvp_rd": "amvp_kernel",
     "mv_regularize": "reg_kernel", "mpm_bits": "mpm_kernel",
     "i_walk": "iwalk_kernel", "i_rmd": "rmd_kernel",
-    "p_walk": "pwalk_kernel", "tmvp_grid": "tmvp_kernel",
+    "p_walk": "pwalk_kernel", "tmvp_grid": "tmvp_grids_kernel",
     "sao_choose": "sao_choose_kernel", "b_walk": "bwalk_kernel",
 }
 
@@ -983,38 +998,188 @@ def satd_gate_case(dev, rng, org):
             2 * tiles * (64 + 2 * 8 * 24 + 128) + nbs, None)
 
 
-def frac_work(refs, ridx, xs, ys, org, mvx, mvy, n):
-    """(distinct reference samples, operations) of HM's two-stage search
-    on these blocks.  Stage 1's half-pel winners come from the plain
-    version, so stage 2's filter work is what this data needs: per
-    candidate K7's multiply-adds (mc_work), and per 8x8 tile of each
-    SATD 64 differences, 2 x 8 rows of 24 butterfly operations, 64
-    absolute values and sums."""
+def frac_keys(refs, ridx, xs, ys, org, mvx, mvy, n):
+    """The work of HM's two-stage search on these blocks, as keys of what
+    it must read and compute: (the clamped (n + 8)^2 reference patches'
+    samples, the filter outputs, SATD operations).  Stage 1's half-pel
+    winners come from the plain version, so stage 2's candidates are this
+    data's.  A filter output is one sum of 8 taps, keyed by what it
+    equals whichever candidate reads it: a horizontal sum by (reference,
+    row, column, phase), read by every candidate with a horizontal phase
+    over its n rows, or its n + 7 where its vertical phase is non-zero;
+    a vertical one by (reference, position, both phases), one for each
+    sample of a candidate with a vertical phase.  So a stage's candidates
+    share what HM's half- and quarter-pel planes (xExtDIFUpSamplingH/Q)
+    share.  Per 8x8 tile of each distinct candidate (17 a block: stage
+    2's centre is stage 1's winner) its SATD takes 64 differences, 2 x 8
+    rows of 24 butterfly operations, 64 absolute values and sums."""
     from hmtpu_torch.ops import interp
     from hmtpu_torch.search import me
 
     _, h, w = refs.shape
-    k = torch.arange(n + 8, device=refs.device)[None, :]
+    dev = refs.device
+    r = ridx.to(torch.int64)
+    k = torch.arange(n + 8, device=dev)[None, :]
     py = torch.clamp(ys[:, None] + mvy[:, None] - 4 + k, 0, h - 1)
     px = torch.clamp(xs[:, None] + mvx[:, None] - 4 + k, 0, w - 1)
-    key = ((ridx.to(torch.int64)[:, None, None] * h + py[:, :, None]) * w
-           + px[:, None, :])
-    samples = int(torch.unique(key).numel())
-    offs = torch.as_tensor(me._FRAC_OFFS, device=refs.device)
-    cx, cy = mvx * 4, mvy * 4
-    ops = 0
+    patch = ((r[:, None, None] * h + py[:, :, None]) * w
+             + px[:, None, :]).reshape(-1)
+    # an output's key: reference, row and column (each clamped to where
+    # the outputs begin to repeat, offset by 4), horizontal and vertical
+    # phases; a horizontal sum has vertical phase 0
+    key = lambda row, col, fx, fy: ((((r.view(-1, 1, 1, 1) * (h + 7) + row
+                                       + 4) * (w + 7) + col + 4) * 4 + fx)
+                                    * 4 + fy)
+    i = torch.arange(n, device=dev)
+    t = torch.arange(-3, n + 4, device=dev)
+    offs = torch.as_tensor(me._FRAC_OFFS, device=dev).to(torch.int64)
+    cx, cy = mvx.to(torch.int64) * 4, mvy.to(torch.int64) * 4
+    outs = []
     for step in (2, 1):
-        costs = []
-        for dy, dx in me._FRAC_OFFS:
-            qx, qy = cx + int(dx) * step, cy + int(dy) * step
-            ops += 2 * mc_work(refs, ridx, xs, ys, qx, qy, n, False)[1]
-            costs.append(me.satd_batch_plain(org, interp.mc_batch_plain(
-                refs, ridx, xs, ys, qx, qy, n, n, False), n))
-        best = torch.stack(costs, 1).argmin(1)
-        cx = cx + (offs[best, 1] * step).to(cx.dtype)
-        cy = cy + (offs[best, 0] * step).to(cy.dtype)
-    ops += 18 * xs.numel() * (n // 8) ** 2 * (64 + 2 * 8 * 24 + 128)
-    return samples, ops
+        qx = cx[:, None] + offs[None, :, 1] * step
+        qy = cy[:, None] + offs[None, :, 0] * step
+        fx, fy = (qx & 3)[..., None, None], (qy & 3)[..., None, None]
+        ix = xs.to(torch.int64)[:, None] + (qx >> 2)
+        iy = ys.to(torch.int64)[:, None] + (qy >> 2)
+        # horizontal sums: rows (clamped, as the filter reads them) n + 7
+        # under a vertical phase, else n; columns clamped where all 8
+        # taps read the first or the last column
+        rows = torch.clamp(iy[..., None] + t, 0, h - 1)[..., :, None]
+        cols = torch.clamp(ix[..., None] + i, -4, w + 2)[..., None, :]
+        use = (fx != 0) & ((fy != 0) | ((t >= 0) & (t < n))[:, None])
+        hk = key(rows, cols, fx, torch.zeros_like(fy))
+        shape = (*qx.shape, n + 7, n)
+        outs.append(hk.expand(shape)[use.expand(shape)])
+        # vertical sums: each sample of a candidate with a vertical phase
+        rows = torch.clamp(iy[..., None] + i, -4, h + 2)[..., :, None]
+        cols = torch.where(fx[..., 0] != 0,
+                           torch.clamp(ix[..., None] + i, -4, w + 2),
+                           torch.clamp(ix[..., None] + i, 0, w - 1))
+        shape = (*qx.shape, n, n)
+        vk = key(rows, cols[..., None, :], fx, fy)
+        outs.append(vk.expand(shape)[(fy != 0).expand(shape)])
+        if step == 2:
+            costs = [me.satd_batch_plain(org, interp.mc_batch_plain(
+                refs, ridx, xs, ys, qx[:, c].to(mvx.dtype),
+                qy[:, c].to(mvy.dtype), n, n, False), n) for c in range(9)]
+            best = torch.stack(costs, 1).argmin(1)
+            cx = cx + offs[best, 1] * step
+            cy = cy + offs[best, 0] * step
+    satd = 17 * xs.numel() * (n // 8) ** 2 * (64 + 2 * 8 * 24 + 128)
+    return patch, torch.cat(outs), satd
+
+
+def frac_work(refs, ridx, xs, ys, org, mvx, mvy, n):
+    """(distinct reference samples, operations) of HM's two-stage search
+    on these blocks: `frac_keys`, a multiply and an add a filter tap."""
+    patch, outs, satd = frac_keys(refs, ridx, xs, ys, org, mvx, mvy, n)
+    return int(patch.unique().numel()), 16 * int(outs.unique().numel()) + satd
+
+
+def frac_levels_work(refs, org, levels):
+    """(bytes, operations) of K9's levels form on these levels, each
+    sample and filter output counted once over the three (they share the
+    reference): `frac_keys`' distinct reference samples and filter
+    outputs, the original's samples (read in place, clamped to the
+    plane), three int32 inputs (MVs, reference) and two outputs a
+    block."""
+    from hmtpu_torch.search import me
+
+    h, w = org.shape
+    dev = org.device
+    patch, outs, pix = [], [], []
+    nbytes = ops = 0
+    for mx, my, rr, n in levels:
+        gh, gw = mx.shape
+        q = torch.arange(gh * gw, device=dev)
+        xs, ys = (q % gw) * n, (q // gw) * n
+        p, o, satd = frac_keys(refs, rr.reshape(-1), xs, ys,
+                               me._grid_blocks(org, n, gw, gh * gw),
+                               mx.reshape(-1), my.reshape(-1), n)
+        patch.append(p)
+        outs.append(o)
+        rows = torch.clamp(torch.arange(gh * n, device=dev), max=h - 1)
+        cols = torch.clamp(torch.arange(gw * n, device=dev), max=w - 1)
+        pix.append((rows[:, None] * w + cols[None, :]).reshape(-1))
+        nbytes += gh * gw * 5 * 4
+        ops += satd
+    nbytes += 4 * (torch.cat(patch).unique().numel()
+                   + torch.cat(pix).unique().numel())
+    ops += 16 * torch.cat(outs).unique().numel()
+    return int(nbytes), int(ops)
+
+
+def frac_hd_case(dev, rng):
+    """K9 as the extraction calls it at 1920x1080: the levels form's 8
+    level alone over a seeded plane (32,400 blocks, one reference, integer
+    MVs of +-64), timed, the row `frac_refine:1080p`; the one-call form on
+    the same blocks checked."""
+    from hmtpu_torch.search import me
+
+    t32 = lambda a: torch.as_tensor(np.asarray(a, np.int32)).to(dev)
+    clip = hd_clip()
+    ref, org = t32(clip[0][0]), t32(clip[1][0])
+    bh, bw = HD_H // 8, HD_W // 8
+    mvx, mvy = (t32(rng.randint(-64, 65, (bh, bw))) for _ in range(2))
+    zero = torch.zeros_like(mvx)
+    levels = [(mvx, mvy, zero, 8)]
+    q = torch.arange(bh * bw, device=dev)
+    blocks = me._grid_blocks(org, 8, bw, bh * bw).contiguous()
+    xs, ys = (q % bw) * 8, (q // bw) * 8
+    nbytes, ops = frac_levels_work(ref[None], org, levels)
+    return ("frac_refine:1080p",
+            lambda: me.frac_refine_levels(ref, org, levels, 8),
+            lambda: me.frac_refine_levels_plain(ref, org, levels, 8),
+            nbytes, ops, None,
+            [(lambda: me.frac_refine_batch(ref, xs, ys, blocks,
+                                           mvx.reshape(-1), mvy.reshape(-1),
+                                           8, 8),
+              lambda: me.frac_refine_batch_plain(
+                  ref, xs, ys, blocks, mvx.reshape(-1), mvy.reshape(-1), 8,
+                  8))])
+
+
+def frac_form(a, k) -> str:
+    """The form of a `frac_refine_levels` call: the plane's size and bit
+    depth, and the call's number among those of that size and depth (each
+    B pass of an encode its own)."""
+    h, w = a[1].shape
+    bd = a[3] if len(a) > 3 else k.get("bd", 8)
+    key = f"{w}x{h} {bd} bits"
+    _FRAC_CALLS[key] = _FRAC_CALLS.get(key, 0) + 1
+    return f"{key} call {_FRAC_CALLS[key]}"
+
+
+_FRAC_CALLS: dict = {}
+
+
+def frac_levels_cases(got):
+    """K9's levels form on the captured calls of the passes: ldp_dctif's
+    P pass (its three levels in one launch, timed, `frac_refine:levels`),
+    every B pass of the ra10 encode (10 bits) and the small RA encodes'
+    checked: check_kernels' cases."""
+    from hmtpu_torch.search import me
+
+    forms = sorted(f for k_, f in got if k_ == "frac_refine")
+    p_form = f"{W}x{H} 8 bits call 1"
+    b_forms = [f for f in forms if f.startswith(f"{W}x{H} 10 bits")]
+    if p_form not in forms or len(b_forms) != 8:
+        fail(f"capture: K9's levels forms {forms}: no ldp_dctif P pass, or "
+             f"not 8 ra10 B passes")
+    print(f"capture: frac_refine levels forms {forms}", flush=True)
+
+    def call(fn, form):
+        _, a, k = got[("frac_refine", form)]
+        return lambda: fn(*a, **k)
+
+    _, a, k = got[("frac_refine", p_form)]
+    nbytes, ops = frac_levels_work(a[0], a[1], a[2])
+    more = [(call(me.frac_refine_levels, f),
+             call(me.frac_refine_levels_plain, f))
+            for f in forms if f != p_form]
+    return [("frac_refine:levels", call(me.frac_refine_levels, p_form),
+             call(me.frac_refine_levels_plain, p_form), nbytes, ops, None,
+             more)]
 
 
 def rdoq_work(c, lev, qp, log2):
@@ -1090,11 +1255,18 @@ def slice3_kernel_cases(dev, rng):
     args, org, mv, kfn, pfn = frac_case(8)
     nb = org.shape[0]
     samples, ops = frac_work(refs, args[0], args[1], args[2], org, *mv, 8)
+    # and at 10 bits (the clip << 2, its references' low bits set)
+    refs10, org10 = refs << 2 | 3, org << 2
+    more = [frac_case(n)[3:] for n in (16, 32)] + [
+        (lambda: me.frac_refine_batch(refs10, args[1], args[2], org10, *mv,
+                                      8, 10, ridx=args[0]),
+         lambda: me.frac_refine_batch_plain(refs10, args[1], args[2], org10,
+                                            *mv, 8, 10, ridx=args[0]))]
     cases.append(("frac_refine", kfn, pfn,
                   # the distinct reference samples, the org blocks, the
                   # five index / MV arrays in and the two MV arrays out
-                  (samples + nb * 64 + 7 * nb) * 4, ops, None,
-                  [frac_case(n)[3:] for n in (16, 32)]))
+                  (samples + nb * 64 + 7 * nb) * 4, ops, None, more))
+    cases.append(frac_hd_case(dev, rng))
 
     # K10: real residuals (the clip's frame 1 against frame 0, no
     # motion) through the transform (and, at 4x4, transform skip), the
@@ -1363,6 +1535,7 @@ PLAIN_FUNCS = (
     ("K23 / K26 plain", "hmtpu_torch.encoder.pframe_dev",
      "wavefront_pass_plain"),
     ("K24 plain", "hmtpu_torch.encoder.pframe_dev", "t_level_plain"),
+    ("K24 plain", "hmtpu_torch.encoder.pframe_dev", "tmvp_grids_plain"),
     ("K25 plain", "hmtpu_torch.ops.sao", "_choose_params_plain"),
     # and of K1's level forms and K6's level form
     ("K1 plain", "hmtpu_torch.ops.transform", "fwd_level_plain"),
@@ -1371,6 +1544,9 @@ PLAIN_FUNCS = (
     # and of K8's gate form and one-call form
     ("K8 plain", "hmtpu_torch.search.me", "satd_gate_levels_plain"),
     ("K8 plain", "hmtpu_torch.search.me", "satd_batch_plain"),
+    # and of K9's levels form and one-call form
+    ("K9 plain", "hmtpu_torch.search.me", "frac_refine_levels_plain"),
+    ("K9 plain", "hmtpu_torch.search.me", "frac_refine_batch_plain"),
 ) + tuple(
     # B8's flag helpers (hmtpu/ops/ratebits.py:305-450), as the passes
     # import them (mvd, ref_idx, inter_dir and the MPM pricing are K18's
@@ -1403,6 +1579,7 @@ def tensor_bytes(x) -> int:
 # as (item, module, function): none may run on the card's path
 TRAIN_PLAIN_FUNCS = (
     ("K13", "hmtpu_torch.search.me", "integer_me_plain"),
+    ("K9", "hmtpu_torch.search.me", "frac_refine_levels_plain"),
     ("K9", "hmtpu_torch.search.me", "frac_refine_batch_plain"),
     ("K14", "hmtpu_torch.models.train", "loss_fwd_plain"),
     ("K15", "hmtpu_torch.models.train", "loss_bwd_plain"),
@@ -1493,6 +1670,10 @@ CAPTURED = (
      "hmtpu_torch.encoder.pframe_dev", "wavefront_pass",
      lambda a, k: 1 + (int(k["col"][2].sum())
                        if k.get("col") is not None else 0)),
+    # K9's levels form: every call its own form (the P / B passes of the
+    # DCT-IF encodes)
+    ("frac_refine", frac_form, "hmtpu_torch.search.me",
+     "frac_refine_levels", lambda a, k: 1),
     # K25: the SAO choice of a frame's three planes
     ("sao_choose", lambda a, k: f"{a[6]}x{a[5]} CTUs",
      "hmtpu_torch.ops.sao", "choose_params", lambda a, k: 1),
@@ -2037,7 +2218,9 @@ def bwalk_cases(got):
 def p_kernel_cases(got, dev):
     """K24 on the three CU grids of ldp's P frame (timed on the 8 grid;
     its collocated field is the I frame's, which has no motion, so the
-    grids are checked again on seeded fields at the same shapes), K25 on
+    grids are checked again on seeded fields at the same shapes) and in
+    its grids form (the three grids in one launch, timed,
+    `tmvp_grid:levels`; the seeded field checked), K25 on
     the ldp frames' statistics (luma and the Cb / Cr pair): check_kernels'
     cases."""
     from hmtpu_torch.encoder import pframe_dev as pf
@@ -2073,6 +2256,20 @@ def p_kernel_cases(got, dev):
               grid(pf.tmvp_grid_plain, col, *grids[0]),
               4 * (4 * bw * bh + nb + pocs.numel() + 5 * nb), 40 * nb, None,
               more)]
+    # the grids form: the pass's three grids in one launch, as
+    # pframe_walk calls it (timed), and on the seeded field (checked)
+    def grids_of(fn, c):
+        gl = [(n_, aref_, gw_, gh_) for n_, aref_, gw_, gh_ in grids]
+        return lambda: fn(c, col_poc if c is col else a[10] - 1, gl, pocs,
+                          a[10], w=w, h=h, log2_ctu=6)
+
+    nall = sum(g[2] * g[3] for g in grids)
+    cases.append(("tmvp_grid:levels", grids_of(pf.tmvp_grids, col),
+                  grids_of(pf.tmvp_grids_plain, col),
+                  4 * (4 * bw * bh + nall + pocs.numel() + 5 * nall),
+                  40 * nall, None,
+                  [(grids_of(pf.tmvp_grids, seeded),
+                    grids_of(pf.tmvp_grids_plain, seeded))]))
     # K25: per CTU three rows of 96 ints in, 21 out; per plane 48 offset
     # choices of about 12 operations, 29 band runs of 3 and the picks
     if ("sao_choose", f"{-(-w // 64)}x{-(-h // 64)} CTUs") not in got:
@@ -2141,7 +2338,7 @@ def check_walk(cases, rows, time_all=True) -> None:
 
 # the kernels whose ptxas figures the build prints: (kernel, source,
 # kernel function): K1's level forms, K6, K10, K22, the walkers, K5,
-# K13, K14, K15, K4, K7 and K11
+# K13, K14, K15, K4, K7, K11, K8, K25, K3, K19, K9 and K24
 PTXAS = (("K1 fwd_level", "transform", "fwd_level_kernel"),
          ("K1 inv_level", "transform", "inv_level_kernel"),
          ("K6 nnfme", "nnfme", "nnfme_kernel"),
@@ -2167,10 +2364,17 @@ PTXAS = (("K1 fwd_level", "transform", "fwd_level_kernel"),
          ("K25 sao_choose", "sao_choose", "sao_choose_kernel"),
          ("K3 deblock, state form", "deblock", "deblock_kernelIN2db8StateSrc"),
          ("K3 deblock, map form", "deblock", "deblock_kernelIN2db6MapSrc"),
-         ("K19 mv_regularize", "mv_regularize", "reg_kernel"))
+         ("K19 mv_regularize", "mv_regularize", "reg_kernel"),
+         ("K9 frac_refine, 8x8", "frac_refine", "frac_kernelILi8E"),
+         ("K9 frac_refine, 16x16", "frac_refine", "frac_kernelILi16E"),
+         ("K9 frac_refine, 32x32", "frac_refine", "frac_kernelILi32E"),
+         ("K9 frac_refine, levels", "frac_refine", "frac_levels_kernel"),
+         ("K24 tmvp_grid", "tmvp", "tmvp_grids_kernel"))
 # of those, the kernels that must build with no stack frame and no spills
 PTXAS_CLEAN = ("K3 deblock, state form", "K3 deblock, map form",
-               "K19 mv_regularize")
+               "K19 mv_regularize", "K9 frac_refine, 8x8",
+               "K9 frac_refine, 16x16", "K9 frac_refine, 32x32",
+               "K9 frac_refine, levels", "K24 tmvp_grid")
 
 
 def ptxas_figures(log: str, fn: str) -> str:
@@ -2520,11 +2724,12 @@ def main() -> None:
         fail(f"ldp: {counts['nnfme']} K6 and {k1} K1 launches (forward, "
              f"inverse) for {n_p} P passes")
     # K3 once a picture (its state form), K19 once a P pass (every
-    # round in one launch)
-    if counts["deblock"] != LDP_FRAMES or counts["mv_regularize"] != n_p:
+    # round in one launch), K24 once a P pass (the three grids)
+    if counts["deblock"] != LDP_FRAMES or counts["mv_regularize"] != n_p \
+            or counts["tmvp_grid"] != n_p:
         fail(f"ldp: {counts['deblock']} K3 launches for {LDP_FRAMES} "
-             f"pictures, {counts['mv_regularize']} K19 launches for {n_p} "
-             f"P passes")
+             f"pictures, {counts['mv_regularize']} K19 and "
+             f"{counts['tmvp_grid']} K24 launches for {n_p} P passes")
     if [r.slice_type for r in results] != ["I"] + ["P"] * (LDP_FRAMES - 1):
         fail(f"ldp: slice types {[r.slice_type for r in results]}")
     kbps = sum(r.bits for r in results) / LDP_FRAMES * 50 / 1000.0
@@ -2555,6 +2760,10 @@ def main() -> None:
         dctif_names, kernels)
     for name in ("frac_refine", "transform_skip"):
         rows[name]["launches"] = d_counts[name]
+    # K9 once a P pass (the three levels in one launch)
+    if d_counts["frac_refine"] != n_p:
+        fail(f"ldp_dctif: {d_counts['frac_refine']} K9 launches for {n_p} "
+             f"P passes")
     if d_counts["satd8"]:
         fail(f"ldp_dctif: {d_counts['satd8']} K8 launches (the DCT-IF "
              f"search has no NN-FME gate)")
@@ -2625,6 +2834,14 @@ def main() -> None:
     if r_counts["deblock"] != RA_FRAMES:
         fail(f"ra10: {r_counts['deblock']} K3 launches for {RA_FRAMES} "
              f"pictures")
+    # K9 once a B pass (the three levels in one launch)
+    if r_counts["frac_refine"] != RA_FRAMES - 1:
+        fail(f"ra10: {r_counts['frac_refine']} K9 launches for "
+             f"{RA_FRAMES - 1} B passes")
+    print(f"kernels K9, K24 launches: ldp_dctif K9 {d_counts['frac_refine']}"
+          f" ({n_p} P pass), ra10 K9 {r_counts['frac_refine']} "
+          f"({RA_FRAMES - 1} B passes); ldp K24 {counts['tmvp_grid']} ({n_p} "
+          f"P pass)", flush=True)
     k1 = lambda c: (f"K6 {c['nnfme']}, K1 forward "
                     f"{c['int_transform_fwd']} and inverse "
                     f"{c['int_transform_inv']}")
@@ -2768,8 +2985,9 @@ def main() -> None:
             secs.append(time.time() - t0)
         return secs
 
-    hd_secs, _, hd_util = run_counted("hd_extract", hd_run,
-                                      ["me_sad1", "frac_refine"], kernels)
+    hd_secs, hd_counts, hd_util = run_counted(
+        "hd_extract", hd_run, ["me_sad1", "frac_refine"], kernels)
+    rows["frac_refine:1080p"]["launches"] = hd_counts["frac_refine"]
     print(f"hd_extract: {HD_W}x{HD_H}, QP22, SR{HD_SR}, {HD_FRAMES} frames, "
           f"{(HD_W // 8) * (HD_H // 8)} records a pair: seconds per frame "
           f"pair " + ", ".join(f"{t:.4f}" for t in hd_secs), flush=True)
@@ -2874,7 +3092,8 @@ def main() -> None:
             fail(f"plain versions of K1, K6, K8 or K23-K25 ran on the ldp "
                  f"path: {bad}")
         print("plain: no call of wavefront_pass_plain, t_level_plain, "
-              "_choose_params_plain, fwd_level_plain, inv_level_plain, "
+              "tmvp_grids_plain, _choose_params_plain, fwd_level_plain, "
+              "inv_level_plain, "
               "predict_offsets_levels_plain, satd_gate_levels_plain or "
               "satd_batch_plain in the untimed LDP encode", flush=True)
         # and K23's inputs on ldp_dctif's P frame (TS), a 64x56 frame
@@ -2932,6 +3151,10 @@ def main() -> None:
         for name in rows:
             if kernel_of(name) in ("p_walk", "tmvp_grid", "sao_choose"):
                 rows[name]["launches"] = counts[kernel_of(name)]
+        # K9's levels form on ldp_dctif's P pass and the RA B passes; its
+        # launches are ldp_dctif's
+        check_kernels(frac_levels_cases(cap.got), rows)
+        rows["frac_refine:levels"]["launches"] = d_counts["frac_refine"]
         rows["b_walk"]["launches"] = r_counts["b_walk"]
         print("kernels K23-K26 launches: " + "; ".join(
             f"{name} ldp {counts[name]}, ldp_dctif {d_counts[name]}, ra10 "

@@ -26,12 +26,12 @@
 // multiple of W), each holding one lane's value.  On the card a
 // `Lanes<T, W>` is the thread's own register, HM_LANES(j, W) runs its
 // body once as lane j, and `ballot`, `lane_get`, `lane_xor`, `lane_sum`,
-// `lane_or` and `lane_argmin` are warp votes, shuffles and reductions
-// over the set's mask.  On the host one thread holds all W values and
-// HM_LANES loops over them, in order or (lane_reverse) last lane first,
-// so the CPU tests can show that no lane reads what another lane of the
-// same loop writes; the helpers loop over the values and compute the
-// same thing.
+// `lane_or` and `lane_argmin` (float or int values) are warp votes,
+// shuffles and reductions over the set's mask.  On the host one thread
+// holds all W values and HM_LANES loops over them, in order or
+// (lane_reverse) last lane first, so the CPU tests can show that no lane
+// reads what another lane of the same loop writes; the helpers loop over
+// the values and compute the same thing.
 //
 // Phase clocks: a build with HM_PHASE_CLOCK (scripts/pwalk_phases.py,
 // iwalk_phases.py; never the encode path's) adds, on thread 0 of each
@@ -361,14 +361,14 @@ __device__ __forceinline__ unsigned lane_or(const Lanes<unsigned, W>& x) {
 }
 // the least (x, key) over the lanes, x first, then the lower key, to
 // every lane
-template <int W>
-__device__ __forceinline__ void lane_argmin(const Lanes<float, W>& x,
-                                            const Lanes<int, W>& key,
-                                            float& v, int& k) {
+template <class T, int W>
+__device__ __forceinline__ void lane_argmin(const Lanes<T, W>& x,
+                                            const Lanes<int, W>& key, T& v,
+                                            int& k) {
   v = x.v;
   k = key.v;
   for (int o = W >> 1; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(lane_mask<W>(), v, o, W);
+    const T ov = __shfl_xor_sync(lane_mask<W>(), v, o, W);
     const int ok = __shfl_xor_sync(lane_mask<W>(), k, o, W);
     if (ov < v || (ov == v && ok < k)) {
       v = ov;
@@ -416,9 +416,9 @@ inline unsigned lane_or(const Lanes<unsigned, W>& x) {
   for (int j = 0; j < W; ++j) s |= x[j];
   return s;
 }
-template <int W>
-inline void lane_argmin(const Lanes<float, W>& x, const Lanes<int, W>& key,
-                        float& v, int& k) {
+template <class T, int W>
+inline void lane_argmin(const Lanes<T, W>& x, const Lanes<int, W>& key, T& v,
+                        int& k) {
   v = x[0];
   k = key[0];
   for (int j = 1; j < W; ++j)

@@ -9,7 +9,8 @@
 // to the block's own reference (AMVP), tb and td clipped to [-128, 127]
 // and the MV kept as it is where td == tb before the clip.  Integer only;
 // the shifts of negative values are arithmetic, the division truncates
-// (mvcand.cuh scale_mv).  Compiles as host C++ too.
+// (mvcand.cuh scale_mv).  `grids_lane` is the grids form's indexing: the
+// pass's three grids in one launch.  Compiles as host C++ too.
 #pragma once
 
 #include "hm_port.cuh"
@@ -66,5 +67,35 @@ HM_FN void tmvp_lane(const Args& a, int i) {
   a.out[3 * P + i] = ax;
   a.out[4 * P + i] = ay;
 }
+
+// the grids form: up to three grids of a pass (the 8, 16 and padded 32
+// grids), their blocks one after another, each grid's output its own
+// (5, gw * gh) rows
+struct Grids {
+  Args g[3];
+  int p[3];  // blocks a grid (0: no grid)
+};
+
+// block i of the grids form; the grid by comparisons (no dynamic index
+// into the argument)
+HM_FN void grids_lane(const Grids& a, int i) {
+  if (i < a.p[0]) {
+    tmvp_lane(a.g[0], i);
+  } else if ((i -= a.p[0]) < a.p[1]) {
+    tmvp_lane(a.g[1], i);
+  } else if ((i -= a.p[1]) < a.p[2]) {
+    tmvp_lane(a.g[2], i);
+  }
+}
+
+#if !defined(__CUDACC__)
+// the grids form on one host thread: its blocks in order, or
+// (hm::lane_reverse) last first
+inline void grids_host(const Grids& a) {
+  const int total = a.p[0] + a.p[1] + a.p[2];
+  for (int k = 0; k < total; ++k)
+    grids_lane(a, hm::lane_reverse ? total - 1 - k : k);
+}
+#endif
 
 }  // namespace tmvp

@@ -22,9 +22,9 @@ CABAC engine.
            bits; per 16x16 and 32x32 region one larger inter CU trial that
            overwrites where it wins.  On the card a P slice walks them in
            K23 (`pframe_walk`: one launch per level, the temporal
-           candidates of each CU grid from K24 before it), a B slice in
-           K26; the CPU runs the plain version (`wavefront_pass_plain`: a
-           Python loop over the levels);
+           candidates of the CU grids from one K24 launch before it), a
+           B slice in K26; the CPU runs the plain version
+           (`wavefront_pass_plain`: a Python loop over the levels);
   filters  deblocking (K3) and SAO (K4's statistics and apply, K25's
            parameter choice).
 
@@ -36,8 +36,9 @@ reference: `argmin`, and a stable sort for the merge finalists.
 With the PPS's transform skip on, the 4x4 chroma TBs of 8x8 CUs are
 coded both ways and the cheaper kept (`_code_ts_sel`; the skip pair is
 K1's TS mode).  Sub-pel: NN-FME as above, HM's DCT-IF search (K9,
-`subpel="dctif"`), or none.  Every coding step (`_code`) prices its TBs
-in one K10 launch (RDOQ, dequantisation and the TB rate).
+`subpel="dctif"`: the three levels in one launch, `frac_refine_levels`),
+or none.  Every coding step (`_code`) prices its TBs in one K10 launch
+(RDOQ, dequantisation and the TB rate).
 
 B slices (random access): the references of both lists are deduped
 into one union stack (`l0map` / `l1map` index it per list); ME searches
@@ -451,6 +452,58 @@ def tmvp_grid(col, col_poc: int, n: int, aref, ref_pocs_t, cur_poc: int,
     return out
 
 
+def tmvp_grids_plain(col, col_poc: int, grids, ref_pocs_t, cur_poc: int,
+                     *, w: int, h: int, log2_ctu: int):
+    """Plain version of K24's grids form: `t_level_plain` per grid, each
+    stacked as `tmvp_grid_plain` stacks it."""
+    return [tmvp_grid_plain(col, col_poc, n, aref, ref_pocs_t, cur_poc,
+                            w=w, h=h, log2_ctu=log2_ctu, gw=gw, gh=gh)
+            for n, aref, gw, gh in grids]
+
+
+def tmvp_grids(col, col_poc: int, grids, ref_pocs_t, cur_poc: int, *,
+               w: int, h: int, log2_ctu: int):
+    """The temporal candidates of up to three CU grids of a P pass in one
+    call: grids [(n, aref, gw, gh)], each grid's searched references aref
+    (gw * gh,).  Returns a (5, gw * gh) int32 tensor a grid, as
+    `tmvp_grid`: K24 on CUDA tensors (one launch; the grids' rows one
+    after another in one output, so each is a contiguous view of it), the
+    plain version on CPU ones.  col's four fields are readied once."""
+    if not ref_pocs_t.is_cuda:
+        return tmvp_grids_plain(col, col_poc, grids, ref_pocs_t, cur_poc,
+                                w=w, h=h, log2_ctu=log2_ctu)
+    bw, bh = w // 8, h // 8
+    if not 1 <= len(grids) <= 3 or any(tuple(c.shape) != (bh, bw)
+                                       for c in col):
+        raise ValueError(f"tmvp_grids: 1-3 grids and ({bh}, {bw}) "
+                         f"collocated fields, got {len(grids)} grids, "
+                         f"{[tuple(c.shape) for c in col]}")
+    dev = ref_pocs_t.get_device()
+    cols = [kernels.ready(c) for c in col]
+    pocs = kernels.ready(ref_pocs_t)
+    ps = [gw * gh for _, _, gw, gh in grids]
+    out = torch.empty((5 * sum(ps),), dtype=torch.int32,
+                      device=ref_pocs_t.device)
+    arefs, geo = [], []
+    for (n, aref, gw, gh), p in zip(grids, ps):
+        if aref.numel() != p:
+            raise ValueError(f"tmvp_grids: a ({gh}, {gw}) grid of "
+                             f"references, got {tuple(aref.shape)}")
+        arefs.append(kernels.ready(aref.reshape(-1)))
+        geo += [n, gw, gh]
+    if any(t.get_device() != dev for t in cols + arefs):
+        raise ValueError("tmvp_grids: every tensor on the POCs' CUDA "
+                         "device")
+    pad = 3 - len(grids)
+    kernels.launch_checked(
+        "tmvp_grid", "hm_tmvp_grids", dev, *(c.data_ptr() for c in cols),
+        pocs.data_ptr(), out.data_ptr(), *(a.data_ptr() for a in arefs),
+        *(None,) * pad, len(grids), *geo, *(0,) * (3 * pad), w, h,
+        log2_ctu, int(cur_poc), int(col_poc), ref_pocs_t.numel())
+    return [o.view(5, p) for o, p in zip(out.split([5 * p for p in ps]),
+                                         ps)]
+
+
 def wavefront_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v,
                    mv_x, mv_y, mv_ref, ref_pocs, cur_poc: int,
                    mv16=None, mv32=None, qp: int = 32, qpc: int = 32,
@@ -458,8 +511,9 @@ def wavefront_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v,
                    mv_lx=None, ref_pocs_l1=None, **kw):
     """The P- or B-slice decision pass (arguments and result as
     `wavefront_pass_plain`): CUDA tensors run the walker (`pframe_walk`:
-    in a P slice K23 once per z-scan level and K24 per CU grid, in a B
-    slice K26 once per level), CPU tensors the plain pass."""
+    in a P slice K23 once per z-scan level after one K24 launch for the
+    CU grids, in a B slice K26 once per level), CPU tensors the plain
+    pass."""
     args = (org_y, org_u, org_v, refs_y, refs_u, refs_v, mv_x, mv_y, mv_ref,
             ref_pocs, cur_poc, mv16, mv32, qp, qpc, col, col_poc, cbflat,
             mv_lx, ref_pocs_l1)
@@ -1253,7 +1307,7 @@ def pframe_walk(org_y, org_u, org_v, refs_y, refs_u, refs_v, mv_x, mv_y,
     the whole frame: each grid's AMVP hypothesis (the block's searched MV
     predicted, from its list's reference in a B slice, and its residual
     coded), the open-loop intra mode of every 8x8 block (`rmd`) and, with
-    TMVP (P slices), each grid's temporal candidates (`tmvp_grid`); then
+    TMVP (P slices), the grids' temporal candidates (`tmvp_grids`); then
     `run_level(scratch, ptrs, ints, flts, level)` once per z-scan level
     of the geometry: K23 in a P slice, K26 in a B slice (num_ref_l1 > 0)
     by default; the CPU tests give it the host build of the lane code.
@@ -1326,15 +1380,17 @@ def pframe_walk(org_y, org_u, org_v, refs_y, refs_u, refs_v, mv_x, mv_y,
                      _blockify(org_v, 4)), with_ts=ts, lx=mv_lx)
     imode = rmd(org_y, i_static(w, h, log2_ctu, dev)["g8"], 8, 1, bd=bd,
                 lam_sqrt=lam_sqrt_, sis=False)[:, 0]
-    tg = lambda n, aref, **g: tmvp_grid(
-        col, col_poc, n, aref, ref_pocs_t, cur_poc, w=w, h=h,
-        log2_ctu=log2_ctu, **g) if tmvp else None
-    t8, t16, t32, h16, h32 = tg(8, mv_ref.reshape(-1)), None, None, {}, {}
+    gw, gh = bw // 2, bh // 2
+    qw, qh = (gw + 1) // 2, (gh + 1) // 2
+    # the grids' temporal candidates in one K24 launch
+    grids = [(8, mv_ref.reshape(-1), bw, bh)] + (
+        [(16, mv16[2].reshape(-1), gw, gh), (32, mv32[2].reshape(-1), qw, qh)]
+        if levels == 3 else [])
+    tt = tmvp_grids(col, col_poc, grids, ref_pocs_t, cur_poc, w=w, h=h,
+                    log2_ctu=log2_ctu) if tmvp else []
+    t8, t16, t32 = tt + [None] * (3 - len(tt))
+    h16, h32 = {}, {}
     if levels == 3:
-        gw, gh = bw // 2, bh // 2
-        qw, qh = (gw + 1) // 2, (gh + 1) // 2
-        t16 = tg(16, mv16[2].reshape(-1))
-        t32 = tg(32, mv32[2].reshape(-1), gw=qw, gh=qh)
         h16 = hypothesis(*mv16[:3], 16, gw, gh,
                          (_blockify(org_y, 16), _blockify(org_u, 8),
                           _blockify(org_v, 8)),
@@ -1424,7 +1480,7 @@ def full_pframe_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v, nn,
     reconstruction planes on the device for the DPB)."""
     from hmtpu_torch.models.nnfme import predict_offsets_levels
     from hmtpu_torch.search.me import (
-        frac_refine_batch,
+        frac_refine_levels,
         integer_me,
         integer_me_levels,
         regularize_mv_field,
@@ -1444,7 +1500,6 @@ def full_pframe_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v, nn,
     # SAO's lambda, on the device before the filters run
     lam_sao = _scalar(frame_lambdas(qp, qp, qp_factor)[0], dev) \
         if sao else None
-    ar = lambda n: torch.arange(n, device=dev)
 
     # (list, ref within the list, union index) of every searched ref
     ref_lists = [(0, r, u) for r, u in enumerate(
@@ -1537,18 +1592,11 @@ def full_pframe_pass(org_y, org_u, org_v, refs_y, refs_u, refs_v, nn,
                    for (gx, gy), (mx, _, _, _) in zip(
                        satd_gate_levels(org_y, gate), levels)]
     elif subpel == "dctif":
-        # HM's DCT-IF search (K9) a level; the 32 level refines the
-        # edge-padded org against the unpadded references, whose clamped
-        # reads are the edge replication
-        quarter = []
-        for mx, my, rr, n in levels:
-            gh_, gw_ = mx.shape
-            orgp = org_y if n < 32 else _edge_pad(org_y, qh0 * 32, qw0 * 32)
-            q = ar(gh_ * gw_)
-            gx, gy = frac_refine_batch(
-                refs_y, (q % gw_) * n, (q // gw_) * n, _blockify(orgp, n),
-                mx.reshape(-1), my.reshape(-1), n, bd, ridx=rr.reshape(-1))
-            quarter.append((gx.reshape(gh_, gw_), gy.reshape(gh_, gw_)))
+        # HM's DCT-IF search (K9): every level in one launch, the original
+        # read in place (the 32 level's rows and columns clamped to it: the
+        # edge replication), against the unpadded references, whose clamped
+        # reads are the edge replication too
+        quarter = frac_refine_levels(refs_y, org_y, levels, bd)
     else:
         quarter = [(mx * 4, my * 4) for mx, my, _, _ in levels]
 

@@ -99,8 +99,14 @@ SOURCES = {
         # output; (h, w, levels), then each level's (n, grid width, blocks)
         "hm_satd_gate": "p" "ppppp" "ppppp" "ppppp" "iii" "iiiiiiiii" "p",
     },
+    # the one-call form: refs, ridx, xs0, ys0, org, the MVs, out; (blocks,
+    # R, H, W, n, bit depth).  The levels form: refs, the original plane,
+    # each level's MVs, references and output; (R, H, W, plane h, w,
+    # levels, bit depth), then each level's (n, grid width, blocks)
     "frac_refine": {
-        "hm_frac_refine": "ppppppppp" "iiiiii" "p",
+        "hm_frac_refine": "pppppppp" "iiiiii" "p",
+        "hm_frac_levels": "pp" "pppp" "pppp" "pppp" "iiiiiii" "iiiiiiiii"
+                          "p",
     },
     "rdoq": {
         "hm_rdoq": "ppppppppp" "iiiiiiiiiiiii" "ff" "p",
@@ -134,8 +140,13 @@ SOURCES = {
     "pwalk": {
         "hm_p_walk": "p" "pipipi" "i" "p",
     },
+    # the collocated field, the references, the POCs, the output; (n, gw,
+    # gh, w, h, log2 CTU, POCs, R).  The grids form: the field, the POCs,
+    # the output, each grid's references; (grids, each grid's (n, gw,
+    # gh), w, h, log2 CTU, POCs, R)
     "tmvp": {
         "hm_tmvp_grid": "ppppppp" "iiiiiiiii" "p",
+        "hm_tmvp_grids": "pppppp" "ppp" "i" "iiiiiiiii" "iiiiii" "p",
     },
     "sao_choose": {
         "hm_sao_choose": "ppppp" "ii" "p",
@@ -167,7 +178,8 @@ KERNELS = {
                            "hmtpu/encoder/pframe_dev.py:292,440"),
     "satd8": ("satd", "hmtpu/search/me.py:159,"
                       "hmtpu/encoder/pframe_dev.py:1545-1560"),
-    "frac_refine": ("frac_refine", "hmtpu/search/me.py:249"),
+    "frac_refine": ("frac_refine", "hmtpu/search/me.py:249,"
+                                   "hmtpu/encoder/pframe_dev.py:1667-1745"),
     "rdoq": ("rdoq", "hmtpu/ops/rdoq.py:43,hmtpu/ops/ratebits.py:161,"
                      "hmtpu/ops/quant.py:78,91"),
     "nnfme_fwd": ("nnfme_train", "hmtpu/models/train.py:38-43,49"),

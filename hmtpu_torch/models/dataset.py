@@ -8,9 +8,10 @@ height/width, the ground-truth class from the standard DCT-IF
 fractional search) and DL/Extract_data.sh (the per-QP loop).  Per frame,
 the single-level integer ME of every 8x8 block gives its 3x3 cost
 stencil (K13 `me_sad1` on the card) and HM's DCT-IF refinement of the
-same blocks its label (K9 `frac_refine`); on the CPU both run their
-plain versions.  Every output is an integer, so the card, the CPU and
-hmtpu give the same records.
+same blocks its label (K9 `frac_refine`'s levels form with the 8 level
+alone, the frame read in place); on the CPU both run their plain
+versions.  Every output is an integer, so the card, the CPU and hmtpu
+give the same records.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import torch
 from hmtpu_torch.device import resolve
 from hmtpu_torch.io.yuv import Frame
 from hmtpu_torch.models.nnfme import class_of_offsets
-from hmtpu_torch.search.me import frac_refine_batch, integer_me
+from hmtpu_torch.search.me import frac_refine_levels, integer_me
 
 
 def extract_frame_records(frame: Frame, ref: Frame, qp: int,
@@ -39,13 +40,11 @@ def extract_frame_records(frame: Frame, ref: Frame, qp: int,
     (mvx, mvy), stencil, _ = integer_me(refy, org, 8, search_range,
                                         lam_sqrt, zeros, zeros, bd)
 
-    q = torch.arange(by * bx, dtype=torch.int32, device=dev)
-    xs, ys = (q % bx) * 8, (q // bx) * 8
-    org_blocks = org.reshape(by, 8, bx, 8).transpose(1, 2).reshape(-1, 8, 8)
-    mvq_x, mvq_y = frac_refine_batch(refy, xs, ys, org_blocks.contiguous(),
-                                     mvx.reshape(-1), mvy.reshape(-1), 8, bd)
-    labels = class_of_offsets(mvq_x - mvx.reshape(-1) * 4,
-                              mvq_y - mvy.reshape(-1) * 4)
+    # the 8 level of K9's levels form: the frame's luma plane read in place
+    ((mvq_x, mvq_y),) = frac_refine_levels(refy, org, [(mvx, mvy, zeros, 8)],
+                                           bd)
+    labels = class_of_offsets((mvq_x - mvx * 4).reshape(-1),
+                              (mvq_y - mvy * 4).reshape(-1))
     costs9 = stencil.reshape(-1, 9).cpu().numpy().astype(np.float32)
     sizes = np.full(costs9.shape[0], 8, np.int32)
     return costs9, sizes, sizes, labels.cpu().numpy().astype(np.int32)

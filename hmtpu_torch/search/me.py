@@ -16,9 +16,11 @@ Four hand-written kernels live behind these functions:
       that are multiples of 8, 8- or 10-bit samples) with a quarter-pel
       predictor per block in the motion cost;
   K8 satd8 (csrc/satd.cu)      `satd_batch` on a CUDA tensor;
-  K9 frac_refine (csrc/frac_refine.cu)  `frac_refine_batch` on a CUDA
-      stack: HM's two-stage DCT-IF sub-pel search, both stages and all
-      18 candidates of a block in one thread block.
+  K9 frac_refine (csrc/frac_refine.cu, over frac_refine.cuh)
+      `frac_refine_batch` on a CUDA stack and `frac_refine_levels` (the
+      P / B pass's three CU levels in one launch, the original plane read
+      in place): HM's two-stage DCT-IF sub-pel search, a warp a block,
+      both stages and all 18 candidates inside it.
 
 On CPU tensors they run their plain PyTorch versions (`*_plain`), the
 reference's own formulation (the SAD volume, then argmin; the candidate
@@ -318,7 +320,9 @@ def satd_gate_levels(org, levels):
     # the levels' (x, y) rows one after another
     out = torch.empty((2 * sum(nbs),), dtype=torch.int32, device=org.device)
     outs = out.split([2 * nb for nb in nbs])
-    ptrs, geo = [], []
+    # the readied inputs live until the launch (a copy freed before it
+    # could be handed to the next level's)
+    ptrs, geo, keep = [], [], []
     for ((p0, p1), mvx, mvy, n, gw), nb, o in zip(levels, nbs, outs):
         if n % 8 or n > 64 or nb % gw or any(
                 tuple(p.shape) != (nb, n, n) for p in (p0, p1)) \
@@ -332,6 +336,7 @@ def satd_gate_levels(org, levels):
         if any(t.get_device() != dev for t in ts):
             raise ValueError("satd8 gate: every tensor on the plane's "
                              "CUDA device")
+        keep += ts
         ptrs += [t.data_ptr() for t in ts] + [o.data_ptr()]
         geo += [n, gw, nb]
     pad = 3 - len(levels)
@@ -507,12 +512,79 @@ def frac_refine_batch(refs, xs0, ys0, org_blocks, int_mvx, int_mvy,
     B = int(org_blocks.shape[0])
     if ridx is None:
         ridx = torch.zeros((B,), dtype=torch.int32, device=refs.device)
-    out_x = torch.empty((B,), dtype=torch.int32, device=refs.device)
-    out_y = torch.empty_like(out_x)
+    out = torch.empty((2, B), dtype=torch.int32, device=refs.device)
     if B:
         r, h, w = refs.shape
         kernels.launch("frac_refine", "hm_frac_refine", i32(refs),
                        i32(ridx), i32(xs0), i32(ys0), i32(org_blocks),
-                       i32(int_mvx), i32(int_mvy), out_x, out_y, B, r, h,
-                       w, bsize, bd)
-    return out_x, out_y
+                       i32(int_mvx), i32(int_mvy), out, B, r, h, w, bsize,
+                       bd)
+    return out[0], out[1]
+
+
+def frac_refine_levels_plain(refs, org, levels, bd: int = 8):
+    """Plain version of K9's levels form: each level's glue as the P / B
+    pass composed it (the grid's block positions and its blocks of the
+    original, edge-padded where the grid reaches past the plane:
+    `_grid_blocks`), then `frac_refine_batch_plain`."""
+    out = []
+    for mx, my, rr, n in levels:
+        gh, gw = mx.shape
+        q = torch.arange(gh * gw, device=org.device)
+        gx, gy = frac_refine_batch_plain(
+            refs, (q % gw) * n, (q // gw) * n,
+            _grid_blocks(org, n, gw, gh * gw), mx.reshape(-1),
+            my.reshape(-1), n, bd, ridx=rr.reshape(-1))
+        out.append((gx.reshape(gh, gw), gy.reshape(gh, gw)))
+    return out
+
+
+def frac_refine_levels(refs, org, levels, bd: int = 8):
+    """HM's DCT-IF sub-pel search of up to three CU levels in one call:
+    refs the (R, H, W) reference stack (or one (H, W) plane), org the
+    (h, w) original luma plane; levels [(int_mvx, int_mvy, ridx, n)],
+    each a (gh, gw) n-grid of integer MVs and reference indices (block i
+    at ((i % gw) n, (i // gw) n), its original read with rows and columns
+    clamped to the plane).  Returns [(x, y) (gh, gw) a level]: the
+    quarter-pel MVs.  K9 on CUDA tensors (one launch), the plain version
+    on CPU ones; on the card the tensors are readied here and go to
+    kernels.launch_checked as pointers."""
+    if not org.is_cuda:
+        return frac_refine_levels_plain(refs, org, levels, bd)
+    if refs.dim() == 2:
+        refs = refs[None]
+    if not 1 <= len(levels) <= 3 or org.dim() != 2:
+        raise ValueError(f"frac_refine levels: 1-3 levels over a plane, "
+                         f"got {len(levels)} levels, {tuple(org.shape)}")
+    dev = org.get_device()
+    refs, org = kernels.ready(refs), kernels.ready(org)
+    nbs = [int(lv[0].numel()) for lv in levels]
+    # the levels' (x, y) rows one after another
+    out = torch.empty((2 * sum(nbs),), dtype=torch.int32, device=org.device)
+    outs = out.split([2 * nb for nb in nbs])
+    # the readied inputs (copies where a level's are not int32 already)
+    # live until the launch: a copy freed before it could be handed to
+    # the next level's
+    ptrs, geo, keep = [], [], []
+    for (mx, my, rr, n), nb, o in zip(levels, nbs, outs):
+        if n not in (8, 16, 32) or mx.dim() != 2 or any(
+                tuple(t.shape) != tuple(mx.shape) for t in (my, rr)):
+            raise ValueError(f"frac_refine levels: level n {n}: MVs and "
+                             f"references of one (gh, gw) grid, got "
+                             f"{tuple(mx.shape)}, {tuple(my.shape)}, "
+                             f"{tuple(rr.shape)}")
+        ts = [kernels.ready(t) for t in (mx, my, rr)]
+        if any(t.get_device() != dev for t in ts + [refs]):
+            raise ValueError("frac_refine levels: every tensor on the "
+                             "plane's CUDA device")
+        keep += ts
+        ptrs += [t.data_ptr() for t in ts] + [o.data_ptr()]
+        geo += [n, int(mx.shape[1]), nb]
+    pad = 3 - len(levels)
+    r, h, w = refs.shape
+    kernels.launch_checked("frac_refine", "hm_frac_levels", dev,
+                           refs.data_ptr(), org.data_ptr(), *ptrs,
+                           *(None,) * (4 * pad), r, h, w, *org.shape,
+                           len(levels), bd, *geo, *(0,) * (3 * pad))
+    return [(o[:nb].view(lv[0].shape), o[nb:].view(lv[0].shape))
+            for o, nb, lv in zip(outs, nbs, levels)]

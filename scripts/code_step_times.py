@@ -53,7 +53,25 @@ two trees of the port in one run:
          a seeded 1920x1080 field (chip_smoke.py's `seeded_field`:
          135x240 cells, 4 references): ms a
          call (the host's, with its glue), its device operations and
-         ms, and K19's launches and device ms a launch.
+         ms, and K19's launches and device ms a launch;
+  k9     K9 on the captured calls of ldp_dctif's P pass (the LDP cfg
+         with --SubPel=dctif through the CLI, 416x240, QP 22) and ra10's
+         POC 8 B pass: each level's `frac_refine_batch`, or where the
+         tree has it the levels form `frac_refine_levels` (in one call,
+         and each level alone), replayed: ms, device ms and launches a
+         call; the extraction's 1920x1080 call (32,400 8x8 blocks, the
+         single-level ME's integer MVs of the HD clip's second frame):
+         the one-call form, and the levels form's 8 level over the plane
+         where it exists; and the DCT-IF stretch of both passes, from
+         the last `_union_idx` return of the pass's levels to the last
+         K9 return: host ms and CUDA-event ms over 10 passes (the device
+         synced at both marks), then one pass with torch.profiler over
+         the stretch alone (torch and device operations, device ms, K9's
+         launches and device ms);
+  k24    K24 on ldp's P pass: each captured `tmvp_grid` call (or the
+         grids form `tmvp_grids`) replayed, and the stretch from `rmd`'s
+         return to the first `_blockify` after the last K24 call,
+         measured as k9's.
 
 Each call's "ms" is chip_smoke.py's `time_cuda` (CUDA events around 200
 calls after 2), its "device_ms" chip_smoke.py's `device_ms`
@@ -65,7 +83,7 @@ and 20 B inverse (the dequantised coefficients, levels, pred and org in,
 the reconstruction out) and the per-block rows.
 
     PYTHONPATH=<checkout of the port> python scripts/code_step_times.py \
-        [--parts k1,k6,walk,gate,k25,dbk,k19]
+        [--parts k1,k6,walk,gate,k25,dbk,k19,k9,k24]
 
 Prints one JSON object a part (all parts unless --parts names some).
 Uses only the port's entry points, so it runs against earlier trees too
@@ -720,8 +738,241 @@ def k19(cs, dev):
     return out
 
 
+_KEPT_DCTIF: dict = {}
+
+
+def _dctif_pass_args(cs, dev):
+    """The arguments of ldp_dctif's P pass (`full_pframe_pass`: the LDP
+    cfg with --SubPel=dctif through the CLI, 416x240, QP 22, 2 frames of
+    the clip), kept from one encode."""
+    if _KEPT_DCTIF:
+        return _KEPT_DCTIF
+    import tempfile
+
+    from hmtpu_torch.encoder import pframe_dev
+    from hmtpu_torch.utils.gen_test_yuv import synth_clip
+
+    clip = list(synth_clip(W, H, 2, seed=42))
+    with tempfile.TemporaryDirectory() as d:
+        yuv = os.path.join(d, "clip.yuv")
+        cs.write_yuv(yuv, clip)
+        return _keep_args(_KEPT_DCTIF, ((pframe_dev, "full_pframe_pass"),),
+                          lambda: cs.cli_encode(
+                              ["-c", cs.LDP_CFG, "--SubPel=dctif", "-q", "22",
+                               "-f", "2", "-wdt", str(W), "-hgt", str(H),
+                               "-i", yuv, "-b", os.path.join(d, "o.hevc")],
+                              dev))
+
+
+def _events(call, wraps):
+    """call() with each (module, function) of wraps wrapped: the
+    ("function", "entry" / "return") events in order, and each call's
+    arguments (cloned) by function."""
+    log, args = [], {}
+    inner = {(m, n): getattr(m, n) for m, n in wraps}
+
+    def wrap(m, n):
+        def g(*a, **k):
+            log.append((n, "entry"))
+            args.setdefault(n, []).append((
+                tuple(x.clone() if isinstance(x, torch.Tensor) else x
+                      for x in a), dict(k)))
+            out = inner[(m, n)](*a, **k)
+            log.append((n, "return"))
+            return out
+        return g
+
+    for m, n in inner:
+        setattr(m, n, wrap(m, n))
+    try:
+        call()
+        torch.cuda.synchronize()
+    finally:
+        for (m, n), f in inner.items():
+            setattr(m, n, f)
+    return log, args
+
+
+def _nth(log, ev, before=None, after=None):
+    """How many times event ev happened in log (up to index `before`),
+    or the count of ev up to the first ev after index `after`."""
+    if after is not None:
+        nxt = next(i for i in range(after, len(log)) if log[i] == ev)
+        return sum(1 for e in log[:nxt + 1] if e == ev)
+    return sum(1 for e in log[:before] if e == ev)
+
+
+def _marked_stretch(cs, call, wraps, start, end, kernel_fn, reps=10):
+    """The stretch of call() from event `start` to event `end`, each
+    (function, "entry" / "return", k): the k-th such event of a call.  At
+    each mark the device is synced first, so the host ms are the
+    stretch's own.  Host ms and CUDA-event ms over `reps` calls, then one
+    call with torch.profiler running over the stretch alone
+    (`_profile_stats`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state = {"prof": None, "marks": [], "seen": {}}
+    inner = {(m, n): getattr(m, n) for m, n in wraps}
+
+    def mark(ev):
+        k = state["seen"][ev] = state["seen"].get(ev, 0) + 1
+        if (ev + (k,)) not in (start, end):
+            return
+        torch.cuda.synchronize()
+        if state["prof"] is not None:
+            (state["prof"].start if ev + (k,) == start
+             else state["prof"].stop)()
+            return
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        state["marks"].append((time.perf_counter(), e))
+
+    def wrap(m, n):
+        def g(*a, **k):
+            mark((n, "entry"))
+            out = inner[(m, n)](*a, **k)
+            mark((n, "return"))
+            return out
+        return g
+
+    for m, n in inner:
+        setattr(m, n, wrap(m, n))
+    host, span = [], []
+    try:
+        for _ in range(reps):
+            state["marks"].clear()
+            state["seen"].clear()
+            call()
+            torch.cuda.synchronize()
+            (h0, e0), (h1, e1) = state["marks"]
+            host.append((h1 - h0) * 1e3)
+            span.append(e0.elapsed_time(e1))
+        state["seen"].clear()
+        state["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+        call()
+        torch.cuda.synchronize()
+    finally:
+        for (m, n), f in inner.items():
+            setattr(m, n, f)
+    return {"host_ms": host, "host_ms_median": float(np.median(host)),
+            "events_ms": span, "events_ms_median": float(np.median(span)),
+            **_profile_stats(cs, state["prof"], kernel_fn)}
+
+
+def _replays(cs, fn_of, calls, fname):
+    """Each captured call replayed alone: ms (CUDA events over 200
+    calls), device ms (the kernel's own) and launches a call."""
+    from hmtpu_torch import kernels
+
+    out = []
+    for label, fn in calls:
+        kernel = fn_of
+        before = kernels.COUNTS[kernel]
+        fn()
+        torch.cuda.synchronize()
+        out.append({"call": label, "launches": kernels.COUNTS[kernel]
+                    - before, "ms": cs.time_cuda(fn, 200),
+                    "device_ms": cs.device_ms(fn, fname)})
+    return out
+
+
+def k9(cs, dev):
+    """K9 on ldp_dctif's P pass and ra10's POC 8 B pass (each level's
+    call, or the levels form's), at the extraction's 1920x1080 shape,
+    and the DCT-IF stretch of both passes: from the last union reference
+    index of the pass's levels (`_union_idx`) to the last K9 return."""
+    from hmtpu_torch.encoder import pframe_dev
+    from hmtpu_torch.search import me
+
+    levels_form = hasattr(me, "frac_refine_levels")
+    k9_fn = "frac_refine_levels" if levels_form else "frac_refine_batch"
+    out = {"form": k9_fn}
+    for label, kept in (("ldp_dctif P", _dctif_pass_args(cs, dev)),
+                        ("ra10 POC 8 B", _ra_pass_args(dev))):
+        a, k = kept["full_pframe_pass"]
+        call = lambda: pframe_dev.full_pframe_pass(*a, **k)
+        call()
+        wraps = ((pframe_dev, "_union_idx"), (me, k9_fn),
+                 (pframe_dev, "wavefront_pass"))
+        log, args = _events(call, wraps)
+        first = log.index((k9_fn, "entry"))
+        last = max(i for i, e in enumerate(log) if e == (k9_fn, "return"))
+        start = ("_union_idx", "return",
+                 _nth(log, ("_union_idx", "return"), before=first))
+        end = (k9_fn, "return", _nth(log, (k9_fn, "return"),
+                                      before=last + 1))
+        f = getattr(me, k9_fn)
+        calls = [(f"{k9_fn} " + (
+            ", ".join(str(lv[3]) for lv in ca[2]) if levels_form
+            else str(ca[6])), (lambda f=f, ca=ca, ck=ck: f(*ca, **ck)))
+            for ca, ck in args[k9_fn]]
+        if levels_form:
+            # and each level alone through the levels form
+            ca, ck = args[k9_fn][0]
+            calls += [(f"{k9_fn} {lv[3]} alone",
+                       lambda lv=lv: f(ca[0], ca[1], [lv], *ca[3:], **ck))
+                      for lv in ca[2]]
+        out[label] = {
+            "calls": _replays(cs, "frac_refine", calls, "frac_"),
+            "stretch": _marked_stretch(cs, call, wraps, start, end,
+                                       "frac_")}
+    # the extraction's call at 1920x1080: the single-level ME's integer
+    # MVs of the clip's second frame against its first, 32,400 8x8 blocks
+    hd = cs.frames_of(cs.hd_clip()[:2])
+    org = torch.as_tensor(hd[1].y).to(dev)
+    ref = torch.as_tensor(hd[0].y).to(dev)
+    bh, bw = org.shape[0] // 8, org.shape[1] // 8
+    lam = np.float32(np.sqrt(0.57 * 2.0 ** ((22 - 12) / 3.0)))
+    z = torch.zeros((bh, bw), dtype=torch.int32, device=dev)
+    (mvx, mvy), _, _ = me.integer_me(ref, org, 8, 64, lam, z, z, 8)
+    q = torch.arange(bh * bw, dtype=torch.int32, device=dev)
+    blocks = org.reshape(bh, 8, bw, 8).transpose(1, 2).reshape(-1, 8, 8) \
+        .contiguous()
+    hd_calls = [("frac_refine_batch (32400, 8, 8)",
+                 lambda: me.frac_refine_batch(
+                     ref, (q % bw) * 8, (q // bw) * 8, blocks,
+                     mvx.reshape(-1), mvy.reshape(-1), 8, 8))]
+    if levels_form:
+        hd_calls.append(("frac_refine_levels, the 8 level over the plane",
+                         lambda: me.frac_refine_levels(
+                             ref, org, [(mvx, mvy, z, 8)], 8)))
+    out["1920x1080 extraction"] = _replays(cs, "frac_refine", hd_calls,
+                                           "frac_")
+    return out
+
+
+def k24(cs, dev):
+    """K24 on ldp's P pass: each captured grid call (or the grids form's
+    one), and the stretch from K22's `rmd` return to the first
+    `_blockify` after the last K24 call (the temporal candidates of the
+    three grids)."""
+    from hmtpu_torch.encoder import pframe_dev
+
+    grids_form = hasattr(pframe_dev, "tmvp_grids")
+    k24_fn = "tmvp_grids" if grids_form else "tmvp_grid"
+    a, k = _ldp_pass_args(dev)["full_pframe_pass"]
+    call = lambda: pframe_dev.full_pframe_pass(*a, **k)
+    call()
+    wraps = ((pframe_dev, "rmd"), (pframe_dev, k24_fn),
+             (pframe_dev, "_blockify"))
+    log, args = _events(call, wraps)
+    first = log.index((k24_fn, "entry"))
+    last = max(i for i, e in enumerate(log) if e == (k24_fn, "return"))
+    start = ("rmd", "return", _nth(log, ("rmd", "return"), before=first))
+    end = ("_blockify", "entry", _nth(log, ("_blockify", "entry"),
+                                      after=last))
+    f = getattr(pframe_dev, k24_fn)
+    calls = [(f"{k24_fn} " + (str(ca[2]) if not grids_form else "8, 16, 32"),
+              (lambda ca=ca, ck=ck: f(*ca, **ck))) for ca, ck in args[k24_fn]]
+    return {"form": k24_fn,
+            "calls": _replays(cs, "tmvp_grid", calls, "tmvp_"),
+            "stretch": _marked_stretch(cs, call, wraps, start, end,
+                                       "tmvp_")}
+
+
 PARTS = {"k1": k1_rows, "k6": k6_rows, "walk": walk, "gate": gate,
-         "k25": k25, "dbk": dbk, "k19": k19}
+         "k25": k25, "dbk": dbk, "k19": k19, "k9": k9, "k24": k24}
 
 
 def main() -> int:

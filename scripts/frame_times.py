@@ -42,9 +42,10 @@ two trees of the port on one card in one run:
         QPs 22/27/32/37, 60 epochs, search range 16) into a temporary
         directory: seconds, and the extraction's and the steps' seconds
         and the steps per QP as the tool prints them;
-  kernel_times  two more ldp encodes and one more ra10 encode with CUDA
-        events around each launch of K23, K26, K7, K8, K4, K25, K6, K1,
-        K10, K3 and K19 (their device milliseconds, summed a kernel, and
+  kernel_times  two more ldp encodes, one more ldp_dctif and one more
+        ra10 encode with CUDA events around each launch of K23, K26, K7,
+        K8, K4, K25, K6, K1, K10, K3, K19, K9 and K24 (their device
+        milliseconds, summed a kernel, and
         their launches) and at the edges of each P and B pass's sub-pel stage
         (from its last K5, K13 or K19 launch to `wavefront_pass`) and of
         the walk's prelude (from `pframe_walk`'s start to its first K23
@@ -613,8 +614,10 @@ def main() -> int:
         restore()
     kt_names = ("p_walk", "b_walk", "mc_dctif", "satd8", "sao_stats",
                 "sao_apply", "sao_choose", "nnfme", "int_transform_fwd",
-                "int_transform_inv", "rdoq", "deblock", "mv_regularize")
-    for name, frames, cfg in (runs[0], runs[0], runs[2 * REPEAT]):
+                "int_transform_inv", "rdoq", "deblock", "mv_regularize",
+                "frac_refine", "tmvp_grid")
+    for name, frames, cfg in (runs[0], runs[0], runs[REPEAT],
+                              runs[2 * REPEAT]):
         with _KernelTimes(kt_names) as kt, _StageTimes() as stg:
             bs, dt, res = _encode(frames, **cfg)
         kms, kn = kt.read()

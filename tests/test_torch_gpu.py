@@ -504,6 +504,14 @@ def test_satd_gate_kernel(dev, h, w):
         want = me.satd_gate_levels_plain(org, lv)
         for (gx, gy), (wx, wy) in zip(got, want):
             assert torch.equal(gx, wx) and torch.equal(gy, wy)
+    # int64 MV sets: the wrapper's int32 copies of every level must live
+    # until the launch (a freed copy handed to the next level's is caught)
+    lv64 = [(p, mx.to(torch.int64), my.to(torch.int64), n, gw)
+            for p, mx, my, n, gw in levels]
+    got = _launched("satd8", lambda: me.satd_gate_levels(org, lv64))
+    for (gx, gy), (wx, wy) in zip(got, me.satd_gate_levels_plain(org,
+                                                                 levels)):
+        assert torch.equal(gx, wx) and torch.equal(gy, wy)
 
 
 def test_transform_skip_kernel(dev):
@@ -538,6 +546,50 @@ def test_frac_refine_kernel(dev, n):
         refs, *args, org, *mv, n, 8, ridx=ridx))
     want = me.frac_refine_batch_plain(refs, *args, org, *mv, n, 8,
                                       ridx=ridx)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # 10 bits
+    refs10, org10 = refs << 2 | 3, org << 2
+    got = _launched("frac_refine", lambda: me.frac_refine_batch(
+        refs10, *args, org10, *mv, n, 10, ridx=ridx))
+    want = me.frac_refine_batch_plain(refs10, *args, org10, *mv, n, 10,
+                                      ridx=ridx)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if n != 8:
+        return
+    # the levels form, one launch for the three levels: 416x240 and 64x56
+    # (the 32 grid's original clamped past the last row), 8 and 10 bits
+    for (h, w), bd in (((240, 416), 8), ((240, 416), 10), ((56, 64), 8),
+                       ((56, 64), 10)):
+        top = (1 << bd) - 1
+        refs = _i32(rng.randint(0, top + 1, (3, h, w)), dev)
+        org = _i32(np.clip(refs[1].cpu().numpy() + rng.randint(
+            -top // 8, top // 8 + 1, (h, w)), 0, top), dev)
+        levels = []
+        for m, gh, gw in ((8, h // 8, w // 8), (16, h // 16, w // 16),
+                          (32, -(-h // 32), -(-w // 32))):
+            mk = lambda lo, hi: _i32(rng.randint(lo, hi, (gh, gw)), dev)
+            levels.append((mk(-40, 41), mk(-40, 41), mk(0, 3), m))
+        want = me.frac_refine_levels_plain(refs, org, levels, bd)
+        # and int64 reference indices, as the B pass's union indices come:
+        # the wrapper's copies of every level live until the launch
+        lv64 = [(mx, my, rr.to(torch.int64), m) for mx, my, rr, m in levels]
+        for lv in (levels, lv64):
+            before = kernels.COUNTS["frac_refine"]
+            got = me.frac_refine_levels(refs, org, lv, bd)
+            torch.cuda.synchronize()
+            assert kernels.COUNTS["frac_refine"] == before + 1
+            for (gx, gy), (wx, wy) in zip(got, want):
+                assert torch.equal(gx, wx) and torch.equal(gy, wy)
+    # the extraction's 1080p call: 32,400 8x8 blocks of one reference
+    h, w = 1080, 1920
+    ref = _i32(rng.randint(0, 256, (h, w)), dev)
+    q = np.arange((h // 8) * (w // 8))
+    args = [_i32(a, dev) for a in ((q % (w // 8)) * 8, (q // (w // 8)) * 8)]
+    org = _i32(rng.randint(0, 256, (q.size, 8, 8)), dev)
+    mv = [_i32(rng.randint(-64, 65, q.size), dev) for _ in range(2)]
+    got = _launched("frac_refine", lambda: me.frac_refine_batch(
+        ref, *args, org, *mv, 8, 8))
+    want = me.frac_refine_batch_plain(ref, *args, org, *mv, 8, 8)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
@@ -1121,6 +1173,22 @@ def test_tmvp_grid_kernel(dev, w, h):
                 h=h, log2_ctu=6, gw=gw, gh=gh)
             got = _launched("tmvp_grid", lambda: run(dev))
             assert torch.equal(got.cpu(), run("cpu"))
+        # the grids form: the three grids in one launch
+        grids = [(n, rng.randint(0, 4, gw * gh).astype(np.int32), gw, gh)
+                 for n, gw, gh in ((8, bw, bh), (16,) + g16,
+                                   (32, (g16[0] + 1) // 2,
+                                    (g16[1] + 1) // 2))]
+        run = lambda d: pframe_dev.tmvp_grids(
+            tuple(torch.as_tensor(c).to(d) for c in col), 8,
+            [(n, torch.as_tensor(a).to(d), gw, gh) for n, a, gw, gh in grids],
+            torch.tensor(pocs, dtype=torch.int32, device=d), 9, w=w, h=h,
+            log2_ctu=6)
+        before = kernels.COUNTS["tmvp_grid"]
+        got = run(dev)
+        torch.cuda.synchronize()
+        assert kernels.COUNTS["tmvp_grid"] == before + 1
+        for a, b in zip(got, run("cpu")):
+            assert torch.equal(a.cpu(), b)
 
 
 @pytest.mark.parametrize("bd,qp", [(8, 22), (8, 37), (10, 32)])

@@ -2,7 +2,9 @@
 tmvp_grid (csrc/tmvp.cuh, the temporal candidates of a CU grid) and K25
 sao_choose (csrc/sao_choose.cuh, the SAO parameter choice), compiled as
 host C++ with g++ and driven on the CPU against their plain versions
-(`wavefront_pass_plain`, `t_level_plain`, `choose_params`), bit for bit.
+(`wavefront_pass_plain`, `t_level_plain`, `choose_params`), bit for bit;
+K24 also in its grids form (the pass's three grids in one launch) against
+`tmvp_grids_plain`, blocks in order and reversed.
 
 The walker runs through `pframe_walk`, the same wrapper that launches K23
 on the card, one call of the host build per z-scan level, on the
@@ -66,6 +68,28 @@ extern "C" void tmvp_host(const int* mvx, const int* mvy, const int* ok,
                      log2_ctu, cur_poc, col_pic_poc, R};
   for (int i = 0; i < gw * gh; ++i) tmvp::tmvp_lane(a, i);
 }
+// K24's grids form: ngrids grids (n, gw, gh) in one job, their (5, P)
+// outputs one after another, blocks in order or last first
+extern "C" void tmvp_grids_host(const int* mvx, const int* mvy,
+                                const int* ok, const int* poc,
+                                const int* pocs, int* out,
+                                const int* const* aref, const int* geo,
+                                int ngrids, int w, int h, int log2_ctu,
+                                int cur_poc, int col_pic_poc, int R,
+                                int reverse) {
+  tmvp::Grids a{};
+  int total = 0;
+  for (int l = 0; l < ngrids; ++l) {
+    a.g[l] = tmvp::Args{mvx, mvy, ok, poc, aref[l], pocs, out + 5 * total,
+                        geo[3 * l], geo[3 * l + 1], geo[3 * l + 2], w, h,
+                        log2_ctu, cur_poc, col_pic_poc, R};
+    a.p[l] = geo[3 * l + 1] * geo[3 * l + 2];
+    total += a.p[l];
+  }
+  hm::lane_reverse = reverse;
+  tmvp::grids_host(a);
+  hm::lane_reverse = 0;
+}
 // K25 over nctu CTUs
 extern "C" void sao_host(const int* st_y, const int* st_u, const int* st_v,
                          float lam, int mo, int* out, int nctu) {
@@ -88,6 +112,8 @@ def _build(d, csrc):
         + [ctypes.c_void_p, ctypes.c_int] * 3 + [ctypes.c_int]
     lib.pw_task_reverse.argtypes = [ctypes.c_int]
     lib.tmvp_host.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+    lib.tmvp_grids_host.argtypes = [ctypes.c_void_p] * 8 \
+        + [ctypes.c_int] * 8
     lib.sao_host.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
     return lib
@@ -344,6 +370,57 @@ def test_tmvp_lane_equals_plain(lanes, w, h):
                                         *(np.asarray(x) for x in jm),
                                         *(np.asarray(x) for x in ja)]))
     assert set(oks) == {0, 1}
+
+
+def _tmvp_grids(w, h, rng):
+    """The P pass's three grids of an h x w picture (the 32 grid the ceil
+    one), seeded references each: [(n, aref, gw, gh)]."""
+    g16 = (w // 16, h // 16)
+    return [(n, torch.as_tensor(rng.randint(0, 4, gw * gh).astype(np.int32)),
+             gw, gh)
+            for n, gw, gh in ((8, w // 8, h // 8), (16,) + g16,
+                              (32, (g16[0] + 1) // 2, (g16[1] + 1) // 2))]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("w,h", [(64, 64), (80, 48), (64, 56)])
+def test_tmvp_grids_lane_equals_plain(lanes, w, h, reverse):
+    """K24's grids form (one job over the pass's three grids, the grid
+    chosen by comparisons; at 64x56 the 32 grid's last row is past the
+    picture) equal to `tmvp_grids_plain`, blocks in order and reversed,
+    and the plain form equal to `t_level_plain` grid by grid."""
+    rng = np.random.RandomState(w * h + reverse)
+    cur, col_pic = 9, 8
+    col = _col_field(rng, h // 8, w // 8, col_pic)
+    t_col = tuple(torch.as_tensor(c) for c in col)
+    for ref_pocs in ([8, 7, 6, 5], [8, -200, 140, 3]):
+        pocs = torch.tensor(ref_pocs, dtype=torch.int32)
+        grids = _tmvp_grids(w, h, rng)
+        want = pframe_dev.tmvp_grids_plain(t_col, col_pic, grids, pocs, cur,
+                                           w=w, h=h, log2_ctu=6)
+        for (n, aref, gw, gh), t in zip(grids, want):
+            lv = pframe_dev.t_level_plain(t_col, col_pic, n, aref, pocs, cur,
+                                          w=w, h=h, log2_ctu=6, gw=gw, gh=gh)
+            assert torch.equal(t, torch.stack([a.to(torch.int32)
+                                               for a in lv]))
+        # the CPU entry is the plain version
+        assert all(torch.equal(a, b) for a, b in zip(pframe_dev.tmvp_grids(
+            t_col, col_pic, grids, pocs, cur, w=w, h=h, log2_ctu=6), want))
+        for k in (3, 2):
+            i32 = [np.ascontiguousarray(c, np.int32) for c in col]
+            total = sum(gw * gh for _, _, gw, gh in grids[:k])
+            got = np.full(5 * total, -7, np.int32)
+            geo = np.asarray([[n, gw, gh] for n, _, gw, gh in grids[:k]],
+                             np.int32)
+            arefs = (ctypes.c_void_p * 3)(*[a.data_ptr()
+                                            for _, a, _, _ in grids[:k]])
+            lanes.tmvp_grids_host(*(c.ctypes.data for c in i32),
+                                  pocs.data_ptr(), got.ctypes.data, arefs,
+                                  geo.ctypes.data, k, w, h, 6, cur, col_pic,
+                                  4, int(reverse))
+            np.testing.assert_array_equal(
+                got, np.concatenate([t.numpy().reshape(-1)
+                                     for t in want[:k]]))
 
 
 # ---------------------------------------------------------------------------
