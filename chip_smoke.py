@@ -16,7 +16,8 @@ when every phase passed):
                K19, K9's two kernels and K24 (with the spills of every
                function of the source; K3, K19, K9 and K24 must have no
                stack frame and no spills);
-  3. kernels   each kernel (K1, K3-K16 and K1's transform-skip mode)
+  3. kernels   each kernel (K1, K3-K15, K1's transform-skip mode inside
+               its level forms and K16 inside K15's launch)
                against its plain PyTorch version on seeded inputs at the
                shapes the main paths give it (K1 in its level forms, a
                level's three planes a launch, at the P pass's 8 level,
@@ -75,7 +76,12 @@ when every phase passed):
                and 10-bit planes, where every displacement ties; K14-K16 at
                batch 1024 of the trainer's QP-22 records, K14 and K15 also
                at 1, 32 and 100 rows and K14 at the validation set's 7176
-               without the backward's tensors.  K4 also in its frame
+               without the backward's tensors, K15 with K16 as its tail
+               (the training step's form, timed; its gradient,
+               parameters, moments and device step count, at updates 1,
+               2 and the table's last); K1's TS mode on a seeded (3120,
+               4, 4) pair (the forward and the pick) and on ldp_dctif's
+               captured 8-level hypothesis.  K4 also in its frame
                forms (a 416x240 picture's three planes in one statistics
                and one apply launch, and the same at 1920x1080), K7 in
                its one-launch forms at each level of the P pass (the
@@ -109,7 +115,9 @@ when every phase passed):
                its bytes and operations, and a library yardstick where one
                PyTorch call computes the same function (a float64
                torch.matmul for the transform, fused torch.optim.Adam for
-               K16); torch.profiler gives each one's own device time;
+               K16, which runs inside K15's launch: its row times that
+               launch, the tail's share beside it); torch.profiler gives
+               each one's own device time;
   4. ldp       the main path: the low-delay-P encode with NN-FME
                (416x240, QP 22, GOP QP offsets 3/2/3/1, 4 references,
                search range 64, CTU 64, TMVP, RDOQ, SDH, deblocking and
@@ -136,8 +144,10 @@ when every phase passed):
                (--SubPel=dctif; BASELINE config 2) through the port's CLI
                in process, QP 22, 2 frames of the same clip at 416x240,
                counts reset before and read after: K1, K3-K5, K7, K9,
-               K10, K19, K21-K25 and K1-TS must be > 0, K8 0, K9 once a
-               P pass (the three levels in one launch);
+               K10, K19, K21-K25 must be > 0, K8 0, K9 once a P pass
+               (the three levels in one launch), K1's level forms three
+               times a P pass each way (the 8 level's in their TS mode:
+               no launch of K1-TS's own);
   6. ra10      the random-access Main10 cfg
                (cfg/encoder_randomaccess_main10.cfg as shipped: QP 32,
                10 bits, GOP 8 of B pictures, search range 64, DCT-IF,
@@ -175,8 +185,9 @@ when every phase passed):
                (416x240 synthetic clip, 24 frames, SR 16, QPs
                22/27/32/37, 60 epochs, batch 1024, lr 3e-3, seed 0) into
                a temporary directory, counts reset before and read after:
-               K13, K9, K14, K15 and K16 > 0, K15's and K16's launches
-               equal to the steps, no call of a plain version; per QP the
+               K13, K9, K14 and K15 > 0, K15's launches equal to the
+               steps (K16 inside them: no launch of its own), no call of
+               a plain version; per QP the
                rows, extraction seconds, steps, training seconds and
                steps/s, the validation accuracy and the majority-class
                share;
@@ -297,7 +308,14 @@ P_INSIDE_K23 = ("intra_filter", "intra_pred", "merge_cands", "amvp_rd",
 B_INSIDE_K26 = P_INSIDE_K23 + ("mc_dctif_i", "bi_pred")
 # the kernels of the training slice: the encodes at sides that are
 # multiples of 16 launch none of them
-TRAIN_KERNELS = ("me_sad1", "nnfme_fwd", "nnfme_bwd", "adam")
+TRAIN_KERNELS = ("me_sad1", "nnfme_fwd", "nnfme_bwd")
+# the kernels that run inside another's launch: (source, the hmtpu
+# function they replace, the launch they run in); their rows' launches
+# are 0, and they have no counter of their own
+INSIDE = {"adam": ("nnfme_train", "hmtpu/models/train.py:51-53",
+                   "nnfme_bwd"),
+          "transform_skip": ("transform", "hmtpu/ops/transform.py:84,89",
+                             "int_transform_fwd, int_transform_inv")}
 
 
 def fail(msg: str) -> None:
@@ -436,12 +454,13 @@ DEVICE_FN = {
     "nnfme": "nnfme_kernel", "mc_dctif": "mc_kernel",
     # the one-call form, then the NN-FME gate's levels
     "satd8": ("satd_kernel", "satd_gate_kernel"),
-    "transform_skip": "transform_skip_kernel",
+    # the level forms' TS mode
+    "transform_skip": ("fwd_level_kernel", "inv_level_kernel"),
     # the one-call form, then the levels form
     "frac_refine": ("frac_kernel", "frac_levels_kernel"),
     "rdoq": "rdoq_kernel",
     "mc_dctif_i": "mc_kernel", "bi_pred": "bi_pred_kernel",
-    "me_sad1": ("me1_kernel", "me1_out_kernel"), "adam": "adam_kernel",
+    "me_sad1": ("me1_kernel", "me1_out_kernel"), "adam": "nnfme_bwd_kernel",
     "nnfme_fwd": "nnfme_fwd_kernel", "nnfme_bwd": "nnfme_bwd_kernel",
     "merge_cands": "merge_kernel", "amvp_rd": "amvp_kernel",
     "mv_regularize": "reg_kernel", "mpm_bits": "mpm_kernel",
@@ -601,20 +620,7 @@ def kernel_cases(dev):
         for case in code_level_cases(dev, rng, lv, m, old if lv == 8
                                      else None):
             cases.append((case[0] + tag,) + case[1:])
-    # K1, TS mode: the 4x4 chroma TBs of phase 1a (2 x 1560), residuals
-    # in, coefficients out; a shift per sample (the inverse, checked too,
-    # a shift, an add and a shift)
-    nts = 2 * (W // 8) * (H // 8)
-    rts = t32(rng.randint(-255, 256, (nts, 4, 4)))
-    dts = t32(rng.randint(-(1 << 15), 1 << 15, (nts, 4, 4)))
-    cases.append(("transform_skip",
-                  lambda: transform.transform_skip_fwd(rts, 4),
-                  lambda: transform.transform_skip_fwd_plain(rts, 4),
-                  2 * nts * 16 * 4, nts * 16,
-                  # the same function as one torch shift
-                  lambda: rts << transform.ts_shift(4, 8),
-                  [(lambda: transform.transform_skip_inv(dts, 4),
-                    lambda: transform.transform_skip_inv_plain(dts, 4))]))
+    cases += ts_pair_cases(dev, rng, 2 * (W // 8) * (H // 8))
 
     # K3's 4x4-map form: one 416x240 picture (intra, random cbf and CU
     # sizes); its state form (the passes' call) is checked and timed on
@@ -730,6 +736,98 @@ def code_level_cases(dev, rng, n, m, old=None):
              20 * samples + 36 * m, ops + 3 * samples, None,
              [(lambda k=k: inv(k), lambda k=k: inv(k, True)) for k in one]
              + old.get("inv", []))]
+
+
+def ts_level_work(planes, m, n0, n1):
+    """Bytes and operations of K1's level forms in their TS mode (m
+    blocks, luma n0 and, three planes, chroma n1; the TS planes the 4x4
+    ones): (forward bytes, ops, inverse bytes, ops).  Forward: org and
+    pred in, the coefficients out, the TS planes' TS coefficients out;
+    the butterflies' multiply-adds (about n a sample a stage) and a shift
+    a TS sample.  Inverse: deq, lev, pred, org in and rec out, the TS
+    planes' second deq and lev in and kept levels out, per block each
+    plane's rate in and SSE out, the TS planes' second rate in and kept
+    rate out, the TS word, and (three planes) cbf, dist and bits out,
+    the flag's prices and lambda; the butterflies, the SSE, and a TS
+    sample's reconstruction and SSE (about 8)."""
+    sizes = [n0] + ([n1, n1] if planes == 3 else [])
+    samples = sum(m * n * n for n in sizes)
+    ts_s = m * 16 * (1 if planes == 1 else 2)
+    ntp = 1 if planes == 1 else 2
+    ops = sum(2 * 2 * n * m * n * n for n in sizes)
+    fwd = (12 * samples + 4 * ts_s, ops + ts_s)
+    inv = (20 * samples + 12 * ts_s
+           + 4 * m * (2 * planes + 3 * ntp + 1 + (3 if planes == 3 else 0))
+           + 12, ops + 3 * samples + 8 * ts_s)
+    return fwd + inv
+
+
+def ts_pair_cases(dev, rng, m):
+    """K1's TS mode on a seeded one-plane (m, 4, 4) pair, ldp_dctif's 4x4
+    chroma TBs of phase 1a at 416x240 (2 x 1560): `transform_skip` the
+    forward (both alternatives' coefficients), `transform_skip:pick` the
+    inverse (both reconstructed, priced and the cheaper kept; the DST
+    and the chroma weight checked beside it, and ties, which keep the
+    DCT alternative)."""
+    from hmtpu_torch.common.lambdas import frame_lambdas
+    from hmtpu_torch.ops import transform
+    from tests.torch_level_data import FLAG, planes, ts_alt
+
+    t32 = lambda a: torch.as_tensor(np.asarray(a, np.int32)).to(dev)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32)).to(dev)
+    pl = planes(rng, m, (4,), 8)
+    tdeq, tlev, bits, tbits = ts_alt(rng, pl[0], 8)
+    org, pred, deq, lev = (t32(a) for a in pl[0])
+    # the chroma lambda of ldp's P frame (QP 25, HM's factor 0.4624)
+    lam = torch.tensor(frame_lambdas(25, 25, 0.4624)[3], dtype=torch.float32,
+                       device=dev)
+    args = ([deq], [lev], [f32(bits)], [t32(tdeq)], [t32(tlev)],
+            [f32(tbits)], [pred], [org], f32(FLAG), lam, 8)
+    dw = torch.tensor(1.25, dtype=torch.float32, device=dev)
+    fb, fo, ib, io = ts_level_work(1, m, 4, 0)
+    fwd = lambda dst=False: transform.fwd_level([org], [pred], 8, dst,
+                                                ts=True)
+    fwd_p = lambda dst=False: transform.fwd_level_plain([org], [pred], 8,
+                                                        dst, ts=True)
+    inv = lambda *x: transform.inv_level_ts(*args, *x)
+    inv_p = lambda *x: transform.inv_level_ts_plain(*args, *x)
+    return [("transform_skip", fwd, fwd_p, fb, fo, None,
+             [(lambda: fwd(True), lambda: fwd_p(True))]),
+            ("transform_skip:pick", inv, inv_p, ib, io, None,
+             [(lambda: inv(dw), lambda: inv_p(dw)),
+              (lambda: inv(None, True), lambda: inv_p(None, True))])]
+
+
+def ts_captured_cases(got):
+    """K1's TS mode on ldp_dctif's captured 8-level hypothesis (416x240:
+    1560 blocks, the chroma pair coded both ways): the forward and the
+    inverse, in one row (`transform_skip:ldp_dctif`); the widest
+    one-plane pair of the plain passes run on the card beside it
+    (`_code_ts_sel`), checked."""
+    from hmtpu_torch.ops import transform
+
+    if ("transform_skip", "fwd") not in got \
+            or ("transform_skip", "inv") not in got:
+        fail("capture: no TS hypothesis in ldp_dctif's encode")
+    (_, fa, fk), (m, ia, ik) = (got[("transform_skip", f)]
+                                for f in ("fwd", "inv"))
+    print(f"capture: transform_skip hypothesis, {m} blocks", flush=True)
+    fb, fo, ib, io = ts_level_work(3, m, 8, 4)
+    more = []
+    for f, fn, fp in (("fwd one plane", transform.fwd_level,
+                       transform.fwd_level_plain),
+                      ("inv one plane", transform.inv_level_ts,
+                       transform.inv_level_ts_plain)):
+        if ("transform_skip", f) in got:
+            _, a, k = got[("transform_skip", f)]
+            more.append((lambda fn=fn, a=a, k=k: fn(*a, **k),
+                         lambda fp=fp, a=a, k=k: fp(*a, **k)))
+    return [("transform_skip:ldp_dctif",
+             lambda: (transform.fwd_level(*fa, **fk),
+                      transform.inv_level_ts(*ia, **ik)),
+             lambda: (transform.fwd_level_plain(*fa, **fk),
+                      transform.inv_level_ts_plain(*ia, **ik)),
+             fb + ib, fo + io, None, more)]
 
 
 def sao_frame_cases(dev, rng, h, w, tag):
@@ -1284,7 +1382,9 @@ def slice3_kernel_cases(dev, rng):
                                                           :w // n * n]
         res = t32(res.reshape(h // n, n, w // n, n).swapaxes(1, 2)
                   .reshape(-1, n, n))
-        return transform.transform_skip_fwd(res, n) if ts \
+        # K1's level forms in their TS mode: the TS coefficients
+        return transform.fwd_level([res], [torch.zeros_like(res)], 8,
+                                   ts=True)[1][0] if ts \
             else transform.forward_transform(res, n)
 
     def rdoq_case(n, luma, trellis, sdh, ts=False):
@@ -1489,35 +1589,52 @@ def slice5_kernel_cases(dev, rng):
         return (lambda: train.loss_bwd(pk, *rows(n)[:3], *sv, one),
                 lambda: train.loss_bwd_plain(pk, *rows(n)[:3], *sv, one))
 
-    # K15: per row the three layers back (a multiply and an add per
-    # term), the features and activations again, and each parameter's
-    # product and sum; then the blocks' partials summed
-    cases.append(("nnfme_bwd", bwd,
-                  lambda: train.loss_bwd_plain(pk, c9, hh, ww, *saved, one),
+    # K15 with K16 as its tail, the training step's form: on clones of the
+    # parameters and seeded moments, from update k (each timed call makes
+    # one more: the table has room for them)
+    n = nnfme.PACK_SIZE
+    base = (torch.as_tensor(rng.randn(n) * 1e-3, dtype=torch.float32)
+            .to(dev),
+            torch.as_tensor(rng.rand(n) * 1e-5, dtype=torch.float32).to(dev))
+
+    def fused(k=1, plain=False, steps=4096):
+        st = [pk.clone(), train.adam_state(base[0].clone(), base[1].clone(),
+                                           k - 1, steps)]
+
+        def call():
+            f = train.loss_bwd_adam_plain if plain else train.loss_bwd_adam
+            g = f(st[0], c9, hh, ww, *saved, one, st[1], 3e-3)
+            st[1] = st[1]._replace(count=st[1].count + 1)
+            return g, st[0], st[1].mu, st[1].nu, st[1].dcount
+        return call
+
+    # per row the three layers back (a multiply and an add per term), the
+    # features and activations again, and each parameter's product and
+    # sum; then the blocks' partials summed; the tail: per parameter 13
+    # operations, p, mu, nu read and written, a table row and the count
+    adam_bytes, adam_ops = (6 * n + 2 + 2) * 4, 13 * n
+    cases.append(("nnfme_bwd", fused(), fused(plain=True),
                   (nb * (11 + 91) + nnfme.PACK_SIZE + 1
-                   + nnfme.PACK_SIZE) * 4,
+                   + nnfme.PACK_SIZE) * 4 + adam_bytes,
                   2 * mlp_work(nb) + nb * (3 * 9 + 4 * 42 + 2 * 9 * 4)
                   + 2 * nb * nnfme.PACK_SIZE
-                  + -(-nb // train.KROWS) * nnfme.PACK_SIZE, None,
-                  # run to run: the same bits
-                  [(bwd, bwd)] + [bwd_case(n) for n in (1, 32, 100)]))
+                  + -(-nb // train.KROWS) * nnfme.PACK_SIZE + adam_ops, None,
+                  # updates 2 and the table's last; the gradient alone
+                  # (NnFmeLoss.backward's form) at 1024, run to run, and at
+                  # 1, 32 and 100 rows
+                  [(fused(2), fused(2, True)),
+                   (fused(7, steps=1), fused(7, True, 1)),
+                   (bwd, lambda: train.loss_bwd_plain(pk, c9, hh, ww,
+                                                      *saved, one)),
+                   (bwd, bwd)] + [bwd_case(n) for n in (1, 32, 100)]))
     grad = bwd()
-    n = nnfme.PACK_SIZE
-    base = (pk.clone(), torch.as_tensor(rng.randn(n) * 1e-3, dtype=torch
-                                        .float32).to(dev),
-            torch.as_tensor(rng.rand(n) * 1e-5, dtype=torch.float32).to(dev))
-    kb, pb = [b.clone() for b in base], [b.clone() for b in base]
     lp = torch.nn.Parameter(pk.clone())
     lp.grad = grad.clone()
-    fused = torch.optim.Adam([lp], lr=3e-3, fused=True)
-    # K16: per parameter 13 operations; p, g, mu, nu in, p, mu, nu out
-    cases.append(("adam",
-                  lambda: (train.adam_update(kb[0], grad, kb[1], kb[2], 7,
-                                             3e-3), tuple(kb))[1],
-                  lambda: (train.adam_update_plain(pb[0], grad, pb[1],
-                                                   pb[2], 7, 3e-3),
-                           tuple(pb))[1],
-                  7 * n * 4, 13 * n, fused.step))
+    lib = torch.optim.Adam([lp], lr=3e-3, fused=True)
+    # K16 as K15's tail: the same launch, its row's bound the update's
+    # own (the gradient is not read back), the yardstick fused Adam
+    cases.append(("adam", fused(), fused(plain=True), adam_bytes, adam_ops,
+                  lib.step))
     return cases
 
 
@@ -1540,6 +1657,7 @@ PLAIN_FUNCS = (
     # and of K1's level forms and K6's level form
     ("K1 plain", "hmtpu_torch.ops.transform", "fwd_level_plain"),
     ("K1 plain", "hmtpu_torch.ops.transform", "inv_level_plain"),
+    ("K1 plain", "hmtpu_torch.ops.transform", "inv_level_ts_plain"),
     ("K6 plain", "hmtpu_torch.models.nnfme", "predict_offsets_levels_plain"),
     # and of K8's gate form and one-call form
     ("K8 plain", "hmtpu_torch.search.me", "satd_gate_levels_plain"),
@@ -1558,7 +1676,7 @@ PLAIN_FUNCS = (
                         "merge_flag_bits", "merge_idx_bits", "mvp_idx_bits",
                         "part_size_2nx2n_bits", "pred_mode_bits",
                         "rqt_root_cbf_bits", "skip_flag_bits",
-                        "split_flag_bits", "ts_flag_bits")),
+                        "split_flag_bits")),
         ("iframe_dev", ("cbf_chroma_bits", "cbf_luma_bits", "chroma_dm_bits",
                         "part_size_2nx2n_bits", "part_size_nxn_bits",
                         "split_flag_bits")))
@@ -1583,6 +1701,7 @@ TRAIN_PLAIN_FUNCS = (
     ("K9", "hmtpu_torch.search.me", "frac_refine_batch_plain"),
     ("K14", "hmtpu_torch.models.train", "loss_fwd_plain"),
     ("K15", "hmtpu_torch.models.train", "loss_bwd_plain"),
+    ("K15 + K16", "hmtpu_torch.models.train", "loss_bwd_adam_plain"),
     ("K16", "hmtpu_torch.models.train", "adam_update_plain"))
 
 
@@ -1670,6 +1789,16 @@ CAPTURED = (
      "hmtpu_torch.encoder.pframe_dev", "wavefront_pass",
      lambda a, k: 1 + (int(k["col"][2].sum())
                        if k.get("col") is not None else 0)),
+    # K1's TS mode: the P pass's TS hypothesis (ldp_dctif's 8 level, three
+    # planes), its forward and its inverse, and the one-plane pair of
+    # `_code_ts_sel` (the plain passes' calls on the card)
+    ("transform_skip", lambda a, k: ("fwd" if len(a[0]) == 3 else
+                                     "fwd one plane") if k.get("ts")
+     else "no TS", "hmtpu_torch.encoder.pframe_dev", "fwd_level",
+     lambda a, k: a[0][0].shape[0]),
+    ("transform_skip", lambda a, k: "inv" if len(a[0]) == 3
+     else "inv one plane", "hmtpu_torch.encoder.pframe_dev",
+     "inv_level_ts", lambda a, k: a[0][0].shape[0]),
     # K9's levels form: every call its own form (the P / B passes of the
     # DCT-IF encodes)
     ("frac_refine", frac_form, "hmtpu_torch.search.me",
@@ -2374,7 +2503,8 @@ PTXAS = (("K1 fwd_level", "transform", "fwd_level_kernel"),
 PTXAS_CLEAN = ("K3 deblock, state form", "K3 deblock, map form",
                "K19 mv_regularize", "K9 frac_refine, 8x8",
                "K9 frac_refine, 16x16", "K9 frac_refine, 32x32",
-               "K9 frac_refine, levels", "K24 tmvp_grid")
+               "K9 frac_refine, levels", "K24 tmvp_grid", "K1 fwd_level",
+               "K1 inv_level", "K15 nnfme_bwd")
 
 
 def ptxas_figures(log: str, fn: str) -> str:
@@ -2615,12 +2745,16 @@ def check_kernels(cases, rows) -> None:
         lms = time_cuda(lib, 200) if lib is not None else None
         dms = device_ms(kfn, DEVICE_FN[kernel_of(name)])
         bms, by = bound_ms(nbytes, ops)
-        src, repl = kernels.KERNELS[kernel_of(name)]
+        k = kernel_of(name)
+        src, repl = kernels.KERNELS[k] if k in kernels.KERNELS \
+            else INSIDE[k][:2]
         rows[name] = dict(
             name=name, route="cuda", source=f"hmtpu_torch/csrc/{src}.cu",
             replaces=repl, launches=0, max_abs_err=err,
             ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
             library_ms=lms, device_ms=dms)
+        if k in INSIDE:
+            rows[name]["inside"] = INSIDE[k][2]
         print(f"kernel {name}: equal to plain; {ms:.4f} ms per call, "
               f"{dms:.4f} ms on the device (plain {pms:.4f} ms, bound "
               f"{bms:.6f} ms by {by}"
@@ -2693,14 +2827,14 @@ def main() -> None:
 
     # ---- 4. the main path: low-delay P with NN-FME
     ldp_names = [k for k in kernels.KERNELS
-                 if k not in ("frac_refine", "transform_skip", "mc_dctif_i",
-                              "bi_pred", "b_walk") + P_INSIDE_K23
-                 + TRAIN_KERNELS]
+                 if k not in ("frac_refine", "mc_dctif_i", "bi_pred",
+                              "b_walk") + P_INSIDE_K23 + TRAIN_KERNELS]
     (bs, dt, results), counts, util = run_counted(
         "ldp", lambda: encode(clip, QP_LDP, dev, "ldp", SRANGE),
         ldp_names, kernels)
     for name in rows:
-        rows[name]["launches"] = counts[kernel_of(name)]
+        # K16 and K1's TS mode run inside K15's and K1's launches
+        rows[name]["launches"] = counts.get(kernel_of(name), 0)
     check_results(results, "ldp")
     # K4 and K25 a frame, K7 a P pass, from the launch counters
     n_p = LDP_FRAMES - 1
@@ -2758,12 +2892,21 @@ def main() -> None:
              str(LDP_FRAMES), *size, "-b",
              os.path.join(tmp.name, "ldp_dctif.hevc")], dev),
         dctif_names, kernels)
-    for name in ("frac_refine", "transform_skip"):
-        rows[name]["launches"] = d_counts[name]
-    # K9 once a P pass (the three levels in one launch)
+    rows["frac_refine"]["launches"] = d_counts["frac_refine"]
+    # K9 once a P pass (the three levels in one launch); K1's level forms
+    # once a level each way, the 8 level's in their TS mode (the pair
+    # coded and picked inside: K1-TS has no launch of its own)
     if d_counts["frac_refine"] != n_p:
         fail(f"ldp_dctif: {d_counts['frac_refine']} K9 launches for {n_p} "
              f"P passes")
+    d_k1 = [d_counts[k] for k in ("int_transform_fwd", "int_transform_inv")]
+    print(f"ldp_dctif: K1 level-form launches a P pass {d_k1[0] / n_p:g} "
+          f"forward, {d_k1[1] / n_p:g} inverse (the TS pair's among them), "
+          f"no transform_skip launch: "
+          f"{'transform_skip' not in kernels.COUNTS}", flush=True)
+    if d_k1 != [3 * n_p] * 2 or "transform_skip" in kernels.COUNTS:
+        fail(f"ldp_dctif: {d_k1} K1 level-form launches (forward, inverse) "
+             f"for {n_p} P passes, or a transform_skip counter")
     if d_counts["satd8"]:
         fail(f"ldp_dctif: {d_counts['satd8']} K8 launches (the DCT-IF "
              f"search has no NN-FME gate)")
@@ -2787,8 +2930,8 @@ def main() -> None:
     yuv10 = os.path.join(tmp.name, "clip10.yuv")
     write_yuv(yuv10, ra_clip, 10)
     ra_names = [k for k in kernels.KERNELS
-                if k not in ("nnfme", "satd8", "transform_skip",
-                             "mv_regularize", "p_walk", "tmvp_grid")
+                if k not in ("nnfme", "satd8", "mv_regularize", "p_walk",
+                             "tmvp_grid")
                 + B_INSIDE_K26 + TRAIN_KERNELS]
     ra_args = ["-c", RA_CFG, "--InputBitDepth=10", "-f", str(RA_FRAMES),
                "-wdt", str(W), "-hgt", str(H), "-i", yuv10, "-b"]
@@ -2933,8 +3076,7 @@ def main() -> None:
 
     train_dir = os.path.join(tmp.name, "nnfme")
     csv_dir = os.path.join(tmp.name, "sse")
-    train_names = ["me_sad1", "frac_refine", "nnfme_fwd", "nnfme_bwd",
-                   "adam"]
+    train_names = ["me_sad1", "frac_refine", "nnfme_fwd", "nnfme_bwd"]
     train_args = ["--size", f"{W}x{H}", "--frames", str(TRAIN_FRAMES),
                   "--qps", ",".join(str(q) for q in TRAIN_QPS), "--epochs",
                   str(TRAIN_EPOCHS), "--search-range", str(TRAIN_SR),
@@ -2951,10 +3093,16 @@ def main() -> None:
              f"({plain.calls})")
     n_rows = (TRAIN_FRAMES - 1) * (W // 8) * (H // 8)
     steps = len(TRAIN_QPS) * train_steps(n_rows)
-    if t_counts["adam"] != steps or t_counts["nnfme_bwd"] != steps:
-        fail(f"nnfme_train: {t_counts['adam']} K16 and "
-             f"{t_counts['nnfme_bwd']} K15 launches for {steps} steps")
-    for name in ("me_sad1", "nnfme_fwd", "nnfme_bwd", "adam"):
+    # K15 once a step, with K16 as its tail: K16 has no launch of its own
+    if t_counts["nnfme_bwd"] != steps or t_counts["nnfme_fwd"] < steps \
+            or "adam" in t_counts:
+        fail(f"nnfme_train: {t_counts['nnfme_bwd']} K15 and "
+             f"{t_counts['nnfme_fwd']} K14 launches for {steps} steps, or "
+             f"a launch counter of K16's own")
+    print(f"nnfme_train: K15 launches {t_counts['nnfme_bwd']} for {steps} "
+          f"steps (K16 inside each), K14 {t_counts['nnfme_fwd']} (the "
+          f"steps and the validations)", flush=True)
+    for name in ("me_sad1", "nnfme_fwd", "nnfme_bwd"):
         rows[name]["launches"] = t_counts[name]
     from hmtpu_torch.models import nnfme
 
@@ -3155,6 +3303,8 @@ def main() -> None:
         # launches are ldp_dctif's
         check_kernels(frac_levels_cases(cap.got), rows)
         rows["frac_refine:levels"]["launches"] = d_counts["frac_refine"]
+        # K1's TS mode on ldp_dctif's hypothesis (inside K1's launches)
+        check_kernels(ts_captured_cases(cap.got), rows)
         rows["b_walk"]["launches"] = r_counts["b_walk"]
         print("kernels K23-K26 launches: " + "; ".join(
             f"{name} ldp {counts[name]}, ldp_dctif {d_counts[name]}, ra10 "

@@ -46,14 +46,15 @@ def nnfme_params_from_numpy(d, device="cuda"):
                               resolve(device))
 
 
-def adam_state_from_numpy(opt_state, device="cuda"):
+def adam_state_from_numpy(opt_state, device="cuda", steps: int = 0):
     """optax.adam's state (the tuple `optax.adam(lr).init` / `update`
     give, or its ScaleByAdamState) with `mu` and `nu` NnFmeParams-shaped
     (NamedTuples or mappings of numpy-convertible arrays) -> the port's
     `AdamState`: the moments packed in PACK_ORDER on `device` (float32),
-    `count` a host int."""
+    `count` a host int and its device copy, the bias corrections' table
+    ready for `steps` more updates."""
     from hmtpu_torch.models.nnfme import PACK_ORDER
-    from hmtpu_torch.models.train import AdamState
+    from hmtpu_torch.models.train import adam_state
 
     st = opt_state if hasattr(opt_state, "mu") \
         else next(s for s in opt_state if hasattr(s, "mu"))
@@ -65,4 +66,5 @@ def adam_state_from_numpy(opt_state, device="cuda"):
             [np.asarray(d[k], np.float32).reshape(-1) for k in PACK_ORDER])
         ).to(dev)
 
-    return AdamState(pack(st.mu), pack(st.nu), int(np.asarray(st.count)))
+    return adam_state(pack(st.mu), pack(st.nu), int(np.asarray(st.count)),
+                      steps)

@@ -68,6 +68,7 @@
 #define HM_FADD(a, b) __fadd_rn((a), (b))
 #define HM_FSUB(a, b) __fsub_rn((a), (b))
 #define HM_FDIV(a, b) __fdiv_rn((a), (b))
+#define HM_FSQRT(a) __fsqrt_rn(a)
 #define HM_CLZ(x) __clz(x)
 #define HM_POPC(x) __popc(x)
 #define HM_CLZ64(x) __clzll((long long)(x))
@@ -91,6 +92,7 @@
 #define HM_FADD(a, b) ((float)(a) + (float)(b))
 #define HM_FSUB(a, b) ((float)(a) - (float)(b))
 #define HM_FDIV(a, b) ((float)(a) / (float)(b))
+#define HM_FSQRT(a) sqrtf((float)(a))
 #define HM_CLZ(x) __builtin_clz(x)
 #define HM_POPC(x) __builtin_popcount(x)
 #define HM_CLZ64(x) __builtin_clzll(x)

@@ -1,5 +1,6 @@
-// K14 nnfme_fwd, K15 nnfme_bwd and K16 adam: one NN-FME training step
-// (hmtpu/models/train.py:46 train_step) on the card.
+// K14 nnfme_fwd, K15 nnfme_bwd and K16 adam (K15's tail): one NN-FME
+// training step (hmtpu/models/train.py:46 train_step) on the card, in
+// two launches.
 //
 //   K14  the forward of loss_fn (:38): the 17->22->20->49 MLP of K6 over a
 //        batch of rows, the softmax cross-entropy with integer labels as
@@ -10,7 +11,9 @@
 //   K15  the backward (jax.value_and_grad, :49): the gradient of all 2060
 //        parameters (PACK_ORDER; mean, std and gin included) summed over
 //        the batch.
-//   K16  optax.adam's update (:51-53), elementwise over the 2060.
+//   K16  optax.adam's update (:51-53), elementwise over the 2060: the
+//        tail of K15's launch, where each parameter's gradient is
+//        finished.
 //
 // What bounds them on the H100: latency.  A step of batch 1024 moves
 // about 0.7 MB and does about 15 M float32 operations: well under a
@@ -40,7 +43,9 @@
 // the kernel resets and a generation word), each block takes 32
 // parameters, stages their partials in shared memory and sums each in
 // ascending block order on a lane of warp 0 (nnfme_train.cuh
-// `chunk_sums`).  Fixed orders and no float atomics: the card gives the
+// `chunk_sums`); in a training step that lane goes on to K16's update of
+// the parameter (`AdamTail`), so the gradient is not read back from
+// memory by a launch of its own.  Fixed orders and no float atomics: the card gives the
 // same gradient bits on every run, and the plain versions
 // (models/train.py) sum in the same orders; K15's grid has a block for
 // each 32 parameters at least, so a small batch's column sums run side
@@ -50,8 +55,11 @@
 // to the rows the size tables select (the height table keeps the
 // reference's 16-before-12 order).  K16 follows optax's order of
 // operations: mu = (1-b1) g + b1 mu, nu = (1-b2) g^2 + b2 nu, m^ = mu /
-// bc1, v^ = nu / bc2 (bc = 1 - b^count, computed by the caller in
-// float32), p = p + (-lr) m^ / (sqrt(v^) + eps), in place.
+// bc1, v^ = nu / bc2, p = p + (-lr) m^ / (sqrt(v^) + eps), in place.
+// The step count is a device int32 that every block reads before the
+// grid barrier and block 0 increments after it; bc = 1 - b^k comes from
+// the caller's float32 table by that count, so a step passes no host
+// value that changes from step to step.
 //
 // The partials' scratch is the caller's (one tensor a device, kept
 // between calls, shared by K14 and K15), and the ticket and the barrier
@@ -163,9 +171,11 @@ __device__ __forceinline__ void grid_sync() {
   __syncthreads();
 }
 
+// K15, and K16 as its tail where mu is not null: pack, mu and nu
+// updated in place, the step count read before the grid barrier and its
+// successor written after it
 __global__ void __launch_bounds__(kThreads)
-    nnfme_bwd_kernel(const float* __restrict__ pack,
-                     const float* __restrict__ costs,
+    nnfme_bwd_kernel(float* pack, const float* __restrict__ costs,
                      const int* __restrict__ heights,
                      const int* __restrict__ widths,
                      const float* __restrict__ z1i,
@@ -173,7 +183,10 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ dli,
                      const float* __restrict__ gscale,
                      float* __restrict__ part, float* __restrict__ grad,
-                     int B) {
+                     int B, float* __restrict__ mu, float* __restrict__ nu,
+                     int* __restrict__ count, const float* __restrict__ bc,
+                     int ntab, float b1, float omb1, float b2, float omb2,
+                     float eps, float neg_lr) {
   __shared__ float p[kPack];
   // the block's row vectors, then the partials' staging tile
   __shared__ float rows[kTile > KROWS * kStride ? kTile : KROWS * kStride];
@@ -185,6 +198,11 @@ __global__ void __launch_bounds__(kThreads)
   if (i < B) load_row(costs, heights, widths, nullptr, z1i, z2i, dli, i, in);
   stage_in(pack, kPack, p, threadIdx.x, kThreads);
   const float gsc = *gscale;  // the loss's cotangent (1 for a step)
+  // the step's count and bias corrections, read before any block passes
+  // the barrier after which block 0 writes the count
+  const int c = mu != nullptr ? *count : 0;
+  AdamArgs ad{pack, p, mu, nu, b1, omb1, b2, omb2, 0.0f, 0.0f, eps, neg_lr};
+  const bool upd = mu != nullptr && adam_step(bc, ntab, c, ad);
   // the thread's parameters' sources, loaded with the parameters
   constexpr int kPer = (kPack + kThreads - 1) / kThreads;
   int2 src[kPer];
@@ -214,28 +232,18 @@ __global__ void __launch_bounds__(kThreads)
   grid_sync();
   NNT_STAMP(12);
   // 32 parameters a block at a time, their partials staged in shared
-  // memory, a parameter a lane of warp 0
-  for (int ch = blockIdx.x; ch * 32 < kPack; ch += gridDim.x)
-    chunk_sums<32>(part, nb, kPack, ch, rows, grad, 0.0f, threadIdx.x,
-                   kThreads);
+  // memory, a parameter a lane of warp 0, which goes on to K16's update
+  // of it in a training step (the old value from the block's copy)
+  for (int ch = blockIdx.x; ch * 32 < kPack; ch += gridDim.x) {
+    if (upd)
+      chunk_sums<32>(part, nb, kPack, ch, rows, grad, 0.0f, threadIdx.x,
+                     kThreads, AdamTail{ad});
+    else
+      chunk_sums<32>(part, nb, kPack, ch, rows, grad, 0.0f, threadIdx.x,
+                     kThreads);
+  }
+  if (upd && blockIdx.x == 0 && threadIdx.x == 0) *count = c + 1;
   NNT_STAMP(13);  // thread 0 adds in chunk_sums: the block's last work
-}
-
-__global__ void adam_kernel(float* __restrict__ prm, const float* __restrict__ g,
-                            float* __restrict__ mu, float* __restrict__ nu,
-                            float b1, float omb1, float b2, float omb2,
-                            float bc1, float bc2, float eps, float neg_lr,
-                            int n) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  const float gj = g[j];
-  const float m = __fadd_rn(__fmul_rn(omb1, gj), __fmul_rn(b1, mu[j]));
-  const float v = __fadd_rn(__fmul_rn(omb2, __fmul_rn(gj, gj)), __fmul_rn(b2, nu[j]));
-  mu[j] = m;
-  nu[j] = v;
-  const float u = __fdiv_rn(__fdiv_rn(m, bc1),
-                            __fadd_rn(__fsqrt_rn(__fdiv_rn(v, bc2)), eps));
-  prm[j] = __fadd_rn(prm[j], __fmul_rn(neg_lr, u));
 }
 
 // the most K15 blocks resident at once on the current device; the first
@@ -279,39 +287,40 @@ extern "C" int hm_nnfme_fwd(const void* pack, const void* costs,
   return (int)cudaGetLastError();
 }
 
-// K15: part: kPack floats a block of KROWS rows (scratch), grad kPack
-extern "C" int hm_nnfme_bwd(const void* pack, const void* costs,
+// K15: part: kPack floats a block of KROWS rows (scratch), grad kPack.
+// With mu (else null: the gradient alone), K16 as its tail: pack, mu and
+// nu updated in place with the bias corrections of row *count of the
+// (ntab, 2) table bc, and *count incremented, all on the device (nothing
+// is updated where *count is past the table: the caller checks first)
+extern "C" int hm_nnfme_bwd(void* pack, const void* costs,
                             const void* heights, const void* widths,
                             const void* z1, const void* z2, const void* dl,
                             const void* gscale, void* part, void* grad, int B,
+                            void* mu, void* nu, void* count, const void* bc,
+                            int ntab, float b1, float omb1, float b2,
+                            float omb2, float eps, float neg_lr,
                             void* stream) {
-  if (B <= 0) return cudaErrorInvalidValue;
+  if (B <= 0 || (mu != nullptr && (nu == nullptr || count == nullptr ||
+                                   bc == nullptr || ntab <= 0)))
+    return cudaErrorInvalidValue;
   const int cap = bwd_grid_cap();
   if (cap <= 0) return cudaErrorInvalidConfiguration;
   const int nb = (B + KROWS - 1) / KROWS;
   // at least a block a chunk of 32 parameters for the column sums (a
   // small batch's blocks would otherwise take them in turn)
   const int grid = min(max(nb, (kPack + 31) / 32), cap);
-  void* args[] = {(void*)&pack, (void*)&costs, (void*)&heights,
-                  (void*)&widths, (void*)&z1,    (void*)&z2,
-                  (void*)&dl,   (void*)&gscale, (void*)&part,
-                  (void*)&grad, (void*)&B};
+  void* args[] = {&pack,         (void*)&costs, (void*)&heights,
+                  (void*)&widths, (void*)&z1,   (void*)&z2,
+                  (void*)&dl,    (void*)&gscale, &part,
+                  &grad,         &B,            &mu,
+                  &nu,           &count,        (void*)&bc,
+                  &ntab,         &b1,           &omb1,
+                  &b2,           &omb2,         &eps,
+                  &neg_lr};
   cudaError_t e = cudaLaunchCooperativeKernel(
       (const void*)nnfme_bwd_kernel, dim3(grid), dim3(kThreads),
       args, 0, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
-
-// K16: params, mu and nu updated in place
-extern "C" int hm_adam(void* prm, const void* grad, void* mu, void* nu,
-                       float b1, float omb1, float b2, float omb2, float bc1,
-                       float bc2, float eps, float neg_lr, int n,
-                       void* stream) {
-  if (n <= 0) return cudaErrorInvalidValue;
-  adam_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      (float*)prm, (const float*)grad, (float*)mu, (float*)nu, b1, omb1, b2,
-      omb2, bc1, bc2, eps, neg_lr, n);
   return (int)cudaGetLastError();
 }
 

@@ -21,6 +21,11 @@
 // `chunk_sums`, the row's inputs ahead of the parameters' barrier): a
 // load of another block's store goes to L2, so a loop that waits on each
 // load in turn is what costs.
+//
+// K16, optax.adam's update, is K15's tail (`AdamTail`): the lane that
+// finishes a parameter's gradient in `chunk_sums` updates the parameter
+// and its two moments, with the bias corrections of the step read from
+// a table by the step count (`adam_one`, `AdamArgs`).
 #pragma once
 
 #include <math.h>
@@ -378,15 +383,60 @@ HM_FN float chain_sum(float acc, const float* s, int n, int pitch) {
   return acc;
 }
 
+// K16: optax.adam's update of one parameter, in optax's order of
+// separately rounded operations: mu = (1-b1) g + b1 mu, nu = (1-b2) g^2
+// + b2 nu, m^ = mu / bc1, v^ = nu / bc2, p = p + (-lr) m^ / (sqrt(v^) +
+// eps), with bc = 1 - b^k the step's bias corrections
+struct AdamArgs {
+  float* prm;        // the parameters, written
+  const float* old;  // their values before the step
+  float* mu;
+  float* nu;
+  float b1, omb1, b2, omb2, bc1, bc2, eps, neg_lr;
+};
+
+HM_FN void adam_one(const AdamArgs& a, int j, float g) {
+  const float m = HM_FADD(HM_FMUL(a.omb1, g), HM_FMUL(a.b1, a.mu[j]));
+  const float v =
+      HM_FADD(HM_FMUL(a.omb2, HM_FMUL(g, g)), HM_FMUL(a.b2, a.nu[j]));
+  a.mu[j] = m;
+  a.nu[j] = v;
+  const float u = HM_FDIV(HM_FDIV(m, a.bc1),
+                          HM_FADD(HM_FSQRT(HM_FDIV(v, a.bc2)), a.eps));
+  a.prm[j] = HM_FADD(a.old[j], HM_FMUL(a.neg_lr, u));
+}
+
+// the bias corrections of the update that follows `count` updates: row
+// count of the (ntab, 2) table bc (1 - b1^k, 1 - b2^k for k = 1..ntab);
+// false past the table
+HM_FN bool adam_step(const float* bc, int ntab, int count, AdamArgs& a) {
+  if (count < 0 || count >= ntab) return false;
+  a.bc1 = bc[2 * count];
+  a.bc2 = bc[2 * count + 1];
+  return true;
+}
+
+// what chunk_sums does with each finished column: nothing (K14, and K15
+// for the gradient alone), or K16's update of that parameter
+struct NoTail {
+  HM_FN void operator()(int, float) const {}
+};
+struct AdamTail {
+  AdamArgs a;
+  HM_FN void operator()(int j, float g) const { adam_one(a, j, g); }
+};
+
 // columns CW ch .. CW ch + CW - 1 of the blocks' partials part (nb rows
 // of ncols floats, written by other blocks), each summed from 0 in
-// ascending block order (divided by div > 0) to out[column]: the block
+// ascending block order (divided by div > 0) to out[column], then
+// handed to tail(column, sum) on the lane that summed it: the block
 // stages up to kTile / (CW + 1) rows of them at a time in tile (shared),
 // kLdBatch loads in flight a thread, then warp 0 adds a column a lane;
 // thread tid of nt
-template <int CW>
+template <int CW, class Tail = NoTail>
 HM_FN void chunk_sums(const float* part, int nb, int ncols, int ch,
-                      float* tile, float* out, float div, int tid, int nt) {
+                      float* tile, float* out, float div, int tid, int nt,
+                      const Tail& tail = Tail()) {
   constexpr int pitch = CW + 1, rows_max = kTile / pitch;
   const int c0 = ch * CW, nc = imin(CW, ncols - c0);
   L32 acc;
@@ -418,7 +468,11 @@ HM_FN void chunk_sums(const float* part, int nb, int ncols, int ch,
   }
   if (tid < 32) {
     HM_LANES(c, 32) {
-      if (c < nc) out[c0 + c] = div > 0.0f ? HM_FDIV(acc[c], div) : acc[c];
+      if (c < nc) {
+        const float s = div > 0.0f ? HM_FDIV(acc[c], div) : acc[c];
+        out[c0 + c] = s;
+        tail(c0 + c, s);
+      }
     }
   }
 }
@@ -450,11 +504,16 @@ inline void fwd_host(const float* pack, const float* costs, const int* h,
 }
 
 // K15 on one host thread.  part: kPack * nb floats, a block's row after
-// another, as the kernel keeps them
-inline void bwd_host(const float* pack, const float* costs, const int* h,
+// another, as the kernel keeps them.  With mu (non-null), K16 as its
+// tail: pack, mu and nu updated in place with the bias corrections of
+// row *count of the (ntab, 2) table bc, and *count + 1 written back
+// (nothing updated past the table)
+inline void bwd_host(float* pack, const float* costs, const int* h,
                      const int* w, const float* z1, const float* z2,
                      const float* dl, float gsc, float* part, float* grad,
-                     int B) {
+                     int B, float* mu, float* nu, int* count,
+                     const float* bc, int ntab, float b1, float omb1,
+                     float b2, float omb2, float eps, float neg_lr) {
   const int nb = (B + KROWS - 1) / KROWS;
   std::vector<float> rows(KROWS * kStride, 0.0f), tile(kTile);
   for (int blk = 0; blk < nb; ++blk) {
@@ -471,8 +530,17 @@ inline void bwd_host(const float* pack, const float* costs, const int* h,
       part[(size_t)blk * kPack + p] = param_sum(rows.data(), nrows, a, b);
     }
   }
-  for (int ch = 0; ch * 32 < kPack; ++ch)
-    chunk_sums<32>(part, nb, kPack, ch, tile.data(), grad, 0.0f, 0, 1);
+  AdamArgs ad{pack, pack, mu, nu, b1, omb1, b2, omb2, 0.0f, 0.0f, eps,
+              neg_lr};
+  const bool upd = mu != nullptr && adam_step(bc, ntab, *count, ad);
+  for (int ch = 0; ch * 32 < kPack; ++ch) {
+    if (upd)
+      chunk_sums<32>(part, nb, kPack, ch, tile.data(), grad, 0.0f, 0, 1,
+                     AdamTail{ad});
+    else
+      chunk_sums<32>(part, nb, kPack, ch, tile.data(), grad, 0.0f, 0, 1);
+  }
+  if (upd) *count += 1;
 }
 #endif
 

@@ -16,17 +16,6 @@
 // inverse, clipped) intermediate to shared memory, one barrier, stage 2
 // reads it.  Accumulation is int32: |sum| <= n * 90 * 2^15 < 2^31.
 //
-// TS mode (hm_transform_skip): the 4x4 transform skip of 8.6.4.2,
-// bit-exact with hmtpu/ops/transform.py:84 transform_skip_fwd
-// (resi << ts_shift) and :89 transform_skip_inv (((d << (5 + log2)) +
-// (1 << (bdShift - 1))) >> bdShift, clipped to 16 bits).  One int32 read
-// and one write per sample and a shift or two between them: bound by
-// bytes, and at the encoder's batches (a few hundred 4x4 TBs) by the
-// launch, the wrapper's host time included (ops/transform.py passes an
-// int32 contiguous input as it is).  Four samples a thread through one
-// 16-byte load and store, 256 threads to a block, a grid sized to the
-// work.
-//
 // Level forms (hm_fwd_level, hm_inv_level; transform.cuh "K1's level
 // forms"): the P and B passes' coding step around K10,
 // hmtpu/encoder/pframe_dev.py:188 `_code` with `hypothesis`'s combine,
@@ -45,6 +34,17 @@
 // block of g = 32 / n blocks (one at n = 32) holds the level's three
 // planes of those blocks, two warps (one for one plane).  Replaces the
 // two launches a plane and the torch operations around them.
+//
+// TS mode (mode bit 9; transform.cuh "The transform-skip pair"): the 4x4
+// transform skip of 8.6.4.2 (hmtpu/ops/transform.py:84 transform_skip_fwd,
+// resi << ts_shift; :89 transform_skip_inv, ((d << (5 + log2)) + (1 <<
+// (bdShift - 1))) >> bdShift clipped to 16 bits) folded into the level
+// forms with `_code_ts_sel`'s pick: the forward writes a TS plane's
+// coefficients both ways in one launch, the inverse reconstructs, prices
+// and picks the pair in one.  The shift alone was bound by its launch; in
+// the level forms it adds a store a row to the forward and a load and a
+// reconstruction a row to the inverse, and the pick's torch operations
+// (the SSE, the flag's price, the RD compare, the selects) are gone.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -93,35 +93,6 @@ int launch(const void* x, const void* t, void* out, int nb, int n,
   return (int)cudaGetLastError();
 }
 
-// inverse: s1 = 5 + log2 nTbS, s2 = bdShift; forward: s1 = ts_shift
-__device__ __forceinline__ int ts_one(int v, int inverse, int s1, int s2) {
-  return inverse ? hm::ts_inv(v, s1, s2) : hm::ts_fwd(v, s1);
-}
-
-// A shift (and a rounding shift back) per sample: bound by its bytes, so
-// VEC moves 16 bytes a thread (x and out 16-byte aligned), the last n % 4
-// samples one a thread; else one sample a thread.
-template <bool VEC>
-__global__ void transform_skip_kernel(const int* __restrict__ x,
-                                      int* __restrict__ out, int n,
-                                      int inverse, int s1, int s2) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (!VEC) {
-    if (k < n) out[k] = ts_one(x[k], inverse, s1, s2);
-    return;
-  }
-  const int nv = n >> 2;
-  if (k < nv) {
-    int4 v = reinterpret_cast<const int4*>(x)[k];
-    v.x = ts_one(v.x, inverse, s1, s2);
-    v.y = ts_one(v.y, inverse, s1, s2);
-    v.z = ts_one(v.z, inverse, s1, s2);
-    v.w = ts_one(v.w, inverse, s1, s2);
-    reinterpret_cast<int4*>(out)[k] = v;
-  }
-  if (k < (n & 3)) out[4 * nv + k] = ts_one(x[4 * nv + k], inverse, s1, s2);
-}
-
 template <bool INV>
 __device__ __forceinline__ void level_body(const hm::LevelArgs& a) {
   __shared__ int sm[hm::kLevelWarps][hm::kLevelTile];
@@ -150,6 +121,19 @@ int launch_level(bool inv, const hm::LevelArgs& a, void* stream) {
       (a.n0 != 4 && a.n0 != 8 && a.n0 != 16 && a.n0 != 32) ||
       (a.planes == 3 && (a.n1 * 2 != a.n0 || a.n1 < 4)))
     return cudaErrorInvalidValue;
+  if ((a.mode >> 9) & 1) {  // the TS pair: 4x4 planes, every pointer given
+    if ((a.planes == 1 ? a.n0 : a.n1) != 4) return cudaErrorInvalidValue;
+    for (int k = 0; k < a.planes; ++k) {
+      if (!hm::level_ts(a, k)) continue;
+      if (inv ? (a.tdeq[k] == nullptr || a.tlev[k] == nullptr ||
+                 a.tbits[k] == nullptr || a.bits[k] == nullptr ||
+                 a.levk[k] == nullptr || a.bitk[k] == nullptr)
+              : a.tcoef[k] == nullptr)
+        return cudaErrorInvalidValue;
+    }
+    if (inv && (a.tsflag == nullptr || a.lam == nullptr || a.ts == nullptr))
+      return cudaErrorInvalidValue;
+  }
   const int threads = hm::level_threads(a.n0, a.n1, a.planes);
   const int g = hm::level_g(a.n0);
   if (threads > hm::kLevelWarps * 32 || threads % 32 != 0 || g > 8)
@@ -164,26 +148,6 @@ int launch_level(bool inv, const hm::LevelArgs& a, void* stream) {
 
 }  // namespace
 
-// mode: inverse | s1 << 1 | s2 << 8 (one argument: at the encoder's
-// shapes the caller's host time is the call's time)
-extern "C" int hm_transform_skip(const void* x, void* out, int n, int mode,
-                                 void* stream) {
-  const int inverse = mode & 1, s1 = (mode >> 1) & 127, s2 = mode >> 8;
-  if (n < 1 || s1 > 15 || (inverse && (s2 < 1 || s2 > 20)) ||
-      (!inverse && s2 != 0))
-    return cudaErrorInvalidValue;
-  const bool vec = (((size_t)x | (size_t)out) & 15) == 0;
-  const int work = vec ? (n + 3) / 4 : n;
-  const int blocks = (work + 255) / 256;
-  if (vec)
-    transform_skip_kernel<true><<<blocks, 256, 0, (cudaStream_t)stream>>>(
-        (const int*)x, (int*)out, n, inverse, s1, s2);
-  else
-    transform_skip_kernel<false><<<blocks, 256, 0, (cudaStream_t)stream>>>(
-        (const int*)x, (int*)out, n, inverse, s1, s2);
-  return (int)cudaGetLastError();
-}
-
 extern "C" int hm_int_transform_fwd(const void* x, const void* t, void* out,
                                     int nb, int n, int shift1, int shift2,
                                     void* stream) {
@@ -196,32 +160,38 @@ extern "C" int hm_int_transform_inv(const void* x, const void* t, void* out,
   return launch<true>(x, t, out, nb, n, shift1, shift2, stream);
 }
 
-// a level's planes (1 or 3): org, pred, coef of each; (blocks, luma n,
-// chroma n, planes, bit depth | use_dst << 8)
+// a level's planes (1 or 3): org, pred, coef of each, and the TS
+// coefficients of the TS planes (or null); (blocks, luma n, chroma n,
+// planes, bit depth | use_dst << 8 | ts << 9)
 extern "C" int hm_fwd_level(const void* o0, const void* o1, const void* o2,
                             const void* p0, const void* p1, const void* p2,
-                            void* c0, void* c1, void* c2, int m, int n0,
-                            int n1, int planes, int mode, void* stream) {
+                            void* c0, void* c1, void* c2, void* t0, void* t1,
+                            void* t2, int m, int n0, int n1, int planes,
+                            int mode, void* stream) {
   hm::LevelArgs a{};
   a.org[0] = (const int*)o0, a.org[1] = (const int*)o1,
   a.org[2] = (const int*)o2;
   a.pred[0] = (const int*)p0, a.pred[1] = (const int*)p1,
   a.pred[2] = (const int*)p2;
   a.coef[0] = (int*)c0, a.coef[1] = (int*)c1, a.coef[2] = (int*)c2;
+  a.tcoef[0] = (int*)t0, a.tcoef[1] = (int*)t1, a.tcoef[2] = (int*)t2;
   a.m = m, a.n0 = n0, a.n1 = n1, a.planes = planes, a.mode = mode;
   return launch_level(false, a, stream);
 }
 
 // deq, lev, pred, org and K10's bits of each plane, dw (or null); rec and
-// sse of each, and cbf, dist and bitsum (three planes); as hm_fwd_level
+// sse of each, and cbf, dist and bitsum (three planes); ts (a host array,
+// or null without the TS pair) the TS planes' device pointers, by plane:
+// tdeq[3], tlev[3], tbits[3], the flag's two prices, lam, levk[3],
+// bitk[3], the ts word; as hm_fwd_level
 extern "C" int hm_inv_level(
     const void* d0, const void* d1, const void* d2, const void* l0,
     const void* l1, const void* l2, const void* p0, const void* p1,
     const void* p2, const void* o0, const void* o1, const void* o2,
     const void* b0, const void* b1, const void* b2, const void* dw,
     void* r0, void* r1, void* r2, void* s0, void* s1, void* s2, void* cbf,
-    void* dist, void* bitsum, int m, int n0, int n1, int planes, int mode,
-    void* stream) {
+    void* dist, void* bitsum, const void* const* ts, int m, int n0, int n1,
+    int planes, int mode, void* stream) {
   hm::LevelArgs a{};
   a.deq[0] = (const int*)d0, a.deq[1] = (const int*)d1,
   a.deq[2] = (const int*)d2;
@@ -237,6 +207,20 @@ extern "C" int hm_inv_level(
   a.rec[0] = (int*)r0, a.rec[1] = (int*)r1, a.rec[2] = (int*)r2;
   a.sse[0] = (float*)s0, a.sse[1] = (float*)s1, a.sse[2] = (float*)s2;
   a.cbf = (int*)cbf, a.dist = (float*)dist, a.bitsum = (float*)bitsum;
+  if (ts != nullptr) {
+    for (int k = 0; k < 3; ++k) {
+      a.tdeq[k] = (const int*)ts[k];
+      a.tlev[k] = (const int*)ts[3 + k];
+      a.tbits[k] = (const float*)ts[6 + k];
+      a.levk[k] = (int*)ts[11 + k];
+      a.bitk[k] = (float*)ts[14 + k];
+    }
+    a.tsflag = (const float*)ts[9];
+    a.lam = (const float*)ts[10];
+    a.ts = (int*)ts[17];
+  } else if ((mode >> 9) & 1) {
+    return cudaErrorInvalidValue;
+  }
   a.m = m, a.n0 = n0, a.n1 = n1, a.planes = planes, a.mode = mode;
   if (planes == 3 && (b0 == nullptr || b1 == nullptr || b2 == nullptr ||
                       cbf == nullptr || dist == nullptr || bitsum == nullptr))

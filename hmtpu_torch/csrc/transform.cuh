@@ -98,6 +98,18 @@ HM_FN void transform_tb(const int* T, const int* x, int* tmp, int* out, int n,
 // bits), so the regrouped sum is the same integer, and rounding happens
 // only at each stage's shift, where the matrix product rounds.  The 4x4
 // DST (use_dst, the first plane at n = 4) is the full 4-term product.
+//
+// The transform-skip pair (ts, hmtpu/encoder/pframe_dev.py:223
+// `_code_ts_sel`): the 4x4 planes (the one plane, or the chroma pair of
+// an 8x8 level) are coded both ways.  The forward also writes each such
+// TB's TS coefficients, the residual shifted (ts_fwd); K10 codes both
+// alternatives between the launches; the inverse reconstructs both
+// (ts_inv: the rounding shift and the 16-bit clip), prices
+// transform_skip_flag where each is coded (cbf 1), and keeps the TS
+// alternative only where it is coded and strictly cheaper: nz1 && d1 +
+// lam bits1 < d0 + lam bits0.  It writes the kept reconstruction,
+// levels, distortion and rate (the flag included) and a word a block of
+// the planes that kept TS.
 
 // the 32-point DCT of H.265 8.6.4.2 (transMatrix)
 HM_CONST int kDct32[32][32] = {
@@ -307,9 +319,13 @@ HM_FN void store_words(int* p, const int (&x)[N]) {
 
 // A launch of a level form: planes (1 or 3) of m TBs each, plane 0 of n0
 // x n0, planes 1 and 2 of n1 x n1; `mode` bit depth | use_dst << 8 (the
-// DST on plane 0 at n0 = 4).  fwd reads org, pred and writes coef; inv
-// reads deq, lev, pred, org (and, three planes, bits and dw) and writes
-// rec and sse, and, three planes, cbf, dist and bitsum.
+// DST on plane 0 at n0 = 4) | ts << 9 (the transform-skip pair on the
+// 4x4 planes: plane 0 of one, planes 1 and 2 of three at n0 = 8).  fwd
+// reads org, pred and writes coef (and tcoef of the TS planes); inv reads
+// deq, lev, pred, org (and, three planes or ts, bits and dw) and writes
+// rec and sse, and, three planes, cbf, dist and bitsum; with ts it also
+// reads the TS planes' tdeq, tlev, tbits, the flag's two prices and lam,
+// and writes their kept levk and bitk and a word ts a block.
 struct LevelArgs {
   const int* org[3];
   const int* pred[3];
@@ -323,6 +339,16 @@ struct LevelArgs {
   int* cbf;
   float* dist;
   float* bitsum;
+  // the transform-skip pair, indexed by plane like the others
+  int* tcoef[3];
+  const int* tdeq[3];
+  const int* tlev[3];
+  const float* tbits[3];
+  const float* tsflag;  // transform_skip_flag's bits for 0 and 1
+  const float* lam;     // the TS planes' lambda (0-d)
+  int* levk[3];
+  float* bitk[3];
+  int* ts;  // bit i: the i-th TS plane kept transform skip
   int m, n0, n1, planes, mode;
 };
 
@@ -373,6 +399,11 @@ HM_FN T plane_of(T const (&v)[3], int k) {
 HM_FN bool level_dst(const LevelArgs& a, const LaneJob& j) {
   return ((a.mode >> 8) & 1) && j.plane == 0 && j.n == 4;
 }
+// whether plane k is coded as a transform-skip pair, and its bit in ts
+HM_HD bool level_ts(const LevelArgs& a, int k) {
+  return ((a.mode >> 9) & 1) && (a.planes == 1 ? k == 0 : k > 0);
+}
+HM_HD int ts_bit(const LevelArgs& a, int k) { return a.planes == 1 ? 0 : k - 1; }
 
 #if defined(__CUDACC__)
 #define HM_WSYNC() __syncwarp()
@@ -395,6 +426,14 @@ HM_FN void fwd_warp(const LevelArgs& a, int blk, int w, int* sm) {
       load_words<N>(plane_of(a.pred, j.plane) + off, p);
       HM_UNROLL
       for (int k = 0; k < N; ++k) x[k] = o[k] - p[k];
+      if constexpr (N == 4) {
+        if (level_ts(a, j.plane)) {  // the TS coefficients: the shift
+          int t[N];
+          HM_UNROLL
+          for (int k = 0; k < N; ++k) t[k] = ts_fwd(x[k], 15 - bd - lg);
+          store_words<N>(plane_of(a.tcoef, j.plane) + off, t);
+        }
+      }
       tr_1d<N>(x, y, false, level_dst(a, j));
       int* t = sm + (l / N) * N * (N + 1);
       HM_UNROLL
@@ -449,18 +488,45 @@ inline int tb_or(const Lanes<int, 32>& v, int l) {
 #endif
 
 // a thread block's per-TB sums: the SSE (int) and the nonzero level flag
-// of each plane's g TBs
+// of each plane's g TBs; for a TS pair, the kept distortion and rate and
+// whether TS was kept
 struct LevelSums {
   int sse[3][8];
   int nz[3][8];
+  float d[3][8];
+  float b[3][8];
+  int use[3][8];
 };
 
-// the inverse on warp w of thread block blk, its TBs of N x N
+// the float32 SSE of plane k's TB with that integer sum: times dw on the
+// chroma planes (every plane of a one-plane call) where dw is given
+HM_FN float level_sse(const LevelArgs& a, int k, int e) {
+  const float d = (float)e;
+  return a.dw != nullptr && (a.planes == 1 || k > 0) ? HM_FMUL(d, *a.dw)
+                                                     : d;
+}
+
+// row r of a TS plane's TB, reconstructed from its TS alternative (the
+// residual ts_inv of its dequantised values) over the prediction p
+template <int N>
+HM_FN void ts_rec_row(const LevelArgs& a, int k, size_t off, const int* p,
+                      int* x) {
+  const int bd = level_bd(a), vmax = (1 << bd) - 1;
+  int q[N];
+  load_words<N>(plane_of(a.tdeq, k) + off, q);
+  HM_UNROLL
+  for (int c = 0; c < N; ++c)
+    x[c] = iclamp(p[c] + ts_inv(q[c], 7, 20 - bd), 0, vmax);
+}
+
+// the inverse on warp w of thread block blk, its TBs of N x N; at N = 4
+// the lanes of a TS plane's TB also reconstruct its transform-skip
+// alternative, and the TB's lanes pick one
 template <int N>
 HM_FN void inv_warp(const LevelArgs& a, int blk, int w, int* sm,
                     LevelSums& s) {
   const int bd = level_bd(a), s1 = 7, s2 = 20 - bd, vmax = (1 << bd) - 1;
-  Lanes<int, 32> nz, sse;
+  Lanes<int, 32> nz, sse, nz1, sse1;
   HM_LANES(l, 32) {
     const LaneJob j = lane_job(a, blk, w * 32 + l);
     nz[l] = 0;
@@ -486,6 +552,8 @@ HM_FN void inv_warp(const LevelArgs& a, int blk, int w, int* sm,
   HM_LANES(l, 32) {
     const LaneJob j = lane_job(a, blk, w * 32 + l);
     sse[l] = 0;
+    sse1[l] = 0;
+    nz1[l] = 0;
     if (j.ok) {  // stage 2: row r of the residual, the reconstruction
       const size_t off = ((size_t)j.tb * N + j.r) * N;
       int p[N], o[N], x[N], y[N];
@@ -503,6 +571,20 @@ HM_FN void inv_warp(const LevelArgs& a, int blk, int w, int* sm,
       }
       store_words<N>(plane_of(a.rec, j.plane) + off, x);
       sse[l] = e;
+      if constexpr (N == 4) {
+        if (level_ts(a, j.plane)) {  // row r of the TS alternative
+          int lv[N], any = 0, e1 = 0;
+          ts_rec_row<N>(a, j.plane, off, p, x);
+          load_words<N>(plane_of(a.tlev, j.plane) + off, lv);
+          HM_UNROLL
+          for (int k = 0; k < N; ++k) {
+            e1 += (o[k] - x[k]) * (o[k] - x[k]);
+            any |= lv[k];
+          }
+          sse1[l] = e1;
+          nz1[l] = any != 0;
+        }
+      }
     }
   }
   HM_LANES(l, 32) {  // the TB's sums over its lanes (exact: integers)
@@ -512,19 +594,57 @@ HM_FN void inv_warp(const LevelArgs& a, int blk, int w, int* sm,
       s.sse[j.plane][j.slot] = e;
       s.nz[j.plane][j.slot] = z;
     }
+    if constexpr (N == 4) {
+      // a TS pair: both priced with the flag where coded, TS kept where
+      // coded and strictly cheaper; each lane writes its row of the kept
+      // levels and, where TS is kept, of its reconstruction
+      const int e1 = tb_sum<N>(sse1, l), z1 = tb_or<N>(nz1, l);
+      if (j.ok && level_ts(a, j.plane)) {
+        const int k = j.plane, tb = j.tb;
+        const float d0 = level_sse(a, k, e), d1 = level_sse(a, k, e1);
+        const float b0 = HM_FADD(plane_of(a.bits, k)[tb],
+                                 z ? a.tsflag[0] : 0.0f);
+        const float b1 = HM_FADD(plane_of(a.tbits, k)[tb],
+                                 z1 ? a.tsflag[1] : 0.0f);
+        const float lam = *a.lam;
+        const bool use = z1 != 0 && HM_FADD(d1, HM_FMUL(lam, b1)) <
+                                        HM_FADD(d0, HM_FMUL(lam, b0));
+        const size_t off = ((size_t)tb * N + j.r) * N;
+        int lv[N];
+        load_words<N>((use ? plane_of(a.tlev, k) : plane_of(a.lev, k)) + off,
+                      lv);
+        store_words<N>(plane_of(a.levk, k) + off, lv);
+        if (use) {
+          int p[N], x[N];
+          load_words<N>(plane_of(a.pred, k) + off, p);
+          ts_rec_row<N>(a, k, off, p, x);
+          store_words<N>(plane_of(a.rec, k) + off, x);
+        }
+        if (j.r == 0) {
+          s.d[k][j.slot] = use ? d1 : d0;
+          s.b[k][j.slot] = use ? b1 : b0;
+          s.use[k][j.slot] = use;
+          s.nz[k][j.slot] = use ? 1 : z;
+        }
+      }
+    }
   }
   HM_WSYNC();
 }
 
-// the float32 SSE of plane k's TB with that integer sum: times dw on the
-// chroma planes (every plane of a one-plane call) where dw is given
-HM_FN float level_sse(const LevelArgs& a, int k, int e) {
-  const float d = (float)e;
-  return a.dw != nullptr && (a.planes == 1 || k > 0) ? HM_FMUL(d, *a.dw)
-                                                     : d;
+// plane k's kept distortion and rate of the TB in slot `slot` (tb): a TS
+// pair's pick, else its SSE (times dw) and K10's bits
+HM_FN float level_d(const LevelArgs& a, const LevelSums& s, int k,
+                    int slot) {
+  return level_ts(a, k) ? s.d[k][slot] : level_sse(a, k, s.sse[k][slot]);
+}
+HM_FN float level_b(const LevelArgs& a, const LevelSums& s, int k, int slot,
+                    int tb) {
+  return level_ts(a, k) ? s.b[k][slot] : plane_of(a.bits, k)[tb];
 }
 
-// after the block's barrier: each TB's sse, and, three planes, each
+// after the block's barrier: each TB's sse (and, TS pairs, its kept rate
+// and the block's word of planes that kept TS), and, three planes, each
 // block's cbf (bit k: plane k has a nonzero level), dist = (dy + du) +
 // dv and bitsum = (by + bu) + bv; thread tid of nt
 HM_FN void level_combine(const LevelArgs& a, int blk, const LevelSums& s,
@@ -532,18 +652,27 @@ HM_FN void level_combine(const LevelArgs& a, int blk, const LevelSums& s,
   const int g = level_g(a.n0);
   for (int q = tid; q < a.planes * g; q += nt) {
     const int k = q / g, slot = q % g, tb = blk * g + slot;
-    if (tb < a.m) plane_of(a.sse, k)[tb] = level_sse(a, k, s.sse[k][slot]);
+    if (tb >= a.m) continue;
+    plane_of(a.sse, k)[tb] = level_d(a, s, k, slot);
+    if (level_ts(a, k)) plane_of(a.bitk, k)[tb] = s.b[k][slot];
   }
-  if (a.planes != 3) return;
   for (int slot = tid; slot < g; slot += nt) {
     const int tb = blk * g + slot;
     if (tb >= a.m) continue;
+    if ((a.mode >> 9) & 1) {
+      int t = 0;
+      for (int k = 0; k < a.planes; ++k)
+        if (level_ts(a, k)) t |= s.use[k][slot] << ts_bit(a, k);
+      a.ts[tb] = t;
+    }
+    if (a.planes != 3) continue;
     a.cbf[tb] = s.nz[0][slot] | s.nz[1][slot] << 1 | s.nz[2][slot] << 2;
-    a.dist[tb] = HM_FADD(HM_FADD(level_sse(a, 0, s.sse[0][slot]),
-                                 level_sse(a, 1, s.sse[1][slot])),
-                         level_sse(a, 2, s.sse[2][slot]));
-    a.bitsum[tb] = HM_FADD(HM_FADD(a.bits[0][tb], a.bits[1][tb]),
-                           a.bits[2][tb]);
+    a.dist[tb] = HM_FADD(HM_FADD(level_d(a, s, 0, slot),
+                                 level_d(a, s, 1, slot)),
+                         level_d(a, s, 2, slot));
+    a.bitsum[tb] = HM_FADD(HM_FADD(level_b(a, s, 0, slot, tb),
+                                   level_b(a, s, 1, slot, tb)),
+                           level_b(a, s, 2, slot, tb));
   }
 }
 

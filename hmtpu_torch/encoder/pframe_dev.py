@@ -34,8 +34,8 @@ drops); it is updated in place.  Ties go to the first index, as in the
 reference: `argmin`, and a stable sort for the merge finalists.
 
 With the PPS's transform skip on, the 4x4 chroma TBs of 8x8 CUs are
-coded both ways and the cheaper kept (`_code_ts_sel`; the skip pair is
-K1's TS mode).  Sub-pel: NN-FME as above, HM's DCT-IF search (K9,
+coded both ways and the cheaper kept (`_code_ts_sel`, `hypothesis`: K1's
+level forms in their TS mode code the pair and pick inside).  Sub-pel: NN-FME as above, HM's DCT-IF search (K9,
 `subpel="dctif"`: the three levels in one launch, `frac_refine_levels`),
 or none.  Every coding step (`_code`) prices its TBs in one K10 launch
 (RDOQ, dequantisation and the TB rate).
@@ -120,16 +120,11 @@ from hmtpu_torch.ops.ratebits import (
     rqt_root_cbf_bits,
     skip_flag_bits,
     split_flag_bits,
-    ts_flag_bits,
+    ts_flag_pair,
 )
 from hmtpu_torch.ops.rdoq import rdoq_code
 from hmtpu_torch.ops.sao import sao_frame_dev
-from hmtpu_torch.ops.transform import (
-    fwd_level,
-    inv_level,
-    transform_skip_fwd,
-    transform_skip_inv,
-)
+from hmtpu_torch.ops.transform import fwd_level, inv_level, inv_level_ts
 from hmtpu_torch.search.wavefront import (
     amvp_candidates_dev,
     amvp_candidates_dev_b,
@@ -163,7 +158,7 @@ def _intra_scan_sel(m):
 
 def _code(org, pred, qp: int, log2: int, bd: int, lam, cbflat,
           is_luma=True, dw=None, sdh: bool = False, scan_sel=None,
-          use_dst: bool = False, rdoq: bool = True, ts: bool = False):
+          use_dst: bool = False, rdoq: bool = True):
     """transform -> quant (RDOQ, or deadzone with rdoq=False) -> dequant
     -> inverse -> clip; returns (lev, rec, sse, bits).  The DCT / DST
     steps around K10 are K1's level forms for one plane (`fwd_level`,
@@ -172,24 +167,12 @@ def _code(org, pred, qp: int, log2: int, bd: int, lam, cbflat,
     Bits are the CABAC-state-aware estimate of ops/ratebits.py; 0.0 for
     an all-zero TB (cbf priced at CU level).  dw is HM's chroma
     distortion weight applied to the returned SSE (chroma callers pass
-    lam = lambda/dw).  lam and dw are float32 0-d tensors.  ts=True
-    codes the TB in transform-skip mode (4x4 only)."""
-    n = 1 << log2
-    if ts:
-        coef = transform_skip_fwd(org - pred, n, bd)
-    else:
-        coef, = fwd_level([org], [pred], bd, use_dst)
+    lam = lambda/dw).  lam and dw are float32 0-d tensors."""
+    coef, = fwd_level([org], [pred], bd, use_dst)
     lev, deq, bits = rdoq_code(coef, qp, log2, bd, lam, cbflat, is_luma,
                                sdh=sdh, scan_sel=scan_sel, trellis=rdoq)
-    if not ts:
-        (rec,), (sse,), *_ = inv_level([deq], [lev], [pred], [org], bd, dw,
-                                       use_dst=use_dst)
-        return lev, rec, sse, bits
-    r = transform_skip_inv(deq, n, bd)
-    rec = torch.clamp(pred + r, 0, (1 << bd) - 1)
-    sse = ((org - rec) ** 2).sum((-1, -2)).to(torch.float32)
-    if dw is not None:
-        sse = sse * dw          # HM chroma distortion weight
+    (rec,), (sse,), *_ = inv_level([deq], [lev], [pred], [org], bd, dw,
+                                   use_dst=use_dst)
     return lev, rec, sse, bits
 
 
@@ -198,26 +181,18 @@ def _code_ts_sel(org, pred, qp: int, bd: int, lam, cbflat, is_luma,
                  use_dst: bool = False, rdoq: bool = True):
     """4x4 TBs coded both ways (DCT/DST and transform skip), the cheaper
     kept per TB with the transform_skip_flag bit priced in (the batched
-    form of TComTrQuant::transformNxN's TS trial + RDOQTS).  Returns
-    (lev, rec, sse, bits with the flag, use_ts)."""
-    l0, r0, d0, b0 = _code(org, pred, qp, 2, bd, lam, cbflat, is_luma, dw,
-                           sdh, scan_sel, use_dst, rdoq)
-    l1, r1, d1, b1 = _code(org, pred, qp, 2, bd, lam, cbflat, is_luma, dw,
-                           sdh, scan_sel, use_dst, rdoq, ts=True)
-    B = l0.shape[0]
-    nz0 = (l0.reshape(B, 16) != 0).any(1)
-    nz1 = (l1.reshape(B, 16) != 0).any(1)
-    zeros = torch.zeros((B,), dtype=torch.int32, device=org.device)
-    f0 = ts_flag_bits(cbflat, zeros, is_luma)
-    f1 = ts_flag_bits(cbflat, zeros + 1, is_luma)
-    # the flag exists only when the TB is coded (cbf=1)
-    bits0 = b0 + torch.where(nz0, f0, 0.0)
-    bits1 = b1 + torch.where(nz1, f1, 0.0)
-    use_ts = nz1 & (d1 + lam * bits1 < d0 + lam * bits0)
-    pick = lambda a, b_: torch.where(
-        use_ts.reshape((-1,) + (1,) * (a.dim() - 1)), b_, a)
-    return (pick(l0, l1), pick(r0, r1), torch.where(use_ts, d1, d0),
-            torch.where(use_ts, bits1, bits0), use_ts)
+    form of TComTrQuant::transformNxN's TS trial + RDOQTS): K1's level
+    forms in their TS mode around K10's two codings.  Returns (lev, rec,
+    sse, bits with the flag, use_ts)."""
+    (c0,), (c1,) = fwd_level([org], [pred], bd, use_dst, ts=True)
+    code = lambda c: rdoq_code(c, qp, 2, bd, lam, cbflat, is_luma, sdh=sdh,
+                               scan_sel=scan_sel, trellis=rdoq)
+    l0, q0, b0 = code(c0)
+    l1, q1, b1 = code(c1)
+    (rec,), (sse,), (lev,), (bits,), ts, *_ = inv_level_ts(
+        [q0], [l0], [b0], [q1], [l1], [b1], [pred], [org],
+        ts_flag_pair(cbflat, is_luma), lam, bd, dw, use_dst)
+    return lev, rec, sse, bits, ts != 0
 
 
 @lru_cache(maxsize=None)
@@ -1344,36 +1319,31 @@ def pframe_walk(org_y, org_u, org_v, refs_y, refs_u, refs_v, mv_x, mv_y,
         uidx = _union_idx(rr, None if lx is None else lx.reshape(-1), maps)
         m, log2 = gw * gh, n.bit_length() - 1
         pa, pu, pv = mc_yuv(*refs, uidx, gw, mx, my, n, bd)
+        # K1's level forms around K10 (a K10 launch a plane, and a TS
+        # plane's TS alternative another): with TS, the chroma pair coded
+        # both ways and the cheaper kept inside the inverse
+        preds = [pa, pu, pv]
+        code = lambda c, k: rdoq_code(
+            c, (qp, qpc, qpc)[k], log2 - (k > 0), bd, (lam, lam_c, lam_c)[k],
+            cbflat, k == 0, sdh=sdh, trellis=rdoq)
         if not with_ts:
-            # K1's level forms around K10 (a K10 launch a plane)
-            preds = [pa, pu, pv]
             coefs = fwd_level(orgs, preds, bd)
-            coded = [rdoq_code(c, q, log2 - (k > 0), bd, lm, cbflat, k == 0,
-                               sdh=sdh, trellis=rdoq)
-                     for k, (c, q, lm) in enumerate(zip(
-                         coefs, (qp, qpc, qpc), (lam, lam_c, lam_c)))]
-            levs, deqs, bits = (list(a) for a in zip(*coded))
+            levs, deqs, bits = zip(*[code(c, k) for k, c in enumerate(coefs)])
             (ry, ru, rv), _, cbf, dist, bsum = inv_level(
                 deqs, levs, preds, orgs, bd, wchroma, bits)
-            return dict(ref=rr, mvx=mx, mvy=my, cbf=cbf, rec_y=ry, rec_u=ru,
-                        rec_v=rv, lev=torch.cat([a.reshape(m, -1)
-                                                 for a in levs], 1),
-                        ts=None, dist=dist, bits=bsum)
-        ly, ry, dy, by = _code(orgs[0], pa, qp, log2, bd, lam, cbflat, True,
-                               sdh=sdh, rdoq=rdoq)
-        lc, rc, dc, bc, tsc = _code_ts_sel(
-            torch.cat([orgs[1], orgs[2]]), torch.cat([pu, pv]), qpc, bd,
-            lam_c, cbflat, False, wchroma, sdh=sdh, rdoq=rdoq)
-        (lu, lv), (ru, rv) = lc.split(m), rc.split(m)
-        (du, dv), (bu, bv) = dc.split(m), bc.split(m)
-        tsf = tsc[:m].to(torch.int32) | (tsc[m:].to(torch.int32) << 1)
-        nz = lambda lev: (lev.reshape(m, -1) != 0).any(1).to(torch.int32)
-        return dict(ref=rr, mvx=mx, mvy=my,
-                    cbf=nz(ly) | (nz(lu) << 1) | (nz(lv) << 2),
-                    rec_y=ry, rec_u=ru, rec_v=rv,
-                    lev=torch.cat([a.reshape(m, -1) for a in (ly, lu, lv)],
-                                  1),
-                    ts=tsf, dist=dy + du + dv, bits=by + bu + bv)
+            tsf = None
+        else:
+            coefs, tcoefs = fwd_level(orgs, preds, bd, ts=True)
+            levs, deqs, bits = zip(*[code(c, k) for k, c in enumerate(coefs)])
+            tl, tq, tb = zip(*[code(c, 1) for c in tcoefs])
+            (ry, ru, rv), _, levk, _, tsf, cbf, dist, bsum = inv_level_ts(
+                deqs, levs, bits, tq, tl, tb, preds, orgs,
+                ts_flag_pair(cbflat, False), lam_c, bd, wchroma)
+            levs = (levs[0], *levk)
+        return dict(ref=rr, mvx=mx, mvy=my, cbf=cbf, rec_y=ry, rec_u=ru,
+                    rec_v=rv, lev=torch.cat([a.reshape(m, -1) for a in levs],
+                                            1),
+                    ts=tsf, dist=dist, bits=bsum)
 
     h8 = hypothesis(mv_x, mv_y, mv_ref, 8, bw, bh,
                     (_blockify(org_y, 8), _blockify(org_u, 4),

@@ -47,13 +47,14 @@ SOURCES = {
     "transform": {
         "hm_int_transform_fwd": "pppiiiip",
         "hm_int_transform_inv": "pppiiiip",
-        "hm_transform_skip": "ppiip",
-        # a level's planes: org, pred, coef; (blocks, luma n, chroma n,
-        # planes, bit depth | use_dst << 8)
-        "hm_fwd_level": "ppppppppp" "iiiii" "p",
+        # a level's planes: org, pred, coef, the TS planes' coefficients;
+        # (blocks, luma n, chroma n, planes, bit depth | use_dst << 8 |
+        # ts << 9)
+        "hm_fwd_level": "ppppppppp" "ppp" "iiiii" "p",
         # deq, lev, pred, org, bits (three each), dw; rec, sse (three
-        # each), cbf, dist, bitsum; as hm_fwd_level
-        "hm_inv_level": "ppppppppppppppp" "p" "ppppppppp" "iiiii" "p",
+        # each), cbf, dist, bitsum; a host array of the TS pair's
+        # pointers (or null); as hm_fwd_level
+        "hm_inv_level": "ppppppppppppppp" "p" "ppppppppp" "p" "iiiii" "p",
     },
     "intra_pred": {
         "hm_intra_filter": "ppiiiip",
@@ -113,8 +114,9 @@ SOURCES = {
     },
     "nnfme_train": {
         "hm_nnfme_fwd": "pppppppppp" "if" "p",
-        "hm_nnfme_bwd": "pppppppppp" "i" "p",
-        "hm_adam": "pppp" "ffffffff" "i" "p",
+        # with K16's tail: mu, nu, the step count, the bias corrections'
+        # table and its rows, (b1, 1 - b1, b2, 1 - b2, eps, -lr)
+        "hm_nnfme_bwd": "pppppppppp" "i" "pppp" "i" "ffffff" "p",
     },
     "mvcand": {
         "hm_merge_cands": "ppppp" "iiiiii" "p",
@@ -162,7 +164,6 @@ KERNELS = {
                                        "hmtpu/encoder/pframe_dev.py:188"),
     "int_transform_inv": ("transform", "hmtpu/ops/transform.py:58,"
                                        "hmtpu/encoder/pframe_dev.py:188"),
-    "transform_skip": ("transform", "hmtpu/ops/transform.py:84,89"),
     "intra_filter": ("intra_pred", "hmtpu/ops/intra_pred.py:230"),
     "intra_pred": ("intra_pred", "hmtpu/ops/intra_pred.py:69,149"),
     "deblock": ("deblock", "hmtpu/ops/deblock.py:471,"
@@ -183,8 +184,8 @@ KERNELS = {
     "rdoq": ("rdoq", "hmtpu/ops/rdoq.py:43,hmtpu/ops/ratebits.py:161,"
                      "hmtpu/ops/quant.py:78,91"),
     "nnfme_fwd": ("nnfme_train", "hmtpu/models/train.py:38-43,49"),
-    "nnfme_bwd": ("nnfme_train", "hmtpu/models/train.py:49-50"),
-    "adam": ("nnfme_train", "hmtpu/models/train.py:51-53"),
+    # with K16 adam (hmtpu/models/train.py:51-53) as its tail
+    "nnfme_bwd": ("nnfme_train", "hmtpu/models/train.py:49-53"),
     "merge_cands": ("mvcand", "hmtpu/search/wavefront.py:295,357"),
     "amvp_rd": ("mvcand", "hmtpu/encoder/pframe_dev.py:815-826,487-514,"
                           "hmtpu/search/wavefront.py:497,519,"
@@ -340,8 +341,8 @@ def launch(kernel: str, fn: str, *args) -> None:
 def launch_checked(kernel: str, fn: str, dev: int, *cargs) -> None:
     """`launch`'s call, for a wrapper that has itself made its tensors
     int32 or float32, contiguous and on CUDA device `dev` and passes
-    their data pointers (K1's TS mode, whose call at the encoder's shapes
-    is its host time)."""
+    their data pointers (K1's level forms, whose call at the encoder's
+    shapes is its host time)."""
     f = _FNS.get(fn) or _bind(kernel, fn)
     err = f(*cargs, _raw_stream(dev) if _raw_stream is not None
             else torch.cuda.current_stream(dev).cuda_stream)

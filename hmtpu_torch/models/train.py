@@ -2,23 +2,32 @@
 :22, `loss_fn` :38, `train_step` :46, `standardize_fit` :57, `train`
 :62): the 17->22->20->49 MLP, 49-way softmax cross-entropy, Adam at lr
 3e-3, batch 1024.  optax's Adam state is `AdamState`; the optimizer has
-no object of its own (`adam_update` is the step).
+no object of its own (the update is the tail of the step's backward).
 
-Three hand-written kernels carry one step on the card (csrc/nnfme_train.cu):
+Three hand-written kernels carry one step on the card, in two launches
+(csrc/nnfme_train.cu):
 
   K14 nnfme_fwd  `loss_fwd`: the forward, each row's cross-entropy and
       hit, the mean loss and accuracy, and for the backward the logits'
       gradient and the two pre-activations;
   K15 nnfme_bwd  `loss_bwd`: the gradient of all 2060 packed parameters,
       summed over the batch in a fixed order (the same bits every run);
-  K16 adam       `adam_update`: optax.adam's update, in place.
+  K16 adam       optax.adam's update, in place, as the tail of K15's
+      launch (`loss_bwd_adam`): the lane that finishes a parameter's
+      gradient updates it and its moments.
 
+`train_step` is K14 then K15 with its tail, after the batch's four
+gathers: six launches.  Adam's step count lives on the device beside the
+moments (`AdamState.dcount`; the host's `count` mirrors it), and the
+bias corrections 1 - b^k are read there from a table built once a run
+(`AdamState.bc`), so a step passes no host value that changes from step
+to step: every argument of its launches is the same each step.
 `NnFmeLoss` is the autograd.Function around K14 (forward) and K15
-(backward).  On CPU tensors each wrapper runs its plain version
-(`*_plain`), which repeats the kernel's operations in the same order.
-The parameters, Adam's moments and the data live on the device; a step
-gathers its batch with a device index tensor and never waits for the
-card.  The parameters and moments are updated in place.
+(backward, the gradient alone).  On CPU tensors each wrapper runs its
+plain version (`*_plain`), which repeats the kernel's operations in the
+same order.  The parameters, Adam's moments and the data live on the
+device; a step gathers its batch with a device index tensor and never
+waits for the card.  The parameters and moments are updated in place.
 
 The batch sums' order: K14's loss and hit and K15's gradient are summed
 over blocks of KROWS = 8 rows, each in ascending row order from 0
@@ -49,10 +58,16 @@ B1, B2, EPS = 0.9, 0.999, 1e-8
 
 class AdamState(NamedTuple):
     """optax's ScaleByAdamState: the moments as packed (PACK_SIZE,)
-    float32 tensors, `count` the number of updates made (a host int)."""
+    float32 tensors, `count` the number of updates made (a host int),
+    `dcount` the same count as a (1,) int32 tensor beside the moments
+    (the one K15's tail reads and increments), and `bc` the bias
+    corrections of updates 1..N, an (N, 2) float32 tensor of 1 - b1^k
+    and 1 - b2^k (`bias_corrections`): an update past N is an error."""
     mu: torch.Tensor
     nu: torch.Tensor
     count: int
+    dcount: torch.Tensor
+    bc: torch.Tensor
 
 
 class TrainState(NamedTuple):
@@ -61,11 +76,31 @@ class TrainState(NamedTuple):
     step: int
 
 
-def init_train_state(params: NnFmeParams) -> TrainState:
-    """The model from `params` (on their device), zero moments."""
+def bias_corrections(n: int, device) -> torch.Tensor:
+    """(n, 2) float32: row k - 1 holds 1 - b1^k and 1 - b2^k, numpy's
+    float32 power as `_adam_scalars` computes them (a scalar each: the
+    same bits as optax's float32 update)."""
+    f = np.float32
+    t = np.array([(f(1) - f(B1) ** f(k), f(1) - f(B2) ** f(k))
+                  for k in range(1, n + 1)], np.float32).reshape(n, 2)
+    return torch.as_tensor(t).to(device)
+
+
+def adam_state(mu, nu, count: int, steps: int) -> AdamState:
+    """The Adam state with moments mu, nu after `count` updates, ready
+    for `steps` more (its table runs to update count + steps)."""
+    return AdamState(mu, nu, count,
+                     torch.tensor([count], dtype=torch.int32,
+                                  device=mu.device),
+                     bias_corrections(count + steps, mu.device))
+
+
+def init_train_state(params: NnFmeParams, steps: int = 0) -> TrainState:
+    """The model from `params` (on their device), zero moments, ready for
+    `steps` updates."""
     model = NnFme(params)
     z = torch.zeros_like(params.packed)
-    return TrainState(model, AdamState(z, z.clone(), 0), 0)
+    return TrainState(model, adam_state(z, z.clone(), 0, steps), 0)
 
 
 # ---------------------------------------------------------------------------
@@ -311,13 +346,9 @@ def loss_bwd_plain(packed, costs9, heights, widths, z1, z2, dl, gscale):
         packed, costs9, heights, widths, z1, z2, dl, gscale)))
 
 
-def loss_bwd(packed, costs9, heights, widths, z1, z2, dl, gscale):
-    """The gradient of the mean loss (scaled by the (1,) cotangent
-    `gscale`) with respect to all PACK_SIZE parameters, from K14's saved
-    tensors: K15 on CUDA tensors, the plain version on CPU ones."""
-    if not costs9.is_cuda:
-        return loss_bwd_plain(packed, costs9, heights, widths, z1, z2, dl,
-                              gscale)
+def _bwd_launch(packed, costs9, heights, widths, z1, z2, dl, gscale,
+                opt=None, lr: float = 0.0):
+    """K15's launch, with K16 as its tail where `opt` is given."""
     B = int(costs9.shape[0])
     if B == 0 or tuple(dl.shape) != (B, 49):
         raise ValueError(f"nnfme_bwd: expected (B, 49) d-logits, B > 0, got"
@@ -325,12 +356,25 @@ def loss_bwd(packed, costs9, heights, widths, z1, z2, dl, gscale):
     dev = costs9.device
     grad = torch.empty(PACK_SIZE, dtype=torch.float32, device=dev)
     i32 = lambda a: a.to(torch.int32).contiguous()
+    upd = (opt.mu, opt.nu, opt.dcount, opt.bc, int(opt.bc.shape[0]),
+           *_adam_consts(lr)) if opt is not None else (None,) * 4 + (0,) \
+        + (0.0,) * 6
     kernels.launch("nnfme_bwd", "hm_nnfme_bwd", packed.detach(),
                    costs9.to(torch.float32).contiguous(), i32(heights),
                    i32(widths), z1, z2, dl,
                    gscale.to(torch.float32).contiguous(),
-                   _scratch(dev, -(-B // KROWS) * PACK_SIZE), grad, B)
+                   _scratch(dev, -(-B // KROWS) * PACK_SIZE), grad, B, *upd)
     return grad
+
+
+def loss_bwd(packed, costs9, heights, widths, z1, z2, dl, gscale):
+    """The gradient of the mean loss (scaled by the (1,) cotangent
+    `gscale`) with respect to all PACK_SIZE parameters, from K14's saved
+    tensors: K15 on CUDA tensors, the plain version on CPU ones."""
+    if not costs9.is_cuda:
+        return loss_bwd_plain(packed, costs9, heights, widths, z1, z2, dl,
+                              gscale)
+    return _bwd_launch(packed, costs9, heights, widths, z1, z2, dl, gscale)
 
 
 class NnFmeLoss(torch.autograd.Function):
@@ -353,7 +397,15 @@ class NnFmeLoss(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
-# K16: optax.adam's update
+# K16: optax.adam's update, K15's tail
+
+def _adam_consts(lr: float):
+    """float32 b1, 1 - b1, b2, 1 - b2, eps and -lr as Python floats: the
+    update's arguments that are the same every step."""
+    f = np.float32
+    return [float(x) for x in (f(B1), f(1 - B1), f(B2), f(1 - B2), f(EPS),
+                               f(-lr))]
+
 
 def _adam_scalars(count: int, lr: float):
     """float32 b1, 1 - b1, b2, 1 - b2, the bias corrections 1 - b^count
@@ -375,51 +427,65 @@ def adam_update_plain(p, g, mu, nu, count: int, lr: float) -> None:
     p.copy_(p + neg_lr * (_div(m, bc1) / (_sqrt(_div(v, bc2)) + eps)))
 
 
-def adam_update(p, g, mu, nu, count: int, lr: float) -> None:
-    """One Adam update of the packed parameters `p` with gradient `g`,
-    moments `mu`, `nu` updated in place, `count` the update's number
-    (1 for the first): K16 on CUDA tensors, the plain version on CPU
-    ones."""
-    if not p.is_cuda:
-        adam_update_plain(p, g, mu, nu, count, lr)
-        return
-    n = int(p.numel())
-    if not (g.numel() == mu.numel() == nu.numel() == n) or count < 1:
-        raise ValueError("adam: parameters, gradient and moments must "
-                         "match, count >= 1")
-    kernels.launch("adam", "hm_adam", p, g, mu, nu,
-                   *_adam_scalars(count, lr), n)
+def loss_bwd_adam_plain(packed, costs9, heights, widths, z1, z2, dl,
+                        gscale, opt: AdamState, lr: float):
+    """Plain version of K15 with K16 as its tail: `loss_bwd_plain`, then
+    `adam_update_plain` of update opt.count + 1, and opt.dcount + 1."""
+    grad = loss_bwd_plain(packed, costs9, heights, widths, z1, z2, dl,
+                          gscale)
+    adam_update_plain(packed, grad, opt.mu, opt.nu, opt.count + 1, lr)
+    opt.dcount.add_(1)
+    return grad
+
+
+def loss_bwd_adam(packed, costs9, heights, widths, z1, z2, dl, gscale,
+                  opt: AdamState, lr: float):
+    """`loss_bwd`'s gradient (returned) and the Adam update it feeds:
+    `packed`, opt.mu and opt.nu updated in place with update opt.count +
+    1's bias corrections from opt.bc, opt.dcount incremented (the host's
+    opt.count is the caller's to advance).  K15 with K16 as its tail on
+    CUDA tensors (one launch), the plain version on CPU ones."""
+    n = int(packed.numel())
+    if not (opt.mu.numel() == opt.nu.numel() == n):
+        raise ValueError("adam: parameters and moments must match")
+    if opt.count >= opt.bc.shape[0]:
+        raise ValueError(f"adam: update {opt.count + 1} is past the bias "
+                         f"corrections' table of {opt.bc.shape[0]} (the "
+                         f"run's step count)")
+    if not costs9.is_cuda:
+        return loss_bwd_adam_plain(packed, costs9, heights, widths, z1, z2,
+                                   dl, gscale, opt, lr)
+    return _bwd_launch(packed, costs9, heights, widths, z1, z2, dl, gscale,
+                       opt, lr)
 
 
 # ---------------------------------------------------------------------------
 # the loop
 
-# the cotangent of (mean loss, accuracy): the loss's gradient alone, made
-# once a device (a copy from the host would sync a step)
-_SEED: dict = {}
+# the mean loss's cotangent, 1: made once a device (a copy from the host
+# would sync a step)
+_ONE: dict = {}
 
 
 def _loss_cotangent(dev):
-    t = _SEED.get(dev)
+    t = _ONE.get(dev)
     if t is None:
-        t = _SEED[dev] = torch.tensor([1.0, 0.0], dtype=torch.float32,
-                                      device=dev)
+        t = _ONE[dev] = torch.ones(1, dtype=torch.float32, device=dev)
     return t
 
 
 def train_step(state: TrainState, costs9, heights, widths, labels,
                lr: float = 3e-3):
-    """One optimizer step on a batch: returns (the state, updated in
-    place, with step + 1; mean loss; accuracy), the two numbers as device
+    """One optimizer step on a batch, K14 then K15 with K16 as its tail:
+    returns (the state, updated in place, with step + 1 and the Adam
+    count + 1; mean loss; accuracy), the two numbers as device
     scalars."""
     packed = state.model.packed
-    out = NnFmeLoss.apply(packed, costs9, heights, widths, labels)
-    grad, = torch.autograd.grad(out, packed,
-                                grad_outputs=_loss_cotangent(out.device))
     opt = state.opt_state
     with torch.no_grad():
-        adam_update(packed, grad, opt.mu, opt.nu, opt.count + 1, lr)
-    out = out.detach()
+        out, saved = loss_fwd(packed, costs9, heights, widths, labels)
+        loss_bwd_adam(packed, costs9, heights, widths, *saved,
+                      _loss_cotangent(out.device), opt, lr)
     return (TrainState(state.model, opt._replace(count=opt.count + 1),
                        state.step + 1), out[0], out[1])
 
@@ -453,7 +519,7 @@ def train(costs9: np.ndarray, heights: np.ndarray, widths: np.ndarray,
     start = params_from_packed(init.packed.detach().to(dev).clone())
     start.mean.copy_(torch.as_tensor(np.asarray(mean, np.float32)))
     start.std.copy_(torch.as_tensor(np.asarray(std, np.float32)))
-    state = init_train_state(start)
+    state = init_train_state(start, epochs * -(-len(ti) // batch_size))
 
     c9 = torch.as_tensor(np.asarray(costs9, np.float32)).to(dev)
     hh = torch.as_tensor(np.asarray(heights, np.int32)).to(dev)

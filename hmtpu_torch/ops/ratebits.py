@@ -337,6 +337,13 @@ def ts_flag_bits(cbflat, val, is_luma: bool):
                val)
 
 
+def ts_flag_pair(cbflat, is_luma: bool):
+    """`ts_flag_bits` of 0 and 1, a (2,) view of cbflat: what K1's level
+    forms read to price the flag of a transform-skip pair."""
+    c = 2 * (OFF["TRANSFORMSKIP_FLAG"] + (0 if is_luma else 1))
+    return cbflat[c:c + 2]
+
+
 def split_flag_bits(cbflat, val, depth_ctx):
     return cbflat[2 * (OFF["SPLIT_FLAG"] + depth_ctx)
                   + val.to(torch.int64)]

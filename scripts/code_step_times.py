@@ -71,7 +71,11 @@ two trees of the port in one run:
   k24    K24 on ldp's P pass: each captured `tmvp_grid` call (or the
          grids form `tmvp_grids`) replayed, and the stretch from `rmd`'s
          return to the first `_blockify` after the last K24 call,
-         measured as k9's.
+         measured as k9's;
+  ts     ldp_dctif's 8-level AMVP hypothesis with the chroma pair's
+         transform-skip trial (`hypothesis(with_ts=True)`), from its
+         first `_union_idx` entry to the next `rmd` entry, measured as
+         k9's stretch (K1's and K10's launches by CUDA function).
 
 Each call's "ms" is chip_smoke.py's `time_cuda` (CUDA events around 200
 calls after 2), its "device_ms" chip_smoke.py's `device_ms`
@@ -83,7 +87,7 @@ and 20 B inverse (the dequantised coefficients, levels, pred and org in,
 the reconstruction out) and the per-block rows.
 
     PYTHONPATH=<checkout of the port> python scripts/code_step_times.py \
-        [--parts k1,k6,walk,gate,k25,dbk,k19,k9,k24]
+        [--parts k1,k6,walk,gate,k25,dbk,k19,k9,k24,ts]
 
 Prints one JSON object a part (all parts unless --parts names some).
 Uses only the port's entry points, so it runs against earlier trees too
@@ -523,6 +527,7 @@ def _profile_stats(cs, prof, kernel_fn):
                              if k.startswith("aten::")),
             "top_level_events": dict(sorted(names.items())),
             "device_ops": sum(e.count for e in dev),
+            "device_ops_by_name": {e.key[:60]: e.count for e in dev},
             "device_ms": sum(cs.self_device_us(e) for e in dev) / 1e3,
             "kernel_launches": sum(e.count for e in kern),
             "kernel_device_ms": sum(cs.self_device_us(e) for e in kern)
@@ -971,8 +976,30 @@ def k24(cs, dev):
                                        "tmvp_")}
 
 
+def ts(cs, dev):
+    """ldp_dctif's 8-level AMVP hypothesis with the transform-skip trial
+    of its chroma pair (`pframe_walk`'s `hypothesis(with_ts=True)`):
+    from the first `_union_idx` entry after `pframe_walk`'s entry to the
+    first `rmd` entry after it, measured as k9's stretch; K1's and K10's
+    launches in it are the profile's `device_ops_by_name`."""
+    from hmtpu_torch.encoder import pframe_dev
+
+    a, k = _dctif_pass_args(cs, dev)["full_pframe_pass"]
+    call = lambda: pframe_dev.full_pframe_pass(*a, **k)
+    call()
+    wraps = ((pframe_dev, "pframe_walk"), (pframe_dev, "_union_idx"),
+             (pframe_dev, "rmd"))
+    log, _ = _events(call, wraps)
+    w0 = log.index(("pframe_walk", "entry"))
+    start = ("_union_idx", "entry",
+             _nth(log, ("_union_idx", "entry"), after=w0))
+    end = ("rmd", "entry", _nth(log, ("rmd", "entry"), after=w0))
+    return {"stretch": _marked_stretch(cs, call, wraps, start, end,
+                                       "level_kernel")}
+
+
 PARTS = {"k1": k1_rows, "k6": k6_rows, "walk": walk, "gate": gate,
-         "k25": k25, "dbk": dbk, "k19": k19, "k9": k9, "k24": k24}
+         "k25": k25, "dbk": dbk, "k19": k19, "k9": k9, "k24": k24, "ts": ts}
 
 
 def main() -> int:

@@ -15,10 +15,11 @@ two trees of the port on one card in one run:
         (a device-bound call: the clip's second frame against its first;
         at 8 bits and as 10-bit samples)
         and of kernel wrappers whose call is its host time: K1's forward
-        transform at (14, 8, 8) and its transform-skip mode at (3120, 4,
-        4), K14's loss forward and K16's Adam step at the trainer's batch
+        transform at (14, 8, 8), K14's loss forward at the trainer's batch
         of 1024 (the clip's first frame pair at search range 16, the
-        port's init from seed 0), K25's SAO choice on the ldp I frame's
+        port's init from seed 0), where the tree launches them alone
+        K1-TS at (3120, 4, 4) and K16's Adam step, K25's SAO choice on
+        the ldp I frame's
         statistics (kept from the first ldp encode); and of three
         device-bound calls, with their device milliseconds beside them
         (torch.profiler over 50 calls): K10's coding step as the P pass
@@ -27,17 +28,19 @@ two trees of the port on one card in one run:
         rough mode decision as the I pass calls it (the first frame, n =
         8, k = 2) and K13's single-level integer ME at 1920x1080, search
         range 64, with seeded predictors (both of its kernels);
-  k1ts_vs_shift  K1's transform-skip call at (3120, 4, 4) and the one
-        torch shift that computes the same (chip_smoke.py's library
-        call), in turns, five rounds of 200 calls each: ms per call;
+  k1ts_vs_shift  where the tree has K1-TS's own call: it at (3120, 4,
+        4) and the one torch shift that computes the same, in turns, five
+        rounds of 200 calls each: ms per call;
   train_step  200 `train_step`s at batch 1024 on the trainer's QP-22
         records (the generator's clip at its defaults: 24 frames, search
         range 16; the port's init from seed 0 with the records' mean and
-        std; seeded full batches): steps/s from CUDA events, then the
-        same steps again under torch.profiler: device microseconds and
-        device operations a step, and each kernel's microseconds a step
-        (the gap between the step's time and its device time is the
-        host's);
+        std; seeded full batches): steps/s from CUDA events, the hand
+        kernels' launches a step, the host's ms a step (each call on the
+        host clock, not synced: the median over a warm epoch of 29
+        steps), then the same steps again under torch.profiler: device
+        microseconds and device operations a step, and each kernel's
+        microseconds a step (the gap between the step's time and its
+        device time is the host's);
   nnfme_train  `train_nnfme.main` at its defaults (416x240, 24 frames,
         QPs 22/27/32/37, 60 epochs, search range 16) into a temporary
         directory: seconds, and the extraction's and the steps' seconds
@@ -68,6 +71,8 @@ two trees of the port on one card in one run:
     PYTHONPATH=<checkout of the port> python scripts/frame_times.py
     PYTHONPATH=<checkout> python scripts/frame_times.py --no-train
         # the encodes, kernel_times, sao_frame and the calls only
+    PYTHONPATH=<checkout> python scripts/frame_times.py --only-train
+        # train_step and nnfme_train only
 
 Each frame's seconds come from `Encoder.results` (the device pass of a P
 or B frame beside them), after a warm-up encode of a 64x64 clip; beside
@@ -469,15 +474,18 @@ def _calls(clip, sao_call):
                                          13, **bd10),
         "K1 forward_transform (14, 8, 8)":
             lambda: transform.forward_transform(res, 8),
-        "K1-TS transform_skip_fwd (3120, 4, 4)":
-            lambda: transform.transform_skip_fwd(ts, 4),
         "K14 loss_fwd (batch 1024)":
             lambda: train.loss_fwd(pk, c9, hh, ww, ll),
-        f"K16 adam_update ({n})":
-            lambda: train.adam_update(p, g, mu, nu, 7, 3e-3),
         "K25 choose_params (ldp I frame)":
             lambda: sao.choose_params(*sa, **sk),
     }
+    # the trees before K16 and K1-TS ran inside K15 and K1's level forms
+    if hasattr(transform, "transform_skip_fwd"):
+        calls["K1-TS transform_skip_fwd (3120, 4, 4)"] = \
+            lambda: transform.transform_skip_fwd(ts, 4)
+    if hasattr(train, "adam_update"):
+        calls[f"K16 adam_update ({n})"] = \
+            lambda: train.adam_update(p, g, mu, nu, 7, 3e-3)
     coding = _coding_calls(clip, dev)
     coding.update(_me1_call(dev))
     calls.update({k: f for k, (f, _) in coding.items()})
@@ -486,9 +494,12 @@ def _calls(clip, sao_call):
 
 
 def _k1ts_vs_shift(rounds=5):
-    """K1-TS and the torch shift, in turns: ms per call, a list each."""
+    """K1-TS and the torch shift, in turns: ms per call, a list each
+    (where the tree has K1-TS's own call)."""
     from hmtpu_torch.ops import transform
 
+    if not hasattr(transform, "transform_skip_fwd"):
+        return {}
     rng = np.random.RandomState(7)
     ts = torch.as_tensor(rng.randint(-255, 256, (3120, 4, 4)).astype(
         np.int32)).to(torch.device("cuda", 0))
@@ -501,12 +512,24 @@ def _k1ts_vs_shift(rounds=5):
     return got
 
 
-def _train_step_times(steps=200, warm=5):
+def _init_state(train, params, steps):
+    """`train.init_train_state` with a bias-correction table of `steps`
+    entries, where the tree's trainer takes one."""
+    if "steps" in inspect.signature(train.init_train_state).parameters:
+        return train.init_train_state(params, steps=steps)
+    return train.init_train_state(params)
+
+
+def _train_step_times(steps=200, warm=5, epoch=29):
     """The trainer's step on its QP-22 records: steps/s (CUDA events),
-    device us and operations a step and each kernel's us a step
-    (torch.profiler, over the same number of steps run again)."""
+    hand-kernel launches a step (the launch counters), the host's ms a
+    step (each `train_step` call alone on the host clock, not synced, the
+    median over a warm epoch of `epoch` steps: the trainer's at its
+    defaults), device us and operations a step and each kernel's us a
+    step (torch.profiler, over the same number of steps run again)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from hmtpu_torch import kernels
     from hmtpu_torch.io.yuv import Frame
     from hmtpu_torch.models import dataset, nnfme, train
     from hmtpu_torch.utils.gen_test_yuv import synth_clip
@@ -519,25 +542,35 @@ def _train_step_times(steps=200, warm=5):
     init = nnfme.init_random(torch.Generator().manual_seed(0), dev)
     fields = {k: getattr(init, k).cpu().numpy() for k in nnfme.PACK_ORDER}
     fields.update(mean=mean, std=std)
-    state = [train.init_train_state(nnfme.params_from_arrays(fields, dev))]
+    state = [_init_state(train, nnfme.params_from_arrays(fields, dev),
+                         warm + 2 * steps + epoch)]
     rng = np.random.RandomState(0)
     idx = torch.as_tensor(np.stack([rng.permutation(len(ll))[:1024]
                                     for _ in range(steps)])).to(dev)
     data = [torch.as_tensor(a).to(dev) for a in (c9, hh, ww, ll)]
+    host = []
 
-    def run(n):
+    def run(n, clock=False):
         for k in range(n):
             b = idx[k % steps]
+            t0 = time.perf_counter()
             state[0] = train.train_step(state[0], *(a[b] for a in data))[0]
+            if clock:
+                host.append((time.perf_counter() - t0) * 1e3)
 
     run(warm)
     torch.cuda.synchronize()
+    run(epoch, clock=True)
+    torch.cuda.synchronize()
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    before = dict(kernels.COUNTS)
     a.record()
     run(steps)
     b.record()
     torch.cuda.synchronize()
     ms = a.elapsed_time(b)
+    launched = {k: (v - before[k]) / steps for k, v in kernels.COUNTS.items()
+                if v != before[k]}
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run(steps)
         torch.cuda.synchronize()
@@ -549,8 +582,13 @@ def _train_step_times(steps=200, warm=5):
           for e in on_dev}
     return {"rows": len(ll), "batch": 1024, "steps": steps,
             "steps_per_s": steps / (ms / 1e3), "ms_per_step": ms / steps,
+            "host_ms_per_step_median": float(np.median(host)),
+            "host_ms_per_step": host,
+            "hand_launches_per_step": launched,
             "device_us_per_step": sum(us.values()),
             "device_ops_per_step": sum(e.count for e in on_dev) / steps,
+            "device_ops_by_kernel": {e.key[:60]: e.count / steps
+                                     for e in on_dev},
             "device_us_by_kernel": us}
 
 
@@ -569,17 +607,28 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--no-train", action="store_true",
                     help="leave out train_step and nnfme_train")
+    ap.add_argument("--only-train", action="store_true",
+                    help="train_step and nnfme_train alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("frame_times: no CUDA device", file=sys.stderr)
         return 2
     from hmtpu_torch import kernels
-    from hmtpu_torch.apps import train_nnfme
-    from hmtpu_torch.ops import sao
-    from hmtpu_torch.utils.gen_test_yuv import synth_clip
 
     kernels.build_all()
     nk = len(kernels.KERNELS)
+    if not args.only_train:
+        _encodes_and_calls(nk)
+    if args.no_train:
+        return 0
+    _trainer(nk)
+    return 0
+
+
+def _encodes_and_calls(nk: int) -> None:
+    from hmtpu_torch.ops import sao
+    from hmtpu_torch.utils.gen_test_yuv import synth_clip
+
     clip = list(synth_clip(416, 240, 3, seed=42))
     _encode(synth_clip(64, 64, 2, seed=3), qp=22, gop="ldp", subpel="nn",
             search_range=8)
@@ -635,8 +684,11 @@ def main() -> int:
                       "device_ms_per_call": dms}), flush=True)
     print(json.dumps({"config": "k1ts_vs_shift", "kernels": nk,
                       **_k1ts_vs_shift()}), flush=True)
-    if args.no_train:
-        return 0
+
+
+def _trainer(nk: int) -> None:
+    from hmtpu_torch.apps import train_nnfme
+
     print(json.dumps({"config": "train_step", "kernels": nk,
                       **_train_step_times()}), flush=True)
     with tempfile.TemporaryDirectory() as tmp:
@@ -654,7 +706,6 @@ def main() -> int:
                       "steps_s": sum(v["steps_s"] for v in split.values()),
                       "steps": sum(v["steps"] for v in split.values())}),
           flush=True)
-    return 0
 
 
 if __name__ == "__main__":

@@ -9,7 +9,9 @@ Each line is the latest block's stamp at that boundary, in microseconds
 after the earliest block's entry, averaged over 20 launches (after 5):
 K14's parameters staged, its rows done, its ticket taken, the last
 block's sums done; K15's parameters staged, its rows done, its partial
-sums written, the grid barrier passed, the column sums done.  The build
+sums written, the grid barrier passed, the column sums done: for the
+gradient alone ("K15") and for a training step's launch, with K16 as
+its tail after each column sum ("K15+K16").  The build
 goes to the package's build directory beside the trainer's.  Needs a
 CUDA card; imports nothing of JAX.
 """
@@ -41,7 +43,8 @@ def build():
     lib = ctypes.CDLL(so)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.hm_nnfme_fwd.argtypes = [p] * 10 + [i, f, p]
-    lib.hm_nnfme_bwd.argtypes = [p] * 10 + [i, p]
+    lib.hm_nnfme_bwd.argtypes = [p] * 10 + [i] + [p] * 4 + [i] + [f] * 6 \
+        + [p]
     lib.hm_nnfme_stamps.argtypes = [p]
     return lib
 
@@ -65,6 +68,13 @@ def phases(lib, B: int, iters: int = 20, warm: int = 5):
     out = torch.empty(2, device=dev)
     grad = torch.empty(nnfme.PACK_SIZE, device=dev)
     one = torch.ones(1, device=dev)
+    # K16's tail: moments, the step count and a table with room for every
+    # launch
+    n_launch = warm + iters
+    opt = train.adam_state(torch.zeros_like(pk), torch.zeros_like(pk), 0,
+                           n_launch)
+    upd = [opt.mu.data_ptr(), opt.nu.data_ptr(), opt.dcount.data_ptr(),
+           opt.bc.data_ptr(), n_launch, *train._adam_consts(3e-3)]
     stream = torch.cuda.current_stream().cuda_stream
     ptr = lambda *a: [x.data_ptr() for x in a]
     host = np.zeros(16 * 4096, np.uint64)
@@ -75,7 +85,12 @@ def phases(lib, B: int, iters: int = 20, warm: int = 5):
                                                    out), B,
                                               train._inv(B), stream),
                      lambda: lib.hm_nnfme_bwd(*ptr(pk, *rows[:3], *saved, one,
-                                                   part, grad), B, stream)):
+                                                   part, grad), B,
+                                              *[None] * 4, 0, *[0.0] * 6,
+                                              stream),
+                     lambda: lib.hm_nnfme_bwd(*ptr(pk, *rows[:3], *saved, one,
+                                                   part, grad), B, *upd,
+                                              stream)):
             if call():
                 raise RuntimeError("launch failed")
             torch.cuda.synchronize()
@@ -85,7 +100,8 @@ def phases(lib, B: int, iters: int = 20, warm: int = 5):
         if it < warm:
             continue
         for name, st, k0, names in (("K14", stamps[0], 0, FWD),
-                                    ("K15", stamps[1], 8, BWD)):
+                                    ("K15", stamps[1], 8, BWD),
+                                    ("K15+K16", stamps[2], 8, BWD)):
             t0 = st[k0][st[k0] > 0].min()
             for k, ph in enumerate(names):
                 v = st[k0 + 1 + k]

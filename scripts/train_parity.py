@@ -167,8 +167,8 @@ def lockstep(steps: int, dev, qp: int = 22):
     """The trainer's own run (its synthetic 416x240 clip of 24 frames, SR
     16, QP `qp`, batch 1024, seed 0) on the card and on the CPU for
     `steps` steps; at the first step whose loss or update differs, that
-    step's inputs (the CPU's) through K14-K16 on the card, their plain
-    versions on the card and on the CPU.  Returns printable lines."""
+    step's inputs (the CPU's) through K14 and K15 with K16 as its tail on
+    the card, their plain versions on the card and on the CPU.  Returns printable lines."""
     from hmtpu_torch.io.yuv import Frame
     from hmtpu_torch.models import dataset, train
     from hmtpu_torch.utils.gen_test_yuv import synth_clip
@@ -225,15 +225,24 @@ def lockstep(steps: int, dev, qp: int = 22):
                          f"relative {rel:.3e}")
         mu, nu, count = c[4]
         upd = {}
-        for d, fn in (("K16, card", train.adam_update),
-                      ("K16's plain version, card", train.adam_update_plain),
-                      ("K16's plain version, CPU", train.adam_update_plain)):
-            dd = "cpu" if d.endswith("CPU") else dev
+        # K15 with K16 as its tail and its plain version, on the card's
+        # own K14 outputs; K16's plain version on the CPU's gradient
+        for d, fn in (("K15 + K16, card", train.loss_bwd_adam),
+                      ("K15 + K16's plain version, card",
+                       train.loss_bwd_adam_plain)):
+            p_, m_, n_ = (on(a.clone()) for a in (packed, mu, nu))
+            fn(p_, *map(on, batch[:3]), *sk, on(one),
+               train.adam_state(m_, n_, count, 1), 3e-3)
+            upd[d] = (p_, m_, n_)
+        for d, dd in (("K16's plain version, card", dev),
+                      ("K16's plain version, CPU", "cpu")):
             st = [a.clone().to(dd) for a in (packed, gc, mu, nu)]
-            fn(st[0], st[1], st[2], st[3], count + 1, 3e-3)
+            train.adam_update_plain(st[0], st[1], st[2], st[3], count + 1,
+                                    3e-3)
             upd[d] = (st[0], st[2], st[3])
-        for name, a, b in (("K16 vs its plain version, card",
-                            upd["K16, card"], upd["K16's plain version, card"]),
+        for name, a, b in (("K15 + K16 vs its plain version, card",
+                            upd["K15 + K16, card"],
+                            upd["K15 + K16's plain version, card"]),
                            ("K16's plain version, card vs CPU",
                             upd["K16's plain version, card"],
                             upd["K16's plain version, CPU"])):
@@ -245,9 +254,9 @@ def lockstep(steps: int, dev, qp: int = 22):
         n_diff, n, rel = _diff(upd["K16's plain version, CPU"][0], c[3])
         lines.append(f"step {k}: the CPU's recorded update vs K16's plain "
                      f"version on its gradient: {n_diff} of {n} differ")
-        n_diff, n, rel = _diff(upd["K16, card"][0], g[3])
-        lines.append(f"step {k}: the card's recorded update vs K16 on the "
-                     f"CPU's gradient: {n_diff} of {n} differ")
+        n_diff, n, rel = _diff(upd["K15 + K16, card"][0], g[3])
+        lines.append(f"step {k}: the card's recorded update vs K15 + K16 on "
+                     f"the CPU's step inputs: {n_diff} of {n} differ")
         break
     else:
         lines.append(f"all {len(cpu)} steps equal, card vs CPU")

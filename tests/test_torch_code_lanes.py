@@ -10,14 +10,23 @@ distortion and rate, at n = 8, 16 and 32 with their chroma, at 8 and 10
 bits, with residuals at +-(2^bd - 1) and coefficients at the 16-bit
 clip, a ragged last thread block, one-plane calls at n = 4 (DCT and
 DST) to 32 with and without the chroma weight, and a 10-bit 32x32 TB
-whose SSE is 1023^2 * 1024, just under 2^30.
+whose SSE is 1023^2 * 1024, just under 2^30; and their TS mode, the
+transform-skip pair of the 4x4 planes (one plane, DCT or DST, with and
+without the weight; an 8x8 level's chroma pair) against
+`fwd_level_plain(ts=True)` and `inv_level_ts_plain`: the TS
+coefficients, and the pick's kept reconstruction, levels, distortion,
+rate with the flag, TS word and the level's cbf, dist and bits, at 8
+and 10 bits, with ties that must keep the DCT alternative.
 
 The host build runs every lane of a `HM_LANES` loop on one thread, in
 order or (`lane_reverse`) last lane first.  A mutated header whose
 forward second stage reads the tile's column where it should read its
-row must disagree.  The plain level functions are held besides to
-hmtpu's `_code` on the CPU (the transform, the reconstruction and the
-SSE around its own quantisation) at a 64x64 picture's three levels.
+row must disagree, and so must one whose pick keeps TS on a tie.  The plain
+level functions are held besides to hmtpu's `_code` on the CPU (the
+transform, the reconstruction and the SSE around its own quantisation)
+at a 64x64 picture's three levels, and the plain TS pair (through the
+port's `_code_ts_sel`) to hmtpu's `_code_ts_sel` at its 8 level's
+chroma.
 The card runs the same functions in the kernels, which the `gpu` test
 of K1's level forms (tests/test_torch_gpu.py) and chip_smoke.py hold to
 the plain versions.  Skips only where there is no g++.
@@ -36,18 +45,22 @@ import torch
 from hmtpu_torch.kernels import CSRC
 from hmtpu_torch.ops import transform
 from tests.hmtpu_xla import release_programs  # noqa: F401 (autouse)
+from tests.torch_level_data import FLAG as _FLAG
+from tests.torch_level_data import planes as _planes
+from tests.torch_level_data import ts_alt as _ts_alt
 
 _LANES_CPP = r"""
 #include "transform.cuh"
 extern "C" void lane_reverse(int r) { hm::lane_reverse = r; }
 extern "C" void fwd_host(const int* const* org, const int* const* pred,
-                         int* const* coef, int m, int n0, int n1, int planes,
-                         int mode) {
+                         int* const* coef, int* const* tcoef, int m, int n0,
+                         int n1, int planes, int mode) {
   hm::LevelArgs a{};
   for (int k = 0; k < 3; ++k) {
     a.org[k] = org[k];
     a.pred[k] = pred[k];
     a.coef[k] = coef[k];
+    a.tcoef[k] = tcoef[k];
   }
   a.m = m, a.n0 = n0, a.n1 = n1, a.planes = planes, a.mode = mode;
   hm::level_host<false>(a);
@@ -56,8 +69,8 @@ extern "C" void inv_host(const int* const* deq, const int* const* lev,
                          const int* const* pred, const int* const* org,
                          const float* const* bits, const float* dw,
                          int* const* rec, float* const* sse, int* cbf,
-                         float* dist, float* bitsum, int m, int n0, int n1,
-                         int planes, int mode) {
+                         float* dist, float* bitsum, const void* const* ts,
+                         int m, int n0, int n1, int planes, int mode) {
   hm::LevelArgs a{};
   for (int k = 0; k < 3; ++k) {
     a.deq[k] = deq[k];
@@ -69,6 +82,18 @@ extern "C" void inv_host(const int* const* deq, const int* const* lev,
     a.sse[k] = sse[k];
   }
   a.dw = dw, a.cbf = cbf, a.dist = dist, a.bitsum = bitsum;
+  if (ts != nullptr) {  // transform.cu hm_inv_level's table
+    for (int k = 0; k < 3; ++k) {
+      a.tdeq[k] = (const int*)ts[k];
+      a.tlev[k] = (const int*)ts[3 + k];
+      a.tbits[k] = (const float*)ts[6 + k];
+      a.levk[k] = (int*)ts[11 + k];
+      a.bitk[k] = (float*)ts[14 + k];
+    }
+    a.tsflag = (const float*)ts[9];
+    a.lam = (const float*)ts[10];
+    a.ts = (int*)ts[17];
+  }
   a.m = m, a.n0 = n0, a.n1 = n1, a.planes = planes, a.mode = mode;
   hm::level_host<true>(a);
 }
@@ -87,8 +112,8 @@ def _build(csrc, d):
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.lane_reverse.argtypes = [i]
-    lib.fwd_host.argtypes = [p] * 3 + [i] * 5
-    lib.inv_host.argtypes = [p] * 11 + [i] * 5
+    lib.fwd_host.argtypes = [p] * 4 + [i] * 5
+    lib.inv_host.argtypes = [p] * 12 + [i] * 5
     return lib
 
 
@@ -112,20 +137,26 @@ def _ptrs(arrays):
     return (ctypes.c_void_p * 3)(*vals)
 
 
-def _mode(bd, dst):
-    return bd | int(dst) << 8
+def _mode(bd, dst, ts=False):
+    return bd | int(dst) << 8 | int(ts) << 9
 
 
-def _host_fwd(lib, orgs, preds, bd, dst, reverse):
+def _host_fwd(lib, orgs, preds, bd, dst, reverse, ts=False):
     coefs = [np.full(o.shape, -(1 << 30), np.int32) for o in orgs]
+    tk = transform.ts_planes(len(orgs)) if ts else ()
+    tcoefs = [np.full(orgs[k].shape, -(1 << 30), np.int32) for k in tk]
+    tptr = [None] * 3
+    for k, t in zip(tk, tcoefs):
+        tptr[k] = t
     n1 = orgs[1].shape[-1] if len(orgs) == 3 else 0
     lib.lane_reverse(int(reverse))
     try:
-        lib.fwd_host(_ptrs(orgs), _ptrs(preds), _ptrs(coefs), len(orgs[0]),
-                     orgs[0].shape[-1], n1, len(orgs), _mode(bd, dst))
+        lib.fwd_host(_ptrs(orgs), _ptrs(preds), _ptrs(coefs), _ptrs(tptr),
+                     len(orgs[0]), orgs[0].shape[-1], n1, len(orgs),
+                     _mode(bd, dst, ts))
     finally:
         lib.lane_reverse(0)
-    return coefs
+    return (coefs, tcoefs) if ts else coefs
 
 
 def _host_inv(lib, deqs, levs, preds, orgs, bits, dw, bd, dst, reverse):
@@ -143,7 +174,7 @@ def _host_inv(lib, deqs, levs, preds, orgs, bits, dw, bd, dst, reverse):
                      _ptrs(bits if three else []),
                      None if dwa is None else dwa.ctypes.data, _ptrs(recs),
                      _ptrs(sses), *(None if a is None else a.ctypes.data
-                                    for a in (cbf, dist, bsum)),
+                                    for a in (cbf, dist, bsum)), None,
                      m, deqs[0].shape[-1],
                      deqs[1].shape[-1] if three else 0, len(deqs),
                      _mode(bd, dst))
@@ -158,30 +189,6 @@ def _same_bits(a, b):
         a, b = a.astype(np.float32).view(np.int32), \
             b.astype(np.float32).view(np.int32)
     return a.shape == b.shape and np.array_equal(a, b)
-
-
-def _planes(rng, m, sizes, bd):
-    """org, pred, deq and lev of each plane: the first TBs at the
-    residual's extremes (+-(2^bd - 1)) and the coefficients' (-2^15,
-    2^15 - 1), one all-zero TB, the rest random with sparse levels."""
-    vmax = (1 << bd) - 1
-    out = []
-    for n in sizes:
-        org = rng.randint(0, vmax + 1, (m, n, n)).astype(np.int32)
-        pred = np.clip(org + rng.randint(-60, 61, (m, n, n)), 0,
-                       vmax).astype(np.int32)
-        org[0], pred[0] = vmax, 0
-        org[1 % m], pred[1 % m] = 0, vmax
-        lev = (rng.randint(-40, 41, (m, n, n))
-               * (rng.rand(m, n, n) < 0.15)).astype(np.int32)
-        deq = np.clip(lev * rng.randint(20, 900, (m, 1, 1)), -(1 << 15),
-                      (1 << 15) - 1).astype(np.int32)
-        deq[0, 0, :] = (1 << 15) - 1
-        deq[0, 1, :] = -(1 << 15)
-        lev[0, :2, :] = 7
-        lev[2 % m], deq[2 % m] = 0, 0
-        out.append((org, pred, deq, lev))
-    return out
 
 
 def _plain_fwd(orgs, preds, bd, dst):
@@ -368,3 +375,192 @@ def test_plain_levels_match_hmtpu_code(bd):
                           np.asarray(jnp.asarray(bits[0]) + bits[1]
                                      + bits[2]))
         assert got[2].numpy().max() > 0
+
+
+# ---------------------------------------------------------------------------
+# the TS mode: the transform-skip pair of the 4x4 planes
+
+def _host_inv_ts(lib, deqs, levs, bits, tdeqs, tlevs, tbits, preds, orgs,
+                 lam, dw, bd, dst, reverse):
+    """The host build's inverse in TS mode: (recs, sses, levk, bitk, ts,
+    cbf, dist, bitsum) as `inv_level_ts_plain` returns them."""
+    m, P = len(deqs[0]), len(deqs)
+    tk = transform.ts_planes(P)
+    recs = [np.full(p.shape, -(1 << 30), np.int32) for p in preds]
+    sses = [np.full(m, np.nan, np.float32) for _ in deqs]
+    levk = [np.full(levs[k].shape, -(1 << 30), np.int32) for k in tk]
+    bitk = [np.full(m, np.nan, np.float32) for _ in tk]
+    ts = np.full(m, -1, np.int32)
+    three = P == 3
+    cbf, dist, bsum = ((np.full(m, -1, np.int32),
+                        np.full(m, np.nan, np.float32),
+                        np.full(m, np.nan, np.float32)) if three
+                       else (None,) * 3)
+    lama = np.array([lam], np.float32)
+    dwa = None if dw is None else np.array([dw], np.float32)
+    ext = [None] * 18
+    for i, k in enumerate(tk):
+        ext[k], ext[3 + k], ext[6 + k] = tdeqs[i], tlevs[i], tbits[i]
+        ext[11 + k], ext[14 + k] = levk[i], bitk[i]
+    ext[9], ext[10], ext[17] = _FLAG, lama, ts
+    tab = (ctypes.c_void_p * 18)(*[0 if a is None else a.ctypes.data
+                                   for a in ext])
+    lib.lane_reverse(int(reverse))
+    try:
+        lib.inv_host(_ptrs(deqs), _ptrs(levs), _ptrs(preds), _ptrs(orgs),
+                     _ptrs(bits), None if dwa is None else dwa.ctypes.data,
+                     _ptrs(recs), _ptrs(sses),
+                     *(None if a is None else a.ctypes.data
+                       for a in (cbf, dist, bsum)), ctypes.addressof(tab),
+                     m, deqs[0].shape[-1], deqs[1].shape[-1] if three else 0,
+                     P, _mode(bd, dst, True))
+    finally:
+        lib.lane_reverse(0)
+    return recs, sses, levk, bitk, ts, cbf, dist, bsum
+
+
+def _plain_inv_ts(deqs, levs, bits, tdeqs, tlevs, tbits, preds, orgs, lam,
+                  dw, bd, dst):
+    t = lambda xs: [torch.as_tensor(a) for a in xs]
+    out = transform.inv_level_ts_plain(
+        t(deqs), t(levs), t(bits), t(tdeqs), t(tlevs), t(tbits), t(preds),
+        t(orgs), torch.as_tensor(_FLAG), torch.tensor(lam,
+                                                      dtype=torch.float32),
+        bd, None if dw is None else torch.tensor(dw, dtype=torch.float32),
+        dst)
+    conv = lambda x: None if x is None else (
+        [a.numpy() for a in x] if isinstance(x, list) else
+        np.asarray(x.numpy() if isinstance(x, torch.Tensor) else x))
+    return [conv(x) for x in out]
+
+
+def _check_ts(lib, planes, bd, dst, dw, lam, reverse, rng):
+    orgs, preds, deqs, levs = (list(a) for a in zip(*planes))
+    tk = transform.ts_planes(len(orgs))
+    got_c, got_t = _host_fwd(lib, orgs, preds, bd, dst, reverse, ts=True)
+    t = lambda xs: [torch.as_tensor(a) for a in xs]
+    want_c, want_t = transform.fwd_level_plain(t(orgs), t(preds), bd, dst,
+                                               ts=True)
+    for k, (g, w) in enumerate(zip(got_c + got_t, want_c + want_t)):
+        assert _same_bits(g, w.numpy()), f"coefficients {k}"
+    alts = [_ts_alt(rng, planes[k], bd) for k in tk]
+    bits = [rng.randint(0, 3000, len(orgs[0])).astype(np.float32)
+            * np.float32(0.03125) for _ in orgs]
+    for i, k in enumerate(tk):
+        bits[k] = alts[i][2]
+    args = (deqs, levs, bits, [a[0] for a in alts], [a[1] for a in alts],
+            [a[3] for a in alts], preds, orgs, lam, dw, bd, dst)
+    got = _host_inv_ts(lib, *args, reverse)
+    want = _plain_inv_ts(*args)
+    names = ("rec", "sse", "levk", "bitk", "ts", "cbf", "dist", "bits")
+    for name, g, w in zip(names, got, want):
+        if w is None:
+            assert g is None, name
+        elif isinstance(w, list):
+            for k, (a, b) in enumerate(zip(g, w)):
+                assert _same_bits(a, b), f"{name} {k}"
+        else:
+            assert _same_bits(g, w), name
+    return got, alts
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("dst,dw", [(False, None), (True, None),
+                                    (False, 1.25), (True, 1.25)])
+def test_ts_pair_one_plane_equal_plain(lib, dst, dw, bd, reverse):
+    """`_code_ts_sel`'s one-plane pair (the I pass's NxN luma PUs with
+    the DST, its 4x4 chroma with the weight): both alternatives, both
+    picks, and the ties (TBs 3-6) keep the DCT alternative."""
+    rng = np.random.RandomState(40 + bd + 2 * dst + (dw is not None))
+    planes = _planes(rng, 37, (4,), bd)
+    lam = float(np.float32(rng.uniform(2, 60)))
+    (recs, sses, levk, bitk, ts, *_), alts = _check_ts(
+        lib, planes, bd, dst, dw, lam, reverse, rng)
+    assert 0 < (ts & 1).sum() < 37 and not (ts[3:7] & 1).any()
+    np.testing.assert_array_equal(levk[0][3:7], planes[0][3][3:7])
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("bd", [8, 10])
+def test_ts_pair_chroma_equal_plain(lib, bd, reverse):
+    """`hypothesis(with_ts=True)`'s 8 level: luma 8x8, the chroma pair
+    coded both ways in one launch each, the level's cbf, dist and bits
+    from the kept alternatives; both chroma planes keep TS somewhere."""
+    rng = np.random.RandomState(60 + bd)
+    planes = _planes(rng, 37, (8, 4, 4), bd)
+    (recs, sses, levk, bitk, ts, cbf, dist, bsum), _ = _check_ts(
+        lib, planes, bd, False, float(np.float32(2.0 ** (1 / 3))),
+        float(np.float32(9.5)), reverse, rng)
+    assert (ts & 1).any() and (ts & 2).any() and (ts != 3).any()
+
+
+def test_ts_pick_on_tie_is_caught(lib, tmp_path):
+    """A copy of the header whose pick keeps TS where the two costs tie
+    must disagree with the plain version, lanes in order and reversed,
+    where the header as it is agrees."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(CSRC, csrc)
+    p = csrc / "transform.cuh"
+    text = p.read_text()
+    good = "const bool use = z1 != 0 && HM_FADD(d1, HM_FMUL(lam, b1)) <\n"
+    assert text.count(good) == 1
+    p.write_text(text.replace(good, good.replace(" <\n", " <=\n")))
+    (tmp_path / "b").mkdir()
+    mut = _build(csrc, tmp_path / "b")
+    for reverse in (False, True):
+        rng = np.random.RandomState(61)
+        planes = _planes(rng, 9, (4,), 8)
+        _check_ts(lib, planes, 8, False, None, 7.0, reverse, rng)
+        rng = np.random.RandomState(61)
+        planes = _planes(rng, 9, (4,), 8)
+        with pytest.raises(AssertionError):
+            _check_ts(mut, planes, 8, False, None, 7.0, reverse, rng)
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+def test_plain_ts_pair_matches_hmtpu_code_ts_sel(bd):
+    """The port's `_code_ts_sel` on the CPU (`fwd_level_plain(ts=True)`,
+    K10's plain coding of both alternatives, `inv_level_ts_plain`)
+    against hmtpu's at the 8 level's chroma of
+    `test_plain_levels_match_hmtpu_code`'s 64x64 picture, its chroma
+    marked with text-like strokes where transform skip wins (QP 27, RDOQ
+    with SDH, HM's chroma weight): levels, reconstruction, distortion,
+    rate with the flag and the pick, exact."""
+    from hmtpu.common.constants import SliceType
+    from hmtpu.encoder.pframe_dev import _code_ts_sel as j_sel
+    from hmtpu.entropy.contexts import make_contexts
+    from hmtpu.entropy.fracbits import ctx_bits_table
+    from hmtpu_torch.common.lambdas import frame_lambdas
+    from hmtpu_torch.encoder.pframe_dev import _code_ts_sel as p_sel
+    from hmtpu_torch.utils.gen_test_yuv import synth_clip
+
+    clip = list(synth_clip(64, 64, 2, seed=3))
+    sh = bd - 8
+    cur = [np.asarray(p, np.int32) << sh for p in clip[1]]
+    ref = [np.asarray(p, np.int32) << sh for p in clip[0]]
+    rng = np.random.RandomState(11)
+    for k in (1, 2):
+        cur[k][rng.rand(*cur[k].shape) < 0.08] = 230 << sh
+    qp = 27
+    cb = ctx_bits_table(make_contexts(SliceType.P, qp)).reshape(-1)
+    _, _, dw, lam_c = (np.float32(v) for v in frame_lambdas(qp, qp, 0.57))
+
+    def blocks(plane):
+        h, w = plane.shape
+        return plane.reshape(h // 4, 4, w // 4, 4).transpose(0, 2, 1, 3) \
+            .reshape(-1, 4, 4)
+
+    org = np.concatenate([blocks(cur[k]) for k in (1, 2)])
+    pred = np.concatenate([blocks(np.roll(ref[k], 2 - k, 1))
+                           for k in (1, 2)])
+    want = jax.jit(partial(j_sel, bd=bd, is_luma=False, sdh=True))(
+        jnp.asarray(org), jnp.asarray(pred), qp=jnp.int32(qp),
+        lam=jnp.float32(lam_c), cbflat=jnp.asarray(cb), dw=jnp.float32(dw))
+    got = p_sel(torch.as_tensor(org), torch.as_tensor(pred), qp, bd,
+                torch.tensor(lam_c), torch.as_tensor(cb), False,
+                torch.tensor(dw), sdh=True)
+    for name, a, b in zip(("lev", "rec", "sse", "bits", "use_ts"), got,
+                          want):
+        assert _same_bits(a.numpy(), np.asarray(b)), name
+    assert 0 < int(got[4].sum()) < len(org)

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels of hmtpu_torch (K1-K26) against their
 plain PyTorch versions, on the card.  Every output must be equal: the
 kernels are integer, except NN-FME's (K6), RDOQ's (K10), the trainer's
-(K14-K16, K14 with the exp and log its plain version shares) and the
+(K14-K16, K14 with the exp and log its plain version shares, K16 the
+tail of K15's launch) and the
 rate pieces of K18 and K20, whose kernels and plain versions round every
 float32 operation in the same order (K10's float64 sums round once to
 float32).  Skips where there is no CUDA card; on the card:
@@ -514,19 +515,52 @@ def test_satd_gate_kernel(dev, h, w):
         assert torch.equal(gx, wx) and torch.equal(gy, wy)
 
 
-def test_transform_skip_kernel(dev):
+@pytest.mark.parametrize("bd", [8, 10])
+def test_transform_skip_kernel(dev, bd):
+    """K1's level forms in their TS mode against their plain versions,
+    one launch each direction: the one-plane pair (DCT and DST, with and
+    without the chroma weight) and an 8x8 level's chroma pair, the TS
+    coefficients, the kept reconstruction, levels, distortion, rate with
+    the flag, the TS word and the level's cbf, dist and bits; ties keep
+    the DCT alternative."""
     from hmtpu_torch.ops import transform as t
+    from tests.torch_level_data import FLAG, planes as level_planes, ts_alt
 
-    rng = np.random.RandomState(4)
-    for nb in (1, 300):
-        res = _i32(rng.randint(-255, 256, (nb, 4, 4)), dev)
-        deq = _i32(rng.randint(-(1 << 15), 1 << 15, (nb, 4, 4)), dev)
-        got = _launched("transform_skip",
-                        lambda: t.transform_skip_fwd(res, 4))
-        assert torch.equal(got, t.transform_skip_fwd_plain(res, 4))
-        got = _launched("transform_skip",
-                        lambda: t.transform_skip_inv(deq, 4))
-        assert torch.equal(got, t.transform_skip_inv_plain(deq, 4))
+    for planes_n, dst, dw in (((4,), False, None), ((4,), True, None),
+                              ((4,), False, 1.25), ((8, 4, 4), False, 1.25)):
+        for m in (1, 9, 3120 // len(planes_n)):
+            rng = np.random.RandomState(m + bd + dst)
+            planes = level_planes(rng, m, planes_n, bd)
+            tk = t.ts_planes(len(planes))
+            alts = [ts_alt(rng, planes[k], bd) for k in tk]
+            orgs, preds, deqs, levs = ([_i32(a, dev) for a in x]
+                                       for x in zip(*planes))
+            bits = [torch.as_tensor(rng.randint(0, 3000, m).astype(
+                np.float32) * np.float32(0.03125)).to(dev) for _ in planes]
+            for i, k in enumerate(tk):
+                bits[k] = torch.as_tensor(alts[i][2]).to(dev)
+            c, tc = _launched("int_transform_fwd", lambda: t.fwd_level(
+                orgs, preds, bd, dst, ts=True))
+            wc, wtc = t.fwd_level_plain(orgs, preds, bd, dst, ts=True)
+            for a, b in zip(c + tc, wc + wtc):
+                assert torch.equal(a, b)
+            args = (deqs, levs, bits, [_i32(a[0], dev) for a in alts],
+                    [_i32(a[1], dev) for a in alts],
+                    [torch.as_tensor(a[3]).to(dev) for a in alts], preds,
+                    orgs, torch.as_tensor(FLAG).to(dev),
+                    torch.tensor(9.5, device=dev), bd,
+                    None if dw is None else torch.tensor(dw, device=dev),
+                    dst)
+            got = _launched("int_transform_inv",
+                            lambda: t.inv_level_ts(*args))
+            want = t.inv_level_ts_plain(*args)
+            for g, w in zip(got, want):
+                if w is None:
+                    assert g is None
+                    continue
+                for a, b in zip(g if isinstance(g, list) else [g],
+                                w if isinstance(w, list) else [w]):
+                    assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 @pytest.mark.parametrize("n", [8, 16, 32])
@@ -608,7 +642,7 @@ def test_rdoq_kernel(dev, log2):
     cb = torch.as_tensor(ctx_bits_table(make_contexts(
         SliceType.P, 22)).reshape(-1)).to(dev)
     for ts in (False, True) if n == 4 else (False,):
-        coef = transform.transform_skip_fwd(res, n) if ts \
+        coef = transform.transform_skip_fwd_plain(res, n) if ts \
             else transform.forward_transform(res, n)
         for luma in (True, False):
             lam = torch.tensor(frame_lambdas(22, 22, 0.4624)[0 if luma else 3],
@@ -712,7 +746,8 @@ def _screen(w, h, n):
 def test_transform_skip_chosen_card_equals_cpu(dev, gop, counter):
     """Screen content at 64x64 (AI: 2 pictures; LDP with HM's DCT-IF
     search: 4) with transform skip on the card and on the CPU: the same
-    bytes, and some TB chose transform skip on the card."""
+    bytes, and some TB chose transform skip on the card (LDP: in the
+    level forms' TS mode, which launches in every P pass)."""
     from hmtpu_torch.encoder import pframe_dev
     from hmtpu_torch.encoder.top import Encoder, EncoderConfig
     from hmtpu_torch.io.yuv import Frame
@@ -725,8 +760,11 @@ def test_transform_skip_chosen_card_equals_cpu(dev, gop, counter):
         enc = Encoder(EncoderConfig(width=64, height=64, qp=27, gop=gop,
                                     subpel="dctif", search_range=8,
                                     transform_skip=True), device=d)
+        before = kernels.COUNTS["int_transform_inv"]
         out.append(enc.encode_sequence(frames))
         fired.append(pframe_dev.DBG_COUNTERS[counter])
+        if d == dev and gop == "ldp":
+            assert kernels.COUNTS["int_transform_inv"] > before
     assert out[0] == out[1]
     assert fired[0] > 0 and fired[0] == fired[1]
 
@@ -816,11 +854,14 @@ def _train_batch(dev, nb, seed):
 
 @pytest.mark.parametrize("nb", [1, 32, 100, 1024])
 def test_nnfme_train_kernels(dev, nb):
-    """K14, K15 and K16 against their plain versions on the card: equal
-    (K14's pre-activations are K6's operations, its exp and log the plain
-    version's own; K15 and K16 do only correctly rounded operations in
-    the plain versions' order), and K15's gradient has the same bits on
-    every run."""
+    """K14, K15 and K15 with K16 as its tail against their plain versions
+    on the card: equal (K14's pre-activations are K6's operations, its
+    exp and log the plain version's own; K15 and K16 do only correctly
+    rounded operations in the plain versions' order), K15's gradient has
+    the same bits on every run, and the fused step (one launch) gives
+    `loss_bwd_plain` then `adam_update_plain`'s gradient, parameters and
+    moments, its device count the host's; updates 1, 2 and the table's
+    last, and an update past the table is an error."""
     from hmtpu_torch.models import train
 
     params, c9, hh, ww, ll = _train_batch(dev, nb, nb)
@@ -845,11 +886,21 @@ def test_nnfme_train_kernels(dev, nb):
 
     mu = torch.randn(p.numel(), device=dev) * 1e-3
     nu = torch.rand(p.numel(), device=dev) * 1e-5
-    pk, mk, nk = p.clone(), mu.clone(), nu.clone()
-    _launched("adam", lambda: train.adam_update(pk, g1, mk, nk, 7, 3e-3))
-    train.adam_update_plain(p, g1, mu, nu, 7, 3e-3)
-    for a, b in ((pk, p), (mk, mu), (nk, nu)):
-        assert torch.equal(a, b)
+    for k in (1, 2, 7):
+        opt = train.adam_state(mu.clone(), nu.clone(), k - 1, 8 - k)
+        want = train.adam_state(mu.clone(), nu.clone(), k - 1, 8 - k)
+        pk, pw = p.clone(), p.clone()
+        g = _launched("nnfme_bwd", lambda: train.loss_bwd_adam(
+            pk, c9, hh, ww, *saved, one, opt, 3e-3))
+        gw = train.loss_bwd_adam_plain(pw, c9, hh, ww, *saved, one, want,
+                                       3e-3)
+        for a, b in ((g, gw), (g, g1), (pk, pw), (opt.mu, want.mu),
+                     (opt.nu, want.nu), (opt.dcount, want.dcount)):
+            assert torch.equal(a, b)
+        assert int(opt.dcount[0]) == k
+    with pytest.raises(ValueError, match="past the bias corrections"):
+        train.loss_bwd_adam(pk, c9, hh, ww, *saved, one,
+                            opt._replace(count=7), 3e-3)
 
 
 def test_nnfme_loss_autograd_backward(dev):

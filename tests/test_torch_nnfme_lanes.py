@@ -4,7 +4,12 @@ parameter; the blocks' partials summed in ascending block order on a
 warp) compiled as host C++ with g++ and driven on the CPU against the
 port's plain versions (`loss_fwd_plain`, `loss_bwd_plain`), bit for bit:
 the mean loss and accuracy, z1, z2, the d-logits and all 2060 gradient
-entries.
+entries; and K15 with K16 as its tail (the lane that finishes a
+parameter's gradient updates it and its moments, the bias corrections
+read from the table by the step count) against `loss_bwd_adam_plain`
+(`loss_bwd_plain`, then `adam_update_plain`): the gradient, parameters,
+moments and the count written back.  A mutated header whose tail reads
+the table one entry off must disagree.
 
 The host build runs every lane of a `HM_LANES` loop on one thread, in
 order or (`lane_reverse`) last lane first, so a lane that read what
@@ -38,11 +43,14 @@ extern "C" void fwd_host(const float* pack, const float* costs, const int* h,
                          float inv_b) {
   nnt::fwd_host(pack, costs, h, w, labels, z1, z2, dl, part, out, B, inv_b);
 }
-extern "C" void bwd_host(const float* pack, const float* costs, const int* h,
+extern "C" void bwd_host(float* pack, const float* costs, const int* h,
                          const int* w, const float* z1, const float* z2,
                          const float* dl, float gsc, float* part, float* grad,
-                         int B) {
-  nnt::bwd_host(pack, costs, h, w, z1, z2, dl, gsc, part, grad, B);
+                         int B, float* mu, float* nu, int* count,
+                         const float* bc, int ntab, float b1, float omb1,
+                         float b2, float omb2, float eps, float neg_lr) {
+  nnt::bwd_host(pack, costs, h, w, z1, z2, dl, gsc, part, grad, B, mu, nu,
+                count, bc, ntab, b1, omb1, b2, omb2, eps, neg_lr);
 }
 """
 
@@ -60,7 +68,7 @@ def _build(csrc, d):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.lane_reverse.argtypes = [i]
     lib.fwd_host.argtypes = [p] * 10 + [i, f]
-    lib.bwd_host.argtypes = [p] * 7 + [f, p, p, i]
+    lib.bwd_host.argtypes = [p] * 7 + [f, p, p, i] + [p] * 4 + [i] + [f] * 6
     return lib
 
 
@@ -130,7 +138,8 @@ def _host(lib, pk, c9, hs, ws, lab, want_grad, reverse):
             return out, None, None
         grad = np.full(nnfme.PACK_SIZE, np.nan, np.float32)
         lib.bwd_host(_ptr(pk), _ptr(c9), _ptr(hs), _ptr(ws), *map(_ptr, saved),
-                     1.0, _ptr(part), _ptr(grad), B)
+                     1.0, _ptr(part), _ptr(grad), B, None, None, None, None,
+                     0, *[0.0] * 6)
         return out, saved, grad
     finally:
         lib.lane_reverse(0)
@@ -218,3 +227,102 @@ def test_host_lanes_race_is_caught(lib, tmp_path):
                           want)
         assert not _same_bits(_host(mut, pk, c9, hs, ws, lab, True,
                                     reverse)[2], want), reverse
+
+
+# K16 as K15's tail: a table of N = 1740 updates (a QP's steps at the
+# trainer's defaults), the update's number k = 1, 2 and N
+_N = 1740
+_PLAIN_GRAD: dict = {}
+
+
+def _step_inputs(B):
+    """A batch's inputs to K15 and the plain gradient (kept a batch)."""
+    if B not in _PLAIN_GRAD:
+        pk, c9, hs, ws, lab = _batch(B, "qp22", seed=B + 3)
+        _, saved, grad = _plain(pk, c9, hs, ws, lab)
+        _PLAIN_GRAD[B] = (pk, c9, hs, ws, saved, grad)
+    return _PLAIN_GRAD[B]
+
+
+def _moments(k):
+    rng = np.random.RandomState(k)
+    mu = (rng.randn(nnfme.PACK_SIZE) * 1e-3).astype(np.float32)
+    nu = (np.abs(rng.randn(nnfme.PACK_SIZE)) * 1e-5).astype(np.float32)
+    return mu, nu
+
+
+def _host_step(lib, B, k, reverse):
+    """The host build's fused step at update k: (grad, params, mu, nu,
+    the count written back)."""
+    pk, c9, hs, ws, saved, _ = _step_inputs(B)
+    p, (mu, nu) = pk.copy(), _moments(k)
+    count = np.array([k - 1], np.int32)
+    bc = train.bias_corrections(_N, "cpu").numpy()
+    part = np.full(-(-B // train.KROWS) * nnfme.PACK_SIZE, np.nan,
+                   np.float32)
+    grad = np.full(nnfme.PACK_SIZE, np.nan, np.float32)
+    lib.lane_reverse(int(reverse))
+    try:
+        lib.bwd_host(_ptr(p), _ptr(c9), _ptr(hs), _ptr(ws),
+                     *map(_ptr, saved), 1.0, _ptr(part), _ptr(grad), B,
+                     _ptr(mu), _ptr(nu), _ptr(count), _ptr(bc), _N,
+                     *train._adam_consts(3e-3))
+    finally:
+        lib.lane_reverse(0)
+    return grad, p, mu, nu, int(count[0])
+
+
+def _plain_step(B, k):
+    """`loss_bwd_adam_plain` at update k, the same inputs."""
+    pk, c9, hs, ws, saved, _ = _step_inputs(B)
+    t = torch.as_tensor
+    p = t(pk.copy())
+    mu, nu = (t(a) for a in _moments(k))
+    opt = train.adam_state(mu, nu, k - 1, _N - (k - 1))
+    grad = train.loss_bwd_adam_plain(p, t(c9), t(hs), t(ws),
+                                     *(t(a) for a in saved), torch.ones(1),
+                                     opt, 3e-3)
+    return grad.numpy(), p.numpy(), mu.numpy(), nu.numpy(), \
+        int(opt.dcount[0])
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("k", [1, 2, _N])
+@pytest.mark.parametrize("B", [1, 32, 1024])
+def test_host_adam_tail_equals_plain(lib, B, k, reverse):
+    """K15 with K16 as its tail against `loss_bwd_adam_plain`, bit for
+    bit: the gradient, the parameters, both moments, and the step count
+    written back (k - 1 in, k out); the gradient is K15's alone."""
+    got = _host_step(lib, B, k, reverse)
+    want = _plain_step(B, k)
+    for name, a, b in zip(("grad", "params", "mu", "nu"), got, want):
+        assert _same_bits(a, b), name
+    assert got[4] == want[4] == k
+    assert _same_bits(got[0], _step_inputs(B)[5])
+    # the update reached the parameters (all but those too large for
+    # their step to show in float32)
+    assert (got[1] != _step_inputs(B)[0]).mean() > 0.9
+
+
+def test_host_adam_tail_table_off_by_one_is_caught(lib, tmp_path):
+    """A copy of the header whose tail reads the bias corrections one
+    entry past the step's must disagree with the plain step, lanes in
+    order and reversed, where the header as it is agrees."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(CSRC, csrc)
+    p = csrc / "nnfme_train.cuh"
+    text = p.read_text()
+    for good, bad in (("a.bc1 = bc[2 * count];", "a.bc1 = bc[2 * count + 2];"),
+                      ("a.bc2 = bc[2 * count + 1];",
+                       "a.bc2 = bc[2 * count + 3];")):
+        assert text.count(good) == 1, good
+        text = text.replace(good, bad)
+    p.write_text(text)
+    (tmp_path / "b").mkdir()
+    mut = _build(csrc, tmp_path / "b")
+    want = _plain_step(32, 2)
+    for reverse in (False, True):
+        assert _same_bits(_host_step(lib, 32, 2, reverse)[1], want[1])
+        got = _host_step(mut, 32, 2, reverse)
+        assert _same_bits(got[0], want[0])
+        assert not _same_bits(got[1], want[1]), reverse

@@ -157,12 +157,17 @@ def test_loss_and_gradients_match_jax():
                                        err_msg=k)
 
 
+@pytest.mark.parametrize("form", ["update", "fused"])
 @pytest.mark.parametrize("start", [0, 57])
-def test_adam_updates_match_optax(start):
+def test_adam_updates_match_optax(start, form):
     """One and three Adam updates from the same gradients and state:
     optax's (the state carried across by convert.adam_state_from_numpy;
     `start` updates already made, with seeded moments) against K16's
-    plain version, parameters and both moments within 1 ulp."""
+    plain version, parameters and both moments within 1 ulp: `update`
+    the update alone (`adam_update_plain`) on seeded gradients, `fused`
+    the plain version of K15 with K16 as its tail (`loss_bwd_adam_plain`)
+    on a seeded batch of 32 records, optax given the gradient it
+    returns; its device count follows the host's."""
     rng = np.random.RandomState(start + 3)
     jp = j_nnfme.init_random(jax.random.PRNGKey(2))
     opt = optax.adam(3e-3)
@@ -173,17 +178,33 @@ def test_adam_updates_match_optax(start):
         st = (st[0]._replace(count=jnp.int32(start), mu=mom(1e-3),
                              nu=jax.tree.map(jnp.abs, mom(1e-5))),) + st[1:]
     pp = _to_port(jp)
-    pstate = adam_state_from_numpy(st, "cpu")
-    assert pstate.count == start
+    pstate = adam_state_from_numpy(st, "cpu", steps=3)
+    assert pstate.count == start and int(pstate.dcount[0]) == start
     p, mu, nu = pp.packed.clone(), pstate.mu.clone(), pstate.nu.clone()
+    pstate = pstate._replace(mu=mu, nu=nu)
+    t = torch.as_tensor
+    batch = [t(a) for a in (
+        (rng.randint(200, 6000, (32, 1)) + rng.randint(0, 900, (32, 9)))
+        .astype(np.float32), rng.choice([8, 16, 32], 32).astype(np.int32),
+        rng.choice([8, 16, 32], 32).astype(np.int32),
+        rng.randint(0, 49, 32).astype(np.int32))]
     for i in range(3):
-        g = jax.tree.map(lambda a: jnp.asarray(
-            rng.randn(*a.shape) * 10.0 ** rng.randint(-6, -1), jnp.float32),
-            jp)
+        if form == "update":
+            g = jax.tree.map(lambda a: jnp.asarray(
+                rng.randn(*a.shape) * 10.0 ** rng.randint(-6, -1),
+                jnp.float32), jp)
+            p_train.adam_update_plain(p, _to_port(g).packed, mu, nu,
+                                      start + i + 1, 3e-3)
+        else:
+            _, saved = p_train.loss_fwd_plain(p, *batch)
+            pg = p_train.loss_bwd_adam_plain(p, *batch[:3], *saved,
+                                             torch.ones(1), pstate, 3e-3)
+            pstate = pstate._replace(count=pstate.count + 1)
+            assert int(pstate.dcount[0]) == pstate.count == start + i + 1
+            g = j_nnfme.NnFmeParams(**{k: jnp.asarray(getattr(
+                _fields(pg), k).numpy()) for k in p_nnfme.PACK_ORDER})
         up, st = opt.update(g, st, jp)
         jp = optax.apply_updates(jp, up)
-        p_train.adam_update(p, _to_port(g).packed, mu, nu, start + i + 1,
-                            3e-3)
         if i in (0, 2):
             for k in p_nnfme.PACK_ORDER:
                 for port, ref in ((_fields(p), jp), (_fields(mu), st[0].mu),
@@ -218,7 +239,8 @@ def test_train_steps_track_hmtpu():
         mean=jnp.asarray(mean, jnp.float32),
         std=jnp.asarray(std, jnp.float32)))
     ps = p_train.init_train_state(_to_port(js.params))
-    ps = ps._replace(opt_state=adam_state_from_numpy(js.opt_state, "cpu"))
+    ps = ps._replace(opt_state=adam_state_from_numpy(js.opt_state, "cpu",
+                                                     steps=20))
     rng = np.random.RandomState(9)
     jl, pl = [], []
     for _ in range(20):
@@ -229,6 +251,11 @@ def test_train_steps_track_hmtpu():
                                                 in (c9, hs, ws, lab)))
         jl.append(float(loss)), pl.append(float(ploss))
     assert ps.step == 20 and ps.opt_state.count == 20
+    assert int(ps.opt_state.dcount[0]) == 20
+    # the table holds the run's 20 updates: a 21st is an error
+    with pytest.raises(ValueError, match="past the bias corrections"):
+        p_train.train_step(ps, *(torch.as_tensor(a[:128]) for a in
+                                 (c9, hs, ws, lab)))
     assert jl[-1] < jl[0]
     np.testing.assert_allclose(pl, jl, rtol=1e-5)
     got = ps.model.params()

@@ -65,15 +65,19 @@ from hmtpu_torch.search import me
 for m, fs in ((dataset, ("extract_frame_records", "extract_clip",
                          "write_sse_csv", "read_sse_csv")),
               (train, ("loss_fn", "loss_fwd", "loss_fwd_plain", "loss_bwd",
-                       "loss_bwd_plain", "adam_update", "adam_update_plain",
+                       "loss_bwd_plain", "loss_bwd_adam",
+                       "loss_bwd_adam_plain", "adam_update_plain",
                        "train_step", "train", "standardize_fit")),
               (me, ("integer_me", "integer_me_plain"))):
     for f in fs:
         assert callable(getattr(m, f)), f
 assert issubclass(train.NnFmeLoss, torch.autograd.Function)
 assert kernels.KERNELS["me_sad1"][0] == "me_sad"
-for k in ("nnfme_fwd", "nnfme_bwd", "adam"):
+for k in ("nnfme_fwd", "nnfme_bwd"):
     assert kernels.KERNELS[k][0] == "nnfme_train", k
+# K16 runs as K15's tail and K1's TS mode inside its level forms: no
+# launch of their own
+assert "adam" not in kernels.KERNELS and "transform_skip" not in kernels.KERNELS
 # the z-scan derivations' kernels and their plain versions
 from hmtpu_torch.encoder import pframe_dev
 from hmtpu_torch.ops import ratebits

@@ -1,5 +1,5 @@
 """The third slice's ops of hmtpu_torch against hmtpu on the CPU: the
-transform-skip shifts (K1's TS mode), the transform_skip_flag price, the
+transform-skip shifts (the plain versions of K1's TS mode), the transform_skip_flag price, the
 RDOQ + TB-rate step of `_code` (K10's plain version) on 4x4 TS and DCT
 TBs and on larger DCT TBs, and HM's DCT-IF sub-pel search (K9's plain
 version).  Inputs are made by numpy from a seed and go through both
@@ -45,10 +45,15 @@ def test_transform_skip_shifts():
     assert pt.ts_shift(4, 10) == jt.ts_shift(4, 10)
     rng = np.random.RandomState(0)
     resi = rng.randint(-255, 256, (64, 4, 4)).astype(np.int32)
-    eq(pt.transform_skip_fwd(tt(resi), 4, 8),
+    # the plain versions of K1's TS mode (its level forms hold the card to
+    # them; the level forms' TS coefficients are these shifts)
+    eq(pt.transform_skip_fwd_plain(tt(resi), 4, 8),
+       jt.transform_skip_fwd(jnp.asarray(resi), 4, 8))
+    eq(pt.fwd_level_plain([tt(resi)], [tt(np.zeros_like(resi))], 8,
+                          ts=True)[1][0],
        jt.transform_skip_fwd(jnp.asarray(resi), 4, 8))
     deq = rng.randint(-32768, 32768, (64, 4, 4)).astype(np.int32)
-    got = pt.transform_skip_inv(tt(deq), 4, 8)
+    got = pt.transform_skip_inv_plain(tt(deq), 4, 8)
     assert got.dtype == torch.int32
     eq(got, jt.transform_skip_inv(jnp.asarray(deq), 4, 8))
 
